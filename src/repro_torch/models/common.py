@@ -1,0 +1,84 @@
+"""Shared model primitives: initializers, norms, activations.
+
+Port of src/repro/models/common.py for one card: no sharding policy (there
+is no mesh), and the RoPE helpers wait for the first RoPE model.
+Parameters are nested dicts of tensors with the reference's names and
+layouts (``W`` is (d_in, d_out), per-group stacks keep the leading layer
+axis), so a JAX tree converted by ``repro_torch.bridge`` drops in as is.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (drawn on the CPU from an explicit generator, so one seed
+# gives the same weights on every device)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, *, lead=()) -> torch.Tensor:
+    scale = (1.0 / d_in) ** 0.5
+    return (torch.randn(tuple(lead) + (d_in, d_out), generator=gen)
+            * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32) -> torch.Tensor:
+    return (torch.randn((vocab, d), generator=gen) * 0.02).to(dtype)
+
+
+def init_norm(d: int, *, bias: bool, dtype=torch.float32, lead=()) -> Params:
+    p = {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype)}
+    if bias:
+        p["bias"] = torch.zeros(tuple(lead) + (d,), dtype=dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Norms
+
+
+def apply_norm(p: Params, x, *, kind: str, eps: float):
+    """RMSNorm / LayerNorm in fp32 with rsqrt(var + eps), cast back."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+    elif kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(kind)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations (jax.nn.gelu defaults to the tanh approximation)
+
+
+def activate(x, gate, kind: str):
+    """Apply activation. `gate` is the gate branch for GLU variants (or None)."""
+    if kind == "swiglu":
+        return F.silu(gate) * x
+    if kind == "geglu":
+        return F.gelu(gate, approximate="tanh") * x
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if kind == "relu":
+        return F.relu(x)
+    raise ValueError(kind)
+
+
+def is_glu(kind: str) -> bool:
+    return kind in ("swiglu", "geglu")

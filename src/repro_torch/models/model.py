@@ -1,0 +1,346 @@
+"""Model factory: block groups composed into a decoder, for serving.
+
+Port of src/repro/models/model.py.  A model is a list of block groups
+(homogeneous stacks with parameters stacked along a leading layer axis)
+plus embedding and head; ``flat_runs`` gives the execution order.  Here
+the layers run as a Python loop (the reference scans them).
+
+Entry points (parameters and adapters are passed explicitly, as in the
+reference, as nested dicts of tensors with the reference's names):
+
+  init_params(generator, dtype)                   -> params
+  prefill(params, adapters, batch, cache)         -> (logits_last, cache)
+  decode_step(params, adapters, tokens, cache)    -> (logits, cache)
+  init_cache(lead, max_len, dtype)                -> cache
+
+Caches are updated in place and returned.  This slice ports the dense
+decoder with learned positions (gpt2-small); training (``loss``, the cut
+``boundary`` hook, ``remat``), the encoder and the SSM/MoE kinds raise
+NotImplementedError with a pointer to ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.config import ArchConfig, ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import common, transformer
+from repro_torch.models.common import apply_norm
+
+Params = Dict[str, Any]
+
+_TRAINING = "the training slice (ROADMAP.md Queue A, item 2)"
+
+
+# ---------------------------------------------------------------------------
+# Group structure
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    name: str                      # params/adapters key
+    kind: str                      # attn_mlp | attn_moe | ssm | attn
+    layer_ids: Tuple[int, ...]     # flat layer ids, ascending
+    causal: bool = True
+    cross: bool = False            # decoder cross-attention (whisper)
+    scan: bool = True              # reference: lax.scan vs unrolled loop
+    windows: Tuple[int, ...] = ()  # per-layer attention window (0=global)
+
+    @property
+    def size(self) -> int:
+        return len(self.layer_ids)
+
+    def window_of(self, local_idx: int) -> int:
+        return self.windows[local_idx] if self.windows else 0
+
+
+def build_groups(cfg: ModelConfig) -> Tuple[GroupSpec, ...]:
+    L = cfg.num_layers
+    if cfg.family in ("dense", "vlm", "moe"):
+        kind = "attn_moe" if cfg.family == "moe" else "attn_mlp"
+        windows: Tuple[int, ...] = ()
+        scan = True
+        if cfg.local_window:
+            if cfg.local_every_other:
+                windows = tuple(cfg.local_window if i % 2 else 0
+                                for i in range(L))
+                scan = False
+            else:
+                windows = (cfg.local_window,) * L
+        return (GroupSpec("dec", kind, tuple(range(L)), scan=scan,
+                          windows=windows),)
+    if cfg.family == "ssm":
+        return (GroupSpec("ssm", "ssm", tuple(range(L))),)
+    if cfg.family == "hybrid":
+        attn_ids = tuple(sorted(cfg.attn_layer_indices))
+        ssm_ids = tuple(i for i in range(L) if i not in attn_ids)
+        return (GroupSpec("ssm", "ssm", ssm_ids),
+                GroupSpec("attn", "attn_mlp", attn_ids, scan=False))
+    if cfg.family == "audio":
+        le = cfg.num_encoder_layers
+        return (GroupSpec("enc", "attn_mlp", tuple(range(le)), causal=False),
+                GroupSpec("dec", "attn_mlp", tuple(range(le, le + L)),
+                          cross=True))
+    raise ValueError(cfg.family)
+
+
+def flat_runs(groups: Sequence[GroupSpec]) -> List[Tuple[str, int, int]]:
+    """Execution plan: maximal contiguous runs [(group_name, lo, hi)] in
+    flat-layer order."""
+    owner = {}
+    for g in groups:
+        for j, fid in enumerate(g.layer_ids):
+            owner[fid] = (g.name, j)
+    runs: List[Tuple[str, int, int]] = []
+    for fid in sorted(owner):
+        name, j = owner[fid]
+        if runs and runs[-1][0] == name and runs[-1][2] == j:
+            runs[-1] = (name, runs[-1][1], j + 1)
+        else:
+            runs.append((name, j, j + 1))
+    return [tuple(r) for r in runs]
+
+
+def _unsupported(cfg: ModelConfig) -> Optional[str]:
+    if cfg.family != "dense":
+        return f"the {cfg.family} family"
+    if cfg.use_rope:
+        return "RoPE"
+    if cfg.local_window:
+        return "sliding-window layers"
+    return None
+
+
+def _index_tree(t, i):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _index_tree(v, i) for k, v in t.items()}
+    return t[i]
+
+
+def _to_device(t, device):
+    if isinstance(t, dict):
+        return {k: _to_device(v, device) for k, v in t.items()}
+    return t.to(device)
+
+
+# ---------------------------------------------------------------------------
+# The Model
+
+
+class Model(nn.Module):
+    """The decoder for one ArchConfig on one device.
+
+    ``device`` defaults to the card; asking for it without a GPU raises
+    (``repro_torch.device.resolve_device``).  ``forward`` is the
+    reference's ``forward``: hidden states before the head."""
+
+    def __init__(self, arch: ArchConfig, *, device: DeviceLike = None):
+        super().__init__()
+        self.arch = arch
+        self.cfg = arch.model
+        missing = _unsupported(self.cfg)
+        if missing:
+            raise NotImplementedError(
+                f"{arch.name}: {missing} is not ported to repro_torch yet "
+                "(ROADMAP.md Queue A, item 8)")
+        self.device = resolve_device(device)
+        self.groups: Tuple[GroupSpec, ...] = build_groups(self.cfg)
+        self.runs = flat_runs(self.groups)
+        self.group_by_name = {g.name: g for g in self.groups}
+        self.num_flat_layers = sum(g.size for g in self.groups)
+
+    # -- parameter init ------------------------------------------------------
+
+    def init_params(self, generator: torch.Generator,
+                    dtype=torch.float32) -> Params:
+        """Random weights from `generator` (a CPU generator: the draw is
+        the same for every device), moved to this model's device."""
+        cfg = self.cfg
+        p: Params = {"embed": {"tok": common.embed_init(
+            generator, cfg.vocab_size, cfg.d_model, dtype)}}
+        if cfg.learned_pos:
+            p["embed"]["pos"] = common.embed_init(
+                generator, cfg.max_position_embeddings, cfg.d_model, dtype)
+        if not cfg.tie_embeddings:
+            p["embed"]["head"] = common.dense_init(
+                generator, cfg.d_model, cfg.vocab_size, dtype)
+        p["final_norm"] = common.init_norm(
+            cfg.d_model, bias=cfg.norm == "layernorm", dtype=dtype)
+        for g in self.groups:
+            p[g.name] = transformer.init_attention(
+                generator, cfg, g.size, cross=g.cross, dtype=dtype)
+            if cfg.d_ff:
+                p[g.name].update(transformer.init_mlp(
+                    generator, cfg, g.size, dtype=dtype))
+        return _to_device(p, self.device)
+
+    # -- adapter spec (consumed by repro_torch.core.lora) ---------------------
+
+    def adapter_spec(self) -> Dict[str, Dict[str, Tuple[int, int]]]:
+        """{group: {target: (d_in, d_out)}} for every LoRA-targetable
+        projection present in this architecture, filtered by lora.targets."""
+        cfg = self.cfg
+        want = set(self.arch.lora.targets)
+        h, kvh, hd, d = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                         cfg.d_model)
+        spec: Dict[str, Dict[str, Tuple[int, int]]] = {}
+        for g in self.groups:
+            t: Dict[str, Tuple[int, int]] = {}
+            if "q" in want:
+                t["q"] = (d, h * hd)
+            if "k" in want:
+                t["k"] = (d, kvh * hd)
+            if "v" in want:
+                t["v"] = (d, kvh * hd)
+            if "o" in want:
+                t["o"] = (h * hd, d)
+            if g.kind == "attn_mlp" and cfg.d_ff:
+                if "mlp_in" in want:
+                    t["mlp_in"] = (d, cfg.d_ff)
+                if "mlp_out" in want:
+                    t["mlp_out"] = (cfg.d_ff, d)
+            if t:
+                spec[g.name] = t
+        return spec
+
+    # -- embedding / head ------------------------------------------------------
+
+    def embed(self, params: Params, tokens, *, positions=None):
+        cfg = self.cfg
+        x = params["embed"]["tok"][tokens.long()]
+        if cfg.learned_pos:
+            if positions is None:
+                positions = torch.arange(tokens.shape[-1],
+                                         device=tokens.device)
+            pos_tab = params["embed"]["pos"]
+            positions = torch.clamp(positions, 0, pos_tab.shape[0] - 1)
+            x = x + pos_tab[positions.long()].to(x.dtype)
+        return x
+
+    def head(self, params: Params, x):
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"]["tok"].T
+        return x @ params["embed"]["head"]
+
+    # -- block execution -------------------------------------------------------
+
+    def run_blocks(self, params: Params, adapters: Optional[Params], x, *,
+                   mode: str = "prefill", cache: Optional[Params] = None,
+                   layer_lo: int = 0, layer_hi: Optional[int] = None):
+        """Run flat layers [layer_lo, layer_hi) over activations x (B, S, d).
+
+        mode: "prefill" (full sequences; fills `cache` if given) or
+        "decode" (one token per slot against `cache`).  Returns
+        (x, new_cache); the cache's k/v tensors are written in place."""
+        if mode not in ("prefill", "decode"):
+            raise NotImplementedError(
+                f"mode {mode!r}: training runs with {_TRAINING}")
+        cfg = self.cfg
+        hi_total = self.num_flat_layers if layer_hi is None else layer_hi
+        cache_len = cache["len"] if cache is not None else None
+        pages = cache.get("pages") if cache is not None else None
+
+        flat_base = 0
+        for name, lo, hi in self.runs:
+            g = self.group_by_name[name]
+            run_flat_lo = flat_base
+            flat_base += hi - lo
+            a = max(run_flat_lo, layer_lo)
+            b = min(flat_base, hi_total)
+            for i in range(lo + (a - run_flat_lo), lo + (b - run_flat_lo)):
+                p_l = _index_tree(params[g.name], i)
+                ad_l = _index_tree(adapters.get(g.name) if adapters else None,
+                                   i)
+                c_l = None
+                if cache is not None:
+                    c_l = {"k": cache[g.name]["k"][i],
+                           "v": cache[g.name]["v"][i], "len": cache_len}
+                    if pages is not None:
+                        c_l["pages"] = pages
+                attn_out, _ = transformer.attention_apply(
+                    p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
+                    window=g.window_of(i), cache=c_l)
+                x = x + attn_out
+                if cfg.d_ff:
+                    x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
+        new_cache = None
+        if cache is not None:
+            new_cache = dict(cache)
+            step = 1 if mode == "decode" else x.shape[-2]
+            new_cache["len"] = cache_len + step
+        return x, new_cache
+
+    # -- top-level entry points ------------------------------------------------
+
+    def forward(self, params, adapters, batch, *, cache=None,
+                mode: str = "prefill"):
+        """Full forward to hidden states (pre-head).
+
+        batch: {"tokens": (B, S)}.  Returns (x, aux, new_cache); aux is the
+        MoE router loss in the reference, 0 for the dense decoder."""
+        if "prefix" in batch or "frames" in batch:
+            raise NotImplementedError(
+                "modality prefixes and encoder frames are not ported yet "
+                "(ROADMAP.md Queue A, item 8)")
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        positions = (cache["len"][..., None] if mode == "decode"
+                     else torch.arange(tokens.shape[-1],
+                                       device=tokens.device))
+        x = self.embed(params, tokens, positions=positions)
+        x, new_cache = self.run_blocks(params, adapters, x, mode=mode,
+                                       cache=cache)
+        x = apply_norm(params["final_norm"], x, kind=cfg.norm,
+                       eps=cfg.norm_eps)
+        return x, 0.0, new_cache
+
+    def loss(self, *args, **kwargs):
+        raise NotImplementedError(f"Model.loss is ported with {_TRAINING}")
+
+    def encode(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Model.encode (whisper) is not ported yet (ROADMAP.md Queue A, "
+            "item 8)")
+
+    def prefill(self, params, adapters, batch, cache):
+        x, _, cache = self.forward(params, adapters, batch, cache=cache,
+                                   mode="prefill")
+        return self.head(params, x[..., -1:, :]), cache
+
+    def decode_step(self, params, adapters, tokens, cache):
+        x, _, cache = self.forward(params, adapters, {"tokens": tokens},
+                                   cache=cache, mode="decode")
+        return self.head(params, x), cache
+
+    # -- caches ----------------------------------------------------------------
+
+    def init_cache(self, lead: Tuple[int, ...], max_len: int,
+                   dtype=torch.float32) -> Params:
+        """lead = (B,). One stacked (Lg, B, max_len, KVH, hd) entry per
+        group, on this model's device."""
+        cfg = self.cfg
+        if len(lead) != 1:
+            raise NotImplementedError(
+                f"cache lead {lead}: the client axis is ported with "
+                f"{_TRAINING}")
+        batch = lead[-1]
+        cache: Params = {"len": torch.zeros((batch,), dtype=torch.int32,
+                                            device=self.device)}
+        for g in self.groups:
+            shape = (g.size,) + tuple(lead) + (max_len, cfg.num_kv_heads,
+                                               cfg.head_dim)
+            cache[g.name] = {
+                "k": torch.zeros(shape, dtype=dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        return cache
+
+
+def build_model(arch: ArchConfig, *, device: DeviceLike = None) -> Model:
+    return Model(arch, device=device)
