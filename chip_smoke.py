@@ -4,14 +4,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from src/repro_torch/csrc, holds each
-against its plain PyTorch version on the card (fp32 and bf16), times it
-beside its bound, the plain version and a library call, then serves
-full-width gpt2-small (12 layers, random weights from a seed, 4 LoRA
-adapters) through ServingEngine, contiguous and paged, and checks the
-tokens and logits.  Every phase that fails raises, so the exit code is
-non-zero; without a GPU it exits 1 before printing any result.  The last
-line is {"ok": true, "device": {...}}; the line before it lists the
-kernels with their launches on the main path and their times.
+against its plain PyTorch version on the card (fp32 and bf16; the
+differentiable ones through autograd too), and times it beside its bound,
+the plain version and a library call.  Then it drives the port's two
+paths on full-width gpt2-small (random weights from a seed):
+
+  * serving: 4 LoRA adapters through ServingEngine, contiguous and paged,
+    tokens checked against the one-request reference and logits against
+    the CPU plain path;
+  * training: 3 SplitFT rounds (Algorithm 1, sync) of 5 clients with
+    int8 smashed activations on a length-Dirichlet partition of the
+    synthetic corpus, each round a train step, an eval step and the
+    accuracy controller's cut adjustment; then one step at full width and
+    reduced depth on the card and on the CPU plain path from one state,
+    whose losses and adapter gradients must agree.
+
+The launch counters are read around each path.  Every phase that fails
+raises, so the exit code is non-zero; without a GPU it exits 1 before
+printing any result.  The last line is {"ok": true, "device": {...}};
+the line before it lists the kernels with their launches on the paths
+and their times.
 
 TF32 is off for matmuls and cuDNN: fp32 means fp32 here.
 """
@@ -36,14 +48,28 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LOGITS_TOL = 1e-3
 TOP2_GAP = 1e-4
 
-# main path: full-width gpt2-small serving
+# serving path: full-width gpt2-small
 N_REQUESTS, PROMPT, GEN, SLOTS, MAX_LEN, PAGE = 16, 128, 32, 8, 256, 16
 RANKS = [16, 8, 16, 4]
 SEED = 0
+# training path: the paper setting of configs/gpt2_small.py (5 clients,
+# batch 4, seq 512, cut 2, r_cut 8, r_others 16) with int8 smashed
+# activations; the quickstart's corpus sizes and partition (alpha 0.9)
+ROUNDS, NUM_SAMPLES, EVAL_SAMPLES = 3, 400, 64
+# the card-vs-CPU step: full width, reduced depth
+SMALL_LAYERS, SMALL_CLIENTS, SMALL_BATCH, SMALL_SEQ = 2, 2, 1, 128
+STEP_TOL = 1e-4        # per-client losses, relative
+# adapter grads: (relative, share of max|g|) per smashed compressor; int8
+# allows a few cotangent elements to take the neighbouring int8 code
+GRAD_TOL = {"none": (1e-3, 1e-4), "int8": (1e-3, 2e-3)}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def fmt(values) -> str:
+    return "[" + ", ".join(f"{float(v):.4f}" for v in values) + "]"
 
 
 def card_line() -> str:
@@ -107,10 +133,16 @@ def device_busy(torch, run):
     return wall, busy * 1e-6, by_name
 
 
-def max_err(torch, got, want, dtype: str, what: str) -> float:
+def max_err(torch, got, want, dtype: str, what: str,
+            scaled: bool = False) -> float:
+    """max |got - want|, asserting closeness at TOL[dtype].  scaled: the
+    absolute part of the tolerance is TOL times max|want| (at least 1),
+    for reductions whose rounding grows with the size of their terms."""
     got, want = got.float().cpu(), want.float().cpu()
     err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype],
+    atol = TOL[dtype] * (max(1.0, float(want.abs().max())) if scaled
+                         else 1.0)
+    torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=atol,
                                msg=lambda m: f"{what} ({dtype}): {m}")
     return err
 
@@ -129,6 +161,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.smashed_quant import ops as sops
     from repro_torch.models.model import build_model
     from repro_torch.runtime import serving
 
@@ -159,7 +192,13 @@ def main() -> int:
     wrappers = {"flash_attention_fwd": fops.flash_attention_fwd,
                 "lora_matmul_indexed": lops.lora_matmul_indexed,
                 "decode_attention": dops.decode_attention,
-                "decode_attention_paged": dops.decode_attention_paged}
+                "decode_attention_paged": dops.decode_attention_paged,
+                "flash_attention_bwd": fops.flash_attention_bwd,
+                "lora_matmul_fwd": lops.lora_matmul_fwd,
+                "lora_matmul_bwd": lops.lora_matmul_bwd,
+                "int8_roundtrip_smashed": sops.int8_roundtrip_smashed,
+                "int8_quantize_smashed": sops.int8_quantize_smashed,
+                "int8_dequantize_smashed": sops.int8_dequantize_smashed}
     worst = {k: 0.0 for k in wrappers}
 
     # -- phase 2: every kernel against its plain version ---------------------
@@ -199,12 +238,13 @@ def main() -> int:
                         dname, f"paged decode window={window}")
             errs["decode_attention_paged"] = max(
                 errs["decode_attention_paged"], e)
+        check_training_kernels(torch, rand, dname, dt, errs)
         log(f"phase 2 ({dname}, tol {TOL[dname]}): max |kernel - plain| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         if dname == "float32":
             worst = errs
 
-    # -- phase 3: times at the main path's shapes (fp32) --------------------
+    # -- phase 3: times at the paths' shapes (fp32) -------------------------
     rows = {}
     b, s, h, hd = 1, PROMPT, 12, 64
     q, k, v = rand(b, s, h, hd), rand(b, s, h, hd), rand(b, s, h, hd)
@@ -256,14 +296,20 @@ def main() -> int:
         library_ms=None,
         bound=bound(dec_bytes + 4 * pt.numel(), dec_flops, "float32"),
         shape=f"B={SLOTS} ps={PAGE} cache_len {lens[0]}..{lens[-1]} fp32")
+    rows.update(time_training_kernels(torch, F, rand, worst))
     for kname, row in rows.items():
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
+        extra = ""
+        if "composition_ms" in row:
+            extra = (f", torch composition {row['composition']} "
+                     f"{row['composition_ms']:.4f} ms")
         log(f"phase 3 [{name}, {card}] {kname} at {row['shape']}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-            f"{lib} ms, bound {row['bound'][0]:.4f} ms ({row['bound'][1]})")
+            f"{lib} ms{extra}, bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]})")
 
-    # -- phase 4: the main path ---------------------------------------------
+    # -- phase 4: the serving path ------------------------------------------
     arch = get_config("gpt2-small")
     model = build_model(arch, device=dev)
     params = model.init_params(torch.Generator().manual_seed(SEED))
@@ -279,6 +325,8 @@ def main() -> int:
                             max_new=4) for i in range(2)]
 
     launches = {k: 0 for k in wrappers}
+    serve_kernels = ("flash_attention_fwd", "lora_matmul_indexed",
+                     "decode_attention", "decode_attention_paged")
     tokens = {}
     for page in (0, PAGE):
         mode = "paged" if page else "contiguous"
@@ -301,6 +349,7 @@ def main() -> int:
         want = {"flash_attention_fwd", "lora_matmul_indexed",
                 "decode_attention_paged" if page else "decode_attention"}
         idle = [k for k in want if counts[k] == 0]
+        counts = {k: counts[k] for k in serve_kernels}
         if idle:
             raise RuntimeError(f"{mode} serving never launched {idle}")
         tokens[mode] = [r["tokens"] for r in res]
@@ -371,24 +420,34 @@ def main() -> int:
         f"plain path: max |diff| {diff:.3e} (tol {LOGITS_TOL}: fp32 sums "
         f"in another order through 12 layers and the 50257-wide head)")
 
-    # -- phase 5: results -----------------------------------------------------
-    sources = {"flash_attention_fwd": ("src/repro_torch/csrc/flash_fwd.cu",
-                                       "src/repro/kernels/flash_attention/"
-                                       "kernel.py:151"),
-               "lora_matmul_indexed": ("src/repro_torch/csrc/lora_indexed.cu",
-                                       "src/repro/kernels/lora_matmul/"
-                                       "kernel.py:186"),
-               "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention/"
-                                    "kernel.py:187"),
-               "decode_attention_paged": (
-                   "src/repro_torch/csrc/decode_attention.cu",
-                   "src/repro/kernels/decode_attention/kernel.py:133")}
+    # -- phase 5: the training path ------------------------------------------
+    for kname, c in train_phase(torch, dev, wrappers, name, card).items():
+        launches[kname] += c
+
+    # -- phase 6: one step at full width, reduced depth, card vs CPU --------
+    small_step_check(torch, dev)
+
+    # -- phase 7: results -----------------------------------------------------
+    fa = "src/repro/kernels/flash_attention/kernel.py"
+    lk = "src/repro/kernels/lora_matmul/kernel.py"
+    da = "src/repro/kernels/decode_attention/kernel.py"
+    sk = "src/repro/kernels/smashed_quant/kernel.py"
+    csrc = "src/repro_torch/csrc/"
+    sources = {"flash_attention_fwd": ("flash_fwd.cu", f"{fa}:151"),
+               "lora_matmul_indexed": ("lora_indexed.cu", f"{lk}:186"),
+               "decode_attention": ("decode_attention.cu", f"{da}:187"),
+               "decode_attention_paged": ("decode_attention.cu", f"{da}:133"),
+               "flash_attention_bwd": ("flash_bwd.cu", f"{fa}:305"),
+               "lora_matmul_fwd": ("lora_fused.cu", f"{lk}:99"),
+               "lora_matmul_bwd": ("lora_fused.cu", f"{lk}:298"),
+               "int8_roundtrip_smashed": ("smashed_quant.cu", f"{sk}:118"),
+               "int8_quantize_smashed": ("smashed_quant.cu", f"{sk}:105"),
+               "int8_dequantize_smashed": ("smashed_quant.cu", f"{sk}:129")}
     kernels = []
     for kname, (src, replaces) in sources.items():
         row = rows[kname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": src,
+            "name": kname, "route": "cuda", "source": csrc + src,
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": worst[kname], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
@@ -417,6 +476,478 @@ def profile_run(torch, serving, engine, reqs, name, card):
         f"torch.profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"(idle share {1 - busy / wall:.3f}); top device time: "
         + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in top))
+
+
+def check_training_kernels(torch, rand, dname, dt, errs):
+    """Phase 2 for the training slice's kernels: each against its plain
+    version on the same inputs, and the differentiable ones through
+    autograd against plain autograd.  Fills errs[kernel] (max |diff|)."""
+    from repro_torch.core import smashed
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.smashed_quant import ops as sops
+    from repro_torch.models import common
+
+    def worst(kname, pairs, what):
+        # the LoRA gradients reduce over up to 1000 rows of O(10) terms:
+        # their rounding scales with the output, so the tolerance does
+        e = max(max_err(torch, g, w, dname, f"{what} {i}",
+                        scaled=kname == "lora_matmul_bwd")
+                for i, (g, w) in enumerate(pairs))
+        errs[kname] = max(errs[kname], e)
+
+    # flash backward from the same residuals: full, GQA + window, offset
+    for b, s, h, kvh, window, q_offset in ((1, 512, 12, 12, 0, 0),
+                                           (2, 200, 8, 2, 50, 0),
+                                           (2, 77, 4, 2, 0, 9)):
+        q, do = rand(b, s, h, 64, dtype=dt), rand(b, s, h, 64, dtype=dt)
+        k, v = rand(b, s, kvh, 64, dtype=dt), rand(b, s, kvh, 64, dtype=dt)
+        kw = dict(window=window, q_offset=q_offset)
+        out, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        worst("flash_attention_bwd",
+              zip(fops.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                  fops.ref.attention_bwd(q, k, v, out, lse, do, **kw)),
+              f"flash bwd S={s} window={window}")
+    # autograd through the Function vs autograd through the plain forward
+    ins = [t.requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fops.flash_attention(*ins, **kw), ins, do)
+    want = torch.autograd.grad(fops.ref.attention_fwd(*ins, **kw)[0], ins,
+                               do)
+    worst("flash_attention_bwd", zip(got, want), "flash autograd")
+
+    for m, kd, n, r in ((37, 96, 80, 5), (1000, 768, 768, 16)):
+        mask = (torch.arange(r) < r - 2).float().to(q.device)
+        x, g = rand(m, kd, dtype=dt), rand(m, n, dtype=dt)
+        w = rand(kd, n, dtype=dt, scale=kd ** -0.5)
+        a = (rand(kd, r, scale=r ** -0.5) * mask).to(dt)
+        bb = (rand(r, n, scale=0.02) * mask[:, None]).to(dt)
+        sc = torch.tensor(2.0, device=q.device)
+        y, xa = lops.lora_matmul_fwd(x, w, a, bb, sc)
+        want_y, want_xa = lops.ref.lora_matmul_fwd(x, w, a, bb, sc)
+        worst("lora_matmul_fwd", [(y, want_y), (xa, want_xa)],
+              f"lora fwd M={m} r={r}")
+        worst("lora_matmul_bwd",
+              zip(lops.lora_matmul_bwd(x, w, a, bb, sc, g, want_xa),
+                  lops.ref.lora_matmul_bwd(x, w, a, bb, sc, g, want_xa)),
+              f"lora bwd M={m} r={r}")
+    # autograd through common.lora_dense (W frozen) vs plain autograd
+    ins = [t.clone().requires_grad_(True) for t in (x, a, bb, sc)]
+    yk = common.lora_dense(ins[0], w, None,
+                           {"A": ins[1], "B": ins[2], "scale": ins[3]})
+    got = torch.autograd.grad(yk, ins, g)
+    xf, af, bf = (t.float() for t in ins[:3])
+    yp = (xf @ w.float() + ins[3] * (xf @ af) @ bf).to(dt)
+    want = torch.autograd.grad(yp, ins, g)
+    worst("lora_matmul_bwd", zip(got, want), "lora autograd")
+
+    # int8 quantizers: bit for bit, ties and an all-zero channel included
+    for shape in ((3, 2, 70, 40), (5, 4, 64, 768)):
+        x = rand(*shape, dtype=dt)
+        x[..., 5] = 0.0
+        x[0, 0, 0, 7], x[0, 0, 1, 7] = 127.0, 0.5
+        x3 = x.reshape(shape[0], -1, shape[-1])
+        q8, scale = sops.int8_quantize_smashed(x)
+        want_q, want_scale = sops.ref.quantize(x3)
+        deq = sops.int8_dequantize_smashed(q8, scale, dt)
+        rt = sops.int8_roundtrip_smashed(x)
+        pairs = {"int8_quantize_smashed": [(q8.reshape(x3.shape), want_q),
+                                           (scale, want_scale)],
+                 "int8_dequantize_smashed": [(deq.reshape(x3.shape),
+                                              sops.ref.dequantize(
+                                                  want_q, want_scale, dt))],
+                 "int8_roundtrip_smashed": [(rt.reshape(x3.shape),
+                                             sops.ref.roundtrip(x3))]}
+        # the straight-through backward: the same round trip on the
+        # cotangent
+        xg = x.clone().requires_grad_(True)
+        g = rand(*shape, dtype=dt)
+        (ste,) = torch.autograd.grad(
+            smashed.make_compressor("int8").apply(xg), xg, g)
+        pairs["int8_roundtrip_smashed"].append(
+            (ste.reshape(x3.shape), sops.ref.roundtrip(
+                g.reshape(x3.shape))))
+        for kname, kpairs in pairs.items():
+            for got, want in kpairs:
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"{kname} {shape} ({dname}) is not "
+                                       f"bit-equal to its plain version")
+            errs[kname] = max(errs[kname], 0.0)
+
+
+def time_training_kernels(torch, F, rand, errs):
+    """Phase 3 for the training slice's kernels, at the shapes the
+    training path gives them (fp32): each timed call's result is first
+    held against its plain version on the same inputs (at TOL["float32"];
+    the int8 kernels bit for bit), and errs[kernel] takes the larger
+    error."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.smashed_quant import ops as sops
+
+    at_path = {}
+
+    def check(kname, pairs, what, scaled=False):
+        e = max(max_err(torch, g, w, "float32", f"{what} {i}", scaled=scaled)
+                for i, (g, w) in enumerate(pairs))
+        at_path[kname] = max(at_path.get(kname, 0.0), e)
+
+    def same(kname, pairs, what):
+        for g, w in pairs:
+            if not torch.equal(g, w):
+                raise RuntimeError(f"{kname} at {what} is not bit-equal to "
+                                   f"its plain version")
+        at_path[kname] = 0.0
+
+    rows = {}
+    # flash backward: 12 per train step at B*H = 5 clients x 4 x 12 heads
+    b, s, h, hd = 20, 512, 12, 64
+    q, k, v, do = (rand(b, s, h, hd) for _ in range(4))
+    out, lse = fops.flash_attention_fwd(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2).contiguous()
+    check("flash_attention_bwd",
+          zip(fops.flash_attention_bwd(q, k, v, out, lse, do),
+              fops.ref.attention_bwd(q, k, v, out, lse, do)),
+          f"flash bwd B={b} S={s} H={h}")
+    pairs = b * h * s * (s + 1) // 2
+    rows["flash_attention_bwd"] = dict(
+        ms=cuda_ms(torch, lambda: fops.flash_attention_bwd(q, k, v, out, lse,
+                                                           do), iters=20),
+        plain_ms=cuda_ms(torch, lambda: fops.ref.attention_bwd(
+            q, k, v, out, lse, do), iters=10),
+        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), do_t, retain_graph=True), iters=20),
+        # read q, k, v, out, do, lse; write dq, dk, dv.  Per visible pair:
+        # s, dp, dq, dk, dv, 2 hd FLOPs each
+        bound=bound(4 * (8 * b * s * h * hd + b * h * s), 10 * hd * pairs,
+                    "float32"),
+        shape=f"B={b} S={s} H={h} hd={hd} causal fp32 (B*H={b * h}); "
+              f"library = SDPA backward through autograd")
+    # fused LoRA: 48 per eval step over every token of the 5 clients
+    m, kd, r = 10240, 768, 16
+    x, g = rand(m, kd), rand(m, kd)
+    w = rand(kd, kd, scale=kd ** -0.5)
+    a, bb = rand(kd, r, scale=r ** -0.5), rand(r, kd, scale=0.02)
+    sc = torch.tensor(2.0, device=x.device)
+    y, xa = lops.lora_matmul_fwd(x, w, a, bb, sc)
+    check("lora_matmul_fwd", zip((y, xa), lops.ref.lora_matmul_fwd(
+        x, w, a, bb, sc)), f"lora fwd M={m}")
+    # the gradients reduce over M rows: the tolerance scales with them,
+    # as in phase 2
+    check("lora_matmul_bwd",
+          zip(lops.lora_matmul_bwd(x, w, a, bb, sc, g, xa),
+              lops.ref.lora_matmul_bwd(x, w, a, bb, sc, g, xa)),
+          f"lora bwd M={m}", scaled=True)
+    mat = 2 * m * kd * kd
+    low = 2 * m * kd * r
+    rows["lora_matmul_fwd"] = dict(
+        ms=cuda_ms(torch, lambda: lops.lora_matmul_fwd(x, w, a, bb, sc)),
+        plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_fwd(
+            x, w, a, bb, sc)),
+        library_ms=None,
+        composition="x@W + s*(x@A)@B (three cuBLAS GEMMs)",
+        composition_ms=cuda_ms(torch, lambda: x @ w + sc * ((x @ a) @ bb)),
+        bound=bound(4 * (2 * m * kd + kd * kd + 2 * kd * r + m * r + 1),
+                    mat + 2 * low, "float32"),
+        shape=f"M={m} K=N={kd} r={r} fp32")
+
+    def composition_bwd():
+        gb = g @ bb.T
+        return (g @ w.T + sc * (gb @ a.T), sc * (x.T @ gb), sc * (xa.T @ g),
+                (xa * gb).sum())
+
+    rows["lora_matmul_bwd"] = dict(
+        ms=cuda_ms(torch, lambda: lops.lora_matmul_bwd(x, w, a, bb, sc, g,
+                                                       xa)),
+        plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_bwd(
+            x, w, a, bb, sc, g, xa)),
+        library_ms=None,
+        composition="g@W^T + s*(g@B^T)@A^T, s*x^T@gb, s*xa^T@g (cuBLAS)",
+        composition_ms=cuda_ms(torch, composition_bwd),
+        # read x, W, A, B, g, xa; write dx, dA, dB
+        bound=bound(4 * (3 * m * kd + kd * kd + 4 * kd * r + m * r + 2),
+                    mat + 4 * low + 2 * m * r, "float32"),
+        shape=f"M={m} K=N={kd} r={r} fp32")
+    # smashed int8: 2 per distinct cut layer per train step, 5 messages
+    gq, mq, dq = 5, 2048, 768
+    xs = rand(gq, 4, 512, dq)
+    q8, scale = sops.int8_quantize_smashed(xs)
+    x3 = xs.reshape(gq, mq, dq)
+    want_q, want_scale = sops.ref.quantize(x3)
+    same("int8_quantize_smashed",
+         [(q8.reshape(x3.shape), want_q), (scale, want_scale)],
+         f"G={gq} M={mq}")
+    same("int8_dequantize_smashed",
+         [(sops.int8_dequantize_smashed(q8, scale).reshape(x3.shape),
+           sops.ref.dequantize(want_q, want_scale))], f"G={gq} M={mq}")
+    same("int8_roundtrip_smashed",
+         [(sops.int8_roundtrip_smashed(xs).reshape(x3.shape),
+           sops.ref.roundtrip(x3))], f"G={gq} M={mq}")
+    elems = gq * mq * dq
+    rows["int8_roundtrip_smashed"] = dict(
+        ms=cuda_ms(torch, lambda: sops.int8_roundtrip_smashed(xs)),
+        plain_ms=cuda_ms(torch, lambda: sops.ref.roundtrip(
+            xs.reshape(gq, mq, dq))),
+        library_ms=None,
+        bound=bound(4 * 2 * elems, 6 * elems, "float32"),
+        shape=f"G={gq} M={mq} d={dq} fp32")
+    rows["int8_quantize_smashed"] = dict(
+        ms=cuda_ms(torch, lambda: sops.int8_quantize_smashed(xs)),
+        plain_ms=cuda_ms(torch, lambda: sops.ref.quantize(
+            xs.reshape(gq, mq, dq))),
+        library_ms=None,
+        bound=bound(5 * elems + 4 * gq * dq, 5 * elems, "float32"),
+        shape=f"G={gq} M={mq} d={dq} fp32 -> int8")
+    rows["int8_dequantize_smashed"] = dict(
+        ms=cuda_ms(torch, lambda: sops.int8_dequantize_smashed(q8, scale)),
+        plain_ms=cuda_ms(torch, lambda: sops.ref.dequantize(
+            q8.reshape(gq, mq, dq), scale)),
+        library_ms=None,
+        bound=bound(5 * elems + 4 * gq * dq, elems, "float32"),
+        shape=f"G={gq} M={mq} d={dq} int8 -> fp32")
+    for kname, e in at_path.items():
+        errs[kname] = max(errs[kname], e)
+    log("phase 3: at the training path's shapes, max |kernel - plain| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in at_path.items())
+        + f" (tol {TOL['float32']}; the int8 kernels bit for bit)")
+    return rows
+
+
+def train_phase(torch, dev, wrappers, name, card):
+    """Phase 5: ROUNDS SplitFT rounds on full-width gpt2-small, the launch
+    counters read around them; then the fused LoRA backward through
+    autograd at the eval shape.  Returns the launches of both."""
+    import dataclasses
+
+    from repro_torch import data
+    from repro_torch.configs import get_config
+    from repro_torch.core import adaptive, comm, rounds, split
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch = get_config("gpt2-small")
+    arch = arch.replace(split=dataclasses.replace(arch.split,
+                                                  smashed_compress="int8"))
+    n, t, dcfg = arch.data.num_clients, arch.train, arch.data
+    tok = data.HashTokenizer(arch.model.vocab_size)
+
+    def tokens(num, seed):
+        return [np.asarray(tok.encode(x), np.int32)
+                for x in data.synthetic_corpus(num, seed=seed)]
+
+    t0 = time.perf_counter()
+    samples = tokens(NUM_SAMPLES, dcfg.seed)
+    parts = data.partition_dataset(
+        [len(x) for x in samples], n, strategy=dcfg.partition,
+        alpha=dcfg.alpha, num_classes=dcfg.num_length_classes,
+        seed=dcfg.seed)
+    loaders = data.make_client_loaders(samples, parts,
+                                       batch_size=t.batch_size,
+                                       seq_len=t.seq_len, seed=SEED)
+    ev = tokens(EVAL_SAMPLES, dcfg.seed + 777)
+    eval_loaders = data.make_client_loaders(
+        ev, [np.arange(len(ev))] * n, batch_size=t.batch_size,
+        seq_len=t.seq_len, seed=SEED + 999)
+    counts = np.array([ld.num_samples() for ld in loaders], float)
+    model = build_model(arch, device=dev)
+    params = model.init_params(torch.Generator().manual_seed(SEED))
+    state = rounds.init_state(model, torch.Generator().manual_seed(SEED + 3),
+                              num_clients=n)
+    train_step = rounds.make_train_step(
+        model, smashed_compress=arch.split.smashed_compress)
+    eval_step = rounds.make_eval_step(model)
+    log(f"phase 5: gpt2-small {model.num_flat_layers} layers, {n} clients "
+        f"(samples {counts.astype(int).tolist()}, length-Dirichlet alpha "
+        f"{dcfg.alpha}), batch {t.batch_size} x seq {t.seq_len}, "
+        f"r_cut {arch.lora.r_cut} r_others {arch.lora.r_others}, smashed "
+        f"{arch.split.smashed_compress}, {t.optimizer} lr {t.lr_client}; "
+        f"data and model set up in {time.perf_counter() - t0:.1f} s")
+
+    c3 = np.ones(n)
+    active = np.ones(n, np.float32)
+    expect_rt = 0
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(ROUNDS):
+        weights = counts / counts.sum() * c3
+        weights = (weights / weights.sum()).astype(np.float32)
+        cuts = state["cuts"].tolist()
+        expect_rt += 2 * len(set(cuts))
+        batch = data.stack_client_batches([ld.batch(r) for ld in loaders])
+        t0 = time.perf_counter()
+        state, met = train_step(params, state, batch, weights, active,
+                                t.lr_client, t.lr_server)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        ebatch = data.stack_client_batches([ld.batch(r)
+                                            for ld in eval_loaders])
+        t0 = time.perf_counter()
+        _, em = eval_step(params, state, ebatch, weights)
+        torch.cuda.synchronize()
+        t_eval = time.perf_counter() - t0
+        accs = em["accuracy"].cpu().numpy()
+        c3 = adaptive.update_weights(accs, arch.split.gamma)
+        state["cuts"] = torch.as_tensor(adaptive.adjust_cuts(
+            cuts, accs, arch.split, model.num_flat_layers), dtype=torch.int32)
+        wire = comm.round_comm_bytes(model, cuts=cuts,
+                                     batch_size=t.batch_size,
+                                     seq_len=t.seq_len,
+                                     smashed_compress="int8")["total"]
+        ce = met["ce"].cpu().numpy()
+        acc = met["accuracy"].cpu().numpy()
+        if not (np.isfinite(ce).all() and np.isfinite(accs).all()
+                and np.isfinite(em["ce"].cpu().numpy()).all()):
+            raise RuntimeError(f"round {r}: non-finite loss")
+        log(f"phase 5 round {r} [{name}, {card}]: cuts {cuts} -> "
+            f"{state['cuts'].tolist()}; train ce {fmt(ce)} acc {fmt(acc)}; "
+            f"eval ce {fmt(em['ce'].cpu().numpy())} acc {fmt(accs)}; "
+            f"comm per client "
+            f"{(wire / 1e6).round(3).tolist()} MB; train step "
+            f"{t_train * 1e3:.1f} ms ({n * t.batch_size * t.seq_len / t_train:.0f} "
+            f"tokens/s), eval step {t_eval * 1e3:.1f} ms; "
+            f"max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    got = {k: w.launches for k, w in wrappers.items()}
+    want = {"flash_attention_bwd": 12 * ROUNDS,
+            "int8_roundtrip_smashed": expect_rt,
+            "lora_matmul_fwd": 48 * ROUNDS,
+            "flash_attention_fwd": 24 * ROUNDS}
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise RuntimeError(f"training launches (got, want): {bad}")
+    log(f"phase 5 launches over {ROUNDS} rounds: "
+        f"{ {k: c for k, c in got.items() if c} }")
+
+    # the fused LoRA backward at the eval shape: the gradient of the
+    # global model's eval loss w.r.t. its served (rank-2) adapters,
+    # through autograd on lora_dense (the round itself has no rank-2
+    # backward)
+    for w in wrappers.values():
+        w.launches = 0
+    eff = tree_map(lambda x: x.detach().requires_grad_(True),
+                   split.serve_adapters(model, state["client_adapters"],
+                                        state["server_adapters"],
+                                        state["cuts"], weights))
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        per, _ = model.loss(params, eff, {k: torch.as_tensor(v, device=dev)
+                                          for k, v in ebatch.items()},
+                            per_client=True)
+        grads = torch.autograd.grad(per.sum(), tree_leaves(eff))
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise RuntimeError("non-finite global-adapter gradient")
+    bwd = {k: w.launches for k, w in wrappers.items()}
+    if bwd["lora_matmul_bwd"] != 48:
+        raise RuntimeError(f"global-adapter gradient launched the fused "
+                           f"LoRA backward {bwd['lora_matmul_bwd']} times, "
+                           f"want 48")
+    log(f"phase 5 global-adapter gradient [{name}, {card}]: eval loss "
+        f"and its gradient w.r.t. the 48 served adapters in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches "
+        f"{ {k: c for k, c in bwd.items() if c} }")
+
+    wall, busy, by_name = device_busy(
+        torch, lambda: (train_step(params, state, batch, weights, active,
+                                   t.lr_client, t.lr_server),
+                        eval_step(params, state, ebatch, weights)))
+    if busy is None:
+        log(f"phase 5 profile [{name}, {card}]: device busy share not "
+            f"measured (the profiler recorded no device activity); wall "
+            f"{wall:.3f} s")
+    else:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"phase 5 profile [{name}, {card}]: one train + one eval step "
+            f"under torch.profiler: wall {wall:.3f} s, device busy "
+            f"{busy:.3f} s (idle share {1 - busy / wall:.3f}); top device "
+            f"time: " + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms"
+                                  for k, v in top))
+    # the round's launches, and the fused LoRA backward from the gradient
+    # run (its forward launches are not the round's)
+    return {**got, "lora_matmul_bwd": bwd["lora_matmul_bwd"]}
+
+
+def small_step_check(torch, dev):
+    """Phase 6: one round's losses and adapter gradients at full width and
+    reduced depth (2 layers, 2 clients with cuts [1, 2], batch 1, seq 128),
+    on the card and on the CPU plain path from one state, without and with
+    int8 smashed activations.  Tolerances: STEP_TOL on the losses; for the
+    gradients GRAD_TOL[compressor] (relative, share of max|g|): fp32 sums
+    in another order without compression, and with int8 one quantum more,
+    because a cotangent element within fp32 noise of an int8 rounding
+    boundary takes the neighbouring code on one side.  The int8 tolerance
+    must stay below the CPU's own int8-vs-none gap, so that a card step
+    that skipped the compression would fail it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import rounds, smashed
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    arch = get_config("gpt2-small")
+    arch = arch.replace(
+        model=dataclasses.replace(arch.model, num_layers=SMALL_LAYERS),
+        split=dataclasses.replace(arch.split, cut_layer=1, cut_buckets=(1,)))
+    rng = np.random.default_rng(SEED + 5)
+    toks = rng.integers(3, arch.model.vocab_size,
+                        size=(SMALL_CLIENTS, SMALL_BATCH, SMALL_SEQ + 1))
+    batch = {"tokens": toks[..., :-1].astype(np.int32),
+             "labels": toks[..., 1:].astype(np.int32)}
+    weights = np.array([0.25, 0.75], np.float32)
+    out = {}
+    for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(arch, device=dv)
+        params = model.init_params(torch.Generator().manual_seed(SEED))
+        state = rounds.init_state(model,
+                                  torch.Generator().manual_seed(SEED + 3),
+                                  num_clients=SMALL_CLIENTS)
+        gen = torch.Generator().manual_seed(SEED + 4)
+        for side in ("client_adapters", "server_adapters"):
+            for targets in state[side].values():
+                for leaf in targets.values():   # non-zero B: every adapter
+                    leaf["B"] = (torch.randn(leaf["B"].shape, generator=gen)
+                                 * 0.02).to(dv)
+        state["cuts"] = torch.tensor([1, 2], dtype=torch.int32)
+        for comp in GRAD_TOL:
+            _, met, gc, gs = rounds.round_grads(
+                model, params, state, batch, weights,
+                boundary=smashed.make_boundary(
+                    smashed.make_compressor(comp), state["cuts"]))
+            out[role, comp] = (met["ce"].cpu(), [
+                g.cpu() for g in tree_leaves(gc) + tree_leaves(gs)])
+    for comp, (rtol, share) in GRAD_TOL.items():
+        (ce_k, g_k), (ce_c, g_c) = out["card", comp], out["cpu", comp]
+        torch.testing.assert_close(
+            ce_k, ce_c, rtol=STEP_TOL, atol=0,
+            msg=lambda m: f"card vs CPU losses ({comp}): {m}")
+        scale = max(float(g.abs().max()) for g in g_c)
+        worst = 0.0
+        for gk, gc_ in zip(g_k, g_c):
+            torch.testing.assert_close(
+                gk, gc_, rtol=rtol, atol=share * scale,
+                msg=lambda m: f"card vs CPU adapter gradient ({comp}): {m}")
+            worst = max(worst, float((gk - gc_).abs().max()))
+        if comp != "none":
+            gap = max(float((a - b).abs().max())
+                      for a, b in zip(g_c, out["cpu", "none"][1])) / scale
+            if gap <= share:
+                raise RuntimeError(
+                    f"{comp} moves the CPU's adapter gradients by only "
+                    f"{gap:.2e} of max|g|, within the card-vs-CPU tolerance "
+                    f"{share}: the check cannot see the compression")
+            log(f"phase 6 ({comp}): the CPU's {comp}-vs-none gradient gap is "
+                f"{gap:.2e} of max|g|, above the tolerance {share}")
+        log(f"phase 6 ({comp}): full-width {SMALL_LAYERS}-layer step, "
+            f"{SMALL_CLIENTS} clients (cuts [1, 2]), batch {SMALL_BATCH} x "
+            f"seq {SMALL_SEQ}: card vs CPU losses {fmt(ce_k)} vs "
+            f"{fmt(ce_c)} (rtol {STEP_TOL}); {len(g_k)} adapter gradients, "
+            f"max |diff| {worst:.3e} = {worst / scale:.2e} of max|g| (tol "
+            f"{rtol} relative + {share} of max|g|)")
 
 
 def lora_args(torch, rand, m, dt, gen):

@@ -1,12 +1,13 @@
-"""Hand the JAX package's trees to the port, name for name.
+"""Hand the JAX package's trees to the port, name for name, and back.
 
-The reference builds parameters and adapter pools as nested dicts of JAX
-arrays; given as numpy arrays (``np.asarray`` on every leaf), the same
-trees become the port's tensors here, with the same keys and layouts
-(``W`` (d_in, d_out), leading per-group layer axis, pool leaves
-(Lg, P, ...)).  Tests feed both packages the same weights this way, since
-``jax.random`` and ``torch.Generator`` draw different numbers from one
-seed.  This module imports neither JAX nor the JAX package.
+The reference builds parameters, adapter pools and round-engine state as
+nested dicts of JAX arrays; given as numpy arrays (``np.asarray`` on every
+leaf), the same trees become the port's tensors here, with the same keys
+and layouts (``W`` (d_in, d_out), leading per-group layer axis, pool
+leaves (Lg, P, ...), client adapters (Lg, N, ...)).  Tests start both
+packages from the same weights and state this way, since ``jax.random``
+and ``torch.Generator`` draw different numbers from one seed.  This
+module imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -17,8 +18,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.tree import tree_map
 
 Tree = Dict[str, Any]
+
+# round-engine state leaves that are host data in the port
+# (repro_torch.core.rounds)
+HOST_STATE = ("cuts", "round")
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -31,15 +37,9 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_numpy(tree: Tree, device: DeviceLike) -> Tree:
     """The reference's parameter tree as the port's tensors on `device`."""
-    return _map(tree, lambda a: _leaf_to_torch(a, device))
+    return tree_map(lambda a: _leaf_to_torch(a, device), tree)
 
 
 def pool_from_numpy(tree: Tree, device: DeviceLike) -> Tree:
@@ -56,11 +56,23 @@ def pool_from_numpy(tree: Tree, device: DeviceLike) -> Tree:
     return out
 
 
+def state_from_numpy(state: Tree, device: DeviceLike) -> Tree:
+    """The reference's round-engine state (``repro.core.rounds.
+    init_state`` and its successors) as the port's: adapters and optimizer
+    slots on `device`, ``cuts`` and ``round`` as int32 host tensors."""
+    out = params_from_numpy(
+        {k: v for k, v in state.items() if k not in HOST_STATE}, device)
+    for k in HOST_STATE:
+        out[k] = torch.from_numpy(np.array(state[k], dtype=np.int32))
+    return out
+
+
 def to_numpy(tree: Tree) -> Tree:
-    """Back to numpy, name for name (bf16 leaves come back as float32)."""
+    """Back to numpy, name for name (bf16 leaves come back as float32);
+    takes parameters, pools and round-engine state alike."""
     def leaf(t):
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
-    return _map(tree, leaf)
+    return tree_map(leaf, tree)

@@ -1,7 +1,7 @@
-"""LoRA adapter trees and the per-layer rank masks (the paper's C2).
+"""LoRA adapter trees and the per-layer rank policy (the paper's C2).
 
-Port of src/repro/core/lora.py (``init_adapters``, ``rank_masks_for_group``,
-``scales_for_group``, ``mask_adapters``).  Adapters are allocated at the
+Port of src/repro/core/lora.py (``init_adapters``, ``effective_ranks``,
+``rank_masks_for_group``, ``scales_for_group``, ``mask_adapters``).  Adapters are allocated at the
 maximum rank (r_others); an adapter's effective rank is a multiplicative
 mask that zeroes A columns / B rows past it, so heterogeneous ranks are
 data and every pool row has the same shape.
@@ -16,6 +16,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.config import LoRAConfig
 from repro_torch.models.model import Model
 
 Params = Dict[str, Any]
@@ -39,6 +40,27 @@ def init_adapters(model: Model, generator: torch.Generator, *,
                 "B": torch.zeros(lead + (r, dout), dtype=dtype,
                                  device=model.device)}
     return tree
+
+
+def effective_ranks(flat_layers: int, cuts, lora: LoRAConfig, r_cut=None):
+    """cuts ([N,]) int -> ranks ([N,] M) int32, on cuts' device.
+
+    Layer m-1 is the client-side cut layer (rank r_cut); with two_side_cut
+    layer m (the first server layer) is reduced too.  r_cut: optional
+    per-client ([N,]) rank-at-cut override of LoRAConfig.r_cut."""
+    cuts = torch.as_tensor(cuts)
+    layers = torch.arange(flat_layers, device=cuts.device)
+    c = cuts[..., None]
+    is_cut = layers == c - 1
+    if lora.two_side_cut:
+        is_cut = is_cut | (layers == c)
+    rc = torch.as_tensor(lora.r_cut if r_cut is None else r_cut,
+                         dtype=torch.int32, device=cuts.device)
+    if rc.dim():
+        rc = rc[..., None]
+    others = torch.full(is_cut.shape, lora.r_others, dtype=torch.int32,
+                        device=cuts.device)
+    return torch.where(is_cut, rc, others)
 
 
 def rank_masks_for_group(model: Model, gname: str, ranks) -> torch.Tensor:

@@ -60,6 +60,23 @@ SIGNATURES: Dict[str, List] = {
     # H, KVH, hd, window, scale, dtype_code, stream
     "decode_attention_paged": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
                                I, P],
+    # q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KVH, hd,
+    # q_offset, causal, window, scale, dtype_code, stream
+    "flash_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I,
+                  P],
+    # x, w, a, b, scale, xa, y, M, K, N, R, dtype_code, stream
+    "lora_fused_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, w, a, b, scale, g, xa, gb, work, dx, da, db, M, K, N, R,
+    # dtype_code, stream
+    "lora_fused_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # M -> row slices of the backward's split-M workspace
+    "lora_fused_work_slices": [I],
+    # x, y, G, M, d, dtype_code, stream
+    "smashed_roundtrip": [P, P, I, I, I, I, P],
+    # x, q, scale, G, M, d, dtype_code, stream
+    "smashed_quantize": [P, P, P, I, I, I, I, P],
+    # q, scale, x, G, M, d, dtype_code, stream
+    "smashed_dequantize": [P, P, P, I, I, I, I, P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the LoRA projections.
 
-Ports of the JAX oracles (src/repro/kernels/lora_matmul/ref.py).
-``lora_matmul_indexed`` follows the CUDA kernel's contract
-(csrc/lora_indexed.cu): fp32 accumulation, ``xa = x @ A[id]`` kept in
-fp32, one rounding to x's dtype at the end, ids clamped into the pool.
+Ports of the JAX oracles (src/repro/kernels/lora_matmul/ref.py and the
+jnp backward of ops.py ``_jnp_bwd``) with the CUDA kernels' contracts
+(csrc/lora_fused.cu, csrc/lora_indexed.cu): fp32 accumulation, the rank-r
+intermediates ``xa = x @ A`` and ``gb = g @ B^T`` kept in fp32, one
+rounding to the operand dtype at the end; indexed ids clamped into the
+pool.
 """
 
 from __future__ import annotations
@@ -13,17 +15,28 @@ import math
 import torch
 
 
-def lora_matmul(x, w, a, b, scale):
-    """y = x @ W + scale * (x @ A) @ B.  x: (..., K); w: (K, N);
-    a: (K, r); b: (r, N); scale: scalar.
+def lora_matmul_fwd(x, w, a, b, scale):
+    """x (M, K); w (K, N); a (K, r); b (r, N); scale () fp32 ->
+    (y = x @ W + scale * (x @ A) @ B in x's dtype, xa = x @ A (M, r) fp32)."""
+    xf = x.float()
+    xa = xf @ a.float()
+    y = xf @ w.float() + scale.float() * (xa @ b.float())
+    return y.to(x.dtype), xa
 
-    The single-adapter path (row 6 of PERF.md's kernel table); its fused
-    kernel is ported with the training slice, so this plain version is
-    what runs until then."""
-    base = x @ w
-    delta = (x @ a) @ b
-    return base + torch.as_tensor(scale, dtype=base.dtype,
-                                  device=base.device) * delta
+
+def lora_matmul_bwd(x, w, a, b, scale, g, xa):
+    """The frozen-W backward for the cotangent g (M, N) and the forward's
+    residual xa: (dx like x, dA like a, dB like b, dscale () fp32).
+
+      gb = g @ B^T; dx = g @ W^T + s gb @ A^T; dA = s x^T gb;
+      dB = s xa^T g; dscale = sum(xa * gb)."""
+    gf, s = g.float(), scale.float()
+    gb = gf @ b.float().T
+    dx = gf @ w.float().T + s * (gb @ a.float().T)
+    da = s * (x.float().T @ gb)
+    db = s * (xa.T @ gf)
+    return (dx.to(x.dtype), da.to(a.dtype), db.to(b.dtype),
+            (xa * gb).sum())
 
 
 def row_ids(ids, lead) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Shared model primitives: initializers, norms, activations.
+"""Shared model primitives: initializers, norms, activations, the
+LoRA-aware dense projection and the loss.
 
 Port of src/repro/models/common.py for one card: no sharding policy (there
 is no mesh), and the RoPE helpers wait for the first RoPE model.
@@ -13,6 +14,8 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.lora_matmul import ops as lora_ops
 
 Params = Dict[str, Any]
 
@@ -82,3 +85,46 @@ def activate(x, gate, kind: str):
 
 def is_glu(kind: str) -> bool:
     return kind in ("swiglu", "geglu")
+
+
+# ---------------------------------------------------------------------------
+# LoRA-aware dense application
+#
+# adapter = {"A": (d_in, r), "B": (r, d_out), "scale": scalar} or None.
+
+
+def lora_dense(x, w, b=None, adapter=None):
+    """y = x @ W (+ b) (+ scale * (x @ A) @ B) through the fused LoRA
+    kernel (its plain version on the CPU).  Base weights are frozen
+    (LoRA fine-tuning), so W gets no gradient and dW is never computed."""
+    if adapter is not None:
+        y = lora_ops.lora_matmul(x, w, adapter["A"], adapter["B"],
+                                 adapter["scale"])
+    else:
+        y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Loss
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE over (masked) positions, in fp32."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - torch.gather(
+        lf, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def token_accuracy(logits, labels, mask=None):
+    hit = (torch.argmax(logits, dim=-1) == labels.long()).float()
+    if mask is None:
+        return hit.mean()
+    mask = mask.float()
+    return (hit * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,4 +1,5 @@
-"""Model factory: block groups composed into a decoder, for serving.
+"""Model factory: block groups composed into a decoder, for training and
+serving.
 
 Port of src/repro/models/model.py.  A model is a list of block groups
 (homogeneous stacks with parameters stacked along a leading layer axis)
@@ -9,14 +10,17 @@ Entry points (parameters and adapters are passed explicitly, as in the
 reference, as nested dicts of tensors with the reference's names):
 
   init_params(generator, dtype)                   -> params
+  loss(params, adapters, batch, per_client, boundary) -> (loss, metrics)
   prefill(params, adapters, batch, cache)         -> (logits_last, cache)
   decode_step(params, adapters, tokens, cache)    -> (logits, cache)
   init_cache(lead, max_len, dtype)                -> cache
 
-Caches are updated in place and returned.  This slice ports the dense
-decoder with learned positions (gpt2-small); training (``loss``, the cut
-``boundary`` hook, ``remat``), the encoder and the SSM/MoE kinds raise
-NotImplementedError with a pointer to ROADMAP.md.
+Training activations carry the client axis first ((N, B, S, d)); caches
+are updated in place and returned.  This slice ports the dense decoder
+with learned positions (gpt2-small).  ``remat`` other than "none",
+chunked cross entropy (``ce_chunk``), stateful (error-feedback) cut
+boundaries, the encoder and the SSM/MoE kinds raise NotImplementedError
+with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -34,7 +38,19 @@ from repro_torch.models.common import apply_norm
 
 Params = Dict[str, Any]
 
-_TRAINING = "the training slice (ROADMAP.md Queue A, item 2)"
+_LATER = "ROADMAP.md Queue A, item 2"
+
+
+def _ce_sums(logits, labels, mask, keep: int):
+    """(nll_sum, hit_sum, count) reduced over all but the first `keep`
+    dims, in fp32; the same sums as the reference's ``_ce_sums``."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    correct = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - correct) * mask
+    hits = (torch.argmax(lf, dim=-1) == labels.long()).float() * mask
+    dims = tuple(range(keep, nll.dim()))
+    return nll.sum(dims), hits.sum(dims), mask.sum(dims)
 
 
 # ---------------------------------------------------------------------------
@@ -232,16 +248,26 @@ class Model(nn.Module):
     # -- block execution -------------------------------------------------------
 
     def run_blocks(self, params: Params, adapters: Optional[Params], x, *,
-                   mode: str = "prefill", cache: Optional[Params] = None,
-                   layer_lo: int = 0, layer_hi: Optional[int] = None):
-        """Run flat layers [layer_lo, layer_hi) over activations x (B, S, d).
+                   mode: str = "train", cache: Optional[Params] = None,
+                   layer_lo: int = 0, layer_hi: Optional[int] = None,
+                   boundary=None):
+        """Run flat layers [layer_lo, layer_hi) over activations x
+        ([N,] B, S, d).
 
-        mode: "prefill" (full sequences; fills `cache` if given) or
-        "decode" (one token per slot against `cache`).  Returns
-        (x, new_cache); the cache's k/v tensors are written in place."""
-        if mode not in ("prefill", "decode"):
+        mode: "train" (full sequences, no cache), "prefill" (full
+        sequences; fills `cache` if given) or "decode" (one token per slot
+        against `cache`).  Returns (x, new_cache); the cache's k/v tensors
+        are written in place.
+
+        `boundary(x, flat_id) -> x` is applied to every layer output with
+        its flat layer id: the round engine compresses the smashed
+        activation there, where each client's cut sits."""
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if getattr(boundary, "stateful", False):
             raise NotImplementedError(
-                f"mode {mode!r}: training runs with {_TRAINING}")
+                f"stateful (error-feedback) cut boundaries are not ported "
+                f"yet ({_LATER})")
         cfg = self.cfg
         hi_total = self.num_flat_layers if layer_hi is None else layer_hi
         cache_len = cache["len"] if cache is not None else None
@@ -270,6 +296,8 @@ class Model(nn.Module):
                 x = x + attn_out
                 if cfg.d_ff:
                     x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
+                if boundary is not None:
+                    x = boundary(x, run_flat_lo + (i - lo))
         new_cache = None
         if cache is not None:
             new_cache = dict(cache)
@@ -280,11 +308,11 @@ class Model(nn.Module):
     # -- top-level entry points ------------------------------------------------
 
     def forward(self, params, adapters, batch, *, cache=None,
-                mode: str = "prefill"):
+                mode: str = "train", boundary=None):
         """Full forward to hidden states (pre-head).
 
-        batch: {"tokens": (B, S)}.  Returns (x, aux, new_cache); aux is the
-        MoE router loss in the reference, 0 for the dense decoder."""
+        batch: {"tokens": ([N,] B, S)}.  Returns (x, aux, new_cache); aux
+        is the MoE router loss in the reference, 0 for the dense decoder."""
         if "prefix" in batch or "frames" in batch:
             raise NotImplementedError(
                 "modality prefixes and encoder frames are not ported yet "
@@ -296,13 +324,40 @@ class Model(nn.Module):
                                        device=tokens.device))
         x = self.embed(params, tokens, positions=positions)
         x, new_cache = self.run_blocks(params, adapters, x, mode=mode,
-                                       cache=cache)
+                                       cache=cache, boundary=boundary)
         x = apply_norm(params["final_norm"], x, kind=cfg.norm,
                        eps=cfg.norm_eps)
         return x, 0.0, new_cache
 
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError(f"Model.loss is ported with {_TRAINING}")
+    def loss(self, params, adapters, batch, *, remat: str = "none",
+             ce_chunk: int = 0, per_client: bool = False, boundary=None):
+        """Next-token CE.  batch needs "tokens", "labels"[, "loss_mask"].
+
+        per_client=True keeps the leading client axis un-reduced: returns
+        ((N,) nll, metrics with (N,) entries), which the round engine
+        weights and combines (paper formula 2).  `boundary` is the
+        cut-layer hook (see run_blocks)."""
+        if remat != "none":
+            raise NotImplementedError(
+                f"remat={remat!r} is not ported yet ({_LATER}); the round "
+                f"engine's default is 'none'")
+        if ce_chunk:
+            raise NotImplementedError(
+                f"chunked cross entropy (ce_chunk={ce_chunk}) is not ported "
+                f"yet ({_LATER})")
+        x, aux, _ = self.forward(params, adapters, batch, mode="train",
+                                 boundary=boundary)
+        labels = batch["labels"]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(labels.shape, device=x.device) if mask is None
+                else mask.float())
+        nll_sum, hits, cnt = _ce_sums(self.head(params, x), labels, mask,
+                                      1 if per_client else 0)
+        cnt = torch.clamp(cnt, min=1.0)
+        nll, acc = nll_sum / cnt, hits / cnt
+        aux = torch.zeros((), device=x.device) + aux
+        metrics = {"ce": nll, "aux": aux, "accuracy": acc, "tokens": cnt}
+        return nll + aux, metrics
 
     def encode(self, *args, **kwargs):
         raise NotImplementedError(
@@ -328,8 +383,8 @@ class Model(nn.Module):
         cfg = self.cfg
         if len(lead) != 1:
             raise NotImplementedError(
-                f"cache lead {lead}: the client axis is ported with "
-                f"{_TRAINING}")
+                f"cache lead {lead}: caches with a client axis are not "
+                f"ported yet ({_LATER})")
         batch = lead[-1]
         cache: Params = {"len": torch.zeros((batch,), dtype=torch.int32,
                                             device=self.device)}

@@ -1,11 +1,17 @@
 """Attention and MLP blocks as plain functions on tensors.
 
-Port of src/repro/models/transformer.py for the serving path: prefill runs
-full sequences through the flash attention kernel, decode runs one token
-per slot against a contiguous or paged KV cache through the flash-decode
-kernel, and every q/k/v/o projection with a serving pool goes through the
-indexed LoRA kernel.  Serving activations are (B, S, d); the training
-slice's leading client axis, cross-attention and MoE are not ported yet.
+Port of src/repro/models/transformer.py.  Activations are (B, S, d) when
+serving and (N, B, S, d) in SplitFT training, with the client axis N
+first.  "train" and "prefill" run full sequences through the flash
+attention kernel (differentiable: its backward is a kernel too), with the
+client axis flattened into the batch; "decode" runs one token per slot
+against a contiguous or paged KV cache through the flash-decode kernel.
+
+LoRA adapters (``lora_apply``): an "ids" leaf marks the serving pool (the
+indexed LoRA kernel); rank-2 leaves are one shared adapter (the fused
+LoRA kernel through ``common.lora_dense``); rank-3 leaves are per-client
+training adapters, batched over the client axis with einsums, as in the
+reference, where that branch is no kernel either.
 
 KV caches are updated in place (the reference returns new arrays): a
 decode tick writes one position per slot instead of copying the cache.
@@ -21,7 +27,6 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.lora_matmul import ops as lora_ops
-from repro_torch.kernels.lora_matmul import ref as lora_ref
 from repro_torch.models import common
 from repro_torch.models.common import activate, apply_norm, is_glu
 
@@ -35,23 +40,25 @@ Params = Dict[str, Any]
 def lora_apply(x, w, adapter: Optional[Params], bias=None):
     """y = x @ W (+ s (x A) B) (+ bias).
 
-    An "ids" leaf ((B,) int32) marks the serving pool layout: the A/B
-    leaves are stacked (P, ...) adapters and each row of x picks its own
-    through the indexed LoRA kernel.  Rank-2 leaves are one shared
-    adapter.  Rank-3 leaves without ids (per-client training adapters)
-    belong to the training slice."""
+    x: (N, ..., k) or (..., k).  Rank-3 adapter leaves carry a leading
+    client axis matching x's axis 0; an "ids" leaf ((B,) int32) marks the
+    serving pool layout instead (stacked (P, ...) adapters, each row of x
+    picks its own)."""
     if adapter is None:
         y = x @ w
     elif "ids" in adapter:
         y = lora_ops.lora_matmul_indexed(x, w, adapter["A"], adapter["B"],
                                          adapter["scale"], adapter["ids"])
     elif adapter["A"].dim() == 2:
-        y = lora_ref.lora_matmul(x, w, adapter["A"], adapter["B"],
-                                 adapter["scale"])
+        y = common.lora_dense(x, w, None, adapter)
     else:
-        raise NotImplementedError(
-            "per-client (rank-3) adapters are ported with the training "
-            "slice (ROADMAP.md Queue A, item 2)")
+        # per-client adapters: batch the low-rank path over axis 0
+        a, b, scale = adapter["A"], adapter["B"], adapter["scale"]
+        xa = torch.einsum("n...k,nkr->n...r", x, a)
+        delta = torch.einsum("n...r,nrd->n...d", xa, b)
+        extra = (1,) * (x.dim() - 1)          # broadcast over all but N
+        y = x @ w + scale.reshape(scale.shape[:1] + extra).to(x.dtype) \
+            * delta.to(x.dtype)
     if bias is not None:
         y = y + bias
     return y
@@ -108,7 +115,7 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
                     mem_cache: Optional[Params] = None):
     """One attention sub-block (pre-norm, residual added by the caller).
 
-    x: (B, S, d).  Returns (attn_out, new_cache).  cache: {"k": (B, Smax,
+    x: ([N,] B, S, d).  Returns (attn_out, new_cache).  cache: {"k": (B, Smax,
     KVH, hd), "v": ..., "len": (B,)} for contiguous decode, or the paged
     form {"k": (n_pages, ps, KVH, hd), "v": ..., "pages": (B, P_max),
     "len": (B,)}; its k/v tensors are written in place."""
@@ -161,7 +168,11 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
         o = o[:, None]
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + 1}
     else:
-        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+        lead = x.shape[:-2]           # ([N,] B): flatten clients into B
+        o = flash_ops.flash_attention(
+            q.reshape((-1,) + q.shape[-3:]), k.reshape((-1,) + k.shape[-3:]),
+            v.reshape((-1,) + v.shape[-3:]), causal=causal, window=window)
+        o = o.reshape(lead + o.shape[1:])
         if cache is not None:   # prefill: populate the cache
             _bulk_write(cache["k"], k)
             _bulk_write(cache["v"], v)

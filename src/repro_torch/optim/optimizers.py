@@ -1,0 +1,101 @@
+"""Optimizers as pure (init, update) pairs over trees of tensors.
+
+Port of src/repro/optim/optimizers.py.  ``update(grads, state, params,
+lr)`` returns (new_params, new_state) and changes nothing in place.  The
+step counter ``state["count"]`` is an int32 scalar tensor on the
+parameters' device: every parameter takes the same number of steps on
+the sync path (the local-steps and async engines' per-client counts come
+with those engines).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Any], Any]
+    update: Callable[..., Tuple[Any, Any]]
+
+
+def _count(params):
+    return torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+
+
+def sgd(momentum: float = 0.0, weight_decay: float = 0.0,
+        grad_clip: float = 0.0) -> Optimizer:
+    def init(params):
+        state = {"count": _count(params)}
+        if momentum:
+            state["mu"] = tree_map(torch.zeros_like, params)
+        return state
+
+    def update(grads, state, params, lr):
+        grads = _clip(grads, grad_clip)
+        new_state = {"count": state["count"] + 1}
+        step = grads
+        if momentum:
+            step = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
+            new_state["mu"] = step
+        new_params = tree_map(lambda p, s: p - lr * (s + weight_decay * p),
+                              params, step)
+        return new_params, new_state
+
+    return Optimizer(init, update)
+
+
+def adamw(beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0, grad_clip: float = 0.0) -> Optimizer:
+    def init(params):
+        zeros = lambda: tree_map(                              # noqa: E731
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+        return {"m": zeros(), "v": zeros(), "count": _count(params)}
+
+    def update(grads, state, params, lr):
+        grads = _clip(grads, grad_clip)
+        cnt = state["count"] + 1
+        m = tree_map(lambda m_, g: beta1 * m_ + (1 - beta1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: beta2 * v_ + (1 - beta2) * g.float() ** 2,
+                     state["v"], grads)
+        one = torch.ones((), dtype=torch.float32, device=cnt.device)
+        bc1 = 1 - (one * beta1) ** cnt.float()
+        bc2 = 1 - (one * beta2) ** cnt.float()
+
+        def step(p, m_, v_):
+            upd = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            return (p - lr * (upd + weight_decay * p.float()).to(p.dtype)
+                    ).to(p.dtype)
+
+        return tree_map(step, params, m, v), {"m": m, "v": v, "count": cnt}
+
+    return Optimizer(init, update)
+
+
+def _clip(grads, clip: float):
+    """Scale the whole tree to global norm <= clip: one norm over every
+    leaf, so in a client-stacked tree all clients share the scale."""
+    if not clip:
+        return grads
+    gsq = sum(g.float().square().sum() for g in tree_leaves(grads))
+    scale = torch.clamp(clip / torch.clamp(torch.sqrt(gsq), min=1e-12),
+                        max=1.0)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads)
+
+
+def make_optimizer(name: str, *, weight_decay: float = 0.0,
+                   beta1: float = 0.9, beta2: float = 0.999,
+                   eps: float = 1e-8, grad_clip: float = 0.0) -> Optimizer:
+    if name == "adamw":
+        return adamw(beta1, beta2, eps, weight_decay, grad_clip)
+    if name == "sgd":
+        return sgd(0.0, weight_decay, grad_clip)
+    if name == "sgdm":
+        return sgd(0.9, weight_decay, grad_clip)
+    raise ValueError(f"unknown optimizer {name!r}")

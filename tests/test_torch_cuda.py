@@ -7,7 +7,8 @@ has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 1e-4 (the kernels sum in another order than the plain
-versions), bf16 2e-2 (one rounding of the output to bf16).
+versions), bf16 2e-2 (one rounding of the output to bf16); the int8
+quantizers agree bit for bit (the same division and round-half-even).
 """
 
 import numpy as np
@@ -17,11 +18,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import reduced  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import rounds, smashed  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.lora_matmul import ops as lops  # noqa: E402
+from repro_torch.kernels.smashed_quant import ops as sops  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import serving  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -141,3 +145,153 @@ def test_engine_on_card_matches_serial_reference(cuda, page_size):
         gaps = (top2[:, 0] - top2[:, 1]).tolist()
         upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(gaps))
         assert r["tokens"][:upto] == want[r["rid"]][:upto]
+
+
+def _flash_inputs(gen, dtype, b=2, sq=37, sk=41, h=4, kvh=2, hd=64):
+    return (_randn(gen, b, sq, h, hd, dtype=dtype),
+            _randn(gen, b, sk, kvh, hd, dtype=dtype),
+            _randn(gen, b, sk, kvh, hd, dtype=dtype),
+            _randn(gen, b, sq, h, hd, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 9])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, window):
+    """dQ/dK/dV from the same residuals: ragged lengths, GQA 4/2, a q
+    offset that leaves no row without a key, and a 9-wide window."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, do = _flash_inputs(gen, dtype)
+    kw = dict(window=window, q_offset=4)
+    out, lse = fops.flash_attention_fwd(q, k, v, **kw)
+    want = fops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    got = fops.flash_attention_bwd(*[t.to(cuda) for t in
+                                     (q, k, v, out, lse, do)], **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_card_matches_plain(cuda, dtype):
+    """torch.autograd.grad through flash_attention on the card gives the
+    plain version's dQ/dK/dV (the forward kernel alone has no grad_fn)."""
+    gen = torch.Generator().manual_seed(5)
+    q, k, v, do = _flash_inputs(gen, dtype, sq=41)
+    grads = {}
+    for dev in ("cpu", cuda):
+        ins = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = fops.flash_attention(*ins)
+        grads[str(dev)] = torch.autograd.grad(
+            (out.float() * do.to(dev).float()).sum(), ins)
+    for g, w in zip(grads[str(cuda)], grads["cpu"]):
+        _close(g, w, dtype)
+
+
+def _lora_fused_inputs(gen, dtype, m, r, k=96, n=80):
+    mask = (torch.arange(r) < r - 2).float()        # two masked rank slots
+    return (_randn(gen, m, k, dtype=dtype),
+            _randn(gen, k, n, dtype=dtype, scale=0.1),
+            (_randn(gen, k, r, scale=0.1) * mask).to(dtype),
+            (_randn(gen, r, n, scale=0.1) * mask[:, None]).to(dtype),
+            torch.tensor(2.0),
+            _randn(gen, m, n, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,r", [(37, 5), (300, 16)])
+def test_lora_fused_kernels_match_plain(cuda, dtype, m, r):
+    """Forward (y, xa) and backward (dx, dA, dB, dscale) at ragged M and
+    an odd rank; 300 rows span two split-M slices of the backward."""
+    gen = torch.Generator().manual_seed(6)
+    x, w, a, b, s, g = _lora_fused_inputs(gen, dtype, m, r)
+    want_y, want_xa = lops.lora_matmul_fwd(x, w, a, b, s)
+    got_y, got_xa = lops.lora_matmul_fwd(*[t.to(cuda) for t in
+                                           (x, w, a, b, s)])
+    _close(got_y, want_y, dtype)
+    _close(got_xa, want_xa, dtype)
+    want = lops.lora_matmul_bwd(x, w, a, b, s, g, want_xa)
+    got = lops.lora_matmul_bwd(*[t.to(cuda) for t in
+                                 (x, w, a, b, s, g, want_xa)])
+    for gt, wt in zip(got, want):
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape
+        _close(gt, wt, dtype)
+
+
+@pytest.mark.cuda
+def test_lora_matmul_autograd_on_card_matches_plain(cuda):
+    """dx, dA, dB and dscale through lora_matmul on the card; W frozen."""
+    gen = torch.Generator().manual_seed(7)
+    x, w, a, b, s, g = _lora_fused_inputs(gen, torch.float32, 60, 8)
+    x = x.reshape(3, 20, -1)
+    grads = {}
+    for dev in ("cpu", cuda):
+        ins = [t.to(dev).requires_grad_(True) for t in (x, a, b, s)]
+        y = lops.lora_matmul(ins[0], w.to(dev), ins[1], ins[2], ins[3])
+        grads[str(dev)] = torch.autograd.grad(
+            (y * g.to(dev).reshape(3, 20, -1)).sum(), ins)
+    for gt, wt in zip(grads[str(cuda)], grads["cpu"]):
+        _close(gt, wt, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_smashed_kernels_match_plain(cuda, dtype):
+    """Quantize, dequantize and the round trip agree bit for bit, ties
+    and an all-zero channel (scale 1e-12 / 127) included."""
+    gen = torch.Generator().manual_seed(8)
+    x = _randn(gen, 3, 2, 70, 40, dtype=dtype)        # (G, B, S, d)
+    x[:, :, :, 5] = 0.0
+    x[0, 0, 0, 7] = 127.0                             # x / scale = 1 exactly
+    x[0, 0, 1, 7] = 0.5                               # a tie at .5 * scale
+    q, scale = sops.int8_quantize_smashed(x.to(cuda))
+    want_q, want_scale = sops.int8_quantize_smashed(x)
+    assert torch.equal(q.cpu(), want_q) and torch.equal(scale.cpu(),
+                                                        want_scale)
+    got = sops.int8_dequantize_smashed(q, scale, dtype)
+    assert torch.equal(got.cpu(), sops.int8_dequantize_smashed(
+        want_q, want_scale, dtype))
+    rt = sops.int8_roundtrip_smashed(x.to(cuda))
+    assert rt.dtype == dtype and torch.equal(rt.cpu(),
+                                             sops.int8_roundtrip_smashed(x))
+
+
+@pytest.mark.cuda
+def test_round_grads_on_card_match_cpu(cuda):
+    """One round's per-client losses and adapter gradients (reduced
+    gpt2-small, hd 16, cuts [1, 2, 3], int8 smashed) on the card and on
+    the CPU plain path from one state.  Gradients to 1e-2 of the largest:
+    a cotangent element within fp32 noise of an int8 rounding boundary
+    takes the neighbouring code on one side, a step of one quantum (1/127
+    of its channel's amax)."""
+    arch = reduced(get_config("gpt2-small"), layers=4, d_model=64, vocab=256,
+                   seq_len=32)
+    rng = np.random.default_rng(9)
+    toks = rng.integers(3, 256, size=(3, 2, 33)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(arch, device=dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        state = rounds.init_state(model, torch.Generator().manual_seed(1),
+                                  num_clients=3)
+        gen = torch.Generator().manual_seed(2)
+        for side in ("client_adapters", "server_adapters"):
+            for targets in state[side].values():
+                for leaf in targets.values():
+                    leaf["B"] = _randn(gen, *leaf["B"].shape,
+                                       scale=0.05).to(dev)
+        state["cuts"] = torch.tensor([1, 2, 3], dtype=torch.int32)
+        _, met, gc, gs = rounds.round_grads(
+            model, params, state, batch, np.array([0.2, 0.3, 0.5]),
+            boundary=smashed.make_boundary(smashed.make_compressor("int8"),
+                                           state["cuts"]))
+        out[str(dev)] = (met["ce"], tree_leaves(gc) + tree_leaves(gs))
+    (ce_k, g_k), (ce_c, g_c) = out[str(cuda)], out["cpu"]
+    torch.testing.assert_close(ce_k.cpu(), ce_c, rtol=1e-4, atol=1e-4)
+    scale = max(float(g.abs().max()) for g in g_c)
+    for gk, gc_ in zip(g_k, g_c):
+        torch.testing.assert_close(gk.cpu(), gc_, rtol=1e-3,
+                                   atol=1e-2 * scale)

@@ -229,11 +229,21 @@ def test_model_without_device_raises_when_no_cuda(monkeypatch):
 
 
 def test_unported_model_paths_raise(pair):
+    """Training runs since the training slice; what it left out raises:
+    remat, chunked cross entropy and stateful (EF) cut boundaries."""
     _, (model_t, params_t, _) = pair
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_t.loss(params_t, None, {})
+        model_t.loss(params_t, None, {}, remat="dots")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_t.run_blocks(params_t, None, torch.zeros(1, 2, 32), mode="train")
+        model_t.loss(params_t, None, {}, ce_chunk=8)
+
+    def ef_boundary(x, carry, fid):
+        return x, carry
+
+    ef_boundary.stateful = True
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model_t.run_blocks(params_t, None, torch.zeros(1, 2, 32),
+                           mode="train", boundary=ef_boundary)
     arch = t_reduced(t_get_config("gpt2-small"), **SMALL)
     rope = arch.replace(model=dataclasses.replace(arch.model, use_rope=True))
     with pytest.raises(NotImplementedError, match="RoPE"):
