@@ -1,7 +1,7 @@
 """Architecture config registry of the PyTorch port.
 
-Only the architectures whose whole serving path has been ported are
-registered; ``get_config`` of any other name of the reference's registry
+Only the architectures whose serving or training path has been ported
+are registered; ``get_config`` of any other name of the reference's registry
 says that the architecture is not yet ported (ROADMAP.md, Queue A).
 Names resolve with dashes or underscores, as in the reference.
 """
@@ -16,13 +16,14 @@ from repro_torch.config import ArchConfig
 # registry id -> module name
 _REGISTRY: Dict[str, str] = {
     "gpt2-small": "gpt2_small",
+    "mamba2-780m": "mamba2_780m",
 }
 
 # the reference's other registry ids: known, not yet ported
 _NOT_YET_PORTED = (
     "internvl2-76b", "zamba2-1.2b", "qwen1.5-32b", "phi4-mini-3.8b",
     "llama3-8b", "mistral-large-123b", "kimi-k2-1t-a32b",
-    "llama4-maverick-400b-a17b", "mamba2-780m", "whisper-medium",
+    "llama4-maverick-400b-a17b", "whisper-medium",
     "opt-125m", "gpt-neo-125m",
 )
 

@@ -77,6 +77,9 @@ SIGNATURES: Dict[str, List] = {
     "smashed_quantize": [P, P, P, I, I, I, I, P],
     # q, scale, x, G, M, d, dtype_code, stream
     "smashed_dequantize": [P, P, P, I, I, I, I, P],
+    # x, dt, a, bm, c, y, cum workspace, states workspace, B, S, H, G, P,
+    # N, chunk, dtype_code, stream
+    "ssd_scan_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -17,10 +17,11 @@ reference, as nested dicts of tensors with the reference's names):
 
 Training activations carry the client axis first ((N, B, S, d)); caches
 are updated in place and returned.  This slice ports the dense decoder
-with learned positions (gpt2-small).  ``remat`` other than "none",
-chunked cross entropy (``ce_chunk``), stateful (error-feedback) cut
-boundaries, the encoder and the SSM/MoE kinds raise NotImplementedError
-with a pointer to ROADMAP.md.
+with learned positions (gpt2-small) and, for training, the SSM kind
+(mamba2-780m, ``models/ssm.py``).  ``remat`` other than "none", chunked
+cross entropy (``ce_chunk``), stateful (error-feedback) cut boundaries,
+the encoder, the MoE kind and SSM caches raise NotImplementedError with a
+pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -33,12 +34,13 @@ from torch import nn
 
 from repro_torch.config import ArchConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import common, transformer
+from repro_torch.models import common, ssm, transformer
 from repro_torch.models.common import apply_norm
 
 Params = Dict[str, Any]
 
 _LATER = "ROADMAP.md Queue A, item 2"
+_FAMILIES = "ROADMAP.md Queue A, item 6"
 
 
 def _ce_sums(logits, labels, mask, keep: int):
@@ -123,7 +125,7 @@ def flat_runs(groups: Sequence[GroupSpec]) -> List[Tuple[str, int, int]]:
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         return f"the {cfg.family} family"
     if cfg.use_rope:
         return "RoPE"
@@ -165,7 +167,7 @@ class Model(nn.Module):
         if missing:
             raise NotImplementedError(
                 f"{arch.name}: {missing} is not ported to repro_torch yet "
-                "(ROADMAP.md Queue A, item 8)")
+                f"({_FAMILIES})")
         self.device = resolve_device(device)
         self.groups: Tuple[GroupSpec, ...] = build_groups(self.cfg)
         self.runs = flat_runs(self.groups)
@@ -190,6 +192,9 @@ class Model(nn.Module):
         p["final_norm"] = common.init_norm(
             cfg.d_model, bias=cfg.norm == "layernorm", dtype=dtype)
         for g in self.groups:
+            if g.kind == "ssm":
+                p[g.name] = ssm.init_ssm(generator, cfg, g.size, dtype=dtype)
+                continue
             p[g.name] = transformer.init_attention(
                 generator, cfg, g.size, cross=g.cross, dtype=dtype)
             if cfg.d_ff:
@@ -209,19 +214,25 @@ class Model(nn.Module):
         spec: Dict[str, Dict[str, Tuple[int, int]]] = {}
         for g in self.groups:
             t: Dict[str, Tuple[int, int]] = {}
-            if "q" in want:
-                t["q"] = (d, h * hd)
-            if "k" in want:
-                t["k"] = (d, kvh * hd)
-            if "v" in want:
-                t["v"] = (d, kvh * hd)
-            if "o" in want:
-                t["o"] = (h * hd, d)
-            if g.kind == "attn_mlp" and cfg.d_ff:
-                if "mlp_in" in want:
-                    t["mlp_in"] = (d, cfg.d_ff)
-                if "mlp_out" in want:
-                    t["mlp_out"] = (cfg.d_ff, d)
+            if g.kind == "ssm":
+                if "ssm_in" in want:
+                    t["ssm_in"] = (d, ssm.in_proj_dim(cfg))
+                if "ssm_out" in want:
+                    t["ssm_out"] = (cfg.d_inner, d)
+            else:
+                if "q" in want:
+                    t["q"] = (d, h * hd)
+                if "k" in want:
+                    t["k"] = (d, kvh * hd)
+                if "v" in want:
+                    t["v"] = (d, kvh * hd)
+                if "o" in want:
+                    t["o"] = (h * hd, d)
+                if g.kind == "attn_mlp" and cfg.d_ff:
+                    if "mlp_in" in want:
+                        t["mlp_in"] = (d, cfg.d_ff)
+                    if "mlp_out" in want:
+                        t["mlp_out"] = (cfg.d_ff, d)
             if t:
                 spec[g.name] = t
         return spec
@@ -284,18 +295,23 @@ class Model(nn.Module):
                 p_l = _index_tree(params[g.name], i)
                 ad_l = _index_tree(adapters.get(g.name) if adapters else None,
                                    i)
-                c_l = None
-                if cache is not None:
-                    c_l = {"k": cache[g.name]["k"][i],
-                           "v": cache[g.name]["v"][i], "len": cache_len}
-                    if pages is not None:
-                        c_l["pages"] = pages
-                attn_out, _ = transformer.attention_apply(
-                    p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
-                    window=g.window_of(i), cache=c_l)
-                x = x + attn_out
-                if cfg.d_ff:
-                    x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
+                if g.kind == "ssm":
+                    out, _ = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
+                                           cache=cache)
+                    x = x + out
+                else:
+                    c_l = None
+                    if cache is not None:
+                        c_l = {"k": cache[g.name]["k"][i],
+                               "v": cache[g.name]["v"][i], "len": cache_len}
+                        if pages is not None:
+                            c_l["pages"] = pages
+                    attn_out, _ = transformer.attention_apply(
+                        p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
+                        window=g.window_of(i), cache=c_l)
+                    x = x + attn_out
+                    if cfg.d_ff:
+                        x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
                 if boundary is not None:
                     x = boundary(x, run_flat_lo + (i - lo))
         new_cache = None
@@ -316,7 +332,7 @@ class Model(nn.Module):
         if "prefix" in batch or "frames" in batch:
             raise NotImplementedError(
                 "modality prefixes and encoder frames are not ported yet "
-                "(ROADMAP.md Queue A, item 8)")
+                f"({_FAMILIES})")
         cfg = self.cfg
         tokens = batch["tokens"]
         positions = (cache["len"][..., None] if mode == "decode"
@@ -361,8 +377,7 @@ class Model(nn.Module):
 
     def encode(self, *args, **kwargs):
         raise NotImplementedError(
-            "Model.encode (whisper) is not ported yet (ROADMAP.md Queue A, "
-            "item 8)")
+            f"Model.encode (whisper) is not ported yet ({_FAMILIES})")
 
     def prefill(self, params, adapters, batch, cache):
         x, _, cache = self.forward(params, adapters, batch, cache=cache,
@@ -385,6 +400,8 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"cache lead {lead}: caches with a client axis are not "
                 f"ported yet ({_LATER})")
+        if any(g.kind == "ssm" for g in self.groups):
+            raise NotImplementedError(f"{self.arch.name}: {ssm.SERVING_LATER}")
         batch = lead[-1]
         cache: Params = {"len": torch.zeros((batch,), dtype=torch.int32,
                                             device=self.device)}

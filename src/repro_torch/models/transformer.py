@@ -82,7 +82,7 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
     if cross:
         raise NotImplementedError(
             "cross-attention (whisper) is not ported yet (ROADMAP.md "
-            "Queue A, item 8)")
+            "Queue A, item 6)")
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = (n_layers,)
     p: Params = {
@@ -122,7 +122,7 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     if memory is not None or mem_cache is not None:
         raise NotImplementedError(
             "cross-attention (whisper) is not ported yet (ROADMAP.md "
-            "Queue A, item 8)")
+            "Queue A, item 6)")
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = x.shape[-2]
 

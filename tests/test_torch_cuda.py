@@ -9,6 +9,8 @@ has only PyTorch:
 Tolerances: fp32 1e-4 (the kernels sum in another order than the plain
 versions), bf16 2e-2 (one rounding of the output to bf16); the int8
 quantizers agree bit for bit (the same division and round-half-even).
+The SSD scan's outputs grow with the chunk's sums, so its absolute
+tolerance is scaled by max|y|.
 """
 
 import numpy as np
@@ -23,6 +25,7 @@ from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.lora_matmul import ops as lops  # noqa: E402
 from repro_torch.kernels.smashed_quant import ops as sops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import serving  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -295,3 +298,73 @@ def test_round_grads_on_card_match_cpu(cuda):
     for gk, gc_ in zip(g_k, g_c):
         torch.testing.assert_close(gk.cpu(), gc_, rtol=1e-3,
                                    atol=1e-2 * scale)
+
+
+def _ssd_inputs(gen, dtype, b, s, h, p, g, n, dt_scale=1.0):
+    """SSD inputs near mamba2's: dt = softplus(. + 0.5), A = -exp(.)."""
+    x = _randn(gen, b, s, h, p, dtype=dtype)
+    dt = torch.nn.functional.softplus(_randn(gen, b, s, h) + 0.5) * dt_scale
+    a = -torch.exp(_randn(gen, h, scale=0.5))
+    bm = _randn(gen, b, s, g, n, dtype=dtype, scale=0.3)
+    c = _randn(gen, b, s, g, n, dtype=dtype, scale=0.3)
+    return x, dt, a, bm, c
+
+
+def _ssd_close(got, want, dtype):
+    tol = TOL[dtype]
+    torch.testing.assert_close(
+        got.cpu().float(), want.float(), rtol=tol,
+        atol=tol * max(1.0, float(want.float().abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 4, 16, 1, 16, 16),
+                                   (1, 160, 4, 64, 2, 128, 80),
+                                   (1, 512, 3, 64, 1, 128, 256)])
+def test_ssd_kernel_matches_plain(cuda, dtype, shape):
+    """G = 1 and 2; chunks of 16, 80 (not a multiple of the 64-row tile)
+    and 256 with dt ~ 3, where a chunk's decay passes exp(88)."""
+    b, s, h, p, g, n, chunk = shape
+    gen = torch.Generator().manual_seed(10)
+    ins = _ssd_inputs(gen, dtype, b, s, h, p, g, n,
+                      dt_scale=3.0 if chunk == 256 else 1.0)
+    got = ssd_ops.ssd_scan(*[t.to(cuda) for t in ins], chunk=chunk)
+    want = ssd_ops.ref.ssd_chunked(*ins, chunk=chunk)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _ssd_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_ssd_autograd_on_card_matches_plain(cuda):
+    """The kernel's forward with the plain recompute backward on the card
+    against plain autograd on the CPU, at chunk 256 past exp(88)."""
+    gen = torch.Generator().manual_seed(11)
+    ins = _ssd_inputs(gen, torch.float32, 1, 512, 2, 16, 1, 32)
+    gy = _randn(gen, 1, 512, 2, 16)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in ins]
+        y = ssd_ops.ssd_scan(*leaves, chunk=256)
+        grads[str(dev)] = torch.autograd.grad((y * gy.to(dev)).sum(), leaves)
+    for gk, gc in zip(grads[str(cuda)], grads["cpu"]):
+        assert torch.isfinite(gk).all()
+        torch.testing.assert_close(gk.cpu(), gc, rtol=1e-4,
+                                   atol=1e-4 * float(gc.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(130, 1536, 6448), (2560, 1536, 6448),
+                                   (2560, 3072, 1536)])
+def test_lora_fused_forward_at_mamba2_ragged_width(cuda, m, k, n):
+    """mamba2's ssm_in (K = 1536, N = 6448, not a multiple of the 64-wide
+    tile) and ssm_out (K = 3072, N = 1536), rank 16, at a ragged M and at
+    the eval step's M = 5 clients x batch 1 x seq 512."""
+    gen = torch.Generator().manual_seed(12)
+    x, w, a, b, s, _ = _lora_fused_inputs(gen, torch.float32, m, 16,
+                                          k=k, n=n)
+    want_y, want_xa = lops.lora_matmul_fwd(x, w, a, b, s)
+    got_y, got_xa = lops.lora_matmul_fwd(*[t.to(cuda) for t in
+                                           (x, w, a, b, s)])
+    _close(got_y, want_y, torch.float32)
+    _close(got_xa, want_xa, torch.float32)
