@@ -3,11 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from src/repro_torch/csrc, holds each
-against its plain PyTorch version on the card (fp32 and bf16; the
-differentiable ones through autograd too), and times it beside its bound,
-the plain version and a library call.  Then it drives the port's three
-paths at full width (random weights from a seed):
+Builds the port's CUDA kernels from src/repro_torch/csrc and shows that
+each flash attention kernel runs on the tensor cores (HMMA instructions in
+its SASS, no spills); holds each kernel against its plain PyTorch version
+on the card (fp32 and bf16; the differentiable ones through autograd too),
+and times it beside its bound, the plain version and a library call.  A
+product-shaped fp32 kernel's bound takes the card's fastest fp32-accurate
+route, 3xTF32 on the tensor cores.  Then it drives the port's three paths
+at full width (random weights from a seed):
 
   * serving gpt2-small: 4 LoRA adapters through ServingEngine, contiguous
     and paged, tokens checked against the one-request reference and
@@ -47,6 +50,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"float32": 67e12,    # fp32 outside the tensor cores
               "bfloat16": 989e12}  # dense bf16 tensor cores
+TF32_FLOPS = 495e12                # dense TF32 tensor cores; 3xTF32 takes
+                                   # three TF32 MMAs per fp32-accurate product
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LOGITS_TOL = 1e-3
 TOP2_GAP = 1e-4
@@ -77,6 +82,14 @@ SSD_CASES = [(2, 64, 4, 16, 1, 16, 16, 1.0), (1, 256, 8, 64, 2, 128, 64, 1.0),
              (1, 512, 4, 64, 1, 128, 256, 3.0)]
 # ... and at the mamba2 training path's shape (5 clients x batch 1)
 SSD_PATH = (5, 512, 48, 64, 1, 128, 256)
+# flash forward and backward at the kernels' tile edges (16-row warp tile,
+# 8-key accumulator tile, 64-key tile): (Sq, Sk, hd, window, q_offset) at
+# B 2, GQA 4/2; (200, 1) with window 9 and offset 4 leaves rows that see
+# no key
+FLASH_EDGES = [(1, 1, 16, 0, 0), (15, 15, 32, 9, 4), (16, 16, 64, 0, 4),
+               (17, 17, 16, 9, 0), (63, 63, 32, 0, 0), (64, 64, 64, 9, 4),
+               (65, 65, 16, 0, 4), (200, 200, 32, 9, 0), (1, 200, 64, 0, 4),
+               (200, 1, 64, 9, 4), (17, 65, 32, 0, 0), (65, 17, 16, 9, 0)]
 
 
 def log(msg: str) -> None:
@@ -112,10 +125,88 @@ def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops: float, dtype: str, products: bool = False):
+    """(ms, what bounds it): the larger of the bytes over the memory rate
+    and the operations over the card's fastest route for them.  For
+    product-shaped fp32 work (products=True) that route is 3xTF32 on the
+    tensor cores, 3 x FLOPs at the TF32 rate, which keeps fp32-class
+    accuracy; elementwise fp32 work runs at the CUDA-core rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if products and dtype == "float32":
+        t_ops, by = 3 * flops / TF32_FLOPS * 1e3, "operations (3xTF32)"
+    else:
+        t_ops, by = flops / PEAK_FLOPS[dtype] * 1e3, "operations"
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, by)
+
+
+def work(nbytes: float, flops: float, products: bool = False) -> dict:
+    """A phase 3 row's bound (fp32).  For products it also keeps the bound
+    on the CUDA cores alone (the bound before the 3xTF32 route), which the
+    log prints beside it."""
+    cc = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["float32"]) * 1e3
+    return dict(bound=bound(nbytes, flops, "float32", products),
+                cuda_core_bound=cc if products else None)
+
+
+def flash_build_report(_build, lib_path) -> None:
+    """Phase 1: each flash kernel's registers and spills (ptxas -v, from
+    the build's logs), its dynamic shared memory, and the count of
+    tensor-core MMA instructions (HMMA) in its SASS (cuobjdump -sass).
+    Fails if a flash kernel spills or has no HMMA."""
+    import re
+    kern = re.compile(r"(flash_fwd_kernel|flash_bwd_dq_kernel|"
+                      r"flash_bwd_dkv_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+
+    def label(mangled):
+        m = kern.search(mangled)
+        return m and (m.group(1), "fp32" if m.group(2) == "f" else "bf16",
+                      int(m.group(3)))
+
+    info = {}
+    for stem in ("flash_fwd", "flash_bwd"):
+        cur = None
+        for line in (lib_path.parent / f"{stem}.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = label(m.group(1))
+                if cur:
+                    info[cur] = {"hmma": 0}
+                continue
+            if not cur:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                info[cur]["stack"] = int(m.group(1))
+                info[cur]["spills"] = int(m.group(2)) + int(m.group(3))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                info[cur]["regs"] = int(m.group(1))
+    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = label(m.group(1))
+        elif cur in info and "HMMA" in line:
+            info[cur]["hmma"] += 1
+    if not info:
+        raise RuntimeError("no flash kernel in the build's ptxas output")
+    lib = _build.library()
+    code = {"fp32": 0, "bf16": 1}
+    for (name, dt, hd), r in sorted(info.items()):
+        smem = (lib.flash_fwd_smem(hd, code[dt]) if "fwd" in name else
+                lib.flash_bwd_smem(int("dkv" in name), hd, code[dt]))
+        log(f"phase 1: {name}<{dt}, hd {hd}>: {r.get('regs')} "
+            f"registers, {smem} B dynamic shared memory, {r.get('stack')} B "
+            f"stack, {r.get('spills')} B spilled, {r['hmma']} HMMA in SASS")
+    bad = [k for k, r in info.items() if r["hmma"] == 0 or r.get("spills")]
+    if bad:
+        raise RuntimeError(f"flash kernels without tensor-core MMAs or with "
+                           f"spills: {bad}")
 
 
 def device_busy(torch, run):
@@ -216,6 +307,7 @@ def main() -> int:
     log(f"phase 1: built {lib_path.name} from "
         f"{[p.name for p in _build.sources()]} in "
         f"{time.perf_counter() - t0:.1f} s")
+    flash_build_report(_build, lib_path)
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -272,6 +364,7 @@ def main() -> int:
                         dname, f"paged decode window={window}")
             errs["decode_attention_paged"] = max(
                 errs["decode_attention_paged"], e)
+        check_flash_edges(torch, rand, dname, dt, errs)
         check_training_kernels(torch, rand, dname, dt, errs)
         check_mamba2_kernels(torch, rand, dname, dt, errs)
         log(f"phase 2 ({dname}, tol {TOL[dname]}): max |kernel - plain| "
@@ -290,9 +383,10 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: fops.ref.attention_fwd(q, k, v)),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
-        bound=bound(4 * (4 * b * s * h * hd + b * h * s),
-                    4 * hd * h * b * pairs, "float32"),
-        shape=f"B={b} S={s} H={h} hd={hd} causal fp32")
+        # read q, k, v; write out, lse.  Per visible pair: s and p v
+        **work(4 * (4 * b * s * h * hd + b * h * s), 4 * hd * h * b * pairs,
+               products=True),
+        shape=f"B={b} S={s} H={h} hd={hd} causal fp32 (serving prefill)")
     m, kd, r = SLOTS, 768, 16
     args = lora_args(torch, rand, m, torch.float32, gen)
     n_ids = int(torch.unique(args[5]).numel())
@@ -300,9 +394,8 @@ def main() -> int:
         ms=cuda_ms(torch, lambda: lops.lora_matmul_indexed(*args)),
         plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_indexed(*args)),
         library_ms=None,
-        bound=bound(4 * (m * kd + kd * kd + n_ids * 2 * kd * r + m * kd
-                         + 4 + m),
-                    2 * m * kd * kd + 4 * m * kd * r, "float32"),
+        **work(4 * (m * kd + kd * kd + n_ids * 2 * kd * r + m * kd + 4 + m),
+               2 * m * kd * kd + 4 * m * kd * r),
         shape=f"M={m} K=N={kd} r={r} P=4 fp32")
     lens = [128 + 4 * i for i in range(SLOTS)]
     q1, kc, vc, clen = decode_args(torch, rand, torch.float32, dev,
@@ -321,7 +414,7 @@ def main() -> int:
             q1, kc, vc, clen)),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask)),
-        bound=bound(dec_bytes, dec_flops, "float32"),
+        **work(dec_bytes, dec_flops),
         shape=f"B={SLOTS} S={MAX_LEN} cache_len {lens[0]}..{lens[-1]} fp32")
     rows["decode_attention_paged"] = dict(
         ms=cuda_ms(torch, lambda: dops.decode_attention_paged(
@@ -329,10 +422,11 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: dops.ref.decode_attention_paged(
             q1, kp, vp, pt, clen)),
         library_ms=None,
-        bound=bound(dec_bytes + 4 * pt.numel(), dec_flops, "float32"),
+        **work(dec_bytes + 4 * pt.numel(), dec_flops),
         shape=f"B={SLOTS} ps={PAGE} cache_len {lens[0]}..{lens[-1]} fp32")
     rows.update(time_training_kernels(torch, F, rand, worst))
     rows.update(time_ssd_kernel(torch, rand, worst))
+    rows.update(time_mamba2_lora(torch, rand, worst))
     for kname, row in rows.items():
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
@@ -340,10 +434,13 @@ def main() -> int:
         if "composition_ms" in row:
             extra = (f", torch composition {row['composition']} "
                      f"{row['composition_ms']:.4f} ms")
+        if row["cuda_core_bound"] is not None:
+            extra += (f"; fp32 CUDA-core bound "
+                      f"{row['cuda_core_bound']:.4f} ms")
         log(f"phase 3 [{name}, {card}] {kname} at {row['shape']}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-            f"{lib} ms{extra}, bound {row['bound'][0]:.4f} ms "
-            f"({row['bound'][1]})")
+            f"{lib} ms, bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]}){extra}")
 
     # -- phase 4: the serving path ------------------------------------------
     arch = get_config("gpt2-small")
@@ -524,6 +621,30 @@ def profile_run(torch, serving, engine, reqs, name, card):
         + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in top))
 
 
+def check_flash_edges(torch, rand, dname, dt, errs):
+    """Phase 2: the flash forward and backward against their plain
+    versions at FLASH_EDGES."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    for sq, sk, hd, window, q_offset in FLASH_EDGES:
+        q, do = rand(2, sq, 4, hd, dtype=dt), rand(2, sq, 4, hd, dtype=dt)
+        k, v = rand(2, sk, 2, hd, dtype=dt), rand(2, sk, 2, hd, dtype=dt)
+        kw = dict(window=window, q_offset=q_offset)
+        what = f"Sq={sq} Sk={sk} hd={hd} window={window} q_offset={q_offset}"
+        out, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        r_out, r_lse = fops.ref.attention_fwd(q, k, v, **kw)
+        errs["flash_attention_fwd"] = max(
+            errs["flash_attention_fwd"],
+            max_err(torch, out, r_out, dname, f"flash {what}"),
+            max_err(torch, lse, r_lse, dname, f"flash lse {what}"))
+        got = fops.flash_attention_bwd(q, k, v, r_out, r_lse, do, **kw)
+        want = fops.ref.attention_bwd(q, k, v, r_out, r_lse, do, **kw)
+        errs["flash_attention_bwd"] = max(
+            [errs["flash_attention_bwd"]]
+            + [max_err(torch, g, w, dname, f"flash bwd {what} d{n}")
+               for n, g, w in zip("qkv", got, want)])
+
+
 def check_training_kernels(torch, rand, dname, dt, errs):
     """Phase 2 for the training slice's kernels: each against its plain
     version on the same inputs, and the differentiable ones through
@@ -645,19 +766,35 @@ def time_training_kernels(torch, F, rand, errs):
         at_path[kname] = 0.0
 
     rows = {}
-    # flash backward: 12 per train step at B*H = 5 clients x 4 x 12 heads
+    # flash forward and backward: 12 each per train step at B*H = 5
+    # clients x 4 x 12 heads
     b, s, h, hd = 20, 512, 12, 64
     q, k, v, do = (rand(b, s, h, hd) for _ in range(4))
     out, lse = fops.flash_attention_fwd(q, k, v)
+    check("flash_attention_fwd",
+          zip((out, lse), fops.ref.attention_fwd(q, k, v)),
+          f"flash fwd B={b} S={s} H={h}")
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
+    pairs = b * h * s * (s + 1) // 2
+    with torch.no_grad():
+        rows["flash_attention_fwd (gpt2 train)"] = dict(
+            ms=cuda_ms(torch, lambda: fops.flash_attention_fwd(q, k, v),
+                       iters=20),
+            plain_ms=cuda_ms(torch, lambda: fops.ref.attention_fwd(q, k, v),
+                             iters=10),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters=20),
+            **work(4 * (4 * b * s * h * hd + b * h * s), 4 * hd * pairs,
+                   products=True),
+            shape=f"B={b} S={s} H={h} hd={hd} causal fp32 (B*H={b * h}, "
+                  f"the gpt2 train and eval steps)")
     o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     do_t = do.transpose(1, 2).contiguous()
     check("flash_attention_bwd",
           zip(fops.flash_attention_bwd(q, k, v, out, lse, do),
               fops.ref.attention_bwd(q, k, v, out, lse, do)),
           f"flash bwd B={b} S={s} H={h}")
-    pairs = b * h * s * (s + 1) // 2
     rows["flash_attention_bwd"] = dict(
         ms=cuda_ms(torch, lambda: fops.flash_attention_bwd(q, k, v, out, lse,
                                                            do), iters=20),
@@ -667,8 +804,8 @@ def time_training_kernels(torch, F, rand, errs):
             o_lib, (qt, kt, vt), do_t, retain_graph=True), iters=20),
         # read q, k, v, out, do, lse; write dq, dk, dv.  Per visible pair:
         # s, dp, dq, dk, dv, 2 hd FLOPs each
-        bound=bound(4 * (8 * b * s * h * hd + b * h * s), 10 * hd * pairs,
-                    "float32"),
+        **work(4 * (8 * b * s * h * hd + b * h * s), 10 * hd * pairs,
+               products=True),
         shape=f"B={b} S={s} H={h} hd={hd} causal fp32 (B*H={b * h}); "
               f"library = SDPA backward through autograd")
     # fused LoRA: 48 per eval step over every token of the 5 clients
@@ -695,8 +832,8 @@ def time_training_kernels(torch, F, rand, errs):
         library_ms=None,
         composition="x@W + s*(x@A)@B (three cuBLAS GEMMs)",
         composition_ms=cuda_ms(torch, lambda: x @ w + sc * ((x @ a) @ bb)),
-        bound=bound(4 * (2 * m * kd + kd * kd + 2 * kd * r + m * r + 1),
-                    mat + 2 * low, "float32"),
+        **work(4 * (2 * m * kd + kd * kd + 2 * kd * r + m * r + 1),
+               mat + 2 * low, products=True),
         shape=f"M={m} K=N={kd} r={r} fp32")
 
     def composition_bwd():
@@ -713,8 +850,8 @@ def time_training_kernels(torch, F, rand, errs):
         composition="g@W^T + s*(g@B^T)@A^T, s*x^T@gb, s*xa^T@g (cuBLAS)",
         composition_ms=cuda_ms(torch, composition_bwd),
         # read x, W, A, B, g, xa; write dx, dA, dB
-        bound=bound(4 * (3 * m * kd + kd * kd + 4 * kd * r + m * r + 2),
-                    mat + 4 * low + 2 * m * r, "float32"),
+        **work(4 * (3 * m * kd + kd * kd + 4 * kd * r + m * r + 2),
+               mat + 4 * low + 2 * m * r, products=True),
         shape=f"M={m} K=N={kd} r={r} fp32")
     # smashed int8: 2 per distinct cut layer per train step, 5 messages
     gq, mq, dq = 5, 2048, 768
@@ -737,21 +874,21 @@ def time_training_kernels(torch, F, rand, errs):
         plain_ms=cuda_ms(torch, lambda: sops.ref.roundtrip(
             xs.reshape(gq, mq, dq))),
         library_ms=None,
-        bound=bound(4 * 2 * elems, 6 * elems, "float32"),
+        **work(4 * 2 * elems, 6 * elems),
         shape=f"G={gq} M={mq} d={dq} fp32")
     rows["int8_quantize_smashed"] = dict(
         ms=cuda_ms(torch, lambda: sops.int8_quantize_smashed(xs)),
         plain_ms=cuda_ms(torch, lambda: sops.ref.quantize(
             xs.reshape(gq, mq, dq))),
         library_ms=None,
-        bound=bound(5 * elems + 4 * gq * dq, 5 * elems, "float32"),
+        **work(5 * elems + 4 * gq * dq, 5 * elems),
         shape=f"G={gq} M={mq} d={dq} fp32 -> int8")
     rows["int8_dequantize_smashed"] = dict(
         ms=cuda_ms(torch, lambda: sops.int8_dequantize_smashed(q8, scale)),
         plain_ms=cuda_ms(torch, lambda: sops.ref.dequantize(
             q8.reshape(gq, mq, dq), scale)),
         library_ms=None,
-        bound=bound(5 * elems + 4 * gq * dq, elems, "float32"),
+        **work(5 * elems + 4 * gq * dq, elems),
         shape=f"G={gq} M={mq} d={dq} int8 -> fp32")
     for kname, e in at_path.items():
         errs[kname] = max(errs[kname], e)
@@ -859,13 +996,55 @@ def time_ssd_kernel(torch, rand, errs):
             plain_ms=cuda_ms(torch, lambda: ssd_ops.ref.ssd_chunked(
                 *ins, chunk=q), iters=10),
             library_ms=None,
-            bound=bound(nbytes, flops, "float32"),
+            **work(nbytes, flops, products=True),
             shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={q} fp32 "
                   f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
                   f"max |kernel - plain| {e:.3e}; kernel forward + plain "
                   f"recompute backward through autograd "
                   f"{fwd_bwd_ms:.4f} ms)")
     return {"ssd_scan": row}
+
+
+def time_mamba2_lora(torch, rand, errs):
+    """Phase 3 for the fused LoRA forward at the mamba2 eval step's shapes
+    (fp32): M = clients x M_BATCH x M_SEQ rows through ssm_in (K 1536,
+    N 6448) and ssm_out (K 3072, N 1536), 48 launches each per eval step,
+    beside the cuBLAS composition, so that PERF.md can order it by
+    launches x (time - bound)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.models.ssm import in_proj_dim
+
+    arch = get_config("mamba2-780m")
+    m, r = arch.data.num_clients * M_BATCH * M_SEQ, arch.lora.r_others
+    d = arch.model.d_model
+    rows = {}
+    for proj, kd, n in (("ssm_in", d, in_proj_dim(arch.model)),
+                        ("ssm_out", arch.model.d_inner, d)):
+        x = rand(m, kd)
+        w = rand(kd, n, scale=kd ** -0.5)
+        a, bb = rand(kd, r, scale=r ** -0.5), rand(r, n, scale=0.02)
+        sc = torch.tensor(2.0, device=x.device)
+        y, xa = lops.lora_matmul_fwd(x, w, a, bb, sc)
+        want_y, want_xa = lops.ref.lora_matmul_fwd(x, w, a, bb, sc)
+        e = max(max_err(torch, y, want_y, "float32", f"lora fwd {proj}"),
+                max_err(torch, xa, want_xa, "float32", f"lora xa {proj}"))
+        errs["lora_matmul_fwd"] = max(errs["lora_matmul_fwd"], e)
+        rows[f"lora_matmul_fwd (mamba2 {proj})"] = dict(
+            ms=cuda_ms(torch, lambda: lops.lora_matmul_fwd(x, w, a, bb, sc),
+                       iters=20),
+            plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_fwd(
+                x, w, a, bb, sc), iters=20),
+            library_ms=None,
+            composition="x@W + s*(x@A)@B (three cuBLAS GEMMs)",
+            composition_ms=cuda_ms(torch, lambda: x @ w + sc * ((x @ a) @ bb),
+                                   iters=20),
+            **work(4 * (m * kd + kd * n + kd * r + r * n + 1 + m * n + m * r),
+                   2 * m * kd * n + 2 * m * kd * r + 2 * m * r * n,
+                   products=True),
+            shape=f"M={m} K={kd} N={n} r={r} fp32 (max |kernel - plain| "
+                  f"{e:.3e})")
+    return rows
 
 
 def client_data(arch):

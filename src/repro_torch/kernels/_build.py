@@ -11,6 +11,9 @@ PyTorch header is included, so a build takes seconds, not minutes.
   * The library lands in ``build/repro_torch/<hash of the sources>/`` at
     the repo root, written under a temporary name and renamed, so
     processes that build at the same time never load a half-written file.
+  * ``nvcc``'s output for each source, with ``ptxas -v``'s registers,
+    shared memory and spills of each kernel, is kept beside the library
+    as ``<source stem>.log``.
   * A failed build raises with nvcc's output.  There is no fallback: a
     kernel that does not build is an error, not a reason to run the plain
     PyTorch version.
@@ -37,7 +40,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 LIB_NAME = "librepro_torch_kernels.so"
 
@@ -50,6 +53,10 @@ SIGNATURES: Dict[str, List] = {
     # q, k, v, out, lse, B, Sq, Sk, H, KVH, hd, q_offset, causal, window,
     # scale, dtype_code, stream
     "flash_fwd": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I, P],
+    # hd, dtype_code -> dynamic shared memory of a forward CTA (bytes)
+    "flash_fwd_smem": [I, I],
+    # dkv (0: the dq kernel, 1: dk/dv), hd, dtype_code -> its bytes
+    "flash_bwd_smem": [I, I, I],
     # x, w, a_pool, b_pool, scale, ids, xa scratch, y, M, K, N, R, P,
     # dtype_code, stream
     "lora_indexed": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
@@ -122,18 +129,21 @@ def find_nvcc() -> str:
         "a CUDA tensor")
 
 
-def _run_all(cmds: List[List[str]]) -> None:
-    """Run the commands concurrently; raise with the output of any failure."""
+def _run_all(cmds: List[List[str]]) -> List[str]:
+    """Run the commands concurrently; return their outputs, or raise with
+    the output of any failure."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
-    errors = []
+    errors, outs = [], []
     for cmd, proc in zip(cmds, procs):
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             errors.append(f"$ {' '.join(cmd)}\n{out}")
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return outs
 
 
 def build(out_dir: Optional[Path] = None) -> Path:
@@ -154,7 +164,9 @@ def build(out_dir: Optional[Path] = None) -> Path:
         objs.append(obj)
         cmds.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
                      "-o", str(obj)])
-    _run_all(cmds)
+    for src, out in zip(sources(), _run_all(cmds)):
+        # ptxas -v: registers, shared memory and spills of every kernel
+        (out_dir / f"{src.stem}.log").write_text(out)
     tmp = out_dir / f"{LIB_NAME}.{tag}"
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *map(str, objs)]])

@@ -40,6 +40,12 @@ def _check(q, k, v, *others):
             raise ValueError("flash_attention: all tensors on one device")
         if not t.is_contiguous():
             raise ValueError("flash_attention: tensors must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(
+            ("do", t) for t in others[2:]):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             f"16-byte boundary (the kernels stage it with "
+                             f"16-byte copies)")
     return _build.dtype_code(q.dtype)
 
 

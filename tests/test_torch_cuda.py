@@ -50,19 +50,30 @@ def _close(got, want, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+# Sq / Sk pairs that cross the kernels' edges: the 16-row warp tile, the
+# 8-key accumulator tile, the 64-key tile, and lengths that divide none
+FLASH_SIZES = [(s, s) for s in (1, 15, 16, 17, 63, 64, 65, 200)] + [
+    (1, 200), (200, 1), (17, 65), (65, 17), (15, 64), (63, 16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 9])
-def test_flash_kernel_matches_plain(cuda, dtype, window):
-    """Ragged lengths (37 divides no tile), GQA 4/2, and a q offset."""
-    gen = torch.Generator().manual_seed(0)
-    q = _randn(gen, 2, 37, 4, 64, dtype=dtype)
-    k = _randn(gen, 2, 41, 2, 64, dtype=dtype)
-    v = _randn(gen, 2, 41, 2, 64, dtype=dtype)
+@pytest.mark.parametrize("q_offset", [0, 4])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("sq,sk", FLASH_SIZES)
+def test_flash_kernel_matches_plain(cuda, dtype, window, q_offset, hd, sq,
+                                    sk):
+    """Ragged lengths at every tile edge, GQA 4/2, each head dim, a q
+    offset, and a 9-wide window."""
+    gen = torch.Generator().manual_seed(sq * 1000 + sk)
+    q = _randn(gen, 2, sq, 4, hd, dtype=dtype)
+    k = _randn(gen, 2, sk, 2, hd, dtype=dtype)
+    v = _randn(gen, 2, sk, 2, hd, dtype=dtype)
     out, lse = fops.flash_attention_fwd(q.to(cuda), k.to(cuda), v.to(cuda),
-                                        window=window, q_offset=4)
+                                        window=window, q_offset=q_offset)
     want, want_lse = fops.flash_attention_fwd(q, k, v, window=window,
-                                              q_offset=4)
+                                              q_offset=q_offset)
     _close(out, want, dtype)
     _close(lse, want_lse, dtype)
 
@@ -160,12 +171,17 @@ def _flash_inputs(gen, dtype, b=2, sq=37, sk=41, h=4, kvh=2, hd=64):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 9])
-def test_flash_bwd_kernel_matches_plain(cuda, dtype, window):
-    """dQ/dK/dV from the same residuals: ragged lengths, GQA 4/2, a q
-    offset that leaves no row without a key, and a 9-wide window."""
-    gen = torch.Generator().manual_seed(4)
-    q, k, v, do = _flash_inputs(gen, dtype)
-    kw = dict(window=window, q_offset=4)
+@pytest.mark.parametrize("q_offset", [0, 4])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("sq,sk", FLASH_SIZES)
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, window, q_offset, hd,
+                                        sq, sk):
+    """dQ/dK/dV from the same residuals: ragged lengths at every tile
+    edge, GQA 4/2, each head dim, a q offset and a 9-wide window (rows
+    that see no key included)."""
+    gen = torch.Generator().manual_seed(4 + sq * 1000 + sk)
+    q, k, v, do = _flash_inputs(gen, dtype, sq=sq, sk=sk, hd=hd)
+    kw = dict(window=window, q_offset=q_offset)
     out, lse = fops.flash_attention_fwd(q, k, v, **kw)
     want = fops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     got = fops.flash_attention_bwd(*[t.to(cuda) for t in
@@ -173,6 +189,67 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, window):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_row_without_keys_is_zero(cuda, dtype):
+    """Rows whose 9-wide window ends before the first key (position 4 +
+    qi >= 9 with one key) get zeros, lse 0 and zero gradients, never NaN."""
+    gen = torch.Generator().manual_seed(6)
+    q, k, v, do = _flash_inputs(gen, dtype, sq=17, sk=1)
+    kw = dict(window=9, q_offset=4)
+    q, k, v, do = (t.to(cuda) for t in (q, k, v, do))
+    out, lse = fops.flash_attention_fwd(q, k, v, **kw)
+    dq, dk, dv = fops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    blind = slice(5, None)                 # 4 + qi >= 9
+    assert torch.equal(out[:, blind].cpu(), torch.zeros_like(out[:, blind].cpu()))
+    assert torch.equal(lse.reshape(2, 4, 17)[..., blind].cpu(),
+                       torch.zeros(2, 4, 12))
+    assert torch.equal(dq[:, blind].cpu(), torch.zeros_like(dq[:, blind].cpu()))
+    for t in (out, lse, dq, dk, dv):
+        assert torch.isfinite(t.float()).all()
+    assert out[:, :5].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,bucket,window", [(37, 64, 0), (37, 128, 0),
+                                             (100, 256, 9), (1, 16, 0),
+                                             (64, 65, 0)])
+def test_flash_padded_prompt_rows_are_bit_equal(cuda, dtype, n, bucket,
+                                                window):
+    """A prompt's rows equal, bit for bit, the same prompt's rows padded to
+    a serving bucket with large garbage: masked keys contribute exact
+    zeros, whatever tile or grid the longer launch takes."""
+    gen = torch.Generator().manual_seed(n + bucket)
+    q, k, v = (_randn(gen, 1, n, 12, 64, dtype=dtype) for _ in range(3))
+
+    def pad(t):
+        junk = _randn(gen, 1, bucket - n, 12, 64, dtype=dtype, scale=100.0)
+        return torch.cat([t, junk], 1).to(cuda)
+
+    out, lse = fops.flash_attention_fwd(q.to(cuda), k.to(cuda), v.to(cuda),
+                                        window=window)
+    pout, plse = fops.flash_attention_fwd(pad(q), pad(k), pad(v),
+                                          window=window)
+    assert torch.equal(out, pout[:, :n])
+    assert torch.equal(lse.reshape(12, n), plse.reshape(12, bucket)[:, :n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_deterministic(cuda, dtype):
+    """Two backward calls on the same inputs give the same bits (no
+    atomics; the GQA group sum is a loop in one CTA)."""
+    gen = torch.Generator().manual_seed(8)
+    q, k, v, do = (t.to(cuda) for t in _flash_inputs(
+        gen, dtype, b=3, sq=300, sk=300, h=8, kvh=2))
+    out, lse = fops.flash_attention_fwd(q, k, v)
+    first = fops.flash_attention_bwd(q, k, v, out, lse, do)
+    again = fops.flash_attention_bwd(q, k, v, out, lse, do)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
