@@ -82,6 +82,19 @@ SSD_CASES = [(2, 64, 4, 16, 1, 16, 16, 1.0), (1, 256, 8, 64, 2, 128, 64, 1.0),
              (1, 512, 4, 64, 1, 128, 256, 3.0)]
 # ... and at the mamba2 training path's shape (5 clients x batch 1)
 SSD_PATH = (5, 512, 48, 64, 1, 128, 256)
+# more SSD cases for the tensor-core passes: H / G of 1, 2, 4 and 8, P of
+# 16 and 32 (the P tiles), N of 16 and 256, a chunk of 80 (not a multiple
+# of the 64-row tile), and the state past exp(88) at chunk 256
+SSD_EDGES = [(1, 256, 8, 16, 1, 256, 64, 1.0),
+             (2, 160, 8, 32, 4, 64, 80, 1.0),
+             (1, 512, 16, 16, 2, 16, 256, 3.0),
+             (1, 128, 4, 64, 4, 32, 16, 1.0)]
+# the fused LoRA at the wide pass's tile edges: (M, K, N, r); M, K and N
+# off the 64/128-row, 128-column and 32/64-deep tiles, K = 61 and 97 and
+# N = 83 not 16-byte aligned rows (x, W, dx's W^T and A^T), M past one
+# split-M slice of the backward, and r of 1, 5, 8, 16 and 64
+LORA_EDGES = [(37, 96, 80, 5), (1000, 768, 768, 16), (1, 61, 80, 1),
+              (130, 97, 136, 8), (257, 96, 83, 64), (300, 768, 6448, 16)]
 # flash forward and backward at the kernels' tile edges (16-row warp tile,
 # 8-key accumulator tile, 64-key tile): (Sq, Sk, hd, window, q_offset) at
 # B 2, GQA 4/2; (200, 1) with window 9 and offset 4 leaves rows that see
@@ -148,22 +161,36 @@ def work(nbytes: float, flops: float, products: bool = False) -> dict:
                 cuda_core_bound=cc if products else None)
 
 
-def flash_build_report(_build, lib_path) -> None:
-    """Phase 1: each flash kernel's registers and spills (ptxas -v, from
-    the build's logs), its dynamic shared memory, and the count of
-    tensor-core MMA instructions (HMMA) in its SASS (cuobjdump -sass).
-    Fails if a flash kernel spills or has no HMMA."""
+# the tensor-core kernels of phase 1's report: mangled name -> source stem
+MMA_KERNELS = {"flash_fwd_kernel": "flash_fwd",
+               "flash_bwd_dq_kernel": "flash_bwd",
+               "flash_bwd_dkv_kernel": "flash_bwd",
+               "lora_gemm_kernel": "lora_fused",
+               "lora_xa_mma_kernel": "lora_fused",
+               "ssd_chunk_state": "ssd_scan", "ssd_cb": "ssd_scan",
+               "ssd_chunk_scan": "ssd_scan"}
+
+
+def mma_build_report(_build, lib_path) -> None:
+    """Phase 1: each tensor-core kernel's registers and spills (ptxas -v,
+    from the build's logs), its dynamic shared memory (the SSD passes' at
+    the mamba2 path's N and chunk), and the count of tensor-core MMA
+    instructions (HMMA) in its SASS (cuobjdump -sass), for every
+    instantiation of the flash, fused LoRA (thin pass and GEMM) and SSD
+    scan kernels.
+    Fails if one spills, has no HMMA, or a kernel is missing."""
     import re
-    kern = re.compile(r"(flash_fwd_kernel|flash_bwd_dq_kernel|"
-                      r"flash_bwd_dkv_kernel)I(f|13__nv_bfloat16)Li(\d+)E")
+    kern = re.compile(r"(" + "|".join(MMA_KERNELS) + r")I(f|13__nv_bfloat16)"
+                      r"((?:L[ib]\d+E)*)E")
 
     def label(mangled):
         m = kern.search(mangled)
         return m and (m.group(1), "fp32" if m.group(2) == "f" else "bf16",
-                      int(m.group(3)))
+                      tuple(int(v) for v in re.findall(r"L[ib](\d+)E",
+                                                       m.group(3))))
 
     info = {}
-    for stem in ("flash_fwd", "flash_bwd"):
+    for stem in sorted(set(MMA_KERNELS.values())):
         cur = None
         for line in (lib_path.parent / f"{stem}.log").read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -193,19 +220,43 @@ def flash_build_report(_build, lib_path) -> None:
             cur = label(m.group(1))
         elif cur in info and "HMMA" in line:
             info[cur]["hmma"] += 1
-    if not info:
-        raise RuntimeError("no flash kernel in the build's ptxas output")
+    missing = set(MMA_KERNELS) - {name for name, _, _ in info}
+    if missing:
+        raise RuntimeError(f"tensor-core kernels missing from the build's "
+                           f"ptxas output: {sorted(missing)}")
     lib = _build.library()
     code = {"fp32": 0, "bf16": 1}
-    for (name, dt, hd), r in sorted(info.items()):
-        smem = (lib.flash_fwd_smem(hd, code[dt]) if "fwd" in name else
-                lib.flash_bwd_smem(int("dkv" in name), hd, code[dt]))
-        log(f"phase 1: {name}<{dt}, hd {hd}>: {r.get('regs')} "
+    _, _, _, _, _, n_path, q_path = SSD_PATH
+    for (name, dt, args), r in sorted(info.items()):
+        c = code[dt]
+        if name.startswith("flash"):
+            hd = args[0]
+            smem = (lib.flash_fwd_smem(hd, c) if "fwd" in name else
+                    lib.flash_bwd_smem(int("dkv" in name), hd, c))
+            what = f"hd {hd}"
+        elif name == "lora_xa_mma_kernel":
+            rn, kn = args
+            smem = lib.lora_fused_xa_smem(rn, kn, c)
+            what = (f"thin pass {'xa = x @ A' if kn else 'gb = g @ B^T'}, "
+                    f"ranks up to {rn}")
+        elif name == "lora_gemm_kernel":
+            bm, kn = args
+            smem = lib.lora_fused_smem(bm, kn, c)
+            what = (f"{bm} x 128 tile, W read "
+                    f"{'k-major (forward)' if kn else 'n-major (dx)'}")
+        else:
+            kind = {"ssd_chunk_state": 0, "ssd_cb": 1,
+                    "ssd_chunk_scan": 2}[name]
+            pt = args[0] if args else 64
+            smem = lib.ssd_scan_smem(kind, pt, n_path, q_path, c)
+            what = (f"P tile {pt}, " if args else "") + \
+                f"at N {n_path} chunk {q_path}"
+        log(f"phase 1: {name}<{dt}, {what}>: {r.get('regs')} "
             f"registers, {smem} B dynamic shared memory, {r.get('stack')} B "
             f"stack, {r.get('spills')} B spilled, {r['hmma']} HMMA in SASS")
     bad = [k for k, r in info.items() if r["hmma"] == 0 or r.get("spills")]
     if bad:
-        raise RuntimeError(f"flash kernels without tensor-core MMAs or with "
+        raise RuntimeError(f"tensor-core kernels without MMAs or with "
                            f"spills: {bad}")
 
 
@@ -254,6 +305,59 @@ def host_top(torch, run, top: int = 8):
     rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return wall, [(e.key, e.self_cpu_time_total * 1e-3, e.count)
                   for e in rows[:top]]
+
+
+def pass_ms(torch, fn, names, iters: int = 10):
+    """Device ms per call of each kernel whose name contains one of
+    `names`, from torch.profiler over `iters` calls of fn; None when the
+    profiler recorded no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    _, busy, by_name = device_busy(torch, lambda: [fn() for _ in
+                                                   range(iters)])
+    if busy is None:
+        return None
+    return {n: sum(v for k, v in by_name.items() if n in k) * 1e3 / iters
+            for n in names}
+
+
+def fmt_passes(passes) -> str:
+    if passes is None:
+        return "per-pass device time not measured (no profiler activity)"
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
+
+
+LORA_PASSES = ("lora_xa_mma_kernel", "lora_gemm_kernel")
+SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_cb",
+              "ssd_chunk_scan")
+
+
+def ssd_executed_flops(b, s, h, p, g, n, q, ks=8):
+    """FLOPs the SSD kernel's MMAs execute (2 per multiply-add, one TF32
+    pass), by pass, from its tiling (csrc/ssd_scan.cu): P padded to the
+    16/32/64 tile, N to 16 (and to 128-column passes in the chunk state),
+    64-row tiles, each warp's seen 8-column blocks of a diagonal tile."""
+    tq, nc = 64, s // q
+    pt = 16 if p <= 16 else 32 if p <= 32 else 64
+    nk = (n + 15) // 16 * 16
+    ntile = (q + tq - 1) // tq
+    ksteps = sum((min(tq, q - i * tq) + ks - 1) // ks * ks
+                 for i in range(ntile))
+    state = pt * 128 * ((n + 127) // 128) * ksteps * 2
+
+    def seen(z, it, w):
+        nj = 8 if it < z else 2 * w + 2
+        nj = min(nj, (q - it * tq + 7) // 8)
+        return (nj + 1) // 2 * 2 if ks == 16 else nj
+
+    cb = sum(16 * 8 * seen(z, it, w) * nk * 2 for z in range(ntile)
+             for it in range(z + 1) for w in range(4))
+    scan = sum(tq * pt * nk * 2 + sum(16 * pt * 8 * seen(z, it, w) * 2
+                                      for it in range(z + 1)
+                                      for w in range(4))
+               for z in range(ntile))
+    return {"chunk_state": b * h * nc * state, "cb": b * g * nc * cb,
+            "chunk_scan": b * h * nc * scan}
 
 
 def max_err(torch, got, want, dtype: str, what: str,
@@ -307,7 +411,7 @@ def main() -> int:
     log(f"phase 1: built {lib_path.name} from "
         f"{[p.name for p in _build.sources()]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    flash_build_report(_build, lib_path)
+    mma_build_report(_build, lib_path)
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -437,6 +541,10 @@ def main() -> int:
         if row["cuda_core_bound"] is not None:
             extra += (f"; fp32 CUDA-core bound "
                       f"{row['cuda_core_bound']:.4f} ms")
+        if "tile" in row:
+            extra += f"; wide pass in {row['tile']} x 128 CTAs"
+        if "passes" in row:
+            extra += f"; per pass (profiler): {fmt_passes(row['passes'])}"
         log(f"phase 3 [{name}, {card}] {kname} at {row['shape']}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
             f"{lib} ms, bound {row['bound'][0]:.4f} ms "
@@ -645,6 +753,14 @@ def check_flash_edges(torch, rand, dname, dt, errs):
                for n, g, w in zip("qkv", got, want)])
 
 
+def same_bits(torch, kname, first, again, what):
+    """Two calls of a kernel on the same inputs give the same bits."""
+    for u, v in zip(first, again):
+        if not torch.equal(u, v):
+            raise RuntimeError(f"{kname} at {what}: two calls on the same "
+                               f"inputs differ")
+
+
 def check_training_kernels(torch, rand, dname, dt, errs):
     """Phase 2 for the training slice's kernels: each against its plain
     version on the same inputs, and the differentiable ones through
@@ -682,8 +798,8 @@ def check_training_kernels(torch, rand, dname, dt, errs):
                                do)
     worst("flash_attention_bwd", zip(got, want), "flash autograd")
 
-    for m, kd, n, r in ((37, 96, 80, 5), (1000, 768, 768, 16)):
-        mask = (torch.arange(r) < r - 2).float().to(q.device)
+    for m, kd, n, r in LORA_EDGES:
+        mask = (torch.arange(r) < max(1, r - 2)).float().to(q.device)
         x, g = rand(m, kd, dtype=dt), rand(m, n, dtype=dt)
         w = rand(kd, n, dtype=dt, scale=kd ** -0.5)
         a = (rand(kd, r, scale=r ** -0.5) * mask).to(dt)
@@ -691,12 +807,15 @@ def check_training_kernels(torch, rand, dname, dt, errs):
         sc = torch.tensor(2.0, device=q.device)
         y, xa = lops.lora_matmul_fwd(x, w, a, bb, sc)
         want_y, want_xa = lops.ref.lora_matmul_fwd(x, w, a, bb, sc)
+        what = f"M={m} K={kd} N={n} r={r}"
         worst("lora_matmul_fwd", [(y, want_y), (xa, want_xa)],
-              f"lora fwd M={m} r={r}")
+              f"lora fwd {what}")
+        same_bits(torch, "lora_matmul_fwd", (y, xa),
+                  lops.lora_matmul_fwd(x, w, a, bb, sc), what)
         worst("lora_matmul_bwd",
               zip(lops.lora_matmul_bwd(x, w, a, bb, sc, g, want_xa),
                   lops.ref.lora_matmul_bwd(x, w, a, bb, sc, g, want_xa)),
-              f"lora bwd M={m} r={r}")
+              f"lora bwd {what}")
     # autograd through common.lora_dense (W frozen) vs plain autograd
     ins = [t.clone().requires_grad_(True) for t in (x, a, bb, sc)]
     yk = common.lora_dense(ins[0], w, None,
@@ -748,6 +867,7 @@ def time_training_kernels(torch, F, rand, errs):
     the int8 kernels bit for bit), and errs[kernel] takes the larger
     error."""
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels import _build
     from repro_torch.kernels.lora_matmul import ops as lops
     from repro_torch.kernels.smashed_quant import ops as sops
 
@@ -832,6 +952,9 @@ def time_training_kernels(torch, F, rand, errs):
         library_ms=None,
         composition="x@W + s*(x@A)@B (three cuBLAS GEMMs)",
         composition_ms=cuda_ms(torch, lambda: x @ w + sc * ((x @ a) @ bb)),
+        passes=pass_ms(torch, lambda: lops.lora_matmul_fwd(x, w, a, bb, sc),
+                       LORA_PASSES),
+        tile=_build.library().lora_fused_tile(m, kd),
         **work(4 * (2 * m * kd + kd * kd + 2 * kd * r + m * r + 1),
                mat + 2 * low, products=True),
         shape=f"M={m} K=N={kd} r={r} fp32")
@@ -930,9 +1053,12 @@ def check_mamba2_kernels(torch, rand, dname, dt, errs):
     from repro_torch.models.ssm import in_proj_dim
 
     decays = []
-    for b, s, h, p, g, n, chunk, dt_scale in SSD_CASES:
+    for b, s, h, p, g, n, chunk, dt_scale in SSD_CASES + SSD_EDGES:
         ins = ssd_inputs(torch, rand, b, s, h, p, g, n, dt, dt_scale)
         y = ssd_ops.ssd_scan(*ins, chunk=chunk)
+        same_bits(torch, "ssd_scan", (y,),
+                  (ssd_ops.ssd_scan(*ins, chunk=chunk),),
+                  f"S={s} H={h} G={g} P={p} N={n} chunk={chunk}")
         if not torch.isfinite(y).all():
             raise RuntimeError(f"SSD kernel: non-finite output at S={s} "
                                f"chunk={chunk} ({dname})")
@@ -966,8 +1092,10 @@ def check_mamba2_kernels(torch, rand, dname, dt, errs):
 def time_ssd_kernel(torch, rand, errs):
     """Phase 3 for the SSD kernel at the mamba2 training path's shape
     (fp32): the timed call's result held against its plain version on the
-    same inputs, then kernel and plain times beside the bound.  No
-    PyTorch call computes the SSD scan: the library column is null.
+    same inputs, then kernel and plain times beside the bound, the device
+    time of each of its four passes, and the FLOPs its MMAs execute beside
+    the bound's.  No PyTorch call computes the SSD scan: the library
+    column is null.
 
     Bound: read x, dt, A, B, C once and write y once; operations per
     (b, h, chunk) are the inter-chunk term C . s (2 Q N P), the state
@@ -982,8 +1110,13 @@ def time_ssd_kernel(torch, rand, errs):
                 "ssd at the path's shape", scaled=True)
     errs["ssd_scan"] = max(errs["ssd_scan"], e)
     nc, pairs = s // q, q * (q + 1) // 2
-    flops = b * nc * (h * (4 * q * n * p + 2 * pairs * p) + g * 2 * pairs * n)
+    cb_flops = b * nc * g * 2 * pairs * n
+    flops = b * nc * h * (4 * q * n * p + 2 * pairs * p) + cb_flops
     nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n)
+    executed = ssd_executed_flops(b, s, h, p, g, n, q)
+    if executed["cb"] > 2 * cb_flops:
+        raise RuntimeError(f"SSD C.B^T executes {executed['cb']} FLOPs, "
+                           f"over 2x the per-group {cb_flops}")
     # the train step's use: the kernel forward, then the plain recompute
     # backward (the difference of the two times is the backward's)
     leaves = [t.clone().requires_grad_(True) for t in ins]
@@ -996,9 +1129,18 @@ def time_ssd_kernel(torch, rand, errs):
             plain_ms=cuda_ms(torch, lambda: ssd_ops.ref.ssd_chunked(
                 *ins, chunk=q), iters=10),
             library_ms=None,
+            passes=pass_ms(torch, lambda: ssd_ops.ssd_scan(*ins, chunk=q),
+                           SSD_PASSES),
             **work(nbytes, flops, products=True),
             shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={q} fp32 "
-                  f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+                  f"({flops / 1e9:.2f} GFLOP in the bound, "
+                  f"{sum(executed.values()) / 1e9:.2f} executed by the MMAs "
+                  f"(chunk state {executed['chunk_state'] / 1e9:.2f}, "
+                  f"C.B^T {executed['cb'] / 1e9:.3f} = "
+                  f"{executed['cb'] / cb_flops:.2f}x the per-group causal "
+                  f"{cb_flops / 1e9:.3f}, chunk scan "
+                  f"{executed['chunk_scan'] / 1e9:.2f}); "
+                  f"{nbytes / 1e6:.1f} MB; "
                   f"max |kernel - plain| {e:.3e}; kernel forward + plain "
                   f"recompute backward through autograd "
                   f"{fwd_bwd_ms:.4f} ms)")
@@ -1012,6 +1154,7 @@ def time_mamba2_lora(torch, rand, errs):
     beside the cuBLAS composition, so that PERF.md can order it by
     launches x (time - bound)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     from repro_torch.kernels.lora_matmul import ops as lops
     from repro_torch.models.ssm import in_proj_dim
 
@@ -1039,6 +1182,9 @@ def time_mamba2_lora(torch, rand, errs):
             composition="x@W + s*(x@A)@B (three cuBLAS GEMMs)",
             composition_ms=cuda_ms(torch, lambda: x @ w + sc * ((x @ a) @ bb),
                                    iters=20),
+            passes=pass_ms(torch, lambda: lops.lora_matmul_fwd(
+                x, w, a, bb, sc), LORA_PASSES),
+            tile=_build.library().lora_fused_tile(m, n),
             **work(4 * (m * kd + kd * n + kd * r + r * n + 1 + m * n + m * r),
                    2 * m * kd * n + 2 * m * kd * r + 2 * m * r * n,
                    products=True),

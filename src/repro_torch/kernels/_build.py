@@ -78,15 +78,28 @@ SIGNATURES: Dict[str, List] = {
     "lora_fused_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     # M -> row slices of the backward's split-M workspace
     "lora_fused_work_slices": [I],
+    # M, N -> rows of a wide-pass CTA (64 or 128)
+    "lora_fused_tile": [I, I],
+    # rows of the CTA, W read k-major (1: forward) or n-major (0: dx),
+    # dtype_code -> dynamic shared memory of a wide-pass CTA (bytes)
+    "lora_fused_smem": [I, I, I],
+    # rank tile (16, 32, 64), Y read k-major (1: the forward's xa = x @ A)
+    # or n-major (0: the backward's gb = g @ B^T), dtype_code -> dynamic
+    # shared memory of a thin-pass CTA (bytes)
+    "lora_fused_xa_smem": [I, I, I],
     # x, y, G, M, d, dtype_code, stream
     "smashed_roundtrip": [P, P, I, I, I, I, P],
     # x, q, scale, G, M, d, dtype_code, stream
     "smashed_quantize": [P, P, P, I, I, I, I, P],
     # q, scale, x, G, M, d, dtype_code, stream
     "smashed_dequantize": [P, P, P, I, I, I, I, P],
-    # x, dt, a, bm, c, y, cum workspace, states workspace, B, S, H, G, P,
-    # N, chunk, dtype_code, stream
+    # x, dt, a, bm, c, y, cum workspace, states workspace (the chunk
+    # states, then the per-group C.B^T tiles), B, S, H, G, P, N, chunk,
+    # dtype_code, stream
     "ssd_scan_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # pass (0 chunk state, 1 C.B^T, 2 chunk scan), head-dim tile (16, 32,
+    # 64), N, chunk, dtype_code -> dynamic shared memory of a CTA (bytes)
+    "ssd_scan_smem": [I, I, I, I, I],
 }
 
 # dtype codes shared with csrc/common.cuh

@@ -60,8 +60,11 @@ def ssd_scan_fwd(x, dt, a, bm, c, *, chunk: int):
     code = _build.dtype_code(x.dtype)
     y = torch.empty_like(x)
     cum = torch.empty((b * h, s), dtype=torch.float32, device=x.device)
-    states = torch.empty((b * h, s // chunk, p, n), dtype=torch.float32,
-                         device=x.device)
+    # the chunk states (B*H, S/Q, P, N), then the per-group C.B^T tiles
+    # (B, G, S/Q, Q, Q)
+    nc = s // chunk
+    states = torch.empty((b * h * nc * p * n + b * g * nc * chunk * chunk,),
+                         dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.library().ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),

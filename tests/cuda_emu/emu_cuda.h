@@ -1,20 +1,23 @@
-// CPU emulation of the CUDA features the flash kernels use, for
-// tests/test_torch_flash_emulated.py: one std::thread per CUDA thread, a
-// std::barrier for __syncthreads, and the warp-level collectives (shuffle,
-// mma.sync) through per-warp exchange buffers with PTX's fragment layouts.
-// The test rewrites each inline-asm statement of the kernel sources into
-// the emu_* call of the same instruction, each launch into emu_launch, and
+// CPU emulation of the CUDA features the port's tensor-core kernels use,
+// for tests/test_torch_*_emulated.py (built by build.py).  Each CUDA
+// thread of a block is a fiber (ucontext) on the calling OS thread; a
+// fiber runs until it waits at a barrier (__syncthreads, or a warp's
+// exchange inside a shuffle or mma.sync), and the block's scheduler then
+// resumes the next runnable fiber, so an emulated kernel keeps one core
+// busy however many threads its blocks have.  Warp-level collectives go
+// through per-warp exchange buffers with PTX's fragment layouts.  The
+// test rewrites each inline-asm statement of the kernel sources into the
+// emu_* call of the same instruction, each launch into emu_launch, and
 // the dynamic shared memory into emu_smem; blocks run one after another.
 #pragma once
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <functional>
 #include <memory>
-#include <thread>
+#include <ucontext.h>
 #include <vector>
 using std::max;
 using std::min;
@@ -35,6 +38,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx, blockIdx;
+struct alignas(8) float2 { float x, y; };
 inline cudaError_t cudaGetLastError() { return 0; }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
@@ -44,14 +48,50 @@ inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 
-// ---- block and warp state ----
+// ---- fibers, barriers, block and warp state ----
+struct EmuFiber {
+  ucontext_t ctx;
+  int state;  // 0 runnable, 1 waiting at a barrier, 2 done
+};
+struct EmuSched {
+  ucontext_t main;
+  std::vector<EmuFiber> fibers;
+  int cur = 0;
+  const std::function<void()>* body = nullptr;
+};
+inline thread_local EmuSched* emu_sched = nullptr;
+
+// back to the block's scheduler; returns when this fiber is resumed
+inline void emu_yield() {
+  EmuSched& s = *emu_sched;
+  swapcontext(&s.fibers[s.cur].ctx, &s.main);
+}
+
+struct EmuBarrier {
+  int expected;
+  int count = 0;
+  std::vector<int> waiters;
+  explicit EmuBarrier(int n) : expected(n) {}
+  void arrive_and_wait() {
+    EmuSched& s = *emu_sched;
+    if (++count == expected) {  // the last to arrive releases the others
+      count = 0;
+      for (int w : waiters) s.fibers[w].state = 0;
+      waiters.clear();
+      return;
+    }
+    waiters.push_back(s.cur);
+    s.fibers[s.cur].state = 1;
+    emu_yield();
+  }
+};
 struct EmuWarp {
-  std::barrier<> bar{32};
+  EmuBarrier bar{32};
   float f[32][8];
   uint32_t u[32][8];
 };
 struct EmuBlock {
-  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<EmuBarrier> bar;
   std::vector<std::unique_ptr<EmuWarp>> warps;
 };
 inline thread_local EmuBlock* emu_block = nullptr;
@@ -71,27 +111,71 @@ inline float __shfl_xor_sync(unsigned, float x, int m) {
   return r;
 }
 
+inline void emu_fiber_main() {
+  EmuSched& s = *emu_sched;
+  (*s.body)();
+  s.fibers[s.cur].state = 2;  // uc_link returns to the scheduler
+}
+
+// the fibers' stacks, shared by every launch (pages are touched only as
+// deep as the kernels go)
+inline char* emu_stacks(size_t bytes) {
+  static thread_local std::unique_ptr<char[]> area;
+  static thread_local size_t size = 0;
+  if (size < bytes) {
+    area.reset(new char[bytes]);
+    size = bytes;
+  }
+  return area.get();
+}
+
 template <class F>
 void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
+  constexpr size_t STACK = 256 * 1024;
   if (smem > sizeof(emu_smem)) std::abort();
   const int nt = block.x;
+  char* stacks = emu_stacks(nt * STACK);
+  const std::function<void()> fn = body;
+  EmuSched sched;
+  sched.body = &fn;
+  sched.fibers.resize(nt);
+  EmuSched* outer = emu_sched;
+  emu_sched = &sched;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::memset(emu_smem, 0xCD, smem);  // garbage, as on the card
       EmuBlock blk;
-      blk.bar = std::make_unique<std::barrier<>>(nt);
+      blk.bar = std::make_unique<EmuBarrier>(nt);
       for (int w = 0; w < (nt + 31) / 32; ++w)
         blk.warps.push_back(std::make_unique<EmuWarp>());
-      std::vector<std::thread> ts;
-      for (int t = 0; t < nt; ++t)
-        ts.emplace_back([&, t] {
+      emu_block = &blk;
+      blockIdx = dim3(bx, by, bz);
+      for (int t = 0; t < nt; ++t) {
+        EmuFiber& f = sched.fibers[t];
+        getcontext(&f.ctx);
+        f.ctx.uc_stack.ss_sp = stacks + t * STACK;
+        f.ctx.uc_stack.ss_size = STACK;
+        f.ctx.uc_link = &sched.main;
+        makecontext(&f.ctx, emu_fiber_main, 0);
+        f.state = 0;
+      }
+      for (int done = 0; done < nt;) {
+        bool ran = false;
+        done = 0;
+        for (int t = 0; t < nt; ++t) {
+          EmuFiber& f = sched.fibers[t];
+          if (f.state == 2) { ++done; continue; }
+          if (f.state != 0) continue;
+          ran = true;
+          sched.cur = t;
           threadIdx = dim3(t);
-          blockIdx = dim3(bx, by);
-          emu_block = &blk;
-          body();
-        });
-      for (auto& th : ts) th.join();
+          swapcontext(&sched.main, &f.ctx);
+        }
+        if (!ran && done < nt) std::abort();  // every live fiber waits
+      }
     }
+  emu_sched = outer;
 }
 
 // ---- PTX instructions ----

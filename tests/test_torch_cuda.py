@@ -445,3 +445,86 @@ def test_lora_fused_forward_at_mamba2_ragged_width(cuda, m, k, n):
                                            (x, w, a, b, s)])
     _close(got_y, want_y, torch.float32)
     _close(got_xa, want_xa, torch.float32)
+
+
+# the fused LoRA at the wide pass's tile edges: (M, K, N, r); K = 61 and
+# 97 and N = 83 leave rows not 16-byte aligned; (300, 768, 6448) takes the
+# 128-row CTAs with a ragged M and N
+LORA_RAGGED = [(1, 61, 80, 1), (37, 96, 80, 5), (130, 97, 136, 8),
+               (257, 96, 83, 64), (300, 768, 6448, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LORA_RAGGED,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_lora_fused_ragged_matches_plain(cuda, dtype, case):
+    """Forward (y, xa) and backward (dx, dA, dB, dscale) with M, K and N off
+    the tiles, unaligned rows and r of 1 to 64."""
+    m, k, n, r = case
+    gen = torch.Generator().manual_seed(m + k + n + r)
+    x, w, a, b, s, g = _lora_fused_inputs(gen, dtype, m, r, k=k, n=n)
+    want_y, want_xa = lops.lora_matmul_fwd(x, w, a, b, s)
+    got_y, got_xa = lops.lora_matmul_fwd(*[t.to(cuda) for t in
+                                           (x, w, a, b, s)])
+    _close(got_y, want_y, dtype)
+    _close(got_xa, want_xa, dtype)
+    want = lops.lora_matmul_bwd(x, w, a, b, s, g, want_xa)
+    got = lops.lora_matmul_bwd(*[t.to(cuda) for t in
+                                 (x, w, a, b, s, g, want_xa)])
+    for i, (gt, wt) in enumerate(zip(got, want)):
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape
+        if i == 0:
+            _close(gt, wt, dtype)
+        else:   # dA, dB, dscale reduce over M rows: tolerance scales
+            _ssd_close(gt, wt, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_fused_is_deterministic(cuda, dtype):
+    """Two forward and two backward calls on the same inputs give the same
+    bits (fixed-order sums, no atomics)."""
+    gen = torch.Generator().manual_seed(13)
+    args = [t.to(cuda) for t in _lora_fused_inputs(gen, dtype, 2560, 16,
+                                                   k=1536, n=6448)]
+    x, w, a, b, s, g = args
+    first = lops.lora_matmul_fwd(x, w, a, b, s)
+    for u, v in zip(first, lops.lora_matmul_fwd(x, w, a, b, s)):
+        assert torch.equal(u, v)
+    grads = lops.lora_matmul_bwd(x, w, a, b, s, g, first[1])
+    for u, v in zip(grads, lops.lora_matmul_bwd(x, w, a, b, s, g, first[1])):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 128, 256])
+@pytest.mark.parametrize("chunk", [16, 64, 256])
+@pytest.mark.parametrize("heads_per_group", [1, 2, 4, 8])
+@pytest.mark.parametrize("groups", [1, 2, 3])
+def test_ssd_kernel_grouped_matches_plain(cuda, dtype, n, chunk,
+                                          heads_per_group, groups):
+    """C.B^T once per group: G of 1 to 3 with H / G of 1 to 8, state widths
+    16, 128 and 256, chunks of 16, 64 and 256 (dt ~ 3 at 256, where a
+    chunk's decay passes exp(88))."""
+    h = groups * heads_per_group
+    gen = torch.Generator().manual_seed(groups * 1000 + heads_per_group * 100
+                                        + chunk + n)
+    ins = _ssd_inputs(gen, dtype, 1, 512, h, 64 if h <= 8 else 16, groups,
+                      n, dt_scale=3.0 if chunk == 256 else 1.0)
+    got = ssd_ops.ssd_scan(*[t.to(cuda) for t in ins], chunk=chunk)
+    want = ssd_ops.ref.ssd_chunked(*ins, chunk=chunk)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _ssd_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_is_deterministic(cuda, dtype):
+    """Two calls at the mamba2 path's shape give the same bits."""
+    gen = torch.Generator().manual_seed(14)
+    ins = [t.to(cuda) for t in _ssd_inputs(gen, dtype, 5, 512, 48, 64, 1,
+                                           128)]
+    first = ssd_ops.ssd_scan(*ins, chunk=256)
+    assert torch.equal(first, ssd_ops.ssd_scan(*ins, chunk=256))

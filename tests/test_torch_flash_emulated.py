@@ -1,15 +1,16 @@
 """The flash kernels' CUDA source, run on the CPU by a warp emulator.
 
-The kernels (src/repro_torch/csrc/flash_fwd.cu, flash_bwd.cu and
-flash_mma.cuh) are compiled with g++ against the headers in
-tests/cuda_emu/: every CUDA thread is a std::thread, __syncthreads a
-barrier, and the warp-level instructions (shuffles, mma.sync with PTX's
-fragment layouts, 16-byte cp.async with zero fill) are emulated per warp.
-Each inline-asm statement of the sources is rewritten into the emulator
-call of the same instruction; an asm the rewriter does not know fails the
-test.  The emulated MMA multiplies exactly and sums in double, so its
-numbers are close to, not equal to, the card's; the tolerances are the
-card tests' (tests/test_torch_cuda.py TOL).  What the emulation holds on
+The kernels (src/repro_torch/csrc/flash_fwd.cu, flash_bwd.cu and their
+headers) are compiled with g++ against the headers in tests/cuda_emu/
+(tests/cuda_emu/build.py): every CUDA thread is a fiber,
+__syncthreads a barrier, and the warp-level instructions (shuffles,
+mma.sync with PTX's fragment layouts, 16-byte cp.async with zero fill)
+are emulated per warp.  Each inline-asm statement of the sources is
+rewritten into the emulator call of the same instruction; an asm the
+rewriter does not know fails the test.  The emulated MMA multiplies
+exactly and sums in double, so its numbers are close to, not equal to,
+the card's; the tolerances are the card tests' (tests/test_torch_cuda.py
+TOL).  What the emulation holds on
 the CPU is the kernels' own logic: tiles, fragments, masks, the online
 softmax, ragged edges, the choice of warps per CTA, bit-equal rows for a
 padded prompt and a deterministic backward.  On the card,
@@ -17,9 +18,8 @@ tests/test_torch_cuda.py holds the compiled kernels themselves.
 """
 
 import ctypes
-import re
+import importlib.util
 import shutil
-import subprocess
 from pathlib import Path
 
 import pytest
@@ -28,90 +28,25 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_attention import ref  # noqa: E402
 
-ROOT = Path(__file__).resolve().parents[1]
-CSRC = ROOT / "src" / "repro_torch" / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _close_paren(s, i):
-    """Index past the ')' that closes s[i] == '('."""
-    depth = 0
-    for j in range(i, len(s)):
-        depth += {"(": 1, ")": -1}.get(s[j], 0)
-        if depth == 0:
-            return j + 1
-    raise ValueError("unbalanced parentheses")
-
-
-def _operands(body):
-    """[(constraint, expression)] of an asm statement's operands."""
-    out = []
-    for m in re.finditer(r'"([=+]?[a-z])"\(', body):
-        out.append((m.group(1), body[m.end():_close_paren(body, m.end() - 1) - 1]))
-    return out
-
-
-def _rewrite_asm(s):
-    out, i = [], 0
-    for m in re.finditer(r"\basm(\s+volatile)?\(", s):
-        end = _close_paren(s, m.end() - 1)
-        body = s[m.end():end - 1]
-        text = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', body.split(":")[0]))
-        ops = [e.strip() for _, e in _operands(body)]
-        if text.startswith(("cp.async.commit_group", "cp.async.wait_group")):
-            rep = "(void)0;"      # the emulated copies are synchronous
-        elif text.startswith("cp.async.cg.shared.global"):
-            dst = re.fullmatch(r"smem_u32\((.*)\)", ops[0], re.S).group(1)
-            rep = f"emu_cp_async16({dst}, {ops[1]}, {ops[2]});"
-        elif text.startswith("mma.sync.aligned.m16n8k8.row.col.f32.tf32"):
-            rep = f"emu_mma_tf32({ops[0][:-3]}, {ops[4][:-3]}, {ops[8][:-3]});"
-        elif text.startswith("mma.sync.aligned.m16n8k16.row.col.f32.bf16"):
-            rep = f"emu_mma_bf16({ops[0][:-3]}, {ops[4][:-3]}, {ops[8][:-3]});"
-        else:
-            raise ValueError(f"no emulation for asm {text!r}")
-        out += [s[i:m.start()], rep]
-        i = s.index(";", end) + 1
-    return "".join(out + [s[i:]])
-
-
-def _rewrite(s):
-    s = _rewrite_asm(s)
-    s = s.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
-                  "unsigned char* smem_raw = emu_smem;")
-    s = re.sub(r"([\w:]+<[^<>;]*>)<<<([^>]*)>>>\((.*?)\);",
-               r"emu_launch(\2, [=] { \1(\3); });", s, flags=re.S)
-    assert "<<<" not in s and not re.search(r"\basm\b", s)
-    return s
+def _emu_build():
+    spec = importlib.util.spec_from_file_location("emu_build",
+                                                  EMU / "build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the emulated kernels")
-    d = tmp_path_factory.mktemp("flash_emu")
-    for f in EMU.glob("*.h"):
-        shutil.copy(f, d / f.name)
-    for f in CSRC.glob("*.cuh"):
-        (d / f.name).write_text(_rewrite(f.read_text()))
-    srcs = []
-    for stem in ("flash_fwd", "flash_bwd"):
-        (d / f"{stem}.cpp").write_text(_rewrite((CSRC / f"{stem}.cu").read_text()))
-        srcs.append(d / f"{stem}.cpp")
-    flags = ["-std=c++20", "-O1", "-fPIC", "-pthread", "-I", str(d),
-             "-include", "cuda_runtime.h", "-Wno-unknown-pragmas"]
-    procs = [subprocess.Popen([gxx, *flags, "-c", str(f), "-o",
-                               str(f.with_suffix(".o"))],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for f in srcs]
-    for p in procs:
-        out, _ = p.communicate()
-        assert p.returncode == 0, out[-4000:]
-    so = d / "libflash_emu.so"
-    subprocess.run([gxx, "-shared", "-pthread", "-o", str(so),
-                    *[str(f.with_suffix(".o")) for f in srcs]], check=True)
+    so = _emu_build().build(tmp_path_factory.mktemp("flash_emu"),
+                            ["flash_fwd", "flash_bwd"], name="flash_emu")
     lib = ctypes.CDLL(str(so))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd.argtypes = [P] * 5 + [I] * 9 + [F, I, P]

@@ -4,14 +4,14 @@ The fp32 flash kernels (src/repro_torch/csrc/flash_fwd.cu, flash_bwd.cu)
 run their products on the tensor cores as 3xTF32: every operand x is split
 into big = x truncated to TF32 and small = tf32(x - big), and a product
 a*b is summed as small_a*big_b + big_a*small_b + big_a*big_b in fp32
-(csrc/flash_mma.cuh).  The kernels cannot run here, so these tests hold
+(csrc/mma_sync.cuh).  The kernels cannot run here, so these tests hold
 the design on the CPU:
 
   * an attention forward whose products are 3xTF32 stays within a tenth
     of the card tolerance (chip_smoke.py TOL["float32"]) of an fp64
     oracle at hd 64 and S 512, and one-pass TF32 is at least 10x worse:
     the unchanged fp32 tolerance needs the three passes;
-  * the fragment index mapping of csrc/flash_mma.cuh (PTX's mma.sync
+  * the fragment index mapping of csrc/mma_sync.cuh (PTX's mma.sync
     layouts, the permuted k order that turns an accumulator tile into an
     A operand, the padded shared-memory rows) composes to the right
     products and is free of bank conflicts.
@@ -184,7 +184,7 @@ def accumulators(c):
              c[g + 8, 2 * t + 1]) for g, t in LANES]
 
 
-# the kernels' loaders (flash_mma.cuh Mma<float> / Mma<__nv_bfloat16>)
+# the kernels' loaders (mma_sync.cuh Mma<float> / Mma<__nv_bfloat16>)
 def load_a(x, k):
     if k == 8:
         return [(x[g, t], x[g + 8, t], x[g, t + 4], x[g + 8, t + 4])
@@ -213,7 +213,7 @@ def load_b_kn(x, k):
 
 def a_from_c(tiles, k):
     """The A operand of one k step from accumulator tiles (one for tf32,
-    two for bf16), as flash_mma.cuh builds it."""
+    two for bf16), as mma_sync.cuh builds it."""
     if k == 8:
         return [(c[0], c[2], c[1], c[3]) for c in accumulators(tiles[0])]
     return [((c0[0], c0[1]), (c0[2], c0[3]), (c1[0], c1[1]), (c1[2], c1[3]))
@@ -237,7 +237,7 @@ def test_fragments_compose_s_and_p_v(k):
 
 
 def _pad(ctype):
-    src = (CSRC / "flash_mma.cuh").read_text()
+    src = (CSRC / "mma_sync.cuh").read_text()
     return int(re.search(rf"Pad<{ctype}> {{ static constexpr int value = "
                          rf"(\d+);", src).group(1))
 
