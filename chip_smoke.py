@@ -168,19 +168,26 @@ MMA_KERNELS = {"flash_fwd_kernel": "flash_fwd",
                "lora_gemm_kernel": "lora_fused",
                "lora_xa_mma_kernel": "lora_fused",
                "ssd_chunk_state": "ssd_scan", "ssd_cb": "ssd_scan",
-               "ssd_chunk_scan": "ssd_scan"}
+               "ssd_chunk_scan": "ssd_scan",
+               "lora_indexed_kernel": "lora_indexed"}
+# kernels the report covers for registers, shared memory and spills only
+# (CUDA cores: no HMMA expected)
+CUDA_CORE_KERNELS = {"decode_kernel": "decode_attention"}
 
 
 def mma_build_report(_build, lib_path) -> None:
     """Phase 1: each tensor-core kernel's registers and spills (ptxas -v,
-    from the build's logs), its dynamic shared memory (the SSD passes' at
-    the mamba2 path's N and chunk), and the count of tensor-core MMA
-    instructions (HMMA) in its SASS (cuobjdump -sass), for every
-    instantiation of the flash, fused LoRA (thin pass and GEMM) and SSD
-    scan kernels.
-    Fails if one spills, has no HMMA, or a kernel is missing."""
+    from the build's logs), its shared memory (the SSD passes' at the
+    mamba2 path's N and chunk, the decode kernel's at the serving path's
+    hd 64 and group 1), and the count of tensor-core MMA instructions
+    (HMMA) in its SASS (cuobjdump -sass), for every instantiation of the
+    flash, fused LoRA (thin pass and GEMM), indexed LoRA and SSD scan
+    kernels; the decode kernels (CUDA cores) for registers and spills.
+    Fails if one spills, a tensor-core kernel has no HMMA, or a kernel is
+    missing."""
     import re
-    kern = re.compile(r"(" + "|".join(MMA_KERNELS) + r")I(f|13__nv_bfloat16)"
+    names = {**MMA_KERNELS, **CUDA_CORE_KERNELS}
+    kern = re.compile(r"(" + "|".join(names) + r")I(f|13__nv_bfloat16)"
                       r"((?:L[ib]\d+E)*)E")
 
     def label(mangled):
@@ -190,7 +197,7 @@ def mma_build_report(_build, lib_path) -> None:
                                                        m.group(3))))
 
     info = {}
-    for stem in sorted(set(MMA_KERNELS.values())):
+    for stem in sorted(set(names.values())):
         cur = None
         for line in (lib_path.parent / f"{stem}.log").read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -209,6 +216,9 @@ def mma_build_report(_build, lib_path) -> None:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 info[cur]["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                info[cur]["static_smem"] = int(m.group(1))
     cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300,
@@ -220,7 +230,7 @@ def mma_build_report(_build, lib_path) -> None:
             cur = label(m.group(1))
         elif cur in info and "HMMA" in line:
             info[cur]["hmma"] += 1
-    missing = set(MMA_KERNELS) - {name for name, _, _ in info}
+    missing = set(names) - {name for name, _, _ in info}
     if missing:
         raise RuntimeError(f"tensor-core kernels missing from the build's "
                            f"ptxas output: {sorted(missing)}")
@@ -244,6 +254,16 @@ def mma_build_report(_build, lib_path) -> None:
             smem = lib.lora_fused_smem(bm, kn, c)
             what = (f"{bm} x 128 tile, W read "
                     f"{'k-major (forward)' if kn else 'n-major (dx)'}")
+        elif name == "lora_indexed_kernel":
+            smem = 0
+            what = (f"{lib.lora_indexed_ctas(SLOTS, 768, 768)} CTAs at the "
+                    f"tick (M {SLOTS}, K = N = 768), static shared memory "
+                    f"{r.get('static_smem')} B")
+        elif name == "decode_kernel":
+            smem = lib.decode_attention_smem(1, 64, c)
+            what = (f"{'paged' if args[0] else 'contiguous'}, "
+                    f"{lib.decode_attention_chunk()} positions per CTA, at "
+                    f"hd 64 group 1")
         else:
             kind = {"ssd_chunk_state": 0, "ssd_cb": 1,
                     "ssd_chunk_scan": 2}[name]
@@ -254,30 +274,33 @@ def mma_build_report(_build, lib_path) -> None:
         log(f"phase 1: {name}<{dt}, {what}>: {r.get('regs')} "
             f"registers, {smem} B dynamic shared memory, {r.get('stack')} B "
             f"stack, {r.get('spills')} B spilled, {r['hmma']} HMMA in SASS")
-    bad = [k for k, r in info.items() if r["hmma"] == 0 or r.get("spills")]
+    bad = [k for k, r in info.items() if r.get("spills") or (
+        r["hmma"] == 0 and k[0] in MMA_KERNELS)]
     if bad:
-        raise RuntimeError(f"tensor-core kernels without MMAs or with "
-                           f"spills: {bad}")
+        raise RuntimeError(f"tensor-core kernels without MMAs or kernels "
+                           f"with spills: {bad}")
 
 
 def device_busy(torch, run):
     """Run `run` under torch.profiler's CUDA activity.  Returns (wall s,
-    device-busy s or None, {kernel name: device s}); busy is the union of
-    the recorded device intervals, None when nothing was recorded."""
+    device-busy s or None, {kernel name: device s}, kernels launched);
+    busy is the union of the recorded device intervals, None when nothing
+    was recorded."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, kernels = [], {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 (e.time_range.end - e.time_range.start) * 1e-6
+            kernels += not e.name.startswith(("Memcpy", "Memset"))
     if not spans:
-        return wall, None, {}
+        return wall, None, {}, 0
     busy, cur_lo, cur_hi = 0.0, None, None
     for lo, hi in sorted(spans):
         if cur_hi is None or lo > cur_hi:
@@ -287,7 +310,7 @@ def device_busy(torch, run):
         else:
             cur_hi = max(cur_hi, hi)
     busy += cur_hi - cur_lo
-    return wall, busy * 1e-6, by_name
+    return wall, busy * 1e-6, by_name, kernels
 
 
 def host_top(torch, run, top: int = 8):
@@ -307,24 +330,29 @@ def host_top(torch, run, top: int = 8):
                   for e in rows[:top]]
 
 
-def pass_ms(torch, fn, names, iters: int = 10):
+def pass_ms(torch, fn, names, iters: int = 10, launches: bool = False):
     """Device ms per call of each kernel whose name contains one of
     `names`, from torch.profiler over `iters` calls of fn; None when the
-    profiler recorded no device activity."""
+    profiler recorded no device activity.  launches: also the device
+    kernels per call, of any name ("kernels/call")."""
     fn()
     torch.cuda.synchronize()
-    _, busy, by_name = device_busy(torch, lambda: [fn() for _ in
-                                                   range(iters)])
+    _, busy, by_name, kernels = device_busy(
+        torch, lambda: [fn() for _ in range(iters)])
     if busy is None:
         return None
-    return {n: sum(v for k, v in by_name.items() if n in k) * 1e3 / iters
-            for n in names}
+    out = {n: sum(v for k, v in by_name.items() if n in k) * 1e3 / iters
+           for n in names}
+    if launches:
+        out["kernels/call"] = kernels / iters
+    return out
 
 
 def fmt_passes(passes) -> str:
     if passes is None:
         return "per-pass device time not measured (no profiler activity)"
-    return ", ".join(f"{k} {v:.4f} ms" for k, v in passes.items())
+    return ", ".join(f"{v:.1f} kernels per call" if k == "kernels/call"
+                     else f"{k} {v:.4f} ms" for k, v in passes.items())
 
 
 LORA_PASSES = ("lora_xa_mma_kernel", "lora_gemm_kernel")
@@ -461,13 +489,19 @@ def main() -> int:
                         dname, f"decode window={window}")
             errs["decode_attention"] = max(errs["decode_attention"], e)
             kp, vp, pt = paged_args(torch, k, v, gen, dev, ps=16)
-            e = max_err(torch, dops.decode_attention_paged(q, kp, vp, pt, clen,
-                                                           window=window),
+            paged = dops.decode_attention_paged(q, kp, vp, pt, clen,
+                                                window=window)
+            e = max_err(torch, paged,
                         dops.ref.decode_attention_paged(q, kp, vp, pt, clen,
                                                         window=window),
                         dname, f"paged decode window={window}")
             errs["decode_attention_paged"] = max(
                 errs["decode_attention_paged"], e)
+            if not torch.equal(paged, dops.decode_attention(
+                    q, k, v, clen, window=window)):
+                raise RuntimeError(f"paged decode differs from contiguous "
+                                   f"decode (window={window}, {dname})")
+        check_serving_invariants(torch, rand, dname, dt, dev, gen)
         check_flash_edges(torch, rand, dname, dt, errs)
         check_training_kernels(torch, rand, dname, dt, errs)
         check_mamba2_kernels(torch, rand, dname, dt, errs)
@@ -491,16 +525,30 @@ def main() -> int:
         **work(4 * (4 * b * s * h * hd + b * h * s), 4 * hd * h * b * pairs,
                products=True),
         shape=f"B={b} S={s} H={h} hd={hd} causal fp32 (serving prefill)")
-    m, kd, r = SLOTS, 768, 16
-    args = lora_args(torch, rand, m, torch.float32, gen)
-    n_ids = int(torch.unique(args[5]).numel())
-    rows["lora_matmul_indexed"] = dict(
-        ms=cuda_ms(torch, lambda: lops.lora_matmul_indexed(*args)),
-        plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_indexed(*args)),
-        library_ms=None,
-        **work(4 * (m * kd + kd * kd + n_ids * 2 * kd * r + m * kd + 4 + m),
-               2 * m * kd * kd + 4 * m * kd * r),
-        shape=f"M={m} K=N={kd} r={r} P=4 fp32")
+    kd, r = 768, 16
+    for kname, m in (("lora_matmul_indexed", SLOTS),
+                     ("lora_matmul_indexed (prefill)", PROMPT)):
+        args = lora_args(torch, rand, m, torch.float32, gen)
+        if kname.endswith("(prefill)"):   # one request: one adapter
+            args = args[:5] + (torch.full_like(args[5], 1),)
+        n_ids = int(torch.unique(args[5]).numel())
+        worst["lora_matmul_indexed"] = max(
+            worst["lora_matmul_indexed"],
+            max_err(torch, lops.lora_matmul_indexed(*args),
+                    lops.ref.lora_matmul_indexed(*args), "float32",
+                    f"lora M={m}"))
+        ctas = _build.library().lora_indexed_ctas(m, kd, kd)
+        rows[kname] = dict(
+            ms=cuda_ms(torch, lambda: lops.lora_matmul_indexed(*args)),
+            plain_ms=cuda_ms(torch,
+                             lambda: lops.ref.lora_matmul_indexed(*args)),
+            library_ms=None,
+            passes=pass_ms(torch, lambda: lops.lora_matmul_indexed(*args),
+                           ("lora_indexed_kernel",), launches=True),
+            **work(4 * (m * kd + kd * kd + n_ids * 2 * kd * r + m * kd + 4
+                        + m), 2 * m * kd * kd + 4 * m * kd * r,
+                   products=m > SLOTS),
+            shape=f"M={m} K=N={kd} r={r} P=4 fp32, {ctas} CTAs")
     lens = [128 + 4 * i for i in range(SLOTS)]
     q1, kc, vc, clen = decode_args(torch, rand, torch.float32, dev,
                                    s=MAX_LEN, lens=lens)
@@ -508,6 +556,8 @@ def main() -> int:
     tot = sum(lens)
     dec_bytes = 4 * (2 * SLOTS * 12 * 64 + 2 * tot * 12 * 64 + SLOTS)
     dec_flops = 4 * tot * 12 * 64
+    chunk = _build.library().decode_attention_chunk()
+    dec_ctas = 12 * sum((n - 1) // chunk + 1 for n in lens)
     mask = (torch.arange(MAX_LEN, device=dev)[None, :]
             < clen[:, None])[:, None, None, :]
     qs, ks, vs = q1[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
@@ -518,16 +568,22 @@ def main() -> int:
             q1, kc, vc, clen)),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask)),
+        passes=pass_ms(torch, lambda: dops.decode_attention(q1, kc, vc, clen),
+                       ("decode_kernel",), launches=True),
         **work(dec_bytes, dec_flops),
-        shape=f"B={SLOTS} S={MAX_LEN} cache_len {lens[0]}..{lens[-1]} fp32")
+        shape=f"B={SLOTS} S={MAX_LEN} cache_len {lens[0]}..{lens[-1]} fp32, "
+              f"{dec_ctas} live CTAs")
     rows["decode_attention_paged"] = dict(
         ms=cuda_ms(torch, lambda: dops.decode_attention_paged(
             q1, kp, vp, pt, clen)),
         plain_ms=cuda_ms(torch, lambda: dops.ref.decode_attention_paged(
             q1, kp, vp, pt, clen)),
         library_ms=None,
+        passes=pass_ms(torch, lambda: dops.decode_attention_paged(
+            q1, kp, vp, pt, clen), ("decode_kernel",), launches=True),
         **work(dec_bytes + 4 * pt.numel(), dec_flops),
-        shape=f"B={SLOTS} ps={PAGE} cache_len {lens[0]}..{lens[-1]} fp32")
+        shape=f"B={SLOTS} ps={PAGE} cache_len {lens[0]}..{lens[-1]} fp32, "
+              f"{dec_ctas} live CTAs")
     rows.update(time_training_kernels(torch, F, rand, worst))
     rows.update(time_ssd_kernel(torch, rand, worst))
     rows.update(time_mamba2_lora(torch, rand, worst))
@@ -716,7 +772,7 @@ def profile_run(torch, serving, engine, reqs, name, card):
     again = [serving.Request(rid=2000 + r.rid, adapter=r.adapter,
                              tokens=r.tokens, max_new=r.max_new)
              for r in reqs]
-    wall, busy, by_name = device_busy(torch, lambda: engine.run(again))
+    wall, busy, by_name, _ = device_busy(torch, lambda: engine.run(again))
     if busy is None:
         log(f"phase 4 profile [{name}, {card}]: device busy share not "
             f"measured (the profiler recorded no device activity); wall "
@@ -727,6 +783,48 @@ def profile_run(torch, serving, engine, reqs, name, card):
         f"torch.profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"(idle share {1 - busy / wall:.3f}); top device time: "
         + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in top))
+
+
+def check_serving_invariants(torch, rand, dname, dt, dev, gen):
+    """Phase 2: what the serving path's exactness rests on, bit for bit.
+    The indexed LoRA's rows do not depend on M (1, 8 and 128 rows: the
+    serial reference, the tick and a prefill bucket); a decode row does
+    not depend on B (1 against the tick's 8), contiguous and paged; paged
+    equals contiguous at the tick; repeated calls are equal."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.lora_matmul import ops as lops
+
+    def same(what, u, v):
+        if not torch.equal(u, v):
+            raise RuntimeError(f"{what} ({dname}): not bit-equal")
+
+    x, w, a, b, s, ids = lora_args(torch, rand, 128, dt, gen)
+    full = lops.lora_matmul_indexed(x, w, a, b, s, ids)
+    same("indexed LoRA M=128 repeated", full,
+         lops.lora_matmul_indexed(x, w, a, b, s, ids))
+    same("indexed LoRA M=8 rows vs M=128",
+         lops.lora_matmul_indexed(x[:8], w, a, b, s, ids[:8]), full[:8])
+    for i in (0, 7, 77, 127):
+        same(f"indexed LoRA M=1 row {i} vs M=128",
+             lops.lora_matmul_indexed(x[i:i + 1], w, a, b, s,
+                                      ids[i:i + 1])[0], full[i])
+    lens = [128 + 4 * i for i in range(SLOTS)]
+    q, k, v, clen = decode_args(torch, rand, dt, dev, s=MAX_LEN, lens=lens)
+    kp, vp, pt = paged_args(torch, k, v, gen, dev, ps=PAGE)
+    tick = dops.decode_attention(q, k, v, clen)
+    tickp = dops.decode_attention_paged(q, kp, vp, pt, clen)
+    same("paged vs contiguous decode at the tick", tickp, tick)
+    same("decode repeated", dops.decode_attention(q, k, v, clen), tick)
+    for i in range(SLOTS):
+        sl = slice(i, i + 1)
+        same(f"decode B=1 row {i} vs B={SLOTS}",
+             dops.decode_attention(q[sl], k[sl], v[sl], clen[sl])[0], tick[i])
+        same(f"paged decode B=1 row {i} vs B={SLOTS}",
+             dops.decode_attention_paged(q[sl], kp, vp, pt[sl], clen[sl])[0],
+             tickp[i])
+    log(f"phase 2 ({dname}): indexed LoRA rows equal at M = 1, 8, 128; "
+        f"decode rows equal at B = 1 and {SLOTS}, paged equal to "
+        f"contiguous, repeats equal (bit for bit)")
 
 
 def check_flash_edges(torch, rand, dname, dt, errs):
@@ -1310,7 +1408,7 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
     log(f"{tag} launches over {ROUNDS} rounds: "
         f"{ {k: c for k, c in got.items() if c} }")
 
-    wall, busy, by_name = device_busy(
+    wall, busy, by_name, _ = device_busy(
         torch, lambda: (train_step(params, state, batch, weights, active,
                                    t.lr_client, t.lr_server),
                         eval_step(params, state, ebatch, weights)))

@@ -16,6 +16,20 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// A CTA's count at a device-wide counter, by one thread after a
+// __syncthreads: releases the CTA's earlier writes (the barrier orders
+// the other threads' before it) and acquires the writes that earlier
+// counts released; returns the old value.  The last CTA to count reads
+// the others' results after a second __syncthreads.
+__device__ __forceinline__ int count_acq_rel(int* p) {
+  int old;
+  asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(p)
+               : "memory");
+  return old;
+}
+
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>

@@ -57,16 +57,29 @@ SIGNATURES: Dict[str, List] = {
     "flash_fwd_smem": [I, I],
     # dkv (0: the dq kernel, 1: dk/dv), hd, dtype_code -> its bytes
     "flash_bwd_smem": [I, I, I],
-    # x, w, a_pool, b_pool, scale, ids, xa scratch, y, M, K, N, R, P,
-    # dtype_code, stream
-    "lora_indexed": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
-    # q, k, v, cache_len, out, B, S, H, KVH, hd, window, scale, dtype_code,
-    # stream
-    "decode_attention": [P, P, P, P, P, I, I, I, I, I, I, F, I, P],
-    # q, k_pool, v_pool, page_table, cache_len, out, B, n_pages, ps, P_max,
-    # H, KVH, hd, window, scale, dtype_code, stream
-    "decode_attention_paged": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F,
-                               I, P],
+    # x, w, a_pool, b_pool, scale, ids, workspace, counters, y, M, K, N, R,
+    # P, dtype_code, stream
+    "lora_indexed": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # M, K, N, R -> floats of its workspace
+    "lora_indexed_work": [I, I, I, I],
+    # M, N -> its int32 counters
+    "lora_indexed_counters": [I, I],
+    # M, K, N -> CTAs of its grid
+    "lora_indexed_ctas": [I, I, I],
+    # q, k, v, cache_len, workspace, counters, out, B, S, H, KVH, hd,
+    # window, scale, dtype_code, stream
+    "decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+    # q, k_pool, v_pool, page_table, cache_len, workspace, counters, out, B,
+    # n_pages, ps, P_max, H, KVH, hd, window, scale, dtype_code, stream
+    "decode_attention_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                               I, F, I, P],
+    # B, cache capacity, H, hd -> floats of the workspace of either decode
+    # kernel (their counters: B * KVH)
+    "decode_attention_work": [I, I, I, I],
+    # GQA group, hd, dtype_code -> dynamic shared memory of a CTA (bytes)
+    "decode_attention_smem": [I, I, I],
+    # -> cache positions per chunk (one CTA per chunk, kv head, sequence)
+    "decode_attention_chunk": [],
     # q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Sk, H, KVH, hd,
     # q_offset, causal, window, scale, dtype_code, stream
     "flash_bwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, I,
@@ -101,6 +114,10 @@ SIGNATURES: Dict[str, List] = {
     # 64), N, chunk, dtype_code -> dynamic shared memory of a CTA (bytes)
     "ssd_scan_smem": [I, I, I, I, I],
 }
+
+# entry points that return a size in elements (64-bit); every other one
+# returns an int
+SIZE_FNS = ("lora_indexed_work", "decode_attention_work")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -196,10 +213,29 @@ def library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_longlong if name in SIZE_FNS else ctypes.c_int
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib
+
+
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def counters(name: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least n int32 counters for the kernel `name` on `device`, zeroed
+    once and kept for the process, like the library itself: each launch
+    leaves the counters it uses at zero (the last CTA of a reduction
+    resets its own), so successive calls share them without seeing each
+    other.  Two launches of one kernel may not run at once (another
+    stream) on the same counters."""
+    key = (name, device)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 2 * buf.numel() if buf is not None else 0),
+                          dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def check(err: int, name: str) -> None:

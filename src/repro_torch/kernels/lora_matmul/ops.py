@@ -12,7 +12,9 @@ fallback.
     and dW is never computed.
   * ``lora_matmul_indexed`` -- a pool of adapters, one per leading row
     (csrc/lora_indexed.cu); inference only, the serving path has no
-    gradient.
+    gradient.  The kernel splits K over CTAs and combines the slices in
+    one launch: it takes a workspace (allocated per call) and a counter
+    per output tile, kept zeroed between calls (``_build.counters``).
 """
 
 from __future__ import annotations
@@ -178,12 +180,16 @@ def lora_matmul_indexed(x, w, a_pool, b_pool, scale, ids):
     code = _build.dtype_code(x.dtype)
     rid = ref.row_ids(ids, lead)
     m = rid.shape[0]
+    lib = _build.library()
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    xa = torch.empty((m, r), dtype=torch.float32, device=x.device)
-    err = _build.library().lora_indexed(
+    work = torch.empty((lib.lora_indexed_work(m, k_dim, n, r),),
+                       dtype=torch.float32, device=x.device)
+    ctr = _build.counters("lora_indexed", x.device,
+                          lib.lora_indexed_counters(m, n))
+    err = lib.lora_indexed(
         x.data_ptr(), w.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
-        scale.data_ptr(), rid.data_ptr(), xa.data_ptr(), y.data_ptr(), m,
-        k_dim, n, r, p, code, _stream(x))
+        scale.data_ptr(), rid.data_ptr(), work.data_ptr(), ctr.data_ptr(),
+        y.data_ptr(), m, k_dim, n, r, p, code, _stream(x))
     _build.check(err, "lora_indexed")
     lora_matmul_indexed.launches += 1
     return y.reshape(*lead, n)

@@ -47,6 +47,8 @@ def rewrite_asm(s):
         elif text.startswith("cp.async.cg.shared.global"):
             dst = re.fullmatch(r"smem_u32\((.*)\)", ops[0], re.S).group(1)
             rep = f"emu_cp_async16({dst}, {ops[1]}, {ops[2]});"
+        elif text.startswith("atom.add.acq_rel.gpu.s32"):
+            rep = f"{ops[0]} = atomicAdd({ops[1]}, 1);"
         elif text.startswith("mma.sync.aligned.m16n8k8.row.col.f32.tf32"):
             rep = f"emu_mma_tf32({ops[0][:-3]}, {ops[4][:-3]}, {ops[8][:-3]});"
         elif text.startswith("mma.sync.aligned.m16n8k16.row.col.f32.bf16"):

@@ -1,4 +1,4 @@
-// CPU emulation of the CUDA features the port's tensor-core kernels use,
+// CPU emulation of the CUDA features the port's hand-written kernels use,
 // for tests/test_torch_*_emulated.py (built by build.py).  Each CUDA
 // thread of a block is a fiber (ucontext) on the calling OS thread; a
 // fiber runs until it waits at a barrier (__syncthreads, or a warp's
@@ -37,8 +37,11 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, gridDim;
 struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
 inline cudaError_t cudaGetLastError() { return 0; }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
@@ -98,6 +101,12 @@ inline thread_local EmuBlock* emu_block = nullptr;
 alignas(16) inline unsigned char emu_smem[256 * 1024];
 
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+// blocks run one after another on one OS thread: a global atomic needs
+// no more than the plain operation (atom.add.acq_rel is rewritten into
+// it), and an L2-only load is a load
+inline int atomicAdd(int* p, int v) { const int old = *p; *p = old + v; return old; }
+inline float __ldcg(const float* p) { return *p; }
+inline float4 __ldcg(const float4* p) { return *p; }
 inline EmuWarp& emu_warp() { return *emu_block->warps[threadIdx.x / 32]; }
 inline int emu_lane() { return threadIdx.x % 32; }
 
@@ -141,6 +150,7 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
   sched.fibers.resize(nt);
   EmuSched* outer = emu_sched;
   emu_sched = &sched;
+  gridDim = grid;
   for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {

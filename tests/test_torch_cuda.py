@@ -101,6 +101,145 @@ def test_lora_indexed_kernel_matches_plain(cuda, dtype, m):
     assert torch.equal(one[0], got[0])
 
 
+def _lora_pool_inputs(gen, dtype, m, k=768, n=768, r=16, p=4):
+    """gpt2-small's q/k/v/o width: 4 adapters at r = 16 with effective
+    ranks 16, 8, 16, 4 (masked rank columns)."""
+    ranks = torch.tensor([16, 8, 16, 4])[:p].clamp(max=r)
+    mask = (torch.arange(r)[None, :] < ranks[:, None]).float()
+    return (_randn(gen, m, k, dtype=dtype),
+            _randn(gen, k, n, dtype=dtype, scale=k ** -0.5),
+            (_randn(gen, p, k, r, scale=r ** -0.5) * mask[:, None, :]).to(dtype),
+            (_randn(gen, p, r, n, scale=0.02) * mask[:, :, None]).to(dtype),
+            16.0 / ranks.float(),
+            torch.randint(0, p, (m,), generator=gen, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_indexed_rows_do_not_depend_on_m(cuda, dtype):
+    """At K = N = 768, r = 16: a row's bits are the same in launches of 1
+    row (the serial reference's decode), 8 rows (the engine's tick) and
+    128 rows (a prefill bucket), and two calls give the same bits."""
+    gen = torch.Generator().manual_seed(15)
+    x, w, a, b, s, ids = (t.to(cuda) for t in _lora_pool_inputs(gen, dtype,
+                                                                 128))
+    full = lops.lora_matmul_indexed(x, w, a, b, s, ids)
+    _close(full, lops.lora_matmul_indexed(*(t.cpu() for t in
+                                            (x, w, a, b, s, ids))), dtype)
+    assert torch.equal(full, lops.lora_matmul_indexed(x, w, a, b, s, ids))
+    tick = lops.lora_matmul_indexed(x[:8].contiguous(), w, a, b, s,
+                                    ids[:8].contiguous())
+    assert torch.equal(tick, full[:8])
+    for i in (0, 5, 77, 127):
+        one = lops.lora_matmul_indexed(x[i:i + 1].contiguous(), w, a, b, s,
+                                       ids[i:i + 1].contiguous())
+        assert torch.equal(one[0], full[i])
+
+
+def _decode_edge_lens(s):
+    """Cache lengths at the decode kernels' chunk edges (0, 1, CH - 1, CH,
+    CH + 1, CH the kernels' positions per chunk) and the capacity s."""
+    from repro_torch.kernels import _build
+    ch = _build.library().decode_attention_chunk()
+    return [0, 1, ch - 1, ch, ch + 1, s]
+
+
+def _paged_copy(gen, k, v, ps=16):
+    """The contiguous cache in a page pool behind a shuffled table; the
+    table's entries past each valid prefix are garbage (the kernels clip
+    them into the pool)."""
+    b, s, kvh, hd = k.shape
+    p_max = s // ps
+    pt = (torch.randperm(b * p_max, generator=gen) + 1).reshape(b, p_max)
+    pool_k = torch.zeros((1 + b * p_max, ps, kvh, hd), dtype=k.dtype)
+    pool_v = torch.zeros_like(pool_k)
+    pool_k[pt] = k.reshape(b, p_max, ps, kvh, hd)
+    pool_v[pt] = v.reshape(b, p_max, ps, kvh, hd)
+    return pool_k, pool_v, pt.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("hd", [64, 112, 128])
+def test_decode_kernels_at_chunk_edges(cuda, dtype, window, hd):
+    """Cache lengths at the chunk edges and S, GQA 8 / 2, contiguous and
+    paged against the plain version; paged bit-equal to contiguous; exact
+    zeros at cache_len 0."""
+    gen = torch.Generator().manual_seed(16 + hd)
+    lens = _decode_edge_lens(208)
+    b, s, h, kvh = len(lens), 208, 8, 2
+    q = _randn(gen, b, h, hd, dtype=dtype)
+    k = _randn(gen, b, s, kvh, hd, dtype=dtype)
+    v = _randn(gen, b, s, kvh, hd, dtype=dtype)
+    clen = torch.tensor(lens, dtype=torch.int32)
+    kp, vp, pt = _paged_copy(gen, k, v)
+    pt[1, 1:] = torch.tensor([-3, 10 ** 6] * 6, dtype=torch.int32)[:12]
+    got = dops.decode_attention(*(t.to(cuda) for t in (q, k, v, clen)),
+                                window=window)
+    _close(got, dops.decode_attention(q, k, v, clen, window=window), dtype)
+    assert torch.equal(got[0].cpu(), torch.zeros_like(got[0].cpu()))
+    paged = dops.decode_attention_paged(
+        *(t.to(cuda) for t in (q, kp, vp, pt, clen)), window=window)
+    _close(paged, dops.decode_attention_paged(q, kp, vp, pt, clen,
+                                              window=window), dtype)
+    assert torch.equal(paged, got)
+
+
+def _tick_decode_inputs(gen, dtype, cuda):
+    """The serving tick: 8 slots, 12 heads of 64, max_len 256, cache
+    lengths 128..156, the cache also in 16-position pages."""
+    b, s, h, hd = 8, 256, 12, 64
+    q = _randn(gen, b, h, hd, dtype=dtype)
+    k = _randn(gen, b, s, h, hd, dtype=dtype)
+    v = _randn(gen, b, s, h, hd, dtype=dtype)
+    clen = torch.tensor([128 + 4 * i for i in range(b)], dtype=torch.int32)
+    kp, vp, pt = _paged_copy(gen, k, v)
+    return [t.to(cuda) for t in (q, k, v, clen, kp, vp, pt)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_rows_do_not_depend_on_b(cuda, dtype):
+    """At the tick's shape a sequence's output is the same bits in a B = 1
+    launch (the serial reference) as in the B = 8 launch (the engine),
+    contiguous and paged; two calls give the same bits."""
+    q, k, v, clen, kp, vp, pt = _tick_decode_inputs(
+        torch.Generator().manual_seed(17), dtype, cuda)
+    full = dops.decode_attention(q, k, v, clen)
+    fullp = dops.decode_attention_paged(q, kp, vp, pt, clen)
+    assert torch.equal(full, dops.decode_attention(q, k, v, clen))
+    for i in range(q.shape[0]):
+        sl = slice(i, i + 1)
+        one = dops.decode_attention(q[sl], k[sl], v[sl], clen[sl])
+        assert torch.equal(one[0], full[i])
+        onep = dops.decode_attention_paged(q[sl], kp, vp, pt[sl], clen[sl])
+        assert torch.equal(onep[0], fullp[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_paged_equals_contiguous_at_tick(cuda, dtype):
+    """At the tick's shape the paged kernel gives the contiguous kernel's
+    bits (paged and contiguous serving must give the same tokens), and
+    both match the plain version."""
+    q, k, v, clen, kp, vp, pt = _tick_decode_inputs(
+        torch.Generator().manual_seed(18), dtype, cuda)
+    got = dops.decode_attention(q, k, v, clen)
+    assert torch.equal(dops.decode_attention_paged(q, kp, vp, pt, clen), got)
+    _close(got, dops.decode_attention(*(t.cpu() for t in (q, k, v, clen))),
+           dtype)
+
+
+@pytest.mark.cuda
+def test_decode_rejects_head_dims_it_does_not_take(cuda):
+    q = torch.zeros(1, 2, 20, device=cuda)
+    kv = torch.zeros(1, 16, 2, 20, device=cuda)
+    clen = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        dops.decode_attention(q, kv, kv, clen)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 5])

@@ -262,3 +262,18 @@ def test_dtype_codes_reject_other_types():
     assert _build.dtype_code(torch.bfloat16) == 1
     with pytest.raises(TypeError):
         _build.dtype_code(torch.float16)
+
+
+def test_kernel_counters_are_kept_per_kernel_and_grown():
+    """The split-K and flash-decode kernels' counters: zeroed once, the
+    same buffer on the next call, a larger zeroed one when a call needs
+    more, and a buffer of its own per kernel."""
+    dev = torch.device("cpu")
+    a = _build.counters("test_kernel_a", dev, 6)
+    assert a.dtype == torch.int32 and a.numel() >= 6 and not a.any()
+    assert _build.counters("test_kernel_a", dev, 4) is a
+    b = _build.counters("test_kernel_b", dev, 6)
+    assert b is not a
+    bigger = _build.counters("test_kernel_a", dev, a.numel() + 1)
+    assert bigger.numel() > a.numel() and not bigger.any()
+    assert _build.counters("test_kernel_a", dev, 2) is bigger
