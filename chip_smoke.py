@@ -91,8 +91,8 @@ SSD_EDGES = [(1, 256, 8, 16, 1, 256, 64, 1.0),
              (1, 128, 4, 64, 4, 32, 16, 1.0)]
 # the fused LoRA at the wide pass's tile edges: (M, K, N, r); M, K and N
 # off the 64/128-row, 128-column and 32/64-deep tiles, K = 61 and 97 and
-# N = 83 not 16-byte aligned rows (x, W, dx's W^T and A^T), M past one
-# split-M slice of the backward, and r of 1, 5, 8, 16 and 64
+# N = 83 not 16-byte aligned rows (x, W, dx's W^T and A^T), M over
+# several slices of the backward's dA/dB pass, and r of 1, 5, 8, 16 and 64
 LORA_EDGES = [(37, 96, 80, 5), (1000, 768, 768, 16), (1, 61, 80, 1),
               (130, 97, 136, 8), (257, 96, 83, 64), (300, 768, 6448, 16)]
 # flash forward and backward at the kernels' tile edges (16-row warp tile,
@@ -167,12 +167,15 @@ MMA_KERNELS = {"flash_fwd_kernel": "flash_fwd",
                "flash_bwd_dkv_kernel": "flash_bwd",
                "lora_gemm_kernel": "lora_fused",
                "lora_xa_mma_kernel": "lora_fused",
+               "lora_dab_kernel": "lora_fused",
                "ssd_chunk_state": "ssd_scan", "ssd_cb": "ssd_scan",
                "ssd_chunk_scan": "ssd_scan",
                "lora_indexed_kernel": "lora_indexed"}
 # kernels the report covers for registers, shared memory and spills only
 # (CUDA cores: no HMMA expected)
-CUDA_CORE_KERNELS = {"decode_kernel": "decode_attention"}
+CUDA_CORE_KERNELS = {"decode_kernel": "decode_attention",
+                     "smashed_quant_kernel": "smashed_quant",
+                     "dequant_kernel": "smashed_quant"}
 
 
 def mma_build_report(_build, lib_path) -> None:
@@ -181,8 +184,9 @@ def mma_build_report(_build, lib_path) -> None:
     mamba2 path's N and chunk, the decode kernel's at the serving path's
     hd 64 and group 1), and the count of tensor-core MMA instructions
     (HMMA) in its SASS (cuobjdump -sass), for every instantiation of the
-    flash, fused LoRA (thin pass and GEMM), indexed LoRA and SSD scan
-    kernels; the decode kernels (CUDA cores) for registers and spills.
+    flash, fused LoRA (thin pass, GEMM and the dA/dB pass), indexed LoRA
+    and SSD scan kernels; the decode and int8 kernels (CUDA cores) for
+    registers and spills, with the int8 kernels' clusters and grids.
     Fails if one spills, a tensor-core kernel has no HMMA, or a kernel is
     missing."""
     import re
@@ -254,6 +258,21 @@ def mma_build_report(_build, lib_path) -> None:
             smem = lib.lora_fused_smem(bm, kn, c)
             what = (f"{bm} x 128 tile, W read "
                     f"{'k-major (forward)' if kn else 'n-major (dx)'}")
+        elif name == "lora_dab_kernel":
+            smem = lib.lora_fused_dab_smem(args[0], c)
+            what = (f"dA/dB pass, ranks up to {args[0]}, "
+                    f"{lib.lora_fused_dab_ctas(10240, 768, 768)} CTAs at "
+                    f"M 10240 K = N = 768")
+        elif name == "smashed_quant_kernel":
+            smem = 0
+            what = (f"{'quantize' if args[0] else 'round trip'}, clusters "
+                    f"of {lib.smashed_quant_cluster()} CTAs, "
+                    f"{lib.smashed_quant_ctas(5, 768)} CTAs at G 5 d 768, "
+                    f"static shared memory {r.get('static_smem')} B")
+        elif name == "dequant_kernel":
+            smem = 0
+            what = (f"{lib.smashed_dequant_ctas(5, 2048, 768)} CTAs at G 5 "
+                    f"M 2048 d 768")
         elif name == "lora_indexed_kernel":
             smem = 0
             what = (f"{lib.lora_indexed_ctas(SLOTS, 768, 768)} CTAs at the "
@@ -283,24 +302,25 @@ def mma_build_report(_build, lib_path) -> None:
 
 def device_busy(torch, run):
     """Run `run` under torch.profiler's CUDA activity.  Returns (wall s,
-    device-busy s or None, {kernel name: device s}, kernels launched);
-    busy is the union of the recorded device intervals, None when nothing
-    was recorded."""
+    device-busy s or None, {kernel name: device s}, {kernel name:
+    launches}); busy is the union of the recorded device intervals, None
+    when nothing was recorded."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name, kernels = [], {}, 0
+    spans, by_name, kernels = [], {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 (e.time_range.end - e.time_range.start) * 1e-6
-            kernels += not e.name.startswith(("Memcpy", "Memset"))
+            if not e.name.startswith(("Memcpy", "Memset")):
+                kernels[e.name] = kernels.get(e.name, 0) + 1
     if not spans:
-        return wall, None, {}, 0
+        return wall, None, {}, {}
     busy, cur_lo, cur_hi = 0.0, None, None
     for lo, hi in sorted(spans):
         if cur_hi is None or lo > cur_hi:
@@ -334,7 +354,8 @@ def pass_ms(torch, fn, names, iters: int = 10, launches: bool = False):
     """Device ms per call of each kernel whose name contains one of
     `names`, from torch.profiler over `iters` calls of fn; None when the
     profiler recorded no device activity.  launches: also the device
-    kernels per call, of any name ("kernels/call")."""
+    kernels per call, of any name ("kernels/call") and of those names
+    ("own/call")."""
     fn()
     torch.cuda.synchronize()
     _, busy, by_name, kernels = device_busy(
@@ -344,18 +365,33 @@ def pass_ms(torch, fn, names, iters: int = 10, launches: bool = False):
     out = {n: sum(v for k, v in by_name.items() if n in k) * 1e3 / iters
            for n in names}
     if launches:
-        out["kernels/call"] = kernels / iters
+        out["kernels/call"] = sum(kernels.values()) / iters
+        out["own/call"] = sum(c for k, c in kernels.items()
+                              if any(n in k for n in names)) / iters
     return out
+
+
+def check_kernels_per_call(passes, own: int, total: int, what: str) -> None:
+    """The profiler's kernels per call: `own` of the listed kernels and
+    `total` in all (nothing to check when the profiler saw nothing)."""
+    if passes is not None and (passes["own/call"] != own
+                               or passes["kernels/call"] != total):
+        raise RuntimeError(f"{what}: {passes['own/call']} own kernels and "
+                           f"{passes['kernels/call']} in all per call, "
+                           f"want {own} and {total}")
 
 
 def fmt_passes(passes) -> str:
     if passes is None:
         return "per-pass device time not measured (no profiler activity)"
-    return ", ".join(f"{v:.1f} kernels per call" if k == "kernels/call"
+    units = {"kernels/call": "kernels per call",
+             "own/call": "of them its own"}
+    return ", ".join(f"{v:.1f} {units[k]}" if k in units
                      else f"{k} {v:.4f} ms" for k, v in passes.items())
 
 
 LORA_PASSES = ("lora_xa_mma_kernel", "lora_gemm_kernel")
+LORA_BWD_PASSES = LORA_PASSES + ("lora_dab_kernel",)
 SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_cb",
               "ssd_chunk_scan")
 
@@ -601,6 +637,9 @@ def main() -> int:
             extra += f"; wide pass in {row['tile']} x 128 CTAs"
         if "passes" in row:
             extra += f"; per pass (profiler): {fmt_passes(row['passes'])}"
+        if "pass_bound" in row:
+            pname, (pb, pby) = row["pass_bound"]
+            extra += f"; {pname} bound {pb:.4f} ms ({pby})"
         log(f"phase 3 [{name}, {card}] {kname} at {row['shape']}: kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
             f"{lib} ms, bound {row['bound'][0]:.4f} ms "
@@ -910,10 +949,13 @@ def check_training_kernels(torch, rand, dname, dt, errs):
               f"lora fwd {what}")
         same_bits(torch, "lora_matmul_fwd", (y, xa),
                   lops.lora_matmul_fwd(x, w, a, bb, sc), what)
+        grads = lops.lora_matmul_bwd(x, w, a, bb, sc, g, want_xa)
         worst("lora_matmul_bwd",
-              zip(lops.lora_matmul_bwd(x, w, a, bb, sc, g, want_xa),
-                  lops.ref.lora_matmul_bwd(x, w, a, bb, sc, g, want_xa)),
+              zip(grads, lops.ref.lora_matmul_bwd(x, w, a, bb, sc, g,
+                                                  want_xa)),
               f"lora bwd {what}")
+        same_bits(torch, "lora_matmul_bwd", grads,
+                  lops.lora_matmul_bwd(x, w, a, bb, sc, g, want_xa), what)
     # autograd through common.lora_dense (W frozen) vs plain autograd
     ins = [t.clone().requires_grad_(True) for t in (x, a, bb, sc)]
     yk = common.lora_dense(ins[0], w, None,
@@ -1062,6 +1104,11 @@ def time_training_kernels(torch, F, rand, errs):
         return (g @ w.T + sc * (gb @ a.T), sc * (x.T @ gb), sc * (xa.T @ g),
                 (xa * gb).sum())
 
+    # the backward: 3 kernels of its own (gb thin pass, dx GEMM, dA/dB
+    # pass) and the wrapper's 2 torch ops for dscale = sum(xa * gb)
+    bwd_passes = pass_ms(torch, lambda: lops.lora_matmul_bwd(
+        x, w, a, bb, sc, g, xa), LORA_BWD_PASSES, launches=True)
+    check_kernels_per_call(bwd_passes, 3, 5, "fused LoRA backward")
     rows["lora_matmul_bwd"] = dict(
         ms=cuda_ms(torch, lambda: lops.lora_matmul_bwd(x, w, a, bb, sc, g,
                                                        xa)),
@@ -1070,10 +1117,16 @@ def time_training_kernels(torch, F, rand, errs):
         library_ms=None,
         composition="g@W^T + s*(g@B^T)@A^T, s*x^T@gb, s*xa^T@g (cuBLAS)",
         composition_ms=cuda_ms(torch, composition_bwd),
+        passes=bwd_passes,
+        # the dA/dB pass alone: read x, g, gb, xa; write dA, dB
+        pass_bound=("lora_dab_kernel", bound(
+            4 * (2 * m * kd + 2 * m * r + 2 * kd * r), 2 * low,
+            "float32", products=True)),
         # read x, W, A, B, g, xa; write dx, dA, dB
         **work(4 * (3 * m * kd + kd * kd + 4 * kd * r + m * r + 2),
                mat + 4 * low + 2 * m * r, products=True),
-        shape=f"M={m} K=N={kd} r={r} fp32")
+        shape=f"M={m} K=N={kd} r={r} fp32, dA/dB in "
+              f"{_build.library().lora_fused_dab_ctas(m, kd, kd)} CTAs")
     # smashed int8: 2 per distinct cut layer per train step, 5 messages
     gq, mq, dq = 5, 2048, 768
     xs = rand(gq, 4, 512, dq)
@@ -1090,18 +1143,34 @@ def time_training_kernels(torch, F, rand, errs):
          [(sops.int8_roundtrip_smashed(xs).reshape(x3.shape),
            sops.ref.roundtrip(x3))], f"G={gq} M={mq}")
     elems = gq * mq * dq
+    # one kernel per call, and no other
+    int8_passes = {}
+    for kname, fn, kern in (
+            ("int8_roundtrip_smashed",
+             lambda: sops.int8_roundtrip_smashed(xs), "smashed_quant_kernel"),
+            ("int8_quantize_smashed",
+             lambda: sops.int8_quantize_smashed(xs), "smashed_quant_kernel"),
+            ("int8_dequantize_smashed",
+             lambda: sops.int8_dequantize_smashed(q8, scale),
+             "dequant_kernel")):
+        int8_passes[kname] = pass_ms(torch, fn, (kern,), launches=True)
+        check_kernels_per_call(int8_passes[kname], 1, 1, kname)
     rows["int8_roundtrip_smashed"] = dict(
         ms=cuda_ms(torch, lambda: sops.int8_roundtrip_smashed(xs)),
         plain_ms=cuda_ms(torch, lambda: sops.ref.roundtrip(
             xs.reshape(gq, mq, dq))),
         library_ms=None,
+        passes=int8_passes["int8_roundtrip_smashed"],
         **work(4 * 2 * elems, 6 * elems),
-        shape=f"G={gq} M={mq} d={dq} fp32")
+        shape=f"G={gq} M={mq} d={dq} fp32, clusters of "
+              f"{_build.library().smashed_quant_cluster()}, "
+              f"{_build.library().smashed_quant_ctas(gq, dq)} CTAs")
     rows["int8_quantize_smashed"] = dict(
         ms=cuda_ms(torch, lambda: sops.int8_quantize_smashed(xs)),
         plain_ms=cuda_ms(torch, lambda: sops.ref.quantize(
             xs.reshape(gq, mq, dq))),
         library_ms=None,
+        passes=int8_passes["int8_quantize_smashed"],
         **work(5 * elems + 4 * gq * dq, 5 * elems),
         shape=f"G={gq} M={mq} d={dq} fp32 -> int8")
     rows["int8_dequantize_smashed"] = dict(
@@ -1109,8 +1178,10 @@ def time_training_kernels(torch, F, rand, errs):
         plain_ms=cuda_ms(torch, lambda: sops.ref.dequantize(
             q8.reshape(gq, mq, dq), scale)),
         library_ms=None,
+        passes=int8_passes["int8_dequantize_smashed"],
         **work(5 * elems + 4 * gq * dq, elems),
-        shape=f"G={gq} M={mq} d={dq} int8 -> fp32")
+        shape=f"G={gq} M={mq} d={dq} int8 -> fp32, "
+              f"{_build.library().smashed_dequant_ctas(gq, mq, dq)} CTAs")
     for kname, e in at_path.items():
         errs[kname] = max(errs[kname], e)
     log("phase 3: at the training path's shapes, max |kernel - plain| "

@@ -56,16 +56,25 @@
 //    bf16) is staged element by element instead;
 //  * the backward's dx is the same kernel reading W^T and A^T through
 //    load_b_nk (KN = false);
-//  * dA and dB reduce over all M rows: each CTA of lora_partial_kernel
-//    sums one slice of MS rows into a workspace, and lora_reduce_kernel
-//    adds the slices in slice order: deterministic, no atomics.
+//  * dA = s x^T @ gb and dB = s xa^T @ g reduce over all M rows, in one
+//    launch (lora_dab_kernel): a CTA owns one 64-column tile of x (for
+//    dA) or of g (for dB^T) and one slice of M, stages 32-row tiles of
+//    x or g and of gb or xa through the cp.async ring, reads x and g
+//    transposed out of shared memory as the MMA's A operand and sums each
+//    32-row tile into fresh accumulators (3xTF32 for fp32; for bf16, x
+//    and g are exact in TF32 and only gb and xa are split: two MMAs).
+//    The slices' partials go to a workspace; the last CTA of each column
+//    tile to count adds them in slice order (deterministic, no float
+//    atomics), scales, writes dA or dB^T in the adapter's dtype and
+//    resets its counter.  The slices are whole 32-row tiles, as many as
+//    give about 4 CTAs per SM (528 CTAs at M = 10240, K = N = 768).  The
+//    pass reads x and g once (63 MB at the gpt2 eval shape): its bound is
+//    bytes, 0.019 ms at 3.35 TB/s, against 0.003 ms of 3xTF32 work.
 #include "mma_sync.cuh"
 
 namespace {
 
 constexpr int MAX_R = 64;
-
-constexpr int TT = 256;  // threads of the dA/dB passes
 
 // ---- wide pass: C[m, n] = sum_k X[m, k] W(k, n) + sum_c (s L[m, c]) V(c, n)
 // X (M, Kr) row-major in T, row stride ldx; L (M, R) fp32 row-major;
@@ -437,79 +446,258 @@ cudaError_t thin(const T* x, const T* y, float* out, int M, int K, int R,
   return launch_thin<T, 64, KN>(x, y, out, M, K, R, stream);
 }
 
-// ---- adapter gradients: part[sl, p, c] = sum_{m in slice sl} X[m, p] * Y[m, c]
-// X (M, P) row-major in T; Y (M, R) fp32 row-major; one CTA per (P tile
-// of PT columns, slice of MS rows).
-constexpr int PT = 64;
-constexpr int MS = 256;
-constexpr int MC = 32;           // rows staged per step
+// ---- adapter gradients on the tensor cores, dA and dB in one launch:
+// out[p, c] = s sum_m X[m, p] Y[m, c] with X (M, P) in T and Y (M, R) fp32:
+// dA = s x^T @ gb (X = x, P = K, Y = gb) and dB^T = s g^T @ xa (X = g,
+// P = N, Y = xa).  The thin pass's shape with the roles changed: M is the
+// reduction, and the P x R output is tiled over CTAs.  A CTA owns one
+// column tile (DPT columns of x or of g) and one slice of M; the last CTA
+// of a column tile to count adds the slices' partials in slice order.
+constexpr int DW = 4;              // warps per CTA, 16 output rows (p) each
+constexpr int DPT = 16 * DW;       // output rows (columns of X) per tile
+constexpr int DBK = 32;            // rows of M per stage: one fresh partial
+constexpr int DAB_CTAS = 4 * MIN_WAVE;  // grid target: 4 CTAs per SM
+// vec bits of the dA/dB pass: rows of x, g, gb, xa are 16-byte aligned
+constexpr int VEC_DX = 1, VEC_DG = 2, VEC_DGB = 4, VEC_DXA = 8;
 
-template <typename T>
-__global__ void __launch_bounds__(TT)
-lora_partial_kernel(const T* __restrict__ x, const float* __restrict__ y,
-                    float* __restrict__ part, int M, int P, int R) {
-  __shared__ float xs[MC][PT];
-  __shared__ float ysh[MC][MAX_R];
-  const int p0 = blockIdx.x * PT;
-  const int sl = blockIdx.y;
-  const int tid = threadIdx.x;
-  constexpr int NO = (PT * MAX_R + TT - 1) / TT;
-  float acc[NO];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+template <typename T, int RN>
+struct DabTile {
+  // X's stage rows read transposed (load_xt): conflict-free with a row of
+  // 4 mod 16 (fp32) or 8 mod 16 (bf16) elements
+  static constexpr int LDX = DPT + repro::mma::Pad<T>::value;
+  static constexpr int LDY = RN + repro::mma::Pad<float>::value;
+  static constexpr int X_BYTES = DBK * LDX * static_cast<int>(sizeof(T));
+  static constexpr int STAGE_BYTES = X_BYTES + DBK * LDY * 4;
+  __host__ __device__ static constexpr int smem_bytes() {
+    return STAGES * STAGE_BYTES;
+  }
+};
 
-  const int m_end = min(M, (sl + 1) * MS);
-  for (int mb = sl * MS; mb < m_end; mb += MC) {
-    __syncthreads();
-    for (int i = tid; i < MC * PT; i += TT) {
-      const int mm = i / PT, pp = i % PT;
-      const int row = mb + mm, col = p0 + pp;
-      xs[mm][pp] = (row < m_end && col < P)
-                       ? repro::to_f(x[static_cast<size_t>(row) * P + col])
-                       : 0.f;
-    }
-    for (int i = tid; i < MC * R; i += TT) {
-      const int mm = i / R, cc = i % R;
-      const int row = mb + mm;
-      ysh[mm][cc] = row < m_end ? y[static_cast<size_t>(row) * R + cc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      const int o = tid + i * TT;
-      if (o < PT * R) {
-        const int pp = o / R, cc = o % R;
-        float s = acc[i];
-        for (int mm = 0; mm < MC; ++mm) s = fmaf(xs[mm][pp], ysh[mm][cc], s);
-        acc[i] = s;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NO; ++i) {
-    const int o = tid + i * TT;
-    if (o < PT * R) {
-      const int col = p0 + o / R;
-      if (col < P)
-        part[(static_cast<size_t>(sl) * P + col) * R + o % R] = acc[i];
-    }
-  }
+// column tiles (those of dA first) and the M slices of a call: enough
+// slices of whole 32-row stages to give about DAB_CTAS CTAs
+struct DabGrid {
+  int tiles, rows, slices;
+};
+inline DabGrid dab_grid(int M, int K, int N) {
+  const int tiles = (K + DPT - 1) / DPT + (N + DPT - 1) / DPT;
+  const int steps = (M + DBK - 1) / DBK;
+  const int fill = DAB_CTAS / tiles;
+  const int want = steps < fill ? steps : fill > 1 ? fill : 1;
+  const int per = (steps + want - 1) / want;
+  return {tiles, per * DBK, (steps + per - 1) / per};
 }
 
-// out(p, c) = scale * sum_sl part[sl, p, c], summed in slice order;
-// out(p, c) = out[p * osp + c * osc].
+inline int rank_tile(int R) { return R <= 16 ? 16 : R <= 32 ? 32 : 64; }
+
+// A fragment of X^T (16 p rows x 8 rows of M, in load_b_kn's permuted k
+// order) from a staged (m, p) tile: A[p][k] = xs[k * ld + p], as fp32
+// (bf16 is exact in TF32)
 template <typename T>
-__global__ void __launch_bounds__(TT)
-lora_reduce_kernel(const float* __restrict__ part,
-                   const float* __restrict__ scale, T* __restrict__ out,
-                   int S, int P, int R, int osp, int osc) {
-  const int i = blockIdx.x * TT + threadIdx.x;
-  if (i >= P * R) return;
-  float s = 0.f;
-  for (int sl = 0; sl < S; ++sl) s += part[static_cast<size_t>(sl) * P * R + i];
-  const int p = i / R, c = i % R;
-  out[static_cast<size_t>(p) * osp + static_cast<size_t>(c) * osc] =
-      repro::from_f<T>(*scale * s);
+__device__ __forceinline__ repro::mma::Mma<float>::A load_xt(const T* p,
+                                                             int ld, int g,
+                                                             int t) {
+  return {{repro::to_f(p[2 * t * ld + g]), repro::to_f(p[2 * t * ld + g + 8]),
+           repro::to_f(p[(2 * t + 1) * ld + g]),
+           repro::to_f(p[(2 * t + 1) * ld + g + 8])}};
+}
+
+template <typename T, int RN>
+__global__ void __launch_bounds__(32 * DW)
+lora_dab_kernel(const T* __restrict__ x, const float* __restrict__ gb,
+                const T* __restrict__ g, const float* __restrict__ xa,
+                const float* __restrict__ scale, float* __restrict__ work,
+                int* __restrict__ counters, T* __restrict__ da,
+                T* __restrict__ db, int M, int K, int N, int R, int rows,
+                int vec) {
+  using M_ = repro::mma::Mma<float>;
+  using D = DabTile<T, RN>;
+  constexpr int NT = 32 * DW;
+  constexpr int NJ = RN / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int gq = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int tile = blockIdx.x;
+  const int ns = gridDim.y;
+  const int ta = (K + DPT - 1) / DPT;
+  const bool is_a = tile < ta;
+  const T* X = is_a ? x : g;
+  const float* Y = is_a ? gb : xa;
+  const int P = is_a ? K : N;
+  const int p0 = (is_a ? tile : tile - ta) * DPT;
+  const bool xv = vec & (is_a ? VEC_DX : VEC_DG);
+  const bool yv = vec & (is_a ? VEC_DGB : VEC_DXA);
+  const int m_lo = blockIdx.y * rows;
+  const int m_hi = min(M, m_lo + rows);
+  const int nst = (m_hi - m_lo + DBK - 1) / DBK;
+
+  auto load_stage = [&](int st, int buf) {
+    unsigned char* base = smem_raw + buf * D::STAGE_BYTES;
+    const int m0 = m_lo + st * DBK;
+    repro::mma::load_tile_2d<T>(reinterpret_cast<T*>(base), D::LDX,
+                                X + static_cast<size_t>(m0) * P + p0, P, DBK,
+                                DPT, m_hi - m0, P - p0, xv, tid, NT);
+    repro::mma::load_tile_2d<float>(
+        reinterpret_cast<float*>(base + D::X_BYTES), D::LDY,
+        Y + static_cast<size_t>(m0) * R, R, DBK, RN, m_hi - m0, R, yv, tid,
+        NT);
+  };
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) repro::mma::zero(acc[j]);
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nst) load_stage(st, st);
+    repro::mma::cp_async_commit();
+  }
+  for (int st = 0; st < nst; ++st) {
+    repro::mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (st + STAGES - 1 < nst)
+      load_stage(st + STAGES - 1, (st + STAGES - 1) % STAGES);
+    repro::mma::cp_async_commit();
+    const unsigned char* base = smem_raw + (st % STAGES) * D::STAGE_BYTES;
+    const T* xs = reinterpret_cast<const T*>(base) + 16 * warp;
+    const float* ys = reinterpret_cast<const float*>(base + D::X_BYTES);
+    const int kv = m_hi - m_lo - st * DBK;  // rows of the stage in M
+    // the stage's sum in fresh accumulators, added to acc once: an MMA
+    // truncates its fp32 sum, and M runs to 10240 rows
+    float part[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) repro::mma::zero(part[j]);
+#pragma unroll
+    for (int kk = 0; kk < DBK / M_::K; ++kk) {
+      if (kk * M_::K >= kv) break;
+      const M_::A a = load_xt(xs + kk * M_::K * D::LDX, D::LDX, gq, t);
+      // fp32: 3xTF32; bf16 x and g are exact in TF32, so only Y is split
+      // and its two halves make two MMAs
+      const M_::AP ap = M_::prep_a_tr(a);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const M_::BP bp = M_::prep_b_tr(
+            M_::load_b_kn(ys + kk * M_::K * D::LDY + 8 * j, D::LDY, gq, t));
+        if (sizeof(T) == 4) {
+          M_::mma(part[j], ap, bp);
+        } else {
+          M_::mma1(part[j], ap.big, bp.small);
+          M_::mma1(part[j], ap.big, bp.big);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  }
+
+  // this slice's partial: (DPT, RN) floats at work[tile][slice]
+  float* wp = work + (static_cast<size_t>(tile) * ns + blockIdx.y) * DPT * RN;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 v;
+      v.x = acc[j][2 * h];
+      v.y = acc[j][2 * h + 1];
+      *reinterpret_cast<float2*>(wp + (16 * warp + gq + 8 * h) * RN + 8 * j +
+                                 2 * t) = v;
+    }
+
+  // the last of the tile's CTAs adds the partials in slice order
+  __syncthreads();
+  if (tid == 0) last = repro::count_acq_rel(counters + tile) == ns - 1;
+  __syncthreads();
+  if (!last) return;
+  // a thread sums P4 float4 positions of the tile, NB slices of each
+  // loaded at once (16 loads in flight)
+  constexpr int P4 = DPT * RN / 4 / NT;
+  constexpr int NB = 16 / P4;
+  const float* wt = work + static_cast<size_t>(tile) * ns * DPT * RN;
+  float sum[P4][4];
+#pragma unroll
+  for (int j = 0; j < P4; ++j) repro::mma::zero(sum[j]);
+  for (int s0 = 0; s0 < ns; s0 += NB) {
+    float4 buf[NB][P4];
+#pragma unroll
+    for (int u = 0; u < NB; ++u)
+#pragma unroll
+      for (int j = 0; j < P4; ++j)
+        buf[u][j] = s0 + u < ns
+                        ? __ldcg(reinterpret_cast<const float4*>(
+                              wt + static_cast<size_t>(s0 + u) * DPT * RN +
+                              4 * (tid + j * NT)))
+                        : float4{0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < NB; ++u)
+      if (s0 + u < ns)
+#pragma unroll
+        for (int j = 0; j < P4; ++j) {
+          sum[j][0] += buf[u][j].x;
+          sum[j][1] += buf[u][j].y;
+          sum[j][2] += buf[u][j].z;
+          sum[j][3] += buf[u][j].w;
+        }
+  }
+  const float s = *scale;
+#pragma unroll
+  for (int j = 0; j < P4; ++j) {
+    const int i = 4 * (tid + j * NT);
+    const int p = p0 + i / RN;
+    const int c = i % RN;
+    if (p >= P) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (c + e >= R) break;
+      const T v = repro::from_f<T>(s * sum[j][e]);
+      if (is_a)
+        da[static_cast<size_t>(p) * R + c + e] = v;   // dA (K, R)
+      else
+        db[static_cast<size_t>(c + e) * N + p] = v;   // dB (R, N)
+    }
+  }
+  if (tid == 0) counters[tile] = 0;
+}
+
+template <typename T, int RN>
+cudaError_t launch_dab(const T* x, const float* gb, const T* g,
+                       const float* xa, const float* scale, float* work,
+                       int* counters, T* da, T* db, int M, int K, int N,
+                       int R, cudaStream_t stream) {
+  constexpr int smem = DabTile<T, RN>::smem_bytes();
+  static const cudaError_t opt_in =
+      repro::mma::allow_smem(lora_dab_kernel<T, RN>, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  const size_t es = sizeof(T);
+  int vec = 0;
+  if (repro::mma::aligned16(x, K * es)) vec |= VEC_DX;
+  if (repro::mma::aligned16(g, N * es)) vec |= VEC_DG;
+  if (repro::mma::aligned16(gb, R * 4)) vec |= VEC_DGB;
+  if (repro::mma::aligned16(xa, R * 4)) vec |= VEC_DXA;
+  const DabGrid gr = dab_grid(M, K, N);
+  lora_dab_kernel<T, RN><<<dim3(gr.tiles, gr.slices), 32 * DW, smem,
+                           stream>>>(x, gb, g, xa, scale, work, counters, da,
+                                     db, M, K, N, R, gr.rows, vec);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dab(const T* x, const float* gb, const T* g, const float* xa,
+                const float* scale, float* work, int* counters, T* da, T* db,
+                int M, int K, int N, int R, cudaStream_t stream) {
+  switch (rank_tile(R)) {
+    case 16:
+      return launch_dab<T, 16>(x, gb, g, xa, scale, work, counters, da, db,
+                               M, K, N, R, stream);
+    case 32:
+      return launch_dab<T, 32>(x, gb, g, xa, scale, work, counters, da, db,
+                               M, K, N, R, stream);
+    default:
+      return launch_dab<T, 64>(x, gb, g, xa, scale, work, counters, da, db,
+                               M, K, N, R, stream);
+  }
 }
 
 template <typename T>
@@ -528,8 +716,8 @@ cudaError_t fwd(const void* x, const void* w, const void* a, const void* b,
 template <typename T>
 cudaError_t bwd(const void* x, const void* w, const void* a, const void* b,
                 const float* scale, const void* g, const float* xa, float* gb,
-                float* work, void* dx, void* da, void* db, int M, int K,
-                int N, int R, cudaStream_t stream) {
+                float* work, int* counters, void* dx, void* da, void* db,
+                int M, int K, int N, int R, cudaStream_t stream) {
   const T* gg = static_cast<const T*>(g);
   const T* bb = static_cast<const T*>(b);
   // gb = g @ B^T: B^T(n, c) = B[c * N + n]
@@ -541,24 +729,9 @@ cudaError_t bwd(const void* x, const void* w, const void* a, const void* b,
                      static_cast<const T*>(a), R, scale, static_cast<T*>(dx),
                      M, N, K, stream);
   if (e != cudaSuccess) return e;
-  const int S = (M + MS - 1) / MS;
-  // dA (K, r) = scale * x^T @ gb
-  lora_partial_kernel<T><<<dim3((K + PT - 1) / PT, S), TT, 0, stream>>>(
-      static_cast<const T*>(x), gb, work, M, K, R);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  lora_reduce_kernel<T><<<(K * R + TT - 1) / TT, TT, 0, stream>>>(
-      work, scale, static_cast<T*>(da), S, K, R, R, 1);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  // dB (r, N) = scale * xa^T @ g, summed as (N, r) and written transposed
-  lora_partial_kernel<T><<<dim3((N + PT - 1) / PT, S), TT, 0, stream>>>(
-      gg, xa, work, M, N, R);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  lora_reduce_kernel<T><<<(N * R + TT - 1) / TT, TT, 0, stream>>>(
-      work, scale, static_cast<T*>(db), S, N, R, 1, N);
-  return cudaGetLastError();
+  // dA (K, r) = scale * x^T @ gb and dB (r, N) = scale * xa^T @ g
+  return dab<T>(static_cast<const T*>(x), gb, gg, xa, scale, work, counters,
+                static_cast<T*>(da), static_cast<T*>(db), M, K, N, R, stream);
 }
 
 }  // namespace
@@ -601,9 +774,36 @@ extern "C" int lora_fused_xa_smem(int rn, int kn, int dtype) {
   return kn ? thin_smem<BF, true>(rn) : thin_smem<BF, false>(rn);
 }
 
-// Rows of the split-M workspace the backward needs: (M / 256 rounded up)
-// * max(K, N) * R floats.
-extern "C" int lora_fused_work_slices(int M) { return (M + MS - 1) / MS; }
+// The dA/dB pass: floats of its fp32 workspace (the slices' partials; the
+// caller allocates it per call, its contents need not be initialised),
+// its int32 counters (one per column tile; the caller zeroes them once
+// and keeps them, each call leaves them zero), the CTAs of its grid, and
+// a CTA's dynamic shared memory in bytes for ranks up to rn (16, 32, 64;
+// -1: not a config).
+extern "C" long long lora_fused_dab_work(int M, int K, int N, int R) {
+  const DabGrid gr = dab_grid(M, K, N);
+  return static_cast<long long>(gr.tiles) * gr.slices * DPT * rank_tile(R);
+}
+extern "C" int lora_fused_dab_counters(int K, int N) {
+  return dab_grid(1, K, N).tiles;
+}
+extern "C" int lora_fused_dab_ctas(int M, int K, int N) {
+  const DabGrid gr = dab_grid(M, K, N);
+  return gr.tiles * gr.slices;
+}
+template <typename T>
+int dab_smem(int rn) {
+  switch (rn) {
+    case 16: return DabTile<T, 16>::smem_bytes();
+    case 32: return DabTile<T, 32>::smem_bytes();
+    case 64: return DabTile<T, 64>::smem_bytes();
+    default: return -1;
+  }
+}
+extern "C" int lora_fused_dab_smem(int rn, int dtype) {
+  return dtype == REPRO_DTYPE_F32 ? dab_smem<float>(rn)
+                                  : dab_smem<__nv_bfloat16>(rn);
+}
 
 // xa: (M, R) fp32, written.  scale: device fp32 scalar.
 extern "C" int lora_fused_fwd(const void* x, const void* w, const void* a,
@@ -623,13 +823,14 @@ extern "C" int lora_fused_fwd(const void* x, const void* w, const void* a,
 }
 
 // xa: the forward's (M, R) fp32 residual.  gb: (M, R) fp32, written.
-// work: lora_fused_work_slices(M) * max(K, N) * R floats of scratch.
+// work, counters: as lora_fused_dab_work and lora_fused_dab_counters say.
 // dx like x; da like A; db like B.
 extern "C" int lora_fused_bwd(const void* x, const void* w, const void* a,
                               const void* b, const void* scale, const void* g,
-                              const void* xa, void* gb, void* work, void* dx,
-                              void* da, void* db, int M, int K, int N, int R,
-                              int dtype, void* stream) {
+                              const void* xa, void* gb, void* work,
+                              void* counters, void* dx, void* da, void* db,
+                              int M, int K, int N, int R, int dtype,
+                              void* stream) {
   if (R < 1 || R > MAX_R || K < 1 || N < 1 || M < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -637,11 +838,12 @@ extern "C" int lora_fused_bwd(const void* x, const void* w, const void* a,
   const float* xf = static_cast<const float*>(xa);
   float* gf = static_cast<float*>(gb);
   float* wk = static_cast<float*>(work);
+  int* ctr = static_cast<int*>(counters);
   if (dtype == REPRO_DTYPE_F32)
-    return bwd<float>(x, w, a, b, sc, g, xf, gf, wk, dx, da, db, M, K, N, R,
-                      s);
+    return bwd<float>(x, w, a, b, sc, g, xf, gf, wk, ctr, dx, da, db, M, K, N,
+                      R, s);
   if (dtype == REPRO_DTYPE_BF16)
-    return bwd<__nv_bfloat16>(x, w, a, b, sc, g, xf, gf, wk, dx, da, db, M, K,
-                              N, R, s);
+    return bwd<__nv_bfloat16>(x, w, a, b, sc, g, xf, gf, wk, ctr, dx, da, db,
+                              M, K, N, R, s);
   return cudaErrorInvalidValue;
 }

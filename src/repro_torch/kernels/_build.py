@@ -86,11 +86,17 @@ SIGNATURES: Dict[str, List] = {
                   P],
     # x, w, a, b, scale, xa, y, M, K, N, R, dtype_code, stream
     "lora_fused_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, P],
-    # x, w, a, b, scale, g, xa, gb, work, dx, da, db, M, K, N, R,
-    # dtype_code, stream
-    "lora_fused_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
-    # M -> row slices of the backward's split-M workspace
-    "lora_fused_work_slices": [I],
+    # x, w, a, b, scale, g, xa, gb, workspace, counters, dx, da, db, M, K,
+    # N, R, dtype_code, stream
+    "lora_fused_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                       P],
+    # the backward's dA/dB pass: M, K, N, R -> floats of its workspace;
+    # K, N -> its int32 counters; M, K, N -> CTAs of its grid; rank tile
+    # (16, 32, 64), dtype_code -> dynamic shared memory of a CTA (bytes)
+    "lora_fused_dab_work": [I, I, I, I],
+    "lora_fused_dab_counters": [I, I],
+    "lora_fused_dab_ctas": [I, I, I],
+    "lora_fused_dab_smem": [I, I],
     # M, N -> rows of a wide-pass CTA (64 or 128)
     "lora_fused_tile": [I, I],
     # rows of the CTA, W read k-major (1: forward) or n-major (0: dx),
@@ -106,6 +112,11 @@ SIGNATURES: Dict[str, List] = {
     "smashed_quantize": [P, P, P, I, I, I, I, P],
     # q, scale, x, G, M, d, dtype_code, stream
     "smashed_dequantize": [P, P, P, I, I, I, I, P],
+    # -> CTAs per thread block cluster of quantize and the round trip;
+    # G, d -> CTAs of their grid; G, M, d -> CTAs of the dequantize grid
+    "smashed_quant_cluster": [],
+    "smashed_quant_ctas": [I, I],
+    "smashed_dequant_ctas": [I, I, I],
     # x, dt, a, bm, c, y, cum workspace, states workspace (the chunk
     # states, then the per-group C.B^T tiles), B, S, H, G, P, N, chunk,
     # dtype_code, stream
@@ -117,7 +128,8 @@ SIGNATURES: Dict[str, List] = {
 
 # entry points that return a size in elements (64-bit); every other one
 # returns an int
-SIZE_FNS = ("lora_indexed_work", "decode_attention_work")
+SIZE_FNS = ("lora_indexed_work", "decode_attention_work",
+            "lora_fused_dab_work")
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -9,7 +9,10 @@ fallback.
     ``lora_only=True``): the forward (csrc/lora_fused.cu) keeps the fp32
     ``xa`` residual and the backward (same source) computes dx, dA, dB and
     dscale from it.  W is frozen (LoRA fine-tuning): it gets no gradient
-    and dW is never computed.
+    and dW is never computed.  The backward's dA/dB pass splits M over
+    CTAs and combines the slices in the same launch: it takes a workspace
+    (allocated per call) and a counter per column tile, kept zeroed
+    between calls (``_build.counters``).
   * ``lora_matmul_indexed`` -- a pool of adapters, one per leading row
     (csrc/lora_indexed.cu); inference only, the serving path has no
     gradient.  The kernel splits K over CTAs and combines the slices in
@@ -96,16 +99,18 @@ def lora_matmul_bwd(x, w, a, b, scale, g, xa):
                          "(M, r) float32")
     lib = _build.library()
     gb = torch.empty((m, r), dtype=torch.float32, device=x.device)
-    work = torch.empty((lib.lora_fused_work_slices(m) * max(k_dim, n) * r,),
+    work = torch.empty((lib.lora_fused_dab_work(m, k_dim, n, r),),
                        dtype=torch.float32, device=x.device)
+    ctr = _build.counters("lora_fused_dab", x.device,
+                          lib.lora_fused_dab_counters(k_dim, n))
     dx = torch.empty_like(x)
     da = torch.empty_like(a)
     db = torch.empty_like(b)
     err = lib.lora_fused_bwd(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         scale.data_ptr(), g.data_ptr(), xa.data_ptr(), gb.data_ptr(),
-        work.data_ptr(), dx.data_ptr(), da.data_ptr(), db.data_ptr(), m,
-        k_dim, n, r, code, _stream(x))
+        work.data_ptr(), ctr.data_ptr(), dx.data_ptr(), da.data_ptr(),
+        db.data_ptr(), m, k_dim, n, r, code, _stream(x))
     _build.check(err, "lora_fused_bwd")
     lora_matmul_bwd.launches += 1
     return dx, da, db, (xa * gb).sum()

@@ -2,9 +2,10 @@
 
 Every inline-asm statement of a source is rewritten into the emulator call
 of the same instruction (an asm the rewriter does not know raises), each
-kernel launch into emu_launch, the dynamic shared memory into emu_smem and
-a static __shared__ array into one static array per kernel.  The result
-compiles with g++ into a shared library with the sources' C interface.
+kernel launch into emu_launch, and the dynamic shared memory and every
+static __shared__ array into the running block's own copy (emu_dyn_smem,
+EMU_SHARED).  The result compiles with g++ into a shared library with the
+sources' C interface.
 Used by tests/test_torch_*_emulated.py.
 """
 
@@ -49,6 +50,12 @@ def rewrite_asm(s):
             rep = f"emu_cp_async16({dst}, {ops[1]}, {ops[2]});"
         elif text.startswith("atom.add.acq_rel.gpu.s32"):
             rep = f"{ops[0]} = atomicAdd({ops[1]}, 1);"
+        elif text.startswith("barrier.cluster.arrive"):
+            rep = "emu_cluster_arrive();"
+        elif text.startswith("barrier.cluster.wait"):
+            rep = "emu_cluster_wait();"
+        elif text.startswith("mapa.u64"):
+            rep = f"{ops[0]} = (uint64_t)emu_mapa({ops[1]}, {ops[2]});"
         elif text.startswith("mma.sync.aligned.m16n8k8.row.col.f32.tf32"):
             rep = f"emu_mma_tf32({ops[0][:-3]}, {ops[4][:-3]}, {ops[8][:-3]});"
         elif text.startswith("mma.sync.aligned.m16n8k16.row.col.f32.bf16"):
@@ -63,13 +70,14 @@ def rewrite_asm(s):
 def rewrite(s):
     s = rewrite_asm(s)
     s = s.replace("extern __shared__ __align__(16) unsigned char smem_raw[];",
-                  "unsigned char* smem_raw = emu_smem;")
-    # a static __shared__ array: one per kernel instantiation (blocks run
-    # one after another)
-    s = re.sub(r"\b__shared__\s+(?=\w)", "static ", s)
+                  "unsigned char* smem_raw = emu_dyn_smem();")
+    # a static __shared__ array or scalar: the block's own copy
+    s = re.sub(r"\b__shared__\s+(?:__align__\(\d+\)\s+)?"
+               r"([\w:]+(?:<[^<>;]*>)?)\s+(\w+)((?:\[[^\]]*\])*)\s*;",
+               r"EMU_SHARED(\2, \1\3);", s)
     s = re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<([^>]*)>>>\((.*?)\);",
                r"emu_launch(\2, [=] { \1(\3); });", s, flags=re.S)
-    assert "<<<" not in s and not re.search(r"\basm\b", s)
+    assert "<<<" not in s and not re.search(r"\b(asm|__shared__)\b", s)
     return s
 
 

@@ -1,14 +1,19 @@
 // CPU emulation of the CUDA features the port's hand-written kernels use,
 // for tests/test_torch_*_emulated.py (built by build.py).  Each CUDA
 // thread of a block is a fiber (ucontext) on the calling OS thread; a
-// fiber runs until it waits at a barrier (__syncthreads, or a warp's
-// exchange inside a shuffle or mma.sync), and the block's scheduler then
-// resumes the next runnable fiber, so an emulated kernel keeps one core
-// busy however many threads its blocks have.  Warp-level collectives go
-// through per-warp exchange buffers with PTX's fragment layouts.  The
-// test rewrites each inline-asm statement of the kernel sources into the
-// emu_* call of the same instruction, each launch into emu_launch, and
-// the dynamic shared memory into emu_smem; blocks run one after another.
+// fiber runs until it waits at a barrier (__syncthreads, a warp's
+// exchange inside a shuffle or mma.sync, or the cluster barrier), and the
+// scheduler then resumes the next runnable fiber, so an emulated kernel
+// keeps one core busy however many threads its blocks have.  Warp-level
+// collectives go through per-warp exchange buffers with PTX's fragment
+// layouts.  The test rewrites each inline-asm statement of the kernel
+// sources into the emu_* call of the same instruction, each launch into
+// emu_launch, and every shared array into the block's own copy
+// (emu_dyn_smem, EMU_SHARED).  Blocks run one after another, except the
+// blocks of one thread block cluster (cudaLaunchKernelEx with a cluster
+// dimension), which run at once as fibers of one scheduler: the cluster
+// barrier is a barrier between them, and mapa maps a shared address into
+// another block's copy.
 #pragma once
 #include <algorithm>
 #include <cmath>
@@ -33,6 +38,7 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -54,7 +60,9 @@ inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); r
 // ---- fibers, barriers, block and warp state ----
 struct EmuFiber {
   ucontext_t ctx;
-  int state;  // 0 runnable, 1 waiting at a barrier, 2 done
+  int state;   // 0 runnable, 1 waiting at a barrier, 2 done
+  int block;   // its block in the cluster
+  int cphase;  // the cluster barrier's phase at its last arrival
 };
 struct EmuSched {
   ucontext_t main;
@@ -64,7 +72,7 @@ struct EmuSched {
 };
 inline thread_local EmuSched* emu_sched = nullptr;
 
-// back to the block's scheduler; returns when this fiber is resumed
+// back to the scheduler; returns when this fiber is resumed
 inline void emu_yield() {
   EmuSched& s = *emu_sched;
   swapcontext(&s.fibers[s.cur].ctx, &s.main);
@@ -93,17 +101,49 @@ struct EmuWarp {
   float f[32][8];
   uint32_t u[32][8];
 };
+// A block's shared memory: the dynamic buffer and one copy of each static
+// __shared__ array (keyed by its declaration), both garbage at first, as
+// on the card.
+struct EmuShared {
+  const void* key;
+  std::vector<float4> mem;
+};
 struct EmuBlock {
   std::unique_ptr<EmuBarrier> bar;
   std::vector<std::unique_ptr<EmuWarp>> warps;
+  dim3 idx;
+  std::vector<float4> dyn;
+  std::vector<EmuShared> statics;
 };
 inline thread_local EmuBlock* emu_block = nullptr;
-alignas(16) inline unsigned char emu_smem[256 * 1024];
+// the blocks of the running cluster by rank (one block outside a cluster)
+inline thread_local std::vector<EmuBlock>* emu_cluster = nullptr;
+
+inline unsigned char* emu_dyn_smem() {
+  return reinterpret_cast<unsigned char*>(emu_block->dyn.data());
+}
+inline EmuShared& emu_static(EmuBlock& b, const void* key, size_t bytes) {
+  for (EmuShared& sh : b.statics)
+    if (sh.key == key) return sh;
+  b.statics.push_back({key, std::vector<float4>((bytes + 15) / 16)});
+  EmuShared& sh = b.statics.back();
+  std::memset(static_cast<void*>(sh.mem.data()), 0xCD, sh.mem.size() * 16);
+  return sh;
+}
+template <class U>
+U& emu_shared(const void* key) {
+  return *reinterpret_cast<U*>(
+      emu_static(*emu_block, key, sizeof(U)).mem.data());
+}
+// a static __shared__ declaration, rewritten: the block's own copy
+#define EMU_SHARED(name, ...)           \
+  static const char name##_emu_key = 0; \
+  auto& name = emu_shared<__VA_ARGS__>(&name##_emu_key)
 
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
-// blocks run one after another on one OS thread: a global atomic needs
-// no more than the plain operation (atom.add.acq_rel is rewritten into
-// it), and an L2-only load is a load
+// one OS thread runs every block: a global atomic needs no more than the
+// plain operation (atom.add.acq_rel is rewritten into it), and an L2-only
+// load is a load
 inline int atomicAdd(int* p, int v) { const int old = *p; *p = old + v; return old; }
 inline float __ldcg(const float* p) { return *p; }
 inline float4 __ldcg(const float4* p) { return *p; }
@@ -138,30 +178,96 @@ inline char* emu_stacks(size_t bytes) {
   return area.get();
 }
 
+// The cluster barrier (barrier.cluster.arrive / wait): an arrival counts
+// towards the current phase, and a wait returns once the phase of the
+// fiber's last arrival has completed.
+struct EmuClusterBarrier {
+  int expected = 0;
+  int count = 0;
+  int phase = 0;
+  std::vector<int> waiters;
+};
+inline thread_local EmuClusterBarrier* emu_cbar = nullptr;
+
+inline void emu_cluster_arrive() {
+  EmuSched& s = *emu_sched;
+  EmuClusterBarrier& c = *emu_cbar;
+  s.fibers[s.cur].cphase = c.phase;
+  if (++c.count == c.expected) {
+    c.count = 0;
+    ++c.phase;
+    for (int w : c.waiters) s.fibers[w].state = 0;
+    c.waiters.clear();
+  }
+}
+inline void emu_cluster_wait() {
+  EmuSched& s = *emu_sched;
+  EmuClusterBarrier& c = *emu_cbar;
+  if (s.fibers[s.cur].cphase < 0) std::abort();  // a wait before an arrive
+  if (c.phase > s.fibers[s.cur].cphase) return;
+  c.waiters.push_back(s.cur);
+  s.fibers[s.cur].state = 1;
+  emu_yield();
+}
+
+// mapa (generic addresses): the same shared byte in block `rank` of the
+// cluster
+inline void* emu_mapa(const void* p, unsigned rank) {
+  EmuBlock& me = *emu_block;
+  if (rank >= emu_cluster->size()) std::abort();
+  EmuBlock& to = (*emu_cluster)[rank];
+  const unsigned char* q = static_cast<const unsigned char*>(p);
+  const unsigned char* d =
+      reinterpret_cast<const unsigned char*>(me.dyn.data());
+  if (q >= d && q < d + me.dyn.size() * 16)
+    return reinterpret_cast<unsigned char*>(to.dyn.data()) + (q - d);
+  for (EmuShared& sh : me.statics) {
+    const unsigned char* b =
+        reinterpret_cast<const unsigned char*>(sh.mem.data());
+    if (q >= b && q < b + sh.mem.size() * 16)
+      return reinterpret_cast<unsigned char*>(
+                 emu_static(to, sh.key, sh.mem.size() * 16).mem.data()) +
+             (q - b);
+  }
+  std::abort();  // not a shared address
+}
+
+// Runs the grid's clusters of `cluster` blocks along x (1: no cluster) one
+// after another; the blocks of a cluster run at once.
 template <class F>
-void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
+void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body,
+                unsigned cluster = 1) {
   constexpr size_t STACK = 256 * 1024;
-  if (smem > sizeof(emu_smem)) std::abort();
+  if (smem > 232448 || cluster < 1 || grid.x % cluster) std::abort();
   const int nt = block.x;
-  char* stacks = emu_stacks(nt * STACK);
+  const int nf = nt * static_cast<int>(cluster);
+  char* stacks = emu_stacks(nf * STACK);
   const std::function<void()> fn = body;
   EmuSched sched;
   sched.body = &fn;
-  sched.fibers.resize(nt);
+  sched.fibers.resize(nf);
   EmuSched* outer = emu_sched;
   emu_sched = &sched;
   gridDim = grid;
   for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::memset(emu_smem, 0xCD, smem);  // garbage, as on the card
-      EmuBlock blk;
-      blk.bar = std::make_unique<EmuBarrier>(nt);
-      for (int w = 0; w < (nt + 31) / 32; ++w)
-        blk.warps.push_back(std::make_unique<EmuWarp>());
-      emu_block = &blk;
-      blockIdx = dim3(bx, by, bz);
-      for (int t = 0; t < nt; ++t) {
+    for (unsigned bx = 0; bx < grid.x; bx += cluster) {
+      std::vector<EmuBlock> blocks(cluster);
+      for (unsigned c = 0; c < cluster; ++c) {
+        EmuBlock& blk = blocks[c];
+        blk.bar = std::make_unique<EmuBarrier>(nt);
+        for (int w = 0; w < (nt + 31) / 32; ++w)
+          blk.warps.push_back(std::make_unique<EmuWarp>());
+        blk.idx = dim3(bx + c, by, bz);
+        blk.dyn.resize((smem + 15) / 16);
+        std::memset(static_cast<void*>(blk.dyn.data()), 0xCD,
+                    blk.dyn.size() * 16);
+      }
+      EmuClusterBarrier cbar;
+      cbar.expected = nf;
+      emu_cbar = &cbar;
+      emu_cluster = &blocks;
+      for (int t = 0; t < nf; ++t) {
         EmuFiber& f = sched.fibers[t];
         getcontext(&f.ctx);
         f.ctx.uc_stack.ss_sp = stacks + t * STACK;
@@ -169,23 +275,60 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
         f.ctx.uc_link = &sched.main;
         makecontext(&f.ctx, emu_fiber_main, 0);
         f.state = 0;
+        f.block = t / nt;
+        f.cphase = -1;
       }
-      for (int done = 0; done < nt;) {
+      for (int done = 0; done < nf;) {
         bool ran = false;
         done = 0;
-        for (int t = 0; t < nt; ++t) {
+        for (int t = 0; t < nf; ++t) {
           EmuFiber& f = sched.fibers[t];
           if (f.state == 2) { ++done; continue; }
           if (f.state != 0) continue;
           ran = true;
           sched.cur = t;
-          threadIdx = dim3(t);
+          emu_block = &blocks[f.block];
+          blockIdx = blocks[f.block].idx;
+          threadIdx = dim3(t % nt);
           swapcontext(&sched.main, &f.ctx);
         }
-        if (!ran && done < nt) std::abort();  // every live fiber waits
+        if (!ran && done < nf) std::abort();  // every live fiber waits
       }
+      emu_cluster = nullptr;
+      emu_cbar = nullptr;
     }
   emu_sched = outer;
+}
+
+// cudaLaunchKernelEx and its configuration; a cluster dimension (along x
+// only) runs the cluster's blocks at once
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(P...), A&&... args) {
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      const auto& c = cfg->attrs[i].val.clusterDim;
+      if (c.y != 1 || c.z != 1) std::abort();
+      cluster = c.x;
+    }
+  emu_launch(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes, cfg->stream,
+             [&] { kernel(args...); }, cluster);
+  return cudaSuccess;
 }
 
 // ---- PTX instructions ----

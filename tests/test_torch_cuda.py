@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.config import reduced  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import rounds, smashed  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 from repro_torch.kernels.lora_matmul import ops as lops  # noqa: E402
@@ -423,7 +424,7 @@ def _lora_fused_inputs(gen, dtype, m, r, k=96, n=80):
 @pytest.mark.parametrize("m,r", [(37, 5), (300, 16)])
 def test_lora_fused_kernels_match_plain(cuda, dtype, m, r):
     """Forward (y, xa) and backward (dx, dA, dB, dscale) at ragged M and
-    an odd rank; 300 rows span two split-M slices of the backward."""
+    an odd rank; 300 rows span ten 32-row slices of the dA/dB pass."""
     gen = torch.Generator().manual_seed(6)
     x, w, a, b, s, g = _lora_fused_inputs(gen, dtype, m, r)
     want_y, want_xa = lops.lora_matmul_fwd(x, w, a, b, s)
@@ -634,6 +635,103 @@ def test_lora_fused_is_deterministic(cuda, dtype):
     grads = lops.lora_matmul_bwd(x, w, a, b, s, g, first[1])
     for u, v in zip(grads, lops.lora_matmul_bwd(x, w, a, b, s, g, first[1])):
         assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [10240, 1000, 4100])
+def test_lora_dab_at_path_shape_and_ragged_slices(cuda, dtype, m):
+    """dA and dB of the backward at the gpt2 eval shape (M = 10240, K = N =
+    768, r = 16: 22 slices of 480 rows) and at M = 1000 and 4100 (slices of
+    64 and 192 rows, the last one ragged) against the plain version on the
+    card, with the tolerance scaled by max|want| (a sum over M rows); two
+    calls give the same bits."""
+    gen = torch.Generator().manual_seed(m)
+    x, w, a, b, s, g = (t.to(cuda) for t in _lora_fused_inputs(
+        gen, dtype, m, 16, k=768, n=768))
+    xa = lops.ref.lora_matmul_fwd(x, w, a, b, s)[1]
+    got = lops.lora_matmul_bwd(x, w, a, b, s, g, xa)
+    want = lops.ref.lora_matmul_bwd(x, w, a, b, s, g, xa)
+    for gt, wt in zip(got[1:3], want[1:3]):
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape
+        _ssd_close(gt, wt.cpu(), dtype)
+    for u, v in zip(got, lops.lora_matmul_bwd(x, w, a, b, s, g, xa)):
+        assert torch.equal(u, v)
+
+
+BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _same_bits(got, want):
+    """Equal bit patterns (so +0 and -0 differ), dtypes and shapes."""
+    got = got.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.is_floating_point():
+        got, want = got.view(BITS[got.dtype]), want.view(BITS[want.dtype])
+    assert torch.equal(got, want)
+
+
+def _int8_inputs(seed, dtype, g, m, d):
+    """x (G, M, d) with an all-zero channel 5 and, in message 0's channel
+    7 (amax 127, so scale = 1 exactly), exact halfway ties and -0.5."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((g, m, d), generator=gen) * 3.0
+    x[..., 5] = 0.0
+    ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 3.5])
+    n = min(m, len(ties))
+    x[0, :n, 7] = ties[:n]
+    if m > n:
+        x[0, n:, 7] = x[0, n:, 7].clamp(-100.0, 100.0)
+    return x.to(dtype).contiguous()
+
+
+# the gpt2 training path's shape (5 messages of 4 x 512 tokens, d 768) and
+# the emulated test's ragged cases (tests/test_torch_int8_emulated.py)
+INT8_SHAPES = [(5, 2048, 768), (2, 37, 136), (1, 1, 70), (3, 20, 64),
+               (2, 45, 68), (1, 1100, 64), (1, 2100, 16), (1, 4200, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INT8_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_int8_kernels_bit_equal_to_plain(cuda, dtype, shape):
+    """Quantize (q, scale), dequantize and the round trip on the card
+    against the plain version on the CPU, bit for bit, ties, -0 and an
+    all-zero channel included; a second call gives the same bits."""
+    g, m, d = shape
+    x = _int8_inputs(g * 1000 + m + d, dtype, g, m, d)
+    want_q, want_scale = sops.ref.quantize(x)
+    xc = x.to(cuda)
+    q, scale = sops.int8_quantize_smashed(xc)
+    _same_bits(q, want_q)
+    _same_bits(scale, want_scale)
+    deq = sops.int8_dequantize_smashed(want_q.to(cuda), want_scale.to(cuda),
+                                       dtype)
+    _same_bits(deq, sops.ref.dequantize(want_q, want_scale, dtype))
+    y = sops.int8_roundtrip_smashed(xc)
+    _same_bits(y, sops.ref.roundtrip(x))
+    _same_bits(sops.int8_roundtrip_smashed(xc), y.cpu())
+    q2, scale2 = sops.int8_quantize_smashed(xc)
+    _same_bits(q2, q.cpu())
+    _same_bits(scale2, scale.cpu())
+
+
+@pytest.mark.cuda
+def test_int8_cluster_launch_is_not_refused(cuda):
+    """Quantize and the round trip launch as clusters of 8 CTAs at the
+    training path's shape: a refused launch would raise from the wrapper,
+    and an error during the run shows at the synchronize."""
+    assert _build.library().smashed_quant_cluster() == 8
+    x = torch.randn(5, 2048, 768, device=cuda)
+    before = (sops.int8_quantize_smashed.launches,
+              sops.int8_roundtrip_smashed.launches)
+    sops.int8_quantize_smashed(x)
+    sops.int8_roundtrip_smashed(x)
+    torch.cuda.synchronize()
+    assert (sops.int8_quantize_smashed.launches,
+            sops.int8_roundtrip_smashed.launches) == (before[0] + 1,
+                                                      before[1] + 1)
 
 
 @pytest.mark.cuda

@@ -62,8 +62,11 @@ def libs(tmp_path_factory):
         for bm, fut in futs.items():
             lib = ctypes.CDLL(str(fut.result()))
             lib.lora_fused_fwd.argtypes = [P_] * 7 + [I_] * 5 + [P_]
-            lib.lora_fused_bwd.argtypes = [P_] * 12 + [I_] * 5 + [P_]
-            lib.lora_fused_work_slices.argtypes = [I_]
+            lib.lora_fused_bwd.argtypes = [P_] * 13 + [I_] * 5 + [P_]
+            lib.lora_fused_dab_work.argtypes = [I_] * 4
+            lib.lora_fused_dab_work.restype = ctypes.c_longlong
+            lib.lora_fused_dab_counters.argtypes = [I_, I_]
+            lib.lora_fused_dab_ctas.argtypes = [I_] * 3
             lib.lora_fused_tile.argtypes = [I_, I_]
             if bm == 64:
                 lib.ssd_scan_fwd.argtypes = [P_] * 8 + [I_] * 8 + [P_]
@@ -89,12 +92,13 @@ def _lora_bwd(lib, x, w, a, b, s, g, xa):
     m, k = x.shape
     n, r = w.shape[1], a.shape[1]
     gb = torch.full((m, r), float("nan"))
-    work = torch.full((lib.lora_fused_work_slices(m) * max(k, n) * r,),
-                      float("nan"))
+    work = torch.full((lib.lora_fused_dab_work(m, k, n, r),), float("nan"))
+    ctr = torch.zeros(lib.lora_fused_dab_counters(k, n), dtype=torch.int32)
     dx, da, db = (torch.full_like(t, float("nan")) for t in (x, a, b))
-    assert lib.lora_fused_bwd(*map(_ptr, (x, w, a, b, s, g, xa, gb, work, dx,
-                                          da, db)), m, k, n, r,
+    assert lib.lora_fused_bwd(*map(_ptr, (x, w, a, b, s, g, xa, gb, work, ctr,
+                                          dx, da, db)), m, k, n, r,
                               CODE[x.dtype], None) == 0
+    assert not ctr.any(), "the counters must be left at zero"
     return dx, da, db, (xa * gb).sum()
 
 
@@ -121,9 +125,11 @@ def _close(got, want, dtype, scaled=False):
 # (M, K, N, r): ragged M, K and N against the 64/128-row and 128-column
 # tiles and the 32/64-deep k tiles; K = 61 and 33 leave x's rows (and the
 # backward's W^T and A^T rows at r = 5) not 16-byte aligned; r = 1, 5, 16
-# and 64 (two rank k tiles in fp32)
+# and 64 (two rank k tiles in fp32).  At these widths the dA/dB pass cuts
+# M into 32-row slices: M = 300 and 270 span 10 and 9 slices with a ragged
+# last one, at r = 1 (gb and xa rows not 16-byte aligned) and r = 64.
 LORA_CASES = [(37, 96, 80, 5), (130, 96, 136, 64), (1, 61, 80, 1),
-              (100, 33, 136, 16)]
+              (100, 33, 136, 16), (300, 40, 72, 1), (270, 72, 40, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -149,10 +155,22 @@ def test_emulated_lora_fused_matches_plain(libs, dtype, bm, case):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_emulated_lora_fused_is_deterministic(libs, dtype):
-    x, w, a, b, s, _ = _lora_inputs(3, dtype, 130, 96, 136, 16)
+    x, w, a, b, s, g = _lora_inputs(3, dtype, 130, 96, 136, 16)
     first = _lora_fwd(libs[128], x, w, a, b, s)
     for u, v in zip(first, _lora_fwd(libs[128], x, w, a, b, s)):
         assert torch.equal(u, v)
+    grads = _lora_bwd(libs[64], x, w, a, b, s, g, first[1])
+    for u, v in zip(grads, _lora_bwd(libs[64], x, w, a, b, s, g, first[1])):
+        assert torch.equal(u, v)
+
+
+def test_emulated_lora_dab_grid_fills_the_card(libs):
+    """At the gpt2 eval shape (M = 10240, K = N = 768) the dA/dB pass runs
+    at least one CTA per H100 SM (132) and at most four; at M = 1 and 37 it
+    runs one slice per column tile."""
+    assert 132 <= libs[64].lora_fused_dab_ctas(10240, 768, 768) <= 4 * 132
+    assert libs[64].lora_fused_dab_ctas(1, 768, 768) == 24
+    assert libs[64].lora_fused_dab_ctas(37, 768, 768) == 48
 
 
 def _ssd_inputs(seed, dtype, b, s, h, p, g, n, dt_scale):
