@@ -17,13 +17,17 @@ at full width (random weights from a seed):
     logits against the CPU plain path;
   * training gpt2-small: 3 SplitFT rounds (Algorithm 1, sync) of 5
     clients with int8 smashed activations on a length-Dirichlet partition
-    of the synthetic corpus, each round a train step, an eval step and
-    the accuracy controller's cut adjustment; then one step at full width
-    and reduced depth on the card and on the CPU plain path from one
-    state, whose losses and adapter gradients must agree;
-  * training mamba2-780m: the same 3 rounds at full depth (48 SSD layers,
-    every SSD scan through the chunked-scan kernel) at batch 1 per client;
-    then the card-vs-CPU step at 2 layers and seq 512 (SSD chunk 256).
+    of the synthetic corpus, through SplitFTSystem.run (each round a train
+    step, an eval step and the accuracy controller's cut adjustment, with
+    the round's wall time split into train, eval and host); a deadline-
+    scheduled run checkpointed and resumed, whose resumed rounds must
+    equal the straight run's; the train CLI on the card; then one step at
+    full width and reduced depth on the card and on the CPU plain path
+    from one state, whose losses and adapter gradients must agree;
+  * training mamba2-780m: the same 3 rounds through SplitFTSystem at full
+    depth (48 SSD layers, every SSD scan through the chunked-scan kernel)
+    at batch 1 per client; then the card-vs-CPU step at 2 layers and seq
+    512 (SSD chunk 256).
 
 The launch counters are read around each path.  Every phase that fails
 raises, so the exit code is non-zero; without a GPU it exits 1 before
@@ -67,6 +71,7 @@ ROUNDS, NUM_SAMPLES, EVAL_SAMPLES = 3, 400, 64
 # the card-vs-CPU step: full width, reduced depth
 SMALL_LAYERS, SMALL_CLIENTS, SMALL_BATCH, SMALL_SEQ = 2, 2, 1, 128
 STEP_TOL = 1e-4        # per-client losses, relative
+RESUME_RTOL = 1e-6     # a resumed round's per-client losses vs straight
 # adapter grads: (relative, share of max|g|) per smashed compressor; int8
 # allows a few cotangent elements to take the neighbouring int8 code
 GRAD_TOL = {"none": (1e-3, 1e-4), "int8": (1e-3, 2e-3)}
@@ -760,6 +765,10 @@ def main() -> int:
     for kname, c in train_phase(torch, dev, wrappers, name, card).items():
         launches[kname] += c
 
+    # -- phase 5b, 5c: checkpoint resume, the train CLI ----------------------
+    resume_phase(torch, dev, wrappers, name, card)
+    cli_phase(torch, wrappers, name, card)
+
     # -- phase 6: one step at full width, reduced depth, card vs CPU --------
     small_step_check(torch, dev, "gpt2-small", SMALL_SEQ, tuple(GRAD_TOL),
                      "phase 6")
@@ -1362,127 +1371,112 @@ def time_mamba2_lora(torch, rand, errs):
     return rows
 
 
-def client_data(arch):
-    """The quickstart's synthetic corpus on a length-Dirichlet partition:
-    per-client train and eval loaders at the config's batch and seq, and
-    the per-client sample counts."""
-    from repro_torch import data
+class TimedStep:
+    """Stands in for a system's train_step or eval_step: calls the
+    engine's step between two synchronizes, and keeps per call the cuts
+    it ran with, the kernel launches it made and its wall seconds, and
+    the last arguments (for the profiles).  The system calls whatever is
+    bound to those attributes."""
 
-    n, t, dcfg = arch.data.num_clients, arch.train, arch.data
-    tok = data.HashTokenizer(arch.model.vocab_size)
+    def __init__(self, torch, fn, wrappers):
+        self.torch, self.fn, self.wrappers = torch, fn, wrappers
+        self.calls, self.last = [], None
 
-    def tokens(num, seed):
-        return [np.asarray(tok.encode(x), np.int32)
-                for x in data.synthetic_corpus(num, seed=seed)]
+    def __call__(self, *args):
+        sync = self.torch.cuda.synchronize
+        sync()
+        before = {k: w.launches for k, w in self.wrappers.items()}
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        sync()
+        self.calls.append((args[1]["cuts"].tolist(),
+                           {k: w.launches - before[k]
+                            for k, w in self.wrappers.items()},
+                           time.perf_counter() - t0))
+        self.last = args
+        return out
 
-    samples = tokens(NUM_SAMPLES, dcfg.seed)
-    parts = data.partition_dataset(
-        [len(x) for x in samples], n, strategy=dcfg.partition,
-        alpha=dcfg.alpha, num_classes=dcfg.num_length_classes,
-        seed=dcfg.seed)
-    loaders = data.make_client_loaders(samples, parts,
-                                       batch_size=t.batch_size,
-                                       seq_len=t.seq_len, seed=SEED)
-    ev = tokens(EVAL_SAMPLES, dcfg.seed + 777)
-    eval_loaders = data.make_client_loaders(
-        ev, [np.arange(len(ev))] * n, batch_size=t.batch_size,
-        seq_len=t.seq_len, seed=SEED + 999)
-    counts = np.array([ld.num_samples() for ld in loaders], float)
-    return loaders, eval_loaders, counts
+
+def timed_system(torch, arch, dev, wrappers, sys_kw=None):
+    """SplitFTSystem on `arch` at full width on the card, random weights
+    from SEED, the quickstart's data sizes, with TimedStep in place of its
+    train and eval steps."""
+    from repro_torch.core.system import SplitFTSystem, SystemConfig
+
+    system = SplitFTSystem(arch, SystemConfig(
+        num_samples=NUM_SAMPLES, eval_samples=EVAL_SAMPLES,
+        **(sys_kw or {})), seed=SEED, device=dev)
+    system.train_step = TimedStep(torch, system.train_step, wrappers)
+    system.eval_step = TimedStep(torch, system.eval_step, wrappers)
+    return system
 
 
 def run_rounds(torch, arch, dev, wrappers, tag, name, card,
                host_profile=False):
-    """ROUNDS SplitFT rounds through the round engine's own entry points
-    (init_state, make_train_step, make_eval_step) on `arch` at full width,
-    random weights from SEED: each round a train step, an eval step and
-    the accuracy controller's cut adjustment.  The launch counters are set
-    to 0 before the rounds and read after each step; then one more train
-    + eval step runs under the profiler, and with host_profile one more
-    train step under the host profiler.  Returns (model, params, state,
-    the launches over the rounds, [(cuts, train-step launches, eval-step
-    launches)] per round, the last (batch, eval batch, weights))."""
-    from repro_torch import data
-    from repro_torch.core import adaptive, comm, rounds
-    from repro_torch.models.model import build_model
-
-    n, t = arch.data.num_clients, arch.train
-    comp = arch.split.smashed_compress
+    """ROUNDS SplitFT rounds through SplitFTSystem.run on `arch` at full
+    width (sync scheduler, the accuracy controller): each round a train
+    step, an eval step and the C3 epilogue.  The launch counters are set
+    to 0 before the rounds; each round prints its wall time, the train-
+    and eval-step times and the host share (round wall - train - eval:
+    planning, comm bytes, C3, records).  Then one more train + eval step
+    of the system's engine runs under the profiler on its last inputs,
+    and with host_profile one more train step under the host profiler.
+    Returns (system, the launches over the rounds, [(cuts, train-step
+    launches, eval-step launches)] per round)."""
+    t = arch.train
     t0 = time.perf_counter()
-    loaders, eval_loaders, counts = client_data(arch)
-    model = build_model(arch, device=dev)
-    params = model.init_params(torch.Generator().manual_seed(SEED))
-    state = rounds.init_state(model, torch.Generator().manual_seed(SEED + 3),
-                              num_clients=n)
-    train_step = rounds.make_train_step(model, smashed_compress=comp)
-    eval_step = rounds.make_eval_step(model)
-    log(f"{tag}: {arch.name} {model.num_flat_layers} layers, {n} clients "
-        f"(samples {counts.astype(int).tolist()}, length-Dirichlet alpha "
-        f"{arch.data.alpha}), batch {t.batch_size} x seq {t.seq_len}, "
-        f"r_cut {arch.lora.r_cut} r_others {arch.lora.r_others}, smashed "
-        f"{comp}, {t.optimizer} lr {t.lr_client}; data and model set up in "
+    system = timed_system(torch, arch, dev, wrappers)
+    train, ev = system.train_step, system.eval_step
+    n = arch.data.num_clients
+    log(f"{tag}: {arch.name} {system.model.num_flat_layers} layers, {n} "
+        f"clients (samples {system.sample_counts.astype(int).tolist()}, "
+        f"length-Dirichlet alpha {arch.data.alpha}), batch {t.batch_size} "
+        f"x seq {t.seq_len}, r_cut {arch.lora.r_cut} r_others "
+        f"{arch.lora.r_others}, smashed {system.smashed_compress}, "
+        f"{t.optimizer} lr {t.lr_client}, scheduler "
+        f"{system.scheduler.name}; SplitFTSystem built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    c3 = np.ones(n)
-    active = np.ones(n, np.float32)
-    per_round = []
     tokens_per_step = n * t.batch_size * t.seq_len
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for r in range(ROUNDS):
-        weights = counts / counts.sum() * c3
-        weights = (weights / weights.sum()).astype(np.float32)
-        cuts = state["cuts"].tolist()
-        before = {k: w.launches for k, w in wrappers.items()}
-        batch = data.stack_client_batches([ld.batch(r) for ld in loaders])
         t0 = time.perf_counter()
-        state, met = train_step(params, state, batch, weights, active,
-                                t.lr_client, t.lr_server)
+        system.run(1, log_every=0)
         torch.cuda.synchronize()
-        t_train = time.perf_counter() - t0
-        mid = {k: w.launches for k, w in wrappers.items()}
-        ebatch = data.stack_client_batches([ld.batch(r)
-                                            for ld in eval_loaders])
-        t0 = time.perf_counter()
-        _, em = eval_step(params, state, ebatch, weights)
-        torch.cuda.synchronize()
-        t_eval = time.perf_counter() - t0
-        per_round.append((cuts, {k: mid[k] - before[k] for k in mid},
-                          {k: w.launches - mid[k]
-                           for k, w in wrappers.items()}))
-        accs = em["accuracy"].cpu().numpy()
-        c3 = adaptive.update_weights(accs, arch.split.gamma)
-        state["cuts"] = torch.as_tensor(adaptive.adjust_cuts(
-            cuts, accs, arch.split, model.num_flat_layers), dtype=torch.int32)
-        wire = comm.round_comm_bytes(model, cuts=cuts,
-                                     batch_size=t.batch_size,
-                                     seq_len=t.seq_len,
-                                     smashed_compress=comp)["total"]
-        ce = met["ce"].cpu().numpy()
-        acc = met["accuracy"].cpu().numpy()
-        if not (np.isfinite(ce).all() and np.isfinite(accs).all()
-                and np.isfinite(em["ce"].cpu().numpy()).all()):
+        wall = time.perf_counter() - t0
+        rec = system.history[-1]
+        (cuts, _, t_train), (_, _, t_eval) = train.calls[-1], ev.calls[-1]
+        vals = [rec[k] for k in ("ce", "accuracy", "eval_ce",
+                                 "eval_accuracy")]
+        if not all(np.isfinite(v).all() for v in vals) or \
+                not np.isfinite(rec["loss"]):
             raise RuntimeError(f"{tag} round {r}: non-finite loss")
+        host = wall - t_train - t_eval
         log(f"{tag} round {r} [{name}, {card}]: cuts {cuts} -> "
-            f"{state['cuts'].tolist()}; train ce {fmt(ce)} acc {fmt(acc)}; "
-            f"eval ce {fmt(em['ce'].cpu().numpy())} acc {fmt(accs)}; "
+            f"{system.state['cuts'].tolist()}; train ce {fmt(vals[0])} acc "
+            f"{fmt(vals[1])}; eval ce {fmt(vals[2])} acc {fmt(vals[3])}; "
             f"comm per client "
-            f"{(wire / 1e6).round(3).tolist()} MB; train step "
-            f"{t_train * 1e3:.1f} ms ({tokens_per_step / t_train:.0f} "
-            f"tokens/s), eval step {t_eval * 1e3:.1f} ms "
-            f"({tokens_per_step / t_eval:.0f} tokens/s); "
+            f"{(rec['comm'] / 1e6).round(3).tolist()} MB; round wall "
+            f"{wall * 1e3:.1f} ms = train step {t_train * 1e3:.1f} ms "
+            f"({tokens_per_step / t_train:.0f} tokens/s) + eval step "
+            f"{t_eval * 1e3:.1f} ms + host {host * 1e3:.1f} ms (host share "
+            f"{host / wall:.4f}); "
             f"max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     got = {k: w.launches for k, w in wrappers.items()}
     log(f"{tag} launches over {ROUNDS} rounds: "
         f"{ {k: c for k, c in got.items() if c} }")
+    if len(train.calls) != ROUNDS or len(ev.calls) != ROUNDS:
+        raise RuntimeError(f"{tag}: {len(train.calls)} train and "
+                           f"{len(ev.calls)} eval steps in {ROUNDS} rounds")
+    per_round = [(c, tl, el) for (c, tl, _), (_, el, _) in
+                 zip(train.calls, ev.calls)]
 
     wall, busy, by_name, _ = device_busy(
-        torch, lambda: (train_step(params, state, batch, weights, active,
-                                   t.lr_client, t.lr_server),
-                        eval_step(params, state, ebatch, weights)))
+        torch, lambda: (train.fn(*train.last), ev.fn(*ev.last)))
     if busy is None:
         log(f"{tag} profile [{name}, {card}]: device busy share not "
             f"measured (the profiler recorded no device activity); wall "
@@ -1495,13 +1489,12 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
             f"time: " + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms"
                                   for k, v in top))
     if host_profile:
-        wall, top = host_top(torch, lambda: train_step(
-            params, state, batch, weights, active, t.lr_client, t.lr_server))
+        wall, top = host_top(torch, lambda: train.fn(*train.last))
         log(f"{tag} host profile [{name}, {card}]: one train step under "
             f"torch.profiler (CPU and CUDA): wall {wall:.3f} s; top host ops "
             f"by self CPU time: " + "; ".join(
                 f"{k[:40]} {ms:.1f} ms x{calls}" for k, ms, calls in top))
-    return model, params, state, got, per_round, (batch, ebatch, weights)
+    return system, got, per_round
 
 
 def check_launches(per_round, want_train, want_eval, what):
@@ -1518,21 +1511,26 @@ def check_launches(per_round, want_train, want_eval, what):
                                    f"(got, want): {bad}")
 
 
-def train_phase(torch, dev, wrappers, name, card):
-    """Phase 5: ROUNDS SplitFT rounds on full-width gpt2-small with int8
-    smashed activations; then the fused LoRA backward through autograd at
-    the eval shape.  Returns the launches of both."""
+def gpt2_int8():
+    """gpt2-small at the paper setting with int8 smashed activations."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.core import split
-    from repro_torch.tree import tree_leaves, tree_map
 
     arch = get_config("gpt2-small")
-    arch = arch.replace(split=dataclasses.replace(arch.split,
+    return arch.replace(split=dataclasses.replace(arch.split,
                                                   smashed_compress="int8"))
-    model, params, state, got, per_round, (_, ebatch, weights) = run_rounds(
-        torch, arch, dev, wrappers, "phase 5", name, card)
+
+
+def train_phase(torch, dev, wrappers, name, card):
+    """Phase 5: ROUNDS SplitFT rounds on full-width gpt2-small with int8
+    smashed activations through SplitFTSystem; then the fused LoRA
+    backward through autograd at the eval shape, on the system's served
+    adapters.  Returns the launches of both."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    system, got, per_round = run_rounds(torch, gpt2_int8(), dev, wrappers,
+                                        "phase 5", name, card)
     check_launches(per_round, lambda cuts: {
         "flash_attention_fwd": 12, "flash_attention_bwd": 12,
         "int8_roundtrip_smashed": 2 * len(set(cuts))},
@@ -1545,15 +1543,14 @@ def train_phase(torch, dev, wrappers, name, card):
     # backward)
     for w in wrappers.values():
         w.launches = 0
-    eff = tree_map(lambda x: x.detach().requires_grad_(True),
-                   split.serve_adapters(model, state["client_adapters"],
-                                        state["server_adapters"],
-                                        state["cuts"], weights))
+    params, eff = system.serve_model()
+    eff = tree_map(lambda x: x.detach().requires_grad_(True), eff)
+    ebatch = system.eval_step.last[2]
     t0 = time.perf_counter()
     with torch.enable_grad():
-        per, _ = model.loss(params, eff, {k: torch.as_tensor(v, device=dev)
-                                          for k, v in ebatch.items()},
-                            per_client=True)
+        per, _ = system.model.loss(
+            params, eff, {k: torch.as_tensor(v, device=dev)
+                          for k, v in ebatch.items()}, per_client=True)
         grads = torch.autograd.grad(per.sum(), tree_leaves(eff))
     torch.cuda.synchronize()
     if not all(torch.isfinite(g).all() for g in grads):
@@ -1572,6 +1569,83 @@ def train_phase(torch, dev, wrappers, name, card):
     return {**got, "lora_matmul_bwd": bwd["lora_matmul_bwd"]}
 
 
+def resume_phase(torch, dev, wrappers, name, card):
+    """Phase 5b: checkpoint and resume on full-width gpt2-small (int8
+    smashed) under the deadline scheduler (straggler_sim: a simulated
+    clock drops slow clients).  A run of 3 rounds checkpoints after round
+    2 (checkpoint_every 2); a fresh system restores that checkpoint; the
+    straight run takes round 3 and the resumed one rounds 2 and 3, whose
+    per-client losses must equal the straight run's within RESUME_RTOL,
+    with the same cuts, survivor masks and simulated clock."""
+    import tempfile
+
+    arch = gpt2_int8()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(straggler_sim=True, checkpoint_dir=d, checkpoint_every=2)
+        straight = timed_system(torch, arch, dev, wrappers, kw)
+        straight.run(3, log_every=0)
+        resumed = timed_system(torch, arch, dev, wrappers, kw)
+        if not resumed.restore() or int(resumed.state["round"]) != 2:
+            raise RuntimeError(f"phase 5b: no checkpoint of round 2 in "
+                               f"{straight.ckpt.steps()}")
+        straight.run(1, log_every=0)
+        resumed.run(2, log_every=0)
+    bitwise = True
+    for a, b in zip(straight.history[2:], resumed.history):
+        for k in ("cuts", "active", "sim_clock", "sim_time"):
+            if not np.array_equal(a[k], b[k]):
+                raise RuntimeError(f"phase 5b round {a['round']}: {k} "
+                                   f"{a[k]} straight, {b[k]} resumed")
+        torch.testing.assert_close(
+            torch.as_tensor(b["ce"]), torch.as_tensor(a["ce"]),
+            rtol=RESUME_RTOL, atol=0,
+            msg=lambda m: f"phase 5b round {a['round']} losses: {m}")
+        bitwise &= np.array_equal(a["ce"], b["ce"])
+    log(f"phase 5b [{name}, {card}]: gpt2-small, scheduler "
+        f"{straight.scheduler.name}, checkpoint after round 2 restored; "
+        f"per round (straight): " + "; ".join(
+            f"round {h['round']} active {h['active'].astype(int).tolist()} "
+            f"sim_clock {h['sim_clock']!r} s ce {fmt(h['ce'])}"
+            for h in straight.history)
+        + f"; resumed rounds 2-3 ce equal the straight run's within rtol "
+        f"{RESUME_RTOL} (bitwise: {bitwise}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def cli_phase(torch, wrappers, name, card):
+    """Phase 5c: the train CLI (repro_torch.launch.train) on the card by
+    default, 2 rounds of reduced gpt2-small into a temporary directory;
+    its history.jsonl must hold 2 rows of finite losses, and the run must
+    have launched the flash kernels (it ran on the card)."""
+    import tempfile
+
+    from repro_torch.launch import train as train_cli
+
+    for w in wrappers.values():
+        w.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        if train_cli.main(["--reduced", "--rounds", "2", "--samples", "64",
+                           "--out", d]) != 0:
+            raise RuntimeError("phase 5c: the train CLI failed")
+        wall = time.perf_counter() - t0
+        with open(Path(d) / "history.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+    if len(rows) != 2 or not all(
+            np.isfinite(r["loss"]) and np.isfinite(r["ce"]).all()
+            for r in rows):
+        raise RuntimeError(f"phase 5c: history.jsonl rows {rows}")
+    got = {k: w.launches for k, w in wrappers.items() if w.launches}
+    if not got.get("flash_attention_fwd"):
+        raise RuntimeError(f"phase 5c: the CLI launched no flash kernel "
+                           f"({got}): it did not run on the card")
+    log(f"phase 5c [{name}, {card}]: python -m repro_torch.launch.train "
+        f"--reduced --rounds 2 --samples 64 in {wall:.1f} s: losses "
+        f"{[r['loss'] for r in rows]}; launches {got}")
+
+
 def mamba2_phase(torch, dev, wrappers, name, card):
     """Phase 7: ROUNDS SplitFT rounds on full-width, full-depth
     mamba2-780m (48 SSD layers, the config's own smashed compressor
@@ -1587,8 +1661,8 @@ def mamba2_phase(torch, dev, wrappers, name, card):
     arch = arch.replace(train=dataclasses.replace(
         arch.train, batch_size=M_BATCH, seq_len=M_SEQ))
     layers = arch.model.num_layers
-    *_, got, per_round, _ = run_rounds(torch, arch, dev, wrappers, "phase 7",
-                                       name, card, host_profile=True)
+    _, got, per_round = run_rounds(torch, arch, dev, wrappers, "phase 7",
+                                   name, card, host_profile=True)
     check_launches(per_round, lambda cuts: {"ssd_scan": layers},
                    {"ssd_scan": layers, "lora_matmul_fwd": 2 * layers},
                    "mamba2-780m training")

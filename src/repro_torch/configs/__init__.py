@@ -2,7 +2,7 @@
 
 Only the architectures whose serving or training path has been ported
 are registered; ``get_config`` of any other name of the reference's registry
-says that the architecture is not yet ported (ROADMAP.md, Queue A).
+says that the architecture is not yet ported (ROADMAP.md).
 Names resolve with dashes or underscores, as in the reference.
 """
 
@@ -11,6 +11,7 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
+from repro_torch import roadmap
 from repro_torch.config import ArchConfig
 
 # registry id -> module name
@@ -40,5 +41,5 @@ def get_config(name: str) -> ArchConfig:
     if key in _NOT_YET_PORTED:
         raise NotImplementedError(
             f"architecture {name!r} is not yet ported to repro_torch "
-            f"(ported: {sorted(_REGISTRY)}; see ROADMAP.md Queue A)")
+            f"(ported: {sorted(_REGISTRY)}; see {roadmap.FAMILIES})")
     raise KeyError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")

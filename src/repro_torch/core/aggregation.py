@@ -21,13 +21,14 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import roadmap
 from repro_torch.core.split import client_layer_masks, group_masks
 from repro_torch.models.model import Model
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
-_LATER = "ROADMAP.md Queue A, item 2"
+_LATER = roadmap.ENGINE_OPTIONS
 
 
 def fedavg(model: Model, client_adapters: Params, cuts, weights, active,

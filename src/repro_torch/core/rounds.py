@@ -33,6 +33,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import roadmap
 from repro_torch.core import aggregation, lora as lora_lib, smashed, split
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import make_optimizer
@@ -40,8 +41,8 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 
 Params = Dict[str, Any]
 
-_LATER = "ROADMAP.md Queue A, item 2"
-_CO = "the co-controller's slice (ROADMAP.md Queue A, item 2)"
+_LATER = roadmap.ENGINE_OPTIONS
+_CO = f"the co-controller's slice of {roadmap.ENGINE_OPTIONS}"
 
 
 def init_state(model: Model, generator: torch.Generator, *,

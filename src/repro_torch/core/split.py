@@ -19,6 +19,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch import roadmap
 from repro_torch.core import lora as lora_lib
 from repro_torch.models.model import Model
 
@@ -55,7 +56,7 @@ def merge_adapters(model: Model, client_adapters: Params,
     if server_scale is not None:
         raise NotImplementedError(
             "server_scale belongs to the local-steps and async engines, "
-            "which are not ported yet (ROADMAP.md Queue A, item 2)")
+            f"which are not ported yet ({roadmap.ENGINE_OPTIONS})")
     masks = client_layer_masks(model.num_flat_layers, cuts)
     gmasks = group_masks(model, masks.to(model.device))
     ranks = lora_lib.effective_ranks(model.num_flat_layers, cuts,

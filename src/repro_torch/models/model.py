@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from repro_torch import roadmap
 from repro_torch.config import ArchConfig, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common, ssm, transformer
@@ -39,8 +40,8 @@ from repro_torch.models.common import apply_norm
 
 Params = Dict[str, Any]
 
-_LATER = "ROADMAP.md Queue A, item 2"
-_FAMILIES = "ROADMAP.md Queue A, item 6"
+_LATER = roadmap.ENGINE_OPTIONS
+_FAMILIES = roadmap.FAMILIES
 
 
 def _ce_sums(logits, labels, mask, keep: int):

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import roadmap
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import common
@@ -32,7 +33,7 @@ from repro_torch.models.transformer import _ad, lora_apply
 Params = Dict[str, Any]
 
 SERVING_LATER = ("the serving of SSM models (decode cache and prefill with "
-                 "a cache) is not ported yet (ROADMAP.md Queue A, item 7)")
+                 f"a cache) is not ported yet ({roadmap.SERVING})")
 
 
 def conv_channels(cfg: ModelConfig) -> int:

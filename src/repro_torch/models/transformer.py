@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import roadmap
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -81,8 +82,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
                    cross: bool, dtype) -> Params:
     if cross:
         raise NotImplementedError(
-            "cross-attention (whisper) is not ported yet (ROADMAP.md "
-            "Queue A, item 6)")
+            "cross-attention (whisper) is not ported yet "
+            f"({roadmap.FAMILIES})")
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = (n_layers,)
     p: Params = {
@@ -121,8 +122,8 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     "len": (B,)}; its k/v tensors are written in place."""
     if memory is not None or mem_cache is not None:
         raise NotImplementedError(
-            "cross-attention (whisper) is not ported yet (ROADMAP.md "
-            "Queue A, item 6)")
+            "cross-attention (whisper) is not ported yet "
+            f"({roadmap.FAMILIES})")
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = x.shape[-2]
 

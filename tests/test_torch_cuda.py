@@ -765,3 +765,35 @@ def test_ssd_kernel_is_deterministic(cuda, dtype):
                                            128)]
     first = ssd_ops.ssd_scan(*ins, chunk=256)
     assert torch.equal(first, ssd_ops.ssd_scan(*ins, chunk=256))
+
+
+@pytest.mark.cuda
+def test_system_rounds_on_the_card_match_the_cpu(cuda):
+    """Two SplitFTSystem rounds of reduced gpt2-small (int8 smashed, the
+    accuracy controller) from one seed on the card and on the CPU: the
+    per-round loss and per-client ce within rtol 1e-4, the eval ce within
+    1e-3, comm bytes equal, and cuts equal while the eval accuracies
+    agree."""
+    import dataclasses
+
+    from repro_torch.core.system import SplitFTSystem, SystemConfig
+
+    arch = reduced(get_config("gpt2-small"), layers=6, d_model=64,
+                   vocab=2048, seq_len=64, batch=4)
+    arch = arch.replace(
+        train=dataclasses.replace(arch.train, lr_client=3e-3,
+                                  lr_server=3e-3),
+        data=dataclasses.replace(arch.data, partition="dirichlet",
+                                 alpha=0.9, num_clients=5))
+    cfg = SystemConfig(num_samples=400, eval_samples=64,
+                       smashed_compress="int8")
+    hist = {dv: SplitFTSystem(arch, cfg, seed=0, device=dv).run(
+        2, log_every=0) for dv in (cuda, "cpu")}
+    for a, b in zip(hist[cuda], hist["cpu"]):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-4)
+        np.testing.assert_allclose(a["ce"], b["ce"], rtol=1e-4)
+        np.testing.assert_allclose(a["eval_ce"], b["eval_ce"], rtol=1e-3)
+        np.testing.assert_array_equal(a["comm"], b["comm"])
+        np.testing.assert_array_equal(a["cuts"], b["cuts"])
+        if not np.array_equal(a["eval_accuracy"], b["eval_accuracy"]):
+            break
