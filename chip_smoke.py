@@ -21,13 +21,19 @@ at full width (random weights from a seed):
     step, an eval step and the accuracy controller's cut adjustment, with
     the round's wall time split into train, eval and host); a deadline-
     scheduled run checkpointed and resumed, whose resumed rounds must
-    equal the straight run's; the train CLI on the card; then one step at
-    full width and reduced depth on the card and on the CPU plain path
-    from one state, whose losses and adapter gradients must agree;
+    equal the straight run's; the train CLI on the card; 4 rounds under
+    the phase-time co-controller (per-client cut, rank at the cut,
+    compressor and topk keep fraction, with its predictions held to the
+    simulated clock); then steps at full width and reduced depth on the
+    card and on the CPU plain path from one state, with and without the
+    memory knobs (remat, chunked cross entropy, microbatches) and under a
+    per-client policy, whose losses and adapter gradients must agree;
   * training mamba2-780m: the same 3 rounds through SplitFTSystem at full
     depth (48 SSD layers, every SSD scan through the chunked-scan kernel)
-    at batch 1 per client; then the card-vs-CPU step at 2 layers and seq
-    512 (SSD chunk 256).
+    at batch 1 per client, then 3 at the paper's batch 4 under remat
+    "full" (and one step under "dots"), each peak of device memory under
+    90% of the card; then the card-vs-CPU step at 2 layers and seq 512
+    (SSD chunk 256), with and without remat.
 
 The launch counters are read around each path.  Every phase that fails
 raises, so the exit code is non-zero; without a GPU it exits 1 before
@@ -73,11 +79,28 @@ SMALL_LAYERS, SMALL_CLIENTS, SMALL_BATCH, SMALL_SEQ = 2, 2, 1, 128
 STEP_TOL = 1e-4        # per-client losses, relative
 RESUME_RTOL = 1e-6     # a resumed round's per-client losses vs straight
 # adapter grads: (relative, share of max|g|) per smashed compressor; int8
-# allows a few cotangent elements to take the neighbouring int8 code
-GRAD_TOL = {"none": (1e-3, 1e-4), "int8": (1e-3, 2e-3)}
-# mamba2 training path: batch cut from the paper's 4 to 1 per client (no
-# remat: 48 layers of saved fp32 activations), seq 512 = 2 SSD chunks
-M_BATCH, M_SEQ = 1, 512
+# allows a few cotangent elements to take the neighbouring int8 code, topk
+# a few magnitudes within fp32 noise of the k-th largest to be kept on one
+# side and dropped on the other (the element moves by its whole value)
+GRAD_TOL = {"none": (1e-3, 1e-4), "int8": (1e-3, 2e-3),
+            "topk": (1e-3, 1e-2)}
+# phase 5d: the co-controller's search space on gpt2-small (jitter 0, so
+# each prediction must equal the next round's simulated time)
+CO_ROUNDS = 4
+CO_SYS = dict(controller="co", rank_buckets=(4, 8, 16),
+              compressor_buckets=("none", "int8", "fp8", "topk"),
+              continuous_topk=True, smashed_ef=False, straggler_sim=True,
+              jitter_sigma=0.0)
+# phase 6 on the card and the CPU: the memory knobs and a per-client
+# policy (client 0 int8 at rank 4, client 1 topk keeping 0.25 at rank 16)
+SMALL_POLICY = dict(rank_cut=[4, 16], choice=["int8", "topk"],
+                    topk_frac=[0.1, 0.25])
+# mamba2 training path: phase 7 at batch 1 per client without remat (48
+# layers of saved fp32 activations), phase 7b at the paper's 4 under
+# remat "full"; seq 512 = 2 SSD chunks.  Each peak of device memory must
+# stay below PEAK_SHARE of the card.
+M_BATCH, M4_BATCH, M_SEQ = 1, 4, 512
+PEAK_SHARE = 0.9
 # the SSD kernel in phase 2: (B, S, H, P, G, N, chunk, dt scale); G = 1
 # and G > 1, chunks of 16, 64 and 256, S of one chunk and of 8 chunks;
 # at chunk 256 every chunk's decay passes exp(88)
@@ -85,8 +108,10 @@ SSD_CASES = [(2, 64, 4, 16, 1, 16, 16, 1.0), (1, 256, 8, 64, 2, 128, 64, 1.0),
              (2, 256, 6, 64, 3, 128, 256, 1.0),
              (1, 2048, 4, 64, 1, 128, 256, 1.0),
              (1, 512, 4, 64, 1, 128, 256, 3.0)]
-# ... and at the mamba2 training path's shape (5 clients x batch 1)
+# ... and at the mamba2 training paths' shapes (5 clients x batch 1, and
+# x batch 4)
 SSD_PATH = (5, 512, 48, 64, 1, 128, 256)
+SSD_PATH4 = (20,) + SSD_PATH[1:]
 # more SSD cases for the tensor-core passes: H / G of 1, 2, 4 and 8, P of
 # 16 and 32 (the P tiles), N of 16 and 256, a chunk of 80 (not a multiple
 # of the 64-row tile), and the state past exp(88) at chunk 256
@@ -626,7 +651,9 @@ def main() -> int:
         shape=f"B={SLOTS} ps={PAGE} cache_len {lens[0]}..{lens[-1]} fp32, "
               f"{dec_ctas} live CTAs")
     rows.update(time_training_kernels(torch, F, rand, worst))
-    rows.update(time_ssd_kernel(torch, rand, worst))
+    rows["ssd_scan"] = time_ssd_kernel(torch, rand, worst, SSD_PATH)
+    rows["ssd_scan (batch 4)"] = time_ssd_kernel(torch, rand, worst,
+                                                 SSD_PATH4)
     rows.update(time_mamba2_lora(torch, rand, worst))
     for kname, row in rows.items():
         lib = ("n/a" if row["library_ms"] is None
@@ -762,23 +789,33 @@ def main() -> int:
         f"in another order through 12 layers and the 50257-wide head)")
 
     # -- phase 5: the training path ------------------------------------------
-    for kname, c in train_phase(torch, dev, wrappers, name, card).items():
+    got, accuracy_times = train_phase(torch, dev, wrappers, name, card)
+    for kname, c in got.items():
         launches[kname] += c
 
     # -- phase 5b, 5c: checkpoint resume, the train CLI ----------------------
     resume_phase(torch, dev, wrappers, name, card)
     cli_phase(torch, wrappers, name, card)
 
+    # -- phase 5d: gpt2-small under the phase-time co-controller ------------
+    for kname, c in co_phase(torch, dev, wrappers, name, card,
+                             accuracy_times).items():
+        launches[kname] += c
+
     # -- phase 6: one step at full width, reduced depth, card vs CPU --------
-    small_step_check(torch, dev, "gpt2-small", SMALL_SEQ, tuple(GRAD_TOL),
+    small_step_check(torch, dev, "gpt2-small", SMALL_SEQ, GPT2_STEPS,
                      "phase 6")
 
-    # -- phase 7: the mamba2 training path ----------------------------------
+    # -- phase 7, 7b: the mamba2 training path, batch 1 and batch 4 ---------
     for kname, c in mamba2_phase(torch, dev, wrappers, name, card).items():
+        launches[kname] += c
+    for kname, c in mamba2_batch4_phase(torch, dev, wrappers, name,
+                                        card).items():
         launches[kname] += c
 
     # -- phase 8: one mamba2 step at full width, reduced depth, card vs CPU -
-    small_step_check(torch, dev, "mamba2-780m", M_SEQ, ("none",), "phase 8")
+    small_step_check(torch, dev, "mamba2-780m", M_SEQ, MAMBA2_STEPS,
+                     "phase 8")
 
     # -- phase 9: results -----------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
@@ -1220,18 +1257,20 @@ def max_chunk_decay(torch, dt, a, chunk):
 
 def check_mamba2_kernels(torch, rand, dname, dt, errs):
     """Phase 2 for the mamba2 path: the SSD kernel against ref.ssd_chunked
-    on SSD_CASES, and the fused LoRA forward at the eval step's shapes:
-    M = clients x M_BATCH x M_SEQ rows through mamba2's ssm_in (K 1536,
-    N 6448, not a multiple of the kernel's 64-wide tile) and ssm_out
-    (K 3072, N 1536).  The SSD output's rounding grows with the chunk's
-    sums, so its absolute tolerance scales with max|y|."""
+    on SSD_CASES, SSD_EDGES and the batch-4 path's shape SSD_PATH4, and
+    the fused LoRA forward at the eval steps' shapes: M = clients x batch
+    x M_SEQ rows (batch M_BATCH and M4_BATCH) through mamba2's ssm_in
+    (K 1536, N 6448, not a multiple of the kernel's 64-wide tile) and
+    ssm_out (K 3072, N 1536).  The SSD output's rounding grows with the
+    chunk's sums, so its absolute tolerance scales with max|y|."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.lora_matmul import ops as lops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models.ssm import in_proj_dim
 
     decays = []
-    for b, s, h, p, g, n, chunk, dt_scale in SSD_CASES + SSD_EDGES:
+    for b, s, h, p, g, n, chunk, dt_scale in \
+            SSD_CASES + SSD_EDGES + [SSD_PATH4 + (1.0,)]:
         ins = ssd_inputs(torch, rand, b, s, h, p, g, n, dt, dt_scale)
         y = ssd_ops.ssd_scan(*ins, chunk=chunk)
         same_bits(torch, "ssd_scan", (y,),
@@ -1249,9 +1288,11 @@ def check_mamba2_kernels(torch, rand, dname, dt, errs):
         f"{[round(d, 1) for d in decays]} (past 88 the reference's "
         f"unmasked exp overflows)")
     arch = get_config("mamba2-780m")
-    m, r = arch.data.num_clients * M_BATCH * M_SEQ, arch.lora.r_others
-    d = arch.model.d_model
-    for kd, n in ((d, in_proj_dim(arch.model)), (arch.model.d_inner, d)):
+    r, d = arch.lora.r_others, arch.model.d_model
+    for m, kd, n in ((arch.data.num_clients * batch * M_SEQ, kd, n)
+                     for batch in (M_BATCH, M4_BATCH)
+                     for kd, n in ((d, in_proj_dim(arch.model)),
+                                   (arch.model.d_inner, d))):
         x = rand(m, kd, dtype=dt)
         mask = (torch.arange(r, device=x.device) < r - 2).float()
         w = rand(kd, n, dtype=dt, scale=kd ** -0.5)
@@ -1267,9 +1308,10 @@ def check_mamba2_kernels(torch, rand, dname, dt, errs):
             f"N={n} r={r}: max |kernel - plain| {e:.3e}")
 
 
-def time_ssd_kernel(torch, rand, errs):
-    """Phase 3 for the SSD kernel at the mamba2 training path's shape
-    (fp32): the timed call's result held against its plain version on the
+def time_ssd_kernel(torch, rand, errs, shape):
+    """Phase 3 for the SSD kernel at a mamba2 training path's shape (fp32;
+    SSD_PATH or SSD_PATH4): the timed call's result held against its plain
+    version on the
     same inputs, then kernel and plain times beside the bound, the device
     time of each of its four passes, and the FLOPs its MMAs execute beside
     the bound's.  No PyTorch call computes the SSD scan: the library
@@ -1281,7 +1323,7 @@ def time_ssd_kernel(torch, rand, errs):
     (b, group, chunk) the causal half of C . B (2 Q(Q+1)/2 N)."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    b, s, h, p, g, n, q = SSD_PATH
+    b, s, h, p, g, n, q = shape
     ins = ssd_inputs(torch, rand, b, s, h, p, g, n, torch.float32)
     e = max_err(torch, ssd_ops.ssd_scan(*ins, chunk=q),
                 ssd_ops.ref.ssd_chunked(*ins, chunk=q), "float32",
@@ -1322,26 +1364,29 @@ def time_ssd_kernel(torch, rand, errs):
                   f"max |kernel - plain| {e:.3e}; kernel forward + plain "
                   f"recompute backward through autograd "
                   f"{fwd_bwd_ms:.4f} ms)")
-    return {"ssd_scan": row}
+    return row
 
 
 def time_mamba2_lora(torch, rand, errs):
-    """Phase 3 for the fused LoRA forward at the mamba2 eval step's shapes
-    (fp32): M = clients x M_BATCH x M_SEQ rows through ssm_in (K 1536,
-    N 6448) and ssm_out (K 3072, N 1536), 48 launches each per eval step,
-    beside the cuBLAS composition, so that PERF.md can order it by
-    launches x (time - bound)."""
+    """Phase 3 for the fused LoRA forward at the mamba2 eval steps' shapes
+    (fp32): M = clients x batch x M_SEQ rows (batch M_BATCH, and M4_BATCH
+    for phase 7b) through ssm_in (K 1536, N 6448) and ssm_out (K 3072,
+    N 1536), 48 launches each per eval step, beside the cuBLAS
+    composition, so that PERF.md can order it by launches x (time -
+    bound)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.lora_matmul import ops as lops
     from repro_torch.models.ssm import in_proj_dim
 
     arch = get_config("mamba2-780m")
-    m, r = arch.data.num_clients * M_BATCH * M_SEQ, arch.lora.r_others
-    d = arch.model.d_model
+    r, d = arch.lora.r_others, arch.model.d_model
     rows = {}
-    for proj, kd, n in (("ssm_in", d, in_proj_dim(arch.model)),
-                        ("ssm_out", arch.model.d_inner, d)):
+    for batch, proj, kd, n in (
+            (batch, proj, kd, n) for batch in (M_BATCH, M4_BATCH)
+            for proj, kd, n in (("ssm_in", d, in_proj_dim(arch.model)),
+                                ("ssm_out", arch.model.d_inner, d))):
+        m = arch.data.num_clients * batch * M_SEQ
         x = rand(m, kd)
         w = rand(kd, n, scale=kd ** -0.5)
         a, bb = rand(kd, r, scale=r ** -0.5), rand(r, n, scale=0.02)
@@ -1351,7 +1396,8 @@ def time_mamba2_lora(torch, rand, errs):
         e = max(max_err(torch, y, want_y, "float32", f"lora fwd {proj}"),
                 max_err(torch, xa, want_xa, "float32", f"lora xa {proj}"))
         errs["lora_matmul_fwd"] = max(errs["lora_matmul_fwd"], e)
-        rows[f"lora_matmul_fwd (mamba2 {proj})"] = dict(
+        rows[f"lora_matmul_fwd (mamba2 {proj}"
+             + (")" if batch == M_BATCH else ", batch 4)")] = dict(
             ms=cuda_ms(torch, lambda: lops.lora_matmul_fwd(x, w, a, bb, sc),
                        iters=20),
             plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_fwd(
@@ -1371,12 +1417,16 @@ def time_mamba2_lora(torch, rand, errs):
     return rows
 
 
+POLICY = ("cuts", "rank_cut", "smashed_choice", "topk_frac")
+
+
 class TimedStep:
     """Stands in for a system's train_step or eval_step: calls the
-    engine's step between two synchronizes, and keeps per call the cuts
-    it ran with, the kernel launches it made and its wall seconds, and
-    the last arguments (for the profiles).  The system calls whatever is
-    bound to those attributes."""
+    engine's step between two synchronizes, and keeps per call the
+    policy it ran with (the cuts, and the co-controller's rank, bucket
+    and keep fraction per client), the kernel launches it made and its
+    wall seconds, and the last arguments (for the profiles).  The system
+    calls whatever is bound to those attributes."""
 
     def __init__(self, torch, fn, wrappers):
         self.torch, self.fn, self.wrappers = torch, fn, wrappers
@@ -1389,7 +1439,8 @@ class TimedStep:
         t0 = time.perf_counter()
         out = self.fn(*args)
         sync()
-        self.calls.append((args[1]["cuts"].tolist(),
+        self.calls.append(({k: args[1][k].tolist() for k in POLICY
+                            if k in args[1]},
                            {k: w.launches - before[k]
                             for k, w in self.wrappers.items()},
                            time.perf_counter() - t0))
@@ -1412,50 +1463,54 @@ def timed_system(torch, arch, dev, wrappers, sys_kw=None):
 
 
 def run_rounds(torch, arch, dev, wrappers, tag, name, card,
-               host_profile=False):
-    """ROUNDS SplitFT rounds through SplitFTSystem.run on `arch` at full
-    width (sync scheduler, the accuracy controller): each round a train
-    step, an eval step and the C3 epilogue.  The launch counters are set
-    to 0 before the rounds; each round prints its wall time, the train-
-    and eval-step times and the host share (round wall - train - eval:
-    planning, comm bytes, C3, records).  Then one more train + eval step
-    of the system's engine runs under the profiler on its last inputs,
-    and with host_profile one more train step under the host profiler.
-    Returns (system, the launches over the rounds, [(cuts, train-step
-    launches, eval-step launches)] per round)."""
+               host_profile=False, sys_kw=None, rounds=ROUNDS):
+    """`rounds` SplitFT rounds through SplitFTSystem.run on `arch` at full
+    width (the sync scheduler and the accuracy controller unless sys_kw
+    says otherwise): each round a train step, an eval step and the C3
+    epilogue.  The launch counters are set to 0 before the rounds; each
+    round prints its wall time, the train- and eval-step times and the
+    host share (round wall - train - eval: planning, comm bytes, C3,
+    records).  Then one more train + eval step of the system's engine
+    runs under the profiler on its last inputs, and with host_profile one
+    more train step under the host profiler.  Returns (system, the
+    launches over the rounds, [(policy, train-step launches, eval-step
+    launches)] per round, [(wall, train, eval, host) seconds] per
+    round)."""
     t = arch.train
     t0 = time.perf_counter()
-    system = timed_system(torch, arch, dev, wrappers)
+    system = timed_system(torch, arch, dev, wrappers, sys_kw)
     train, ev = system.train_step, system.eval_step
     n = arch.data.num_clients
     log(f"{tag}: {arch.name} {system.model.num_flat_layers} layers, {n} "
         f"clients (samples {system.sample_counts.astype(int).tolist()}, "
         f"length-Dirichlet alpha {arch.data.alpha}), batch {t.batch_size} "
-        f"x seq {t.seq_len}, r_cut {arch.lora.r_cut} r_others "
-        f"{arch.lora.r_others}, smashed {system.smashed_compress}, "
+        f"x seq {t.seq_len}, remat {t.remat}, r_cut {arch.lora.r_cut} "
+        f"r_others {arch.lora.r_others}, smashed {system.smashed_compress}, "
         f"{t.optimizer} lr {t.lr_client}, scheduler "
-        f"{system.scheduler.name}; SplitFTSystem built in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{system.scheduler.name}, controller {system.controller}; "
+        f"SplitFTSystem built in {time.perf_counter() - t0:.1f} s")
 
     tokens_per_step = n * t.batch_size * t.seq_len
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for r in range(ROUNDS):
+    times = []
+    for r in range(rounds):
         t0 = time.perf_counter()
         system.run(1, log_every=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rec = system.history[-1]
-        (cuts, _, t_train), (_, _, t_eval) = train.calls[-1], ev.calls[-1]
+        (policy, _, t_train), (_, _, t_eval) = train.calls[-1], ev.calls[-1]
         vals = [rec[k] for k in ("ce", "accuracy", "eval_ce",
                                  "eval_accuracy")]
         if not all(np.isfinite(v).all() for v in vals) or \
                 not np.isfinite(rec["loss"]):
             raise RuntimeError(f"{tag} round {r}: non-finite loss")
         host = wall - t_train - t_eval
-        log(f"{tag} round {r} [{name}, {card}]: cuts {cuts} -> "
+        times.append((wall, t_train, t_eval, host))
+        log(f"{tag} round {r} [{name}, {card}]: cuts {policy['cuts']} -> "
             f"{system.state['cuts'].tolist()}; train ce {fmt(vals[0])} acc "
             f"{fmt(vals[1])}; eval ce {fmt(vals[2])} acc {fmt(vals[3])}; "
             f"comm per client "
@@ -1467,11 +1522,11 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
             f"max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     got = {k: w.launches for k, w in wrappers.items()}
-    log(f"{tag} launches over {ROUNDS} rounds: "
+    log(f"{tag} launches over {rounds} rounds: "
         f"{ {k: c for k, c in got.items() if c} }")
-    if len(train.calls) != ROUNDS or len(ev.calls) != ROUNDS:
+    if len(train.calls) != rounds or len(ev.calls) != rounds:
         raise RuntimeError(f"{tag}: {len(train.calls)} train and "
-                           f"{len(ev.calls)} eval steps in {ROUNDS} rounds")
+                           f"{len(ev.calls)} eval steps in {rounds} rounds")
     per_round = [(c, tl, el) for (c, tl, _), (_, el, _) in
                  zip(train.calls, ev.calls)]
 
@@ -1494,15 +1549,16 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
             f"torch.profiler (CPU and CUDA): wall {wall:.3f} s; top host ops "
             f"by self CPU time: " + "; ".join(
                 f"{k[:40]} {ms:.1f} ms x{calls}" for k, ms, calls in top))
-    return system, got, per_round
+    return system, got, per_round, times
 
 
 def check_launches(per_round, want_train, want_eval, what):
     """Each round's train-step and eval-step launches against the counts
-    the code gives; want_train maps the round's cuts to its counts.
-    Kernels left out must not launch."""
-    for r, (cuts, train, ev) in enumerate(per_round):
-        for step, got, want in (("train", train, want_train(cuts)),
+    the code gives; want_train maps the round's policy ({"cuts": ...,
+    and under the co-controller its "smashed_choice" ...}) to its
+    counts.  Kernels left out must not launch."""
+    for r, (policy, train, ev) in enumerate(per_round):
+        for step, got, want in (("train", train, want_train(policy)),
                                 ("eval", ev, want_eval)):
             bad = {k: (c, want.get(k, 0)) for k, c in got.items()
                    if c != want.get(k, 0)}
@@ -1526,14 +1582,15 @@ def train_phase(torch, dev, wrappers, name, card):
     """Phase 5: ROUNDS SplitFT rounds on full-width gpt2-small with int8
     smashed activations through SplitFTSystem; then the fused LoRA
     backward through autograd at the eval shape, on the system's served
-    adapters.  Returns the launches of both."""
+    adapters.  Returns the launches of both and the rounds' times."""
     from repro_torch.tree import tree_leaves, tree_map
 
-    system, got, per_round = run_rounds(torch, gpt2_int8(), dev, wrappers,
-                                        "phase 5", name, card)
-    check_launches(per_round, lambda cuts: {
+    system, got, per_round, times = run_rounds(torch, gpt2_int8(), dev,
+                                               wrappers, "phase 5", name,
+                                               card)
+    check_launches(per_round, lambda p: {
         "flash_attention_fwd": 12, "flash_attention_bwd": 12,
-        "int8_roundtrip_smashed": 2 * len(set(cuts))},
+        "int8_roundtrip_smashed": 2 * len(set(p["cuts"]))},
         {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
         "gpt2-small training")
 
@@ -1566,7 +1623,74 @@ def train_phase(torch, dev, wrappers, name, card):
         f"{ {k: c for k, c in bwd.items() if c} }")
     # the round's launches, and the fused LoRA backward from the gradient
     # run (its forward launches are not the round's)
-    return {**got, "lora_matmul_bwd": bwd["lora_matmul_bwd"]}
+    return {**got, "lora_matmul_bwd": bwd["lora_matmul_bwd"]}, times
+
+
+def host_shares(times):
+    """The host share of each round after round 0 (its first calls)."""
+    return [host / wall for wall, _, _, host in times[1:]]
+
+
+def co_phase(torch, dev, wrappers, name, card, accuracy_times):
+    """Phase 5d: CO_ROUNDS rounds of full-width gpt2-small (int8 smashed
+    by default) under the phase-time co-controller, through
+    SplitFTSystem.run: each round's train step runs every client's own
+    (cut, rank at the cut, compressor, topk keep fraction), and the C3
+    epilogue prices 4 cut offsets x 3 ranks x 4 compressors on the host
+    to move them.  Every policy must stay in its buckets and bounds; with
+    jitter 0 each round's predicted time must equal the next round's
+    simulated time exactly (the reference's pin); each train step
+    launches the int8 round trip twice (forward and the straight-through
+    backward) per distinct cut layer where some client chose int8.
+    Returns the launches."""
+    system, got, per_round, times = run_rounds(
+        torch, gpt2_int8(), dev, wrappers, "phase 5d", name, card,
+        sys_kw=CO_SYS, rounds=CO_ROUNDS)
+    buckets = system.comp_buckets
+    int8 = buckets.index("int8")
+    check_launches(per_round, lambda p: {
+        "flash_attention_fwd": 12, "flash_attention_bwd": 12,
+        "int8_roundtrip_smashed": 2 * len({
+            c for c, k in zip(p["cuts"], p["smashed_choice"])
+            if k == int8})},
+        {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
+        "gpt2-small under the co-controller")
+    cut_buckets = set(system.arch.split.buckets(system.model.num_flat_layers))
+    lo, hi = 0.01, 1.0                      # co_adjust's frac_bounds
+    hist = system.history
+    for h in hist:
+        if not (set(h["cuts"].tolist()) <= cut_buckets
+                and set(h["rank_cut"].tolist()) <= set(CO_SYS["rank_buckets"])
+                and set(h["smashed_choice"].tolist()) <= set(
+                    range(len(buckets)))
+                and ((h["topk_frac"] >= lo) & (h["topk_frac"] <= hi)).all()):
+            raise RuntimeError(f"phase 5d round {h['round']}: a policy left "
+                               f"its buckets: {h}")
+    for a, b in zip(hist[:-1], hist[1:]):
+        if not np.array_equal(a["predicted_time"], b["round_time_sim"]):
+            raise RuntimeError(
+                f"phase 5d round {a['round']}: predicted {a['predicted_time']}"
+                f" != next simulated {b['round_time_sim']}")
+    moves = [int(np.any([a[k] != b[k] for k in POLICY], axis=0).sum())
+             for a, b in zip(hist[:-1], hist[1:])]
+    rows = [f"round {h['round']} cuts {h['cuts'].tolist()} rank "
+            f"{h['rank_cut'].tolist()} compressor "
+            f"{[buckets[k] for k in h['smashed_choice']]} topk_frac "
+            f"{np.round(h['topk_frac'].astype(float), 4).tolist()} "
+            f"predicted {h['predicted_time'].round(6).tolist()} s"
+            for h in hist]
+    log(f"phase 5d [{name}, {card}]: buckets {buckets}; per round: "
+        + "; ".join(rows) + f"; clients whose policy moved after each "
+        f"round: {moves}; each round's predicted time equals the next "
+        f"round's simulated time exactly")
+    co, acc = host_shares(times), host_shares(accuracy_times)
+    log(f"phase 5d [{name}, {card}]: after round 0, train step "
+        f"{fmt([t * 1e3 for _, t, _, _ in times[1:]])} ms, eval step "
+        f"{fmt([e * 1e3 for _, _, e, _ in times[1:]])} ms, host "
+        f"{fmt([h * 1e3 for _, _, _, h in times[1:]])} ms, host share "
+        f"{fmt(co)} (median {np.median(co):.4f}) against phase 5's "
+        f"accuracy controller {fmt(acc)} (median {np.median(acc):.4f})")
+    return got
 
 
 def resume_phase(torch, dev, wrappers, name, card):
@@ -1646,6 +1770,16 @@ def cli_phase(torch, wrappers, name, card):
         f"{[r['loss'] for r in rows]}; launches {got}")
 
 
+def mamba2_arch(batch, remat="none"):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config("mamba2-780m")
+    return arch.replace(train=dataclasses.replace(
+        arch.train, batch_size=batch, seq_len=M_SEQ, remat=remat))
+
+
 def mamba2_phase(torch, dev, wrappers, name, card):
     """Phase 7: ROUNDS SplitFT rounds on full-width, full-depth
     mamba2-780m (48 SSD layers, the config's own smashed compressor
@@ -1653,36 +1787,101 @@ def mamba2_phase(torch, dev, wrappers, name, card):
     Every SSD scan of a train or eval step is a kernel launch; the eval
     step's global adapters run the fused LoRA forward on ssm_in and
     ssm_out.  Returns the launches."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-
-    arch = get_config("mamba2-780m")
-    arch = arch.replace(train=dataclasses.replace(
-        arch.train, batch_size=M_BATCH, seq_len=M_SEQ))
+    arch = mamba2_arch(M_BATCH)
     layers = arch.model.num_layers
-    _, got, per_round = run_rounds(torch, arch, dev, wrappers, "phase 7",
-                                   name, card, host_profile=True)
-    check_launches(per_round, lambda cuts: {"ssd_scan": layers},
+    _, got, per_round, _ = run_rounds(torch, arch, dev, wrappers, "phase 7",
+                                      name, card, host_profile=True)
+    check_launches(per_round, lambda p: {"ssd_scan": layers},
                    {"ssd_scan": layers, "lora_matmul_fwd": 2 * layers},
                    "mamba2-780m training")
     return got
 
 
-def small_step_check(torch, dev, arch_name, seq, comps, tag):
+def mamba2_batch4_phase(torch, dev, wrappers, name, card):
+    """Phase 7b: ROUNDS rounds of full-width, full-depth mamba2-780m at the
+    paper's batch M4_BATCH (5 clients x 4 x seq 512) under remat "full",
+    through SplitFTSystem.run.  A train step launches each layer's SSD
+    kernel twice (the forward and its recompute in the backward; the
+    backward itself recomputes the plain scan); an eval step has no
+    recompute.  Then one train step at remat "dots" from the last round's
+    inputs, whose per-client losses must equal the "full" step's within
+    STEP_TOL.  Both peaks of device memory must stay below
+    PEAK_SHARE of the card.  Returns the launches of the rounds."""
+    from repro_torch.core import rounds
+
+    arch = mamba2_arch(M4_BATCH, remat="full")
+    layers = arch.model.num_layers
+    system, got, per_round, _ = run_rounds(torch, arch, dev, wrappers,
+                                           "phase 7b", name, card)
+    peak_full = torch.cuda.max_memory_allocated()
+    check_launches(per_round, lambda p: {"ssd_scan": 2 * layers},
+                   {"ssd_scan": layers, "lora_matmul_fwd": 2 * layers},
+                   "mamba2-780m training at batch 4 under remat full")
+    dots = rounds.make_train_step(
+        system.model, remat="dots", smashed_compress=system.smashed_compress,
+        smashed_topk_frac=system.smashed_topk_frac)
+    args = system.train_step.last
+    ce_full = system.history[-1]["ce"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, met = dots(*args)
+    torch.cuda.synchronize()
+    t_dots = time.perf_counter() - t0
+    peak_dots = torch.cuda.max_memory_allocated()
+    ce_dots = met["ce"].cpu().numpy()
+    torch.testing.assert_close(
+        torch.as_tensor(ce_dots), torch.as_tensor(ce_full), rtol=STEP_TOL,
+        atol=0, msg=lambda m: f"phase 7b dots vs full losses: {m}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    for what, peak in (("full", peak_full), ("dots", peak_dots)):
+        if peak > PEAK_SHARE * total:
+            raise RuntimeError(f"phase 7b: remat {what} peaks at "
+                               f"{peak / 2**30:.2f} GiB, over {PEAK_SHARE} "
+                               f"of the card's {total / 2**30:.2f} GiB")
+    log(f"phase 7b [{name}, {card}]: max_memory_allocated over the rounds "
+        f"(remat full) {peak_full / 2**30:.2f} GiB; one train step at "
+        f"remat dots {t_dots * 1e3:.1f} ms, max_memory_allocated "
+        f"{peak_dots / 2**30:.2f} GiB, of the card's {total / 2**30:.2f} "
+        f"GiB; dots losses {fmt(ce_dots)} vs full {fmt(ce_full)} (bitwise: "
+        f"{np.array_equal(ce_dots, ce_full)})")
+    return got
+
+
+# phases 6 and 8: (label, smashed compressor or "policy", round_grads
+# options); microbatch 2 runs on a batch of 2
+GPT2_STEPS = [("none", "none", {}), ("int8", "int8", {}),
+              ("int8, remat full", "int8", dict(remat="full")),
+              ("int8, remat dots", "int8", dict(remat="dots")),
+              ("none, ce_chunk 32", "none", dict(ce_chunk=32)),
+              ("none, microbatch 2", "none", dict(microbatch=2)),
+              ("per-client policy", "policy", {})]
+MAMBA2_STEPS = [("none", "none", {}),
+                ("none, remat full", "none", dict(remat="full"))]
+
+
+def small_step_check(torch, dev, arch_name, seq, steps, tag):
     """Phases 6 and 8: one round's losses and adapter gradients at full
-    width and reduced depth (2 layers, 2 clients with cuts [1, 2], batch 1,
-    seq `seq`), on the card and on the CPU plain path from one state, for
-    each smashed compressor in `comps`; every gradient must be finite.
-    For mamba2 at seq 512 the SSD chunk is 256 and a chunk's decay passes
-    exp(88), where the reference's chunked backward is not finite.
-    Tolerances: STEP_TOL on the losses; for the
-    gradients GRAD_TOL[compressor] (relative, share of max|g|): fp32 sums
-    in another order without compression, and with int8 one quantum more,
-    because a cotangent element within fp32 noise of an int8 rounding
-    boundary takes the neighbouring code on one side.  The int8 tolerance
-    must stay below the CPU's own int8-vs-none gap, so that a card step
-    that skipped the compression would fail it."""
+    width and reduced depth (2 layers, 2 clients with cuts [1, 2], batch
+    SMALL_BATCH, 2 under microbatch 2, seq `seq`), on the card and on the
+    CPU plain path from one state, for each of `steps`: a smashed
+    compressor, with the memory knobs (remat, ce_chunk, microbatch), or
+    the co-controller's per-client policy (SMALL_POLICY: rank at the cut,
+    compressor bucket and topk keep fraction per client).  Every gradient
+    must be finite.  For mamba2 at seq 512 the SSD chunk is 256 and a
+    chunk's decay passes exp(88), where the reference's chunked backward
+    is not finite.  Tolerances: STEP_TOL on the losses; for the
+    gradients GRAD_TOL[compressor] (relative, share of max|g|; the policy
+    takes topk's, its loosest): fp32 sums in another order without
+    compression; with int8 one quantum more, because a cotangent element
+    within fp32 noise of an int8 rounding boundary takes the neighbouring
+    code on one side; with topk a whole element, because a magnitude
+    within fp32 noise of the k-th largest is kept on one side only.  The
+    int8 and the policy's tolerances must stay below the CPU's own gap to
+    the uncompressed step, so that a card step that skipped the
+    compression would fail them.
+    A remat step is also compared with the card's own step without remat,
+    and whether they are bitwise is logged."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1696,10 +1895,9 @@ def small_step_check(torch, dev, arch_name, seq, comps, tag):
         split=dataclasses.replace(arch.split, cut_layer=1, cut_buckets=(1,)))
     rng = np.random.default_rng(SEED + 5)
     toks = rng.integers(3, arch.model.vocab_size,
-                        size=(SMALL_CLIENTS, SMALL_BATCH, seq + 1))
-    batch = {"tokens": toks[..., :-1].astype(np.int32),
-             "labels": toks[..., 1:].astype(np.int32)}
+                        size=(SMALL_CLIENTS, 2, seq + 1))
     weights = np.array([0.25, 0.75], np.float32)
+    buckets = CO_SYS["compressor_buckets"]
     out = {}
     for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
         model = build_model(arch, device=dv)
@@ -1714,45 +1912,79 @@ def small_step_check(torch, dev, arch_name, seq, comps, tag):
                     leaf["B"] = (torch.randn(leaf["B"].shape, generator=gen)
                                  * 0.02).to(dv)
         state["cuts"] = torch.tensor([1, 2], dtype=torch.int32)
-        for comp in comps:
-            _, met, gc, gs = rounds.round_grads(
-                model, params, state, batch, weights,
-                boundary=smashed.make_boundary(
-                    smashed.make_compressor(comp), state["cuts"]))
-            out[role, comp] = (met["ce"].cpu(), [
+        for label, comp, kw in steps:
+            b = 2 if kw.get("microbatch", 1) > 1 else SMALL_BATCH
+            batch = {"tokens": toks[:, :b, :-1].astype(np.int32),
+                     "labels": toks[:, :b, 1:].astype(np.int32)}
+            st = state
+            if comp == "policy":
+                st = dict(
+                    state,
+                    rank_cut=torch.tensor(SMALL_POLICY["rank_cut"],
+                                          dtype=torch.int32),
+                    smashed_choice=torch.tensor(
+                        [buckets.index(c) for c in SMALL_POLICY["choice"]],
+                        dtype=torch.int32),
+                    topk_frac=torch.tensor(SMALL_POLICY["topk_frac"]))
+                boundary = smashed.make_multi_boundary(
+                    tuple(smashed.make_compressor(c) for c in buckets),
+                    st["cuts"], st["smashed_choice"],
+                    topk_frac=st["topk_frac"])
+            else:
+                boundary = smashed.make_boundary(
+                    smashed.make_compressor(comp), state["cuts"])
+            _, met, gc, gs = rounds.round_grads(model, params, st, batch,
+                                                weights, boundary=boundary,
+                                                **kw)
+            out[role, label] = (met["ce"].cpu(), [
                 g.cpu() for g in tree_leaves(gc) + tree_leaves(gs)])
-    for comp in comps:
-        rtol, share = GRAD_TOL[comp]
-        (ce_k, g_k), (ce_c, g_c) = out["card", comp], out["cpu", comp]
+    for label, comp, kw in steps:
+        rtol, share = GRAD_TOL["topk" if comp == "policy" else comp]
+        (ce_k, g_k), (ce_c, g_c) = out["card", label], out["cpu", label]
         if not all(torch.isfinite(g).all() for g in g_k + g_c):
-            raise RuntimeError(f"{tag} ({comp}): non-finite adapter "
+            raise RuntimeError(f"{tag} ({label}): non-finite adapter "
                                f"gradient")
-        torch.testing.assert_close(
-            ce_k, ce_c, rtol=STEP_TOL, atol=0,
-            msg=lambda m: f"card vs CPU losses ({comp}): {m}")
+        pairs = [("CPU", ce_c, g_c)]
+        if "remat" in kw:
+            pairs.append(("card without remat", *out["card", comp]))
         scale = max(float(g.abs().max()) for g in g_c)
         worst = 0.0
-        for gk, gc_ in zip(g_k, g_c):
+        for what, ce_w, g_w in pairs:
             torch.testing.assert_close(
-                gk, gc_, rtol=rtol, atol=share * scale,
-                msg=lambda m: f"card vs CPU adapter gradient ({comp}): {m}")
-            worst = max(worst, float((gk - gc_).abs().max()))
-        if comp != "none":
+                ce_k, ce_w, rtol=STEP_TOL, atol=0,
+                msg=lambda m: f"{tag} ({label}) card vs {what} losses: {m}")
+            for gk, gw in zip(g_k, g_w):
+                torch.testing.assert_close(
+                    gk, gw, rtol=rtol, atol=share * scale,
+                    msg=lambda m: f"{tag} ({label}) card vs {what} adapter "
+                                  f"gradient: {m}")
+            if what == "CPU":
+                worst = max(float((a - b).abs().max())
+                            for a, b in zip(g_k, g_w))
+        if comp != "none" and not kw:
             gap = max(float((a - b).abs().max())
                       for a, b in zip(g_c, out["cpu", "none"][1])) / scale
             if gap <= share:
                 raise RuntimeError(
-                    f"{comp} moves the CPU's adapter gradients by only "
+                    f"{label} moves the CPU's adapter gradients by only "
                     f"{gap:.2e} of max|g|, within the card-vs-CPU tolerance "
                     f"{share}: the check cannot see the compression")
-            log(f"{tag} ({comp}): the CPU's {comp}-vs-none gradient gap is "
-                f"{gap:.2e} of max|g|, above the tolerance {share}")
-        log(f"{tag} ({comp}): {arch_name} full-width {SMALL_LAYERS}-layer "
+            log(f"{tag} ({label}): the CPU's gradient gap to the step "
+                f"without compression is {gap:.2e} of max|g|, above the "
+                f"tolerance {share}")
+        bits = ""
+        if "remat" in kw:
+            ce_n, g_n = out["card", comp]
+            same = torch.equal(ce_k, ce_n) and all(
+                torch.equal(a, b) for a, b in zip(g_k, g_n))
+            bits = f"; against the card's step without remat: bitwise {same}"
+        log(f"{tag} ({label}): {arch_name} full-width {SMALL_LAYERS}-layer "
             f"step, {SMALL_CLIENTS} clients (cuts [1, 2]), batch "
-            f"{SMALL_BATCH} x seq {seq}: card vs CPU losses {fmt(ce_k)} vs "
-            f"{fmt(ce_c)} (rtol {STEP_TOL}); {len(g_k)} adapter gradients, "
-            f"max |diff| {worst:.3e} = {worst / scale:.2e} of max|g| (tol "
-            f"{rtol} relative + {share} of max|g|)")
+            f"{2 if kw.get('microbatch', 1) > 1 else SMALL_BATCH} x seq "
+            f"{seq}: card vs CPU losses {fmt(ce_k)} vs {fmt(ce_c)} (rtol "
+            f"{STEP_TOL}); {len(g_k)} adapter gradients, max |diff| "
+            f"{worst:.3e} = {worst / scale:.2e} of max|g| (tol {rtol} "
+            f"relative + {share} of max|g|){bits}")
 
 
 def lora_args(torch, rand, m, dt, gen):

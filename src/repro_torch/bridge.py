@@ -23,8 +23,9 @@ from repro_torch.tree import tree_map
 Tree = Dict[str, Any]
 
 # round-engine state leaves that are host data in the port
-# (repro_torch.core.rounds)
-HOST_STATE = ("cuts", "round")
+# (repro_torch.core.rounds), with their dtypes
+HOST_STATE = {"cuts": np.int32, "round": np.int32, "rank_cut": np.int32,
+              "smashed_choice": np.int32, "topk_frac": np.float32}
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -59,11 +60,13 @@ def pool_from_numpy(tree: Tree, device: DeviceLike) -> Tree:
 def state_from_numpy(state: Tree, device: DeviceLike) -> Tree:
     """The reference's round-engine state (``repro.core.rounds.
     init_state`` and its successors) as the port's: adapters and optimizer
-    slots on `device`, ``cuts`` and ``round`` as int32 host tensors."""
+    slots on `device`; ``cuts``, ``round`` and the co-controller's
+    per-client policy leaves as host tensors."""
     out = params_from_numpy(
         {k: v for k, v in state.items() if k not in HOST_STATE}, device)
-    for k in HOST_STATE:
-        out[k] = torch.from_numpy(np.array(state[k], dtype=np.int32))
+    for k, dtype in HOST_STATE.items():
+        if k in state:
+            out[k] = torch.from_numpy(np.array(state[k], dtype=dtype))
     return out
 
 

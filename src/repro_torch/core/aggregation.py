@@ -10,9 +10,10 @@ so only clients that are active this round and own layer l contribute.
 After aggregation every client's row is refreshed: owned layers get the
 aggregate (paper b3), dormant rows mirror the server adapters (b4).
 
-Step normalization (local-steps engine), staleness discounts (async),
-per-rank-column averaging (co-controller) and two-tier aggregation raise
-until their slices are ported.
+With per-client effective ranks (the co-controller's rank_cut), each
+rank column is averaged only over the clients whose rank covers it.
+Step normalization (local-steps engine), staleness discounts (async) and
+two-tier aggregation raise until their slices are ported.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import roadmap
+from repro_torch.core import lora as lora_lib
 from repro_torch.core.split import client_layer_masks, group_masks
 from repro_torch.models.model import Model
 from repro_torch.tree import tree_map
@@ -34,9 +36,15 @@ _LATER = roadmap.ENGINE_OPTIONS
 def fedavg(model: Model, client_adapters: Params, cuts, weights, active,
            steps=None, staleness=None, staleness_power: float = 0.5,
            ranks=None, edge_assign=None, num_edges: int = 1) -> Params:
-    """Aggregate: returns the per-layer tree without the client axis."""
+    """Aggregate: returns the per-layer tree without the client axis.
+
+    ranks: optional (N, M) per-client effective ranks.  Each rank column
+    is then averaged only over the clients whose rank covers it, each
+    column with its own denominator; a column no active client owns
+    falls back to the layer average (zeroing it would kill the column for
+    good: B = 0 at init gives a zeroed A column no gradient)."""
     for name, val in (("steps", steps), ("staleness", staleness),
-                      ("ranks", ranks), ("edge_assign", edge_assign)):
+                      ("edge_assign", edge_assign)):
         if val is not None:
             raise NotImplementedError(
                 f"fedavg({name}=...) is not ported yet ({_LATER})")
@@ -53,10 +61,24 @@ def fedavg(model: Model, client_adapters: Params, cuts, weights, active,
         ids = torch.as_tensor(g.layer_ids, device=dev)
         mu = masks.index_select(1, ids).T * w                 # (Lg, N)
         denom = torch.clamp(mu.sum(1), min=1e-9)[:, None, None]
-        out[gname] = {
-            tname: {k: torch.einsum("ln,ln...->l...", mu, ad[k]) / denom
-                    for k in ("A", "B")}
-            for tname, ad in targets.items()}
+        if ranks is not None:
+            cmask = lora_lib.rank_masks_for_group(model, gname, ranks)
+            mu_col = mu[..., None] * cmask                    # (Lg, N, r)
+            col_sum = mu_col.sum(1)                           # (Lg, r)
+            col_denom = torch.clamp(col_sum, min=1e-9)
+            owned = col_sum > 1e-9
+        out[gname] = {}
+        for tname, ad in targets.items():
+            agg_a = torch.einsum("ln,ln...->l...", mu, ad["A"]) / denom
+            agg_b = torch.einsum("ln,ln...->l...", mu, ad["B"]) / denom
+            if ranks is not None:
+                col_a = torch.einsum("lnr,lndr->ldr", mu_col, ad["A"]) \
+                    / col_denom[:, None, :]
+                col_b = torch.einsum("lnr,lnrd->lrd", mu_col, ad["B"]) \
+                    / col_denom[:, :, None]
+                agg_a = torch.where(owned[:, None, :], col_a, agg_a)
+                agg_b = torch.where(owned[:, :, None], col_b, agg_b)
+            out[gname][tname] = {"A": agg_a, "B": agg_b}
     return out
 
 

@@ -1,6 +1,6 @@
 """Smashed-activation compression at the cut boundary (paper f2/f4).
 
-Port of src/repro/core/smashed.py for the non-stateful path:
+Port of src/repro/core/smashed.py for the stateless boundaries:
 
   none   identity (paper baseline)
   int8   per-channel symmetric int8 through the fused round-trip kernel
@@ -18,8 +18,9 @@ The reference's boundary keeps one executable for every cut with a
 ``lax.cond`` on the traced cuts.  Eager PyTorch decides on the host
 instead: the hook holds the cuts as host data and returns x untouched at
 a layer where no client cuts, so the layer loop costs no device-to-host
-sync.  Error feedback (a stateful boundary) and per-client compressor
-buckets come with the co-controller's slice.
+sync.  ``make_multi_boundary`` is the co-controller's per-client bucket
+choice, with an optional per-client topk keep fraction; error feedback
+(a stateful boundary) is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +56,14 @@ def straight_through(fn: Callable) -> Callable:
     return lambda x: _StraightThrough.apply(x, fn)
 
 
+def straight_through2(fn: Callable) -> Callable:
+    """`straight_through` for a two-operand fn(x, aux), where aux (the
+    per-client topk keep fraction) parameterizes the compressor but
+    carries no gradient: the backward compresses the cotangent with the
+    same fn at the same aux."""
+    return lambda x, aux: _StraightThrough.apply(x, lambda t: fn(t, aux))
+
+
 # ---------------------------------------------------------------------------
 # compressor functions (x: (..., d); leading axis = message/client when 3D+)
 
@@ -77,6 +86,26 @@ def _topk_sparsify(x, frac: float):
     k = max(1, int(d * frac))
     av = x.float().abs()
     kth = torch.topk(av, k, dim=-1).values[..., -1:]
+    return torch.where(av >= kth, x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
+
+
+def _topk_sparsify_frac(x, frac):
+    """`_topk_sparsify` with a per-client keep fraction (the
+    co-controller's continuous knob): frac is a scalar or an (N,) array
+    over x's leading client axis; k = clip(floor(d * frac), 1, d) in fp32
+    as the reference computes it, and the k-th largest magnitude is a
+    value, so a uniform frac equal to the static topk_frac gives the
+    static compressor bit for bit.  One descending sort along d and a
+    gather at k - 1, since k varies per client."""
+    d = x.shape[-1]
+    frac = torch.as_tensor(frac, dtype=torch.float32)
+    k = torch.clamp(torch.floor(d * frac).to(torch.int32), 1, d)
+    k = k.reshape(k.shape + (1,) * (x.dim() - 1 - k.dim())).to(x.device)
+    av = x.float().abs()
+    sv = torch.sort(av, dim=-1, descending=True).values
+    idx = (k.long() - 1).expand(av.shape[:-1])[..., None]
+    kth = torch.gather(sv, -1, idx)
     return torch.where(av >= kth, x, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))
 
@@ -155,5 +184,50 @@ def make_boundary(compressor: Optional[SmashedCompressor], cuts):
             return x
         mask = sel[fid].to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
         return torch.where(mask, compressor.apply(x), x)
+
+    return boundary
+
+
+def make_multi_boundary(compressors, cuts, choice, topk_frac=None):
+    """Boundary hook with a per-client compressor choice, the
+    co-controller's third knob.
+
+    compressors: tuple of Optional[SmashedCompressor], one per bucket
+    ("none" -> None); choice: (N,) bucket index per client, host data
+    like the cuts (state["smashed_choice"]).  At a cut layer each bucket
+    that some client cutting there chose is computed on the whole x and
+    selected per client by a mask built on the host; other buckets are
+    not computed (the reference computes every bucket, since its shapes
+    are static; a bucket no client selects adds nothing).  Each bucket
+    stays straight-through, so f4 is compressed per client as f2.
+
+    topk_frac (optional (N,) fraction per client, state["topk_frac"])
+    runs the topk bucket at each client's own keep fraction
+    (`_topk_sparsify_frac`); a uniform fraction equal to the bucket's
+    static topk_frac is the static path bit for bit."""
+    if all(c is None for c in compressors):
+        return None
+    cut_ids = [int(c) - 1 for c in torch.as_tensor(cuts).tolist()]
+    idx = [int(k) for k in torch.as_tensor(choice).tolist()]
+    dyn_topk = None
+    if topk_frac is not None:
+        frac = torch.as_tensor(topk_frac, dtype=torch.float32)
+        dyn_topk = straight_through2(_topk_sparsify_frac)
+    sel = {}
+    for fid in set(cut_ids):
+        for k, comp in enumerate(compressors):
+            rows = [c == fid and j == k for c, j in zip(cut_ids, idx)]
+            if comp is not None and any(rows):
+                sel.setdefault(fid, []).append((comp, torch.tensor(rows)))
+
+    def boundary(x, fid):
+        out = x
+        for comp, rows in sel.get(fid, ()):
+            y = (dyn_topk(x, frac) if (dyn_topk is not None
+                                       and comp.name == "topk")
+                 else comp.apply(x))
+            mask = rows.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+            out = torch.where(mask, y, out)
+        return out
 
     return boundary

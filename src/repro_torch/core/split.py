@@ -44,15 +44,18 @@ def group_masks(model: Model, masks):
 
 
 def merge_adapters(model: Model, client_adapters: Params,
-                   server_adapters: Params, cuts,
+                   server_adapters: Params, cuts, rank_cut=None,
                    server_scale=None) -> Params:
     """The apply-ready effective adapter tree for a SplitFT step.
 
     client_adapters: rank-max tree with client axis (Lg, N, din, r);
     server_adapters: the same without the client axis (Lg, din, r).  The
     output leaves carry the client axis and are rank-masked and scaled by
-    the per-client rank policy.  server_scale (the local-steps and async
-    engines' 1/K_i server-gradient scale) is not ported yet."""
+    the per-client rank policy.  rank_cut: optional (N,) per-client
+    rank-at-cut (the co-controller's state["rank_cut"], host data like
+    the cuts); None keeps LoRAConfig.r_cut.  server_scale (the
+    local-steps and async engines' 1/K_i server-gradient scale) is not
+    ported yet."""
     if server_scale is not None:
         raise NotImplementedError(
             "server_scale belongs to the local-steps and async engines, "
@@ -60,7 +63,7 @@ def merge_adapters(model: Model, client_adapters: Params,
     masks = client_layer_masks(model.num_flat_layers, cuts)
     gmasks = group_masks(model, masks.to(model.device))
     ranks = lora_lib.effective_ranks(model.num_flat_layers, cuts,
-                                     model.arch.lora)
+                                     model.arch.lora, r_cut=rank_cut)
     merged: Params = {}
     for gname, targets in client_adapters.items():
         m = gmasks[gname]                                     # (Lg,N,1,1)
@@ -75,19 +78,21 @@ def merge_adapters(model: Model, client_adapters: Params,
 
 
 def serve_adapters(model: Model, client_adapters: Params,
-                   server_adapters: Params, cuts, weights) -> Params:
+                   server_adapters: Params, cuts, weights,
+                   rank_cut=None) -> Params:
     """Global-model adapters for evaluation and serving (paper b4).
 
     Per flat layer: the FedAvg-weighted mix of the client copies (for
     clients that own the layer) and the server copy (for the rest).  The
     serving rank of a layer is the weighted mean rank, truncated to an
-    integer in fp32 as in the reference."""
+    integer in fp32 as in the reference.  rank_cut: optional (N,)
+    per-client rank-at-cut (see merge_adapters)."""
     dev = model.device
     masks = client_layer_masks(model.num_flat_layers, cuts).to(dev)
     w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
     w = w / torch.clamp(w.sum(), min=1e-9)
     ranks = lora_lib.effective_ranks(model.num_flat_layers, cuts,
-                                     model.arch.lora)
+                                     model.arch.lora, r_cut=rank_cut)
     mean_ranks = (w[:, None] * ranks.to(dev)).sum(0)          # (M,)
 
     out: Params = {}

@@ -17,10 +17,14 @@ The round loop is split engine/policy:
     heterogeneity trace (runtime.traces) and time model
     (runtime.timemodel).
 
-C3 runs the paper's `accuracy` controller in the round epilogue
-(`_adjust_c3`): the global model is evaluated per client, cuts follow
-per-client accuracy, and the new cuts are written into round state as an
-int32 host tensor, so a moved cut re-masks the next engine call.
+C3 runs in the round epilogue (`_adjust_c3`): the global model is
+evaluated per client, then either the paper's `accuracy` controller
+moves the cuts by per-client accuracy, or the phase-time `co` controller
+(adaptive.co_adjust) picks each client's (cut, rank-at-cut, smashed
+compressor) triple, and with continuous_topk its topk keep fraction, by
+the predicted round time (`predict_round_times`) inside an accuracy
+dead-band.  The new policy is written into round state as host tensors,
+so it re-masks the next engine call.
 
 Device and randomness: the model, its base parameters and the adapters
 and optimizer slots of the round state live on `device` (the card unless
@@ -35,8 +39,7 @@ speed model and traces are numpy and seeded exactly as the reference's.
 Options outside this path raise NotImplementedError in the constructor,
 naming the ROADMAP item that ports them: adapter compression, agg_every
 > 1, smashed error feedback, two-tier aggregation, local steps, the
-local_steps and async schedulers, the co-controller and its search
-buckets, and population mode.
+local_steps and async schedulers, and population mode.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import torch
 from repro_torch import bridge, roadmap
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import ArchConfig
-from repro_torch.core import adaptive, comm, rounds
+from repro_torch.core import adaptive, comm, rounds, smashed
 from repro_torch.core import scheduler as scheduler_lib
 from repro_torch.core.scheduler import RoundPlan
 from repro_torch.core.split import serve_adapters
@@ -128,23 +131,17 @@ def _np(x) -> np.ndarray:
 
 
 def _refuse_unported(arch: ArchConfig, s: SystemConfig, *, scheduler: str,
-                     smashed_compress: str) -> None:
+                     use_ef: bool) -> None:
     """NotImplementedError for the first option that leaves the barrier
     loop in fleet mode, naming it as SystemConfig does."""
     population = _pick(s.population, arch.data.population) or 0
-    use_ef = _pick(s.smashed_ef, smashed_compress == "topk")
-    rank_buckets = set(_pick(s.rank_buckets, arch.split.rank_buckets)
-                       or (arch.lora.r_cut,))
-    comp_buckets = set(_pick(s.compressor_buckets,
-                             arch.split.compressor_buckets)
-                       or (smashed_compress,))
     refused = [
         (population > 0, f"population={population}", roadmap.POPULATION),
         (s.compress != "none", f"compress={s.compress!r}",
          roadmap.ENGINE_OPTIONS),
         (s.agg_every > 1, f"agg_every={s.agg_every}",
          roadmap.ENGINE_OPTIONS),
-        (bool(use_ef), "smashed_ef=True (error feedback on the smashed "
+        (use_ef, "smashed_ef=True (error feedback on the smashed "
          "channel; pass smashed_ef=False for topk without it)",
          roadmap.ENGINE_OPTIONS),
         ((_pick(s.edge_groups, arch.split.edge_groups) or 1) > 1,
@@ -154,23 +151,13 @@ def _refuse_unported(arch: ArchConfig, s: SystemConfig, *, scheduler: str,
          f"max_local_steps={s.max_local_steps}", roadmap.ENGINE_OPTIONS),
         (scheduler in ("local_steps", "async"), f"scheduler={scheduler!r}",
          roadmap.ENGINE_OPTIONS),
-        (_pick(s.controller, arch.split.controller) == "co",
-         "controller='co'", roadmap.ENGINE_OPTIONS),
-        (bool(_pick(s.continuous_topk, arch.split.continuous_topk)),
-         "continuous_topk=True", roadmap.ENGINE_OPTIONS),
-        (rank_buckets != {arch.lora.r_cut},
-         f"rank_buckets={tuple(sorted(rank_buckets))}",
-         roadmap.ENGINE_OPTIONS),
-        (comp_buckets != {smashed_compress},
-         f"compressor_buckets={tuple(sorted(comp_buckets))}",
-         roadmap.ENGINE_OPTIONS),
     ]
     for bad, what, item in refused:
         if bad:
             raise NotImplementedError(
                 f"SystemConfig {what} is not ported yet ({item}); the port "
                 "runs the sync and deadline barrier loop in fleet mode "
-                "with the accuracy controller")
+                "with the accuracy and co controllers")
 
 
 class SplitFTSystem:
@@ -190,12 +177,15 @@ class SplitFTSystem:
                                       arch.split.smashed_compress)
         self.smashed_topk_frac = _pick(self.sys.smashed_topk_frac,
                                        arch.split.smashed_topk_frac)
-        _refuse_unported(arch, self.sys, scheduler=sched_name,
-                         smashed_compress=self.smashed_compress)
         self.controller = _pick(self.sys.controller, arch.split.controller)
-        if self.controller != "accuracy":
+        if self.controller not in ("accuracy", "co"):
             raise ValueError(f"unknown C3 controller "
                              f"{self.controller!r}; known: accuracy, co")
+        use_ef = bool(_pick(self.sys.smashed_ef,
+                            self.smashed_compress == "topk"))
+        self._co_search_space(use_ef)
+        _refuse_unported(arch, self.sys, scheduler=sched_name,
+                         use_ef=use_ef)
 
         self.model = build_model(arch, device=self.device)
         n = arch.data.num_clients
@@ -238,9 +228,12 @@ class SplitFTSystem:
             raise ValueError("set --trace (replay a recorded file) or "
                              "--trace-gen (synthetic generator), not "
                              "both")
+        # the co-controller prices candidates with SpeedModel.phase_times,
+        # so it always carries a speed model
         self.speed = (SpeedModel(n, seed=seed, **speed_kw)
                       if (self.sys.straggler_sim
                           or self.scheduler.needs_speed
+                          or self.controller == "co"
                           or self.sys.trace or self.sys.trace_gen)
                       else None)
         if self.sys.trace:
@@ -296,13 +289,25 @@ class SplitFTSystem:
         # ---- model/state (engine) ----
         self.base_params = self.model.init_params(
             torch.Generator().manual_seed(seed))
-        self.state = rounds.init_state(
-            self.model, torch.Generator().manual_seed(seed + 1),
-            num_clients=n)
+        co = self.controller == "co"
+        init_rank = int(self.rank_buckets[int(np.argmin(np.abs(
+            np.asarray(self.rank_buckets) - arch.lora.r_cut)))])
+        init_choice = (self.comp_buckets.index(self.smashed_compress)
+                       if self.smashed_compress in self.comp_buckets
+                       else 0)
+        self.state = rounds.prepare_state(
+            rounds.init_state(self.model,
+                              torch.Generator().manual_seed(seed + 1),
+                              num_clients=n),
+            rank_cut=init_rank if co else None,
+            smashed_choice=init_choice if co else None,
+            topk_frac=(self.smashed_topk_frac
+                       if (co and self.continuous_topk) else None))
         self.train_step = rounds.make_train_step(
             self.model, remat=arch.train.remat,
             smashed_compress=self.smashed_compress,
-            smashed_topk_frac=self.smashed_topk_frac)
+            smashed_topk_frac=self.smashed_topk_frac,
+            compressor_buckets=self.comp_buckets if co else None)
         self.eval_step = rounds.make_eval_step(self.model)
 
         # ---- C3 state ----
@@ -314,6 +319,49 @@ class SplitFTSystem:
                      if self.sys.checkpoint_dir else None)
         self.history: List[Dict[str, Any]] = []
         self._adaptive = _pick(self.sys.adaptive, arch.split.adaptive)
+
+    def _co_search_space(self, use_ef: bool):
+        """The co-controller's search space (cut x rank x compressor) and
+        the reference's checks on it, which hold for either controller."""
+        arch, s = self.arch, self.sys
+        self.acc_dead_band = _pick(s.acc_dead_band, arch.split.acc_dead_band)
+        self.min_gain = _pick(s.min_gain, arch.split.min_gain)
+        rb = _pick(s.rank_buckets, arch.split.rank_buckets) \
+            or (arch.lora.r_cut,)
+        self.rank_buckets = tuple(sorted({int(r) for r in rb}))
+        if any(r < 1 or r > arch.lora.r_others for r in self.rank_buckets):
+            raise ValueError(
+                f"rank_buckets {self.rank_buckets} must lie in "
+                f"[1, r_others={arch.lora.r_others}] (adapters are "
+                "allocated at r_others; ranks are masks, not shapes)")
+        cbk = _pick(s.compressor_buckets, arch.split.compressor_buckets) \
+            or (self.smashed_compress,)
+        # bucket index order == aggressiveness order: weakest compression
+        # (most wire bytes) first, so "one step weaker" is index - 1
+        self.comp_buckets = tuple(sorted(
+            dict.fromkeys(cbk),
+            key=lambda nm: -smashed.wire_bytes(
+                nm, batch=arch.train.batch_size, seq=arch.train.seq_len,
+                d_model=arch.model.d_model,
+                topk_frac=self.smashed_topk_frac)))
+        self.continuous_topk = _pick(s.continuous_topk,
+                                     arch.split.continuous_topk)
+        if self.continuous_topk:
+            if self.controller != "co":
+                raise ValueError(
+                    "continuous_topk is a co-controller search knob; "
+                    f"set controller='co' (got {self.controller!r})")
+            if "topk" not in self.comp_buckets:
+                raise ValueError(
+                    "continuous_topk tunes the topk compressor's keep "
+                    "fraction, but 'topk' is not in the compressor "
+                    f"buckets {self.comp_buckets}")
+        if self.controller == "co" and use_ef:
+            raise ValueError(
+                "the co-controller's per-client compressor choice does "
+                "not compose with smashed error feedback (the EF "
+                "residual is sized for one compressor's remainder "
+                "semantics); set smashed_ef=False")
 
     # ------------------------------------------------------------------
     def combined_weights(self) -> np.ndarray:
@@ -338,16 +386,37 @@ class SplitFTSystem:
     # ------------------------------------------------------------------
     # round-loop pieces (one engine call + host-side policy around it)
 
-    def _round_comm(self, cuts_np: np.ndarray) -> Dict[str, np.ndarray]:
-        """Per-client comm bytes for a cut assignment, computed once per
-        round and shared by the straggler model and the round record."""
+    def _state_policy(self):
+        """The co-controller's per-client (rank_cut, smashed_choice) from
+        round state as numpy, (None, None) under the static policy."""
+        rank = self.state.get("rank_cut")
+        choice = self.state.get("smashed_choice")
+        return (None if rank is None else _np(rank),
+                None if choice is None else _np(choice))
+
+    def _state_frac(self) -> Optional[np.ndarray]:
+        """The co-controller's per-client topk keep fraction from round
+        state, None under the static (bucket-only) policy."""
+        frac = self.state.get("topk_frac")
+        return None if frac is None else _np(frac).astype(np.float64)
+
+    def _round_comm(self, cuts_np: np.ndarray, rank_np=None,
+                    choice_np=None, frac_np=None) -> Dict[str, np.ndarray]:
+        """Per-client comm bytes for a (cut, rank, compressor, frac)
+        assignment: once per round for the state's policy (shared by the
+        straggler model and the round record), and once per candidate
+        when the co-controller prices moves."""
         arch = self.arch
+        names = (self.smashed_compress if choice_np is None
+                 else [self.comp_buckets[int(k)] for k in choice_np])
         return comm.round_comm_bytes(
             self.model, cuts=cuts_np,
             batch_size=arch.train.batch_size,
             seq_len=arch.train.seq_len,
-            smashed_compress=self.smashed_compress,
-            smashed_topk_frac=self.smashed_topk_frac)
+            smashed_compress=names,
+            smashed_topk_frac=(self.smashed_topk_frac
+                               if frac_np is None else frac_np),
+            rank_cut=rank_np)
 
     @property
     def _flops_layer(self) -> float:
@@ -409,14 +478,24 @@ class SplitFTSystem:
                                   self.pricer.clock_baseline(**kw),
                                   mask, t0)
 
-    def predict_round_times(self, r: int, cuts) -> np.ndarray:
+    def predict_round_times(self, r: int, cuts, rank_cut=None,
+                            comp_idx=None, topk_frac=None) -> np.ndarray:
         """(N,) predicted per-client one-step round time for a candidate
-        cut assignment, from the configured pricer's jitter-free
-        `predict`; under overlap_comm, the steady-state per-step time of
-        the double-buffered pipeline."""
+        (cut, rank-at-cut, compressor index, topk fraction) assignment,
+        the co-controller's objective: the bytes of the same
+        comm.round_comm_bytes the clock charges, priced by the pricer's
+        jitter-free `predict` (with jitter_sigma 0 and an analytic or
+        trace source, prediction and simulation coincide).  topk_frac
+        None takes the state's.  Under overlap_comm, the steady-state
+        per-step time of the double-buffered pipeline."""
         cuts_np = np.asarray(cuts, int)
-        phases = self._round_phases(r, cuts_np, self._round_comm(cuts_np),
-                                    jitter=False)
+        cb = self._round_comm(
+            cuts_np,
+            None if rank_cut is None else np.asarray(rank_cut, int),
+            None if comp_idx is None else np.asarray(comp_idx, int),
+            (self._state_frac() if topk_frac is None
+             else np.asarray(topk_frac, np.float64)))
+        phases = self._round_phases(r, cuts_np, cb, jitter=False)
         if self.overlap_comm:
             k = max(2, self.scheduler.max_steps)
             steps = np.full(cuts_np.shape[0], k, np.int64)
@@ -446,7 +525,8 @@ class SplitFTSystem:
         """One scheduler decision: (RoundPlan, comm-bytes dict)."""
         avail = self._trace_availability()   # may advance sim_clock
         cuts_np = self._cuts()
-        cb = self._round_comm(cuts_np)
+        cb = self._round_comm(cuts_np, *self._state_policy(),
+                              self._state_frac())
         phases = self._round_phases(r, cuts_np, cb)
         times = (None if phases is None
                  else straggler.serial_step_times(phases))
@@ -466,6 +546,9 @@ class SplitFTSystem:
             "cuts": self._cuts(),
             "active": plan.active.copy(),
         }
+        for k in rounds.POLICY:
+            if k in self.state:
+                rec[k] = _np(self.state[k]).copy()
         if plan.times is not None:
             rec["round_time_sim"] = plan.times
             rec["sim_time"] = plan.sim_time
@@ -485,7 +568,8 @@ class SplitFTSystem:
     def _adjust_c3(self, r: int, rec: Dict[str, Any], weights,
                    times: Optional[np.ndarray]):
         """C3: evaluate the global model per client, then move the cuts
-        by the paper's accuracy rule."""
+        by the paper's accuracy rule, or the whole (cut, rank-at-cut,
+        compressor[, topk fraction]) policy by the co-controller."""
         _, e_metrics = self.eval_step(
             self.base_params, self.state, self._eval_batch(r), weights)
         accs = _np(e_metrics["accuracy"])
@@ -493,10 +577,43 @@ class SplitFTSystem:
         rec["eval_accuracy"] = accs
         self.c3_weights = adaptive.update_weights(
             accs, self.arch.split.gamma)
-        new_cuts = adaptive.adjust_cuts(
-            self._cuts(), accs, self.arch.split, self.model.num_flat_layers,
-            round_times=times, active=self.pool.active.astype(np.float64))
+        active = self.pool.active.astype(np.float64)
+        if self.controller != "co":
+            new_cuts = adaptive.adjust_cuts(
+                self._cuts(), accs, self.arch.split,
+                self.model.num_flat_layers, round_times=times,
+                active=active)
+            self.state["cuts"] = torch.as_tensor(new_cuts,
+                                                 dtype=torch.int32)
+            rec["weights"] = self.c3_weights.copy()
+            return
+        rank_np, choice_np = self._state_policy()
+        frac_np = self._state_frac()
+        kw = dict(rank_buckets=self.rank_buckets,
+                  num_compressors=len(self.comp_buckets), active=active,
+                  dead_band=self.acc_dead_band, min_gain=self.min_gain,
+                  round_times=times)
+        if frac_np is None:
+            new_cuts, new_rank, new_comp, pred = adaptive.co_adjust(
+                self._cuts(), rank_np, choice_np, accs, self.arch.split,
+                self.model.num_flat_layers,
+                price=lambda c, rk, ci: self.predict_round_times(
+                    r + 1, c, rk, ci), **kw)
+        else:
+            new_cuts, new_rank, new_comp, new_frac, pred = \
+                adaptive.co_adjust(
+                    self._cuts(), rank_np, choice_np, accs, self.arch.split,
+                    self.model.num_flat_layers,
+                    price=lambda c, rk, ci, fr: self.predict_round_times(
+                        r + 1, c, rk, ci, topk_frac=fr),
+                    topk_frac=frac_np, **kw)
+            self.state["topk_frac"] = torch.as_tensor(new_frac,
+                                                      dtype=torch.float32)
         self.state["cuts"] = torch.as_tensor(new_cuts, dtype=torch.int32)
+        self.state["rank_cut"] = torch.as_tensor(new_rank, dtype=torch.int32)
+        self.state["smashed_choice"] = torch.as_tensor(new_comp,
+                                                       dtype=torch.int32)
+        rec["predicted_time"] = pred
         rec["weights"] = self.c3_weights.copy()
 
     def _finish_round(self, r: int, rec: Dict[str, Any], log_every: int,

@@ -3,15 +3,23 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-small \
       --rounds 300 --partition dirichlet --alpha 0.9 --adaptive
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+      --remat full --rounds 3 --samples 400
+  PYTHONPATH=src python -m repro_torch.launch.train --controller co \
+      --rank-buckets 4,8,16 --compressor-buckets none,int8,fp8,topk \
+      --continuous-topk --straggler-sim --jitter-sigma 0
+
 Port of src/repro/launch/train.py: the same flags, plus --device (default:
-the card; the CPU runs only when asked for).  It builds a
+the card; the CPU runs only when asked for) and --remat (the round
+engine's layer recompute, TrainConfig.remat: the paper's batch 4 of
+mamba2-780m fits one card under "full").  It builds a
 repro_torch.core.system.SplitFTSystem, resumes from <out>/ckpt when a
 checkpoint is there, and writes <out>/history.jsonl (one row per round)
 and <out>/final.json in the reference's format.  Flags for options the
 port does not run yet (adapter --compress, --scheduler local_steps or
-async, --max-local-steps, --controller co and its search flags,
---edge-groups, --population) reach SplitFTSystem's NotImplementedError,
-which names the ROADMAP item that ports them.
+async, --max-local-steps, --edge-groups, --population) reach
+SplitFTSystem's NotImplementedError, which names the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -173,6 +181,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    ap.add_argument("--remat", default=None,
+                    choices=[None, "none", "dots", "full"],
+                    help="recompute each layer in the backward: 'full' "
+                         "saves only layer inputs, 'dots' also the "
+                         "outputs of matrix products; default: the arch "
+                         "config's TrainConfig.remat")
     return ap
 
 
@@ -206,6 +220,9 @@ def main(argv=None):
     if args.lr:
         arch = arch.replace(train=dataclasses.replace(
             arch.train, lr_client=args.lr, lr_server=args.lr))
+    if args.remat:
+        arch = arch.replace(train=dataclasses.replace(arch.train,
+                                                      remat=args.remat))
     if args.cohort_size:
         arch = arch.replace(data=dataclasses.replace(
             arch.data, num_clients=args.cohort_size))

@@ -10,7 +10,8 @@ Entry points (parameters and adapters are passed explicitly, as in the
 reference, as nested dicts of tensors with the reference's names):
 
   init_params(generator, dtype)                   -> params
-  loss(params, adapters, batch, per_client, boundary) -> (loss, metrics)
+  loss(params, adapters, batch, remat, ce_chunk, per_client, boundary)
+                                                  -> (loss, metrics)
   prefill(params, adapters, batch, cache)         -> (logits_last, cache)
   decode_step(params, adapters, tokens, cache)    -> (logits, cache)
   init_cache(lead, max_len, dtype)                -> cache
@@ -18,19 +19,35 @@ reference, as nested dicts of tensors with the reference's names):
 Training activations carry the client axis first ((N, B, S, d)); caches
 are updated in place and returned.  This slice ports the dense decoder
 with learned positions (gpt2-small) and, for training, the SSM kind
-(mamba2-780m, ``models/ssm.py``).  ``remat`` other than "none", chunked
-cross entropy (``ce_chunk``), stateful (error-feedback) cut boundaries,
-the encoder, the MoE kind and SSM caches raise NotImplementedError with a
-pointer to ROADMAP.md.
+(mamba2-780m, ``models/ssm.py``).  Stateful (error-feedback) cut
+boundaries, the encoder, the MoE kind and SSM caches raise
+NotImplementedError with a pointer to ROADMAP.md.
+
+Memory knobs of a train step, as in the reference:
+
+  remat     "none" saves every activation for the backward; "full"
+            recomputes each layer in the backward from its input
+            (torch.utils.checkpoint, non-reentrant), saving nothing
+            inside it; "dots" saves only the outputs of matrix products
+            (aten mm, bmm, addmm, baddbmm: jax's checkpoint_dots) and
+            recomputes the rest.  A hand-written kernel is no aten
+            product, so it is recomputed, as a pallas_call is under
+            checkpoint_dots; its output buffer is never saved.  The
+            cut-layer boundary runs inside the recomputed layer.
+  ce_chunk  the head and cross entropy over sequence chunks, each
+            recomputed in the backward, so one chunk's logits are live
+            at a time (when S > ce_chunk and S % ce_chunk == 0).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import roadmap
 from repro_torch.config import ArchConfig, ModelConfig
@@ -42,6 +59,30 @@ Params = Dict[str, Any]
 
 _LATER = roadmap.ENGINE_OPTIONS
 _FAMILIES = roadmap.FAMILIES
+
+REMATS = ("none", "dots", "full")
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matrix products, recompute
+    every other op."""
+    policy = ckpt.CheckpointPolicy
+    return (policy.MUST_SAVE if op in _PRODUCTS
+            else policy.PREFER_RECOMPUTE)
+
+
+def _recomputed(fn, *args, remat: str):
+    """fn(*args) with its activations recomputed in the backward.  The
+    layers and the head draw no random numbers, so no RNG state is
+    kept."""
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_products)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
 
 
 def _ce_sums(logits, labels, mask, keep: int):
@@ -260,9 +301,9 @@ class Model(nn.Module):
     # -- block execution -------------------------------------------------------
 
     def run_blocks(self, params: Params, adapters: Optional[Params], x, *,
-                   mode: str = "train", cache: Optional[Params] = None,
-                   layer_lo: int = 0, layer_hi: Optional[int] = None,
-                   boundary=None):
+                   mode: str = "train", remat: str = "none",
+                   cache: Optional[Params] = None, layer_lo: int = 0,
+                   layer_hi: Optional[int] = None, boundary=None):
         """Run flat layers [layer_lo, layer_hi) over activations x
         ([N,] B, S, d).
 
@@ -273,9 +314,15 @@ class Model(nn.Module):
 
         `boundary(x, flat_id) -> x` is applied to every layer output with
         its flat layer id: the round engine compresses the smashed
-        activation there, where each client's cut sits."""
+        activation there, where each client's cut sits.  `remat` (train
+        mode, under autograd) recomputes each layer, boundary included,
+        in the backward (see the module docstring)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
+        if remat not in REMATS:
+            raise ValueError(f"unknown remat {remat!r}; known: {REMATS}")
+        remat = (remat if mode == "train" and torch.is_grad_enabled()
+                 else "none")
         if getattr(boundary, "stateful", False):
             raise NotImplementedError(
                 f"stateful (error-feedback) cut boundaries are not ported "
@@ -296,25 +343,17 @@ class Model(nn.Module):
                 p_l = _index_tree(params[g.name], i)
                 ad_l = _index_tree(adapters.get(g.name) if adapters else None,
                                    i)
-                if g.kind == "ssm":
-                    out, _ = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
-                                           cache=cache)
-                    x = x + out
-                else:
-                    c_l = None
-                    if cache is not None:
-                        c_l = {"k": cache[g.name]["k"][i],
-                               "v": cache[g.name]["v"][i], "len": cache_len}
-                        if pages is not None:
-                            c_l["pages"] = pages
-                    attn_out, _ = transformer.attention_apply(
-                        p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
-                        window=g.window_of(i), cache=c_l)
-                    x = x + attn_out
-                    if cfg.d_ff:
-                        x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
-                if boundary is not None:
-                    x = boundary(x, run_flat_lo + (i - lo))
+                c_l = cache
+                if cache is not None and g.kind != "ssm":
+                    c_l = {"k": cache[g.name]["k"][i],
+                           "v": cache[g.name]["v"][i], "len": cache_len}
+                    if pages is not None:
+                        c_l["pages"] = pages
+                layer = functools.partial(
+                    self._layer, g, i, p_l, ad_l, mode=mode, cache=c_l,
+                    boundary=boundary, fid=run_flat_lo + (i - lo))
+                x = (layer(x) if remat == "none"
+                     else _recomputed(layer, x, remat=remat))
         new_cache = None
         if cache is not None:
             new_cache = dict(cache)
@@ -322,10 +361,29 @@ class Model(nn.Module):
             new_cache["len"] = cache_len + step
         return x, new_cache
 
+    def _layer(self, g: GroupSpec, i: int, p_l, ad_l, x, *, mode: str,
+               cache, boundary, fid: int):
+        """One layer of group g (local index i) and the cut-layer hook."""
+        cfg = self.cfg
+        if g.kind == "ssm":
+            out, _ = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
+                                   cache=cache)
+            x = x + out
+        else:
+            attn_out, _ = transformer.attention_apply(
+                p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
+                window=g.window_of(i), cache=cache)
+            x = x + attn_out
+            if cfg.d_ff:
+                x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
+        if boundary is not None:
+            x = boundary(x, fid)
+        return x
+
     # -- top-level entry points ------------------------------------------------
 
     def forward(self, params, adapters, batch, *, cache=None,
-                mode: str = "train", boundary=None):
+                mode: str = "train", remat: str = "none", boundary=None):
         """Full forward to hidden states (pre-head).
 
         batch: {"tokens": ([N,] B, S)}.  Returns (x, aux, new_cache); aux
@@ -341,7 +399,8 @@ class Model(nn.Module):
                                        device=tokens.device))
         x = self.embed(params, tokens, positions=positions)
         x, new_cache = self.run_blocks(params, adapters, x, mode=mode,
-                                       cache=cache, boundary=boundary)
+                                       remat=remat, cache=cache,
+                                       boundary=boundary)
         x = apply_norm(params["final_norm"], x, kind=cfg.norm,
                        eps=cfg.norm_eps)
         return x, 0.0, new_cache
@@ -353,28 +412,43 @@ class Model(nn.Module):
         per_client=True keeps the leading client axis un-reduced: returns
         ((N,) nll, metrics with (N,) entries), which the round engine
         weights and combines (paper formula 2).  `boundary` is the
-        cut-layer hook (see run_blocks)."""
-        if remat != "none":
-            raise NotImplementedError(
-                f"remat={remat!r} is not ported yet ({_LATER}); the round "
-                f"engine's default is 'none'")
-        if ce_chunk:
-            raise NotImplementedError(
-                f"chunked cross entropy (ce_chunk={ce_chunk}) is not ported "
-                f"yet ({_LATER})")
+        cut-layer hook (see run_blocks); `remat` and `ce_chunk` are the
+        memory knobs of the module docstring."""
         x, aux, _ = self.forward(params, adapters, batch, mode="train",
-                                 boundary=boundary)
+                                 remat=remat, boundary=boundary)
         labels = batch["labels"]
         mask = batch.get("loss_mask")
         mask = (torch.ones(labels.shape, device=x.device) if mask is None
                 else mask.float())
-        nll_sum, hits, cnt = _ce_sums(self.head(params, x), labels, mask,
-                                      1 if per_client else 0)
+        keep = 1 if per_client else 0
+        s = x.shape[-2]
+        if ce_chunk and s > ce_chunk and s % ce_chunk == 0:
+            sums = self._chunked_ce(params, x, labels, mask, ce_chunk, keep)
+        else:
+            sums = _ce_sums(self.head(params, x), labels, mask, keep)
+        nll_sum, hits, cnt = sums
         cnt = torch.clamp(cnt, min=1.0)
         nll, acc = nll_sum / cnt, hits / cnt
         aux = torch.zeros((), device=x.device) + aux
         metrics = {"ce": nll, "aux": aux, "accuracy": acc, "tokens": cnt}
         return nll + aux, metrics
+
+    def _chunked_ce(self, params, x, labels, mask, chunk: int, keep: int):
+        """The CE sums over sequence chunks, summed in chunk order from
+        zero as the reference's scan; each chunk's head and sums are
+        recomputed in the backward, so one chunk's logits are live."""
+        def body(x_c, l_c, m_c):
+            return _ce_sums(self.head(params, x_c), l_c, m_c, keep)
+
+        zero = torch.zeros(x.shape[:keep], device=x.device)
+        sums = (zero, zero, zero)
+        for lo in range(0, x.shape[-2], chunk):
+            part = (x[..., lo:lo + chunk, :], labels[..., lo:lo + chunk],
+                    mask[..., lo:lo + chunk])
+            got = (_recomputed(body, *part, remat="full")
+                   if torch.is_grad_enabled() else body(*part))
+            sums = tuple(a + b for a, b in zip(sums, got))
+        return sums
 
     def encode(self, *args, **kwargs):
         raise NotImplementedError(

@@ -797,3 +797,86 @@ def test_system_rounds_on_the_card_match_the_cpu(cuda):
         np.testing.assert_array_equal(a["cuts"], b["cuts"])
         if not np.array_equal(a["eval_accuracy"], b["eval_accuracy"]):
             break
+
+
+def _small_state(model, dev, cuts, seed=1):
+    state = rounds.init_state(model, torch.Generator().manual_seed(seed),
+                              num_clients=len(cuts))
+    gen = torch.Generator().manual_seed(seed + 1)
+    for side in ("client_adapters", "server_adapters"):
+        for targets in state[side].values():
+            for leaf in targets.values():
+                leaf["B"] = _randn(gen, *leaf["B"].shape, scale=0.05).to(dev)
+    state["cuts"] = torch.tensor(cuts, dtype=torch.int32)
+    return state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_through_the_ssd_kernel_matches_cpu(cuda, remat):
+    """Reduced mamba2 (2 layers, seq 64 in chunks of 16) under layer
+    recompute: on the card each layer's recompute relaunches the SSD
+    kernel and its backward recomputes the plain scan, whose own chunk
+    checkpoints then nest inside the outer recompute.  The card's remat
+    step equals its "none" step and the CPU's within the fp32 tolerances
+    of test_round_grads_on_card_match_cpu without compression
+    (chip_smoke.py reports whether remat is bitwise); the SSD kernel
+    launches twice per layer."""
+    arch = reduced(get_config("mamba2-780m"), layers=2, d_model=64,
+                   vocab=256, seq_len=64)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(3, 256, size=(2, 2, 65)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    out = {}
+    for dev, mode in (("cpu", remat), (cuda, "none"), (cuda, remat)):
+        model = build_model(arch, device=dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        state = _small_state(model, dev, [1, 2])
+        before = ssd_ops.ssd_scan_fwd.launches
+        _, met, gc, gs = rounds.round_grads(
+            model, params, state, batch, np.array([0.25, 0.75]),
+            remat=mode)
+        out[str(dev), mode] = (met["ce"].cpu(), [
+            g.cpu() for g in tree_leaves(gc) + tree_leaves(gs)],
+            ssd_ops.ssd_scan_fwd.launches - before)
+    (ce_r, g_r, n_r), (ce_n, g_n, n_n) = (out[str(cuda), remat],
+                                          out[str(cuda), "none"])
+    assert (n_n, n_r) == (2, 4)
+    ce_c, g_c, _ = out["cpu", remat]
+    scale = max(float(g.abs().max()) for g in g_c)
+    for ce, grads in ((ce_n, g_n), (ce_c, g_c)):
+        torch.testing.assert_close(ce_r, ce, rtol=1e-4, atol=1e-4)
+        for gk, gw in zip(g_r, grads):
+            torch.testing.assert_close(gk, gw, rtol=1e-3, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_multi_boundary_int8_bucket_matches_cpu(cuda):
+    """The co-controller's per-client boundary on the card: clients at
+    cuts [1, 2, 2] choosing int8, topk (keep fraction 0.25) and int8;
+    outputs and straight-through cotangents bit for bit against the CPU
+    (the int8 quantizers agree bit for bit, topk is a selection), and
+    one int8 round trip per cut layer where a client chose int8, forward
+    and backward."""
+    gen = torch.Generator().manual_seed(4)
+    x = _randn(gen, 3, 2, 64, 768)
+    g = _randn(gen, 3, 2, 64, 768)
+    comps = tuple(smashed.make_compressor(c, topk_frac=0.1)
+                  for c in ("none", "int8", "topk"))
+    cuts, choice = torch.tensor([1, 2, 2]), torch.tensor([1, 2, 1])
+    frac = torch.tensor([0.1, 0.25, 0.1])
+    got = {}
+    for dev in ("cpu", cuda):
+        bnd = smashed.make_multi_boundary(comps, cuts, choice,
+                                          topk_frac=frac)
+        before = sops.int8_roundtrip_smashed.launches
+        for fid in range(3):
+            xd = x.to(dev).requires_grad_(True)
+            y = bnd(xd, fid)
+            (gx,) = torch.autograd.grad(y, xd, g.to(dev))
+            got[str(dev), fid] = (y.detach().cpu(), gx.cpu())
+        got[str(dev)] = sops.int8_roundtrip_smashed.launches - before
+    assert got[str(cuda)] == 4
+    for fid in range(3):
+        for a, b in zip(got[str(cuda), fid], got["cpu", fid]):
+            assert torch.equal(a, b), fid

@@ -229,13 +229,10 @@ def test_model_without_device_raises_when_no_cuda(monkeypatch):
 
 
 def test_unported_model_paths_raise(pair):
-    """Training runs since the training slice; what it left out raises:
-    remat, chunked cross entropy and stateful (EF) cut boundaries."""
+    """What the training slices left out raises: stateful (EF) cut
+    boundaries and RoPE.  remat and chunked cross entropy run
+    (tests/test_torch_memory_knobs.py)."""
     _, (model_t, params_t, _) = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_t.loss(params_t, None, {}, remat="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_t.loss(params_t, None, {}, ce_chunk=8)
 
     def ef_boundary(x, carry, fid):
         return x, carry

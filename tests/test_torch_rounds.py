@@ -314,19 +314,49 @@ def test_adapter_deltas_match_reference(setup):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(remat="dots"), dict(ce_chunk=16), dict(agg_every=2),
-    dict(compress="topk"), dict(microbatch=2), dict(max_local_steps=2),
-    dict(async_buffer=True), dict(num_edges=2),
-    dict(compressor_buckets=("none", "int8"))])
+    dict(agg_every=2), dict(compress="topk"), dict(max_local_steps=2),
+    dict(async_buffer=True), dict(num_edges=2)])
 def test_unported_engine_options_raise(setup, opt):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_rounds.make_train_step(setup["model_t"], **opt)
 
 
+# the options this list used to refuse, now one SGD round each against the
+# reference's engine; the bucket case gives clients 0 and 2 the int8
+# bucket
+LIFTED = [dict(remat="dots"), dict(ce_chunk=16), dict(microbatch=2),
+          dict(compressor_buckets=("none", "int8"))]
+
+
+@pytest.mark.parametrize("opt", LIFTED, ids=[next(iter(o)) for o in LIFTED])
+def test_lifted_engine_options_match_reference(setup, opt):
+    model_j = j_build_model(_arch(j_reduced, j_get_config, "sgd"))
+    model_t = build_model(_arch(t_reduced, t_get_config, "sgd"),
+                          device="cpu")
+    state_j, state_t = _states(setup)
+    if "compressor_buckets" in opt:
+        state_j = dict(j_rounds.prepare_state(state_j, smashed_choice=0),
+                       smashed_choice=jnp.asarray([1, 0, 1], jnp.int32))
+        state_t = dict(t_rounds.prepare_state(state_t, smashed_choice=0),
+                       smashed_choice=torch.tensor([1, 0, 1],
+                                                   dtype=torch.int32))
+    state_j, met_j = j_rounds.make_train_step(model_j, **opt)(
+        setup["params_j"], state_j, jax.tree.map(jnp.asarray, setup["batch"]),
+        jnp.asarray(WEIGHTS), jnp.asarray(ACTIVE), jnp.float32(LR),
+        jnp.float32(LR))
+    state_t, met_t = t_rounds.make_train_step(model_t, **opt)(
+        setup["params_t"], state_t, setup["batch"], WEIGHTS, ACTIVE, LR, LR)
+    s_j, s_t = _np(state_j), bridge.to_numpy(state_t)
+    for side in ("client_adapters", "server_adapters"):
+        _assert_tree_close(s_t[side], s_j[side], rtol=1e-5, atol=1e-5)
+    for k in ("total", "ce", "accuracy", "tokens"):
+        _close(met_t[k], _np(met_j)[k], rtol=1e-4, atol=1e-4)
+
+
 def test_unported_state_leaves_raise(setup):
     _, state_t = _states(setup)
-    state_t["rank_cut"] = torch.full((3,), 4, dtype=torch.int32)
+    state_t["step_budgets"] = torch.ones((3,), dtype=torch.int32)
     step = t_rounds.make_train_step(setup["model_t"])
-    with pytest.raises(NotImplementedError, match="rank_cut"):
+    with pytest.raises(NotImplementedError, match="step_budgets"):
         step(setup["params_t"], state_t, setup["batch"], WEIGHTS, ACTIVE,
              LR, LR)

@@ -22,6 +22,7 @@ eval accuracies are equal.
 
 import dataclasses
 import json
+import re
 
 import numpy as np
 import pytest
@@ -247,11 +248,6 @@ UNPORTED = [
     ({"max_local_steps": 2}, "The round engine's remaining options"),
     ({"scheduler": "local_steps"}, "The round engine's remaining options"),
     ({"scheduler": "async"}, "The round engine's remaining options"),
-    ({"controller": "co"}, "The round engine's remaining options"),
-    ({"continuous_topk": True}, "The round engine's remaining options"),
-    ({"rank_buckets": (1, 2)}, "The round engine's remaining options"),
-    ({"compressor_buckets": ("none", "int8")},
-     "The round engine's remaining options"),
     ({"population": 10}, "Population and sharding"),
 ]
 
@@ -264,6 +260,33 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, title):
         t_system.SplitFTSystem(_arch(t_reduced, t_get_config),
                                t_system.SystemConfig(**DATA, **kw),
                                device="cpu")
+
+
+# options this list used to refuse: each now does what the reference's
+# does, a ValueError or a system of the same template
+CO_OPTIONS = [{"controller": "co"}, {"continuous_topk": True},
+              {"rank_buckets": (1, 2)},
+              {"compressor_buckets": ("none", "int8")}]
+
+
+@pytest.mark.parametrize("kw", CO_OPTIONS,
+                         ids=[",".join(k) for k in CO_OPTIONS])
+def test_co_options_follow_the_reference(kw):
+    def build(pkg, reduced, get_config, **dev):
+        return pkg.SplitFTSystem(_arch(reduced, get_config),
+                                 pkg.SystemConfig(**DATA, **kw), **dev)
+
+    try:
+        j = build(j_system, j_reduced, j_get_config)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=re.escape(str(e)[:40])):
+            build(t_system, t_reduced, t_get_config, device="cpu")
+        return
+    t = build(t_system, t_reduced, t_get_config, device="cpu")
+    assert sorted(t.state) == sorted(j.state)
+    assert (t.rank_buckets, t.comp_buckets) == (j.rank_buckets,
+                                                j.comp_buckets)
+    assert (t.speed is None) == (j.speed is None)
 
 
 def test_supported_smashed_compressors_run():
@@ -288,7 +311,7 @@ def test_cli_has_every_reference_flag_and_device():
     ref = _option_strings(j_train.build_parser())
     port = _option_strings(t_train.build_parser())
     assert ref <= port
-    assert port - ref == {"--device"}
+    assert port - ref == {"--device", "--remat"}
 
 
 def _history(path):
@@ -317,7 +340,6 @@ def test_cli_writes_the_reference_history(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--compress", "topk"],
                                    ["--scheduler", "async"],
-                                   ["--controller", "co"],
                                    ["--edge-groups", "2"],
                                    ["--population", "10"]])
 def test_cli_unported_flags_raise(tmp_path, flags):
