@@ -24,10 +24,18 @@ at full width (random weights from a seed):
     equal the straight run's; the train CLI on the card; 4 rounds under
     the phase-time co-controller (per-client cut, rank at the cut,
     compressor and topk keep fraction, with its predictions held to the
-    simulated clock); then steps at full width and reduced depth on the
-    card and on the CPU plain path from one state, with and without the
-    memory knobs (remat, chunked cross entropy, microbatches) and under a
-    per-client policy, whose losses and adapter gradients must agree;
+    simulated clock); 4 rounds under the local-steps scheduler (unequal
+    budgets, FedAvg every 2nd round, adapter top-k and smashed top-k,
+    both with error feedback), 3 rounds of two-tier FedAvg with int8
+    adapter deltas, 3 aggregations under the async scheduler (FedBuff
+    buffer, overlapped pipeline) and a mid-buffer checkpoint resumed bit
+    for bit, and requests served from the local-steps run's trained
+    adapters; then steps at full width and reduced depth on the card and
+    on the CPU plain path from one state, with and without the memory
+    knobs (remat, chunked cross entropy, microbatches), under a
+    per-client policy, and one step each of the local-steps, async and
+    two-tier engines, whose losses, adapter gradients and deltas must
+    agree;
   * training mamba2-780m: the same 3 rounds through SplitFTSystem at full
     depth (48 SSD layers, every SSD scan through the chunked-scan kernel)
     at batch 1 per client, then 3 at the paper's batch 4 under remat
@@ -91,6 +99,45 @@ CO_SYS = dict(controller="co", rank_buckets=(4, 8, 16),
               compressor_buckets=("none", "int8", "fp8", "topk"),
               continuous_topk=True, smashed_ef=False, straggler_sim=True,
               jitter_sigma=0.0)
+# phases 5e-5h: the round engine's remaining options on gpt2-small (the
+# paper setting of phase 5, int8 smashed unless a phase says otherwise).
+# 5e: local steps with unequal budgets, FedAvg every 2nd round, adapter
+# top-k (keep 0.05) with error feedback, smashed top-k with error feedback
+LS_ROUNDS = 4
+LS_SYS = dict(scheduler="local_steps", max_local_steps=3, straggler_sim=True,
+              agg_every=2, compress="topk", topk_frac=0.05,
+              smashed_compress="topk", smashed_ef=True)
+# 5f: two-tier FedAvg over 2 edge groups, adapter int8; the server ingest
+# link (100 MB/s) is charged so the edge groups shorten the adapter sync
+EDGE_ROUNDS = 3
+EDGE_SYS = dict(scheduler="sync", straggler_sim=True, edge_groups=2,
+                compress="int8", server_ingest_bw=1e8)
+# 5g: FedBuff async with the overlapped pipeline and jitter, 3
+# aggregations, then a mid-buffer checkpoint resumed
+ASYNC_ROUNDS = 3
+ASYNC_SYS = dict(scheduler="async", buffer_size=3, staleness_power=0.5,
+                 overlap_comm=True, straggler_sim=True, jitter_sigma=0.2)
+# 5h: requests served from phase 5e's trained per-client adapters
+TRAINED_REQUESTS = 4
+# phase 6 on the card and the CPU: the round engine's options, one step
+# each (SGD, so adapter top-k keeps the largest gradients rather than
+# choosing among AdamW's equal first steps); adapter deltas within
+# (relative, share of max|delta|): a top-k or int8 element within fp32
+# noise of the k-th magnitude or a rounding boundary moves by its value
+# or one quantum on one side only
+ENGINE_STEPS = [("local steps K 2, budgets [1, 2], smashed topk + EF, "
+                 "adapter topk", dict(max_local_steps=2,
+                                      smashed_compress="topk",
+                                      compress="topk"), (1e-3, 1e-2)),
+                ("async tick, buffer 2, staleness [2, 1]",
+                 dict(async_buffer=True, buffer_size=2), (1e-3, 1e-4)),
+                ("edge groups 2, adapter int8, smashed int8",
+                 dict(num_edges=2, compress="int8",
+                      smashed_compress="int8"), (1e-3, 1e-2))]
+ENGINE_LR = 1e-2
+# a card step that skipped the adapter compression would sit as far from
+# the CPU's compressed deltas as the CPU's plain FedAvg does (ratio ~1)
+COMPRESSION_SEEN = 0.5
 # phase 6 on the card and the CPU: the memory knobs and a per-client
 # policy (client 0 int8 at rank 4, client 1 topk keeping 0.25 at rank 16)
 SMALL_POLICY = dict(rank_cut=[4, 16], choice=["int8", "topk"],
@@ -736,18 +783,9 @@ def main() -> int:
         raise RuntimeError("paged tokens differ from contiguous tokens")
 
 
-    serial, logits = serving.serial_reference(
-        model, params, pool, reqs, max_len=MAX_LEN, return_logits=True)
-    cut = 0
-    for r, got in zip(reqs, tokens["contiguous"]):
-        top2 = torch.topk(logits[r.rid], 2, dim=-1).values
-        gaps = (top2[:, 0] - top2[:, 1]).tolist()
-        upto = next((i for i, g in enumerate(gaps) if g < TOP2_GAP), GEN)
-        cut += upto < GEN
-        if got[:upto] != serial[r.rid][:upto]:
-            raise RuntimeError(f"request {r.rid}: engine tokens {got} != "
-                               f"serial {serial[r.rid]} before position "
-                               f"{upto}")
+    cut, serial = check_served_tokens(serving, model, params, pool, reqs,
+                                      tokens["contiguous"], MAX_LEN,
+                                      "phase 4")
     log(f"phase 4: engine tokens equal serial_reference on {N_REQUESTS} "
         f"requests; {cut} compared only up to a top-2 logit gap < "
         f"{TOP2_GAP}")
@@ -802,9 +840,20 @@ def main() -> int:
                              accuracy_times).items():
         launches[kname] += c
 
+    # -- phases 5e-5h: local steps, two-tier FedAvg, async, trained serving -
+    ls_system, got = local_steps_phase(torch, dev, wrappers, name, card)
+    for phase in (got, edge_phase(torch, dev, wrappers, name, card),
+                  async_phase(torch, dev, wrappers, name, card),
+                  trained_serving_phase(torch, dev, wrappers, name, card,
+                                        ls_system)):
+        for kname, c in phase.items():
+            launches[kname] += c
+    del ls_system
+
     # -- phase 6: one step at full width, reduced depth, card vs CPU --------
     small_step_check(torch, dev, "gpt2-small", SMALL_SEQ, GPT2_STEPS,
                      "phase 6")
+    engine_step_check(torch, dev)
 
     # -- phase 7, 7b: the mamba2 training path, batch 1 and batch 4 ---------
     for kname, c in mamba2_phase(torch, dev, wrappers, name, card).items():
@@ -1418,6 +1467,7 @@ def time_mamba2_lora(torch, rand, errs):
 
 
 POLICY = ("cuts", "rank_cut", "smashed_choice", "topk_frac")
+TRACKED = POLICY + ("step_budgets",)
 
 
 class TimedStep:
@@ -1439,8 +1489,10 @@ class TimedStep:
         t0 = time.perf_counter()
         out = self.fn(*args)
         sync()
-        self.calls.append(({k: args[1][k].tolist() for k in POLICY
-                            if k in args[1]},
+        policy = {k: args[1][k].tolist() for k in TRACKED if k in args[1]}
+        if len(args) > 4:                       # a train step's mask
+            policy["active"] = np.asarray(args[4]).tolist()
+        self.calls.append((policy,
                            {k: w.launches - before[k]
                             for k, w in self.wrappers.items()},
                            time.perf_counter() - t0))
@@ -1463,19 +1515,21 @@ def timed_system(torch, arch, dev, wrappers, sys_kw=None):
 
 
 def run_rounds(torch, arch, dev, wrappers, tag, name, card,
-               host_profile=False, sys_kw=None, rounds=ROUNDS):
+               host_profile=False, sys_kw=None, rounds=ROUNDS,
+               after_round=None):
     """`rounds` SplitFT rounds through SplitFTSystem.run on `arch` at full
     width (the sync scheduler and the accuracy controller unless sys_kw
     says otherwise): each round a train step, an eval step and the C3
     epilogue.  The launch counters are set to 0 before the rounds; each
     round prints its wall time, the train- and eval-step times and the
     host share (round wall - train - eval: planning, comm bytes, C3,
-    records).  Then one more train + eval step of the system's engine
-    runs under the profiler on its last inputs, and with host_profile one
-    more train step under the host profiler.  Returns (system, the
-    launches over the rounds, [(policy, train-step launches, eval-step
-    launches)] per round, [(wall, train, eval, host) seconds] per
-    round)."""
+    records); after_round(system, r), if given, checks the round and
+    returns more of its log line.  Then one more train + eval step of the
+    system's engine runs under the profiler on its last inputs, and with
+    host_profile one more train step under the host profiler.  Returns
+    (system, the launches over the rounds, [(policy, train-step
+    launches, eval-step launches)] per round, [(wall, train, eval, host)
+    seconds] per round)."""
     t = arch.train
     t0 = time.perf_counter()
     system = timed_system(torch, arch, dev, wrappers, sys_kw)
@@ -1510,6 +1564,7 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
             raise RuntimeError(f"{tag} round {r}: non-finite loss")
         host = wall - t_train - t_eval
         times.append((wall, t_train, t_eval, host))
+        extra = after_round(system, r) if after_round else ""
         log(f"{tag} round {r} [{name}, {card}]: cuts {policy['cuts']} -> "
             f"{system.state['cuts'].tolist()}; train ce {fmt(vals[0])} acc "
             f"{fmt(vals[1])}; eval ce {fmt(vals[2])} acc {fmt(vals[3])}; "
@@ -1520,7 +1575,7 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
             f"{t_eval * 1e3:.1f} ms + host {host * 1e3:.1f} ms (host share "
             f"{host / wall:.4f}); "
             f"max_memory_allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{extra}")
     got = {k: w.launches for k, w in wrappers.items()}
     log(f"{tag} launches over {rounds} rounds: "
         f"{ {k: c for k, c in got.items() if c} }")
@@ -1691,6 +1746,374 @@ def co_phase(torch, dev, wrappers, name, card, accuracy_times):
         f"{fmt(co)} (median {np.median(co):.4f}) against phase 5's "
         f"accuracy controller {fmt(acc)} (median {np.median(acc):.4f})")
     return got
+
+
+def _rows_equal(system):
+    """Whether every client holds the same layer-0 q adapter (a layer
+    every client owns): true right after a FedAvg with everyone active."""
+    a = system.state["client_adapters"]["dec"]["q"]["A"][0]
+    return all(bool(a[0].equal(a[i])) for i in range(1, a.shape[0]))
+
+
+def _norm(torch, tree):
+    from repro_torch.tree import tree_leaves
+
+    return float(torch.sqrt(sum(x.float().square().sum()
+                                for x in tree_leaves(tree))))
+
+
+def local_steps_phase(torch, dev, wrappers, name, card):
+    """Phase 5e: LS_ROUNDS rounds of full-width gpt2-small under the
+    local-steps scheduler (K up to 3, budgets from the straggler clock),
+    FedAvg every 2nd round with adapter top-k and its error feedback, and
+    smashed top-k with error feedback.  A train step runs max(budgets)
+    inner steps, each 12 flash forwards and 12 backwards (top-k is plain
+    torch: no int8 kernel); FedAvg must happen exactly in the rounds
+    agg_every names (the layer-0 rows equal across clients), and both
+    residuals must be nonzero after round 0.  Returns (system, launches,
+    the rounds' times)."""
+    def after(system, r):
+        st = system.state
+        agg = (r + 1) % LS_SYS["agg_every"] == 0
+        if _rows_equal(system) != agg:
+            raise RuntimeError(f"phase 5e round {r}: FedAvg ran "
+                               f"{not agg}, agg_every says {agg}")
+        sm, ad = _norm(torch, st["smashed_ef"]), _norm(torch, st["ef"])
+        if not (sm > 0 and (ad > 0 or not agg)):
+            raise RuntimeError(f"phase 5e round {r}: residual norms "
+                               f"smashed {sm} adapter {ad}")
+        return (f"; budgets {system.history[-1]['step_budgets'].tolist()}"
+                f", aggregated {agg}; residual norms: smashed {sm:.4e}, "
+                f"adapter {ad:.4e}")
+
+    system, got, per_round, times = run_rounds(
+        torch, gpt2_int8(), dev, wrappers, "phase 5e", name, card,
+        sys_kw=LS_SYS, rounds=LS_ROUNDS, after_round=after)
+
+    def inner(p):
+        return max(b for b, a in zip(p["step_budgets"], p["active"]) if a)
+
+    check_launches(per_round, lambda p: {
+        "flash_attention_fwd": 12 * inner(p),
+        "flash_attention_bwd": 12 * inner(p)},
+        {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
+        "gpt2-small local steps")
+    steps = [inner(p) for p, _, _ in per_round]
+    per_step = list(zip(times[1:], steps[1:]))
+    log(f"phase 5e [{name}, {card}]: inner steps per round {steps}; after "
+        f"round 0, train step "
+        f"{fmt([t * 1e3 for _, t, _, _ in times[1:]])} ms = "
+        f"{fmt([t * 1e3 / k for (_, t, _, _), k in per_step])}"
+        f" ms per inner step, eval "
+        f"{fmt([e * 1e3 for _, _, e, _ in times[1:]])} ms, host share "
+        f"{fmt(host_shares(times))}")
+    return system, got
+
+
+def edge_phase(torch, dev, wrappers, name, card):
+    """Phase 5f: EDGE_ROUNDS sync rounds of full-width gpt2-small (int8
+    smashed) with two-tier FedAvg over 2 edge groups and int8 adapter
+    deltas.  Launches as phase 5's; every round aggregates (layer-0 rows
+    equal); the charged adapter-sync phase is logged per client."""
+    def after(system, r):
+        if not _rows_equal(system):
+            raise RuntimeError(f"phase 5f round {r}: no FedAvg")
+        rec = system.history[-1]
+        return (f"; edges {system.state['edge_assign'].tolist()}, charged "
+                f"adapter sync {np.round(rec['phase_times'][4], 6).tolist()}"
+                f" s")
+
+    system, got, per_round, times = run_rounds(
+        torch, gpt2_int8(), dev, wrappers, "phase 5f", name, card,
+        sys_kw=EDGE_SYS, rounds=EDGE_ROUNDS, after_round=after)
+    check_launches(per_round, lambda p: {
+        "flash_attention_fwd": 12, "flash_attention_bwd": 12,
+        "int8_roundtrip_smashed": 2 * len(set(p["cuts"]))},
+        {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
+        "gpt2-small two-tier")
+    log(f"phase 5f [{name}, {card}]: after round 0, train step "
+        f"{fmt([t * 1e3 for _, t, _, _ in times[1:]])} ms, host share "
+        f"{fmt(host_shares(times))}")
+    return got
+
+
+def async_phase(torch, dev, wrappers, name, card):
+    """Phase 5g: full-width gpt2-small (int8 smashed) under the async
+    scheduler with the overlapped pipeline and jitter, until ASYNC_ROUNDS
+    aggregations.  Each tick is one train step over every client's batch
+    (12 flash forwards and backwards, the int8 round trip twice per
+    distinct cut); each aggregation one eval step.  Logs ticks per
+    aggregation, buffer fills, staleness, tick wall and the host share.
+    Then a second system ticks into a partly filled buffer, checkpoints,
+    and a third restores it: the next aggregation of the restored system
+    must equal the checkpointed one's bit for bit (loss, clock,
+    staleness, every adapter).  Returns the launches of the first run."""
+    import tempfile
+
+    arch = gpt2_int8()
+    system = timed_system(torch, arch, dev, wrappers, ASYNC_SYS)
+    train, ev = system.train_step, system.eval_step
+    for w in wrappers.values():
+        w.launches = 0
+    ticks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system.run(ASYNC_ROUNDS, log_every=0,
+               callback=lambda rec: ticks.append(len(train.calls)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    check_launches([(c, tl, {}) for c, tl, _ in train.calls],
+                   lambda p: {"flash_attention_fwd": 12,
+                              "flash_attention_bwd": 12,
+                              "int8_roundtrip_smashed":
+                                  2 * len(set(p["cuts"]))},
+                   {}, "gpt2-small async ticks")
+    check_launches([({}, {}, el) for _, el, _ in ev.calls], lambda p: {},
+                   {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
+                   "gpt2-small async eval")
+    hist = system.history
+    for h in hist:
+        if h["buffer_fill"] < ASYNC_SYS["buffer_size"] or \
+                (h["staleness"] < 0).any() or not np.isfinite(h["loss"]):
+            raise RuntimeError(f"phase 5g round {h['round']}: {h}")
+    t_ticks = [t for _, _, t in train.calls]
+    t_eval = [t for _, _, t in ev.calls]
+    host = wall - sum(t_ticks) - sum(t_eval)
+    log(f"phase 5g [{name}, {card}]: gpt2-small async, buffer "
+        f"{system.scheduler.buffer_size}, staleness power "
+        f"{ASYNC_SYS['staleness_power']}, overlap_comm; {len(train.calls)} "
+        f"ticks for {len(hist)} aggregations (ticks at each flush "
+        f"{ticks}); per aggregation: " + "; ".join(
+            f"round {h['round']} fill {h['buffer_fill']} staleness "
+            f"{h['staleness'].astype(int).tolist()} steps "
+            f"{h['round_steps'].tolist()} sim_clock {h['sim_clock']!r} loss "
+            f"{h['loss']:.4f}" for h in hist)
+        + f"; tick wall {fmt([t * 1e3 for t in t_ticks])} ms (median "
+        f"{np.median(t_ticks) * 1e3:.1f}), eval "
+        f"{fmt([t * 1e3 for t in t_eval])} ms; wall {wall:.3f} s, host "
+        f"{host * 1e3:.1f} ms, host share {host / wall:.4f}; launches "
+        f"{ {k: c for k, c in got.items() if c} }")
+
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(ASYNC_SYS, checkpoint_dir=d)
+        first = timed_system(torch, arch, dev, wrappers, kw)
+        first.run(1, log_every=0)
+        lr = first._lrs()
+        while float(first.state["buffer_mask"].sum()) == 0:
+            if first._async_tick(1, *lr) is not None:
+                raise RuntimeError("phase 5g: a tick flushed an empty "
+                                   "buffer")
+        fill = float(first.state["buffer_mask"].sum())
+        first.save(7)
+        resumed = timed_system(torch, arch, dev, wrappers, kw)
+        if not resumed.restore():
+            raise RuntimeError("phase 5g: no checkpoint to restore")
+        if resumed.scheduler.queue._pending != \
+                first.scheduler.queue._pending:
+            raise RuntimeError("phase 5g: the restored event queue differs")
+        a, b = first.run(1, log_every=0)[-1], resumed.run(1, log_every=0)[-1]
+    for k in ("loss", "sim_clock", "staleness", "ce", "cuts", "active"):
+        if not np.array_equal(a[k], b[k]):
+            raise RuntimeError(f"phase 5g resume: {k} {a[k]} straight, "
+                               f"{b[k]} resumed")
+    from repro_torch.tree import tree_leaves
+    for x, y in zip(tree_leaves(first.state["client_adapters"]),
+                    tree_leaves(resumed.state["client_adapters"])):
+        if not torch.equal(x, y):
+            raise RuntimeError("phase 5g resume: adapters differ")
+    log(f"phase 5g resume [{name}, {card}]: checkpoint with {fill:.0f} of "
+        f"{system.scheduler.buffer_size} buffered and "
+        f"{len(first.scheduler.queue)} events in flight; the next "
+        f"aggregation (round {a['round']}, sim_clock {a['sim_clock']!r}, "
+        f"loss {a['loss']!r}) equals the straight run's bit for bit, "
+        f"adapters included")
+    return got
+
+
+def check_served_tokens(serving, model, params, pool, reqs, tokens,
+                        max_len, what):
+    """The engine's tokens against serial_reference, compared up to the
+    first step whose top-2 logits lie within TOP2_GAP (there fp32 sums
+    in another order may pick the other token).  Returns how many
+    requests were compared only that far, and the serial tokens."""
+    import torch
+
+    serial, logits = serving.serial_reference(
+        model, params, pool, reqs, max_len=max_len, return_logits=True)
+    cut = 0
+    for r, got in zip(reqs, tokens):
+        top2 = torch.topk(logits[r.rid], 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        upto = next((i for i, g in enumerate(gaps) if g < TOP2_GAP),
+                    r.max_new)
+        cut += upto < r.max_new
+        if got[:upto] != serial[r.rid][:upto]:
+            raise RuntimeError(f"{what}: request {r.rid}: engine tokens "
+                               f"{got} != serial {serial[r.rid]} before "
+                               f"position {upto}")
+    return cut, serial
+
+
+def trained_serving_phase(torch, dev, wrappers, name, card, system):
+    """Phase 5h: phase 5e's trained per-client adapters as a serving pool
+    (runtime.serving.pool_from_state): TRAINED_REQUESTS requests, one per
+    client, through the engine; the tokens must equal serial_reference.
+    Returns the launches of the engine run."""
+    from repro_torch.runtime import serving
+
+    pool = serving.pool_from_state(system.model, system.state)
+    n = serving.num_pool_adapters(pool)
+    rng = np.random.default_rng(SEED + 7)
+    reqs = [serving.Request(rid=i, adapter=i % n,
+                            tokens=rng.integers(3, system.arch.model
+                                                .vocab_size, size=PROMPT),
+                            max_new=GEN) for i in range(TRAINED_REQUESTS)]
+    engine = serving.ServingEngine(
+        system.model, system.base_params, pool,
+        serving.ServeConfig(num_slots=SLOTS, max_len=MAX_LEN), device=dev)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    for k in ("flash_attention_fwd", "lora_matmul_indexed",
+              "decode_attention"):
+        if not got[k]:
+            raise RuntimeError(f"phase 5h: {k} never launched")
+    cut, _ = check_served_tokens(serving, system.model, system.base_params,
+                                 pool, reqs, [r["tokens"] for r in res],
+                                 MAX_LEN, "phase 5h")
+    log(f"phase 5h [{name}, {card}]: {len(reqs)} requests on phase 5e's "
+        f"{n} trained adapters (pool_from_state) in {wall:.3f} s; tokens "
+        f"equal serial_reference ({cut} compared up to a top-2 gap < "
+        f"{TOP2_GAP}); launches {({k: c for k, c in got.items() if c})}")
+    return got
+
+
+def engine_step_check(torch, dev):
+    """Phase 6, the round engine's options: one step each of
+    ENGINE_STEPS at full width and 2 layers (2 clients, cuts [1, 2],
+    batch SMALL_BATCH, seq SMALL_SEQ, SGD at ENGINE_LR) on the card and
+    on the CPU plain path from one state.  Per-client losses within
+    STEP_TOL; the adapter deltas (new - start) within the case's
+    (relative, share of max|delta|).  A few elements next to the k-th
+    magnitude or an int8 rounding boundary may move by their value or a
+    quantum, which can exceed what the compression itself changes at its
+    largest element; so a compressed case is also held on average: the
+    card's mean distance to the CPU's deltas must stay below
+    COMPRESSION_SEEN times the CPU's mean distance to the same step
+    without adapter compression, which a card step that skipped the
+    compression would fail."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import rounds
+    from repro_torch.models.model import build_model
+    from repro_torch.tree import tree_leaves
+
+    arch = get_config("gpt2-small")
+    arch = arch.replace(
+        model=dataclasses.replace(arch.model, num_layers=SMALL_LAYERS),
+        split=dataclasses.replace(arch.split, cut_layer=1, cut_buckets=(1,)),
+        train=dataclasses.replace(arch.train, optimizer="sgd",
+                                  batch_size=SMALL_BATCH,
+                                  seq_len=SMALL_SEQ))
+    rng = np.random.default_rng(SEED + 6)
+    toks = rng.integers(3, arch.model.vocab_size,
+                        size=(2, SMALL_CLIENTS, SMALL_BATCH, SMALL_SEQ + 1))
+    batch2 = {"tokens": toks[..., :-1].astype(np.int32),
+              "labels": toks[..., 1:].astype(np.int32)}
+    weights = np.array([0.25, 0.75], np.float32)
+    active = np.ones(SMALL_CLIENTS, np.float32)
+    out = {}
+    for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(arch, device=dv)
+        params = model.init_params(torch.Generator().manual_seed(SEED))
+        for label, kw, _ in ENGINE_STEPS:
+            variants = [(label, kw)]
+            if role == "cpu" and kw.get("compress", "none") != "none":
+                variants.append((label + " (plain FedAvg)",
+                                 dict(kw, compress="none")))
+            for lab, opt in variants:
+                state = rounds.init_state(
+                    model, torch.Generator().manual_seed(SEED + 3),
+                    num_clients=SMALL_CLIENTS)
+                gen = torch.Generator().manual_seed(SEED + 4)
+                for side in ("client_adapters", "server_adapters"):
+                    for targets in state[side].values():
+                        for leaf in targets.values():
+                            leaf["B"] = (torch.randn(leaf["B"].shape,
+                                                     generator=gen)
+                                         * 0.02).to(dv)
+                state["cuts"] = torch.tensor([1, 2], dtype=torch.int32)
+                state = rounds.prepare_state(
+                    state, max_local_steps=opt.get("max_local_steps", 1),
+                    async_buffer=opt.get("async_buffer", False),
+                    edge_groups=opt.get("num_edges", 1))
+                batch = {k: v[0] for k, v in batch2.items()}
+                if opt.get("max_local_steps", 1) > 1:
+                    state["step_budgets"] = torch.tensor([1, 2],
+                                                         dtype=torch.int32)
+                    batch = batch2
+                if opt.get("compress") == "topk":
+                    state = rounds.with_error_feedback(state)
+                if opt.get("smashed_compress") == "topk":
+                    state = rounds.with_smashed_ef(state, model)
+                if opt.get("async_buffer"):
+                    state["global_version"] = torch.tensor(
+                        2, dtype=torch.int32)
+                    state["adapter_version"] = torch.tensor(
+                        [0, 1], dtype=torch.int32)
+                start = [x.clone() for x in
+                         tree_leaves(state["client_adapters"])
+                         + tree_leaves(state["server_adapters"])]
+                step = rounds.make_train_step(model, **opt)
+                new, met = step(params, state, batch, weights, active,
+                                ENGINE_LR, ENGINE_LR)
+                if opt.get("async_buffer") and not bool(met["aggregated"]):
+                    raise RuntimeError(f"phase 6 ({lab}): no aggregation")
+                now = (tree_leaves(new["client_adapters"])
+                       + tree_leaves(new["server_adapters"]))
+                out[role, lab] = (met["ce"].cpu(),
+                                  [(a - b).cpu() for a, b in zip(now, start)])
+    for label, kw, (rtol, share) in ENGINE_STEPS:
+        (ce_k, d_k), (ce_c, d_c) = out["card", label], out["cpu", label]
+        torch.testing.assert_close(
+            ce_k, ce_c, rtol=STEP_TOL, atol=0,
+            msg=lambda m: f"phase 6 ({label}) card vs CPU losses: {m}")
+        scale = max(float(d.abs().max()) for d in d_c)
+        for a, b in zip(d_k, d_c):
+            torch.testing.assert_close(
+                a, b, rtol=rtol, atol=share * scale,
+                msg=lambda m: f"phase 6 ({label}) card vs CPU adapter "
+                              f"deltas: {m}")
+        worst = max(float((a - b).abs().max()) for a, b in zip(d_k, d_c))
+        seen = ""
+        if kw.get("compress", "none") != "none":
+            plain = out["cpu", label + " (plain FedAvg)"][1]
+            mean = lambda xs, ys: float(sum(                    # noqa: E731
+                (x - y).abs().sum() for x, y in zip(xs, ys))
+                / sum(x.numel() for x in xs))
+            off, comp = mean(d_k, d_c), mean(d_c, plain)
+            if not off <= COMPRESSION_SEEN * comp:
+                raise RuntimeError(
+                    f"phase 6 ({label}): the card's mean |delta - CPU| "
+                    f"{off:.3e} is not below {COMPRESSION_SEEN} x the "
+                    f"CPU's mean gap to plain FedAvg {comp:.3e}: the card "
+                    f"may have skipped the adapter compression")
+            seen = (f"; mean |card - CPU| {off:.3e} against the CPU's "
+                    f"mean gap to plain FedAvg {comp:.3e} (ratio "
+                    f"{off / comp:.2e}, must be <= {COMPRESSION_SEEN})")
+        log(f"phase 6 ({label}): gpt2-small full-width {SMALL_LAYERS}-layer "
+            f"step, {SMALL_CLIENTS} clients (cuts [1, 2]), SGD lr "
+            f"{ENGINE_LR}: card vs CPU losses {fmt(ce_k)} vs {fmt(ce_c)} "
+            f"(rtol {STEP_TOL}); {len(d_k)} adapter deltas, max |diff| "
+            f"{worst:.3e} = {worst / scale:.2e} of max|delta| (tol {rtol} "
+            f"relative + {share} of max|delta|){seen}")
 
 
 def resume_phase(torch, dev, wrappers, name, card):

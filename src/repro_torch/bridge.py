@@ -25,7 +25,10 @@ Tree = Dict[str, Any]
 # round-engine state leaves that are host data in the port
 # (repro_torch.core.rounds), with their dtypes
 HOST_STATE = {"cuts": np.int32, "round": np.int32, "rank_cut": np.int32,
-              "smashed_choice": np.int32, "topk_frac": np.float32}
+              "smashed_choice": np.int32, "topk_frac": np.float32,
+              "step_budgets": np.int32, "buffer_mask": np.float32,
+              "buffer_steps": np.float32, "adapter_version": np.int32,
+              "global_version": np.int32, "edge_assign": np.int32}
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -60,8 +63,9 @@ def pool_from_numpy(tree: Tree, device: DeviceLike) -> Tree:
 def state_from_numpy(state: Tree, device: DeviceLike) -> Tree:
     """The reference's round-engine state (``repro.core.rounds.
     init_state`` and its successors) as the port's: adapters and optimizer
-    slots on `device`; ``cuts``, ``round`` and the co-controller's
-    per-client policy leaves as host tensors."""
+    slots on `device`; ``cuts``, ``round`` and the per-client policy and
+    bookkeeping leaves (co-controller, step budgets, async buffer, edge
+    groups) as host tensors."""
     out = params_from_numpy(
         {k: v for k, v in state.items() if k not in HOST_STATE}, device)
     for k, dtype in HOST_STATE.items():

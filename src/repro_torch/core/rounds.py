@@ -1,33 +1,45 @@
-"""The SplitFT round engine: Algorithm 1, one synchronous round per call.
+"""The SplitFT round engine: Algorithm 1, one round (or one event tick)
+per call.
 
-Port of src/repro/core/rounds.py (``init_state``, the sync path of
-``make_train_step`` and ``make_eval_step``).  One ``train_step`` call is
-one global round:
+Port of src/repro/core/rounds.py.  One sync ``train_step`` call is one
+global round:
 
   f1-f5  client forward to the cut, server forward and backward on the
          smashed activations, gradient return, client backward: one
          autograd pass over (client_adapters, server_adapters), because
          the cut is the mask switch in the merged adapter tree
-  b1-b3  FedAvg of the client adapters (weighted, masked, survivor-aware)
+  b1-b3  FedAvg of the client adapters (weighted, masked, survivor-aware,
+         step-normalized, optionally top-k + error feedback or int8
+         compressed, flat or two-tier, every `agg_every` rounds)
   b4     dormant rows re-synced to the server adapters
+
+The engine is policy-free: which clients run, and how many local steps
+each takes, comes from a RoundScheduler as data (the `active` mask and
+state["step_budgets"]).  ``max_local_steps`` K > 1 selects the
+local-steps engine (K inner steps, client i frozen after budgets[i]);
+``async_buffer`` the FedBuff engine, where one call is one event tick of
+the host's event queue and aggregation fires when the server buffer
+fills.
 
 Base parameters stay frozen: they are an input, never an output, and the
 optimizer holds state only for adapters.
 
 State layout, as the reference's: {"client_adapters", "server_adapters",
-"opt_c", "opt_s", "cuts", "round"}, plus the co-controller's per-client
-policy leaves "rank_cut" ((N,) int32), "smashed_choice" ((N,) int32) and
-"topk_frac" ((N,) float32) when ``prepare_state`` attaches them.
-Adapters and optimizer slots live on the model's device; ``cuts``,
-``round`` and the policy leaves are host data on the CPU, because the
-host decides from them which layers compress with what
-(repro_torch.core.smashed) and the controller rewrites them between
-rounds.
-
-Ported: the sync path (max_local_steps=1, compress="none", agg_every=1,
-no error feedback) with the memory knobs remat, ce_chunk and microbatch
-and the co-controller's per-client cut, rank and compressor.  Every
-other option raises NotImplementedError naming its ROADMAP item.
+"opt_c", "opt_s", "cuts", "round"}, plus what ``prepare_state`` and the
+``with_*`` helpers attach: "ef" (adapter error feedback), "smashed_ef"
+((N, B, S, d) smashed error feedback), "step_budgets", the async buffer
+("buffer_mask", "buffer_steps", "adapter_version", "global_version"),
+"edge_assign" and the co-controller's "rank_cut", "smashed_choice" and
+"topk_frac".  Adapters, optimizer slots and residuals live on the
+model's device.  The per-client policy and bookkeeping leaves (cuts,
+round, budgets, buffer, versions, edge groups, the co-controller's
+leaves; ``repro_torch.bridge.HOST_STATE``) are host tensors on the CPU:
+the host decides from them which layers compress, how many inner steps
+run, whether a tick aggregates and whether this round runs FedAvg, so no
+decision waits on the device.  Where the reference scans or conds on the
+device, the port loops and branches on the host: the local-steps loop
+stops after the last inner step in which some client is active, since
+the reference's later inner steps select every leaf back unchanged.
 """
 
 from __future__ import annotations
@@ -36,15 +48,15 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch import roadmap
 from repro_torch.core import aggregation, lora as lora_lib, smashed, split
 from repro_torch.models.model import Model
+from repro_torch.optim.compression import (ErrorFeedback, int8_dequantize,
+                                           int8_quantize)
 from repro_torch.optim.optimizers import make_optimizer
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
-_LATER = roadmap.ENGINE_OPTIONS
 # the co-controller's per-client policy leaves (see prepare_state)
 POLICY = ("rank_cut", "smashed_choice", "topk_frac")
 
@@ -75,36 +87,28 @@ def _optimizer_of(arch):
                           grad_clip=t.grad_clip)
 
 
-def _unported(**opts) -> None:
-    """Raise for the first option that leaves the ported sync path."""
-    defaults = dict(agg_every=1, compress="none", max_local_steps=1,
-                    async_buffer=False, num_edges=1)
-    for name, value in opts.items():
-        if value != defaults[name]:
-            raise NotImplementedError(
-                f"make_train_step({name}={value!r}) is not ported yet "
-                f"({_LATER}); the sync path takes {name}={defaults[name]!r}")
+def _host(x, dtype=torch.float32):
+    """A per-client mask or count as a host tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", dtype)
+    return torch.as_tensor(x, dtype=dtype)
 
 
-def _check_state(state: Params) -> None:
-    extra = set(state) - {"client_adapters", "server_adapters", "opt_c",
-                          "opt_s", "cuts", "round", *POLICY}
-    if extra:
-        raise NotImplementedError(
-            f"state leaves {sorted(extra)} belong to engines that are not "
-            f"ported yet ({_LATER})")
-
-
-def _cut_boundary(smasher, buckets, choice, cuts, topk_frac=None):
+def _cut_boundary(smasher, buckets, choice, cuts, residual=None,
+                  topk_frac=None):
     """The cut-boundary hook: the per-client bucket selector when the
     co-controller is on (buckets + state["smashed_choice"]), else the one
-    configured compressor.  topk_frac ((N,) from state["topk_frac"],
-    bucket path only) makes the topk bucket's keep fraction per client."""
+    configured compressor, with error feedback when the state carries a
+    smashed residual.  topk_frac ((N,) from state["topk_frac"], bucket
+    path only) makes the topk bucket's keep fraction per client."""
     if buckets is not None:
         if choice is None:
             raise ValueError(
                 "compressor_buckets needs state['smashed_choice'] "
                 "((N,) int32 bucket indices; see prepare_state)")
+        if residual is not None:
+            raise ValueError("smashed error feedback does not compose "
+                             "with per-client compressor buckets")
         return smashed.make_multi_boundary(buckets, cuts, choice,
                                            topk_frac=topk_frac)
     if topk_frac is not None:
@@ -112,7 +116,7 @@ def _cut_boundary(smasher, buckets, choice, cuts, topk_frac=None):
             "state['topk_frac'] (the continuous topk knob) needs the "
             "co-controller's compressor buckets; the single-compressor "
             "path keeps its static topk_frac")
-    return smashed.make_boundary(smasher, cuts)
+    return smashed.make_boundary(smasher, cuts, residual=residual)
 
 
 def _state_ranks(model: Model, state: Params, cuts):
@@ -125,40 +129,86 @@ def _state_ranks(model: Model, state: Params, cuts):
                                     model.arch.lora, r_cut=rank_cut)
 
 
+def _keep_rows(active, new, old):
+    """new where the client (axis 0) was active, old elsewhere: a client
+    that sent nothing keeps its smashed residual."""
+    m = active.reshape((-1,) + (1,) * (new.dim() - 1)) > 0
+    return torch.where(m, new, old)
+
+
 def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
                     agg_every: int = 1, compress: str = "none",
-                    microbatch: int = 1, smashed_compress: str = "none",
+                    topk_frac: float = 0.05, microbatch: int = 1,
+                    smashed_compress: str = "none",
                     smashed_topk_frac: float = 0.1,
                     compressor_buckets=None, max_local_steps: int = 1,
-                    async_buffer: bool = False, num_edges: int = 1):
+                    async_buffer: bool = False, buffer_size: int = 2,
+                    staleness_power: float = 0.5, num_edges: int = 1,
+                    server_step_norm: bool = True,
+                    all_inner_steps: bool = False):
     """Build the round step.
 
     step(base_params, state, batch, weights, active, lr_c, lr_s)
       -> (state', metrics)
 
-    batch: {"tokens", "labels"[, "loss_mask"]}, each (N, B, S), numpy or
-    tensors (moved to the model's device); weights: (N,) combined FedAvg x
-    C3 weights; active: (N,) {0,1} survivor mask; lr_c, lr_s: floats.
+    batch: {"tokens", "labels"[, "loss_mask"]}, each (N, B, S) (with a
+    leading (K,) step axis under the local-steps engine), numpy or
+    tensors (moved to the model's device); weights: (N,) combined FedAvg
+    x C3 weights; active: (N,) {0,1} survivor mask (under async: the
+    clients finishing at this tick); lr_c, lr_s: floats.
+
     smashed_compress selects the cut-boundary compressor (none | int8 |
     fp8 | topk); the f4 gradient return is compressed by the same
-    compressor through the straight-through backward.
+    compressor through the straight-through backward.  If the state
+    carries "smashed_ef" (with_smashed_ef) the compressor runs with error
+    feedback.  compress (none | topk | int8) compresses the adapter
+    deltas before FedAvg (topk needs state["ef"], with_error_feedback);
+    agg_every > 1 runs FedAvg only when (round + 1) % agg_every == 0.
 
     remat and ce_chunk: the model's memory knobs (models/model.py).
     microbatch=A > 1 accumulates the gradients of A slices of each
-    client's batch before the optimizer step: activation memory scales by
-    1/A, the gradient buffer stays adapter-sized.
+    client's batch before the optimizer step.
 
     compressor_buckets (a tuple of compressor names) is the
     co-controller's search space: the state must then carry
     "smashed_choice" (see prepare_state), and each client's cut boundary
     runs its chosen bucket.  If the state carries "rank_cut", each
-    client's rank at the cut is read from it in merge, eval and FedAvg."""
+    client's rank at the cut is read from it in merge, eval and FedAvg.
+
+    max_local_steps=K > 1: the local-steps engine (state needs
+    "step_budgets"; client i's adapters, optimizer slots and smashed
+    residual advance only for inner steps k < budgets[i]; FedAvg divides
+    each weight by the client's step count).  all_inner_steps=True runs
+    all K inner steps even after every budget is spent, as the
+    reference's scan does (the tests' check that those steps change
+    nothing).
+
+    async_buffer=True: the FedBuff tick engine (state needs the buffer
+    leaves and per-client optimizer counts; with_async_buffer,
+    with_per_client_opt_steps): aggregation fires in the tick that fills
+    the buffer to `buffer_size`, discounting each buffered update by
+    staleness_discount(staleness, power=staleness_power).
+
+    num_edges > 1: two-tier FedAvg over state["edge_assign"]
+    (with_edge_assign).  server_step_norm scales each client's server
+    gradient by 1/K_i under local steps (1/(steps in buffer) under
+    async); exactly 1 at K_i = 1, where the step is bitwise unchanged."""
     if max_local_steps < 1:
         raise ValueError(f"max_local_steps must be >= 1, got "
                          f"{max_local_steps}")
     if max_local_steps > 1 and microbatch > 1:
         raise ValueError("the local-steps engine does not compose with "
                          "microbatch accumulation yet")
+    opt = _optimizer_of(model.arch)
+    smasher = smashed.make_compressor(smashed_compress,
+                                      topk_frac=smashed_topk_frac)
+    buckets = None
+    if compressor_buckets is not None:
+        buckets = tuple(
+            smashed.make_compressor(nm, topk_frac=smashed_topk_frac)
+            for nm in compressor_buckets)
+    common = dict(remat=remat, ce_chunk=ce_chunk, buckets=buckets,
+                  num_edges=num_edges, server_step_norm=server_step_norm)
     if async_buffer:
         if max_local_steps > 1 or microbatch > 1:
             raise ValueError("the async engine runs one local step per "
@@ -171,46 +221,57 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
         if agg_every != 1:
             raise ValueError("async buffering replaces agg_every: the "
                              "buffer fill decides when to aggregate")
-    _unported(agg_every=agg_every, compress=compress,
-              max_local_steps=max_local_steps, async_buffer=async_buffer,
-              num_edges=num_edges)
-    opt = _optimizer_of(model.arch)
-    smasher = smashed.make_compressor(smashed_compress,
-                                      topk_frac=smashed_topk_frac)
-    buckets = None
-    if compressor_buckets is not None:
-        buckets = tuple(
-            smashed.make_compressor(nm, topk_frac=smashed_topk_frac)
-            for nm in compressor_buckets)
+        if buffer_size < 1:
+            raise ValueError(f"buffer_size must be >= 1, got "
+                             f"{buffer_size}")
+        return _make_async_step(model, opt, smasher,
+                                buffer_size=buffer_size,
+                                staleness_power=staleness_power, **common)
+    agg = dict(agg_every=agg_every, compress=compress, topk_frac=topk_frac)
+    if max_local_steps > 1:
+        return _make_local_steps_step(model, opt, smasher,
+                                      max_local_steps=max_local_steps,
+                                      all_inner_steps=all_inner_steps,
+                                      **agg, **common)
     dev = model.device
 
     def step(base_params, state, batch, weights, active, lr_c, lr_s):
-        if "smashed_ef" in state and microbatch > 1:
+        sm_ef = state.get("smashed_ef")
+        if sm_ef is not None and microbatch > 1:
             raise ValueError("smashed error feedback does not compose "
                              "with microbatch accumulation")
-        _check_state(state)
         cad, sad = state["client_adapters"], state["server_adapters"]
         cuts = state["cuts"]
         weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
         active = torch.as_tensor(active, dtype=torch.float32, device=dev)
         boundary = _cut_boundary(smasher, buckets,
                                  state.get("smashed_choice"), cuts,
+                                 residual=sm_ef,
                                  topk_frac=state.get("topk_frac"))
         total, metrics, g_cad, g_sad = round_grads(
             model, base_params, state, batch, weights * active,
             boundary=boundary, remat=remat, ce_chunk=ce_chunk,
             microbatch=microbatch)
+        new_sm_ef = metrics.pop("smashed_ef", None)
         with torch.no_grad():
+            if new_sm_ef is not None:
+                new_sm_ef = _keep_rows(active, new_sm_ef, sm_ef)
             new_cad, opt_c = opt.update(g_cad, state["opt_c"], cad, lr_c)
             new_sad, opt_s = opt.update(g_sad, state["opt_s"], sad, lr_s)
-            agg = aggregation.fedavg(model, new_cad, cuts, weights, active,
-                                     ranks=_state_ranks(model, state, cuts))
-            new_cad = aggregation.broadcast_after_agg(model, new_cad, agg,
-                                                      new_sad, cuts)
+            new_cad, ef = _round_aggregate(
+                model, **agg, cad_start=cad, new_cad=new_cad,
+                new_sad=new_sad, cuts=cuts, weights=weights, active=active,
+                ef=state.get("ef"), round_idx=state["round"],
+                ranks=_state_ranks(model, state, cuts),
+                edge_assign=state.get("edge_assign"), num_edges=num_edges)
         new_state = dict(state)
         new_state.update(client_adapters=new_cad, server_adapters=new_sad,
                          opt_c=opt_c, opt_s=opt_s,
                          round=state["round"] + 1)
+        if ef is not None:
+            new_state["ef"] = ef
+        if new_sm_ef is not None:
+            new_state["smashed_ef"] = new_sm_ef
         metrics["total"] = total
         return new_state, metrics
 
@@ -219,16 +280,19 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
 
 def round_grads(model: Model, base_params, state: Params, batch, weights,
                 boundary=None, *, remat: str = "none", ce_chunk: int = 0,
-                microbatch: int = 1):
+                microbatch: int = 1, server_scale=None):
     """f1-f5 of one round: the weighted round loss and its gradients.
 
     weights: (N,) survivor-masked FedAvg x C3 weights, normalized here.
-    The state's "rank_cut", if any, sets each client's rank at the cut.
-    microbatch=A > 1 sums the loss, metrics and gradients of A slices of
-    each client's batch (rows [a B/A, (a+1) B/A) in slice a), then scales
-    each by 1/A, as the reference's scan does.  Returns (total,
-    per-client metrics, client-adapter grads, server-adapter grads), all
-    detached; grads have the adapters' trees."""
+    The state's "rank_cut", if any, sets each client's rank at the cut;
+    server_scale ((N,), the local-steps and async engines' 1/K_i) scales
+    each client's gradient into the server adapters.  microbatch=A > 1
+    sums the loss, metrics and gradients of A slices of each client's
+    batch (rows [a B/A, (a+1) B/A) in slice a), then scales each by 1/A,
+    as the reference's scan does.  Returns (total, per-client metrics
+    (with a stateful boundary's new residual as "smashed_ef"),
+    client-adapter grads, server-adapter grads), all detached; grads
+    have the adapters' trees."""
     cad, sad = state["client_adapters"], state["server_adapters"]
     batch = {k: torch.as_tensor(v, device=model.device)
              for k, v in batch.items()}
@@ -248,7 +312,7 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
             eff = split.merge_adapters(
                 model, tree_unflatten(cad, leaves[:n_c]),
                 tree_unflatten(sad, leaves[n_c:]), state["cuts"],
-                rank_cut=state.get("rank_cut"))
+                rank_cut=state.get("rank_cut"), server_scale=server_scale)
             per_loss, met = model.loss(base_params, eff, mb, remat=remat,
                                        ce_chunk=ce_chunk, per_client=True,
                                        boundary=boundary)
@@ -272,6 +336,259 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
             tree_unflatten(sad, grads[n_c:]))
 
 
+def _round_aggregate(model: Model, *, compress, topk_frac, agg_every,
+                     cad_start, new_cad, new_sad, cuts, weights, active,
+                     ef, round_idx, steps=None, ranks=None,
+                     edge_assign=None, num_edges: int = 1):
+    """b1-b3 at the round boundary, shared by the sync and local-steps
+    engines: optional adapter-delta compression (top-k + error feedback,
+    or int8), survivor- and step-normalized FedAvg (flat or two-tier),
+    then the b3/b4 broadcast.  The host's round index decides agg_every:
+    a round that does not aggregate returns its inputs.  Returns
+    (client_adapters', ef')."""
+    if agg_every > 1 and (int(round_idx) + 1) % agg_every != 0:
+        return new_cad, ef
+    cad_for_agg = new_cad
+    if compress == "topk":
+        delta = aggregation.adapter_delta(new_cad, cad_start)
+        dense, ef, _ = ErrorFeedback.apply(delta, ef, topk_frac)
+        cad_for_agg = aggregation.apply_delta(cad_start, dense)
+    elif compress == "int8":
+        delta = aggregation.adapter_delta(new_cad, cad_start)
+        deq = int8_dequantize(int8_quantize(delta))
+        deq = tree_map(lambda d, ref: d.to(ref.dtype), deq, delta)
+        cad_for_agg = aggregation.apply_delta(cad_start, deq)
+    agg = aggregation.fedavg(model, cad_for_agg, cuts, weights, active,
+                             steps=steps, ranks=ranks,
+                             edge_assign=edge_assign, num_edges=num_edges)
+    return aggregation.broadcast_after_agg(model, cad_for_agg, agg, new_sad,
+                                           cuts), ef
+
+
+# ---------------------------------------------------------------------------
+# local-steps engine (scheduler == "local_steps")
+
+
+def _select_clients(step_act, any_act: bool, new_tree, old_tree):
+    """Per-leaf `where` keeping old values for clients inactive in this
+    inner step: the client axis is axis 1 of a stacked (Lg, N, ...)
+    leaf, axis 0 of a (N,) leaf (a per-client optimizer count); a scalar
+    leaf (a shared count) advances while anyone is active.  step_act:
+    (N,) on the leaves' device; any_act: the host's any(step_act)."""
+    def sel(n, o):
+        if n.dim() == 0:
+            return n if any_act else o
+        if n.dim() == 1:
+            return torch.where(step_act > 0, n, o)
+        m = step_act.reshape((1, -1) + (1,) * (n.dim() - 2)) > 0
+        return torch.where(m, n, o)
+
+    return tree_map(sel, new_tree, old_tree)
+
+
+def _select_any(any_act: bool, new_tree, old_tree):
+    """The whole tree advances only while some client is active."""
+    return new_tree if any_act else old_tree
+
+
+def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
+                           agg_every, compress, topk_frac,
+                           max_local_steps: int, buckets=None,
+                           num_edges: int = 1, server_step_norm: bool = True,
+                           all_inner_steps: bool = False):
+    """The K-inner-step engine (see make_train_step).
+
+    batch leaves carry a leading (K,) step axis; state carries
+    "step_budgets" (host).  One inner step is one local step on every
+    client at once, masked so that client i freezes after budgets[i]
+    steps.  The host builds the (K, N) masks from the budgets; the loop
+    ends after the last inner step in which some active client has
+    budget left (all K with all_inner_steps).  Reported metrics are the
+    FIRST inner step's (the round-start loss), keeping loss curves
+    comparable across schedulers."""
+    K = max_local_steps
+    dev = model.device
+
+    def step(base_params, state, batch, weights, active, lr_c, lr_s):
+        cad, sad = state["client_adapters"], state["server_adapters"]
+        cuts = state["cuts"]
+        choice, tfrac = state.get("smashed_choice"), state.get("topk_frac")
+        budgets = _host(state["step_budgets"])
+        act_h = _host(active)
+        acts_h = torch.stack([act_h * (k < budgets).float()
+                              for k in range(K)])             # (K, N)
+        live = [bool((a > 0).any()) for a in acts_h]
+        n_steps = K if all_inner_steps else max(1, sum(live))
+        acts = acts_h[:n_steps].to(dev)
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        # 1/K_i server-gradient normalization: exactly 1.0 where
+        # budgets == 1 (bitwise the sync step's gradient)
+        srv_scale = (1.0 / torch.clamp(budgets, 1.0, float(K))
+                     if server_step_norm else None)
+        cad_c, sad_c = cad, sad
+        opt_c, opt_s = state["opt_c"], state["opt_s"]
+        ef_c = state.get("smashed_ef")
+        metrics = total = None
+        for k in range(n_steps):
+            sa = acts[k]
+            boundary = _cut_boundary(smasher, buckets, choice, cuts,
+                                     residual=ef_c, topk_frac=tfrac)
+            t, met, g_cad, g_sad = round_grads(
+                model, base_params, dict(state, client_adapters=cad_c,
+                                         server_adapters=sad_c),
+                {key: v[k] for key, v in batch.items()}, weights * sa,
+                boundary=boundary, remat=remat, ce_chunk=ce_chunk,
+                server_scale=srv_scale)
+            new_ef = met.pop("smashed_ef", None)
+            if k == 0:
+                metrics, total = met, t
+            with torch.no_grad():
+                new_cad, new_opt_c = opt.update(g_cad, opt_c, cad_c, lr_c)
+                cad_c = _select_clients(sa, live[k], new_cad, cad_c)
+                opt_c = _select_clients(sa, live[k], new_opt_c, opt_c)
+                new_sad, new_opt_s = opt.update(g_sad, opt_s, sad_c, lr_s)
+                sad_c = _select_any(live[k], new_sad, sad_c)
+                opt_s = _select_any(live[k], new_opt_s, opt_s)
+                if new_ef is not None:
+                    ef_c = _keep_rows(sa, new_ef, ef_c)
+
+        # b1-b3: aggregate at the round boundary, step-normalized
+        with torch.no_grad():
+            eff_steps = torch.clamp(budgets, 1.0, float(K))
+            new_cad, ef = _round_aggregate(
+                model, compress=compress, topk_frac=topk_frac,
+                agg_every=agg_every, cad_start=cad, new_cad=cad_c,
+                new_sad=sad_c, cuts=cuts, weights=weights,
+                active=act_h.to(dev), ef=state.get("ef"),
+                round_idx=state["round"], steps=eff_steps,
+                ranks=_state_ranks(model, state, cuts),
+                edge_assign=state.get("edge_assign"), num_edges=num_edges)
+        new_state = dict(state)
+        new_state.update(client_adapters=new_cad, server_adapters=sad_c,
+                         opt_c=opt_c, opt_s=opt_s,
+                         round=state["round"] + 1)
+        if ef is not None:
+            new_state["ef"] = ef
+        if ef_c is not None:
+            new_state["smashed_ef"] = ef_c
+        metrics["total"] = total
+        return new_state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# async buffered engine (scheduler == "async", FedBuff-style)
+
+
+def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
+                     buffer_size: int, staleness_power: float, buckets=None,
+                     num_edges: int = 1, server_step_norm: bool = True):
+    """One event tick of the buffered asynchronous engine.
+
+    step(base_params, state, batch, weights, active, lr_c, lr_s)
+      -> (state', metrics)
+
+    active: (N,) {0,1}, the clients whose local step COMPLETES at this
+    simulated instant (the host event queue's tick).  Their adapter rows
+    and optimizer slots advance one step; everyone else is frozen.  The
+    completions join the server buffer; when fill >= buffer_size the
+    buffered rows are FedAvg'd with weights w_i (1 + staleness_i)^-p /
+    steps_i and only the buffered clients are re-synced.  The buffer and
+    version leaves are host tensors, so the host decides whether the
+    tick aggregates without waiting on the device.
+
+    Extra metrics (all before aggregation): "buffer_fill", "buffer_mask",
+    "staleness", "aggregated" (whether this tick closed a round) and
+    "fleet_total", the weights-averaged loss over the whole fleet (every
+    client's batch against its current, possibly stale, row), which the
+    records use so that loss curves compare across schedulers.
+    state["round"] counts aggregations, not ticks."""
+    M = buffer_size
+    dev = model.device
+
+    def step(base_params, state, batch, weights, active, lr_c, lr_s):
+        cad, sad = state["client_adapters"], state["server_adapters"]
+        cuts = state["cuts"]
+        act_h = _host(active)
+        n = act_h.shape[0]
+        if M > n:
+            raise ValueError(
+                f"buffer_size={M} can never fill: only {n} distinct "
+                "clients exist; clamp it to the fleet size")
+        any_act = bool((act_h > 0).any())
+        act = act_h.to(dev)
+        sm_ef = state.get("smashed_ef")
+        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        boundary = _cut_boundary(smasher, buckets,
+                                 state.get("smashed_choice"), cuts,
+                                 residual=sm_ef,
+                                 topk_frac=state.get("topk_frac"))
+        # this tick is the finisher's (buffer_steps + 1)-th local step
+        # since its last flush: exactly 1.0 right after a flush
+        srv_scale = (1.0 / (_host(state["buffer_steps"]) + 1.0)
+                     if server_step_norm else None)
+        total, metrics, g_cad, g_sad = round_grads(
+            model, base_params, state, batch, weights * act,
+            boundary=boundary, remat=remat, ce_chunk=ce_chunk,
+            server_scale=srv_scale)
+        new_sm_ef = metrics.pop("smashed_ef", None)
+        with torch.no_grad():
+            wf = weights / torch.clamp(weights.sum(), min=1e-9)
+            fleet_total = (wf * (metrics["ce"] + metrics["aux"])).sum()
+            if new_sm_ef is not None:
+                new_sm_ef = _keep_rows(act, new_sm_ef, sm_ef)
+            # only the finishing clients' rows and slots advance; the
+            # server side advances whenever anyone finishes
+            new_cad, opt_c = opt.update(g_cad, state["opt_c"], cad, lr_c)
+            new_cad = _select_clients(act, any_act, new_cad, cad)
+            opt_c = _select_clients(act, any_act, opt_c, state["opt_c"])
+            new_sad, opt_s = opt.update(g_sad, state["opt_s"], sad, lr_s)
+            new_sad = _select_any(any_act, new_sad, sad)
+            opt_s = _select_any(any_act, opt_s, state["opt_s"])
+
+            # buffer bookkeeping, on the host
+            buf = torch.clamp(_host(state["buffer_mask"]) + act_h, 0.0, 1.0)
+            bsteps = _host(state["buffer_steps"]) + act_h
+            fill = buf.sum()
+            staleness = (state["global_version"]
+                         - state["adapter_version"]).float()
+            aggregate = bool(fill >= M)
+            ver, gver = state["adapter_version"], state["global_version"]
+            new_buf, new_bsteps = buf, bsteps
+            if aggregate:
+                agg = aggregation.fedavg(
+                    model, new_cad, cuts, weights, buf,
+                    steps=torch.clamp(bsteps, min=1.0), staleness=staleness,
+                    staleness_power=staleness_power,
+                    ranks=_state_ranks(model, state, cuts),
+                    edge_assign=state.get("edge_assign"),
+                    num_edges=num_edges)
+                new_cad = aggregation.broadcast_after_agg(
+                    model, new_cad, agg, new_sad, cuts, recv_mask=buf)
+                gver = gver + 1
+                ver = torch.where(buf > 0, gver, ver)
+                new_buf = torch.zeros_like(buf)
+                new_bsteps = bsteps * (1.0 - buf)
+
+        new_state = dict(state)
+        new_state.update(client_adapters=new_cad, server_adapters=new_sad,
+                         opt_c=opt_c, opt_s=opt_s, buffer_mask=new_buf,
+                         buffer_steps=new_bsteps, adapter_version=ver,
+                         global_version=gver,
+                         round=state["round"] + int(aggregate))
+        if new_sm_ef is not None:
+            new_state["smashed_ef"] = new_sm_ef
+        metrics.update(total=total, fleet_total=fleet_total,
+                       buffer_fill=fill, buffer_mask=buf,
+                       staleness=staleness,
+                       aggregated=torch.tensor(aggregate))
+        return new_state, metrics
+
+    return step
+
+
 def make_eval_step(model: Model, *, ce_chunk: int = 0):
     """Evaluate the GLOBAL model (paper b4) on per-client eval batches.
 
@@ -284,7 +601,6 @@ def make_eval_step(model: Model, *, ce_chunk: int = 0):
 
     @torch.no_grad()
     def step(base_params, state, batch, weights):
-        _check_state(state)
         eff = split.serve_adapters(model, state["client_adapters"],
                                    state["server_adapters"], state["cuts"],
                                    weights, rank_cut=state.get("rank_cut"))
@@ -295,20 +611,73 @@ def make_eval_step(model: Model, *, ce_chunk: int = 0):
     return step
 
 
+# ---------------------------------------------------------------------------
+# state templates
+
+
+def _n(state: Params) -> int:
+    return state["cuts"].shape[0]
+
+
+def with_error_feedback(state: Params) -> Params:
+    """Attach zeroed adapter EF residuals (needed before compress='topk')."""
+    return dict(state, ef=ErrorFeedback.init(state["client_adapters"]))
+
+
+def with_step_budgets(state: Params) -> Params:
+    """Attach the per-client local-step budgets ((N,) int32 on the host,
+    needed before max_local_steps > 1).  The scheduler overwrites them
+    each round; they live in state so checkpoints round-trip them."""
+    return dict(state, step_budgets=torch.ones((_n(state),),
+                                               dtype=torch.int32))
+
+
+def with_async_buffer(state: Params) -> Params:
+    """Attach the FedBuff buffer and version leaves (host tensors, needed
+    before async_buffer=True): an empty buffer, every client on global
+    version 0.  They live in state so checkpoints round-trip a
+    mid-buffer snapshot bit for bit."""
+    n = _n(state)
+    return dict(state,
+                buffer_mask=torch.zeros((n,), dtype=torch.float32),
+                buffer_steps=torch.zeros((n,), dtype=torch.float32),
+                adapter_version=torch.zeros((n,), dtype=torch.int32),
+                global_version=torch.zeros((), dtype=torch.int32))
+
+
+def with_per_client_opt_steps(state: Params) -> Params:
+    """One client-optimizer step count per client ((N,), advanced under
+    each client's own mask), so Adam's bias correction follows each
+    client's actual steps.  Required by the async engine; fixes the
+    shared count's over-correction for small-budget clients under local
+    steps."""
+    opt_c = dict(state["opt_c"])
+    cnt = opt_c.get("count")
+    if cnt is not None and cnt.dim() == 0:
+        opt_c["count"] = torch.full((_n(state),), int(cnt),
+                                    dtype=torch.int32, device=cnt.device)
+    return dict(state, opt_c=opt_c)
+
+
 def with_rank_cut(state: Params, r_cut: int) -> Params:
     """Attach the co-controller's per-client rank at the cut ((N,) int32
     on the host, initialized to r_cut): the engine then reads ranks from
     the state, and the controller moves them between rounds."""
-    n = state["cuts"].shape[0]
-    return dict(state, rank_cut=torch.full((n,), int(r_cut),
+    return dict(state, rank_cut=torch.full((_n(state),), int(r_cut),
                                            dtype=torch.int32))
+
+
+def with_edge_assign(state: Params, num_edges: int) -> Params:
+    """Attach the edge-group assignment ((N,) int32 on the host, client i
+    -> edge i % num_edges) for two-tier aggregation."""
+    return dict(state, edge_assign=torch.arange(_n(state), dtype=torch.int32)
+                % int(num_edges))
 
 
 def with_smashed_choice(state: Params, index: int = 0) -> Params:
     """Attach the co-controller's per-client compressor-bucket index
     ((N,) int32 on the host, into make_train_step's compressor_buckets)."""
-    n = state["cuts"].shape[0]
-    return dict(state, smashed_choice=torch.full((n,), int(index),
+    return dict(state, smashed_choice=torch.full((_n(state),), int(index),
                                                  dtype=torch.int32))
 
 
@@ -316,9 +685,18 @@ def with_topk_frac(state: Params, frac: float) -> Params:
     """Attach the co-controller's per-client topk keep fraction ((N,)
     float32 on the host, initialized uniform): the bucket boundary runs
     its topk bucket at each client's own fraction."""
-    n = state["cuts"].shape[0]
-    return dict(state, topk_frac=torch.full((n,), float(frac),
+    return dict(state, topk_frac=torch.full((_n(state),), float(frac),
                                             dtype=torch.float32))
+
+
+def with_smashed_ef(state: Params, model: Model) -> Params:
+    """Attach the zeroed smashed-channel EF residual ((N, B, S, d_model)
+    on the model's device, needed for smashed topk with error
+    feedback)."""
+    t = model.arch.train
+    return dict(state, smashed_ef=torch.zeros(
+        (_n(state), t.batch_size, t.seq_len, model.arch.model.d_model),
+        dtype=torch.float32, device=model.device))
 
 
 def prepare_state(state: Params, *, max_local_steps: int = 1,
@@ -330,21 +708,21 @@ def prepare_state(state: Params, *, max_local_steps: int = 1,
 
     rank_cut / smashed_choice / topk_frac: the co-controller's initial
     per-client rank at the cut, compressor-bucket index and topk keep
-    fraction (None leaves the static policy and its template).  The
-    step-budget, async-buffer and edge-group leaves belong to engines
-    that are not ported yet and raise."""
-    for bad, what in ((max_local_steps > 1,
-                       f"max_local_steps={max_local_steps}"),
-                      (async_buffer, "async_buffer=True"),
-                      (edge_groups > 1, f"edge_groups={edge_groups}")):
-        if bad:
-            raise NotImplementedError(
-                f"prepare_state({what}) attaches leaves of an engine that "
-                f"is not ported yet ({_LATER})")
+    fraction (None leaves the static policy and its template)."""
+    if max_local_steps > 1:
+        state = with_step_budgets(state)
+    if async_buffer:
+        state = with_async_buffer(state)
+    if max_local_steps > 1 or async_buffer:
+        # clients take unequal step counts inside a round: Adam's bias
+        # correction must follow each client's own count
+        state = with_per_client_opt_steps(state)
     if rank_cut is not None:
         state = with_rank_cut(state, rank_cut)
     if smashed_choice is not None:
         state = with_smashed_choice(state, smashed_choice)
     if topk_frac is not None:
         state = with_topk_frac(state, topk_frac)
+    if edge_groups > 1:
+        state = with_edge_assign(state, edge_groups)
     return state

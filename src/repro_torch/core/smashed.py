@@ -1,6 +1,6 @@
 """Smashed-activation compression at the cut boundary (paper f2/f4).
 
-Port of src/repro/core/smashed.py for the stateless boundaries:
+Port of src/repro/core/smashed.py:
 
   none   identity (paper baseline)
   int8   per-channel symmetric int8 through the fused round-trip kernel
@@ -19,8 +19,8 @@ The reference's boundary keeps one executable for every cut with a
 instead: the hook holds the cuts as host data and returns x untouched at
 a layer where no client cuts, so the layer loop costs no device-to-host
 sync.  ``make_multi_boundary`` is the co-controller's per-client bucket
-choice, with an optional per-client topk keep fraction; error feedback
-(a stateful boundary) is not ported yet.
+choice, with an optional per-client topk keep fraction; ``make_boundary``
+with a residual is the stateful error-feedback boundary.
 """
 
 from __future__ import annotations
@@ -166,26 +166,55 @@ def wire_bytes(name: str, *, batch: int, seq: int, d_model: int,
         f"unknown smashed compressor {name!r}; known: {COMPRESSORS}")
 
 
-def make_boundary(compressor: Optional[SmashedCompressor], cuts):
+def make_boundary(compressor: Optional[SmashedCompressor], cuts,
+                  residual=None):
     """Boundary hook for Model.run_blocks: compress x only where flat
     layer `fid` is the last client-side layer (cut - 1) of some client,
     and there only that client's rows.
 
     x carries the client axis first ((N, B, S, d)); cuts is the (N,) cut
-    array as host data (a CPU tensor or a sequence)."""
+    array as host data (a CPU tensor or a sequence).
+
+    With `residual` (the (N, B, S, d) error-feedback buffer of the round
+    state) the hook is stateful: the f2 message is compress(x +
+    residual), and the uncompressed remainder leaves the forward as the
+    next round's residual.  A stateful hook has `stateful = True` and
+    `init()` for the carry, and is called as `x, carry = hook(x, carry,
+    fid)`; the last carry is the new residual, a detached tensor that the
+    layer returns (so a recomputed layer cannot write it twice).  Error
+    feedback tracks f2; the f4 cotangent is compressed memorylessly by
+    the straight-through backward."""
     if compressor is None:
         return None
     cut_ids = [int(c) - 1 for c in torch.as_tensor(cuts).tolist()]
     sel = {fid: torch.tensor([c == fid for c in cut_ids])
            for fid in set(cut_ids)}
 
-    def boundary(x, fid):
-        if fid not in sel:
-            return x
-        mask = sel[fid].to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
-        return torch.where(mask, compressor.apply(x), x)
+    def _mask(fid, x):
+        return sel[fid].to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
 
-    return boundary
+    if residual is None:
+        def boundary(x, fid):
+            if fid not in sel:
+                return x
+            return torch.where(_mask(fid, x), compressor.apply(x), x)
+
+        return boundary
+
+    resid = residual.detach()
+
+    def ef_boundary(x, carry, fid):
+        if fid not in sel:
+            return x, carry
+        mask = _mask(fid, x)
+        xin = x + resid.to(x.dtype)
+        y = compressor.apply(xin)
+        new_r = (xin - y).detach().to(carry.dtype)
+        return torch.where(mask, y, x), torch.where(mask, new_r, carry)
+
+    ef_boundary.stateful = True
+    ef_boundary.init = lambda: torch.zeros_like(resid)
+    return ef_boundary
 
 
 def make_multi_boundary(compressors, cuts, choice, topk_frac=None):

@@ -19,7 +19,6 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch import roadmap
 from repro_torch.core import lora as lora_lib
 from repro_torch.models.model import Model
 
@@ -43,6 +42,17 @@ def group_masks(model: Model, masks):
     return out
 
 
+def _grad_scaled(x, scale):
+    """Per-client gradient scaling on axis 1, forward-preserving:
+    a*x + (1-a)*x.detach() has gradient a*g and the value of x up to
+    rounding; at a == 1 it is x bit for bit (1*x = x, 0*x is a zero of
+    x's sign, and x + that zero = x), so the gradient is g bit for bit
+    too."""
+    a = torch.as_tensor(scale, dtype=x.dtype).to(x.device)
+    a = a.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return a * x + (1.0 - a) * x.detach()
+
+
 def merge_adapters(model: Model, client_adapters: Params,
                    server_adapters: Params, cuts, rank_cut=None,
                    server_scale=None) -> Params:
@@ -53,13 +63,14 @@ def merge_adapters(model: Model, client_adapters: Params,
     output leaves carry the client axis and are rank-masked and scaled by
     the per-client rank policy.  rank_cut: optional (N,) per-client
     rank-at-cut (the co-controller's state["rank_cut"], host data like
-    the cuts); None keeps LoRAConfig.r_cut.  server_scale (the
-    local-steps and async engines' 1/K_i server-gradient scale) is not
-    ported yet."""
-    if server_scale is not None:
-        raise NotImplementedError(
-            "server_scale belongs to the local-steps and async engines, "
-            f"which are not ported yet ({roadmap.ENGINE_OPTIONS})")
+    the cuts); None keeps LoRAConfig.r_cut.
+
+    server_scale: optional (N,) per-client gradient scale on the SERVER
+    adapters' contribution (forward unchanged, see _grad_scaled).  The
+    local-steps and async engines pass 1/K_i, so a client running K_i
+    inner steps pushes the same gradient mass into the shared server
+    adapters as a one-step client; all ones is the plain gradient bit
+    for bit."""
     masks = client_layer_masks(model.num_flat_layers, cuts)
     gmasks = group_masks(model, masks.to(model.device))
     ranks = lora_lib.effective_ranks(model.num_flat_layers, cuts,
@@ -70,9 +81,13 @@ def merge_adapters(model: Model, client_adapters: Params,
         merged[gname] = {}
         for tname, ad in targets.items():
             srv = server_adapters[gname][tname]
+            srv_a, srv_b = srv["A"][:, None], srv["B"][:, None]
+            if server_scale is not None:
+                srv_a = _grad_scaled(srv_a, server_scale)
+                srv_b = _grad_scaled(srv_b, server_scale)
             merged[gname][tname] = {
-                "A": m * ad["A"] + (1.0 - m) * srv["A"][:, None],
-                "B": m * ad["B"] + (1.0 - m) * srv["B"][:, None],
+                "A": m * ad["A"] + (1.0 - m) * srv_a,
+                "B": m * ad["B"] + (1.0 - m) * srv_b,
             }
     return lora_lib.mask_adapters(model, merged, ranks)
 

@@ -1,21 +1,35 @@
 """SplitFTSystem — host-side orchestration of the paper workflow.
 
-Port of src/repro/core/system.py, the barrier loop in fleet mode.  It
-owns: corpus -> tokenize -> partition (C4) -> per-client loaders ->
-round loop -> eval, C3 adjustment, aggregation weights,
-checkpoint/resume, elastic membership.
+Port of src/repro/core/system.py in fleet mode.  It owns: corpus ->
+tokenize -> partition (C4) -> per-client loaders -> round loop -> eval,
+C3 adjustment, aggregation weights, checkpoint/resume, elastic
+membership.
 
 The round loop is split engine/policy:
 
   * the *engine* is the round step of repro_torch.core.rounds; which
-    clients run in a round is data (the `active` mask);
-  * the *policy* is a barrier RoundScheduler (repro_torch.core.
-    scheduler): sync (Algorithm 1 lockstep) or deadline (straggler
-    drop).  The scheduler also owns the simulated wall-clock accounting
-    (`sim_time` / cumulative `sim_clock` in the round records), priced
-    per phase by runtime.straggler's SpeedModel under an optional
-    heterogeneity trace (runtime.traces) and time model
+    clients run and how many local steps each takes is data (the
+    `active` mask, state["step_budgets"]);
+  * the *policy* is a RoundScheduler (repro_torch.core.scheduler): sync
+    (Algorithm 1 lockstep), deadline (straggler drop), local_steps
+    (speed-proportional K_i per client) or async (FedBuff buffered
+    asynchrony).  The scheduler also owns the simulated wall-clock
+    accounting (`sim_time` / cumulative `sim_clock` in the round
+    records), priced per phase by runtime.straggler's SpeedModel under an
+    optional heterogeneity trace (runtime.traces) and time model
     (runtime.timemodel).
+
+The host loop has two shapes.  The barrier schedulers run one plan ->
+one engine call -> one record per round (`_run_barrier`).  The async
+scheduler replaces the barrier with an event-queue loop (`_run_async`):
+phase-completion events drawn from the SpeedModel advance a simulated
+clock; a step-completion tick is one engine call over the finishing
+clients, and a round record is emitted when the server buffer flushes
+(one round == one aggregation).  With `overlap_comm` the async loop
+runs each step's phases as a double-buffered pipeline, and only
+`adapter_sync` completions reach the engine.  Elastic membership
+composes with the event loop: a leaver's in-flight events are dropped,
+a rejoiner enters at the current clock with its next batch index.
 
 C3 runs in the round epilogue (`_adjust_c3`): the global model is
 evaluated per client, then either the paper's `accuracy` controller
@@ -36,10 +50,8 @@ packages start from different weights at one seed (parity tests copy the
 reference's weights in through repro_torch.bridge).  Data, loaders, the
 speed model and traces are numpy and seeded exactly as the reference's.
 
-Options outside this path raise NotImplementedError in the constructor,
-naming the ROADMAP item that ports them: adapter compression, agg_every
-> 1, smashed error feedback, two-tier aggregation, local steps, the
-local_steps and async schedulers, and population mode.
+Population mode (population > 0) raises NotImplementedError in the
+constructor, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -130,34 +142,15 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _refuse_unported(arch: ArchConfig, s: SystemConfig, *, scheduler: str,
-                     use_ef: bool) -> None:
-    """NotImplementedError for the first option that leaves the barrier
-    loop in fleet mode, naming it as SystemConfig does."""
+def _refuse_population(arch: ArchConfig, s: SystemConfig) -> None:
+    """NotImplementedError for population mode, the one SystemConfig
+    option the port does not run yet."""
     population = _pick(s.population, arch.data.population) or 0
-    refused = [
-        (population > 0, f"population={population}", roadmap.POPULATION),
-        (s.compress != "none", f"compress={s.compress!r}",
-         roadmap.ENGINE_OPTIONS),
-        (s.agg_every > 1, f"agg_every={s.agg_every}",
-         roadmap.ENGINE_OPTIONS),
-        (use_ef, "smashed_ef=True (error feedback on the smashed "
-         "channel; pass smashed_ef=False for topk without it)",
-         roadmap.ENGINE_OPTIONS),
-        ((_pick(s.edge_groups, arch.split.edge_groups) or 1) > 1,
-         f"edge_groups={_pick(s.edge_groups, arch.split.edge_groups)}",
-         roadmap.ENGINE_OPTIONS),
-        ((s.max_local_steps or 1) > 1,
-         f"max_local_steps={s.max_local_steps}", roadmap.ENGINE_OPTIONS),
-        (scheduler in ("local_steps", "async"), f"scheduler={scheduler!r}",
-         roadmap.ENGINE_OPTIONS),
-    ]
-    for bad, what, item in refused:
-        if bad:
-            raise NotImplementedError(
-                f"SystemConfig {what} is not ported yet ({item}); the port "
-                "runs the sync and deadline barrier loop in fleet mode "
-                "with the accuracy and co controllers")
+    if population > 0:
+        raise NotImplementedError(
+            f"SystemConfig population={population} is not ported yet "
+            f"({roadmap.POPULATION}); the port runs fleet mode, where the "
+            "clients are the population")
 
 
 class SplitFTSystem:
@@ -181,11 +174,15 @@ class SplitFTSystem:
         if self.controller not in ("accuracy", "co"):
             raise ValueError(f"unknown C3 controller "
                              f"{self.controller!r}; known: accuracy, co")
+        _refuse_population(arch, self.sys)
         use_ef = bool(_pick(self.sys.smashed_ef,
                             self.smashed_compress == "topk"))
+        if use_ef and self.smashed_compress != "topk":
+            raise ValueError(
+                "smashed_ef=True requires smashed_compress='topk' "
+                f"(got {self.smashed_compress!r}); int8/fp8 are "
+                "memoryless round-trips with no residual to feed back")
         self._co_search_space(use_ef)
-        _refuse_unported(arch, self.sys, scheduler=sched_name,
-                         use_ef=use_ef)
 
         self.model = build_model(arch, device=self.device)
         n = arch.data.num_clients
@@ -214,10 +211,17 @@ class SplitFTSystem:
         # ---- round scheduler (policy) + straggler simulation ----
         self.overlap_comm = _pick(self.sys.overlap_comm,
                                   arch.split.overlap_comm)
+        # the buffer can never exceed the distinct clients
+        buf = max(1, min(_pick(self.sys.buffer_size,
+                               arch.split.async_buffer_size), n))
+        spow = _pick(self.sys.staleness_power, arch.split.staleness_power)
         self.scheduler = scheduler_lib.make_scheduler(
             sched_name,
             deadline_frac=_pick(self.sys.deadline_frac,
                                 arch.split.deadline_frac),
+            max_local_steps=_pick(self.sys.max_local_steps,
+                                  arch.split.max_local_steps),
+            buffer_size=buf, staleness_power=spow,
             overlap_comm=self.overlap_comm)
         speed_kw = {k: getattr(self.sys, k)
                     for k in ("speed_sigma", "bw_sigma", "jitter_sigma",
@@ -287,33 +291,53 @@ class SplitFTSystem:
         self.sim_clock = 0.0           # cumulative simulated seconds
 
         # ---- model/state (engine) ----
+        self.num_edges = max(1, _pick(self.sys.edge_groups,
+                                      arch.split.edge_groups) or 1)
+        self.server_step_norm = _pick(self.sys.server_step_norm,
+                                      arch.split.server_step_norm)
         self.base_params = self.model.init_params(
             torch.Generator().manual_seed(seed))
+        state = rounds.init_state(self.model,
+                                  torch.Generator().manual_seed(seed + 1),
+                                  num_clients=n)
+        if self.sys.compress == "topk":
+            state = rounds.with_error_feedback(state)
+        if use_ef:
+            state = rounds.with_smashed_ef(state, self.model)
         co = self.controller == "co"
+        is_async = self.scheduler.name == "async"
         init_rank = int(self.rank_buckets[int(np.argmin(np.abs(
             np.asarray(self.rank_buckets) - arch.lora.r_cut)))])
         init_choice = (self.comp_buckets.index(self.smashed_compress)
                        if self.smashed_compress in self.comp_buckets
                        else 0)
         self.state = rounds.prepare_state(
-            rounds.init_state(self.model,
-                              torch.Generator().manual_seed(seed + 1),
-                              num_clients=n),
+            state, max_local_steps=self.scheduler.max_steps,
+            async_buffer=is_async,
             rank_cut=init_rank if co else None,
             smashed_choice=init_choice if co else None,
             topk_frac=(self.smashed_topk_frac
-                       if (co and self.continuous_topk) else None))
+                       if (co and self.continuous_topk) else None),
+            edge_groups=self.num_edges)
         self.train_step = rounds.make_train_step(
             self.model, remat=arch.train.remat,
+            agg_every=self.sys.agg_every, compress=self.sys.compress,
+            topk_frac=self.sys.topk_frac,
             smashed_compress=self.smashed_compress,
             smashed_topk_frac=self.smashed_topk_frac,
-            compressor_buckets=self.comp_buckets if co else None)
+            compressor_buckets=self.comp_buckets if co else None,
+            max_local_steps=self.scheduler.max_steps,
+            async_buffer=is_async, buffer_size=buf, staleness_power=spow,
+            num_edges=self.num_edges,
+            server_step_norm=self.server_step_norm)
         self.eval_step = rounds.make_eval_step(self.model)
 
         # ---- C3 state ----
         self.c3_weights = np.ones(n)
         self.sample_counts = np.array([l.num_samples()
                                        for l in self.loaders], float)
+        self._comm_cache = None        # (policy bytes, comm dict) memo
+        self._times_cache: Dict[Any, np.ndarray] = {}
         self.ckpt = (CheckpointManager(self.sys.checkpoint_dir,
                                        keep=self.sys.keep_checkpoints)
                      if self.sys.checkpoint_dir else None)
@@ -377,6 +401,14 @@ class SplitFTSystem:
     def _train_batch(self, r: int):
         return stack_client_batches([l.batch(r) for l in self.loaders])
 
+    def _train_batches(self, r: int, k: int):
+        """(K, N, B, S) batch stack for the local-steps engine; inner step
+        j of round r draws from the deterministic stream at r * K + j."""
+        steps = [stack_client_batches([l.batch(r * k + j)
+                                       for l in self.loaders])
+                 for j in range(k)]
+        return {key: np.stack([s[key] for s in steps]) for key in steps[0]}
+
     def _eval_batch(self, r: int):
         return stack_client_batches([l.batch(r) for l in self.eval_loaders])
 
@@ -431,13 +463,16 @@ class SplitFTSystem:
         """The SpeedModel.phase_times argument set for one assignment,
         shared by the charged clock, the pricer's predictions and the
         telemetry baselines."""
+        ea = (_np(self.state["edge_assign"])
+              if (self.num_edges > 1 and "edge_assign" in self.state)
+              else None)
         kw = dict(
             cuts=cuts_np, flops_per_layer=self._flops_layer,
             smashed_bytes=cb["smashed_up"],
             smashed_down_bytes=cb["smashed_down"],
             adapter_bytes=cb["adapter_up"], round_idx=r,
             server_layers=self.model.num_flat_layers - cuts_np,
-            edge_assign=None, num_edges=1,
+            edge_assign=ea, num_edges=self.num_edges,
             start_time=(self.sim_clock if start_time is None
                         else start_time))
         if self.sys.client_flops_per_s is not None:
@@ -537,10 +572,13 @@ class SplitFTSystem:
 
     def _round_record(self, r: int, metrics, plan: RoundPlan,
                       cb: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        """The round's history record: numpy and Python values only."""
+        """The round's history record: numpy and Python values only.  An
+        async tick trains a subset, so its record's loss is the engine's
+        whole-fleet "fleet_total" at the flush tick."""
+        async_rec = plan.buffer_fill is not None
         rec: Dict[str, Any] = {
             "round": r,
-            "loss": float(metrics["total"]),
+            "loss": float(metrics["fleet_total" if async_rec else "total"]),
             "ce": _np(metrics["ce"]),
             "accuracy": _np(metrics["accuracy"]),
             "cuts": self._cuts(),
@@ -559,10 +597,21 @@ class SplitFTSystem:
         # receives the b3 adapter broadcast but sends no b1 update
         steps = plan.step_budgets.astype(np.float64)
         smashed = (cb["smashed_up"] + cb["smashed_down"]) * steps
-        rec["comm"] = (smashed + cb["adapter_up"] * plan.active
-                       + cb["adapter_down"])
+        if async_rec:
+            # only the buffered clients upload b1 and receive the b3
+            # broadcast at this aggregation
+            rec["comm"] = (smashed + (cb["adapter_up"]
+                                      + cb["adapter_down"]) * plan.active)
+            rec["staleness"] = np.asarray(plan.staleness).copy()
+            rec["buffer_fill"] = plan.buffer_fill
+            rec["round_steps"] = plan.step_budgets.copy()
+        else:
+            rec["comm"] = (smashed + cb["adapter_up"] * plan.active
+                           + cb["adapter_down"])
         rec["comm_smashed"] = smashed
         rec["smashed_ratio"] = cb["smashed_ratio"]
+        if self.scheduler.max_steps > 1:
+            rec["step_budgets"] = plan.step_budgets.copy()
         return rec
 
     def _adjust_c3(self, r: int, rec: Dict[str, Any], weights,
@@ -637,18 +686,41 @@ class SplitFTSystem:
     # ------------------------------------------------------------------
     def run(self, num_rounds: int, *, log_every: int = 10,
             callback: Optional[Callable] = None) -> List[Dict[str, Any]]:
-        """`num_rounds` barrier rounds: one plan -> one engine call -> one
-        record per round.  Returns the whole history."""
-        lr_c = float(self.arch.train.lr_client)
-        lr_s = float(self.arch.train.lr_server)
+        """`num_rounds` rounds (aggregations under async).  Returns the
+        whole history."""
+        if self.scheduler.name == "async":
+            hist = self._run_async(num_rounds, log_every=log_every,
+                                   callback=callback)
+        else:
+            hist = self._run_barrier(num_rounds, log_every=log_every,
+                                     callback=callback)
+        if self.recorder is not None:
+            # cumulative: a second run() re-dumps the extended recording
+            self.recorder.dump(self.sys.record_trace)
+        return hist
+
+    def _lrs(self):
+        return (float(self.arch.train.lr_client),
+                float(self.arch.train.lr_server))
+
+    def _run_barrier(self, num_rounds: int, *, log_every: int = 10,
+                     callback: Optional[Callable] = None
+                     ) -> List[Dict[str, Any]]:
+        """One plan -> one engine call -> one record per round."""
+        lr_c, lr_s = self._lrs()
+        k = self.scheduler.max_steps
         start = int(self.state["round"])
         for r in range(start, start + num_rounds):
             plan, cb = self._plan_round(r)
             t0 = self.sim_clock        # the round's launch instant
+            batch = (self._train_batch(r) if k == 1
+                     else self._train_batches(r, k))
+            if "step_budgets" in self.state:
+                self.state["step_budgets"] = torch.as_tensor(
+                    plan.step_budgets, dtype=torch.int32)
             self.state, metrics = self.train_step(
-                self.base_params, self.state, self._train_batch(r),
-                self._weights32(), plan.active.astype(np.float32),
-                lr_c, lr_s)
+                self.base_params, self.state, batch, self._weights32(),
+                plan.active.astype(np.float32), lr_c, lr_s)
             self.sim_clock += plan.sim_time
             if plan.phases is not None:
                 # telemetry feedback: the plan's charged phase matrix is
@@ -656,9 +728,289 @@ class SplitFTSystem:
                 self._observe_phases(r, plan.phases, plan.active, cb, t0)
             rec = self._round_record(r, metrics, plan, cb)
             self._finish_round(r, rec, log_every, callback)
-        if self.recorder is not None:
-            # cumulative: a second run() re-dumps the extended recording
-            self.recorder.dump(self.sys.record_trace)
+        return self.history
+
+    # ------------------------------------------------------------------
+    # async (FedBuff) host loop: event-queue simulation, no barrier
+
+    def _policy_key(self):
+        rank_np, choice_np = self._state_policy()
+        frac_np = self._state_frac()
+        return tuple(None if a is None else a.tobytes()
+                     for a in (rank_np, choice_np, frac_np))
+
+    def _cached_comm(self, cuts_np: np.ndarray) -> Dict[str, np.ndarray]:
+        """_round_comm memo for the event loop: the policy changes only in
+        the per-aggregation C3 epilogue, but ticks fire many times per
+        round."""
+        key = (cuts_np.tobytes(),) + self._policy_key()
+        if self._comm_cache is None or self._comm_cache[0] != key:
+            self._comm_cache = (key, self._round_comm(
+                cuts_np, *self._state_policy(), self._state_frac()))
+        return self._comm_cache[1]
+
+    def _cached_phases(self, round_idx: int, cuts_np: np.ndarray,
+                       cb: Dict[str, np.ndarray],
+                       start_time: Optional[float] = None) -> np.ndarray:
+        """_round_phases memo keyed by (launch index, trace window, cuts
+        and controller policy): clients relaunching at one launch index
+        share one full-fleet draw.  Traces are piecewise constant per
+        window, so the key keeps the memo exact under a trace."""
+        start = self.sim_clock if start_time is None else start_time
+        trace = None if self.speed is None else self.speed.trace
+        win = None if trace is None else trace.window(start)
+        key = (round_idx, win, cuts_np.tobytes()) + self._policy_key()
+        p = self._times_cache.get(key)
+        if p is None:
+            if len(self._times_cache) > 64:   # launches only grow; old
+                self._times_cache.clear()     # entries never recur
+            p = self._round_phases(round_idx, cuts_np, cb,
+                                   start_time=start)
+            self._times_cache[key] = p
+        return p
+
+    def _serial_time(self, i: int, launch: int, cuts_np: np.ndarray,
+                     cb: Dict[str, np.ndarray],
+                     start_time: Optional[float] = None) -> float:
+        """Client i's serial one-step time at a launch index (priced at
+        `start_time` on the simulated clock; None = now)."""
+        ph = self._cached_phases(launch, cuts_np, cb, start_time)
+        return float(straggler.serial_step_times(ph)[i])
+
+    def _overlap_try_compute(self, i: int, cuts_np: np.ndarray,
+                             cb: Dict[str, np.ndarray]):
+        """Schedule client i's next `client_compute` phase if the
+        pipeline allows: no compute in flight, and step k-2 fully done
+        (double buffer: the client trains at staleness <= 1)."""
+        sched = self.scheduler
+        if not self.pool.active[i]:
+            return
+        if int(sched.csched[i]) != int(sched.cfin[i]):
+            return                 # a compute phase is already in flight
+        k = int(sched.csched[i])
+        if int(sched.launches[i]) < k - 1:
+            return                 # step k-2 has not fully completed
+        # trace availability defers the launch to the client's next
+        # available instant (max(t, t) == t keeps the clock bitwise)
+        t0 = max(sched.queue.now, self.speed.next_available(
+            i, sched.queue.now))
+        ph = self._cached_phases(k, cuts_np, cb, t0)
+        sched.queue.push((i, "client_compute", k), t0 + float(ph[0, i]))
+        sched.csched[i] += 1
+
+    def _overlap_advance(self, i: int, phase: str, k: int, t_now: float,
+                         cuts_np: np.ndarray, cb: Dict[str, np.ndarray]):
+        """One non-final phase of step k finished: hand the step to the
+        next resource of the pipeline.  Each per-client stage (f2 up,
+        server lane, f4 down, adapter sync) serializes through the
+        scheduler's busy-until times, so steps complete in launch order
+        and the engine may index batches by `launches[i]`."""
+        sched = self.scheduler
+        q = sched.queue
+        ph = self._cached_phases(k, cuts_np, cb, t_now)
+        if phase == "client_compute":
+            sched.cfin[i] += 1
+            start = max(t_now, float(sched.eu[i]))
+            sched.eu[i] = start + float(ph[1, i])
+            q.push((i, "f2_uplink", k), sched.eu[i])
+            # the compute unit is free: step k+1 may start while step
+            # k's transfers are in flight
+            self._overlap_try_compute(i, cuts_np, cb)
+        elif phase == "f2_uplink":
+            start = max(t_now, float(sched.es[i]))
+            sched.es[i] = start + float(ph[2, i])
+            q.push((i, "server_compute", k), sched.es[i])
+        elif phase == "server_compute":
+            start = max(t_now, float(sched.ed[i]))
+            sched.ed[i] = start + float(ph[3, i])
+            q.push((i, "f4_downlink", k), sched.ed[i])
+        elif phase == "f4_downlink":
+            start = max(t_now, float(sched.ea[i]))
+            sched.ea[i] = start + float(ph[4, i])
+            q.push((i, "adapter_sync", k), sched.ea[i])
+        else:
+            raise ValueError(f"unknown pipeline phase {phase!r}")
+
+    def _async_launch(self, i: int, cuts_np: np.ndarray,
+                      cb: Dict[str, np.ndarray]):
+        """Put client i's next local step in flight at the current clock:
+        one whole-step event (serial) or its first pipeline phase
+        (overlap)."""
+        sched = self.scheduler
+        if sched.overlap:
+            self._overlap_try_compute(i, cuts_np, cb)
+            return
+        launch = int(sched.launches[i])
+        t0 = max(sched.queue.now, self.speed.next_available(
+            i, sched.queue.now))
+        t_i = self._serial_time(i, launch, cuts_np, cb, t0)
+        sched.queue.push((i, scheduler_lib.PHASE_STEP, launch), t0 + t_i)
+
+    def _async_ensure_started(self):
+        """Launch every active client's first local step onto the event
+        queue (no-op when the simulation is in flight, e.g. after a
+        restore repopulated it)."""
+        sched = self.scheduler
+        if sched.started:
+            return
+        n = self.pool.active.shape[0]
+        sched.start(n, clock=self.sim_clock)
+        cuts_np = self._cuts()
+        cb = self._cached_comm(cuts_np)
+        # baseline for the flush record before anyone has completed
+        sched.last_times = straggler.serial_step_times(
+            self._cached_phases(0, cuts_np, cb)).copy()
+        for i in range(n):
+            if self.pool.active[i]:
+                self._async_launch(i, cuts_np, cb)
+
+    def _async_sync_membership(self):
+        """Reconcile the event simulation with elastic membership: a
+        leaver's in-flight events are dropped, and an active client with
+        nothing in flight (a join, or a rejoin after a mid-flight leave)
+        enters at the current clock with its next batch index."""
+        sched = self.scheduler
+        active = self.pool.active
+        cuts_np = self._cuts()
+        cb = self._cached_comm(cuts_np)
+        for i in range(active.shape[0]):
+            if not active[i] and sched.queue.discard_client(i):
+                sched.reset_client(i)
+        sched.pending_relaunch = [i for i in sched.pending_relaunch
+                                  if active[i]]
+        in_flight = sched.queue.clients()
+        for i in range(active.shape[0]):
+            if active[i] and i not in in_flight \
+                    and i not in sched.pending_relaunch:
+                self._async_launch(i, cuts_np, cb)
+
+    def _async_tick(self, r: int, lr_c, lr_s) -> Optional[Dict[str, Any]]:
+        """Advance the simulation by one completion tick: pop the
+        earliest-finishing phase events, move non-final phases down the
+        pipeline, run the step-completing clients through the engine
+        (their updates join the buffer) and keep their pipelines fed.
+        Returns the round record when this tick flushed the buffer
+        (closing round r), None otherwise."""
+        sched = self.scheduler
+        cuts_np = self._cuts()
+        cb = self._cached_comm(cuts_np)
+        t_now, keys = sched.queue.pop_next()
+        self.sim_clock = sched.queue.now
+
+        finishers: List[int] = []
+        for key in keys:
+            if isinstance(key, tuple):
+                i, phase, k = int(key[0]), key[1], int(key[2])
+            else:   # whole-step key of an older checkpoint
+                i, phase = int(key), scheduler_lib.PHASE_STEP
+                k = int(sched.launches[i])
+            if not self.pool.active[i]:
+                # elastic leave mid-flight: the event dies with the
+                # membership (no engine contribution, no relaunch)
+                sched.queue.discard_client(i)
+                sched.reset_client(i)
+                continue
+            if phase in (scheduler_lib.PHASE_STEP,
+                         scheduler_lib.PHASE_FINAL):
+                finishers.append(i)
+            else:
+                self._overlap_advance(i, phase, k, t_now, cuts_np, cb)
+        if not finishers:
+            return None            # pipeline hand-offs only
+
+        act = np.zeros(len(self.loaders), np.float64)
+        act[finishers] = 1.0
+        # client i's tick consumes its own launch-indexed batch stream, so
+        # constant speeds reproduce the sync data order exactly
+        batch = stack_client_batches(
+            [l.batch(int(sched.launches[i]))
+             for i, l in enumerate(self.loaders)])
+        self.state, metrics = self.train_step(
+            self.base_params, self.state, batch, self._weights32(),
+            act.astype(np.float32), lr_c, lr_s)
+
+        sched.round_steps[act > 0] += 1
+        aggregated = bool(metrics["aggregated"])
+        for i in finishers:
+            # the flush record reports the serial step time each client
+            # had at ITS launch index
+            launch = int(sched.launches[i])
+            ph = self._cached_phases(launch, cuts_np, cb, t_now)
+            sched.last_times[i] = float(
+                straggler.serial_step_times(ph)[i])
+            if self._observing:
+                m = np.zeros(ph.shape[1], bool)
+                m[i] = True
+                self._observe_phases(launch, ph, m, cb, t_now)
+            sched.launches[i] += 1
+        if aggregated:
+            # the finishers just received the new global model; their
+            # next steps launch after the round epilogue (C3 may move
+            # cuts): _async_relaunch
+            sched.pending_relaunch = list(finishers)
+            plan = RoundPlan(
+                active=_np(metrics["buffer_mask"]).astype(np.float64),
+                step_budgets=sched.round_steps.copy(),
+                sim_time=t_now - sched.last_agg_clock,
+                times=sched.last_times.copy(),
+                staleness=_np(metrics["staleness"]).astype(np.float64),
+                buffer_fill=float(_np(metrics["buffer_fill"])))
+            rec = self._round_record(r, metrics, plan, cb)
+            sched.round_steps[:] = 0
+            sched.last_agg_clock = t_now
+            return rec
+        for i in finishers:
+            self._async_launch(i, cuts_np, cb)
+        return None
+
+    def _async_relaunch(self):
+        """Launch the aggregation tick's finishers' next steps with the
+        post-epilogue cuts.  Under overlap a no-op for a finisher whose
+        next compute already started mid-pipeline."""
+        sched = self.scheduler
+        if not sched.pending_relaunch:
+            return
+        cuts_np = self._cuts()
+        cb = self._cached_comm(cuts_np)
+        for i in sched.pending_relaunch:
+            if self.pool.active[i]:    # may have left in the epilogue
+                self._async_launch(i, cuts_np, cb)
+        sched.pending_relaunch = []
+
+    def _run_async(self, num_rounds: int, *, log_every: int = 10,
+                   callback: Optional[Callable] = None
+                   ) -> List[Dict[str, Any]]:
+        """Event-queue host loop: tick until the buffer flushes, one
+        record per aggregation."""
+        lr_c, lr_s = self._lrs()
+        self._async_ensure_started()
+        if self.scheduler.last_times is None:
+            # an older checkpoint without per-launch times: seed real
+            # draws so the first flush never reports zeros
+            cuts_np = self._cuts()
+            cb = self._cached_comm(cuts_np)
+            self.scheduler.last_times = np.array(
+                [self._serial_time(i, int(self.scheduler.launches[i]),
+                                   cuts_np, cb)
+                 for i in range(self.pool.active.shape[0])])
+        self._async_relaunch()         # resume from a mid-epilogue save
+        start = int(self.state["round"])
+        for r in range(start, start + num_rounds):
+            # a shrunken fleet can strand the buffer below its flush
+            # threshold: fail loudly instead of ticking forever
+            n_active = int(self.pool.active.sum())
+            if n_active < self.scheduler.buffer_size:
+                raise RuntimeError(
+                    f"async buffer_size={self.scheduler.buffer_size} can "
+                    f"never fill: only {n_active} clients are active in "
+                    "the pool; rejoin clients or rebuild the system with "
+                    "a smaller buffer_size")
+            self._async_sync_membership()
+            rec = None
+            while rec is None:
+                rec = self._async_tick(r, lr_c, lr_s)
+            self._finish_round(r, rec, log_every, callback)
+            self._async_relaunch()
         return self.history
 
     def evaluate(self, *, num_batches: int = 4) -> Dict[str, float]:
@@ -689,6 +1041,13 @@ class SplitFTSystem:
             # mismatch instead of silently restarting from round 0
             "state_keys": sorted(self.state.keys()),
         }
+        if self.scheduler.name == "async":
+            # the event simulation (queue, launch counters, pipeline);
+            # the buffer and version leaves are in the state.  A
+            # mid-buffer save resumes the tick stream exactly: event keys
+            # come back as tuples, clock floats bit for bit (JSON floats
+            # round-trip through repr)
+            meta["async_sim"] = self.scheduler.state_dict()
         if self.speed is not None and self.speed.trace is not None:
             meta["trace"] = self.speed.trace.state_dict()
         if self.pricer is not None:
@@ -730,6 +1089,8 @@ class SplitFTSystem:
         if "active" in meta:
             self.pool.active = np.asarray(meta["active"], bool)
         self.sim_clock = float(meta.get("sim_clock", 0.0))
+        if self.scheduler.name == "async":
+            self.scheduler.load_state_dict(meta.get("async_sim") or {})
         if self.speed is not None and self.speed.trace is not None \
                 and meta.get("trace") is not None:
             self.speed.trace.load_state_dict(meta["trace"])
@@ -742,5 +1103,6 @@ class SplitFTSystem:
         """(base_params, global adapters) for the serving path."""
         eff = serve_adapters(self.model, self.state["client_adapters"],
                              self.state["server_adapters"],
-                             self.state["cuts"], self._weights32())
+                             self.state["cuts"], self._weights32(),
+                             rank_cut=self.state.get("rank_cut"))
         return self.base_params, eff

@@ -6,9 +6,13 @@ inference on the card.
 
 Thin CLI over runtime.serving.ServingEngine: builds a random base model
 and a stacked adapter pool from --seed, synthesizes a Poisson request
-workload, runs the engine and prints latency and throughput.  The flags
-are the reference CLI's (src/repro/launch/serve.py) without --ckpt, which
-waits for the checkpoint port, plus --device (default: the card; the CPU
+workload, runs the engine and prints latency and throughput.  With
+--ckpt the pool is a SplitFT checkpoint's per-client adapters (point it
+at a train run's <out>/ckpt): a SplitFTSystem of the same --arch and
+--seed, with the state template the checkpoint's metadata names
+(scheduler and state leaves), restores it and draws the base weights
+from the seed as the train run did.  The flags are the reference CLI's
+(src/repro/launch/serve.py) plus --device (default: the card; the CPU
 runs only when asked for).
 """
 
@@ -39,10 +43,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-slot KV capacity (0 = prompt-len + gen)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--ckpt", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
     return ap
+
+
+def checkpoint_config(ckpt_dir: str) -> dict:
+    """SystemConfig fields whose state template matches the newest
+    checkpoint under `ckpt_dir`, from its metadata: the scheduler, and
+    the options that add state leaves (adapter and smashed error
+    feedback, edge groups, the co-controller's policy)."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ckpt_dir)
+    steps = mgr.steps()
+    if not steps:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    meta = mgr.metadata(steps[-1]) or {}
+    keys = set(meta.get("state_keys") or ())
+    kw = dict(scheduler=meta.get("scheduler"),
+              compress="topk" if "ef" in keys else "none",
+              smashed_ef="smashed_ef" in keys,
+              edge_groups=2 if "edge_assign" in keys else None)
+    if "smashed_ef" in keys:
+        kw["smashed_compress"] = "topk"
+    if "rank_cut" in keys:
+        kw.update(controller="co", smashed_ef=False)
+    if "topk_frac" in keys:
+        kw.update(continuous_topk=True, compressor_buckets=("none", "topk"))
+    return kw
 
 
 def main(argv=None):
@@ -52,6 +83,7 @@ def main(argv=None):
 
     from repro_torch.config import reduced as reduced_cfg
     from repro_torch.configs import get_config
+    from repro_torch.core.system import SplitFTSystem, SystemConfig
     from repro_torch.device import device_name
     from repro_torch.models.model import build_model
     from repro_torch.runtime import serving
@@ -59,11 +91,32 @@ def main(argv=None):
     arch = get_config(args.arch)
     if args.reduced:
         arch = reduced_cfg(arch)
-    model = build_model(arch, device=args.device)
-    # independent generators per consumer, as the reference splits keys
-    params = model.init_params(torch.Generator().manual_seed(args.seed))
-    pool = serving.build_adapter_pool(
-        model, torch.Generator().manual_seed(args.seed + 1), args.adapters)
+    if args.ckpt:
+        system = SplitFTSystem(
+            arch, SystemConfig(num_samples=64, eval_samples=16,
+                               checkpoint_dir=args.ckpt,
+                               **checkpoint_config(args.ckpt)),
+            seed=args.seed, device=args.device)
+        if not system.restore():
+            raise FileNotFoundError(f"no loadable checkpoint under "
+                                    f"{args.ckpt}")
+        model, params = system.model, system.base_params
+        pool = serving.pool_from_state(model, system.state)
+        n = serving.num_pool_adapters(pool)
+        if args.adapters > n:
+            raise ValueError(f"--adapters {args.adapters} exceeds the "
+                             f"checkpoint's {n} per-client adapters")
+        pool = {g: {t: {k: v[:, :args.adapters] for k, v in ad.items()}
+                    for t, ad in targets.items()}
+                for g, targets in pool.items()}
+    else:
+        model = build_model(arch, device=args.device)
+        # independent generators per consumer, as the reference splits
+        # keys
+        params = model.init_params(torch.Generator().manual_seed(args.seed))
+        pool = serving.build_adapter_pool(
+            model, torch.Generator().manual_seed(args.seed + 1),
+            args.adapters)
 
     max_len = args.max_len or (args.prompt_len + args.gen)
     cfg = serving.ServeConfig(num_slots=args.num_slots, max_len=max_len,

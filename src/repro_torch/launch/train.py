@@ -8,6 +8,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --controller co \
       --rank-buckets 4,8,16 --compressor-buckets none,int8,fp8,topk \
       --continuous-topk --straggler-sim --jitter-sigma 0
+  PYTHONPATH=src python -m repro_torch.launch.train --scheduler async \
+      --buffer-size 3 --staleness-power 0.5 --overlap-comm --straggler-sim
 
 Port of src/repro/launch/train.py: the same flags, plus --device (default:
 the card; the CPU runs only when asked for) and --remat (the round
@@ -15,11 +17,11 @@ engine's layer recompute, TrainConfig.remat: the paper's batch 4 of
 mamba2-780m fits one card under "full").  It builds a
 repro_torch.core.system.SplitFTSystem, resumes from <out>/ckpt when a
 checkpoint is there, and writes <out>/history.jsonl (one row per round)
-and <out>/final.json in the reference's format.  Flags for options the
-port does not run yet (adapter --compress, --scheduler local_steps or
-async, --max-local-steps, --edge-groups, --population) reach
-SplitFTSystem's NotImplementedError, which names the ROADMAP item that
-ports them.
+and <out>/final.json in the reference's format.  Every scheduler
+(sync, deadline, local_steps, async), adapter --compress, --edge-groups
+and the smashed channel's error feedback (on with --smashed-compress
+topk, as in the reference) run; --population reaches SplitFTSystem's
+NotImplementedError, which names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations

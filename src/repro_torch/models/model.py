@@ -19,16 +19,17 @@ reference, as nested dicts of tensors with the reference's names):
 Training activations carry the client axis first ((N, B, S, d)); caches
 are updated in place and returned.  This slice ports the dense decoder
 with learned positions (gpt2-small) and, for training, the SSM kind
-(mamba2-780m, ``models/ssm.py``).  Stateful (error-feedback) cut
-boundaries, the encoder, the MoE kind and SSM caches raise
-NotImplementedError with a pointer to ROADMAP.md.
+(mamba2-780m, ``models/ssm.py``).  The encoder, the MoE kind and SSM
+caches raise NotImplementedError with a pointer to ROADMAP.md.
 
 Memory knobs of a train step, as in the reference:
 
   remat     "none" saves every activation for the backward; "full"
             recomputes each layer in the backward from its input
             (torch.utils.checkpoint, non-reentrant), saving nothing
-            inside it; "dots" saves only the outputs of matrix products
+            inside it (a stateful cut boundary's residual is one of the
+            layer's outputs, so the recompute cannot write it twice);
+            "dots" saves only the outputs of matrix products
             (aten mm, bmm, addmm, baddbmm: jax's checkpoint_dots) and
             recomputes the rest.  A hand-written kernel is no aten
             product, so it is recomputed, as a pallas_call is under
@@ -57,7 +58,7 @@ from repro_torch.models.common import apply_norm
 
 Params = Dict[str, Any]
 
-_LATER = roadmap.ENGINE_OPTIONS
+_SERVING = roadmap.SERVING
 _FAMILIES = roadmap.FAMILIES
 
 REMATS = ("none", "dots", "full")
@@ -314,19 +315,20 @@ class Model(nn.Module):
 
         `boundary(x, flat_id) -> x` is applied to every layer output with
         its flat layer id: the round engine compresses the smashed
-        activation there, where each client's cut sits.  `remat` (train
-        mode, under autograd) recomputes each layer, boundary included,
-        in the backward (see the module docstring)."""
+        activation there, where each client's cut sits.  A stateful
+        boundary (`boundary.stateful`, the smashed error-feedback hook)
+        threads a carry, `x, carry = boundary(x, carry, flat_id)`, from
+        `boundary.init()`; run_blocks then returns (x, new_cache, carry).
+        `remat` (train mode, under autograd) recomputes each layer,
+        boundary included, in the backward (see the module docstring)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         if remat not in REMATS:
             raise ValueError(f"unknown remat {remat!r}; known: {REMATS}")
         remat = (remat if mode == "train" and torch.is_grad_enabled()
                  else "none")
-        if getattr(boundary, "stateful", False):
-            raise NotImplementedError(
-                f"stateful (error-feedback) cut boundaries are not ported "
-                f"yet ({_LATER})")
+        stateful = bool(getattr(boundary, "stateful", False))
+        bcarry = boundary.init() if stateful else None
         cfg = self.cfg
         hi_total = self.num_flat_layers if layer_hi is None else layer_hi
         cache_len = cache["len"] if cache is not None else None
@@ -352,18 +354,23 @@ class Model(nn.Module):
                 layer = functools.partial(
                     self._layer, g, i, p_l, ad_l, mode=mode, cache=c_l,
                     boundary=boundary, fid=run_flat_lo + (i - lo))
-                x = (layer(x) if remat == "none"
-                     else _recomputed(layer, x, remat=remat))
+                args = (x, bcarry) if stateful else (x,)
+                out = (layer(*args) if remat == "none"
+                       else _recomputed(layer, *args, remat=remat))
+                x, bcarry = out if stateful else (out, None)
         new_cache = None
         if cache is not None:
             new_cache = dict(cache)
             step = 1 if mode == "decode" else x.shape[-2]
             new_cache["len"] = cache_len + step
+        if stateful:
+            return x, new_cache, bcarry
         return x, new_cache
 
-    def _layer(self, g: GroupSpec, i: int, p_l, ad_l, x, *, mode: str,
-               cache, boundary, fid: int):
-        """One layer of group g (local index i) and the cut-layer hook."""
+    def _layer(self, g: GroupSpec, i: int, p_l, ad_l, x, bcarry=None, *,
+               mode: str, cache, boundary, fid: int):
+        """One layer of group g (local index i) and the cut-layer hook;
+        with a stateful hook, (x, carry) in and out."""
         cfg = self.cfg
         if g.kind == "ssm":
             out, _ = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
@@ -376,6 +383,8 @@ class Model(nn.Module):
             x = x + attn_out
             if cfg.d_ff:
                 x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
+        if getattr(boundary, "stateful", False):
+            return boundary(x, bcarry, fid)
         if boundary is not None:
             x = boundary(x, fid)
         return x
@@ -383,11 +392,14 @@ class Model(nn.Module):
     # -- top-level entry points ------------------------------------------------
 
     def forward(self, params, adapters, batch, *, cache=None,
-                mode: str = "train", remat: str = "none", boundary=None):
+                mode: str = "train", remat: str = "none", boundary=None,
+                return_boundary: bool = False):
         """Full forward to hidden states (pre-head).
 
         batch: {"tokens": ([N,] B, S)}.  Returns (x, aux, new_cache); aux
-        is the MoE router loss in the reference, 0 for the dense decoder."""
+        is the MoE router loss in the reference, 0 for the dense decoder.
+        return_boundary=True appends a stateful boundary's last carry
+        (the smashed error-feedback residual)."""
         if "prefix" in batch or "frames" in batch:
             raise NotImplementedError(
                 "modality prefixes and encoder frames are not ported yet "
@@ -398,11 +410,13 @@ class Model(nn.Module):
                      else torch.arange(tokens.shape[-1],
                                        device=tokens.device))
         x = self.embed(params, tokens, positions=positions)
-        x, new_cache = self.run_blocks(params, adapters, x, mode=mode,
-                                       remat=remat, cache=cache,
-                                       boundary=boundary)
+        x, new_cache, *bcarry = self.run_blocks(
+            params, adapters, x, mode=mode, remat=remat, cache=cache,
+            boundary=boundary)
         x = apply_norm(params["final_norm"], x, kind=cfg.norm,
                        eps=cfg.norm_eps)
+        if return_boundary:
+            return (x, 0.0, new_cache, *bcarry)
         return x, 0.0, new_cache
 
     def loss(self, params, adapters, batch, *, remat: str = "none",
@@ -412,10 +426,14 @@ class Model(nn.Module):
         per_client=True keeps the leading client axis un-reduced: returns
         ((N,) nll, metrics with (N,) entries), which the round engine
         weights and combines (paper formula 2).  `boundary` is the
-        cut-layer hook (see run_blocks); `remat` and `ce_chunk` are the
-        memory knobs of the module docstring."""
-        x, aux, _ = self.forward(params, adapters, batch, mode="train",
-                                 remat=remat, boundary=boundary)
+        cut-layer hook (see run_blocks); a stateful (error-feedback)
+        boundary's new residual comes back as metrics["smashed_ef"].
+        `remat` and `ce_chunk` are the memory knobs of the module
+        docstring."""
+        stateful = bool(getattr(boundary, "stateful", False))
+        x, aux, _, *bcarry = self.forward(
+            params, adapters, batch, mode="train", remat=remat,
+            boundary=boundary, return_boundary=stateful)
         labels = batch["labels"]
         mask = batch.get("loss_mask")
         mask = (torch.ones(labels.shape, device=x.device) if mask is None
@@ -431,6 +449,8 @@ class Model(nn.Module):
         nll, acc = nll_sum / cnt, hits / cnt
         aux = torch.zeros((), device=x.device) + aux
         metrics = {"ce": nll, "aux": aux, "accuracy": acc, "tokens": cnt}
+        if stateful:
+            metrics["smashed_ef"] = bcarry[0]
         return nll + aux, metrics
 
     def _chunked_ce(self, params, x, labels, mask, chunk: int, keep: int):
@@ -474,7 +494,7 @@ class Model(nn.Module):
         if len(lead) != 1:
             raise NotImplementedError(
                 f"cache lead {lead}: caches with a client axis are not "
-                f"ported yet ({_LATER})")
+                f"ported yet ({_SERVING})")
         if any(g.kind == "ssm" for g in self.groups):
             raise NotImplementedError(f"{self.arch.name}: {ssm.SERVING_LATER}")
         batch = lead[-1]

@@ -2,10 +2,14 @@
 
 Port of src/repro/optim/optimizers.py.  ``update(grads, state, params,
 lr)`` returns (new_params, new_state) and changes nothing in place.  The
-step counter ``state["count"]`` is an int32 scalar tensor on the
-parameters' device: every parameter takes the same number of steps on
-the sync path (the local-steps and async engines' per-client counts come
-with those engines).
+step counter ``state["count"]`` is an int32 tensor on the parameters'
+device: a scalar when every parameter takes the same number of steps
+(the sync path), or a per-client (N,) vector that the local-steps and
+async round engines attach (``rounds.with_per_client_opt_steps``), where
+client i may take fewer optimizer steps than client j in one round.
+AdamW's bias correction then uses each client's own count, broadcast on
+the client axis, which is axis 1 of a client-stacked (Lg, N, ...) leaf;
+a 1-D leaf is indexed by client already.
 """
 
 from __future__ import annotations
@@ -69,13 +73,23 @@ def adamw(beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
         bc2 = 1 - (one * beta2) ** cnt.float()
 
         def step(p, m_, v_):
-            upd = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            b1, b2 = _bc_broadcast(bc1, m_), _bc_broadcast(bc2, m_)
+            upd = (m_ / b1) / (torch.sqrt(v_ / b2) + eps)
             return (p - lr * (upd + weight_decay * p.float()).to(p.dtype)
                     ).to(p.dtype)
 
         return tree_map(step, params, m, v), {"m": m, "v": v, "count": cnt}
 
     return Optimizer(init, update)
+
+
+def _bc_broadcast(bc, leaf):
+    """A bias-correction factor aligned with a parameter leaf: a scalar
+    count broadcasts as is; a per-client (N,) count goes on axis 1 of a
+    client-stacked leaf."""
+    if bc.dim() == 0 or leaf.dim() <= 1:
+        return bc
+    return bc.reshape((1, -1) + (1,) * (leaf.dim() - 2))
 
 
 def _clip(grads, clip: float):

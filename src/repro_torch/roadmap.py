@@ -11,7 +11,6 @@ def _item(title: str) -> str:
     return f'ROADMAP.md Queue A, "{title}"'
 
 
-ENGINE_OPTIONS = _item("The round engine's remaining options")
 SERVING = _item("Serving follow-ups")
 POPULATION = _item("Population and sharding")
 FAMILIES = _item("Remaining families, all reduced")

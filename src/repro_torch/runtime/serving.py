@@ -15,9 +15,10 @@ stacked adapter pool (S-LoRA-style) and batches requests across adapters:
 
 PyTorch runs eagerly, so the reference's retrace counters have no
 counterpart here; the kernel wrappers' launch counters show which kernels
-a run went through.  Pools built from a training state
-(``pool_from_state``, ``pool_from_population``) come with the training
-slice.
+a run went through.  ``pool_from_state`` serves the per-client adapters
+of a training state (a SplitFTSystem, or its checkpoint through
+``launch/serve.py --ckpt``); ``pool_from_population`` waits for
+population mode.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import lora as lora_lib
+from repro_torch.core import lora as lora_lib, split as split_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.runtime import kv_cache
 
@@ -81,6 +82,16 @@ def build_adapter_pool(model, generator: torch.Generator, num_adapters: int,
         rank_arr = torch.as_tensor(ranks, dtype=torch.int32)[:, None] \
             .expand(num_adapters, m)
     return lora_lib.mask_adapters(model, ad, rank_arr)
+
+
+def pool_from_state(model, state: Params) -> Params:
+    """The per-client personalized adapters of a SplitFT training state
+    as a serving pool (P = N clients): merge_adapters already gives the
+    apply-ready client-axis tree, so the pool is the training layout."""
+    with torch.no_grad():
+        return split_lib.merge_adapters(
+            model, state["client_adapters"], state["server_adapters"],
+            state["cuts"], rank_cut=state.get("rank_cut"))
 
 
 def num_pool_adapters(pool: Params) -> int:

@@ -13,6 +13,8 @@ The SSD scan's outputs grow with the chunk's sums, so its absolute
 tolerance is scaled by max|y|.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -880,3 +882,128 @@ def test_multi_boundary_int8_bucket_matches_cpu(cuda):
     for fid in range(3):
         for a, b in zip(got[str(cuda), fid], got["cpu", fid]):
             assert torch.equal(a, b), fid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_smashed_ef_under_remat_is_bitwise_on_card(cuda, remat):
+    """Smashed top-k with error feedback under layer recompute on the
+    card: the residual is an output of the recomputed layer, so two
+    rounds under remat equal two rounds without it bit for bit (losses,
+    residual, adapters); and the card's residual agrees with the CPU's to
+    1e-2 of its largest (a magnitude within fp32 noise of the k-th
+    largest is kept on one side only)."""
+    arch = reduced(get_config("gpt2-small"), layers=4, d_model=64, vocab=256,
+                   seq_len=32, batch=2)
+    rng = np.random.default_rng(11)
+    toks = rng.integers(3, 256, size=(3, 2, 33)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    w, act = np.array([0.2, 0.3, 0.5], np.float32), np.ones(3, np.float32)
+    out = {}
+    for dev, mode in ((cuda, "none"), (cuda, remat), ("cpu", remat)):
+        model = build_model(arch, device=dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        state = rounds.with_smashed_ef(_small_state(model, dev, [1, 2, 3]),
+                                       model)
+        step = rounds.make_train_step(model, smashed_compress="topk",
+                                      remat=mode)
+        for _ in range(2):
+            state, met = step(params, state, batch, w, act, 1e-2, 1e-2)
+        out[str(dev), mode] = (met["ce"].cpu(), state["smashed_ef"].cpu(),
+                               [x.cpu() for x in
+                                tree_leaves(state["client_adapters"])])
+    (ce_n, ef_n, ad_n), (ce_r, ef_r, ad_r) = (out[str(cuda), "none"],
+                                              out[str(cuda), remat])
+    assert torch.equal(ce_n, ce_r) and torch.equal(ef_n, ef_r)
+    assert all(torch.equal(a, b) for a, b in zip(ad_n, ad_r))
+    ce_c, ef_c, _ = out["cpu", remat]
+    torch.testing.assert_close(ce_r, ce_c, rtol=1e-4, atol=1e-4)
+    assert float(ef_c.abs().max()) > 0
+    torch.testing.assert_close(ef_r, ef_c, rtol=1e-3,
+                               atol=1e-2 * float(ef_c.abs().max()))
+
+
+@pytest.mark.cuda
+def test_adapter_compression_on_card_matches_cpu(cuda):
+    """Adapter top-k with error feedback and the int8 round trip on card
+    tensors: bit for bit the CPU's on the same inputs (distinct
+    magnitudes, so both select the same entries; int8 divides and rounds
+    alike), and the same wire bytes."""
+    from repro_torch.optim import compression
+
+    gen = torch.Generator().manual_seed(12)
+    tree = {"a": _randn(gen, 2, 5, 96, 16), "b": _randn(gen, 2, 5, 16, 96)}
+    resid = {k: _randn(gen, *v.shape, scale=0.1) for k, v in tree.items()}
+    on = {k: v.to(cuda) for k, v in tree.items()}
+    r_on = {k: v.to(cuda) for k, v in resid.items()}
+    d_k, e_k, n_k = compression.ErrorFeedback.apply(on, r_on, 0.05)
+    d_c, e_c, n_c = compression.ErrorFeedback.apply(tree, resid, 0.05)
+    assert n_k == n_c
+    q_k = compression.int8_dequantize(compression.int8_quantize(on))
+    q_c = compression.int8_dequantize(compression.int8_quantize(tree))
+    for k in tree:
+        assert torch.equal(d_k[k].cpu(), d_c[k])
+        assert torch.equal(e_k[k].cpu(), e_c[k])
+        assert torch.equal(q_k[k].cpu(), q_c[k])
+
+
+ENGINE_OPTIONS = {
+    "local_steps": (dict(max_local_steps=2, smashed_compress="topk",
+                         compress="topk"), 1e-2),
+    "async": (dict(async_buffer=True, buffer_size=2), 1e-4),
+    "edge_groups": (dict(num_edges=2, compress="int8",
+                         smashed_compress="int8"), 1e-2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ENGINE_OPTIONS))
+def test_engine_options_on_card_match_cpu(cuda, name):
+    """One SGD step of the local-steps engine (budgets [1, 2], smashed
+    top-k + EF, adapter top-k), an async tick that fills a buffer of 2 at
+    staleness [2, 1], and a two-tier round with int8 adapter deltas, on
+    reduced gpt2-small: per-client losses within 1e-4 and the adapter
+    deltas within 1e-3 relative plus the case's share of max|delta| (a
+    top-k or int8 element next to the k-th magnitude or a rounding
+    boundary moves on one side only)."""
+    opt, share = ENGINE_OPTIONS[name]
+    arch = reduced(get_config("gpt2-small"), layers=4, d_model=64, vocab=256,
+                   seq_len=32, batch=2)
+    arch = arch.replace(train=dataclasses.replace(arch.train,
+                                                  optimizer="sgd"))
+    rng = np.random.default_rng(13)
+    toks = rng.integers(3, 256, size=(2, 3, 2, 33)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    if opt.get("max_local_steps", 1) == 1:
+        batch = {k: v[0] for k, v in batch.items()}
+    w, act = np.array([0.2, 0.3, 0.5], np.float32), np.ones(3, np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(arch, device=dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        state = rounds.prepare_state(
+            _small_state(model, dev, [1, 2, 3]),
+            max_local_steps=opt.get("max_local_steps", 1),
+            async_buffer=opt.get("async_buffer", False),
+            edge_groups=opt.get("num_edges", 1))
+        if "max_local_steps" in opt:
+            state["step_budgets"] = torch.tensor([1, 2, 2],
+                                                 dtype=torch.int32)
+            state = rounds.with_smashed_ef(rounds.with_error_feedback(state),
+                                           model)
+        if opt.get("async_buffer"):
+            state["global_version"] = torch.tensor(2, dtype=torch.int32)
+            state["adapter_version"] = torch.tensor([0, 1, 2],
+                                                    dtype=torch.int32)
+            act = np.array([1, 1, 0], np.float32)
+        start = [x.clone() for x in tree_leaves(state["client_adapters"])]
+        new, met = rounds.make_train_step(model, **opt)(
+            params, state, batch, w, act, 1e-2, 1e-2)
+        out[str(dev)] = (met["ce"].cpu(), [
+            (a - b).cpu() for a, b in
+            zip(tree_leaves(new["client_adapters"]), start)])
+    (ce_k, d_k), (ce_c, d_c) = out[str(cuda)], out["cpu"]
+    torch.testing.assert_close(ce_k, ce_c, rtol=1e-4, atol=1e-4)
+    scale = max(float(d.abs().max()) for d in d_c)
+    for a, b in zip(d_k, d_c):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=share * scale)

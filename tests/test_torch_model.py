@@ -229,18 +229,20 @@ def test_model_without_device_raises_when_no_cuda(monkeypatch):
 
 
 def test_unported_model_paths_raise(pair):
-    """What the training slices left out raises: stateful (EF) cut
-    boundaries and RoPE.  remat and chunked cross entropy run
-    (tests/test_torch_memory_knobs.py)."""
+    """What the training slices left out raises: RoPE.  A stateful (error
+    feedback) cut boundary runs: its carry comes back from run_blocks,
+    and remat, chunked cross entropy and the rest run too
+    (tests/test_torch_memory_knobs.py, tests/test_torch_engine_options.py)."""
     _, (model_t, params_t, _) = pair
 
     def ef_boundary(x, carry, fid):
-        return x, carry
+        return x, carry + fid
 
     ef_boundary.stateful = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_t.run_blocks(params_t, None, torch.zeros(1, 2, 32),
-                           mode="train", boundary=ef_boundary)
+    ef_boundary.init = lambda: torch.zeros(())
+    x, _, carry = model_t.run_blocks(params_t, None, torch.zeros(1, 2, 32),
+                                     mode="train", boundary=ef_boundary)
+    assert float(carry) == sum(range(model_t.num_flat_layers))
     arch = t_reduced(t_get_config("gpt2-small"), **SMALL)
     rope = arch.replace(model=dataclasses.replace(arch.model, use_rope=True))
     with pytest.raises(NotImplementedError, match="RoPE"):

@@ -313,50 +313,84 @@ def test_adapter_deltas_match_reference(setup):
         state_j["client_adapters"], d_j)), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("opt", [
-    dict(agg_every=2), dict(compress="topk"), dict(max_local_steps=2),
-    dict(async_buffer=True), dict(num_edges=2)])
-def test_unported_engine_options_raise(setup, opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_rounds.make_train_step(setup["model_t"], **opt)
-
-
-# the options this list used to refuse, now one SGD round each against the
-# reference's engine; the bucket case gives clients 0 and 2 the int8
-# bucket
+# the options these lists used to refuse, now one SGD round each against
+# the reference's engine (SGD: an AdamW first step moves nearly every
+# element by lr, so adapter top-k would choose among ties); the bucket
+# case gives clients 0 and 2 the int8 bucket
 LIFTED = [dict(remat="dots"), dict(ce_chunk=16), dict(microbatch=2),
-          dict(compressor_buckets=("none", "int8"))]
+          dict(compressor_buckets=("none", "int8")),
+          dict(agg_every=2), dict(compress="topk"),
+          dict(max_local_steps=2), dict(async_buffer=True),
+          dict(num_edges=2)]
 
 
-@pytest.mark.parametrize("opt", LIFTED, ids=[next(iter(o)) for o in LIFTED])
-def test_lifted_engine_options_match_reference(setup, opt):
+def _prepared(state, prep, opt):
+    """The state template an option needs, built by either package's
+    round engine (`prep`)."""
+    state = prep.prepare_state(
+        state, max_local_steps=opt.get("max_local_steps", 1),
+        async_buffer=opt.get("async_buffer", False),
+        edge_groups=opt.get("num_edges", 1),
+        smashed_choice=0 if "compressor_buckets" in opt else None)
+    if opt.get("compress") == "topk":
+        state = prep.with_error_feedback(state)
+    return state
+
+
+def _lifted_round(setup, opt, prepare=lambda s: s):
+    """One SGD round of the option on both engines from one start state;
+    `prepare` adjusts the numpy start state (budgets, choices)."""
     model_j = j_build_model(_arch(j_reduced, j_get_config, "sgd"))
     model_t = build_model(_arch(t_reduced, t_get_config, "sgd"),
                           device="cpu")
-    state_j, state_t = _states(setup)
-    if "compressor_buckets" in opt:
-        state_j = dict(j_rounds.prepare_state(state_j, smashed_choice=0),
-                       smashed_choice=jnp.asarray([1, 0, 1], jnp.int32))
-        state_t = dict(t_rounds.prepare_state(state_t, smashed_choice=0),
-                       smashed_choice=torch.tensor([1, 0, 1],
-                                                   dtype=torch.int32))
+    state_j, _ = _states(setup)
+    for side in ("opt_c", "opt_s"):        # SGD's optimizer state
+        state_j[side] = {"count": state_j[side]["count"]}
+    state_np = prepare(_np(_prepared(state_j, j_rounds, opt)))
+    state_j = jax.tree.map(jnp.asarray, state_np)
+    state_t = bridge.state_from_numpy(state_np, "cpu")
+    batch = setup["batch"]
+    if opt.get("max_local_steps", 1) > 1:
+        k = opt["max_local_steps"]
+        batch = {key: np.stack([np.roll(v, j, axis=-1) for j in range(k)])
+                 for key, v in batch.items()}
     state_j, met_j = j_rounds.make_train_step(model_j, **opt)(
-        setup["params_j"], state_j, jax.tree.map(jnp.asarray, setup["batch"]),
+        setup["params_j"], state_j, jax.tree.map(jnp.asarray, batch),
         jnp.asarray(WEIGHTS), jnp.asarray(ACTIVE), jnp.float32(LR),
         jnp.float32(LR))
     state_t, met_t = t_rounds.make_train_step(model_t, **opt)(
-        setup["params_t"], state_t, setup["batch"], WEIGHTS, ACTIVE, LR, LR)
+        setup["params_t"], state_t, batch, WEIGHTS, ACTIVE, LR, LR)
     s_j, s_t = _np(state_j), bridge.to_numpy(state_t)
+    assert sorted(s_t) == sorted(s_j)
     for side in ("client_adapters", "server_adapters"):
         _assert_tree_close(s_t[side], s_j[side], rtol=1e-5, atol=1e-5)
     for k in ("total", "ce", "accuracy", "tokens"):
         _close(met_t[k], _np(met_j)[k], rtol=1e-4, atol=1e-4)
+    return s_j, s_t
 
 
-def test_unported_state_leaves_raise(setup):
-    _, state_t = _states(setup)
-    state_t["step_budgets"] = torch.ones((3,), dtype=torch.int32)
-    step = t_rounds.make_train_step(setup["model_t"])
-    with pytest.raises(NotImplementedError, match="step_budgets"):
-        step(setup["params_t"], state_t, setup["batch"], WEIGHTS, ACTIVE,
-             LR, LR)
+@pytest.mark.parametrize("opt", LIFTED, ids=[next(iter(o)) for o in LIFTED])
+def test_lifted_engine_options_match_reference(setup, opt):
+    def prepare(state):
+        if "compressor_buckets" in opt:
+            state["smashed_choice"] = np.asarray([1, 0, 1], np.int32)
+        return state
+
+    s_j, s_t = _lifted_round(setup, opt, prepare)
+    for leaf in ("ef", "step_budgets", "buffer_mask", "buffer_steps",
+                 "adapter_version", "global_version", "edge_assign"):
+        if leaf in s_j:
+            _assert_tree_close(s_t[leaf], s_j[leaf], rtol=1e-5, atol=1e-7)
+
+
+def test_step_budgets_leaf_runs_the_local_steps_engine(setup):
+    """A state carrying heterogeneous step budgets (1, 3, 2) under K = 3:
+    client 0 freezes after one inner step, client 1 runs all three."""
+    def budgets(state):
+        state["step_budgets"] = np.asarray([1, 3, 2], np.int32)
+        return state
+
+    s_j, s_t = _lifted_round(setup, dict(max_local_steps=3), budgets)
+    np.testing.assert_array_equal(s_t["opt_c"]["count"], [1, 3, 2])
+    np.testing.assert_array_equal(s_t["opt_c"]["count"],
+                                  s_j["opt_c"]["count"])

@@ -237,19 +237,7 @@ def test_entry_point_without_device_raises_without_cuda(monkeypatch):
                                t_system.SystemConfig(**DATA))
 
 
-UNPORTED = [
-    ({"compress": "topk"}, "The round engine's remaining options"),
-    ({"compress": "int8"}, "The round engine's remaining options"),
-    ({"agg_every": 2}, "The round engine's remaining options"),
-    ({"smashed_compress": "topk"}, "The round engine's remaining options"),
-    ({"smashed_ef": True, "smashed_compress": "topk"},
-     "The round engine's remaining options"),
-    ({"edge_groups": 2}, "The round engine's remaining options"),
-    ({"max_local_steps": 2}, "The round engine's remaining options"),
-    ({"scheduler": "local_steps"}, "The round engine's remaining options"),
-    ({"scheduler": "async"}, "The round engine's remaining options"),
-    ({"population": 10}, "Population and sharding"),
-]
+UNPORTED = [({"population": 10}, "Population and sharding")]
 
 
 @pytest.mark.parametrize("kw,title", UNPORTED,
@@ -260,6 +248,29 @@ def test_unported_options_raise_naming_their_roadmap_item(kw, title):
         t_system.SplitFTSystem(_arch(t_reduced, t_get_config),
                                t_system.SystemConfig(**DATA, **kw),
                                device="cpu")
+
+
+# the options UNPORTED used to list: each now builds the reference's state
+# template and runs two rounds from the reference's weights, with the
+# reference's records (the clock, comm bytes and budgets bit for bit)
+LIFTED = [{"compress": "topk"}, {"compress": "int8"}, {"agg_every": 2},
+          {"smashed_compress": "topk"},
+          {"smashed_ef": True, "smashed_compress": "topk"},
+          {"edge_groups": 2}, {"max_local_steps": 2},
+          {"scheduler": "local_steps"}, {"scheduler": "async"}]
+
+
+@pytest.mark.parametrize("kw", LIFTED, ids=[",".join(k) for k in LIFTED])
+def test_lifted_options_follow_the_reference(kw):
+    j, t = _pair(dict(kw, adaptive=False, straggler_sim=True))
+    assert sorted(t.state) == sorted(j.state)
+    assert t.scheduler.name == j.scheduler.name
+    hj, ht = j.run(2, log_every=0), t.run(2, log_every=0)
+    for a, b in zip(hj, ht):
+        assert set(a) == set(b)
+        for k in set(a) - {"loss", "ce", "accuracy"}:
+            same(a[k], b[k])
+    _losses_close(hj, ht)
 
 
 # options this list used to refuse: each now does what the reference's
@@ -338,14 +349,29 @@ def test_cli_writes_the_reference_history(tmp_path):
     assert [r["round"] for r in _history(tmp_path / "t")] == [0, 1, 2, 3]
 
 
-@pytest.mark.parametrize("flags", [["--compress", "topk"],
-                                   ["--scheduler", "async"],
-                                   ["--edge-groups", "2"],
-                                   ["--population", "10"]])
+CLI_FLAGS = [["--compress", "topk"], ["--scheduler", "async"],
+             ["--edge-groups", "2"], ["--population", "10"]]
+
+
+@pytest.mark.parametrize("flags", CLI_FLAGS,
+                         ids=[f[0][2:] for f in CLI_FLAGS])
 def test_cli_unported_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        t_train.main(["--reduced", "--rounds", "1", "--samples", "64",
-                      "--out", str(tmp_path), "--device", "cpu"] + flags)
+    """Population mode still raises naming its ROADMAP item; the other
+    flags write the reference's history: the same rows, keys and comm
+    bytes."""
+    argv = ["--reduced", "--rounds", "2", "--samples", "64"] + flags
+    if flags[0] == "--population":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+            t_train.main(argv + ["--out", str(tmp_path), "--device", "cpu"])
+        return
+    assert j_train.main(argv + ["--out", str(tmp_path / "j")]) == 0
+    assert t_train.main(argv + ["--out", str(tmp_path / "t"),
+                                "--device", "cpu"]) == 0
+    hj, ht = _history(tmp_path / "j"), _history(tmp_path / "t")
+    assert [set(r) for r in ht] == [set(r) for r in hj]
+    for a, b in zip(hj, ht):
+        assert a["comm"] == b["comm"]
+        assert np.isfinite(b["loss"])
 
 
 def test_quickstart_runs_on_the_cpu(capsys):
