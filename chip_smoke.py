@@ -119,6 +119,13 @@ ASYNC_SYS = dict(scheduler="async", buffer_size=3, staleness_power=0.5,
                  overlap_comm=True, straggler_sim=True, jitter_sigma=0.2)
 # 5h: requests served from phase 5e's trained per-client adapters
 TRAINED_REQUESTS = 4
+# 5i: population mode with phase 5's model and data: a cohort of the 5
+# clients drawn from POPULATION pids each round (4C <= P: the sampler's
+# rejection branch), the sync scheduler with the simulated clock; then P
+# = C against phase 5's fleet run, a checkpoint after round 2 resumed, and
+# TRAINED_REQUESTS requests served from trained pids' slots
+POPULATION, POP_ROUNDS = 1000, 4
+POP_SYS = dict(population=POPULATION, scheduler="sync", straggler_sim=True)
 # phase 6 on the card and the CPU: the round engine's options, one step
 # each (SGD, so adapter top-k keeps the largest gradients rather than
 # choosing among AdamW's equal first steps); adapter deltas within
@@ -827,7 +834,8 @@ def main() -> int:
         f"in another order through 12 layers and the 50257-wide head)")
 
     # -- phase 5: the training path ------------------------------------------
-    got, accuracy_times = train_phase(torch, dev, wrappers, name, card)
+    got, accuracy_times, fleet = train_phase(torch, dev, wrappers, name,
+                                             card)
     for kname, c in got.items():
         launches[kname] += c
 
@@ -849,6 +857,12 @@ def main() -> int:
         for kname, c in phase.items():
             launches[kname] += c
     del ls_system
+
+    # -- phase 5i: population mode ------------------------------------------
+    for kname, c in population_phase(torch, dev, wrappers, name, card,
+                                     accuracy_times, fleet).items():
+        launches[kname] += c
+    del fleet
 
     # -- phase 6: one step at full width, reduced depth, card vs CPU --------
     small_step_check(torch, dev, "gpt2-small", SMALL_SEQ, GPT2_STEPS,
@@ -1500,10 +1514,28 @@ class TimedStep:
         return out
 
 
+class HostTimer:
+    """Stands in for a host-side call (the population store's gather and
+    scatter): calls it between two synchronizes and keeps each call's
+    wall seconds."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.calls = torch, fn, []
+
+    def __call__(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.calls.append(time.perf_counter() - t0)
+        return out
+
+
 def timed_system(torch, arch, dev, wrappers, sys_kw=None):
     """SplitFTSystem on `arch` at full width on the card, random weights
     from SEED, the quickstart's data sizes, with TimedStep in place of its
-    train and eval steps."""
+    train and eval steps (and in population mode HostTimer in place of
+    its store's gather and scatter)."""
     from repro_torch.core.system import SplitFTSystem, SystemConfig
 
     system = SplitFTSystem(arch, SystemConfig(
@@ -1511,6 +1543,9 @@ def timed_system(torch, arch, dev, wrappers, sys_kw=None):
         **(sys_kw or {})), seed=SEED, device=dev)
     system.train_step = TimedStep(torch, system.train_step, wrappers)
     system.eval_step = TimedStep(torch, system.eval_step, wrappers)
+    if system.store is not None:
+        system.store.gather = HostTimer(torch, system.store.gather)
+        system.store.scatter = HostTimer(torch, system.store.scatter)
     return system
 
 
@@ -1622,6 +1657,16 @@ def check_launches(per_round, want_train, want_eval, what):
                                    f"(got, want): {bad}")
 
 
+def gpt2_train_launches(policy):
+    """A gpt2-small train step's launches (int8 smashed): flash forward
+    and backward per layer, the int8 round trip twice per distinct cut."""
+    return {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+            "int8_roundtrip_smashed": 2 * len(set(policy["cuts"]))}
+
+
+GPT2_EVAL_LAUNCHES = {"flash_attention_fwd": 12, "lora_matmul_fwd": 48}
+
+
 def gpt2_int8():
     """gpt2-small at the paper setting with int8 smashed activations."""
     import dataclasses
@@ -1637,17 +1682,24 @@ def train_phase(torch, dev, wrappers, name, card):
     """Phase 5: ROUNDS SplitFT rounds on full-width gpt2-small with int8
     smashed activations through SplitFTSystem; then the fused LoRA
     backward through autograd at the eval shape, on the system's served
-    adapters.  Returns the launches of both and the rounds' times."""
+    adapters.  Returns the launches of both, the rounds' times and the
+    fleet run's records and final state (for phase 5i)."""
     from repro_torch.tree import tree_leaves, tree_map
+
+    fleet = {}
+
+    def keep_final(system, r):
+        if r == ROUNDS - 1:
+            fleet["state"] = tree_map(lambda x: x.detach().clone(),
+                                      system.state)
+        return ""
 
     system, got, per_round, times = run_rounds(torch, gpt2_int8(), dev,
                                                wrappers, "phase 5", name,
-                                               card)
-    check_launches(per_round, lambda p: {
-        "flash_attention_fwd": 12, "flash_attention_bwd": 12,
-        "int8_roundtrip_smashed": 2 * len(set(p["cuts"]))},
-        {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
-        "gpt2-small training")
+                                               card, after_round=keep_final)
+    fleet["history"] = list(system.history)
+    check_launches(per_round, gpt2_train_launches, GPT2_EVAL_LAUNCHES,
+                   "gpt2-small training")
 
     # the fused LoRA backward at the eval shape: the gradient of the
     # global model's eval loss w.r.t. its served (rank-2) adapters,
@@ -1678,7 +1730,7 @@ def train_phase(torch, dev, wrappers, name, card):
         f"{ {k: c for k, c in bwd.items() if c} }")
     # the round's launches, and the fused LoRA backward from the gradient
     # run (its forward launches are not the round's)
-    return {**got, "lora_matmul_bwd": bwd["lora_matmul_bwd"]}, times
+    return {**got, "lora_matmul_bwd": bwd["lora_matmul_bwd"]}, times, fleet
 
 
 def host_shares(times):
@@ -1708,8 +1760,7 @@ def co_phase(torch, dev, wrappers, name, card, accuracy_times):
         "int8_roundtrip_smashed": 2 * len({
             c for c, k in zip(p["cuts"], p["smashed_choice"])
             if k == int8})},
-        {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
-        "gpt2-small under the co-controller")
+        GPT2_EVAL_LAUNCHES, "gpt2-small under the co-controller")
     cut_buckets = set(system.arch.split.buckets(system.model.num_flat_layers))
     lo, hi = 0.01, 1.0                      # co_adjust's frac_bounds
     hist = system.history
@@ -1796,8 +1847,7 @@ def local_steps_phase(torch, dev, wrappers, name, card):
     check_launches(per_round, lambda p: {
         "flash_attention_fwd": 12 * inner(p),
         "flash_attention_bwd": 12 * inner(p)},
-        {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
-        "gpt2-small local steps")
+        GPT2_EVAL_LAUNCHES, "gpt2-small local steps")
     steps = [inner(p) for p, _, _ in per_round]
     per_step = list(zip(times[1:], steps[1:]))
     log(f"phase 5e [{name}, {card}]: inner steps per round {steps}; after "
@@ -1826,11 +1876,8 @@ def edge_phase(torch, dev, wrappers, name, card):
     system, got, per_round, times = run_rounds(
         torch, gpt2_int8(), dev, wrappers, "phase 5f", name, card,
         sys_kw=EDGE_SYS, rounds=EDGE_ROUNDS, after_round=after)
-    check_launches(per_round, lambda p: {
-        "flash_attention_fwd": 12, "flash_attention_bwd": 12,
-        "int8_roundtrip_smashed": 2 * len(set(p["cuts"]))},
-        {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
-        "gpt2-small two-tier")
+    check_launches(per_round, gpt2_train_launches, GPT2_EVAL_LAUNCHES,
+                   "gpt2-small two-tier")
     log(f"phase 5f [{name}, {card}]: after round 0, train step "
         f"{fmt([t * 1e3 for _, t, _, _ in times[1:]])} ms, host share "
         f"{fmt(host_shares(times))}")
@@ -1864,14 +1911,9 @@ def async_phase(torch, dev, wrappers, name, card):
     wall = time.perf_counter() - t0
     got = {k: w.launches for k, w in wrappers.items()}
     check_launches([(c, tl, {}) for c, tl, _ in train.calls],
-                   lambda p: {"flash_attention_fwd": 12,
-                              "flash_attention_bwd": 12,
-                              "int8_roundtrip_smashed":
-                                  2 * len(set(p["cuts"]))},
-                   {}, "gpt2-small async ticks")
+                   gpt2_train_launches, {}, "gpt2-small async ticks")
     check_launches([({}, {}, el) for _, el, _ in ev.calls], lambda p: {},
-                   {"flash_attention_fwd": 12, "lora_matmul_fwd": 48},
-                   "gpt2-small async eval")
+                   GPT2_EVAL_LAUNCHES, "gpt2-small async eval")
     hist = system.history
     for h in hist:
         if h["buffer_fill"] < ASYNC_SYS["buffer_size"] or \
@@ -1955,14 +1997,14 @@ def check_served_tokens(serving, model, params, pool, reqs, tokens,
     return cut, serial
 
 
-def trained_serving_phase(torch, dev, wrappers, name, card, system):
-    """Phase 5h: phase 5e's trained per-client adapters as a serving pool
-    (runtime.serving.pool_from_state): TRAINED_REQUESTS requests, one per
-    client, through the engine; the tokens must equal serial_reference.
-    Returns the launches of the engine run."""
+def serve_pool(torch, dev, wrappers, system, pool, tag):
+    """TRAINED_REQUESTS requests, one per adapter of `pool` in turn,
+    through the serving engine on the system's base weights; the tokens
+    must equal serial_reference and the serving kernels must launch.
+    Returns (the launches of the engine run, wall s, requests compared
+    only up to a top-2 gap)."""
     from repro_torch.runtime import serving
 
-    pool = serving.pool_from_state(system.model, system.state)
     n = serving.num_pool_adapters(pool)
     rng = np.random.default_rng(SEED + 7)
     reqs = [serving.Request(rid=i, adapter=i % n,
@@ -1983,15 +2025,159 @@ def trained_serving_phase(torch, dev, wrappers, name, card, system):
     for k in ("flash_attention_fwd", "lora_matmul_indexed",
               "decode_attention"):
         if not got[k]:
-            raise RuntimeError(f"phase 5h: {k} never launched")
+            raise RuntimeError(f"{tag}: {k} never launched")
     cut, _ = check_served_tokens(serving, system.model, system.base_params,
                                  pool, reqs, [r["tokens"] for r in res],
-                                 MAX_LEN, "phase 5h")
-    log(f"phase 5h [{name}, {card}]: {len(reqs)} requests on phase 5e's "
-        f"{n} trained adapters (pool_from_state) in {wall:.3f} s; tokens "
-        f"equal serial_reference ({cut} compared up to a top-2 gap < "
-        f"{TOP2_GAP}); launches {({k: c for k, c in got.items() if c})}")
+                                 MAX_LEN, tag)
+    return got, wall, cut
+
+
+def trained_serving_phase(torch, dev, wrappers, name, card, system):
+    """Phase 5h: phase 5e's trained per-client adapters as a serving pool
+    (runtime.serving.pool_from_state): TRAINED_REQUESTS requests, one per
+    client, through the engine; the tokens must equal serial_reference.
+    Returns the launches of the engine run."""
+    from repro_torch.runtime import serving
+
+    pool = serving.pool_from_state(system.model, system.state)
+    got, wall, cut = serve_pool(torch, dev, wrappers, system, pool,
+                                "phase 5h")
+    log(f"phase 5h [{name}, {card}]: {TRAINED_REQUESTS} requests on phase "
+        f"5e's {serving.num_pool_adapters(pool)} trained adapters "
+        f"(pool_from_state) in {wall:.3f} s; tokens equal serial_reference "
+        f"({cut} compared up to a top-2 gap < {TOP2_GAP}); launches "
+        f"{({k: c for k, c in got.items() if c})}")
     return got
+
+
+def _same_state(torch, a, b, what):
+    """Two round states (or store trees) equal leaf for leaf, bit for
+    bit."""
+    from repro_torch.tree import tree_leaves_with_path
+
+    la, lb = list(tree_leaves_with_path(a)), list(tree_leaves_with_path(b))
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        raise RuntimeError(f"{what}: the trees differ in structure")
+    for (keys, x), (_, y) in zip(la, lb):
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+            raise RuntimeError(f"{what}: {'/'.join(keys)} differs")
+
+
+def population_phase(torch, dev, wrappers, name, card, accuracy_times,
+                     fleet):
+    """Phase 5i: population mode on phase 5's model and data.
+
+    1. POP_ROUNDS rounds with a cohort of the 5 clients drawn from
+       POPULATION pids (the sampler's rejection branch): every round a new
+       cohort is gathered from the host-resident store onto the card and
+       scattered back; launches per step as phase 5's; each round logs
+       its train, eval and host ms and host share beside phase 5's, the
+       store's gather and scatter ms and its bytes.
+    2. P = C = 5 for ROUNDS rounds: losses, cuts and every state leaf equal
+       phase 5's fleet run bit for bit.
+    3. The first run's rounds 0-1 again with a checkpoint after round 2,
+       restored into a fresh system, which runs rounds 2-3: cohorts,
+       losses, sim_clock and every slot of the store equal the straight
+       run's bit for bit.
+    4. TRAINED_REQUESTS requests served from the store's slots of trained
+       pids (runtime.serving.pool_from_population); tokens equal
+       serial_reference.
+
+    Returns the launches of the rounds of 1 and of the serving run."""
+    import tempfile
+
+    from repro_torch.runtime import serving
+
+    arch = gpt2_int8()
+    cohorts = []
+
+    def after(system, r):
+        store = system.store
+        cohorts.append(system._cohort_pids.copy())
+        return (f"; cohort {cohorts[-1].tolist()}, store gather "
+                f"{store.gather.calls[-1] * 1e3:.1f} ms, scatter "
+                f"{store.scatter.calls[-1] * 1e3:.1f} ms, "
+                f"{len(store)} slots x {store.slot_bytes / 2**20:.2f} MiB = "
+                f"{len(store) * store.slot_bytes / 2**20:.1f} MiB on the host")
+
+    system, got, per_round, times = run_rounds(
+        torch, arch, dev, wrappers, "phase 5i", name, card, sys_kw=POP_SYS,
+        rounds=POP_ROUNDS, after_round=after)
+    check_launches(per_round, gpt2_train_launches, GPT2_EVAL_LAUNCHES,
+                   "gpt2-small population")
+    store = system.store
+    if len(cohorts) != POP_ROUNDS or len(store) <= arch.data.num_clients:
+        raise RuntimeError(f"phase 5i: {len(cohorts)} cohorts drawn, "
+                           f"{len(store)} slots in the store")
+    moved = arch.data.num_clients * store.slot_bytes
+    gather, scatter = store.gather.calls, store.scatter.calls
+    log(f"phase 5i [{name}, {card}]: P = {POPULATION}, C = "
+        f"{arch.data.num_clients}; after round 0, train step "
+        f"{fmt([t * 1e3 for _, t, _, _ in times[1:]])} ms, eval "
+        f"{fmt([e * 1e3 for _, _, e, _ in times[1:]])} ms, host "
+        f"{fmt([h * 1e3 for _, _, _, h in times[1:]])} ms, host share "
+        f"{fmt(host_shares(times))} against phase 5's "
+        f"{fmt(host_shares(accuracy_times))}; gather "
+        f"{fmt([t * 1e3 for t in gather])} ms, scatter "
+        f"{fmt([t * 1e3 for t in scatter])} ms for "
+        f"{moved / 2**20:.1f} MiB each way ({store.slot_bytes} bytes a "
+        f"slot): {fmt([moved / t / 1e9 for t in gather])} and "
+        f"{fmt([moved / t / 1e9 for t in scatter])} GB/s")
+
+    # 2. P == C against phase 5's fleet run
+    same = timed_system(torch, arch, dev, wrappers,
+                        dict(population=arch.data.num_clients))
+    same.run(ROUNDS, log_every=0)
+    for a, b in zip(fleet["history"], same.history):
+        for k in ("loss", "ce", "cuts"):
+            if not np.array_equal(a[k], b[k]):
+                raise RuntimeError(f"phase 5i P = C round {a['round']}: {k} "
+                                   f"{b[k]} against phase 5's {a[k]}")
+    _same_state(torch, fleet["state"], same.state, "phase 5i P = C state")
+    del same
+
+    # 3. checkpoint after round 2, resume, against the straight run
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(POP_SYS, checkpoint_dir=d, checkpoint_every=2)
+        timed_system(torch, arch, dev, wrappers, kw).run(2, log_every=0)
+        resumed = timed_system(torch, arch, dev, wrappers, kw)
+        if not resumed.restore():
+            raise RuntimeError("phase 5i: no checkpoint to restore")
+        resumed_cohorts = []
+        resumed.run(POP_ROUNDS - 2, log_every=0, callback=lambda rec:
+                    resumed_cohorts.append(resumed._cohort_pids.copy()))
+    for a, b, pa, pb in zip(system.history[2:], resumed.history,
+                            cohorts[2:], resumed_cohorts):
+        if not np.array_equal(pa, pb):
+            raise RuntimeError(f"phase 5i resume: cohort {pb} against the "
+                               f"straight run's {pa}")
+        for k in ("loss", "ce", "sim_clock", "cuts"):
+            if not np.array_equal(a[k], b[k]):
+                raise RuntimeError(f"phase 5i resume round {a['round']}: "
+                                   f"{k} {b[k]} against {a[k]}")
+    _same_state(torch, store.state_tree(), resumed.store.state_tree(),
+                "phase 5i resume store")
+    log(f"phase 5i resume [{name}, {card}]: checkpoint after round 2 "
+        f"restored; rounds 2-3 (cohorts {[c.tolist() for c in cohorts[2:]]}"
+        f", sim_clock {[h['sim_clock'] for h in resumed.history]}) and "
+        f"all {len(store)} slots equal the straight run's bit for bit; P = "
+        f"C = {arch.data.num_clients}: losses, cuts and every state leaf "
+        f"equal phase 5's fleet run bit for bit")
+    del resumed
+
+    # 4. serving trained pids from the store
+    pids = sorted({int(p) for c in cohorts for p in c})[:TRAINED_REQUESTS]
+    pool = serving.pool_from_population(system.model, system.state, store,
+                                        pids)
+    served, wall, cut = serve_pool(torch, dev, wrappers, system, pool,
+                                   "phase 5i serving")
+    log(f"phase 5i serving [{name}, {card}]: {TRAINED_REQUESTS} requests on "
+        f"trained pids {pids} (pool_from_population) in {wall:.3f} s; "
+        f"tokens equal serial_reference ({cut} compared up to a top-2 gap "
+        f"< {TOP2_GAP}); launches "
+        f"{({k: c for k, c in served.items() if c})}")
+    return {k: got[k] + served[k] for k in got}
 
 
 def engine_step_check(torch, dev):

@@ -1,9 +1,9 @@
 """SplitFTSystem — host-side orchestration of the paper workflow.
 
-Port of src/repro/core/system.py in fleet mode.  It owns: corpus ->
-tokenize -> partition (C4) -> per-client loaders -> round loop -> eval,
-C3 adjustment, aggregation weights, checkpoint/resume, elastic
-membership.
+Port of src/repro/core/system.py.  It owns: corpus -> tokenize ->
+partition (C4) -> per-client loaders -> round loop -> eval, C3
+adjustment, aggregation weights, checkpoint/resume, elastic membership,
+cohort sampling over a client population.
 
 The round loop is split engine/policy:
 
@@ -50,8 +50,16 @@ packages start from different weights at one seed (parity tests copy the
 reference's weights in through repro_torch.bridge).  Data, loaders, the
 speed model and traces are numpy and seeded exactly as the reference's.
 
-Population mode (population > 0) raises NotImplementedError in the
-constructor, naming the ROADMAP item that ports it.
+Population mode (population P > 0): the engine's client axis is a cohort
+of C = num_clients pids that a seeded sampler (runtime.population.
+CohortSampler) draws from P each round.  Each pid's state (adapter rows,
+optimizer slots, EF residuals, policy, data cursor, C3 weight, speed
+draws) lives in a host-side runtime.population.PopulationStore; the
+loops gather the cohort into the engine state at the round's start and
+scatter it back at its end (the async loop at each aggregation, where
+the event pipeline restarts only when the cohort's membership changed).
+Checkpoints then hold the engine state and the store, and the sampler's
+RNG state in their metadata.
 """
 
 from __future__ import annotations
@@ -62,15 +70,15 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import bridge, roadmap
+from repro_torch import bridge
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import ArchConfig
 from repro_torch.core import adaptive, comm, rounds, smashed
 from repro_torch.core import scheduler as scheduler_lib
 from repro_torch.core.scheduler import RoundPlan
 from repro_torch.core.split import serve_adapters
-from repro_torch.data import (make_client_loaders, partition_dataset,
-                              synthetic_corpus)
+from repro_torch.data import (ClientDataLoader, make_client_loaders,
+                              partition_dataset, synthetic_corpus)
 from repro_torch.data.pipeline import stack_client_batches
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import DeviceLike, resolve_device
@@ -79,6 +87,7 @@ from repro_torch.runtime import straggler
 from repro_torch.runtime import timemodel
 from repro_torch.runtime import traces as traces_lib
 from repro_torch.runtime.elastic import ClientPool
+from repro_torch.runtime.population import CohortSampler, PopulationStore
 from repro_torch.runtime.straggler import SpeedModel
 
 
@@ -142,17 +151,6 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _refuse_population(arch: ArchConfig, s: SystemConfig) -> None:
-    """NotImplementedError for population mode, the one SystemConfig
-    option the port does not run yet."""
-    population = _pick(s.population, arch.data.population) or 0
-    if population > 0:
-        raise NotImplementedError(
-            f"SystemConfig population={population} is not ported yet "
-            f"({roadmap.POPULATION}); the port runs fleet mode, where the "
-            "clients are the population")
-
-
 class SplitFTSystem:
     def __init__(self, arch: ArchConfig, sys_cfg: SystemConfig = None, *,
                  seed: int = 0, device: DeviceLike = None):
@@ -174,7 +172,6 @@ class SplitFTSystem:
         if self.controller not in ("accuracy", "co"):
             raise ValueError(f"unknown C3 controller "
                              f"{self.controller!r}; known: accuracy, co")
-        _refuse_population(arch, self.sys)
         use_ef = bool(_pick(self.sys.smashed_ef,
                             self.smashed_compress == "topk"))
         if use_ef and self.smashed_compress != "topk":
@@ -187,26 +184,48 @@ class SplitFTSystem:
         self.model = build_model(arch, device=self.device)
         n = arch.data.num_clients
         self.pool = ClientPool(n)
+        self.population = _pick(self.sys.population,
+                                arch.data.population) or 0
+        if 0 < self.population < n:
+            raise ValueError(
+                f"population={self.population} must be >= the cohort "
+                f"size (num_clients={n}); the engine's client axis IS "
+                "the cohort")
 
         # ---- data (C4) ----
         tok = HashTokenizer(arch.model.vocab_size)
         texts = synthetic_corpus(self.sys.num_samples, seed=arch.data.seed)
         self.samples = [np.asarray(tok.encode(t), np.int32) for t in texts]
+        # fleet mode partitions over the N clients; population mode over a
+        # fixed pool of shards, pid p streaming shard p % shards, so the
+        # cost is O(shards), not O(P), and pid p sees the same shard at
+        # any population size >= shards
+        self._n_shards = (n if not self.population
+                          else min(self.population, max(n, 256)))
         self.parts = partition_dataset(
-            [len(s) for s in self.samples], n, strategy=arch.data.partition,
-            alpha=arch.data.alpha, num_classes=arch.data.num_length_classes,
-            seed=arch.data.seed)
+            [len(s) for s in self.samples], self._n_shards,
+            strategy=arch.data.partition, alpha=arch.data.alpha,
+            num_classes=arch.data.num_length_classes, seed=arch.data.seed)
         eval_texts = synthetic_corpus(self.sys.eval_samples,
                                       seed=arch.data.seed + 777)
-        eval_tokens = [np.asarray(tok.encode(t), np.int32)
-                       for t in eval_texts]
-        self.loaders = make_client_loaders(
-            self.samples, self.parts, batch_size=arch.train.batch_size,
-            seq_len=arch.train.seq_len, seed=seed)
-        self.eval_loaders = make_client_loaders(
-            eval_tokens, [np.arange(len(eval_tokens))] * n,
-            batch_size=arch.train.batch_size,
-            seq_len=arch.train.seq_len, seed=seed + 999)
+        self._eval_tokens = [np.asarray(tok.encode(t), np.int32)
+                             for t in eval_texts]
+        if not self.population:
+            self.loaders = make_client_loaders(
+                self.samples, self.parts, batch_size=arch.train.batch_size,
+                seq_len=arch.train.seq_len, seed=seed)
+            self.eval_loaders = make_client_loaders(
+                self._eval_tokens, [np.arange(len(self._eval_tokens))] * n,
+                batch_size=arch.train.batch_size,
+                seq_len=arch.train.seq_len, seed=seed + 999)
+        else:
+            # loaders are built per pid on cohort install; the slots start
+            # with pids 0..n-1, exactly the first P == C cohort (which the
+            # sampler returns without consuming RNG)
+            self._loader_cache: Dict[int, ClientDataLoader] = {}
+            self._eval_loader_cache: Dict[int, ClientDataLoader] = {}
+            self.loaders = [self._loader_for(p) for p in range(n)]
+            self.eval_loaders = [self._eval_loader_for(p) for p in range(n)]
 
         # ---- round scheduler (policy) + straggler simulation ----
         self.overlap_comm = _pick(self.sys.overlap_comm,
@@ -344,6 +363,22 @@ class SplitFTSystem:
         self.history: List[Dict[str, Any]] = []
         self._adaptive = _pick(self.sys.adaptive, arch.split.adaptive)
 
+        # ---- fleet-scale population (cohort engine) ----
+        if self.population:
+            sp_kw = (dict(speed_sigma=self.speed.speed_sigma,
+                          bw_mean=self.speed.bw_mean,
+                          bw_sigma=self.speed.bw_sigma)
+                     if self.speed is not None else {})
+            self.store = PopulationStore(self.population, self.state,
+                                         seed=seed, **sp_kw)
+            self.sampler = CohortSampler(self.population, n, seed=seed)
+        else:
+            self.store = None
+            self.sampler = None
+        self._cohort_pids: Optional[np.ndarray] = None
+        self._cohort_cursors: Optional[np.ndarray] = None
+        self._cohort_scattered = True
+
     def _co_search_space(self, use_ef: bool):
         """The co-controller's search space (cut x rank x compressor) and
         the reference's checks on it, which hold for either controller."""
@@ -388,6 +423,105 @@ class SplitFTSystem:
                 "semantics); set smashed_ef=False")
 
     # ------------------------------------------------------------------
+    # fleet-scale population: cohort install / gather / scatter
+
+    def _loader_for(self, pid: int) -> ClientDataLoader:
+        """Per-pid train loader (population mode): pid p streams shard
+        p % shards with a pid-keyed seed, so its batch sequence survives
+        cohort churn.  With P == C this is make_client_loaders' seed + i
+        convention exactly."""
+        ld = self._loader_cache.get(pid)
+        if ld is None:
+            arch = self.arch
+            part = self.parts[pid % self._n_shards]
+            ld = ClientDataLoader([self.samples[j] for j in part],
+                                  batch_size=arch.train.batch_size,
+                                  seq_len=arch.train.seq_len,
+                                  seed=self.seed + pid)
+            if len(self._loader_cache) > 4 * len(self.pool.active):
+                self._loader_cache.clear()   # bound memory under churn
+            self._loader_cache[pid] = ld
+        return ld
+
+    def _eval_loader_for(self, pid: int) -> ClientDataLoader:
+        ld = self._eval_loader_cache.get(pid)
+        if ld is None:
+            arch = self.arch
+            ld = ClientDataLoader(self._eval_tokens,
+                                  batch_size=arch.train.batch_size,
+                                  seq_len=arch.train.seq_len,
+                                  seed=self.seed + 999 + pid)
+            if len(self._eval_loader_cache) > 4 * len(self.pool.active):
+                self._eval_loader_cache.clear()
+            self._eval_loader_cache[pid] = ld
+        return ld
+
+    def _install_cohort(self, pids: np.ndarray):
+        """Point the whole host side at a new cohort: gather the pids'
+        slots into engine state, recompute the derived per-client arrays
+        (edge assignment, C3 weights, loaders, speed draws) and drop the
+        per-cohort memo caches."""
+        pids = np.asarray(pids, np.int64)
+        self._cohort_pids = pids
+        self.state = self.store.gather(self.state, pids)
+        if "edge_assign" in self.state:
+            self.state["edge_assign"] = torch.as_tensor(
+                pids % self.num_edges, dtype=torch.int32)
+        self._cohort_cursors = self.store.cursors(pids)
+        self.c3_weights = self.store.c3_weights(pids)
+        self.loaders = [self._loader_for(int(p)) for p in pids]
+        self.eval_loaders = [self._eval_loader_for(int(p)) for p in pids]
+        self.sample_counts = np.array([l.num_samples()
+                                       for l in self.loaders], float)
+        if self.speed is not None:
+            sp, bw, js = self.store.speed_draws(pids)
+            self.speed.speed = sp
+            self.speed.bandwidth = bw
+            # pid-keyed jitter and trace series: both are attributes of
+            # the client, so they follow the pid into its slot
+            self.speed.jitter_seeds = js
+            self.speed.trace_pids = pids.copy()
+            # the pricer's model draws (and measured state) follow too
+            self.pricer.install_cohort(pids)
+        self._comm_cache = None
+        self._times_cache.clear()
+        self._cohort_scattered = False
+
+    def _pop_gather(self):
+        """Draw and install the next cohort (no-op in fleet mode)."""
+        if self.store is None:
+            return
+        if self._cohort_pids is not None and not self._cohort_scattered:
+            self._pop_scatter()        # never drop a live cohort
+        self._install_cohort(self.sampler.sample())
+
+    def _pop_scatter(self):
+        """Write the live cohort's state back into the store.  Idempotent:
+        a second call before the next gather is a no-op, so the checkpoint
+        inside _finish_round composes with the loop's own scatter."""
+        if self.store is None or self._cohort_pids is None \
+                or self._cohort_scattered:
+            return
+        sched = self.scheduler
+        if sched.name == "async" and sched.started:
+            cursors = sched.launches.copy()
+        else:
+            # every cohort member consumed batch index cursor_i this round
+            # (inactive and dropped clients advance too, as the fleet
+            # path's batch(r) stream does)
+            cursors = np.asarray(self._cohort_cursors) + 1
+        self.store.scatter(self.state, self._cohort_pids,
+                           cursors=cursors, c3_weights=self.c3_weights)
+        self._cohort_scattered = True
+
+    def _batch_index(self, i: int, r: int) -> int:
+        """Client slot i's batch index in barrier round r: the fleet path
+        streams by round, population mode by the pid's own cursor."""
+        if self._cohort_cursors is not None:
+            return int(self._cohort_cursors[i])
+        return r
+
+    # ------------------------------------------------------------------
     def combined_weights(self) -> np.ndarray:
         """FedAvg weight |D_i|/|D| x C3 weight w_i (paper formula 2)."""
         p = self.pool.weights(self.sample_counts)
@@ -399,13 +533,15 @@ class SplitFTSystem:
         return self.combined_weights().astype(np.float32)
 
     def _train_batch(self, r: int):
-        return stack_client_batches([l.batch(r) for l in self.loaders])
+        return stack_client_batches([l.batch(self._batch_index(i, r))
+                                     for i, l in enumerate(self.loaders)])
 
     def _train_batches(self, r: int, k: int):
         """(K, N, B, S) batch stack for the local-steps engine; inner step
         j of round r draws from the deterministic stream at r * K + j."""
-        steps = [stack_client_batches([l.batch(r * k + j)
-                                       for l in self.loaders])
+        steps = [stack_client_batches(
+                    [l.batch(self._batch_index(i, r) * k + j)
+                     for i, l in enumerate(self.loaders)])
                  for j in range(k)]
         return {key: np.stack([s[key] for s in steps]) for key in steps[0]}
 
@@ -711,6 +847,7 @@ class SplitFTSystem:
         k = self.scheduler.max_steps
         start = int(self.state["round"])
         for r in range(start, start + num_rounds):
+            self._pop_gather()         # population mode: next cohort in
             plan, cb = self._plan_round(r)
             t0 = self.sim_clock        # the round's launch instant
             batch = (self._train_batch(r) if k == 1
@@ -728,6 +865,7 @@ class SplitFTSystem:
                 self._observe_phases(r, plan.phases, plan.active, cb, t0)
             rec = self._round_record(r, metrics, plan, cb)
             self._finish_round(r, rec, log_every, callback)
+            self._pop_scatter()        # cohort rows back to their slots
         return self.history
 
     # ------------------------------------------------------------------
@@ -855,6 +993,10 @@ class SplitFTSystem:
             return
         n = self.pool.active.shape[0]
         sched.start(n, clock=self.sim_clock)
+        if self._cohort_cursors is not None:
+            # population mode: each slot resumes its pid's batch stream,
+            # so the launch counters are the cursors
+            self._launch_at_cursors()
         cuts_np = self._cuts()
         cb = self._cached_comm(cuts_np)
         # baseline for the flush record before anyone has completed
@@ -977,12 +1119,53 @@ class SplitFTSystem:
                 self._async_launch(i, cuts_np, cb)
         sched.pending_relaunch = []
 
+    def _launch_at_cursors(self):
+        """The async counters of a freshly started cohort at its pids'
+        cursors."""
+        sched = self.scheduler
+        cur = np.asarray(self._cohort_cursors, np.int64)
+        sched.launches = cur.copy()
+        sched.csched = cur.copy()
+        sched.cfin = cur.copy()
+
+    def _pop_async_boundary(self):
+        """Population mode at an aggregation: scatter the live cohort,
+        draw the next one and, only if its membership changed, restart
+        the event pipeline for it at the current clock.  An unchanged
+        cohort (P == C in particular) keeps its events in flight, as the
+        fleet event stream does."""
+        if self.store is None:
+            return
+        self._pop_scatter()
+        old = self._cohort_pids
+        pids = self.sampler.sample()
+        if old is not None and np.array_equal(pids, old):
+            self._cohort_pids = pids
+            self._cohort_scattered = False
+            return
+        self._install_cohort(pids)
+        sched = self.scheduler
+        n = self.pool.active.shape[0]
+        sched.start(n, clock=self.sim_clock)   # drops old in-flight work
+        self._launch_at_cursors()
+        sched.last_agg_clock = self.sim_clock
+        cuts_np = self._cuts()
+        cb = self._cached_comm(cuts_np)
+        sched.last_times = np.array(
+            [self._serial_time(i, int(sched.launches[i]), cuts_np, cb)
+             for i in range(n)])
+        for i in range(n):
+            if self.pool.active[i]:
+                self._async_launch(i, cuts_np, cb)
+
     def _run_async(self, num_rounds: int, *, log_every: int = 10,
                    callback: Optional[Callable] = None
                    ) -> List[Dict[str, Any]]:
         """Event-queue host loop: tick until the buffer flushes, one
         record per aggregation."""
         lr_c, lr_s = self._lrs()
+        if self.store is not None and self._cohort_pids is None:
+            self._pop_gather()         # first cohort before the pipeline
         self._async_ensure_started()
         if self.scheduler.last_times is None:
             # an older checkpoint without per-launch times: seed real
@@ -1010,6 +1193,7 @@ class SplitFTSystem:
             while rec is None:
                 rec = self._async_tick(r, lr_c, lr_s)
             self._finish_round(r, rec, log_every, callback)
+            self._pop_async_boundary()
             self._async_relaunch()
         return self.history
 
@@ -1041,12 +1225,14 @@ class SplitFTSystem:
             # mismatch instead of silently restarting from round 0
             "state_keys": sorted(self.state.keys()),
         }
-        if self.scheduler.name == "async":
+        if self.scheduler.name == "async" and self.store is None:
             # the event simulation (queue, launch counters, pipeline);
             # the buffer and version leaves are in the state.  A
             # mid-buffer save resumes the tick stream exactly: event keys
             # come back as tuples, clock floats bit for bit (JSON floats
-            # round-trip through repr)
+            # round-trip through repr).  Population mode instead restarts
+            # the pipeline from the restored cohort's cursors, which live
+            # in the store's slots.
             meta["async_sim"] = self.scheduler.state_dict()
         if self.speed is not None and self.speed.trace is not None:
             meta["trace"] = self.speed.trace.state_dict()
@@ -1054,18 +1240,41 @@ class SplitFTSystem:
             tm = self.pricer.state_dict()
             if tm:
                 meta["timemodel"] = tm
-        self.ckpt.save(step, self.state, metadata=meta)
+        if self.store is not None:
+            # the cohort's rows back to their slots first, so the slot map
+            # is the one source of per-pid state in the checkpoint
+            self._pop_scatter()
+            meta["population"] = self.store.population
+            meta["cohort"] = self.store.cohort
+            # the sampler's RNG state, so a restored run draws the same
+            # cohort sequence
+            meta["cohort_sampler"] = self.sampler.state_dict()
+            tree = {"engine": self.state, "pop": self.store.state_tree()}
+        else:
+            tree = self.state
+        self.ckpt.save(step, tree, metadata=meta)
 
     def restore(self) -> bool:
         """Resume from the newest loadable checkpoint; False when there is
         none.  Raises when checkpoints exist but were written with another
-        state template or scheduler."""
+        population, state template or scheduler."""
         assert self.ckpt is not None
-        got = self.ckpt.restore_latest(self.state)
+        like = (self.state if self.store is None
+                else {"engine": self.state, "pop": self.store.state_tree()})
+        got = self.ckpt.restore_latest(like)
         if got is None:
             steps = self.ckpt.steps()
             if steps:
                 meta = self.ckpt.metadata(steps[-1]) or {}
+                saved_pop = meta.get("population")
+                if saved_pop is not None and saved_pop != self.population:
+                    raise ValueError(
+                        f"checkpoint step {steps[-1]} was written with "
+                        f"population={saved_pop} but this run has "
+                        f"population={self.population or 'fleet mode'}; "
+                        "per-pid slot state is not transferable — "
+                        "resume with the original --population or use "
+                        "a fresh checkpoint dir")
                 saved = meta.get("scheduler")
                 if saved and saved != self.scheduler.name:
                     raise ValueError(
@@ -1082,14 +1291,38 @@ class SplitFTSystem:
                         f"{now_keys}; resume with the original config or "
                         "use a fresh checkpoint dir")
             return False
-        tree, meta, _ = got
-        self.state = bridge.state_from_numpy(tree, self.device)
+        tree, meta, step = got
+        if self.store is not None:
+            # the loud mismatch checks come after a successful load, so
+            # restore_latest's corruption fallback cannot swallow them
+            if meta.get("population") is not None \
+                    and int(meta["population"]) != self.population:
+                raise ValueError(
+                    f"checkpoint step {step} holds population="
+                    f"{meta['population']} but this run has "
+                    f"population={self.population}; pid state is not "
+                    "transferable — resume with the original "
+                    "--population or use a fresh checkpoint dir")
+            if "cohort_sampler" not in meta:
+                raise ValueError(
+                    f"checkpoint step {step} was written in fleet mode "
+                    "(no cohort sampler state) but this run sets "
+                    f"population={self.population}; resume without "
+                    "--population or use a fresh checkpoint dir")
+            self.sampler.load_state_dict(meta["cohort_sampler"])
+            self.state = bridge.state_from_numpy(tree["engine"], self.device)
+            self.store.load_state_tree(tree["pop"])
+            self._cohort_pids = None
+            self._cohort_cursors = None
+            self._cohort_scattered = True
+        else:
+            self.state = bridge.state_from_numpy(tree, self.device)
         self.c3_weights = np.asarray(meta.get("c3_weights",
                                               self.c3_weights))
         if "active" in meta:
             self.pool.active = np.asarray(meta["active"], bool)
         self.sim_clock = float(meta.get("sim_clock", 0.0))
-        if self.scheduler.name == "async":
+        if self.scheduler.name == "async" and self.store is None:
             self.scheduler.load_state_dict(meta.get("async_sim") or {})
         if self.speed is not None and self.speed.trace is not None \
                 and meta.get("trace") is not None:

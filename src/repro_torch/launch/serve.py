@@ -10,8 +10,10 @@ workload, runs the engine and prints latency and throughput.  With
 --ckpt the pool is a SplitFT checkpoint's per-client adapters (point it
 at a train run's <out>/ckpt): a SplitFTSystem of the same --arch and
 --seed, with the state template the checkpoint's metadata names
-(scheduler and state leaves), restores it and draws the base weights
-from the seed as the train run did.  The flags are the reference CLI's
+(scheduler, state leaves, population and cohort size), restores it and
+draws the base weights from the seed as the train run did; from a
+population checkpoint it serves pids 0..--adapters-1 from the restored
+store.  The flags are the reference CLI's
 (src/repro/launch/serve.py) plus --device (default: the card; the CPU
 runs only when asked for).
 """
@@ -19,6 +21,7 @@ runs only when asked for).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -52,9 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def checkpoint_config(ckpt_dir: str) -> dict:
     """SystemConfig fields whose state template matches the newest
-    checkpoint under `ckpt_dir`, from its metadata: the scheduler, and
-    the options that add state leaves (adapter and smashed error
-    feedback, edge groups, the co-controller's policy)."""
+    checkpoint under `ckpt_dir`, from its metadata: the scheduler, the
+    options that add state leaves (adapter and smashed error feedback,
+    edge groups, the co-controller's policy) and the population; under
+    "cohort", a population run's cohort size (the arch's num_clients)."""
     from repro_torch.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(ckpt_dir)
@@ -73,6 +77,9 @@ def checkpoint_config(ckpt_dir: str) -> dict:
         kw.update(controller="co", smashed_ef=False)
     if "topk_frac" in keys:
         kw.update(continuous_topk=True, compressor_buckets=("none", "topk"))
+    if meta.get("population"):
+        kw.update(population=int(meta["population"]),
+                  cohort=int(meta["cohort"]))
     return kw
 
 
@@ -92,23 +99,29 @@ def main(argv=None):
     if args.reduced:
         arch = reduced_cfg(arch)
     if args.ckpt:
+        kw = checkpoint_config(args.ckpt)
+        cohort = kw.pop("cohort", None)
+        if cohort:
+            arch = arch.replace(data=dataclasses.replace(
+                arch.data, num_clients=cohort))
         system = SplitFTSystem(
             arch, SystemConfig(num_samples=64, eval_samples=16,
-                               checkpoint_dir=args.ckpt,
-                               **checkpoint_config(args.ckpt)),
+                               checkpoint_dir=args.ckpt, **kw),
             seed=args.seed, device=args.device)
         if not system.restore():
             raise FileNotFoundError(f"no loadable checkpoint under "
                                     f"{args.ckpt}")
         model, params = system.model, system.base_params
-        pool = serving.pool_from_state(model, system.state)
-        n = serving.num_pool_adapters(pool)
-        if args.adapters > n:
-            raise ValueError(f"--adapters {args.adapters} exceeds the "
-                             f"checkpoint's {n} per-client adapters")
-        pool = {g: {t: {k: v[:, :args.adapters] for k, v in ad.items()}
-                    for t, ad in targets.items()}
-                for g, targets in pool.items()}
+        if system.store is not None:
+            pool = serving.pool_from_population(
+                model, system.state, system.store, range(args.adapters))
+        else:
+            pool = serving.pool_from_state(model, system.state)
+            n = serving.num_pool_adapters(pool)
+            if args.adapters > n:
+                raise ValueError(f"--adapters {args.adapters} exceeds the "
+                                 f"checkpoint's {n} per-client adapters")
+            pool = serving.pool_head(pool, args.adapters)
     else:
         model = build_model(arch, device=args.device)
         # independent generators per consumer, as the reference splits

@@ -10,6 +10,8 @@
       --continuous-topk --straggler-sim --jitter-sigma 0
   PYTHONPATH=src python -m repro_torch.launch.train --scheduler async \
       --buffer-size 3 --staleness-power 0.5 --overlap-comm --straggler-sim
+  PYTHONPATH=src python -m repro_torch.launch.train --population 1000 \
+      --cohort-size 5 --rounds 20
 
 Port of src/repro/launch/train.py: the same flags, plus --device (default:
 the card; the CPU runs only when asked for) and --remat (the round
@@ -18,10 +20,10 @@ mamba2-780m fits one card under "full").  It builds a
 repro_torch.core.system.SplitFTSystem, resumes from <out>/ckpt when a
 checkpoint is there, and writes <out>/history.jsonl (one row per round)
 and <out>/final.json in the reference's format.  Every scheduler
-(sync, deadline, local_steps, async), adapter --compress, --edge-groups
-and the smashed channel's error feedback (on with --smashed-compress
-topk, as in the reference) run; --population reaches SplitFTSystem's
-NotImplementedError, which names the ROADMAP item that ports it.
+(sync, deadline, local_steps, async), adapter --compress, --edge-groups,
+the smashed channel's error feedback (on with --smashed-compress topk,
+as in the reference) and population mode (--population P, a cohort of
+--cohort-size clients drawn each round) run.
 """
 
 from __future__ import annotations

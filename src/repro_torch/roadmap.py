@@ -12,5 +12,4 @@ def _item(title: str) -> str:
 
 
 SERVING = _item("Serving follow-ups")
-POPULATION = _item("Population and sharding")
 FAMILIES = _item("Remaining families, all reduced")

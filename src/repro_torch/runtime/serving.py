@@ -17,8 +17,8 @@ PyTorch runs eagerly, so the reference's retrace counters have no
 counterpart here; the kernel wrappers' launch counters show which kernels
 a run went through.  ``pool_from_state`` serves the per-client adapters
 of a training state (a SplitFTSystem, or its checkpoint through
-``launch/serve.py --ckpt``); ``pool_from_population`` waits for
-population mode.
+``launch/serve.py --ckpt``), ``pool_from_population`` those of chosen
+pids of a population run's store.
 """
 
 from __future__ import annotations
@@ -92,6 +92,28 @@ def pool_from_state(model, state: Params) -> Params:
         return split_lib.merge_adapters(
             model, state["client_adapters"], state["server_adapters"],
             state["cuts"], rank_cut=state.get("rank_cut"))
+
+
+def pool_head(pool: Params, n: int) -> Params:
+    """The pool's first n adapters."""
+    return {g: {t: {k: v[:, :n] for k, v in ad.items()}
+                for t, ad in targets.items()}
+            for g, targets in pool.items()}
+
+
+def pool_from_population(model, state: Params, store, pids: Sequence[int]
+                         ) -> Params:
+    """Serve chosen population members: gather their adapter rows from
+    the PopulationStore's slots into the engine state's client axis, then
+    build the pool for exactly those pids (row i serves pids[i])."""
+    pids = [int(p) for p in pids]
+    n = len(pids)
+    if n > store.cohort:
+        raise ValueError(
+            f"{n} pids exceed the store's client axis ({store.cohort}); "
+            "serve in groups of at most the training cohort size")
+    padded = pids + [pids[-1]] * (store.cohort - n)
+    return pool_head(pool_from_state(model, store.gather(state, padded)), n)
 
 
 def num_pool_adapters(pool: Params) -> int:

@@ -8,7 +8,7 @@ gives a dict, so a flat list of leaves (gradients from
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 Tree = Dict[str, Any]
 
@@ -25,6 +25,25 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_leaves_with_path(tree, prefix: Tuple[str, ...] = ()
+                          ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """(key path, leaf) in leaf order; a path joined with "/" is the
+    reference's leaf path (``jax.tree_util.tree_flatten_with_path``)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves_with_path(tree[k], prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def tree_map_with_path(fn: Callable, tree, prefix: Tuple[str, ...] = ()):
+    """fn(key path, leaf) applied leaf by leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], prefix + (str(k),))
+                for k in sorted(tree)}
+    return fn(prefix, tree)
 
 
 def tree_unflatten(like, leaves) -> Any:

@@ -74,7 +74,8 @@ def _arch(reduced, get_config, **split):
 
 def _port(sys_kw=None, *, like=None, **split):
     """The port's system at the quickstart's size on the CPU; with
-    `like`, starting from that reference system's weights and state."""
+    `like`, starting from that reference system's weights and state (in
+    population mode, its store's fresh slots too)."""
     t = t_system.SplitFTSystem(
         _arch(t_reduced, t_get_config, **split),
         t_system.SystemConfig(**DATA, **(sys_kw or {})), seed=0,
@@ -84,6 +85,11 @@ def _port(sys_kw=None, *, like=None, **split):
             jax.tree.map(np.asarray, like.base_params), "cpu")
         t.state = bridge.state_from_numpy(
             jax.tree.map(np.asarray, like.state), "cpu")
+        if t.store is not None:
+            t.store = type(t.store)(
+                t.population, t.state, seed=0,
+                speed_sigma=t.store.speed_sigma, bw_mean=t.store.bw_mean,
+                bw_sigma=t.store.bw_sigma)
     return t
 
 
@@ -237,27 +243,15 @@ def test_entry_point_without_device_raises_without_cuda(monkeypatch):
                                t_system.SystemConfig(**DATA))
 
 
-UNPORTED = [({"population": 10}, "Population and sharding")]
-
-
-@pytest.mark.parametrize("kw,title", UNPORTED,
-                         ids=[",".join(k) for k, _ in UNPORTED])
-def test_unported_options_raise_naming_their_roadmap_item(kw, title):
-    with pytest.raises(NotImplementedError,
-                       match=f'ROADMAP.md Queue A, "{title}"'):
-        t_system.SplitFTSystem(_arch(t_reduced, t_get_config),
-                               t_system.SystemConfig(**DATA, **kw),
-                               device="cpu")
-
-
-# the options UNPORTED used to list: each now builds the reference's state
+# the options the port once refused: each now builds the reference's state
 # template and runs two rounds from the reference's weights, with the
 # reference's records (the clock, comm bytes and budgets bit for bit)
 LIFTED = [{"compress": "topk"}, {"compress": "int8"}, {"agg_every": 2},
           {"smashed_compress": "topk"},
           {"smashed_ef": True, "smashed_compress": "topk"},
           {"edge_groups": 2}, {"max_local_steps": 2},
-          {"scheduler": "local_steps"}, {"scheduler": "async"}]
+          {"scheduler": "local_steps"}, {"scheduler": "async"},
+          {"population": 10}]
 
 
 @pytest.mark.parametrize("kw", LIFTED, ids=[",".join(k) for k in LIFTED])
@@ -356,14 +350,10 @@ CLI_FLAGS = [["--compress", "topk"], ["--scheduler", "async"],
 @pytest.mark.parametrize("flags", CLI_FLAGS,
                          ids=[f[0][2:] for f in CLI_FLAGS])
 def test_cli_unported_flags_raise(tmp_path, flags):
-    """Population mode still raises naming its ROADMAP item; the other
-    flags write the reference's history: the same rows, keys and comm
+    """The flags the port once refused, population mode's included, run
+    the CLI as the reference's does: the same history rows, keys and comm
     bytes."""
     argv = ["--reduced", "--rounds", "2", "--samples", "64"] + flags
-    if flags[0] == "--population":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-            t_train.main(argv + ["--out", str(tmp_path), "--device", "cpu"])
-        return
     assert j_train.main(argv + ["--out", str(tmp_path / "j")]) == 0
     assert t_train.main(argv + ["--out", str(tmp_path / "t"),
                                 "--device", "cpu"]) == 0
