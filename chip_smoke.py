@@ -41,7 +41,21 @@ at full width (random weights from a seed):
     at batch 1 per client, then 3 at the paper's batch 4 under remat
     "full" (and one step under "dots"), each peak of device memory under
     90% of the card; then the card-vs-CPU step at 2 layers and seq 512
-    (SSD chunk 256), with and without remat.
+    (SSD chunk 256), with and without remat;
+  * the dense family at head dim 128: llama3-8b at full width (8 of its
+    32 layers, RoPE, 32 heads over 8 kv heads, the 128256-wide untied
+    head under the chunked cross entropy), 3 rounds through
+    SplitFTSystem.run at the paper setting with int8 smashed activations,
+    then serving 4 adapters contiguous and paged, tokens checked against
+    the one-request reference, and the card-vs-CPU step at 2 layers;
+    opt-125m and gpt-neo-125m (the paper's generalizability models, gpt-
+    neo's 256-wide window on its odd layers) at full size, 3 rounds and 4
+    requests each, the prompts running past the window; and one
+    card-vs-CPU step each of phi4-mini (fp8 smashed, tied 200064-wide
+    head), qwen1.5-32b (QKV bias, 40 heads) and mistral-large (96 heads
+    over 8 at d_model 12288) at full width and 2 layers.  The flash
+    kernels are held against their plain versions at head dim 128 too,
+    at the tile edges and at llama3-8b's train, prefill and decode shapes.
 
 The launch counters are read around each path.  Every phase that fails
 raises, so the exit code is non-zero; without a GPU it exits 1 before
@@ -187,6 +201,33 @@ FLASH_EDGES = [(1, 1, 16, 0, 0), (15, 15, 32, 9, 4), (16, 16, 64, 0, 4),
                (17, 17, 16, 9, 0), (63, 63, 32, 0, 0), (64, 64, 64, 9, 4),
                (65, 65, 16, 0, 4), (200, 200, 32, 9, 0), (1, 200, 64, 0, 4),
                (200, 1, 64, 9, 4), (17, 65, 32, 0, 0), (65, 17, 16, 9, 0)]
+
+# the dense family at head dim 128 (llama3-8b, phi4-mini, qwen1.5-32b,
+# mistral-large) and the paper's generalizability models (opt-125m,
+# gpt-neo-125m).  Phase 9: llama3-8b at full width (32 heads over 8 kv
+# heads of 128), depth cut to LLAMA_LAYERS of 32 with the cut at 4 and
+# the config's cut buckets below LLAMA_LAYERS, the cross entropy over the
+# 128256-wide head in chunks of LLAMA_CE_CHUNK positions; the paper
+# setting otherwise (5 clients, batch 4, seq 512, r_cut 8, r_others 16,
+# the config's int8 smashed activations).  Phase 9b serves the same model.
+LLAMA_LAYERS, LLAMA_CUT, LLAMA_BUCKETS, LLAMA_CE_CHUNK = 8, 4, (2, 4), 128
+LLAMA_HEADS = (32, 8)
+# phase 10: opt-125m and gpt-neo-125m at full size and the paper setting;
+# gpt-neo's 256-wide window bites on its odd layers at seq 512, and the
+# served prompt of GEN_PROMPT tokens plus GEN_NEW runs decode past it
+GEN_ARCHS = ("opt-125m", "gpt-neo-125m")
+GEN_ROUNDS, GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 3, 288, 16, 320
+# phase 10b: one card-vs-CPU step each at full width, 2 layers, seq 64
+DENSE_STEP_ARCHS = ("phi4-mini-3.8b", "qwen1.5-32b", "mistral-large-123b")
+DENSE_STEP_SEQ = 64
+# the kernels' rows at head dim 128 in the result line: their launches
+# are those of phases 9, 9b and 10b's layers (every one at hd 128)
+HD128 = ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
+         "decode_attention_paged")
+
+
+def hd128(kname: str) -> str:
+    return f"{kname} (hd 128)"
 
 
 def log(msg: str) -> None:
@@ -366,7 +407,8 @@ def mma_build_report(_build, lib_path) -> None:
             smem = lib.decode_attention_smem(1, 64, c)
             what = (f"{'paged' if args[0] else 'contiguous'}, "
                     f"{lib.decode_attention_chunk()} positions per CTA, at "
-                    f"hd 64 group 1")
+                    f"hd 64 group 1 (at llama3-8b's hd 128 group 4: "
+                    f"{lib.decode_attention_smem(4, 128, c)} B)")
         else:
             kind = {"ssd_chunk_state": 0, "ssd_cb": 1,
                     "ssd_chunk_scan": 2}[name]
@@ -577,11 +619,12 @@ def main() -> int:
                 "int8_quantize_smashed": sops.int8_quantize_smashed,
                 "int8_dequantize_smashed": sops.int8_dequantize_smashed,
                 "ssd_scan": ssd_ops.ssd_scan_fwd}
-    worst = {k: 0.0 for k in wrappers}
+    rows_of = list(wrappers) + [hd128(k) for k in HD128]
+    worst = {k: 0.0 for k in rows_of}
 
     # -- phase 2: every kernel against its plain version ---------------------
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        errs = {k: 0.0 for k in wrappers}
+        errs = {k: 0.0 for k in rows_of}
         flash_cases = [(1, s, 12, 12, 0) for s in (128, 512, 1024)]
         flash_cases.append((2, 200, 8, 2, 50))          # ragged GQA + window
         for b, s, h, kvh, window in flash_cases:
@@ -625,6 +668,8 @@ def main() -> int:
         check_flash_edges(torch, rand, dname, dt, errs)
         check_training_kernels(torch, rand, dname, dt, errs)
         check_mamba2_kernels(torch, rand, dname, dt, errs)
+        check_hd128_kernels(torch, rand, dname, dt, dev, gen, errs)
+        check_dense_widths(torch, rand, dname, dt, gen, errs)
         log(f"phase 2 ({dname}, tol {TOL[dname]}): max |kernel - plain| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         if dname == "float32":
@@ -709,6 +754,7 @@ def main() -> int:
     rows["ssd_scan (batch 4)"] = time_ssd_kernel(torch, rand, worst,
                                                  SSD_PATH4)
     rows.update(time_mamba2_lora(torch, rand, worst))
+    rows.update(time_hd128_kernels(torch, F, rand, dev, gen, worst))
     for kname, row in rows.items():
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
@@ -746,7 +792,7 @@ def main() -> int:
     warm = [serving.Request(rid=1000 + i, adapter=i, tokens=reqs[i].tokens,
                             max_new=4) for i in range(2)]
 
-    launches = {k: 0 for k in wrappers}
+    launches = {k: 0 for k in rows_of}
     serve_kernels = ("flash_attention_fwd", "lora_matmul_indexed",
                      "decode_attention", "decode_attention_paged")
     tokens = {}
@@ -880,7 +926,28 @@ def main() -> int:
     small_step_check(torch, dev, "mamba2-780m", M_SEQ, MAMBA2_STEPS,
                      "phase 8")
 
-    # -- phase 9: results -----------------------------------------------------
+    # -- phase 9, 9b: llama3-8b at full width, training and serving ---------
+    system, got = llama_phase(torch, dev, wrappers, name, card)
+    add_launches(launches, got, hd=128)
+    add_launches(launches, llama_serving_phase(torch, dev, wrappers, name,
+                                               card, system), hd=128)
+    del system
+    small_step_check(torch, dev, "llama3-8b", SMALL_SEQ, LLAMA_STEPS,
+                     "phase 9 step", compressed="mean")
+
+    # -- phase 10: opt-125m and gpt-neo-125m, training and serving ----------
+    for arch_name in GEN_ARCHS:
+        add_launches(launches, generalizability_phase(
+            torch, dev, wrappers, name, card, arch_name), hd=64)
+
+    # -- phase 10b: phi4-mini, qwen1.5-32b, mistral-large, card vs CPU ------
+    for arch_name in DENSE_STEP_ARCHS:
+        comp = get_config(arch_name).split.smashed_compress
+        small_step_check(torch, dev, arch_name, DENSE_STEP_SEQ,
+                         [("none", "none", {}), (comp, comp, {})],
+                         "phase 10b", compressed="mean")
+
+    # -- phase 11: results ----------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
     lk = "src/repro/kernels/lora_matmul/kernel.py"
     da = "src/repro/kernels/decode_attention/kernel.py"
@@ -898,6 +965,8 @@ def main() -> int:
                "int8_dequantize_smashed": ("smashed_quant.cu", f"{sk}:129"),
                "ssd_scan": ("ssd_scan.cu",
                             "src/repro/kernels/ssd_scan/kernel.py:82")}
+    for kname in HD128:
+        sources[hd128(kname)] = sources[kname]
     kernels = []
     for kname, (src, replaces) in sources.items():
         row = rows[kname]
@@ -914,7 +983,7 @@ def main() -> int:
     return 0
 
 
-def profile_run(torch, serving, engine, reqs, name, card):
+def profile_run(torch, serving, engine, reqs, name, card, tag="phase 4"):
     """The same workload again on a warm engine under the profiler: the
     device-busy share of the serving wall time, and the top kernels."""
     again = [serving.Request(rid=2000 + r.rid, adapter=r.adapter,
@@ -922,12 +991,12 @@ def profile_run(torch, serving, engine, reqs, name, card):
              for r in reqs]
     wall, busy, by_name, _ = device_busy(torch, lambda: engine.run(again))
     if busy is None:
-        log(f"phase 4 profile [{name}, {card}]: device busy share not "
+        log(f"{tag} profile [{name}, {card}]: device busy share not "
             f"measured (the profiler recorded no device activity); wall "
             f"{wall:.3f} s")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"phase 4 profile [{name}, {card}]: contiguous run under "
+    log(f"{tag} profile [{name}, {card}]: contiguous run under "
         f"torch.profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"(idle share {1 - busy / wall:.3f}); top device time: "
         + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms" for k, v in top))
@@ -1531,16 +1600,28 @@ class HostTimer:
         return out
 
 
-def timed_system(torch, arch, dev, wrappers, sys_kw=None):
+def timed_system(torch, arch, dev, wrappers, sys_kw=None, ce_chunk=0):
     """SplitFTSystem on `arch` at full width on the card, random weights
     from SEED, the quickstart's data sizes, with TimedStep in place of its
     train and eval steps (and in population mode HostTimer in place of
-    its store's gather and scatter)."""
+    its store's gather and scatter).  ce_chunk > 0: the system builds its
+    steps with the chunked cross entropy (the round engine's memory knob,
+    which SystemConfig, like the reference's, does not name)."""
+    import functools
+
+    from repro_torch.core import rounds
     from repro_torch.core.system import SplitFTSystem, SystemConfig
 
-    system = SplitFTSystem(arch, SystemConfig(
-        num_samples=NUM_SAMPLES, eval_samples=EVAL_SAMPLES,
-        **(sys_kw or {})), seed=SEED, device=dev)
+    factories = rounds.make_train_step, rounds.make_eval_step
+    if ce_chunk:
+        rounds.make_train_step, rounds.make_eval_step = (
+            functools.partial(f, ce_chunk=ce_chunk) for f in factories)
+    try:
+        system = SplitFTSystem(arch, SystemConfig(
+            num_samples=NUM_SAMPLES, eval_samples=EVAL_SAMPLES,
+            **(sys_kw or {})), seed=SEED, device=dev)
+    finally:
+        rounds.make_train_step, rounds.make_eval_step = factories
     system.train_step = TimedStep(torch, system.train_step, wrappers)
     system.eval_step = TimedStep(torch, system.eval_step, wrappers)
     if system.store is not None:
@@ -1551,7 +1632,7 @@ def timed_system(torch, arch, dev, wrappers, sys_kw=None):
 
 def run_rounds(torch, arch, dev, wrappers, tag, name, card,
                host_profile=False, sys_kw=None, rounds=ROUNDS,
-               after_round=None):
+               after_round=None, ce_chunk=0):
     """`rounds` SplitFT rounds through SplitFTSystem.run on `arch` at full
     width (the sync scheduler and the accuracy controller unless sys_kw
     says otherwise): each round a train step, an eval step and the C3
@@ -1559,7 +1640,8 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
     round prints its wall time, the train- and eval-step times and the
     host share (round wall - train - eval: planning, comm bytes, C3,
     records); after_round(system, r), if given, checks the round and
-    returns more of its log line.  Then one more train + eval step of the
+    returns more of its log line.  ce_chunk: as timed_system's.  Then one
+    more train + eval step of the
     system's engine runs under the profiler on its last inputs, and with
     host_profile one more train step under the host profiler.  Returns
     (system, the launches over the rounds, [(policy, train-step
@@ -1567,7 +1649,7 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
     seconds] per round)."""
     t = arch.train
     t0 = time.perf_counter()
-    system = timed_system(torch, arch, dev, wrappers, sys_kw)
+    system = timed_system(torch, arch, dev, wrappers, sys_kw, ce_chunk)
     train, ev = system.train_step, system.eval_step
     n = arch.data.num_clients
     log(f"{tag}: {arch.name} {system.model.num_flat_layers} layers, {n} "
@@ -2467,11 +2549,13 @@ GPT2_STEPS = [("none", "none", {}), ("int8", "int8", {}),
               ("per-client policy", "policy", {})]
 MAMBA2_STEPS = [("none", "none", {}),
                 ("none, remat full", "none", dict(remat="full"))]
+LLAMA_STEPS = [("none", "none", {}), ("int8", "int8", {})]
 
 
-def small_step_check(torch, dev, arch_name, seq, steps, tag):
-    """Phases 6 and 8: one round's losses and adapter gradients at full
-    width and reduced depth (2 layers, 2 clients with cuts [1, 2], batch
+def small_step_check(torch, dev, arch_name, seq, steps, tag,
+                     compressed="elementwise"):
+    """Phases 6, 8, 9 and 10b: one round's losses and adapter gradients
+    at full width and reduced depth (2 layers, 2 clients with cuts [1, 2], batch
     SMALL_BATCH, 2 under microbatch 2, seq `seq`), on the card and on the
     CPU plain path from one state, for each of `steps`: a smashed
     compressor, with the memory knobs (remat, ce_chunk, microbatch), or
@@ -2488,7 +2572,12 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag):
     within fp32 noise of the k-th largest is kept on one side only.  The
     int8 and the policy's tolerances must stay below the CPU's own gap to
     the uncompressed step, so that a card step that skipped the
-    compression would fail them.
+    compression would fail them.  compressed="mean" (phases 9 and 10b, at
+    widths of 3072 to 12288, where one flipped int8 code moved a llama3-8b
+    gradient element by 2.8e-3 of max|g|, past int8's share) holds a
+    compressed step's gradients on average instead, as phase 6's engine
+    steps do: the mean card-vs-CPU distance below COMPRESSION_SEEN x the
+    CPU's mean gap to the uncompressed step; the losses stay at STEP_TOL.
     A remat step is also compared with the card's own step without remat,
     and whether they are bitwise is logged."""
     import dataclasses
@@ -2496,7 +2585,7 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag):
     from repro_torch.configs import get_config
     from repro_torch.core import rounds, smashed
     from repro_torch.models.model import build_model
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
     arch = get_config(arch_name)
     arch = arch.replace(
@@ -2508,9 +2597,13 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag):
     weights = np.array([0.25, 0.75], np.float32)
     buckets = CO_SYS["compressor_buckets"]
     out = {}
+    # one draw of the weights (on the CPU, as init_params draws them),
+    # copied to the card
+    cpu_params = build_model(arch, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED))
     for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
         model = build_model(arch, device=dv)
-        params = model.init_params(torch.Generator().manual_seed(SEED))
+        params = tree_map(lambda t: t.to(dv), cpu_params)
         state = rounds.init_state(model,
                                   torch.Generator().manual_seed(SEED + 3),
                                   num_clients=SMALL_CLIENTS)
@@ -2548,7 +2641,9 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag):
             out[role, label] = (met["ce"].cpu(), [
                 g.cpu() for g in tree_leaves(gc) + tree_leaves(gs)])
     for label, comp, kw in steps:
-        rtol, share = GRAD_TOL["topk" if comp == "policy" else comp]
+        elementwise = comp == "none" or compressed == "elementwise"
+        if elementwise:
+            rtol, share = GRAD_TOL["topk" if comp == "policy" else comp]
         (ce_k, g_k), (ce_c, g_c) = out["card", label], out["cpu", label]
         if not all(torch.isfinite(g).all() for g in g_k + g_c):
             raise RuntimeError(f"{tag} ({label}): non-finite adapter "
@@ -2562,7 +2657,7 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag):
             torch.testing.assert_close(
                 ce_k, ce_w, rtol=STEP_TOL, atol=0,
                 msg=lambda m: f"{tag} ({label}) card vs {what} losses: {m}")
-            for gk, gw in zip(g_k, g_w):
+            for gk, gw in zip(g_k, g_w) if elementwise else ():
                 torch.testing.assert_close(
                     gk, gw, rtol=rtol, atol=share * scale,
                     msg=lambda m: f"{tag} ({label}) card vs {what} adapter "
@@ -2570,7 +2665,22 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag):
             if what == "CPU":
                 worst = max(float((a - b).abs().max())
                             for a, b in zip(g_k, g_w))
-        if comp != "none" and not kw:
+        if comp != "none" and not elementwise:
+            def mean_dist(u, v):
+                return (sum(float((a - b).abs().sum()) for a, b in zip(u, v))
+                        / sum(a.numel() for a in u))
+            ratio = (mean_dist(g_k, g_c)
+                     / mean_dist(g_c, out["cpu", "none"][1]))
+            if not ratio < COMPRESSION_SEEN:
+                raise RuntimeError(
+                    f"{tag} ({label}): the card's mean |g - CPU| is {ratio:.3f}"
+                    f" x the CPU's mean gap to the step without compression, "
+                    f"not below {COMPRESSION_SEEN}")
+            log(f"{tag} ({label}): the card's mean gradient distance to the "
+                f"CPU is {ratio:.2e} x the CPU's mean gap to the step without "
+                f"compression (held below {COMPRESSION_SEEN}; elementwise "
+                f"max |diff| {worst / scale:.2e} of max|g|, not held)")
+        elif comp != "none" and not kw:
             gap = max(float((a - b).abs().max())
                       for a, b in zip(g_c, out["cpu", "none"][1])) / scale
             if gap <= share:
@@ -2592,8 +2702,418 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag):
             f"{2 if kw.get('microbatch', 1) > 1 else SMALL_BATCH} x seq "
             f"{seq}: card vs CPU losses {fmt(ce_k)} vs {fmt(ce_c)} (rtol "
             f"{STEP_TOL}); {len(g_k)} adapter gradients, max |diff| "
-            f"{worst:.3e} = {worst / scale:.2e} of max|g| (tol {rtol} "
-            f"relative + {share} of max|g|){bits}")
+            f"{worst:.3e} = {worst / scale:.2e} of max|g| ("
+            + (f"tol {rtol} relative + {share} of max|g|" if elementwise
+               else "held on average") + f"){bits}")
+
+
+def add_launches(launches, got, *, hd):
+    """Adds a path's launches to the result line's counts; at head dim
+    128 the flash and decode kernels' launches go to their hd-128 rows."""
+    for kname, c in got.items():
+        launches[hd128(kname) if hd == 128 and kname in HD128 else kname] += c
+
+
+def check_hd128_kernels(torch, rand, dname, dt, dev, gen, errs):
+    """Phase 2 at head dim 128: the flash forward and backward at
+    FLASH_EDGES' lengths, windows and offsets (B 2, GQA 4/2), at
+    llama3-8b's train step (B 20 = 5 clients x batch 4, S 512) and at its
+    serving prefill (B 1, S PROMPT), 32 heads over 8; the decode kernels at
+    its tick (SLOTS slots, cache lengths 128..156, windows 0 and 100),
+    contiguous and paged.  Each against its plain version; paged decode
+    equal to contiguous bit for bit.  Fills errs' hd-128 rows."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    h, kvh = LLAMA_HEADS
+    cases = [(2, sq, sk, 4, 2, window, q_offset)
+             for sq, sk, _, window, q_offset in FLASH_EDGES]
+    cases += [(20, 512, 512, h, kvh, 0, 0), (1, PROMPT, PROMPT, h, kvh, 0, 0)]
+    fwd, bwd = hd128("flash_attention_fwd"), hd128("flash_attention_bwd")
+    for b, sq, sk, hq, hk, window, q_offset in cases:
+        q, do = rand(b, sq, hq, 128, dtype=dt), rand(b, sq, hq, 128, dtype=dt)
+        k, v = rand(b, sk, hk, 128, dtype=dt), rand(b, sk, hk, 128, dtype=dt)
+        kw = dict(window=window, q_offset=q_offset)
+        what = (f"hd 128 B={b} Sq={sq} Sk={sk} H={hq} KVH={hk} "
+                f"window={window} q_offset={q_offset}")
+        out, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        r_out, r_lse = fops.ref.attention_fwd(q, k, v, **kw)
+        errs[fwd] = max(errs[fwd],
+                        max_err(torch, out, r_out, dname, f"flash {what}"),
+                        max_err(torch, lse, r_lse, dname,
+                                f"flash lse {what}"))
+        got = fops.flash_attention_bwd(q, k, v, r_out, r_lse, do, **kw)
+        want = fops.ref.attention_bwd(q, k, v, r_out, r_lse, do, **kw)
+        errs[bwd] = max([errs[bwd]] + [
+            max_err(torch, g, w, dname, f"flash bwd {what} d{n}")
+            for n, g, w in zip("qkv", got, want)])
+    lens = [128 + 4 * i for i in range(SLOTS)]
+    for window in (0, 100):
+        q, k, v, clen = decode_args(torch, rand, dt, dev, s=MAX_LEN, lens=lens,
+                                    heads=LLAMA_HEADS, hd=128)
+        kp, vp, pt = paged_args(torch, k, v, gen, dev, ps=PAGE)
+        what = f"hd 128 B={SLOTS} H={h} KVH={kvh} window={window}"
+        got = dops.decode_attention(q, k, v, clen, window=window)
+        paged = dops.decode_attention_paged(q, kp, vp, pt, clen,
+                                            window=window)
+        for kname, g, w in (
+                ("decode_attention", got, dops.ref.decode_attention(
+                    q, k, v, clen, window=window)),
+                ("decode_attention_paged", paged,
+                 dops.ref.decode_attention_paged(q, kp, vp, pt, clen,
+                                                 window=window))):
+            errs[hd128(kname)] = max(errs[hd128(kname)], max_err(
+                torch, g, w, dname, f"{kname} {what}"))
+        if not torch.equal(paged, got):
+            raise RuntimeError(f"paged decode differs from contiguous "
+                               f"decode ({what}, {dname})")
+    log(f"phase 2 ({dname}): hd 128 flash forward and backward at "
+        f"{len(cases)} shapes and decode at the llama3-8b tick: max "
+        f"|kernel - plain| " + ", ".join(
+            f"{k} {errs[hd128(k)]:.3e}" for k in HD128))
+
+
+def check_dense_widths(torch, rand, dname, dt, gen, errs):
+    """Phase 2 at llama3-8b's widths: the indexed LoRA at its tick and
+    prefill (M = SLOTS and PROMPT) and the fused LoRA forward at its eval
+    step (M = 10240), both from K = 4096 into N = 4096 (q, o) and 1024 (k,
+    v: 8 kv heads of 128) at r 16, each against its plain version; the
+    int8 quantizers at d = 4096 (G 5, M 2048) bit for bit.  At K = 4096
+    the indexed LoRA adds 64 K slices in order (12 at gpt2's 768); at d =
+    4096 the int8 kernels run 64 clusters a message."""
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.smashed_quant import ops as sops
+
+    kd, r, p = 4096, 16, len(RANKS)
+    mask = (torch.arange(r)[None, :] < torch.tensor(RANKS)[:, None]).float()
+    for n in (4096, 1024):
+        w = rand(kd, n, dtype=dt, scale=kd ** -0.5)
+        dev = w.device
+        a = (rand(p, kd, r, scale=r ** -0.5) * mask.to(dev)[:, None, :]
+             ).to(dt)
+        b = (rand(p, r, n, scale=0.02) * mask.to(dev)[:, :, None]).to(dt)
+        scale = (16.0 / torch.tensor(RANKS, dtype=torch.float32)).to(dev)
+        for m in (SLOTS, PROMPT):
+            x = rand(m, kd, dtype=dt)
+            ids = torch.randint(0, p, (m,), generator=gen,
+                                dtype=torch.int32).to(dev)
+            errs["lora_matmul_indexed"] = max(
+                errs["lora_matmul_indexed"],
+                max_err(torch, lops.lora_matmul_indexed(x, w, a, b, scale,
+                                                        ids),
+                        lops.ref.lora_matmul_indexed(x, w, a, b, scale, ids),
+                        dname, f"indexed LoRA M={m} K={kd} N={n}"))
+        x = rand(10240, kd, dtype=dt)
+        sc = torch.tensor(2.0, device=dev)
+        got = lops.lora_matmul_fwd(x, w, a[0], b[0], sc)
+        want = lops.ref.lora_matmul_fwd(x, w, a[0], b[0], sc)
+        errs["lora_matmul_fwd"] = max(
+            [errs["lora_matmul_fwd"]]
+            + [max_err(torch, g, wt, dname, f"fused LoRA {what} M=10240 "
+                       f"K={kd} N={n}", scaled=True)
+               for what, g, wt in zip(("y", "xa"), got, want)])
+    xs = rand(5, 4, 512, kd, dtype=dt)
+    x3 = xs.reshape(5, -1, kd)
+    q8, s8 = sops.int8_quantize_smashed(xs)
+    want_q, want_s = sops.ref.quantize(x3)
+    for kname, got, want in (
+            ("int8_quantize_smashed", q8.reshape(x3.shape), want_q),
+            ("int8_quantize_smashed", s8, want_s),
+            ("int8_dequantize_smashed",
+             sops.int8_dequantize_smashed(q8, s8, dt).reshape(x3.shape),
+             sops.ref.dequantize(want_q, want_s, dt)),
+            ("int8_roundtrip_smashed",
+             sops.int8_roundtrip_smashed(xs).reshape(x3.shape),
+             sops.ref.roundtrip(x3))):
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{kname} at d={kd} ({dname}) is not "
+                               f"bit-equal to its plain version")
+    log(f"phase 2 ({dname}): at llama3-8b's widths (K = 4096, N = 4096 and "
+        f"1024) the indexed LoRA (M = {SLOTS}, {PROMPT}) and the fused LoRA "
+        f"forward (M = 10240) agree with their plain versions, the int8 "
+        f"kernels (d = 4096) bit for bit")
+
+
+def time_hd128_kernels(torch, F, rand, dev, gen, errs):
+    """Phase 3 at head dim 128 (fp32), at llama3-8b's shapes (32 heads over
+    8): the flash forward and backward at its train step (B 20, S 512,
+    causal), the forward at its serving prefill (B 1, S PROMPT), and the
+    decode kernels at its tick (SLOTS slots, cache lengths 128..156),
+    contiguous and paged.  Each timed call's result is first held against
+    its plain version (errs takes the larger error).  The library call is
+    SDPA with enable_gqa (the backward through autograd)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    h, kvh = LLAMA_HEADS
+    hd = 128
+    fwd, bwd = hd128("flash_attention_fwd"), hd128("flash_attention_bwd")
+    rows = {}
+    for key, b, s, what in ((fwd, 20, 512, "the llama3-8b train step"),
+                            ("flash_attention_fwd (hd 128, prefill)", 1,
+                             PROMPT, "the llama3-8b serving prefill")):
+        q, k, v = rand(b, s, h, hd), rand(b, s, kvh, hd), rand(b, s, kvh, hd)
+        out, lse = fops.flash_attention_fwd(q, k, v)
+        r_out, r_lse = fops.ref.attention_fwd(q, k, v)
+        errs[fwd] = max(errs[fwd],
+                        max_err(torch, out, r_out, "float32", f"{key} out"),
+                        max_err(torch, lse, r_lse, "float32", f"{key} lse"))
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        pairs = b * h * s * (s + 1) // 2
+        shape = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal fp32 "
+                 f"({what})")
+        with torch.no_grad():
+            rows[key] = dict(
+                ms=cuda_ms(torch, lambda: fops.flash_attention_fwd(q, k, v),
+                           iters=20),
+                plain_ms=cuda_ms(torch, lambda: fops.ref.attention_fwd(
+                    q, k, v), iters=10),
+                library_ms=cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True),
+                    iters=20),
+                # read q, k, v; write out, lse.  Per visible pair: s, p v
+                **work(4 * (2 * b * s * (h + kvh) * hd + b * h * s),
+                       4 * hd * pairs, products=True),
+                shape=shape)
+        if key != fwd:
+            continue
+        do = rand(b, s, h, hd)
+        errs[bwd] = max([errs[bwd]] + [
+            max_err(torch, g, w, "float32", f"{bwd} d{n}")
+            for n, g, w in zip("qkv", fops.flash_attention_bwd(
+                q, k, v, out, lse, do), fops.ref.attention_bwd(
+                q, k, v, out, lse, do))])
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        do_t = do.transpose(1, 2).contiguous()
+        rows[bwd] = dict(
+            ms=cuda_ms(torch, lambda: fops.flash_attention_bwd(
+                q, k, v, out, lse, do), iters=20),
+            plain_ms=cuda_ms(torch, lambda: fops.ref.attention_bwd(
+                q, k, v, out, lse, do), iters=10),
+            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), do_t, retain_graph=True), iters=20),
+            # read q, k, v, out, do, lse; write dq, dk, dv.  Per visible
+            # pair: s, dp, dq, dk, dv, 2 hd FLOPs each
+            **work(4 * (4 * b * s * (h + kvh) * hd + b * h * s),
+                   10 * hd * pairs, products=True),
+            shape=shape + "; library = SDPA backward through autograd")
+        del o_lib, qt, kt, vt
+    lens = [128 + 4 * i for i in range(SLOTS)]
+    q1, kc, vc, clen = decode_args(torch, rand, torch.float32, dev,
+                                   s=MAX_LEN, lens=lens, heads=LLAMA_HEADS,
+                                   hd=hd)
+    kp, vp, pt = paged_args(torch, kc, vc, gen, dev, ps=PAGE)
+    for kname, fn, plain in (
+            ("decode_attention",
+             lambda: dops.decode_attention(q1, kc, vc, clen),
+             lambda: dops.ref.decode_attention(q1, kc, vc, clen)),
+            ("decode_attention_paged",
+             lambda: dops.decode_attention_paged(q1, kp, vp, pt, clen),
+             lambda: dops.ref.decode_attention_paged(q1, kp, vp, pt, clen))):
+        errs[hd128(kname)] = max(errs[hd128(kname)], max_err(
+            torch, fn(), plain(), "float32", f"{kname} hd 128"))
+    tot = sum(lens)
+    dec_bytes = 4 * (2 * SLOTS * h * hd + 2 * tot * kvh * hd + SLOTS)
+    dec_flops = 4 * tot * h * hd
+    mask = (torch.arange(MAX_LEN, device=dev)[None, :]
+            < clen[:, None])[:, None, None, :]
+    qs = q1[:, :, None, :]
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    shape = (f"B={SLOTS} S={MAX_LEN} H={h} KVH={kvh} hd={hd} cache_len "
+             f"{lens[0]}..{lens[-1]} fp32 (the llama3-8b decode tick)")
+    rows[hd128("decode_attention")] = dict(
+        ms=cuda_ms(torch, lambda: dops.decode_attention(q1, kc, vc, clen)),
+        plain_ms=cuda_ms(torch, lambda: dops.ref.decode_attention(
+            q1, kc, vc, clen)),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        passes=pass_ms(torch, lambda: dops.decode_attention(q1, kc, vc, clen),
+                       ("decode_kernel",), launches=True),
+        **work(dec_bytes, dec_flops), shape=shape)
+    rows[hd128("decode_attention_paged")] = dict(
+        ms=cuda_ms(torch, lambda: dops.decode_attention_paged(
+            q1, kp, vp, pt, clen)),
+        plain_ms=cuda_ms(torch, lambda: dops.ref.decode_attention_paged(
+            q1, kp, vp, pt, clen)),
+        library_ms=None,
+        passes=pass_ms(torch, lambda: dops.decode_attention_paged(
+            q1, kp, vp, pt, clen), ("decode_kernel",), launches=True),
+        **work(dec_bytes + 4 * pt.numel(), dec_flops),
+        shape=shape.replace("S=", f"ps={PAGE} S="))
+    return rows
+
+
+def llama_arch():
+    """llama3-8b at full width, LLAMA_LAYERS deep, cut LLAMA_CUT over the
+    buckets LLAMA_BUCKETS; the config's paper setting otherwise."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config("llama3-8b")
+    return arch.replace(
+        model=dataclasses.replace(arch.model, num_layers=LLAMA_LAYERS),
+        split=dataclasses.replace(arch.split, cut_layer=LLAMA_CUT,
+                                  cut_buckets=LLAMA_BUCKETS))
+
+
+def llama_phase(torch, dev, wrappers, name, card):
+    """Phase 9: ROUNDS SplitFT rounds on llama_arch() through
+    SplitFTSystem.run, the cross entropy in chunks of LLAMA_CE_CHUNK
+    positions in its train and eval steps.  A train step launches the
+    flash forward and backward once per layer and the int8 round trip
+    twice per distinct cut; an eval step the flash forward per layer and
+    the fused LoRA forward per layer and target.  The peak of device
+    memory must stay below PEAK_SHARE of the card.  Returns the system
+    (for phase 9b) and the launches of the rounds."""
+    arch = llama_arch()
+    m = arch.model
+    layers, targets = m.num_layers, len(arch.lora.targets)
+    log(f"phase 9: {arch.name} reduced to {layers} of 32 layers, cut "
+        f"{LLAMA_CUT} over buckets {LLAMA_BUCKETS}, ce_chunk "
+        f"{LLAMA_CE_CHUNK}; full width: d_model {m.d_model}, {m.num_heads} "
+        f"heads over {m.num_kv_heads} of {m.head_dim}, d_ff {m.d_ff}, vocab "
+        f"{m.vocab_size}, untied head, RoPE theta {m.rope_theta:g}")
+    system, got, per_round, times = run_rounds(
+        torch, arch, dev, wrappers, "phase 9", name, card,
+        ce_chunk=LLAMA_CE_CHUNK)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(
+        per_round,
+        lambda p: {"flash_attention_fwd": layers,
+                   "flash_attention_bwd": layers,
+                   "int8_roundtrip_smashed": 2 * len(set(p["cuts"]))},
+        {"flash_attention_fwd": layers, "lora_matmul_fwd": targets * layers},
+        "llama3-8b training")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak > PEAK_SHARE * total:
+        raise RuntimeError(f"phase 9: peaks at {peak / 2**30:.2f} GiB, over "
+                           f"{PEAK_SHARE} of the card's "
+                           f"{total / 2**30:.2f} GiB")
+    nonzero = lambda d: {k: c for k, c in d.items() if c}  # noqa: E731
+    log(f"phase 9 [{name}, {card}]: train step "
+        f"{fmt([t * 1e3 for _, t, _, _ in times])} ms, eval step "
+        f"{fmt([e * 1e3 for _, _, e, _ in times])} ms, host share per round "
+        f"{fmt([hst / w for w, _, _, hst in times])}; launches per train "
+        f"step {nonzero(per_round[-1][1])}, per eval step "
+        f"{nonzero(per_round[-1][2])}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB")
+    return system, got
+
+
+def serve_both(torch, dev, wrappers, model, params, pool, *, requests,
+               prompt, gen, max_len, tag, name, card):
+    """`requests` requests of `prompt` tokens and `gen` new ones, over the
+    pool's adapters in turn, through ServingEngine (SLOTS slots)
+    contiguous and paged (PAGE-token pages), each after a warm-up request:
+    each run must launch the flash forward, the indexed LoRA and its
+    decode kernel; paged tokens must equal contiguous, and contiguous
+    serial_reference.  Logs tokens/s and TTFT p50, and the contiguous
+    run's device-busy share under the profiler.  Returns the launches of
+    both runs."""
+    from repro_torch.runtime import serving
+
+    n = serving.num_pool_adapters(pool)
+    rng = np.random.default_rng(SEED + 2)
+    reqs = [serving.Request(rid=i, adapter=i % n,
+                            tokens=rng.integers(3, model.cfg.vocab_size,
+                                                size=prompt),
+                            max_new=gen) for i in range(requests)]
+    warm = [serving.Request(rid=1000, adapter=0, tokens=reqs[0].tokens,
+                            max_new=2)]
+    total = {k: 0 for k in wrappers}
+    tokens = {}
+    for page in (0, PAGE):
+        mode = "paged" if page else "contiguous"
+        engine = serving.ServingEngine(
+            model, params, pool,
+            serving.ServeConfig(num_slots=SLOTS, max_len=max_len,
+                                page_size=page), device=dev)
+        engine.run(warm)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k, c in counts.items():
+            total[k] += c
+        decode = "decode_attention_paged" if page else "decode_attention"
+        idle = [k for k in ("flash_attention_fwd", "lora_matmul_indexed",
+                            decode) if not counts[k]]
+        if idle:
+            raise RuntimeError(f"{tag} {mode} serving never launched {idle}")
+        tokens[mode] = [r["tokens"] for r in res]
+        n_tok = sum(len(t) for t in tokens[mode])
+        ttft = np.percentile([r["t_first"] - r["t_submit"] for r in res], 50)
+        log(f"{tag} {mode} [{name}, {card}]: {model.arch.name} "
+            f"{model.num_flat_layers} layers, {requests} requests x {gen} "
+            f"tokens (prompt {prompt}, {SLOTS} slots, max_len {max_len}) in "
+            f"{wall:.3f} s: {n_tok / wall:.1f} tokens/s, TTFT p50 "
+            f"{ttft * 1e3:.1f} ms; launches "
+            f"{ {k: c for k, c in counts.items() if c} }")
+        if not page:
+            profile_run(torch, serving, engine, reqs, name, card, tag=tag)
+        del engine
+    if tokens["paged"] != tokens["contiguous"]:
+        raise RuntimeError(f"{tag}: paged tokens differ from contiguous")
+    cut, _ = check_served_tokens(serving, model, params, pool, reqs,
+                                 tokens["contiguous"], max_len, tag)
+    log(f"{tag}: engine tokens equal serial_reference on {requests} "
+        f"requests ({cut} compared only up to a top-2 logit gap < "
+        f"{TOP2_GAP}); paged equal to contiguous")
+    return total
+
+
+def llama_serving_phase(torch, dev, wrappers, name, card, system):
+    """Phase 9b: phase 9's llama3-8b (its base weights) serving
+    N_REQUESTS requests of PROMPT tokens and GEN new ones over 4 adapters
+    of ranks RANKS, contiguous and paged.  Returns the launches."""
+    from repro_torch.runtime import serving
+
+    pool = serving.build_adapter_pool(
+        system.model, torch.Generator().manual_seed(SEED + 1), len(RANKS),
+        ranks=RANKS)
+    return serve_both(torch, dev, wrappers, system.model, system.base_params,
+                      pool, requests=N_REQUESTS, prompt=PROMPT, gen=GEN,
+                      max_len=MAX_LEN, tag="phase 9b", name=name, card=card)
+
+
+def generalizability_phase(torch, dev, wrappers, name, card, arch_name):
+    """Phase 10: GEN_ROUNDS SplitFT rounds on `arch_name` (opt-125m or
+    gpt-neo-125m) at full size and the paper setting of its config (5
+    clients, batch 4, seq 512, smashed "none") through SplitFTSystem.run:
+    flash forward and backward per layer in a train step, the flash and
+    fused LoRA forwards in an eval step.  Then TRAINED_REQUESTS requests of
+    GEN_PROMPT tokens and GEN_NEW new ones on the system's base weights
+    and 4 adapters (serve_both).  Returns the launches of both."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import serving
+
+    arch = get_config(arch_name)
+    layers = arch.model.num_layers
+    tag = f"phase 10 {arch_name}"
+    system, got, per_round, _ = run_rounds(torch, arch, dev, wrappers, tag,
+                                           name, card, rounds=GEN_ROUNDS)
+    check_launches(
+        per_round, lambda p: {"flash_attention_fwd": layers,
+                              "flash_attention_bwd": layers},
+        {"flash_attention_fwd": layers,
+         "lora_matmul_fwd": len(arch.lora.targets) * layers},
+        f"{arch_name} training")
+    pool = serving.build_adapter_pool(
+        system.model, torch.Generator().manual_seed(SEED + 1), len(RANKS),
+        ranks=RANKS)
+    served = serve_both(torch, dev, wrappers, system.model,
+                        system.base_params, pool, requests=TRAINED_REQUESTS,
+                        prompt=GEN_PROMPT, gen=GEN_NEW, max_len=GEN_MAX_LEN,
+                        tag=f"{tag} serving", name=name, card=card)
+    return {k: got[k] + served[k] for k in got}
 
 
 def lora_args(torch, rand, m, dt, gen):
@@ -2612,11 +3132,14 @@ def lora_args(torch, rand, m, dt, gen):
     return x, w, a, b, scale, ids
 
 
-def decode_args(torch, rand, dt, dev, *, s, lens):
-    b = len(lens)
-    q = rand(b, 12, 64, dtype=dt)
-    k = rand(b, s, 12, 64, dtype=dt)
-    v = rand(b, s, 12, 64, dtype=dt)
+def decode_args(torch, rand, dt, dev, *, s, lens, heads=(12, 12), hd=64):
+    """Decode inputs: q (B, H, hd), a contiguous cache (B, s, KVH, hd) and
+    cache lengths; gpt2-small's 12 heads of 64 unless heads = (H, KVH) and
+    hd say otherwise."""
+    b, (h, kvh) = len(lens), heads
+    q = rand(b, h, hd, dtype=dt)
+    k = rand(b, s, kvh, hd, dtype=dt)
+    v = rand(b, s, kvh, hd, dtype=dt)
     return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
 
 

@@ -18,14 +18,18 @@ from repro_torch.config import ArchConfig
 _REGISTRY: Dict[str, str] = {
     "gpt2-small": "gpt2_small",
     "mamba2-780m": "mamba2_780m",
+    "opt-125m": "opt_125m",
+    "gpt-neo-125m": "gpt_neo_125m",
+    "llama3-8b": "llama3_8b",
+    "phi4-mini-3.8b": "phi4_mini_3p8b",
+    "qwen1.5-32b": "qwen1p5_32b",
+    "mistral-large-123b": "mistral_large_123b",
 }
 
 # the reference's other registry ids: known, not yet ported
 _NOT_YET_PORTED = (
-    "internvl2-76b", "zamba2-1.2b", "qwen1.5-32b", "phi4-mini-3.8b",
-    "llama3-8b", "mistral-large-123b", "kimi-k2-1t-a32b",
+    "internvl2-76b", "zamba2-1.2b", "kimi-k2-1t-a32b",
     "llama4-maverick-400b-a17b", "whisper-medium",
-    "opt-125m", "gpt-neo-125m",
 )
 
 

@@ -50,7 +50,10 @@
 //    fragments from there per k step, which keeps them out of registers;
 //  * s and dp are recomputed 32 columns at a time; with the own rows in
 //    shared memory a thread fits 2 CTAs per SM (__launch_bounds__) without
-//    spills; a warp skips the blocks outside its band;
+//    spills up to hd 64; a warp skips the blocks outside its band.  At hd
+//    128 the fp32 dq CTA takes 203 KB of shared memory, so one CTA fits
+//    an SM and the registers are held to that (the dk/dv accumulators
+//    alone are 128 registers); bf16's 104 KB fit two (bwd_min_ctas);
 //  * ragged tails of Sq and Sk are zero-filled and masked, so no shape has
 //    to divide a tile; accumulation is fp32 for fp32 and bf16 inputs.
 #include "flash_mma.cuh"
@@ -78,9 +81,15 @@ constexpr int dkv_smem_bytes() {
   return dq_smem_bytes<T, HD>() + LSE_BYTES;
 }
 
+// CTAs per SM the registers are held to (__launch_bounds__)
+template <typename T, int HD>
+constexpr int bwd_min_ctas() {
+  return HD <= 64 || sizeof(T) == 2 ? 2 : 1;
+}
+
 // dq for 64 query rows of one (b, h).
 template <typename T, int HD>
-__global__ void __launch_bounds__(32 * NW, 2)
+__global__ void __launch_bounds__(32 * NW, (bwd_min_ctas<T, HD>()))
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -239,7 +248,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dk and dv for 64 keys of one (b, kv head): the GQA group's heads and
 // the live query tiles are a loop inside the CTA.
 template <typename T, int HD>
-__global__ void __launch_bounds__(32 * NW, 2)
+__global__ void __launch_bounds__(32 * NW, (bwd_min_ctas<T, HD>()))
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -458,6 +467,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     case 64:
       return launch_hd<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq,
                               Sk, H, KVH, q_offset, causal, window, scale, s);
+    case 128:
+      return launch_hd<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq,
+                               Sk, H, KVH, q_offset, causal, window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -475,6 +487,7 @@ extern "C" int flash_bwd_smem(int dkv, int hd, int dtype) {
     case 16: dq = f32 ? dq_smem_bytes<float, 16>() : dq_smem_bytes<BF, 16>(); break;
     case 32: dq = f32 ? dq_smem_bytes<float, 32>() : dq_smem_bytes<BF, 32>(); break;
     case 64: dq = f32 ? dq_smem_bytes<float, 64>() : dq_smem_bytes<BF, 64>(); break;
+    case 128: dq = f32 ? dq_smem_bytes<float, 128>() : dq_smem_bytes<BF, 128>(); break;
     default: return -1;
   }
   return dkv ? dq + LSE_BYTES : dq;

@@ -36,7 +36,14 @@
 //    tile, on the accumulator fragments: row max by quad shuffles, exp2
 //    with log2(e) folded into the scale; the row sum stays per thread until
 //    the end.  32-key blocks keep the registers under 3 CTAs per SM
-//    (__launch_bounds__) without spills;
+//    (__launch_bounds__) without spills up to hd 64.  At hd 128 the Q
+//    fragments and the output accumulator double: in bf16 (70 KB of
+//    tiles) the registers are held to two CTAs per SM (fwd_min_ctas); in
+//    fp32 the Q fragments alone would be 64 registers beside the
+//    accumulator's 64, which spilled at 255, so the Q tile stays in a
+//    fifth shared-memory tile (169 KB: one CTA per SM) and a warp reads
+//    its fragments from there per k step, as the backward does
+//    (fwd_q_in_smem);
 //  * a warp skips the tiles and 32-key blocks outside the causal/window
 //    band of its 16 rows, the _tile_live predicate; whole tiles outside
 //    the CTA's band are never loaded;
@@ -56,13 +63,27 @@ using repro::fa::Mma;
 constexpr int NW = 4;   // warps per CTA, 16 query rows each
 constexpr int NS = 32;  // keys per online-softmax step
 
+// the Q tile read from shared memory per k step instead of registers
+template <typename T, int HD>
+__host__ __device__ constexpr bool fwd_q_in_smem() {
+  return HD > 64 && sizeof(T) == 4;
+}
+
+// two stages of K and V tiles, and the Q tile where it stays there
 template <typename T, int HD>
 constexpr int fwd_smem_bytes() {
-  return 4 * BK * (HD + repro::fa::Pad<T>::value) * sizeof(T);
+  return (fwd_q_in_smem<T, HD>() ? 5 : 4) * BK *
+         (HD + repro::fa::Pad<T>::value) * sizeof(T);
+}
+
+// CTAs per SM the registers are held to (__launch_bounds__)
+template <typename T, int HD>
+constexpr int fwd_min_ctas() {
+  return HD <= 64 ? 3 : sizeof(T) == 4 ? 1 : 2;
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(32 * NW, 3)
+__global__ void __launch_bounds__(32 * NW, (fwd_min_ctas<T, HD>()))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int Sq, int Sk, int H, int KVH,
@@ -111,18 +132,24 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                     Sk - k0, tid, 32 * NW);
   };
 
-  // the Q tile through stage 1's K buffer, the first K/V tile into stage 0
-  repro::fa::load_tile<T, HD, LD>(sm + 2 * TILE, qb + q0 * q_rs, q_rs, BQ,
-                                  Sq - q0, tid, 32 * NW);
+  // the Q tile through stage 1's K buffer (or into its own tile after
+  // the stages), the first K/V tile into stage 0
+  constexpr bool QS = fwd_q_in_smem<T, HD>();
+  T* qtile = sm + (QS ? 4 : 2) * TILE;
+  repro::fa::load_tile<T, HD, LD>(qtile, qb + q0 * q_rs, q_rs, BQ, Sq - q0,
+                                  tid, 32 * NW);
   if (ntiles > 0) load_kv(0, 0);
   repro::fa::cp_async_commit();
   repro::fa::cp_async_wait<0>();
   __syncthreads();
-  typename M::A qf[NKC];
+  const T* qsm = qtile + 16 * warp * LD;  // this warp's rows
+  typename M::A qf[QS ? 1 : NKC];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kc = 0; kc < NKC; ++kc)
-    qf[kc] = M::load_a(sm + 2 * TILE + 16 * warp * LD + kc * M::K, LD, g, t);
-  __syncthreads();
+    for (int kc = 0; kc < NKC; ++kc)
+      qf[kc] = M::load_a(qsm + kc * M::K, LD, g, t);
+    __syncthreads();
+  }
 
   // this warp's rows and their band of keys (none past Sq)
   const int w0 = q0 + 16 * warp;
@@ -154,7 +181,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < NN; ++n) repro::fa::zero(s[n]);
 #pragma unroll
       for (int kc = 0; kc < NKC; ++kc) {
-        const typename M::AP a = M::prep_a(qf[kc]);
+        typename M::AP a;
+        if constexpr (QS)
+          a = M::prep_a(M::load_a(qsm + kc * M::K, LD, g, t));
+        else
+          a = M::prep_a(qf[kc]);
 #pragma unroll
         for (int n = 0; n < NN; ++n)
           M::mma(s[n], a, M::prep_b(M::load_b_nk(
@@ -274,6 +305,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     case 64:
       return launch_hd<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, KVH, q_offset,
                               causal, window, scale, s);
+    case 128:
+      return launch_hd<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, KVH,
+                               q_offset, causal, window, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -289,6 +323,7 @@ extern "C" int flash_fwd_smem(int hd, int dtype) {
     case 16: return f32 ? fwd_smem_bytes<float, 16>() : fwd_smem_bytes<BF, 16>();
     case 32: return f32 ? fwd_smem_bytes<float, 32>() : fwd_smem_bytes<BF, 32>();
     case 64: return f32 ? fwd_smem_bytes<float, 64>() : fwd_smem_bytes<BF, 64>();
+    case 128: return f32 ? fwd_smem_bytes<float, 128>() : fwd_smem_bytes<BF, 128>();
     default: return -1;
   }
 }

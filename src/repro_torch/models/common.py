@@ -2,7 +2,7 @@
 LoRA-aware dense projection and the loss.
 
 Port of src/repro/models/common.py for one card: no sharding policy (there
-is no mesh), and the RoPE helpers wait for the first RoPE model.
+is no mesh).
 Parameters are nested dicts of tensors with the reference's names and
 layouts (``W`` is (d_in, d_out), per-group stacks keep the leading layer
 axis), so a JAX tree converted by ``repro_torch.bridge`` drops in as is.
@@ -105,6 +105,31 @@ def lora_dense(x, w, b=None, adapter=None):
     if b is not None:
         y = y + b
     return y
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (plain elementwise torch, as the reference's
+# are jnp outside any kernel)
+
+
+def rope_angles(positions, head_dim: int, theta: float):
+    """positions: (...,) int -> cos/sin of shape (..., head_dim // 2), fp32."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., T, H, hd); cos/sin: (..., T, hd//2) broadcast over heads.
+    The half-split layout (not interleaved), cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

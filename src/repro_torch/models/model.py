@@ -17,10 +17,12 @@ reference, as nested dicts of tensors with the reference's names):
   init_cache(lead, max_len, dtype)                -> cache
 
 Training activations carry the client axis first ((N, B, S, d)); caches
-are updated in place and returned.  This slice ports the dense decoder
-with learned positions (gpt2-small) and, for training, the SSM kind
-(mamba2-780m, ``models/ssm.py``).  The encoder, the MoE kind and SSM
-caches raise NotImplementedError with a pointer to ROADMAP.md.
+are updated in place and returned.  The port has the dense decoder
+(learned positions or RoPE, per-layer sliding windows, GQA: gpt2-small,
+opt-125m, gpt-neo-125m, llama3-8b, phi4-mini, qwen1.5-32b,
+mistral-large) and, for training, the SSM kind (mamba2-780m,
+``models/ssm.py``).  The encoder, the MoE kind and SSM caches raise
+NotImplementedError with a pointer to ROADMAP.md.
 
 Memory knobs of a train step, as in the reference:
 
@@ -170,10 +172,6 @@ def flat_runs(groups: Sequence[GroupSpec]) -> List[Tuple[str, int, int]]:
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
     if cfg.family not in ("dense", "ssm"):
         return f"the {cfg.family} family"
-    if cfg.use_rope:
-        return "RoPE"
-    if cfg.local_window:
-        return "sliding-window layers"
     return None
 
 
@@ -329,10 +327,17 @@ class Model(nn.Module):
                  else "none")
         stateful = bool(getattr(boundary, "stateful", False))
         bcarry = boundary.init() if stateful else None
-        cfg = self.cfg
         hi_total = self.num_flat_layers if layer_hi is None else layer_hi
         cache_len = cache["len"] if cache is not None else None
         pages = cache.get("pages") if cache is not None else None
+        rope = None
+        if self.cfg.use_rope:
+            # each slot's next position in decode, else 0..S-1 (a prefill
+            # starts every request at 0)
+            positions = (cache_len[..., None] if mode == "decode"
+                         else torch.arange(x.shape[-2], device=x.device))
+            rope = common.rope_angles(positions, self.cfg.head_dim,
+                                      self.cfg.rope_theta)
 
         flat_base = 0
         for name, lo, hi in self.runs:
@@ -353,7 +358,7 @@ class Model(nn.Module):
                         c_l["pages"] = pages
                 layer = functools.partial(
                     self._layer, g, i, p_l, ad_l, mode=mode, cache=c_l,
-                    boundary=boundary, fid=run_flat_lo + (i - lo))
+                    rope=rope, boundary=boundary, fid=run_flat_lo + (i - lo))
                 args = (x, bcarry) if stateful else (x,)
                 out = (layer(*args) if remat == "none"
                        else _recomputed(layer, *args, remat=remat))
@@ -368,9 +373,10 @@ class Model(nn.Module):
         return x, new_cache
 
     def _layer(self, g: GroupSpec, i: int, p_l, ad_l, x, bcarry=None, *,
-               mode: str, cache, boundary, fid: int):
-        """One layer of group g (local index i) and the cut-layer hook;
-        with a stateful hook, (x, carry) in and out."""
+               mode: str, cache, rope, boundary, fid: int):
+        """One layer of group g (local index i, whose attention window is
+        the group's per-layer window) and the cut-layer hook; with a
+        stateful hook, (x, carry) in and out."""
         cfg = self.cfg
         if g.kind == "ssm":
             out, _ = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
@@ -379,7 +385,7 @@ class Model(nn.Module):
         else:
             attn_out, _ = transformer.attention_apply(
                 p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
-                window=g.window_of(i), cache=cache)
+                window=g.window_of(i), rope=rope, cache=cache)
             x = x + attn_out
             if cfg.d_ff:
                 x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)

@@ -19,7 +19,7 @@ decode tick writes one position per slot instead of copying the cache.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -112,14 +112,18 @@ def _merge_heads(t):
 
 def attention_apply(p: Params, adapters: Optional[Params], x, *,
                     cfg: ModelConfig, mode: str, causal: bool, window: int,
+                    rope: Optional[Tuple[Any, Any]] = None,
                     cache: Optional[Params] = None, memory=None,
                     mem_cache: Optional[Params] = None):
     """One attention sub-block (pre-norm, residual added by the caller).
 
-    x: ([N,] B, S, d).  Returns (attn_out, new_cache).  cache: {"k": (B, Smax,
-    KVH, hd), "v": ..., "len": (B,)} for contiguous decode, or the paged
-    form {"k": (n_pages, ps, KVH, hd), "v": ..., "pages": (B, P_max),
-    "len": (B,)}; its k/v tensors are written in place."""
+    x: ([N,] B, S, d).  Returns (attn_out, new_cache).  rope: (cos, sin)
+    of the tokens' positions (``common.rope_angles``) or None; q and k are
+    rotated before any cache write, so the cache holds rotated keys.
+    cache: {"k": (B, Smax, KVH, hd), "v": ..., "len": (B,)} for contiguous
+    decode, or the paged form {"k": (n_pages, ps, KVH, hd), "v": ...,
+    "pages": (B, P_max), "len": (B,)}; its k/v tensors are written in
+    place."""
     if memory is not None or mem_cache is not None:
         raise NotImplementedError(
             "cross-attention (whisper) is not ported yet "
@@ -134,6 +138,10 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
                      kvh, hd)
     v = _split_heads(lora_apply(y, p["wv"], _ad(adapters, "v"), p.get("bv")),
                      kvh, hd)
+    if rope is not None:
+        cos, sin = rope
+        q = common.apply_rope(q, cos, sin)
+        k = common.apply_rope(k, cos, sin)
 
     new_cache = cache
     if mode == "decode" and cache is not None and "pages" in cache:

@@ -63,7 +63,7 @@ FLASH_SIZES = [(s, s) for s in (1, 15, 16, 17, 63, 64, 65, 200)] + [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 9])
 @pytest.mark.parametrize("q_offset", [0, 4])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("sq,sk", FLASH_SIZES)
 def test_flash_kernel_matches_plain(cuda, dtype, window, q_offset, hd, sq,
                                     sk):
@@ -314,7 +314,7 @@ def _flash_inputs(gen, dtype, b=2, sq=37, sk=41, h=4, kvh=2, hd=64):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 9])
 @pytest.mark.parametrize("q_offset", [0, 4])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("sq,sk", FLASH_SIZES)
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, window, q_offset, hd,
                                         sq, sk):
@@ -517,6 +517,87 @@ def test_round_grads_on_card_match_cpu(cuda):
     for gk, gc_ in zip(g_k, g_c):
         torch.testing.assert_close(gk.cpu(), gc_, rtol=1e-3,
                                    atol=1e-2 * scale)
+
+
+def _llama_hd128(window=0):
+    """Reduced llama3-8b at head dim 128: d_model 256 over 2 heads and 1
+    kv head (GQA 2:1), RoPE; with a window on its odd layers when asked
+    (gpt-neo's local_every_other on a RoPE model)."""
+    arch = reduced(get_config("llama3-8b"), layers=3, d_model=256,
+                   vocab=256, seq_len=48)
+    return arch.replace(model=dataclasses.replace(
+        arch.model, num_heads=2, num_kv_heads=1, head_dim=128,
+        local_window=window, local_every_other=bool(window)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 32])
+def test_dense_hd128_round_grads_on_card_match_cpu(cuda, window):
+    """One round's per-client losses and adapter gradients of reduced
+    llama3-8b at head dim 128 (the hd-128 flash kernels, RoPE, GQA 2:1,
+    and a 32-wide window on the odd layers at seq 48), uncompressed, on
+    the card and on the CPU plain path from one state.  Gradients to
+    1e-3 of the largest: fp32 sums in another order, and this reduced
+    model is ill-conditioned there (the CPU's own fp32 gradients sit
+    1.8e-4 of the largest from the same step with fp64 weights and
+    adapters)."""
+    arch = _llama_hd128(window)
+    rng = np.random.default_rng(10)
+    toks = rng.integers(3, 256, size=(3, 2, 49)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(arch, device=dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        state = rounds.init_state(model, torch.Generator().manual_seed(1),
+                                  num_clients=3)
+        gen = torch.Generator().manual_seed(2)
+        for side in ("client_adapters", "server_adapters"):
+            for targets in state[side].values():
+                for leaf in targets.values():
+                    leaf["B"] = _randn(gen, *leaf["B"].shape,
+                                       scale=0.05).to(dev)
+        state["cuts"] = torch.tensor([1, 2, 2], dtype=torch.int32)
+        _, met, gc, gs = rounds.round_grads(
+            model, params, state, batch, np.array([0.2, 0.3, 0.5]),
+            boundary=smashed.make_boundary(smashed.make_compressor("none"),
+                                           state["cuts"]))
+        out[str(dev)] = (met["ce"], tree_leaves(gc) + tree_leaves(gs))
+    (ce_k, g_k), (ce_c, g_c) = out[str(cuda)], out["cpu"]
+    torch.testing.assert_close(ce_k.cpu(), ce_c, rtol=1e-4, atol=1e-4)
+    scale = max(float(g.abs().max()) for g in g_c)
+    for gk, gc_ in zip(g_k, g_c):
+        torch.testing.assert_close(gk.cpu(), gc_, rtol=1e-3,
+                                   atol=1e-3 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [0, 8])
+def test_dense_hd128_engine_on_card_matches_serial_reference(cuda,
+                                                             page_size):
+    """Reduced llama3-8b at head dim 128 with a 32-wide window on its odd
+    layers, served on the card: prompts and generations past the window
+    through the hd-128 prefill and decode kernels, tokens equal to the
+    card's one-request serial reference up to a top-2 logit gap."""
+    model = build_model(_llama_hd128(32), device=cuda)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    pool = serving.build_adapter_pool(model, torch.Generator().manual_seed(1),
+                                      3, ranks=[4, 2, 4])
+    rng = np.random.default_rng(11)
+    reqs = [serving.Request(rid=i, adapter=i % 3,
+                            tokens=rng.integers(3, 250, size=20 + 5 * i),
+                            max_new=10) for i in range(4)]
+    res = serving.ServingEngine(
+        model, params, pool,
+        serving.ServeConfig(num_slots=2, max_len=48, page_size=page_size),
+        device=cuda).run(reqs)
+    want, logits = serving.serial_reference(model, params, pool, reqs,
+                                            max_len=48, return_logits=True)
+    for r in res:
+        top2 = torch.topk(logits[r["rid"]], 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(gaps))
+        assert r["tokens"][:upto] == want[r["rid"]][:upto]
 
 
 def _ssd_inputs(gen, dtype, b, s, h, p, g, n, dt_scale=1.0):

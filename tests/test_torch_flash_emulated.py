@@ -98,8 +98,17 @@ CASES = [(1, 1, 2, 1, 16, True, 0, 0), (17, 65, 4, 2, 32, True, 9, 4),
          (63, 200, 2, 1, 16, False, 9, 0)]
 
 
+# head dim 128 (the llama, phi4, qwen and mistral layers): GQA 4:1 with a
+# window and an offset over ragged lengths, a ragged non-causal block, and
+# GQA 2:1 causal past one 64-key tile
+CASES_128 = [(33, 80, 4, 1, 128, True, 17, 3),
+             (65, 17, 2, 2, 128, False, 0, 0),
+             (70, 70, 4, 2, 128, True, 0, 0)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", CASES + CASES_128,
+                         ids=lambda c: "-".join(map(str, c)))
 def test_emulated_kernels_match_plain(lib, dtype, case):
     sq, sk, h, kvh, hd, causal, window, q_offset = case
     q, k, v, do = _inputs(sq * 7 + sk, dtype, 1, sq, sk, h, kvh, hd)

@@ -73,7 +73,7 @@ def test_port_config_copy_matches_reference(shrink):
 
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_get_config("llama3-8b")
+        t_get_config("kimi-k2-1t-a32b")
     with pytest.raises(KeyError):
         t_get_config("no-such-model")
 
@@ -229,7 +229,8 @@ def test_model_without_device_raises_when_no_cuda(monkeypatch):
 
 
 def test_unported_model_paths_raise(pair):
-    """What the training slices left out raises: RoPE.  A stateful (error
+    """What the port leaves out raises: the MoE family (RoPE and sliding
+    windows run: tests/test_torch_dense_families.py).  A stateful (error
     feedback) cut boundary runs: its carry comes back from run_blocks,
     and remat, chunked cross entropy and the rest run too
     (tests/test_torch_memory_knobs.py, tests/test_torch_engine_options.py)."""
@@ -244,6 +245,6 @@ def test_unported_model_paths_raise(pair):
                                      mode="train", boundary=ef_boundary)
     assert float(carry) == sum(range(model_t.num_flat_layers))
     arch = t_reduced(t_get_config("gpt2-small"), **SMALL)
-    rope = arch.replace(model=dataclasses.replace(arch.model, use_rope=True))
-    with pytest.raises(NotImplementedError, match="RoPE"):
-        Model(rope, device="cpu")
+    moe = arch.replace(model=dataclasses.replace(arch.model, family="moe"))
+    with pytest.raises(NotImplementedError, match="the moe family"):
+        Model(moe, device="cpu")

@@ -197,8 +197,9 @@ def _edge_lens(lib):
 
 
 # (hd, H, KVH): GQA groups of 1, 4 (hd 16), 3 (hd 112: rows of 28 fp32
-# lanes) and 8 (hd 128)
-DECODE_SHAPES = [(64, 2, 2), (16, 8, 2), (112, 3, 1), (128, 8, 1)]
+# lanes), 8 (hd 128) and 4 (hd 128: llama3-8b's 32 / 8 heads)
+DECODE_SHAPES = [(64, 2, 2), (16, 8, 2), (112, 3, 1), (128, 8, 1),
+                 (128, 8, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
