@@ -55,7 +55,20 @@ at full width (random weights from a seed):
     head), qwen1.5-32b (QKV bias, 40 heads) and mistral-large (96 heads
     over 8 at d_model 12288) at full width and 2 layers.  The flash
     kernels are held against their plain versions at head dim 128 too,
-    at the tile edges and at llama3-8b's train, prefill and decode shapes.
+    at the tile edges and at llama3-8b's train, prefill and decode shapes;
+  * serving SSM models through the recurrent cache: full-width,
+    full-depth mamba2-780m, 4 requests (prompts of 300, 256, 37 and 2
+    tokens, 32 new each) from 2 adapters one at a time through
+    serial_reference (the SSD kernel with its final state in every
+    prefill, the conv window and the one-token recurrence in every
+    decode step), logits held against the card's own full forward, and
+    a 2-layer copy against the CPU;
+  * the hybrid family: full-width, full-depth zamba2-1.2b (32 SSD layers,
+    6 attention layers), 3 rounds through SplitFTSystem.run with fp8
+    smashed activations at cut 4, then the same requests served from the
+    trained adapters, a 2-layer card-vs-CPU round step and served logits.
+    The SSD kernel's final state is held against its plain version at
+    the prefill's chunk edges.
 
 The launch counters are read around each path.  Every phase that fails
 raises, so the exit code is non-zero; without a GPU it exits 1 before
@@ -220,6 +233,41 @@ GEN_ROUNDS, GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 3, 288, 16, 320
 # phase 10b: one card-vs-CPU step each at full width, 2 layers, seq 64
 DENSE_STEP_ARCHS = ("phi4-mini-3.8b", "qwen1.5-32b", "mistral-large-123b")
 DENSE_STEP_SEQ = 64
+# phases 11 and 12: SSM and hybrid models served one request at a time
+# (serial_reference: Model.prefill, then decode_step with the indexed
+# pool): prompts of 300 (a chunk of 256 and 44 more, zero-padded to 512),
+# 256 (one whole chunk), 37 and 2 (shorter than the conv window of 3)
+# tokens, SSM_NEW new tokens each, over 2 adapters (phase 11) or the
+# trained clients' (phase 12).  Their prefill-then-decode logits are held
+# against the card's own train-mode forward over the same tokens at
+# SSM_LOGITS_TOL: fp32, the same kernels, but the chunked scan over the
+# whole sequence against the prompt's scan and then the one-token
+# recurrence, so sums in another order through every layer; the served
+# tokens and logits of a 2-layer full-width model against the CPU plain
+# path at LOGITS_TOL, SSM_CPU_NEW new tokens each
+SSM_PROMPTS, SSM_NEW, SSM_CPU_NEW = (300, 256, 37, 2), 32, 8
+SSM_RANKS = [16, 8]
+SSM_MAX_LEN = max(SSM_PROMPTS) + SSM_NEW
+SSM_LOGITS_TOL = 1e-3
+# phase 12: zamba2-1.2b at full width and depth, 5 clients at batch
+# Z_BATCH x M_SEQ without remat (phase 7's setting), the config's cut 4
+# and fp8 smashed activations; its 2-layer card-vs-CPU step keeps an
+# attention layer (layers [SSD, attention])
+Z_BATCH = 1
+Z_SMALL_ATTN = (1,)
+# the SSD kernel's final state in phase 2: (B, S, H, P, G, N, chunk, true
+# length) with dt = 0 past the true length: a one-token prompt (chunk 1),
+# a 37-token one (chunk 37), a 300-token one zero-padded to 512 at chunk
+# 256 at mamba2's H/P/N and at zamba2's (H = P = N = 64)
+SSD_STATE_CASES = [(2, 3, 4, 16, 1, 32, 1, 3),
+                   (1, 37, 48, 64, 1, 128, 37, 37),
+                   (1, 512, 48, 64, 1, 128, 256, 300),
+                   (1, 512, 64, 64, 1, 64, 256, 300)]
+# phase 3: the prefill of a 300-token prompt (padded to 512) through the
+# SSD kernel with the final state, at mamba2's and zamba2's heads
+SSD_PREFILL = (1, 512, 48, 64, 1, 128, 256)
+SSD_PREFILL_Z = (1, 512, 64, 64, 1, 64, 256)
+
 # the kernels' rows at head dim 128 in the result line: their launches
 # are those of phases 9, 9b and 10b's layers (every one at hd 128)
 HD128 = ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
@@ -618,7 +666,8 @@ def main() -> int:
                 "int8_roundtrip_smashed": sops.int8_roundtrip_smashed,
                 "int8_quantize_smashed": sops.int8_quantize_smashed,
                 "int8_dequantize_smashed": sops.int8_dequantize_smashed,
-                "ssd_scan": ssd_ops.ssd_scan_fwd}
+                "ssd_scan": ssd_ops.ssd_scan_fwd,
+                "ssd_scan (final state)": ssd_ops.ssd_scan_fwd_state}
     rows_of = list(wrappers) + [hd128(k) for k in HD128]
     worst = {k: 0.0 for k in rows_of}
 
@@ -753,6 +802,11 @@ def main() -> int:
     rows["ssd_scan"] = time_ssd_kernel(torch, rand, worst, SSD_PATH)
     rows["ssd_scan (batch 4)"] = time_ssd_kernel(torch, rand, worst,
                                                  SSD_PATH4)
+    rows["ssd_scan (final state)"] = time_ssd_kernel(
+        torch, rand, worst, SSD_PREFILL, final_state=True)
+    rows["ssd_scan (final state, zamba2)"] = time_ssd_kernel(
+        torch, rand, worst, SSD_PREFILL_Z, final_state=True)
+    rows.update(time_ssm_lora(torch, rand, gen, worst))
     rows.update(time_mamba2_lora(torch, rand, worst))
     rows.update(time_hd128_kernels(torch, F, rand, dev, gen, worst))
     for kname, row in rows.items():
@@ -947,7 +1001,15 @@ def main() -> int:
                          [("none", "none", {}), (comp, comp, {})],
                          "phase 10b", compressed="mean")
 
-    # -- phase 11: results ----------------------------------------------------
+    # -- phase 11: mamba2-780m serving at full width and depth ---------------
+    add_launches(launches, mamba2_serving_phase(torch, dev, wrappers, name,
+                                                card), hd=64)
+
+    # -- phase 12: zamba2-1.2b at full width, training and serving ----------
+    add_launches(launches, zamba2_phase(torch, dev, wrappers, name, card),
+                 hd=64)
+
+    # -- results ----------------------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
     lk = "src/repro/kernels/lora_matmul/kernel.py"
     da = "src/repro/kernels/decode_attention/kernel.py"
@@ -964,7 +1026,9 @@ def main() -> int:
                "int8_quantize_smashed": ("smashed_quant.cu", f"{sk}:105"),
                "int8_dequantize_smashed": ("smashed_quant.cu", f"{sk}:129"),
                "ssd_scan": ("ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan/kernel.py:82")}
+                            "src/repro/kernels/ssd_scan/kernel.py:82"),
+               "ssd_scan (final state)": (
+                   "ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:82")}
     for kname in HD128:
         sources[hd128(kname)] = sources[kname]
     kernels = []
@@ -1419,6 +1483,28 @@ def check_mamba2_kernels(torch, rand, dname, dt, errs):
     log(f"phase 2 ({dname}): SSD cases' largest chunk decays "
         f"{[round(d, 1) for d in decays]} (past 88 the reference's "
         f"unmasked exp overflows)")
+    for b, s, h, p, g, n, chunk, true_len in SSD_STATE_CASES:
+        ins = ssd_inputs(torch, rand, b, s, h, p, g, n, dt)
+        ins[1][:, true_len:] = 0.0          # the zero-padded prompt tail
+        what = f"S={s} (prompt {true_len}) H={h} P={p} N={n} chunk={chunk}"
+        got = ssd_ops.ssd_scan(*ins, chunk=chunk, return_state=True)
+        same_bits(torch, "ssd_scan (final state)", got,
+                  ssd_ops.ssd_scan(*ins, chunk=chunk, return_state=True),
+                  what)
+        want = ssd_ops.ref.ssd_chunked(*ins, chunk=chunk, return_state=True)
+        if got[1].dtype != dt or not torch.isfinite(got[1].float()).all():
+            raise RuntimeError(f"SSD final state: {got[1].dtype} or "
+                               f"non-finite at {what} ({dname})")
+        e = max(max_err(torch, got[0], want[0], dname, f"ssd y {what}",
+                        scaled=True),
+                max_err(torch, got[1], want[1], dname,
+                        f"ssd final state {what}", scaled=True))
+        errs["ssd_scan (final state)"] = max(errs["ssd_scan (final state)"],
+                                             e)
+    log(f"phase 2 ({dname}): SSD final state (return_state=True) at "
+        f"{len(SSD_STATE_CASES)} prefill shapes (chunks 1, 37, 256 over a "
+        f"300-token prompt padded to 512; mamba2's and zamba2's heads): "
+        f"max |kernel - plain| {errs['ssd_scan (final state)']:.3e}")
     arch = get_config("mamba2-780m")
     r, d = arch.lora.r_others, arch.model.d_model
     for m, kd, n in ((arch.data.num_clients * batch * M_SEQ, kd, n)
@@ -1440,49 +1526,78 @@ def check_mamba2_kernels(torch, rand, dname, dt, errs):
             f"N={n} r={r}: max |kernel - plain| {e:.3e}")
 
 
-def time_ssd_kernel(torch, rand, errs, shape):
+def time_ssd_kernel(torch, rand, errs, shape, final_state=False):
     """Phase 3 for the SSD kernel at a mamba2 training path's shape (fp32;
-    SSD_PATH or SSD_PATH4): the timed call's result held against its plain
-    version on the
-    same inputs, then kernel and plain times beside the bound, the device
-    time of each of its four passes, and the FLOPs its MMAs execute beside
-    the bound's.  No PyTorch call computes the SSD scan: the library
-    column is null.
+    SSD_PATH or SSD_PATH4), or with final_state at a prefill's (a prompt
+    of SSM_PROMPTS[0] tokens zero-padded to S, dt = 0 on the padding;
+    SSD_PREFILL, SSD_PREFILL_Z) through ssd_scan(return_state=True): the
+    timed call's result held against its plain version on the same
+    inputs, then
+    kernel and plain times beside the bound, the device time of each of
+    its four passes, and the FLOPs its MMAs execute beside the bound's.
+    No PyTorch call computes the SSD scan: the library column is null.
 
-    Bound: read x, dt, A, B, C once and write y once; operations per
-    (b, h, chunk) are the inter-chunk term C . s (2 Q N P), the state
-    update (2 Q P N) and the causal half of M @ x (2 Q(Q+1)/2 P), and per
-    (b, group, chunk) the causal half of C . B (2 Q(Q+1)/2 N)."""
+    Bound: read x, dt, A, B, C once and write y (and the final state)
+    once; operations per (b, h, chunk) are the inter-chunk term C . s
+    (2 Q N P), the state update (2 Q P N) and the causal half of M @ x
+    (2 Q(Q+1)/2 P), and per (b, group, chunk) the causal half of C . B
+    (2 Q(Q+1)/2 N)."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     b, s, h, p, g, n, q = shape
     ins = ssd_inputs(torch, rand, b, s, h, p, g, n, torch.float32)
-    e = max_err(torch, ssd_ops.ssd_scan(*ins, chunk=q),
-                ssd_ops.ref.ssd_chunked(*ins, chunk=q), "float32",
-                "ssd at the path's shape", scaled=True)
-    errs["ssd_scan"] = max(errs["ssd_scan"], e)
+    if final_state:
+        ins[1][:, SSM_PROMPTS[0]:] = 0.0
+        kname = "ssd_scan (final state)"
+
+        def kernel():
+            return ssd_ops.ssd_scan(*ins, chunk=q, return_state=True)
+
+        def plain():
+            return ssd_ops.ref.ssd_chunked(*ins, chunk=q, return_state=True)
+        got, want = kernel(), plain()
+        e = max(max_err(torch, got[0], want[0], "float32",
+                        "ssd prefill y", scaled=True),
+                max_err(torch, got[1], want[1], "float32",
+                        "ssd prefill final state", scaled=True))
+    else:
+        kname = "ssd_scan"
+
+        def kernel():
+            return ssd_ops.ssd_scan(*ins, chunk=q)
+
+        def plain():
+            return ssd_ops.ref.ssd_chunked(*ins, chunk=q)
+        e = max_err(torch, kernel(), plain(), "float32",
+                    "ssd at the path's shape", scaled=True)
+    errs[kname] = max(errs[kname], e)
     nc, pairs = s // q, q * (q + 1) // 2
     cb_flops = b * nc * g * 2 * pairs * n
     flops = b * nc * h * (4 * q * n * p + 2 * pairs * p) + cb_flops
-    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n)
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                  + (b * h * p * n if final_state else 0))
     executed = ssd_executed_flops(b, s, h, p, g, n, q)
     if executed["cb"] > 2 * cb_flops:
         raise RuntimeError(f"SSD C.B^T executes {executed['cb']} FLOPs, "
                            f"over 2x the per-group {cb_flops}")
-    # the train step's use: the kernel forward, then the plain recompute
-    # backward (the difference of the two times is the backward's)
-    leaves = [t.clone().requires_grad_(True) for t in ins]
-    gy = rand(b, s, h, p)
-    fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-        ssd_ops.ssd_scan(*leaves, chunk=q), leaves, gy), iters=5, warmup=2)
+    use = "prefill with the final state"
+    if not final_state:
+        # the train step's use: the kernel forward, then the plain
+        # recompute backward (the difference of the two times is the
+        # backward's)
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        gy = rand(b, s, h, p)
+        fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ssd_ops.ssd_scan(*leaves, chunk=q), leaves, gy), iters=5,
+            warmup=2)
+        use = (f"kernel forward + plain recompute backward through autograd "
+               f"{fwd_bwd_ms:.4f} ms")
     with torch.no_grad():
         row = dict(
-            ms=cuda_ms(torch, lambda: ssd_ops.ssd_scan(*ins, chunk=q)),
-            plain_ms=cuda_ms(torch, lambda: ssd_ops.ref.ssd_chunked(
-                *ins, chunk=q), iters=10),
+            ms=cuda_ms(torch, kernel),
+            plain_ms=cuda_ms(torch, plain, iters=10),
             library_ms=None,
-            passes=pass_ms(torch, lambda: ssd_ops.ssd_scan(*ins, chunk=q),
-                           SSD_PASSES),
+            passes=pass_ms(torch, kernel, SSD_PASSES),
             **work(nbytes, flops, products=True),
             shape=f"B={b} S={s} H={h} P={p} G={g} N={n} chunk={q} fp32 "
                   f"({flops / 1e9:.2f} GFLOP in the bound, "
@@ -1493,10 +1608,52 @@ def time_ssd_kernel(torch, rand, errs, shape):
                   f"{cb_flops / 1e9:.3f}, chunk scan "
                   f"{executed['chunk_scan'] / 1e9:.2f}); "
                   f"{nbytes / 1e6:.1f} MB; "
-                  f"max |kernel - plain| {e:.3e}; kernel forward + plain "
-                  f"recompute backward through autograd "
-                  f"{fwd_bwd_ms:.4f} ms)")
+                  f"max |kernel - plain| {e:.3e}; {use})")
     return row
+
+
+def time_ssm_lora(torch, rand, gen, errs):
+    """Phase 3 for the indexed LoRA at the served SSD layers' ssm_in
+    (mamba2: K 1536, N 6448; zamba2: K 2048, N 8384) at a decode tick's
+    one row and a 300-token prefill, r_others 16 over 2 adapters (fp32):
+    the timed call held against its plain version, kernel and plain
+    times beside the bound (W read once, each used adapter's A and B,
+    x, y), and the kernels per call.  No PyTorch call computes the
+    per-row adapter product: the library column is null."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lora_matmul import ops as lops
+
+    rows = {}
+    r, n_pool = 16, len(SSM_RANKS)
+    for arch_name, kd, n in (("mamba2", 1536, 6448), ("zamba2", 2048, 8384)):
+        for m in (1, SSM_PROMPTS[0]):
+            x = rand(m, kd)
+            w = rand(kd, n, scale=kd ** -0.5)
+            a, bb = rand(n_pool, kd, r, scale=r ** -0.5), rand(n_pool, r, n,
+                                                               scale=0.02)
+            sc = torch.full((n_pool,), 2.0, device=x.device)
+            ids = torch.ones((1,), dtype=torch.int32, device=x.device)
+            x3 = x[None]
+            args = (x3, w, a, bb, sc, ids)
+            e = max_err(torch, lops.lora_matmul_indexed(*args),
+                        lops.ref.lora_matmul_indexed(*args), "float32",
+                        f"indexed lora ssm_in {arch_name} M={m}")
+            errs["lora_matmul_indexed"] = max(errs["lora_matmul_indexed"], e)
+            ctas = _build.library().lora_indexed_ctas(m, kd, n)
+            rows[f"lora_matmul_indexed ({arch_name} ssm_in, "
+                 f"{'decode' if m == 1 else 'prefill'})"] = dict(
+                ms=cuda_ms(torch, lambda: lops.lora_matmul_indexed(*args)),
+                plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_indexed(
+                    *args)),
+                library_ms=None,
+                passes=pass_ms(torch, lambda: lops.lora_matmul_indexed(*args),
+                               ("lora_indexed_kernel",), launches=True),
+                **work(4 * (m * kd + kd * n + kd * r + r * n + m * n + 2),
+                       2 * m * kd * n + 2 * m * r * (kd + n),
+                       products=m > 1),
+                shape=f"M={m} K={kd} N={n} r={r} P={n_pool} fp32, {ctas} "
+                      f"CTAs (max |kernel - plain| {e:.3e})")
+    return rows
 
 
 def time_mamba2_lora(torch, rand, errs):
@@ -1766,7 +1923,7 @@ def train_phase(torch, dev, wrappers, name, card):
     backward through autograd at the eval shape, on the system's served
     adapters.  Returns the launches of both, the rounds' times and the
     fleet run's records and final state (for phase 5i)."""
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
 
     fleet = {}
 
@@ -1783,10 +1940,22 @@ def train_phase(torch, dev, wrappers, name, card):
     check_launches(per_round, gpt2_train_launches, GPT2_EVAL_LAUNCHES,
                    "gpt2-small training")
 
-    # the fused LoRA backward at the eval shape: the gradient of the
-    # global model's eval loss w.r.t. its served (rank-2) adapters,
-    # through autograd on lora_dense (the round itself has no rank-2
-    # backward)
+    bwd = global_adapter_grad(torch, dev, wrappers, system, 48,
+                              "phase 5", name, card)
+    # the round's launches, and the fused LoRA backward from the gradient
+    # run (its forward launches are not the round's)
+    return {**got, "lora_matmul_bwd": bwd}, times, fleet
+
+
+def global_adapter_grad(torch, dev, wrappers, system, n_adapters, tag, name,
+                        card) -> int:
+    """The fused LoRA backward at the eval shape: the gradient of the
+    global model's eval loss w.r.t. its served (rank-2) adapters, through
+    autograd on lora_dense (the round itself has no rank-2 backward),
+    on the system's last eval batch.  Every gradient must be finite and
+    the backward kernel launch once per adapter.  Returns its launches."""
+    from repro_torch.tree import tree_leaves, tree_map
+
     for w in wrappers.values():
         w.launches = 0
     params, eff = system.serve_model()
@@ -1800,19 +1969,17 @@ def train_phase(torch, dev, wrappers, name, card):
         grads = torch.autograd.grad(per.sum(), tree_leaves(eff))
     torch.cuda.synchronize()
     if not all(torch.isfinite(g).all() for g in grads):
-        raise RuntimeError("non-finite global-adapter gradient")
+        raise RuntimeError(f"{tag}: non-finite global-adapter gradient")
     bwd = {k: w.launches for k, w in wrappers.items()}
-    if bwd["lora_matmul_bwd"] != 48:
-        raise RuntimeError(f"global-adapter gradient launched the fused "
-                           f"LoRA backward {bwd['lora_matmul_bwd']} times, "
-                           f"want 48")
-    log(f"phase 5 global-adapter gradient [{name}, {card}]: eval loss "
-        f"and its gradient w.r.t. the 48 served adapters in "
+    if bwd["lora_matmul_bwd"] != n_adapters:
+        raise RuntimeError(f"{tag}: the global-adapter gradient launched the "
+                           f"fused LoRA backward {bwd['lora_matmul_bwd']} "
+                           f"times, want {n_adapters}")
+    log(f"{tag} global-adapter gradient [{name}, {card}]: eval loss and "
+        f"its gradient w.r.t. the {n_adapters} served adapters in "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches "
         f"{ {k: c for k, c in bwd.items() if c} }")
-    # the round's launches, and the fused LoRA backward from the gradient
-    # run (its forward launches are not the round's)
-    return {**got, "lora_matmul_bwd": bwd["lora_matmul_bwd"]}, times, fleet
+    return bwd["lora_matmul_bwd"]
 
 
 def host_shares(times):
@@ -2055,6 +2222,15 @@ def async_phase(torch, dev, wrappers, name, card):
     return got
 
 
+def decided_steps(torch, logits) -> int:
+    """The steps of a generation before the first whose top-2 logits
+    ((n_new, V), the reference's) lie within TOP2_GAP: up to there fp32
+    sums in another order cannot pick the other token."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    gaps = (top2[:, 0] - top2[:, 1]).tolist()
+    return next((i for i, g in enumerate(gaps) if g < TOP2_GAP), len(gaps))
+
+
 def check_served_tokens(serving, model, params, pool, reqs, tokens,
                         max_len, what):
     """The engine's tokens against serial_reference, compared up to the
@@ -2067,10 +2243,7 @@ def check_served_tokens(serving, model, params, pool, reqs, tokens,
         model, params, pool, reqs, max_len=max_len, return_logits=True)
     cut = 0
     for r, got in zip(reqs, tokens):
-        top2 = torch.topk(logits[r.rid], 2, dim=-1).values
-        gaps = (top2[:, 0] - top2[:, 1]).tolist()
-        upto = next((i for i, g in enumerate(gaps) if g < TOP2_GAP),
-                    r.max_new)
+        upto = decided_steps(torch, logits[r.rid])
         cut += upto < r.max_new
         if got[:upto] != serial[r.rid][:upto]:
             raise RuntimeError(f"{what}: request {r.rid}: engine tokens "
@@ -2553,7 +2726,7 @@ LLAMA_STEPS = [("none", "none", {}), ("int8", "int8", {})]
 
 
 def small_step_check(torch, dev, arch_name, seq, steps, tag,
-                     compressed="elementwise"):
+                     compressed="elementwise", model_kw=None):
     """Phases 6, 8, 9 and 10b: one round's losses and adapter gradients
     at full width and reduced depth (2 layers, 2 clients with cuts [1, 2], batch
     SMALL_BATCH, 2 under microbatch 2, seq `seq`), on the card and on the
@@ -2579,7 +2752,8 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
     steps do: the mean card-vs-CPU distance below COMPRESSION_SEEN x the
     CPU's mean gap to the uncompressed step; the losses stay at STEP_TOL.
     A remat step is also compared with the card's own step without remat,
-    and whether they are bitwise is logged."""
+    and whether they are bitwise is logged.  model_kw: more fields of the
+    reduced model config (a hybrid's attention layer indices)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2589,7 +2763,8 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
 
     arch = get_config(arch_name)
     arch = arch.replace(
-        model=dataclasses.replace(arch.model, num_layers=SMALL_LAYERS),
+        model=dataclasses.replace(arch.model, num_layers=SMALL_LAYERS,
+                                  **(model_kw or {})),
         split=dataclasses.replace(arch.split, cut_layer=1, cut_buckets=(1,)))
     rng = np.random.default_rng(SEED + 5)
     toks = rng.integers(3, arch.model.vocab_size,
@@ -3113,6 +3288,295 @@ def generalizability_phase(torch, dev, wrappers, name, card, arch_name):
                         system.base_params, pool, requests=TRAINED_REQUESTS,
                         prompt=GEN_PROMPT, gen=GEN_NEW, max_len=GEN_MAX_LEN,
                         tag=f"{tag} serving", name=name, card=card)
+    return {k: got[k] + served[k] for k in got}
+
+
+def ssm_requests(serving, vocab: int, n_adapters: int):
+    """Phases 11 and 12's requests: SSM_PROMPTS tokens, SSM_NEW new ones,
+    over the pool's adapters in turn."""
+    rng = np.random.default_rng(SEED + 11)
+    return [serving.Request(rid=i, adapter=i % n_adapters,
+                            tokens=rng.integers(3, vocab, size=plen),
+                            max_new=SSM_NEW)
+            for i, plen in enumerate(SSM_PROMPTS)]
+
+
+def serve_serially(torch, dev, wrappers, model, params, pool, tag, name,
+                   card, want_kernels):
+    """SSM_PROMPTS' requests through serial_reference on the card, one at
+    a time (prefill, then decode_step per token, through the indexed
+    pool), with the launch counters set to 0 just before and read just
+    after; every kernel of want_kernels must have launched.  Then each
+    request's prefill-then-decode logits are held against the card's own
+    train-mode forward over the same tokens (prompt and generated) at
+    SSM_LOGITS_TOL, and the longest request is served once more, timed:
+    prefill ms, and per decode step ms, hand-written kernel launches, and
+    device kernels and busy share under the profiler.  Returns the
+    launches of the serial run."""
+    from repro_torch.runtime import serving
+
+    reqs = ssm_requests(serving, model.cfg.vocab_size,
+                        serving.num_pool_adapters(pool))
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens, logits = serving.serial_reference(
+        model, params, pool, reqs, max_len=SSM_MAX_LEN, return_logits=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: w.launches for k, w in wrappers.items()}
+    idle = [k for k in want_kernels if not got[k]]
+    if idle:
+        raise RuntimeError(f"{tag}: serving never launched {idle}")
+    worst = 0.0
+    with torch.no_grad():
+        for r in reqs:
+            if not torch.isfinite(logits[r.rid]).all():
+                raise RuntimeError(f"{tag}: non-finite logits, request "
+                                   f"{r.rid}")
+            seq = np.concatenate([r.tokens, tokens[r.rid][:-1]])
+            toks = torch.as_tensor(seq[None].astype(np.int32), device=dev)
+            x = model.forward(params, serving.attach_ids(pool, [r.adapter]),
+                              {"tokens": toks})[0]
+            full = model.head(params, x[0, len(r.tokens) - 1:]).float().cpu()
+            torch.testing.assert_close(
+                logits[r.rid], full, rtol=SSM_LOGITS_TOL, atol=SSM_LOGITS_TOL,
+                msg=lambda m: f"{tag}: request {r.rid} (prompt "
+                              f"{len(r.tokens)}) prefill + decode vs the "
+                              f"full forward: {m}")
+            worst = max(worst, float((logits[r.rid] - full).abs().max()))
+    n_tok = sum(len(t) for t in tokens.values())
+    log(f"{tag} [{name}, {card}]: {model.arch.name} "
+        f"{model.num_flat_layers} layers, {len(reqs)} requests (prompts "
+        f"{list(SSM_PROMPTS)}) x {SSM_NEW} tokens through serial_reference "
+        f"in {wall:.3f} s ({n_tok / wall:.1f} tokens/s); prefill + decode "
+        f"logits vs the card's train-mode forward over the same tokens: "
+        f"max |diff| {worst:.3e} (tol {SSM_LOGITS_TOL}); launches "
+        f"{ {k: c for k, c in got.items() if c} }")
+
+    # the longest request again, timed step by step
+    req = reqs[0]
+    ad = serving.attach_ids(pool, [req.adapter])
+    toks = torch.as_tensor(np.asarray(req.tokens, np.int32)[None],
+                           device=dev)
+    step_ms, per_tok = [], []
+    with torch.no_grad():
+        cache = model.init_cache((1,), SSM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, ad, {"tokens": toks}, cache)
+        tok = int(torch.argmax(lg[0, -1]))
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for _ in range(SSM_NEW - 1):
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(
+                params, ad, torch.tensor([[tok]], dtype=torch.int32,
+                                         device=dev), cache)
+            tok = int(torch.argmax(lg[0, -1]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            per_tok.append({k: w.launches - before[k]
+                            for k, w in wrappers.items()
+                            if w.launches - before[k]})
+        one = torch.tensor([[tok]], dtype=torch.int32, device=dev)
+        dwall, busy, _, kernels = device_busy(
+            torch, lambda: model.decode_step(params, ad, one, cache))
+    busy_txt = ("device busy not measured (no profiler activity)"
+                if busy is None else
+                f"{sum(kernels.values())} device kernels, device busy "
+                f"{busy * 1e3:.2f} ms of {dwall * 1e3:.2f} ms (idle share "
+                f"{1 - busy / dwall:.3f})")
+    log(f"{tag} timing [{name}, {card}]: prompt {len(req.tokens)}: "
+        f"prefill (first token on the host) {prefill_ms:.2f} ms; decode "
+        f"step ms p50 {np.percentile(step_ms, 50):.2f} (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}) over "
+        f"{len(step_ms)} steps; hand-written kernel launches per token "
+        f"{per_tok[-1]}; one decode step under the profiler: {busy_txt}")
+    return got
+
+
+def ssm_card_vs_cpu(torch, dev, arch, pool_ranks, tag):
+    """A 2-layer, full-width copy of `arch` served on the card and on the
+    CPU plain path from one draw of weights and adapters: SSM_PROMPTS'
+    requests with SSM_CPU_NEW new tokens each through serial_reference;
+    logits at LOGITS_TOL and tokens equal up to a top-2 gap of TOP2_GAP."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import serving
+    from repro_torch.tree import tree_map
+
+    cpu_model = build_model(arch, device="cpu")
+    cpu_params = cpu_model.init_params(torch.Generator().manual_seed(SEED))
+    cpu_pool = serving.build_adapter_pool(
+        cpu_model, torch.Generator().manual_seed(SEED + 1), len(pool_ranks),
+        ranks=pool_ranks)
+    model = build_model(arch, device=dev)
+    params = tree_map(lambda t: t.to(dev), cpu_params)
+    pool = tree_map(lambda t: t.to(dev), cpu_pool)
+    reqs = [serving.Request(rid=r.rid, adapter=r.adapter, tokens=r.tokens,
+                            max_new=SSM_CPU_NEW)
+            for r in ssm_requests(serving, arch.model.vocab_size,
+                                  len(pool_ranks))]
+    out = {}
+    for role, mdl, prm, pl in (("card", model, params, pool),
+                               ("cpu", cpu_model, cpu_params, cpu_pool)):
+        out[role] = serving.serial_reference(
+            mdl, prm, pl, reqs, max_len=SSM_MAX_LEN, return_logits=True)
+    (tok_k, log_k), (tok_c, log_c) = out["card"], out["cpu"]
+    worst, cut = 0.0, 0
+    for r in reqs:
+        torch.testing.assert_close(
+            log_k[r.rid], log_c[r.rid], rtol=LOGITS_TOL, atol=LOGITS_TOL,
+            msg=lambda m: f"{tag}: card vs CPU logits, request {r.rid}: {m}")
+        worst = max(worst, float((log_k[r.rid] - log_c[r.rid]).abs().max()))
+        upto = decided_steps(torch, log_c[r.rid])
+        cut += upto < r.max_new
+        if tok_k[r.rid][:upto] != tok_c[r.rid][:upto]:
+            raise RuntimeError(f"{tag}: request {r.rid}: card tokens "
+                               f"{tok_k[r.rid]} != CPU {tok_c[r.rid]}")
+    log(f"{tag}: {arch.name} full width, {arch.model.num_layers} layers, "
+        f"{len(reqs)} requests (prompts {list(SSM_PROMPTS)}) x "
+        f"{SSM_CPU_NEW} tokens on the card and the CPU: logits max |diff| "
+        f"{worst:.3e} (tol {LOGITS_TOL}); tokens equal ({cut} compared up "
+        f"to a top-2 gap < {TOP2_GAP})")
+
+
+def mamba2_serving_phase(torch, dev, wrappers, name, card):
+    """Phase 11: full-width, full-depth mamba2-780m (48 SSD layers)
+    serving SSM_PROMPTS' requests from 2 adapters (ranks SSM_RANKS) one at
+    a time: every prefill runs each layer's SSD kernel with the final
+    state and the indexed LoRA at ssm_in and ssm_out; every decode step
+    the conv window and the one-token recurrence (plain, as in the
+    reference) between indexed LoRA calls (serve_serially).  Then the
+    2-layer card-vs-CPU check.  Returns the launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import serving
+
+    arch = get_config("mamba2-780m")
+    model = build_model(arch, device=dev)
+    params = model.init_params(torch.Generator().manual_seed(SEED))
+    pool = serving.build_adapter_pool(
+        model, torch.Generator().manual_seed(SEED + 1), len(SSM_RANKS),
+        ranks=SSM_RANKS)
+    got = serve_serially(torch, dev, wrappers, model, params, pool,
+                         "phase 11", name, card,
+                         ("ssd_scan (final state)", "lora_matmul_indexed"))
+    layers = arch.model.num_layers
+    want = {"ssd_scan (final state)": layers * len(SSM_PROMPTS),
+            "lora_matmul_indexed": 2 * layers * len(SSM_PROMPTS) * SSM_NEW}
+    bad = {k: (got[k], c) for k, c in want.items() if got[k] != c}
+    others = {k: c for k, c in got.items() if c and k not in want}
+    if bad or others:
+        raise RuntimeError(f"phase 11 launches (got, want): {bad}; "
+                           f"unexpected: {others}")
+    del model, params, pool
+    small = arch.replace(model=dataclasses.replace(arch.model,
+                                                   num_layers=SMALL_LAYERS))
+    ssm_card_vs_cpu(torch, dev, small, SSM_RANKS, "phase 11 card vs CPU")
+    return got
+
+
+def zamba2_arch():
+    """zamba2-1.2b at full width and depth at batch Z_BATCH x M_SEQ."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config("zamba2-1.2b")
+    return arch.replace(train=dataclasses.replace(
+        arch.train, batch_size=Z_BATCH, seq_len=M_SEQ))
+
+
+def zamba2_phase(torch, dev, wrappers, name, card):
+    """Phase 12: full-width, full-depth zamba2-1.2b (32 SSD layers and
+    attention layers 5, 11, ..., 35 at head dim 64).  ROUNDS SplitFT rounds
+    through SplitFTSystem.run at 5 clients x batch Z_BATCH x seq M_SEQ
+    without remat, cut 4 over the config's buckets, fp8 smashed
+    activations (plain, as in the reference): a train step launches the
+    SSD kernel per SSD layer and the flash forward and backward per
+    attention layer; an eval step the SSD kernel and flash forward per
+    layer and the fused LoRA forward per layer and target.  The peak of
+    device memory must stay below PEAK_SHARE of the card.  Then the fused
+    LoRA backward through autograd at the eval shape (phase 5's global-
+    adapter gradient); then SSM_PROMPTS' requests served from the trained
+    per-client adapters (pool_from_state, serve_serially: the SSD kernel
+    with the final state, the indexed LoRA, the flash forward in the
+    prefill and the contiguous decode kernel at each tick); then a 2-layer
+    (SSD, attention) card-vs-CPU round step, uncompressed and under fp8,
+    and card-vs-CPU served logits.  Returns the launches."""
+    import dataclasses
+
+    from repro_torch.runtime import serving
+
+    arch = zamba2_arch()
+    m = arch.model
+    attn = len(m.attn_layer_indices)
+    ssd = m.num_layers - attn
+    n_ad = 2 * ssd + 4 * attn           # ssm_in, ssm_out; q, k, v, o
+    log(f"phase 12: {arch.name} at full width and depth: {ssd} SSD layers "
+        f"(d_inner {m.d_inner}, {m.ssm_heads} heads of {m.ssm_head_dim}, "
+        f"state {m.ssm_state}), attention layers {list(m.attn_layer_indices)}"
+        f" ({m.num_heads} heads of {m.head_dim}, d_ff {m.d_ff}), vocab "
+        f"{m.vocab_size}, untied head; batch {Z_BATCH} without remat, cut "
+        f"{arch.split.cut_layer} over {arch.split.cut_buckets}, smashed "
+        f"{arch.split.smashed_compress}")
+    system, got, per_round, times = run_rounds(torch, arch, dev, wrappers,
+                                               "phase 12", name, card)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(
+        per_round,
+        lambda p: {"ssd_scan": ssd, "flash_attention_fwd": attn,
+                   "flash_attention_bwd": attn},
+        {"ssd_scan": ssd, "flash_attention_fwd": attn,
+         "lora_matmul_fwd": n_ad},
+        "zamba2-1.2b training")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak > PEAK_SHARE * total:
+        raise RuntimeError(f"phase 12: peaks at {peak / 2**30:.2f} GiB, over "
+                           f"{PEAK_SHARE} of the card's "
+                           f"{total / 2**30:.2f} GiB")
+    nonzero = lambda d: {k: c for k, c in d.items() if c}  # noqa: E731
+    log(f"phase 12 [{name}, {card}]: train step "
+        f"{fmt([t * 1e3 for _, t, _, _ in times])} ms, eval step "
+        f"{fmt([e * 1e3 for _, _, e, _ in times])} ms, host share per round "
+        f"{fmt([hst / w for w, _, _, hst in times])}; launches per train "
+        f"step {nonzero(per_round[-1][1])}, per eval step "
+        f"{nonzero(per_round[-1][2])}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB "
+        f"(batch {Z_BATCH}, remat none)")
+
+    got["lora_matmul_bwd"] += global_adapter_grad(
+        torch, dev, wrappers, system, n_ad, "phase 12", name, card)
+
+    # serving the trained per-client adapters
+    pool = serving.pool_from_state(system.model, system.state)
+    served = serve_serially(
+        torch, dev, wrappers, system.model, system.base_params, pool,
+        "phase 12 serving", name, card,
+        ("ssd_scan (final state)", "lora_matmul_indexed",
+         "flash_attention_fwd", "decode_attention"))
+    n_req = len(SSM_PROMPTS)
+    want = {"ssd_scan (final state)": ssd * n_req,
+            "flash_attention_fwd": attn * n_req,
+            "decode_attention": attn * n_req * (SSM_NEW - 1),
+            "lora_matmul_indexed": n_ad * n_req * SSM_NEW}
+    bad = {k: (served[k], c) for k, c in want.items() if served[k] != c}
+    others = {k: c for k, c in served.items() if c and k not in want}
+    if bad or others:
+        raise RuntimeError(f"phase 12 serving launches (got, want): {bad}; "
+                           f"unexpected: {others}")
+    del system, pool
+
+    small = arch.replace(model=dataclasses.replace(
+        m, num_layers=SMALL_LAYERS, attn_layer_indices=Z_SMALL_ATTN))
+    small_step_check(torch, dev, "zamba2-1.2b", M_SEQ,
+                     [("none", "none", {}), ("fp8", "fp8", {})],
+                     "phase 12 step", compressed="mean",
+                     model_kw=dict(attn_layer_indices=Z_SMALL_ATTN))
+    ssm_card_vs_cpu(torch, dev, small, SSM_RANKS, "phase 12 card vs CPU")
     return {k: got[k] + served[k] for k in got}
 
 

@@ -1,10 +1,11 @@
 """Hand the JAX package's trees to the port, name for name, and back.
 
-The reference builds parameters, adapter pools and round-engine state as
-nested dicts of JAX arrays; given as numpy arrays (``np.asarray`` on every
-leaf), the same trees become the port's tensors here, with the same keys
-and layouts (``W`` (d_in, d_out), leading per-group layer axis, pool
-leaves (Lg, P, ...), client adapters (Lg, N, ...)).  Tests start both
+The reference builds parameters, adapter pools, decode caches and
+round-engine state as nested dicts of JAX arrays; given as numpy arrays
+(``np.asarray`` on every leaf), the same trees become the port's tensors
+here, with the same keys and layouts (``W`` (d_in, d_out), leading
+per-group layer axis, pool leaves (Lg, P, ...), client adapters (Lg, N,
+...), cache leaves (Lg, B, ...)).  Tests start both
 packages from the same weights and state this way, since ``jax.random``
 and ``torch.Generator`` draw different numbers from one seed.  This
 module imports neither JAX nor the JAX package.
@@ -71,6 +72,19 @@ def state_from_numpy(state: Tree, device: DeviceLike) -> Tree:
     for k, dtype in HOST_STATE.items():
         if k in state:
             out[k] = torch.from_numpy(np.array(state[k], dtype=dtype))
+    return out
+
+
+def cache_from_numpy(cache: Tree, device: DeviceLike) -> Tree:
+    """The reference's decode cache (``Model.init_cache`` and what prefill
+    and decode return) as the port's: "len" int32, each attention group's
+    "k"/"v" and each SSM group's "conv" window in their own dtype, its
+    "state" in fp32."""
+    out = params_from_numpy(cache, device)
+    out["len"] = out["len"].to(torch.int32)
+    for entry in out.values():
+        if isinstance(entry, dict) and "state" in entry:
+            entry["state"] = entry["state"].float()
     return out
 
 

@@ -24,11 +24,12 @@ _REGISTRY: Dict[str, str] = {
     "phi4-mini-3.8b": "phi4_mini_3p8b",
     "qwen1.5-32b": "qwen1p5_32b",
     "mistral-large-123b": "mistral_large_123b",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
 # the reference's other registry ids: known, not yet ported
 _NOT_YET_PORTED = (
-    "internvl2-76b", "zamba2-1.2b", "kimi-k2-1t-a32b",
+    "internvl2-76b", "kimi-k2-1t-a32b",
     "llama4-maverick-400b-a17b", "whisper-medium",
 )
 

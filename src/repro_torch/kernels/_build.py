@@ -118,9 +118,9 @@ SIGNATURES: Dict[str, List] = {
     "smashed_quant_ctas": [I, I],
     "smashed_dequant_ctas": [I, I, I],
     # x, dt, a, bm, c, y, cum workspace, states workspace (the chunk
-    # states, then the per-group C.B^T tiles), B, S, H, G, P, N, chunk,
-    # dtype_code, stream
-    "ssd_scan_fwd": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # states, then the per-group C.B^T tiles), final state (null, or
+    # (B*H, P, N) fp32), B, S, H, G, P, N, chunk, dtype_code, stream
+    "ssd_scan_fwd": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
     # pass (0 chunk state, 1 C.B^T, 2 chunk scan), head-dim tile (16, 32,
     # 64), N, chunk, dtype_code -> dynamic shared memory of a CTA (bytes)
     "ssd_scan_smem": [I, I, I, I, I],

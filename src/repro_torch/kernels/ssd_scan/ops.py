@@ -10,6 +10,12 @@ On the card the scan is a ``torch.autograd.Function``, the reference's
 backward recomputes the plain ``ref.ssd_chunked`` under autograd and
 returns its gradients.  The reference has no backward kernel either (its
 backward is ``jax.vjp`` of its chunked oracle).
+
+``return_state=True`` (prefill into a serving cache) runs the same
+kernel, which then also writes the state after the last chunk
+(``ssd_scan_fwd_state``, a launch counter of its own).  The reference
+computes that state with its chunked oracle outside Pallas; on the card
+the port's plain version stays off the path.
 """
 
 from __future__ import annotations
@@ -38,10 +44,9 @@ def _check(x, dt, a, bm, c, chunk):
     return b, s, h, p, g, n
 
 
-def ssd_scan_fwd(x, dt, a, bm, c, *, chunk: int):
-    """The kernel: x (B,S,H,P); dt (B,S,H) fp32; a (H,) fp32; bm/c
-    (B,S,G,N) in x's dtype, all contiguous on one CUDA device -> y
-    (B,S,H,P) in x's dtype.  S % chunk == 0."""
+def _launch(x, dt, a, bm, c, chunk, final):
+    """Check the inputs and launch the kernel; `final` is None or the
+    (B, H, P, N) fp32 tensor that takes the state after the last chunk."""
     b, s, h, p, g, n = _check(x, dt, a, bm, c, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_fwd: unsupported device {x.device}")
@@ -68,9 +73,18 @@ def ssd_scan_fwd(x, dt, a, bm, c, *, chunk: int):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _build.library().ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
-        c.data_ptr(), y.data_ptr(), cum.data_ptr(), states.data_ptr(), b, s,
-        h, g, p, n, chunk, code, stream)
+        c.data_ptr(), y.data_ptr(), cum.data_ptr(), states.data_ptr(),
+        None if final is None else final.data_ptr(), b, s, h, g, p, n,
+        chunk, code, stream)
     _build.check(err, "ssd_scan_fwd")
+    return y
+
+
+def ssd_scan_fwd(x, dt, a, bm, c, *, chunk: int):
+    """The kernel: x (B,S,H,P); dt (B,S,H) fp32; a (H,) fp32; bm/c
+    (B,S,G,N) in x's dtype, all contiguous on one CUDA device -> y
+    (B,S,H,P) in x's dtype.  S % chunk == 0."""
+    y = _launch(x, dt, a, bm, c, chunk, None)
     ssd_scan_fwd.launches += 1
     return y
 
@@ -78,35 +92,63 @@ def ssd_scan_fwd(x, dt, a, bm, c, *, chunk: int):
 ssd_scan_fwd.launches = 0
 
 
+def ssd_scan_fwd_state(x, dt, a, bm, c, *, chunk: int):
+    """The same kernel asked for the state after the last chunk as well
+    (prefill into a serving cache) -> (y, state (B,H,P,N) fp32)."""
+    b, _, h, p = x.shape
+    final = torch.empty((b, h, p, bm.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    y = _launch(x, dt, a, bm, c, chunk, final)
+    ssd_scan_fwd_state.launches += 1
+    return y, final
+
+
+ssd_scan_fwd_state.launches = 0
+
+
 class _SSDScan(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, dt, a, bm, c, chunk):
+    def forward(ctx, x, dt, a, bm, c, chunk, return_state):
         ctx.save_for_backward(x, dt, a, bm, c)
         ctx.chunk = chunk
-        return ssd_scan_fwd(x, dt, a, bm, c, chunk=chunk)
+        if not return_state:
+            return ssd_scan_fwd(x, dt, a, bm, c, chunk=chunk)
+        y, state = ssd_scan_fwd_state(x, dt, a, bm, c, chunk=chunk)
+        # the reference hands the state back in x's dtype
+        return y, state.to(x.dtype)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_state=None):
         need = ctx.needs_input_grad[:5]
         ins = [t.detach().requires_grad_(r)
                for t, r in zip(ctx.saved_tensors, need)]
         grads = iter(())
         if any(need):
             with torch.enable_grad():
-                y = ref.ssd_chunked(*ins, chunk=ctx.chunk)
+                y, state = ref.ssd_chunked(*ins, chunk=ctx.chunk,
+                                           return_state=True)
+                outs, cots = [y], [g]
+                if g_state is not None:
+                    outs.append(state)
+                    cots.append(g_state)
                 grads = iter(torch.autograd.grad(
-                    y, [t for t in ins if t.requires_grad], g))
-        return tuple(next(grads) if r else None for r in need) + (None,)
+                    outs, [t for t in ins if t.requires_grad], cots))
+        return tuple(next(grads) if r else None for r in need) + (None,
+                                                                  None)
 
 
-def ssd_scan(x, dt, a, bm, c, *, chunk: int = 256):
-    """x (B,S,H,P); dt (B,S,H); a (H,); bm/c (B,S,G,N) -> y (B,S,H,P).
+def ssd_scan(x, dt, a, bm, c, *, chunk: int = 256,
+             return_state: bool = False):
+    """x (B,S,H,P); dt (B,S,H); a (H,); bm/c (B,S,G,N) -> y (B,S,H,P), and
+    with return_state also the state after the last chunk (B,H,P,N) in
+    x's dtype, as the reference's ssd_chunked(return_state=True).
 
     chunk is capped at S, as in the reference; S % chunk must be 0.  On
     the card dt and A are taken in fp32 and B/C in x's dtype, every input
     contiguous (the kernel's layout): anything else raises."""
     chunk = min(chunk, x.shape[1])
     if x.device.type == "cpu":
-        return ref.ssd_chunked(x, dt, a, bm, c, chunk=chunk)
-    return _SSDScan.apply(x, dt, a, bm, c, chunk)
+        return ref.ssd_chunked(x, dt, a, bm, c, chunk=chunk,
+                               return_state=return_state)
+    return _SSDScan.apply(x, dt, a, bm, c, chunk, return_state)

@@ -20,9 +20,12 @@ Training activations carry the client axis first ((N, B, S, d)); caches
 are updated in place and returned.  The port has the dense decoder
 (learned positions or RoPE, per-layer sliding windows, GQA: gpt2-small,
 opt-125m, gpt-neo-125m, llama3-8b, phi4-mini, qwen1.5-32b,
-mistral-large) and, for training, the SSM kind (mamba2-780m,
-``models/ssm.py``).  The encoder, the MoE kind and SSM caches raise
-NotImplementedError with a pointer to ROADMAP.md.
+mistral-large), the SSM kind (mamba2-780m, ``models/ssm.py``) and the
+hybrid of the two (zamba2-1.2b: SSD layers with attention layers
+between them), each in training, prefill and decode.  An SSM layer's
+cache is its conv window and its fp32 state; the attention layers' k/v
+and the shared "len" are the dense decoder's.  The encoder and the MoE
+kind raise NotImplementedError with a pointer to ROADMAP.md.
 
 Memory knobs of a train step, as in the reference:
 
@@ -170,7 +173,7 @@ def flat_runs(groups: Sequence[GroupSpec]) -> List[Tuple[str, int, int]]:
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         return f"the {cfg.family} family"
     return None
 
@@ -350,12 +353,14 @@ class Model(nn.Module):
                 p_l = _index_tree(params[g.name], i)
                 ad_l = _index_tree(adapters.get(g.name) if adapters else None,
                                    i)
-                c_l = cache
-                if cache is not None and g.kind != "ssm":
-                    c_l = {"k": cache[g.name]["k"][i],
-                           "v": cache[g.name]["v"][i], "len": cache_len}
-                    if pages is not None:
-                        c_l["pages"] = pages
+                c_l = None
+                if cache is not None:
+                    # views of layer i: the layer writes its cache there
+                    c_l = _index_tree(cache[g.name], i)
+                    if g.kind != "ssm":
+                        c_l["len"] = cache_len
+                        if pages is not None:
+                            c_l["pages"] = pages
                 layer = functools.partial(
                     self._layer, g, i, p_l, ad_l, mode=mode, cache=c_l,
                     rope=rope, boundary=boundary, fid=run_flat_lo + (i - lo))
@@ -379,8 +384,11 @@ class Model(nn.Module):
         stateful hook, (x, carry) in and out."""
         cfg = self.cfg
         if g.kind == "ssm":
-            out, _ = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
-                                   cache=cache)
+            out, new = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
+                                     cache=cache)
+            if new is not None:
+                for k in ("conv", "state"):
+                    cache[k].copy_(new[k])
             x = x + out
         else:
             attn_out, _ = transformer.attention_apply(
@@ -494,19 +502,23 @@ class Model(nn.Module):
 
     def init_cache(self, lead: Tuple[int, ...], max_len: int,
                    dtype=torch.float32) -> Params:
-        """lead = (B,). One stacked (Lg, B, max_len, KVH, hd) entry per
-        group, on this model's device."""
+        """lead = (B,). One stacked entry per group, on this model's
+        device: (Lg, B, max_len, KVH, hd) k and v for attention, and for
+        SSM layers the conv window (Lg, B, W-1, C) in `dtype` and the
+        state (Lg, B, H, P, N) in fp32."""
         cfg = self.cfg
         if len(lead) != 1:
             raise NotImplementedError(
                 f"cache lead {lead}: caches with a client axis are not "
                 f"ported yet ({_SERVING})")
-        if any(g.kind == "ssm" for g in self.groups):
-            raise NotImplementedError(f"{self.arch.name}: {ssm.SERVING_LATER}")
         batch = lead[-1]
         cache: Params = {"len": torch.zeros((batch,), dtype=torch.int32,
                                             device=self.device)}
         for g in self.groups:
+            if g.kind == "ssm":
+                cache[g.name] = ssm.init_ssm_cache(
+                    cfg, (g.size,) + tuple(lead), dtype, device=self.device)
+                continue
             shape = (g.size,) + tuple(lead) + (max_len, cfg.num_kv_heads,
                                                cfg.head_dim)
             cache[g.name] = {

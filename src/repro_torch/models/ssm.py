@@ -1,4 +1,5 @@
-"""Mamba2 (SSD) block: init and train-mode application.
+"""Mamba2 (SSD) block: init and application in train, prefill and
+decode mode.
 
 Port of src/repro/models/ssm.py.  Block structure (arXiv:2405.21060):
 
@@ -10,30 +11,39 @@ Port of src/repro/models/ssm.py.  Block structure (arXiv:2405.21060):
 
 LoRA targets: "ssm_in" (in_proj) and "ssm_out" (out_proj).
 
-Train mode (no cache) runs the SSD scan through the hand-written kernel
-(``kernels.ssd_scan.ops``; its plain version on the CPU).  Prefill with a
-cache and decode carry a conv window and the SSD state per layer; they
-belong to the serving of SSM models, which is not ported yet, and raise.
+Decode carries two cache pieces per layer, as in the reference:
+  conv:  ([N,]B, W-1, d_conv_ch) rolling window of pre-conv activations
+  state: ([N,]B, H, P, N_state) SSD recurrent state, fp32
+
+Train mode runs the SSD scan through the hand-written kernel
+(``kernels.ssd_scan.ops``; its plain version on the CPU); prefill with a
+cache runs the same kernel, which then also returns the state after the
+last chunk.  A decode step is the one-token recurrence
+(``ssd_decode_step``, plain torch as in the reference, which has no
+kernel for it).
+
+One difference from the reference: a prefill of fewer than W - 1 tokens
+keeps its conv window left-padded with zeros (the causal conv's own
+padding).  The reference keeps ``xbc[..., -(W-1):, :]``, which has only
+s rows then, and writes them at the start of the window, so its decode
+after such a prompt differs from its own full forward.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import roadmap
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models import common
 from repro_torch.models.common import apply_norm
 from repro_torch.models.transformer import _ad, lora_apply
 
 Params = Dict[str, Any]
-
-SERVING_LATER = ("the serving of SSM models (decode cache and prefill with "
-                 f"a cache) is not ported yet ({roadmap.SERVING})")
 
 
 def conv_channels(cfg: ModelConfig) -> int:
@@ -93,20 +103,40 @@ def _causal_conv(xbc, w, b):
 
 def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
               mode: str, cache: Optional[Params] = None):
-    """One SSD sub-block over full sequences without a cache (train, or
-    prefill with no cache).  u ([N,]B,S,d) -> (out, None)."""
-    if mode == "decode" or cache is not None:
-        raise NotImplementedError(f"ssm_apply(mode={mode!r}"
-                                  f"{', cache' if cache is not None else ''})"
-                                  f": {SERVING_LATER}")
+    """One SSD sub-block.  u ([N,]B,S,d) -> (out, new_cache).
+
+    mode "decode" (S = 1) steps `cache` {"conv", "state"} by one token;
+    otherwise the full sequence runs through the chunked scan, and with a
+    cache (prefill) the new cache holds the last W - 1 pre-conv
+    activations and the final state.  The new cache is returned, not
+    written: the caller stores it."""
     h, ph = cfg.ssm_heads, cfg.ssm_head_dim
     g, ns, di = cfg.ssm_groups, cfg.ssm_state, cfg.d_inner
 
     y = apply_norm(p["norm1"], u, kind=cfg.norm, eps=cfg.norm_eps)
     proj = lora_apply(y, p["in_proj"], _ad(adapters, "ssm_in"))
     x, z, bmat, cmat, dt = _split_proj(cfg, proj)
-    conv_out = F.silu(_causal_conv(torch.cat([x, bmat, cmat], dim=-1),
-                                   p["conv_w"], p["conv_b"]))
+    xbc = torch.cat([x, bmat, cmat], dim=-1)
+    width = p["conv_w"].shape[0]
+    new_cache = None
+    if mode == "decode":
+        if cache is None or u.shape[-2] != 1:
+            raise ValueError("ssm_apply decode takes one token and a cache")
+        # rolling conv window: shift in the new pre-conv activation
+        wdt = torch.promote_types(cache["conv"].dtype, xbc.dtype)
+        win = torch.cat([cache["conv"].to(wdt), xbc.to(wdt)], dim=-2)
+        conv_out = torch.einsum("...wc,wc->...c", win,
+                                p["conv_w"].to(win.dtype))
+        conv_out = conv_out + p["conv_b"].to(conv_out.dtype)
+        conv_out = F.silu(conv_out)[..., None, :]              # (...,1,C)
+        new_conv = win[..., 1:, :]
+    else:
+        conv_out = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+        if cache is not None:
+            # the last W-1 pre-conv activations, zeros before the prompt
+            keep = xbc[..., -(width - 1):, :]
+            short = width - 1 - keep.shape[-2]
+            new_conv = F.pad(keep, (0, 0, short, 0)) if short else keep
 
     lead, s = u.shape[:-2], u.shape[-2]
     xh = conv_out[..., :di].reshape(lead + (s, h, ph))
@@ -115,28 +145,55 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
     dtp = F.softplus(dt.float() + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())
 
-    chunk = min(cfg.ssm_chunk, s)
-    pad = (-s) % chunk
+    if mode == "decode":
+        st = cache["state"]
+        yss, new_state = ssd_ref.ssd_decode_step(
+            st.reshape((-1, h, ph, ns)), xh[..., 0, :, :].reshape((-1, h, ph)),
+            dtp[..., 0, :].reshape((-1, h)), a,
+            bh[..., 0, :, :].reshape((-1, g, ns)),
+            ch[..., 0, :, :].reshape((-1, g, ns)))
+        yss = yss.reshape(lead + (1, h, ph))
+        new_cache = {"conv": new_conv, "state": new_state.reshape(st.shape)}
+    else:
+        chunk = min(cfg.ssm_chunk, s)
+        pad = (-s) % chunk
 
-    def padded(t):
-        # zero-pad the seq axis (and make the kernel's contiguous layout);
-        # dt = 0 there makes the padding a no-op on the state
-        f = t.reshape((-1,) + t.shape[len(lead):])
-        if pad:
-            f = F.pad(f, (0, 0) * (f.dim() - 2) + (0, pad))
-        return f.contiguous()
+        def padded(t):
+            # zero-pad the seq axis (and make the kernel's contiguous
+            # layout); dt = 0 there makes the padding a no-op on the state
+            f = t.reshape((-1,) + t.shape[len(lead):])
+            if pad:
+                f = F.pad(f, (0, 0) * (f.dim() - 2) + (0, pad))
+            return f.contiguous()
 
-    yflat = ssd_ops.ssd_scan(padded(xh), padded(dtp), a,
-                             padded(bh), padded(ch), chunk=chunk)
-    yss = yflat[:, :s].reshape(lead + (s, h, ph))
+        args = (padded(xh), padded(dtp), a, padded(bh), padded(ch))
+        if cache is not None:
+            yflat, st = ssd_ops.ssd_scan(*args, chunk=chunk,
+                                         return_state=True)
+            new_cache = {"conv": new_conv,
+                         "state": st.reshape(lead + (h, ph, ns))}
+        else:
+            yflat = ssd_ops.ssd_scan(*args, chunk=chunk)
+        yss = yflat[:, :s].reshape(lead + (s, h, ph))
     yss = yss + p["D"].to(yss.dtype)[:, None] * xh
     yflat2 = yss.reshape(lead + (s, di))
 
     # gated RMSNorm then output projection
     gated = yflat2 * F.silu(z.to(yflat2.dtype))
     gated = apply_norm(p["gnorm"], gated, kind="rmsnorm", eps=cfg.norm_eps)
-    return lora_apply(gated, p["out_proj"], _ad(adapters, "ssm_out")), None
+    return lora_apply(gated, p["out_proj"], _ad(adapters, "ssm_out")), \
+        new_cache
 
 
-def init_ssm_cache(*args, **kwargs):
-    raise NotImplementedError(f"init_ssm_cache: {SERVING_LATER}")
+def init_ssm_cache(cfg: ModelConfig, lead: Tuple[int, ...], dtype, *,
+                   device=None) -> Params:
+    """Per-layer decode cache for one SSM layer (leading dims = [N,]B):
+    the conv window in `dtype`, the state in fp32."""
+    return {
+        "conv": torch.zeros(tuple(lead) + (cfg.ssm_conv_width - 1,
+                                           conv_channels(cfg)),
+                            dtype=dtype, device=device),
+        "state": torch.zeros(tuple(lead) + (cfg.ssm_heads, cfg.ssm_head_dim,
+                                            cfg.ssm_state),
+                             dtype=torch.float32, device=device),
+    }

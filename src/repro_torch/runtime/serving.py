@@ -13,6 +13,13 @@ stacked adapter pool (S-LoRA-style) and batches requests across adapters:
     per-slot adapter choice rides a (B,) ids tensor through the indexed
     LoRA kernel.
 
+SSM and hybrid models (mamba2, zamba2) are served one level down, as
+in the reference: ``serial_reference`` runs ``Model.prefill`` and
+``Model.decode_step`` one request at a time, their conv windows and SSD
+states in the model's cache, through the indexed pool.  The engine
+refuses them, as the reference's engine cannot serve them: it installs
+only k/v into a slot and pads each prompt to a bucket.
+
 PyTorch runs eagerly, so the reference's retrace counters have no
 counterpart here; the kernel wrappers' launch counters show which kernels
 a run went through.  ``pool_from_state`` serves the per-client adapters
@@ -179,6 +186,14 @@ class ServingEngine:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
         mcfg = model.cfg
+        if any(g.kind == "ssm" for g in model.groups):
+            raise NotImplementedError(
+                f"{model.arch.name}: ServingEngine serves attention caches "
+                "only, as the reference's engine does: it installs only k/v "
+                "into a slot and pads each prompt to a bucket, which would "
+                "run the pad tokens through the SSM recurrence.  Serve SSM "
+                "and hybrid models with serial_reference (Model.prefill and "
+                "decode_step, one request at a time)")
         if mcfg.learned_pos and cfg.max_len > mcfg.max_position_embeddings:
             raise ValueError(
                 f"max_len={cfg.max_len} exceeds the learned position table "
@@ -397,7 +412,9 @@ def serial_reference(model, params: Params, pool: Params,
                      dtype=torch.float32, return_logits: bool = False):
     """Greedy per-request generation, one request at a time in its own
     contiguous cache, same indexed pool with B = 1.  The batched engine
-    must reproduce these tokens exactly.
+    must reproduce these tokens exactly.  SSM and hybrid models are
+    served here (their caches are conv windows and SSD states; prompts
+    are not padded).
 
     Returns {rid: tokens}; with return_logits, also {rid: (n_new, V)
     fp32 logits on the host}, the steps' logits that chose the tokens."""

@@ -653,6 +653,123 @@ def test_ssd_autograd_on_card_matches_plain(cuda):
                                    atol=1e-4 * float(gc.abs().max()))
 
 
+# prefill shapes of the final state: (B, S, H, P, G, N, chunk, true
+# length): a chunk of 1 (a one-token prompt), of 37 (a 37-token prompt),
+# a 300-token prompt zero-padded to 512 at chunk 256 (dt = 0 on the
+# padding), and zamba2's H = P = N = 64
+SSD_STATE_SHAPES = [(2, 3, 4, 16, 1, 32, 1, 3), (1, 37, 8, 64, 1, 128, 37, 37),
+                    (1, 512, 4, 64, 1, 128, 256, 300),
+                    (2, 64, 64, 64, 1, 64, 64, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_STATE_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_kernel_final_state_matches_plain(cuda, dtype, shape):
+    """ssd_scan(return_state=True) on the card launches the kernel (its
+    own counter, not the plain scan) and its y and final state match
+    ref.ssd_chunked(return_state=True); the state comes back in x's
+    dtype as the reference's does, and equals the recurrence's at the
+    prompt's true length."""
+    b, s, h, p, g, n, chunk, true_len = shape
+    gen = torch.Generator().manual_seed(s + chunk)
+    ins = list(_ssd_inputs(gen, dtype, b, s, h, p, g, n))
+    ins[1][:, true_len:] = 0.0
+    before = (ssd_ops.ssd_scan_fwd_state.launches,
+              ssd_ops.ssd_scan_fwd.launches)
+    y, st = ssd_ops.ssd_scan(*[t.to(cuda) for t in ins], chunk=chunk,
+                             return_state=True)
+    assert (ssd_ops.ssd_scan_fwd_state.launches,
+            ssd_ops.ssd_scan_fwd.launches) == (before[0] + 1, before[1])
+    want_y, want_st = ssd_ops.ref.ssd_chunked(*ins, chunk=chunk,
+                                              return_state=True)
+    assert st.dtype == dtype and torch.isfinite(st.float()).all()
+    _ssd_close(y, want_y, dtype)
+    _ssd_close(st, want_st, dtype)
+    _, at_len = ssd_ops.ref.ssd_sequential(
+        *[t[:, :true_len] if t.dim() > 1 else t for t in ins],
+        return_state=True)
+    _ssd_close(st, at_len, dtype)
+    y2, st2 = ssd_ops.ssd_scan(*[t.to(cuda) for t in ins], chunk=chunk,
+                               return_state=True)
+    assert torch.equal(y2, y) and torch.equal(st2, st)
+
+
+@pytest.mark.cuda
+def test_ssd_final_state_autograd_on_card_matches_plain(cuda):
+    """Gradients through y and the final state (the plain recompute
+    backward) on the card against plain autograd on the CPU."""
+    gen = torch.Generator().manual_seed(12)
+    ins = _ssd_inputs(gen, torch.float32, 1, 128, 2, 16, 1, 32)
+    gy, gs = _randn(gen, 1, 128, 2, 16), _randn(gen, 1, 2, 16, 32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in ins]
+        y, st = ssd_ops.ssd_scan(*leaves, chunk=64, return_state=True)
+        loss = (y * gy.to(dev)).sum() + (st * gs.to(dev)).sum()
+        grads[str(dev)] = torch.autograd.grad(loss, leaves)
+    for gk, gc in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(gk.cpu(), gc, rtol=1e-4,
+                                   atol=1e-4 * float(gc.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 37])
+@pytest.mark.parametrize("k,n", [(1536, 6448), (2048, 8384), (3072, 1536),
+                                 (4096, 2048)])
+def test_lora_indexed_kernel_at_ssm_widths(cuda, dtype, m, k, n):
+    """The served SSD layers' projections: ssm_in of mamba2 (K = 1536,
+    N = 6448) and zamba2 (K = 2048, N = 8384), neither N a multiple of
+    128, and ssm_out (K = 3072 and 4096), at a decode row and a
+    37-token prefill, r = 16 over 2 adapters."""
+    gen = torch.Generator().manual_seed(k + n + m)
+    x, w, a, b, scale, ids = _lora_pool_inputs(gen, dtype, m, k=k, n=n, p=2)
+    got = lops.lora_matmul_indexed(*(t.to(cuda) for t in
+                                     (x, w, a, b, scale, ids)))
+    _close(got, lops.lora_matmul_indexed(x, w, a, b, scale, ids), dtype)
+
+
+def _ssm_serving_pair(name, dev):
+    arch = reduced(get_config(name), layers=3, d_model=64, vocab=256)
+    model = build_model(arch, device=dev)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    pool = serving.build_adapter_pool(model, torch.Generator().manual_seed(1),
+                                      2, ranks=[4, 2])
+    return model, params, pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_prefill_and_decode_on_card_match_cpu(cuda, name):
+    """Reduced mamba2 and zamba2 served one request at a time on the card
+    (prefill through the SSD kernel with the final state, decode through
+    the recurrence, the indexed LoRA, and zamba2's attention through the
+    flash and decode kernels) against the CPU plain path: prompts of 2,
+    3, 17 and 40 tokens (40 pads to 48 at chunk 16), 6 new tokens, logits
+    at 1e-3 (fp32 sums in another order), and tokens equal up to a top-2
+    logit gap."""
+    rng = np.random.default_rng(3)
+    reqs = [serving.Request(rid=i, adapter=i % 2,
+                            tokens=rng.integers(3, 250, size=plen),
+                            max_new=6)
+            for i, plen in enumerate((2, 3, 17, 40))]
+    out = {}
+    for dev in ("cpu", cuda):
+        model, params, pool = _ssm_serving_pair(name, dev)
+        out[str(dev)] = serving.serial_reference(
+            model, params, pool, reqs, max_len=48, return_logits=True)
+    (tok_c, log_c), (tok_g, log_g) = out["cpu"], out[str(cuda)]
+    for r in reqs:
+        torch.testing.assert_close(log_g[r.rid], log_c[r.rid], rtol=1e-3,
+                                   atol=1e-3)
+        top2 = torch.topk(log_c[r.rid], 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(gaps))
+        assert tok_g[r.rid][:upto] == tok_c[r.rid][:upto]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(130, 1536, 6448), (2560, 1536, 6448),
                                    (2560, 3072, 1536)])

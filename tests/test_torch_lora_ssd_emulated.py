@@ -69,7 +69,7 @@ def libs(tmp_path_factory):
             lib.lora_fused_dab_ctas.argtypes = [I_] * 3
             lib.lora_fused_tile.argtypes = [I_, I_]
             if bm == 64:
-                lib.ssd_scan_fwd.argtypes = [P_] * 8 + [I_] * 8 + [P_]
+                lib.ssd_scan_fwd.argtypes = [P_] * 9 + [I_] * 8 + [P_]
             out[bm] = lib
     return out
 
@@ -186,7 +186,7 @@ def _ssd_inputs(seed, dtype, b, s, h, p, g, n, dt_scale):
             rnd(b, s, g, n, scale=0.3).to(dtype))
 
 
-def _ssd(lib, x, dt, a, bm, c, chunk):
+def _ssd(lib, x, dt, a, bm, c, chunk, return_state=False):
     b, s, h, p = x.shape
     g, n = bm.shape[2:]
     nc = s // chunk
@@ -194,9 +194,11 @@ def _ssd(lib, x, dt, a, bm, c, chunk):
     cum = torch.full((b * h, s), float("nan"))
     work = torch.full((b * h * nc * p * n + b * g * nc * chunk * chunk,),
                       float("nan"))
-    assert lib.ssd_scan_fwd(*map(_ptr, (x, dt, a, bm, c, y, cum, work)), b,
+    final = torch.full((b, h, p, n), float("nan")) if return_state else None
+    assert lib.ssd_scan_fwd(*map(_ptr, (x, dt, a, bm, c, y, cum, work)),
+                            None if final is None else final.data_ptr(), b,
                             s, h, g, p, n, chunk, CODE[x.dtype], None) == 0
-    return y
+    return (y, final) if return_state else y
 
 
 def _decay(dt, a, chunk):
@@ -227,3 +229,36 @@ def test_emulated_ssd_scan_matches_plain(libs, dtype, case):
 def test_emulated_ssd_scan_is_deterministic(libs, dtype):
     ins = _ssd_inputs(5, dtype, 1, 64, 4, 16, 2, 32, 1.0)
     assert torch.equal(_ssd(libs[64], *ins, 16), _ssd(libs[64], *ins, 16))
+
+
+# the final state of a prefill: (B, S, H, P, G, N, chunk, true length);
+# chunks of 1 and 37 (a prompt shorter than the 256 chunk makes a chunk
+# of its own length), a 300-token prompt zero-padded to 512 (dt = 0 on
+# the padding), and zamba2's H = P = N = 64 at G = 1
+SSD_STATE_CASES = [(2, 3, 4, 16, 1, 32, 1, 3), (1, 37, 4, 16, 2, 32, 37, 37),
+                   (1, 512, 2, 16, 1, 16, 256, 300),
+                   (1, 16, 64, 64, 1, 64, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_STATE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_emulated_ssd_scan_final_state_matches_plain(libs, dtype, case):
+    """y and the state after the last chunk against
+    ref.ssd_chunked(return_state=True); the state in fp32 beside the
+    reference's state in x's dtype, so bf16 at bf16's tolerance."""
+    b, s, h, p, g, n, chunk, true_len = case
+    x, dt, a, bm, c = _ssd_inputs(s + chunk, dtype, b, s, h, p, g, n, 1.0)
+    dt[:, true_len:] = 0.0                 # the zero-padded tail
+    y, final = _ssd(libs[64], x, dt, a, bm, c, chunk, return_state=True)
+    want_y, want_state = ssd_ref.ssd_chunked(x, dt, a, bm, c, chunk=chunk,
+                                             return_state=True)
+    assert final.dtype == torch.float32 and torch.isfinite(final).all()
+    _close(y, want_y, dtype, scaled=True)
+    _close(final.to(dtype), want_state, dtype, scaled=True)
+    # the padding leaves the state where the true prompt left it
+    _, at_len = ssd_ref.ssd_sequential(x[:, :true_len], dt[:, :true_len], a,
+                                       bm[:, :true_len], c[:, :true_len],
+                                       return_state=True)
+    _close(final.to(dtype), at_len, dtype, scaled=True)
+    assert torch.equal(_ssd(libs[64], x, dt, a, bm, c, chunk), y)

@@ -288,13 +288,22 @@ def test_eval_step_matches_reference_from_one_state(setup):
 
 
 def test_ssm_serving_paths_raise(setup):
-    model_t = setup["model_t"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_t.init_cache((1,), 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_ssm.init_ssm_cache(model_t.cfg, (1,), torch.float32)
-    p_t = jax.tree.map(lambda v: v[0], setup["params_t"]["ssm"])
-    u = torch.zeros((1, 1, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_ssm.ssm_apply(p_t, None, u, cfg=model_t.cfg, mode="decode",
-                        cache={})
+    """ServingEngine refuses SSM and hybrid models, contiguous and paged,
+    as the reference's engine cannot serve them (it installs only k/v
+    into a slot and pads prompts to buckets); serial_reference serves
+    them (tests/test_torch_ssm_serving.py)."""
+    from repro_torch.runtime import serving as t_serving
+    for name in ("mamba2-780m", "zamba2-1.2b"):
+        model = build_model(t_reduced(t_get_config(name), **SMALL),
+                            device="cpu")
+        params = model.init_params(torch.Generator().manual_seed(0))
+        pool = t_serving.build_adapter_pool(
+            model, torch.Generator().manual_seed(1), 2)
+        for page_size in (0, 8):
+            with pytest.raises(NotImplementedError,
+                               match="installs only k/v"):
+                t_serving.ServingEngine(
+                    model, params, pool,
+                    t_serving.ServeConfig(num_slots=2, max_len=32,
+                                          page_size=page_size),
+                    device="cpu")
