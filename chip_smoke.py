@@ -68,7 +68,22 @@ at full width (random weights from a seed):
     smashed activations at cut 4, then the same requests served from the
     trained adapters, a 2-layer card-vs-CPU round step and served logits.
     The SSD kernel's final state is held against its plain version at
-    the prefill's chunk edges.
+    the prefill's chunk edges;
+  * the MoE family and the vlm frontend prefix: kimi-k2 at full width
+    (d_model 7168, 64 heads over 8 of 112, top-8 over 48 of its 384
+    experts, a shared expert, the 163840-wide untied head; 4 of its 61
+    layers), 3 rounds through SplitFTSystem.run with int8 smashed
+    activations at capacity factor 1.25 (the share of (token, choice)
+    pairs dropped per layer printed and required above 0), then phase
+    4's workload served from the trained adapters, contiguous and paged,
+    tokens checked against the one-request reference; one card-vs-CPU
+    step each of kimi-k2 and llama4-maverick (16 experts) with
+    prefill-then-decode logits and tokens, and of internvl2-76b over a
+    batch with its 256-position prefix, at full width and 2 layers, the
+    top-k choices compared first.  The flash kernels are held against
+    their plain versions at head dim 112 too (tile edges, kimi-k2's
+    train, prefill and decode shapes), and the LoRA and int8 kernels at
+    its widths (K = 7168; N = 7168 and 896).
 
 The launch counters are read around each path.  Every phase that fails
 raises, so the exit code is non-zero; without a GPU it exits 1 before
@@ -81,6 +96,7 @@ TF32 is off for matmuls and cuDNN: fp32 means fp32 here.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -268,14 +284,46 @@ SSD_STATE_CASES = [(2, 3, 4, 16, 1, 32, 1, 3),
 SSD_PREFILL = (1, 512, 48, 64, 1, 128, 256)
 SSD_PREFILL_Z = (1, 512, 64, 64, 1, 64, 256)
 
-# the kernels' rows at head dim 128 in the result line: their launches
-# are those of phases 9, 9b and 10b's layers (every one at hd 128)
-HD128 = ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
-         "decode_attention_paged")
+# the MoE family and the vlm frontend prefix.  Phase 13: kimi-k2 at full
+# width (d_model 7168, 64 heads over 8 of 112, d_ff 2048 per expert,
+# top-8, one shared expert, vocab 163840 untied, capacity factor 1.25,
+# router aux loss 0.001), cut to KIMI_EXPERTS of its 384 experts a layer
+# and KIMI_LAYERS of its 61 layers (one card holds 48 experts of 4
+# layers beside the embeddings; all 384 take expert-parallel sharding
+# over four cards), cut 2 over the buckets KIMI_BUCKETS (the config's
+# (3, 6, 12, 20) do not fit 4 layers), 5 clients x batch KIMI_BATCH x
+# seq 512, the config's int8 smashed activations, the cross entropy in
+# chunks of KIMI_CE_CHUNK; then phase 4's serving workload from the
+# trained adapters.  Its weights are drawn on the card (a CPU draw of
+# 45 GB takes minutes).
+KIMI, LLAMA4, VLM = ("kimi-k2-1t-a32b", "llama4-maverick-400b-a17b",
+                     "internvl2-76b")
+KIMI_EXPERTS, KIMI_LAYERS, KIMI_CUT, KIMI_BUCKETS = 48, 4, 2, (1, 2, 3)
+KIMI_BATCH, KIMI_CE_CHUNK = 1, 128
+KIMI_HEADS = (64, 8)
+# phase 13b: one card-vs-CPU step each at full width and SMALL_LAYERS
+# layers, weights drawn on the card and copied to the CPU: kimi-k2 and
+# llama4-maverick at MOE_STEP_EXPERTS experts (Llama-4-Scout's count,
+# the source the llama4 config names) at seq DENSE_STEP_SEQ, with
+# prefill-then-decode logits and tokens; internvl2-76b at seq VLM_SEQ =
+# its 256 prefix positions + 32 text tokens
+MOE_STEP_EXPERTS = 16
+VLM_SEQ = 288
+# a flipped top-k choice between card and CPU changes its token's expert
+# output wholesale: steps with flips hold their gradients on average,
+# mean |card - CPU| below FLIP_MEAN_TOL x mean |g_CPU|
+FLIP_MEAN_TOL = 1e-2
+
+# the kernels' rows at head dims 128 and 112 in the result line: their
+# launches are those of phases 9, 9b, 10b and 13b's llama4 and internvl2
+# layers (hd 128) and of phase 13 (kimi-k2, hd 112)
+WIDE_HD = ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
+           "decode_attention_paged")
+WIDE_HDS = (128, 112)
 
 
-def hd128(kname: str) -> str:
-    return f"{kname} (hd 128)"
+def hd_row(kname: str, hd: int) -> str:
+    return f"{kname} (hd {hd})"
 
 
 def log(msg: str) -> None:
@@ -668,7 +716,8 @@ def main() -> int:
                 "int8_dequantize_smashed": sops.int8_dequantize_smashed,
                 "ssd_scan": ssd_ops.ssd_scan_fwd,
                 "ssd_scan (final state)": ssd_ops.ssd_scan_fwd_state}
-    rows_of = list(wrappers) + [hd128(k) for k in HD128]
+    rows_of = list(wrappers) + [hd_row(k, hd) for hd in WIDE_HDS
+                                for k in WIDE_HD]
     worst = {k: 0.0 for k in rows_of}
 
     # -- phase 2: every kernel against its plain version ---------------------
@@ -717,8 +766,16 @@ def main() -> int:
         check_flash_edges(torch, rand, dname, dt, errs)
         check_training_kernels(torch, rand, dname, dt, errs)
         check_mamba2_kernels(torch, rand, dname, dt, errs)
-        check_hd128_kernels(torch, rand, dname, dt, dev, gen, errs)
-        check_dense_widths(torch, rand, dname, dt, gen, errs)
+        check_wide_kernels(torch, rand, dname, dt, dev, gen, errs, hd=128,
+                           heads=LLAMA_HEADS, edge_heads=(4, 2), train_b=20,
+                           what="llama3-8b")
+        check_wide_kernels(torch, rand, dname, dt, dev, gen, errs, hd=112,
+                           heads=KIMI_HEADS, edge_heads=(8, 1), train_b=5,
+                           what="kimi-k2")
+        check_dense_widths(torch, rand, dname, dt, gen, errs, kd=4096,
+                           ns=(4096, 1024), m_eval=10240, what="llama3-8b")
+        check_dense_widths(torch, rand, dname, dt, gen, errs, kd=7168,
+                           ns=(7168, 896), m_eval=2560, what="kimi-k2")
         log(f"phase 2 ({dname}, tol {TOL[dname]}): max |kernel - plain| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         if dname == "float32":
@@ -808,7 +865,12 @@ def main() -> int:
         torch, rand, worst, SSD_PREFILL_Z, final_state=True)
     rows.update(time_ssm_lora(torch, rand, gen, worst))
     rows.update(time_mamba2_lora(torch, rand, worst))
-    rows.update(time_hd128_kernels(torch, F, rand, dev, gen, worst))
+    rows.update(time_wide_kernels(torch, F, rand, dev, gen, worst, hd=128,
+                                  heads=LLAMA_HEADS, train_b=20,
+                                  what="llama3-8b"))
+    rows.update(time_wide_kernels(torch, F, rand, dev, gen, worst, hd=112,
+                                  heads=KIMI_HEADS, train_b=5,
+                                  what="kimi-k2"))
     for kname, row in rows.items():
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
@@ -1009,6 +1071,14 @@ def main() -> int:
     add_launches(launches, zamba2_phase(torch, dev, wrappers, name, card),
                  hd=64)
 
+    # -- phase 13: kimi-k2 at full width, training and serving --------------
+    add_launches(launches, kimi_phase(torch, dev, wrappers, name, card),
+                 hd=112)
+
+    # -- phase 13b: kimi-k2, llama4-maverick, internvl2-76b, card vs CPU ----
+    for hd, got in moe_vlm_steps(torch, dev, wrappers).items():
+        add_launches(launches, got, hd=hd)
+
     # -- results ----------------------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
     lk = "src/repro/kernels/lora_matmul/kernel.py"
@@ -1029,8 +1099,9 @@ def main() -> int:
                             "src/repro/kernels/ssd_scan/kernel.py:82"),
                "ssd_scan (final state)": (
                    "ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:82")}
-    for kname in HD128:
-        sources[hd128(kname)] = sources[kname]
+    for hd in WIDE_HDS:
+        for kname in WIDE_HD:
+            sources[hd_row(kname, hd)] = sources[kname]
     kernels = []
     for kname, (src, replaces) in sources.items():
         row = rows[kname]
@@ -2725,8 +2796,23 @@ MAMBA2_STEPS = [("none", "none", {}),
 LLAMA_STEPS = [("none", "none", {}), ("int8", "int8", {})]
 
 
+def small_arch(arch_name, model_kw=None):
+    """`arch_name` at full width and SMALL_LAYERS layers, cut 1 (more
+    model fields from model_kw)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config(arch_name)
+    return arch.replace(
+        model=dataclasses.replace(arch.model, num_layers=SMALL_LAYERS,
+                                  **(model_kw or {})),
+        split=dataclasses.replace(arch.split, cut_layer=1, cut_buckets=(1,)))
+
+
 def small_step_check(torch, dev, arch_name, seq, steps, tag,
-                     compressed="elementwise", model_kw=None):
+                     compressed="elementwise", model_kw=None, wide=False,
+                     prefix_len=0, wrappers=None):
     """Phases 6, 8, 9 and 10b: one round's losses and adapter gradients
     at full width and reduced depth (2 layers, 2 clients with cuts [1, 2], batch
     SMALL_BATCH, 2 under microbatch 2, seq `seq`), on the card and on the
@@ -2753,29 +2839,47 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
     CPU's mean gap to the uncompressed step; the losses stay at STEP_TOL.
     A remat step is also compared with the card's own step without remat,
     and whether they are bitwise is logged.  model_kw: more fields of the
-    reduced model config (a hybrid's attention layer indices)."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
+    reduced model config (a hybrid's attention layer indices, an MoE
+    model's expert count).  wide=True (phase 13b: models of 15 to 25 GB)
+    draws the weights on the card and copies them to the CPU (a CPU draw
+    takes minutes) and logs the host's free memory before each step.  An
+    MoE model's top-k choices are compared first: the card's and the
+    CPU's routing of every layer, and the number of (token, choice) pairs
+    chosen on one side only is logged; with any such flip, the step's
+    gradients are held on average (mean |card - CPU| below FLIP_MEAN_TOL
+    x the CPU's mean |g|), as a flipped choice moves its token's expert
+    output wholesale.  prefix_len > 0 (the vlm family): the batch carries
+    a prefix of that many positions (normal x 0.02, as the reference's
+    tests draw it) and the loss mask drops the labels inside it.
+    wrappers: returns the kernel launches of the card's steps."""
     from repro_torch.core import rounds, smashed
     from repro_torch.models.model import build_model
     from repro_torch.tree import tree_leaves, tree_map
 
-    arch = get_config(arch_name)
-    arch = arch.replace(
-        model=dataclasses.replace(arch.model, num_layers=SMALL_LAYERS,
-                                  **(model_kw or {})),
-        split=dataclasses.replace(arch.split, cut_layer=1, cut_buckets=(1,)))
+    arch = small_arch(arch_name, model_kw)
     rng = np.random.default_rng(SEED + 5)
     toks = rng.integers(3, arch.model.vocab_size,
                         size=(SMALL_CLIENTS, 2, seq + 1))
+    if prefix_len:
+        prefix = (rng.standard_normal((SMALL_CLIENTS, 2, prefix_len,
+                                       arch.model.d_model)) * 0.02
+                  ).astype(np.float32)
     weights = np.array([0.25, 0.75], np.float32)
     buckets = CO_SYS["compressor_buckets"]
     out = {}
-    # one draw of the weights (on the CPU, as init_params draws them),
-    # copied to the card
-    cpu_params = build_model(arch, device="cpu").init_params(
-        torch.Generator().manual_seed(SEED))
+    # one draw of the weights (on the CPU, as init_params draws them, or
+    # for a wide model on the card), copied to the other side
+    if wide:
+        cpu_params = tree_map(
+            lambda t: t.cpu(), build_model(arch, device=dev).init_params(
+                torch.Generator(device=dev).manual_seed(SEED)))
+        torch.cuda.empty_cache()
+    else:
+        cpu_params = build_model(arch, device="cpu").init_params(
+            torch.Generator().manual_seed(SEED))
+    moe = arch.model.family == "moe"
+    routes = {}
+    launches = {}
     for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
         model = build_model(arch, device=dv)
         params = tree_map(lambda t: t.to(dv), cpu_params)
@@ -2789,10 +2893,21 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
                     leaf["B"] = (torch.randn(leaf["B"].shape, generator=gen)
                                  * 0.02).to(dv)
         state["cuts"] = torch.tensor([1, 2], dtype=torch.int32)
+        if wrappers and role == "card":
+            for w in wrappers.values():
+                w.launches = 0
         for label, comp, kw in steps:
             b = 2 if kw.get("microbatch", 1) > 1 else SMALL_BATCH
             batch = {"tokens": toks[:, :b, :-1].astype(np.int32),
                      "labels": toks[:, :b, 1:].astype(np.int32)}
+            if prefix_len:
+                batch["prefix"] = prefix[:, :b]
+                batch["loss_mask"] = np.broadcast_to(
+                    np.arange(seq) >= prefix_len - 1,
+                    batch["labels"].shape).astype(np.float32)
+            if wide:
+                log(f"{tag} ({label}, {role}): host memory available "
+                    f"{host_available_gib():.1f} GiB")
             st = state
             if comp == "policy":
                 st = dict(
@@ -2810,19 +2925,48 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
             else:
                 boundary = smashed.make_boundary(
                     smashed.make_compressor(comp), state["cuts"])
-            _, met, gc, gs = rounds.round_grads(model, params, st, batch,
-                                                weights, boundary=boundary,
-                                                **kw)
+            with recorded_routing(moe) as chosen:
+                _, met, gc, gs = rounds.round_grads(
+                    model, params, st, batch, weights, boundary=boundary,
+                    **kw)
+            routes[role, label] = chosen
             out[role, label] = (met["ce"].cpu(), [
                 g.cpu() for g in tree_leaves(gc) + tree_leaves(gs)])
+        if wrappers and role == "card":
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrappers.items()}
+        del model, params, state
+        if role == "card":
+            torch.cuda.empty_cache()
     for label, comp, kw in steps:
-        elementwise = comp == "none" or compressed == "elementwise"
+        flips = routing_flips(torch, routes["card", label],
+                              routes["cpu", label])
+        elementwise = (comp == "none" or compressed == "elementwise") \
+            and not flips
         if elementwise:
             rtol, share = GRAD_TOL["topk" if comp == "policy" else comp]
         (ce_k, g_k), (ce_c, g_c) = out["card", label], out["cpu", label]
         if not all(torch.isfinite(g).all() for g in g_k + g_c):
             raise RuntimeError(f"{tag} ({label}): non-finite adapter "
                                f"gradient")
+        if moe:
+            n_pairs = sum(t.numel() for t, _ in routes["cpu", label])
+            log(f"{tag} ({label}): top-k choices of {len(routes['cpu', label])}"
+                f" MoE layer calls, card vs CPU: {flips} of {n_pairs} "
+                f"(token, choice) pairs flipped")
+        if flips:
+            def rel_mean(u, v):
+                return (sum(float((a - b).abs().sum()) for a, b in zip(u, v))
+                        / sum(float(b.abs().sum()) for b in v))
+            ratio = rel_mean(g_k, g_c)
+            if not ratio < FLIP_MEAN_TOL:
+                raise RuntimeError(
+                    f"{tag} ({label}): with {flips} flipped choices the "
+                    f"card's mean |g - CPU| is {ratio:.2e} of the CPU's mean "
+                    f"|g|, not below {FLIP_MEAN_TOL}")
+            log(f"{tag} ({label}): {flips} flipped choices: gradients held "
+                f"on average, mean |g - CPU| {ratio:.2e} of mean |g| (below "
+                f"{FLIP_MEAN_TOL})")
         pairs = [("CPU", ce_c, g_c)]
         if "remat" in kw:
             pairs.append(("card without remat", *out["card", comp]))
@@ -2880,54 +3024,61 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
             f"{worst:.3e} = {worst / scale:.2e} of max|g| ("
             + (f"tol {rtol} relative + {share} of max|g|" if elementwise
                else "held on average") + f"){bits}")
+    return cpu_params, launches
 
 
 def add_launches(launches, got, *, hd):
     """Adds a path's launches to the result line's counts; at head dim
-    128 the flash and decode kernels' launches go to their hd-128 rows."""
+    128 or 112 the flash and decode kernels' launches go to their rows at
+    that head dim."""
     for kname, c in got.items():
-        launches[hd128(kname) if hd == 128 and kname in HD128 else kname] += c
+        launches[hd_row(kname, hd) if hd in WIDE_HDS and kname in WIDE_HD
+                 else kname] += c
 
 
-def check_hd128_kernels(torch, rand, dname, dt, dev, gen, errs):
-    """Phase 2 at head dim 128: the flash forward and backward at
-    FLASH_EDGES' lengths, windows and offsets (B 2, GQA 4/2), at
-    llama3-8b's train step (B 20 = 5 clients x batch 4, S 512) and at its
-    serving prefill (B 1, S PROMPT), 32 heads over 8; the decode kernels at
-    its tick (SLOTS slots, cache lengths 128..156, windows 0 and 100),
-    contiguous and paged.  Each against its plain version; paged decode
-    equal to contiguous bit for bit.  Fills errs' hd-128 rows."""
+def check_wide_kernels(torch, rand, dname, dt, dev, gen, errs, *, hd, heads,
+                       edge_heads, train_b, what):
+    """Phase 2 at head dim `hd` (128: llama3-8b's 32 heads over 8; 112:
+    kimi-k2's 64 over 8): the flash forward and backward at FLASH_EDGES'
+    lengths, windows and offsets (B 2, H and KVH `edge_heads`), at the
+    model's train step (B `train_b`, S 512) and at its serving prefill (B
+    1, S PROMPT) with `heads`; the decode kernels at its tick (SLOTS slots,
+    cache lengths 128..156, windows 0 and 100), contiguous and paged.
+    Each against its plain version; paged decode equal to contiguous bit
+    for bit.  Fills errs' rows at that head dim."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
-    h, kvh = LLAMA_HEADS
-    cases = [(2, sq, sk, 4, 2, window, q_offset)
+    h, kvh = heads
+    cases = [(2, sq, sk, *edge_heads, window, q_offset)
              for sq, sk, _, window, q_offset in FLASH_EDGES]
-    cases += [(20, 512, 512, h, kvh, 0, 0), (1, PROMPT, PROMPT, h, kvh, 0, 0)]
-    fwd, bwd = hd128("flash_attention_fwd"), hd128("flash_attention_bwd")
+    cases += [(train_b, 512, 512, h, kvh, 0, 0),
+              (1, PROMPT, PROMPT, h, kvh, 0, 0)]
+    fwd = hd_row("flash_attention_fwd", hd)
+    bwd = hd_row("flash_attention_bwd", hd)
     for b, sq, sk, hq, hk, window, q_offset in cases:
-        q, do = rand(b, sq, hq, 128, dtype=dt), rand(b, sq, hq, 128, dtype=dt)
-        k, v = rand(b, sk, hk, 128, dtype=dt), rand(b, sk, hk, 128, dtype=dt)
+        q, do = rand(b, sq, hq, hd, dtype=dt), rand(b, sq, hq, hd, dtype=dt)
+        k, v = rand(b, sk, hk, hd, dtype=dt), rand(b, sk, hk, hd, dtype=dt)
         kw = dict(window=window, q_offset=q_offset)
-        what = (f"hd 128 B={b} Sq={sq} Sk={sk} H={hq} KVH={hk} "
+        desc = (f"hd {hd} B={b} Sq={sq} Sk={sk} H={hq} KVH={hk} "
                 f"window={window} q_offset={q_offset}")
         out, lse = fops.flash_attention_fwd(q, k, v, **kw)
         r_out, r_lse = fops.ref.attention_fwd(q, k, v, **kw)
         errs[fwd] = max(errs[fwd],
-                        max_err(torch, out, r_out, dname, f"flash {what}"),
+                        max_err(torch, out, r_out, dname, f"flash {desc}"),
                         max_err(torch, lse, r_lse, dname,
-                                f"flash lse {what}"))
+                                f"flash lse {desc}"))
         got = fops.flash_attention_bwd(q, k, v, r_out, r_lse, do, **kw)
         want = fops.ref.attention_bwd(q, k, v, r_out, r_lse, do, **kw)
         errs[bwd] = max([errs[bwd]] + [
-            max_err(torch, g, w, dname, f"flash bwd {what} d{n}")
+            max_err(torch, g, w, dname, f"flash bwd {desc} d{n}")
             for n, g, w in zip("qkv", got, want)])
     lens = [128 + 4 * i for i in range(SLOTS)]
     for window in (0, 100):
         q, k, v, clen = decode_args(torch, rand, dt, dev, s=MAX_LEN, lens=lens,
-                                    heads=LLAMA_HEADS, hd=128)
+                                    heads=heads, hd=hd)
         kp, vp, pt = paged_args(torch, k, v, gen, dev, ps=PAGE)
-        what = f"hd 128 B={SLOTS} H={h} KVH={kvh} window={window}"
+        desc = f"hd {hd} B={SLOTS} H={h} KVH={kvh} window={window}"
         got = dops.decode_attention(q, k, v, clen, window=window)
         paged = dops.decode_attention_paged(q, kp, vp, pt, clen,
                                             window=window)
@@ -2937,31 +3088,33 @@ def check_hd128_kernels(torch, rand, dname, dt, dev, gen, errs):
                 ("decode_attention_paged", paged,
                  dops.ref.decode_attention_paged(q, kp, vp, pt, clen,
                                                  window=window))):
-            errs[hd128(kname)] = max(errs[hd128(kname)], max_err(
-                torch, g, w, dname, f"{kname} {what}"))
+            errs[hd_row(kname, hd)] = max(errs[hd_row(kname, hd)], max_err(
+                torch, g, w, dname, f"{kname} {desc}"))
         if not torch.equal(paged, got):
             raise RuntimeError(f"paged decode differs from contiguous "
-                               f"decode ({what}, {dname})")
-    log(f"phase 2 ({dname}): hd 128 flash forward and backward at "
-        f"{len(cases)} shapes and decode at the llama3-8b tick: max "
+                               f"decode ({desc}, {dname})")
+    log(f"phase 2 ({dname}): hd {hd} flash forward and backward at "
+        f"{len(cases)} shapes and decode at the {what} tick: max "
         f"|kernel - plain| " + ", ".join(
-            f"{k} {errs[hd128(k)]:.3e}" for k in HD128))
+            f"{k} {errs[hd_row(k, hd)]:.3e}" for k in WIDE_HD))
 
 
-def check_dense_widths(torch, rand, dname, dt, gen, errs):
-    """Phase 2 at llama3-8b's widths: the indexed LoRA at its tick and
-    prefill (M = SLOTS and PROMPT) and the fused LoRA forward at its eval
-    step (M = 10240), both from K = 4096 into N = 4096 (q, o) and 1024 (k,
-    v: 8 kv heads of 128) at r 16, each against its plain version; the
-    int8 quantizers at d = 4096 (G 5, M 2048) bit for bit.  At K = 4096
-    the indexed LoRA adds 64 K slices in order (12 at gpt2's 768); at d =
-    4096 the int8 kernels run 64 clusters a message."""
+def check_dense_widths(torch, rand, dname, dt, gen, errs, *, kd, ns, m_eval,
+                       what):
+    """Phase 2 at a wide model's widths (llama3-8b: K = 4096 into N = 4096
+    for q, o and 1024 for k, v; kimi-k2: K = 7168 into 7168 and 896): the
+    indexed LoRA at its tick and prefill (M = SLOTS and PROMPT) and the
+    fused LoRA forward at its eval step (M = m_eval: 5 clients x batch x
+    512), each against its plain version at r 16; the int8 quantizers at d
+    = K (G 5, M = m_eval / 5) bit for bit.  At K = 4096 the indexed LoRA
+    adds 64 K slices in order (12 at gpt2's 768); at d = 4096 the int8
+    kernels run 64 clusters a message."""
     from repro_torch.kernels.lora_matmul import ops as lops
     from repro_torch.kernels.smashed_quant import ops as sops
 
-    kd, r, p = 4096, 16, len(RANKS)
+    r, p = 16, len(RANKS)
     mask = (torch.arange(r)[None, :] < torch.tensor(RANKS)[:, None]).float()
-    for n in (4096, 1024):
+    for n in ns:
         w = rand(kd, n, dtype=dt, scale=kd ** -0.5)
         dev = w.device
         a = (rand(p, kd, r, scale=r ** -0.5) * mask.to(dev)[:, None, :]
@@ -2978,16 +3131,16 @@ def check_dense_widths(torch, rand, dname, dt, gen, errs):
                                                         ids),
                         lops.ref.lora_matmul_indexed(x, w, a, b, scale, ids),
                         dname, f"indexed LoRA M={m} K={kd} N={n}"))
-        x = rand(10240, kd, dtype=dt)
+        x = rand(m_eval, kd, dtype=dt)
         sc = torch.tensor(2.0, device=dev)
         got = lops.lora_matmul_fwd(x, w, a[0], b[0], sc)
         want = lops.ref.lora_matmul_fwd(x, w, a[0], b[0], sc)
         errs["lora_matmul_fwd"] = max(
             [errs["lora_matmul_fwd"]]
-            + [max_err(torch, g, wt, dname, f"fused LoRA {what} M=10240 "
+            + [max_err(torch, g, wt, dname, f"fused LoRA {part} M={m_eval} "
                        f"K={kd} N={n}", scaled=True)
-               for what, g, wt in zip(("y", "xa"), got, want)])
-    xs = rand(5, 4, 512, kd, dtype=dt)
+               for part, g, wt in zip(("y", "xa"), got, want)])
+    xs = rand(5, m_eval // 2560, 512, kd, dtype=dt)
     x3 = xs.reshape(5, -1, kd)
     q8, s8 = sops.int8_quantize_smashed(xs)
     want_q, want_s = sops.ref.quantize(x3)
@@ -3003,30 +3156,33 @@ def check_dense_widths(torch, rand, dname, dt, gen, errs):
         if not torch.equal(got, want):
             raise RuntimeError(f"{kname} at d={kd} ({dname}) is not "
                                f"bit-equal to its plain version")
-    log(f"phase 2 ({dname}): at llama3-8b's widths (K = 4096, N = 4096 and "
-        f"1024) the indexed LoRA (M = {SLOTS}, {PROMPT}) and the fused LoRA "
-        f"forward (M = 10240) agree with their plain versions, the int8 "
-        f"kernels (d = 4096) bit for bit")
+    log(f"phase 2 ({dname}): at {what}'s widths (K = {kd}, N = "
+        f"{' and '.join(map(str, ns))}) the indexed LoRA (M = {SLOTS}, "
+        f"{PROMPT}) and the fused LoRA forward (M = {m_eval}) agree with "
+        f"their plain versions, the int8 kernels (d = {kd}) bit for bit")
 
 
-def time_hd128_kernels(torch, F, rand, dev, gen, errs):
-    """Phase 3 at head dim 128 (fp32), at llama3-8b's shapes (32 heads over
-    8): the flash forward and backward at its train step (B 20, S 512,
-    causal), the forward at its serving prefill (B 1, S PROMPT), and the
-    decode kernels at its tick (SLOTS slots, cache lengths 128..156),
-    contiguous and paged.  Each timed call's result is first held against
-    its plain version (errs takes the larger error).  The library call is
-    SDPA with enable_gqa (the backward through autograd)."""
+def time_wide_kernels(torch, F, rand, dev, gen, errs, *, hd, heads, train_b,
+                      what):
+    """Phase 3 at head dim `hd` (fp32), at a wide model's shapes (128:
+    llama3-8b's 32 heads over 8, 5 clients x batch 4; 112: kimi-k2's 64
+    over 8, 5 clients x batch 1): the flash forward and backward at its
+    train step (B `train_b`, S 512, causal), the forward at its serving
+    prefill (B 1, S PROMPT), and the decode kernels at its tick (SLOTS
+    slots, cache lengths 128..156), contiguous and paged.  Each timed
+    call's result is first held against its plain version (errs takes
+    the larger error).  The library call is SDPA with enable_gqa (the
+    backward through autograd)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
 
-    h, kvh = LLAMA_HEADS
-    hd = 128
-    fwd, bwd = hd128("flash_attention_fwd"), hd128("flash_attention_bwd")
+    h, kvh = heads
+    fwd = hd_row("flash_attention_fwd", hd)
+    bwd = hd_row("flash_attention_bwd", hd)
     rows = {}
-    for key, b, s, what in ((fwd, 20, 512, "the llama3-8b train step"),
-                            ("flash_attention_fwd (hd 128, prefill)", 1,
-                             PROMPT, "the llama3-8b serving prefill")):
+    for key, b, s, step in ((fwd, train_b, 512, f"the {what} train step"),
+                            (f"flash_attention_fwd (hd {hd}, prefill)", 1,
+                             PROMPT, f"the {what} serving prefill")):
         q, k, v = rand(b, s, h, hd), rand(b, s, kvh, hd), rand(b, s, kvh, hd)
         out, lse = fops.flash_attention_fwd(q, k, v)
         r_out, r_lse = fops.ref.attention_fwd(q, k, v)
@@ -3037,7 +3193,7 @@ def time_hd128_kernels(torch, F, rand, dev, gen, errs):
                       for t in (q, k, v))
         pairs = b * h * s * (s + 1) // 2
         shape = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal fp32 "
-                 f"({what})")
+                 f"({step})")
         with torch.no_grad():
             rows[key] = dict(
                 ms=cuda_ms(torch, lambda: fops.flash_attention_fwd(q, k, v),
@@ -3078,8 +3234,7 @@ def time_hd128_kernels(torch, F, rand, dev, gen, errs):
         del o_lib, qt, kt, vt
     lens = [128 + 4 * i for i in range(SLOTS)]
     q1, kc, vc, clen = decode_args(torch, rand, torch.float32, dev,
-                                   s=MAX_LEN, lens=lens, heads=LLAMA_HEADS,
-                                   hd=hd)
+                                   s=MAX_LEN, lens=lens, heads=heads, hd=hd)
     kp, vp, pt = paged_args(torch, kc, vc, gen, dev, ps=PAGE)
     for kname, fn, plain in (
             ("decode_attention",
@@ -3088,8 +3243,8 @@ def time_hd128_kernels(torch, F, rand, dev, gen, errs):
             ("decode_attention_paged",
              lambda: dops.decode_attention_paged(q1, kp, vp, pt, clen),
              lambda: dops.ref.decode_attention_paged(q1, kp, vp, pt, clen))):
-        errs[hd128(kname)] = max(errs[hd128(kname)], max_err(
-            torch, fn(), plain(), "float32", f"{kname} hd 128"))
+        errs[hd_row(kname, hd)] = max(errs[hd_row(kname, hd)], max_err(
+            torch, fn(), plain(), "float32", f"{kname} hd {hd}"))
     tot = sum(lens)
     dec_bytes = 4 * (2 * SLOTS * h * hd + 2 * tot * kvh * hd + SLOTS)
     dec_flops = 4 * tot * h * hd
@@ -3098,8 +3253,8 @@ def time_hd128_kernels(torch, F, rand, dev, gen, errs):
     qs = q1[:, :, None, :]
     ks, vs = (t.transpose(1, 2).contiguous() for t in (kc, vc))
     shape = (f"B={SLOTS} S={MAX_LEN} H={h} KVH={kvh} hd={hd} cache_len "
-             f"{lens[0]}..{lens[-1]} fp32 (the llama3-8b decode tick)")
-    rows[hd128("decode_attention")] = dict(
+             f"{lens[0]}..{lens[-1]} fp32 (the {what} decode tick)")
+    rows[hd_row("decode_attention", hd)] = dict(
         ms=cuda_ms(torch, lambda: dops.decode_attention(q1, kc, vc, clen)),
         plain_ms=cuda_ms(torch, lambda: dops.ref.decode_attention(
             q1, kc, vc, clen)),
@@ -3108,7 +3263,7 @@ def time_hd128_kernels(torch, F, rand, dev, gen, errs):
         passes=pass_ms(torch, lambda: dops.decode_attention(q1, kc, vc, clen),
                        ("decode_kernel",), launches=True),
         **work(dec_bytes, dec_flops), shape=shape)
-    rows[hd128("decode_attention_paged")] = dict(
+    rows[hd_row("decode_attention_paged", hd)] = dict(
         ms=cuda_ms(torch, lambda: dops.decode_attention_paged(
             q1, kp, vp, pt, clen)),
         plain_ms=cuda_ms(torch, lambda: dops.ref.decode_attention_paged(
@@ -3578,6 +3733,276 @@ def zamba2_phase(torch, dev, wrappers, name, card):
                      model_kw=dict(attn_layer_indices=Z_SMALL_ATTN))
     ssm_card_vs_cpu(torch, dev, small, SSM_RANKS, "phase 12 card vs CPU")
     return {k: got[k] + served[k] for k in got}
+
+
+def host_available_gib() -> float:
+    """The host's available memory (MemAvailable of /proc/meminfo), GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+@contextlib.contextmanager
+def recorded_routing(on=True):
+    """While open, every MoE layer's routing (transformer.moe_route) adds
+    (its top-k indices on the host, the share of its (token, choice)
+    pairs past capacity) to the yielded list."""
+    from repro_torch.models import transformer
+
+    calls = []
+    if not on:
+        yield calls
+        return
+    route = transformer.moe_route
+
+    def recording(cfg, yg, router):
+        got = route(cfg, yg, router)
+        _, _, topi, pos, cap = got
+        calls.append((topi.detach().cpu(),
+                      float((pos >= cap).float().mean())))
+        return got
+
+    transformer.moe_route = recording
+    try:
+        yield calls
+    finally:
+        transformer.moe_route = route
+
+
+def routing_flips(torch, card, cpu) -> int:
+    """(token, choice) pairs chosen on the card and not on the CPU, over
+    recorded_routing's calls of one step on each (a choice's rank among
+    its token's k does not move its queue position)."""
+    if len(card) != len(cpu):
+        raise RuntimeError(f"{len(card)} MoE layer calls on the card, "
+                           f"{len(cpu)} on the CPU")
+    flips = 0
+    for (a, _), (b, _) in zip(card, cpu):
+        same = (a[..., :, None] == b[..., None, :]).any(-1)
+        flips += int((~same).sum())
+    return flips
+
+
+@contextlib.contextmanager
+def drawn_on_card(torch, dev):
+    """While open, Model.init_params draws from a generator on the card
+    seeded as the one it is given (SplitFTSystem passes a CPU generator):
+    the same weights for one seed on every run, without a CPU draw of a
+    model of tens of GB."""
+    from repro_torch.models import model as model_mod
+
+    init = model_mod.Model.init_params
+
+    def on_card(self, generator, dtype=torch.float32):
+        return init(self, torch.Generator(device=dev).manual_seed(
+            generator.initial_seed()), dtype)
+
+    model_mod.Model.init_params = on_card
+    try:
+        yield
+    finally:
+        model_mod.Model.init_params = init
+
+
+def kimi_arch():
+    """kimi-k2 at full width with KIMI_EXPERTS experts a layer and
+    KIMI_LAYERS layers, cut KIMI_CUT over KIMI_BUCKETS, 5 clients x batch
+    KIMI_BATCH x seq 512; the config's capacity, aux loss, LoRA and int8
+    smashed activations."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config(KIMI)
+    return arch.replace(
+        model=dataclasses.replace(arch.model, num_layers=KIMI_LAYERS,
+                                  num_experts=KIMI_EXPERTS),
+        split=dataclasses.replace(arch.split, cut_layer=KIMI_CUT,
+                                  cut_buckets=KIMI_BUCKETS),
+        train=dataclasses.replace(arch.train, batch_size=KIMI_BATCH,
+                                  seq_len=M_SEQ))
+
+
+def drop_shares(torch, dev, system):
+    """The share of (token, choice) pairs dropped past capacity in each
+    MoE layer of one forward of the system's last train batch through
+    its per-client adapters."""
+    from repro_torch.core import split
+
+    base, state, batch = system.train_step.last[:3]
+    eff = split.merge_adapters(system.model, state["client_adapters"],
+                               state["server_adapters"], state["cuts"],
+                               rank_cut=state.get("rank_cut"))
+    with recorded_routing() as calls, torch.no_grad():
+        system.model.loss(base, eff, {k: torch.as_tensor(v, device=dev)
+                                      for k, v in batch.items()},
+                          per_client=True)
+    return [share for _, share in calls]
+
+
+def kimi_phase(torch, dev, wrappers, name, card):
+    """Phase 13: kimi_arch() (weights drawn on the card), ROUNDS SplitFT
+    rounds through SplitFTSystem.run, the cross entropy in chunks of
+    KIMI_CE_CHUNK: a train step launches the flash forward and backward
+    (hd 112) per layer and the int8 round trip twice per distinct cut; an
+    eval step the flash forward per layer and the fused LoRA forward (K =
+    7168) per layer and target.  The peak of device memory must stay
+    below PEAK_SHARE of the card, and at capacity 1.25 some (token,
+    choice) pairs must be dropped in every layer.  Then the fused LoRA
+    backward at the eval shape (phase 5's global-adapter gradient), then
+    phase 4's workload served from the trained adapters, contiguous and
+    paged (the indexed LoRA at K = 7168 into 7168 and 896, decode at hd
+    112): prompts of PROMPT tokens are a bucket, so the engine's prefill
+    has serial_reference's capacity.  Returns the launches."""
+    from repro_torch.models import transformer
+    from repro_torch.runtime import serving
+
+    arch = kimi_arch()
+    m = arch.model
+    layers, targets = m.num_layers, len(arch.lora.targets)
+    log(f"phase 13: {arch.name} cut to {m.num_experts} of 384 experts a "
+        f"layer and {layers} of 61 layers, cut {KIMI_CUT} over buckets "
+        f"{KIMI_BUCKETS}, ce_chunk {KIMI_CE_CHUNK}; full width: d_model "
+        f"{m.d_model}, {m.num_heads} heads over {m.num_kv_heads} of "
+        f"{m.head_dim}, d_ff {m.moe_d_ff} per expert, top-{m.moe_top_k}, "
+        f"{m.num_shared_experts} shared expert, vocab {m.vocab_size} untied, "
+        f"capacity factor {m.moe_capacity_factor}, router aux loss "
+        f"{m.router_aux_loss}; weights drawn on the card")
+    with drawn_on_card(torch, dev):
+        system, got, per_round, times = run_rounds(
+            torch, arch, dev, wrappers, "phase 13", name, card,
+            ce_chunk=KIMI_CE_CHUNK)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(
+        per_round,
+        lambda p: {"flash_attention_fwd": layers,
+                   "flash_attention_bwd": layers,
+                   "int8_roundtrip_smashed": 2 * len(set(p["cuts"]))},
+        {"flash_attention_fwd": layers, "lora_matmul_fwd": targets * layers},
+        "kimi-k2 training")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak > PEAK_SHARE * total:
+        raise RuntimeError(f"phase 13: peaks at {peak / 2**30:.2f} GiB, over "
+                           f"{PEAK_SHARE} of the card's "
+                           f"{total / 2**30:.2f} GiB")
+    nonzero = lambda d: {k: c for k, c in d.items() if c}  # noqa: E731
+    log(f"phase 13 [{name}, {card}]: train step "
+        f"{fmt([t * 1e3 for _, t, _, _ in times])} ms, eval step "
+        f"{fmt([e * 1e3 for _, _, e, _ in times])} ms, host share per round "
+        f"{fmt([hst / w for w, _, _, hst in times])}; launches per train "
+        f"step {nonzero(per_round[-1][1])}, per eval step "
+        f"{nonzero(per_round[-1][2])}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB")
+    shares = drop_shares(torch, dev, system)
+    log(f"phase 13: (token, choice) pairs dropped past capacity per layer "
+        f"at capacity factor {m.moe_capacity_factor} ({m.moe_top_k} x "
+        f"{M_SEQ} pairs a routing group, "
+        f"{transformer.moe_capacity(m, M_SEQ)} slots per expert): "
+        f"{fmt(shares)}")
+    if len(shares) != layers or not all(sh > 0 for sh in shares):
+        raise RuntimeError(f"phase 13: drop shares {shares}: the path must "
+                           f"drop pairs in each of the {layers} layers")
+
+    got["lora_matmul_bwd"] += global_adapter_grad(
+        torch, dev, wrappers, system, targets * layers, "phase 13", name,
+        card)
+    pool = serving.pool_from_state(system.model, system.state)
+    served = serve_both(torch, dev, wrappers, system.model,
+                        system.base_params, pool, requests=N_REQUESTS,
+                        prompt=PROMPT, gen=GEN, max_len=MAX_LEN,
+                        tag="phase 13 serving", name=name, card=card)
+    del system, pool
+    torch.cuda.empty_cache()
+    return {k: got[k] + served[k] for k in got}
+
+
+def moe_decode_check(torch, dev, arch, cpu_params, tag):
+    """Prefill of one PROMPT-token request and 4 decode steps through the
+    indexed pool (ranks RANKS), on the card and on the CPU from the same
+    weights: the card's tokens fed to both, logits within LOGITS_TOL and
+    each step's token equal; the top-k choices' flips are logged."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import serving
+    from repro_torch.tree import tree_map
+
+    rng = np.random.default_rng(SEED + 13)
+    prompt = rng.integers(3, arch.model.vocab_size, size=PROMPT)
+    outs, toks, routes = {}, [], {}
+    for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(arch, device=dv)
+        params = tree_map(lambda t: t.to(dv), cpu_params)
+        pool = serving.build_adapter_pool(
+            model, torch.Generator().manual_seed(SEED + 1), len(RANKS),
+            ranks=RANKS)
+        ad = serving.attach_ids(pool, [1])
+        with torch.no_grad(), recorded_routing() as calls:
+            cache = model.init_cache((1,), MAX_LEN)
+            lg, cache = model.prefill(params, ad, {"tokens": torch.as_tensor(
+                prompt[None].astype(np.int32), device=dv)}, cache)
+            seq = [lg[0, -1].float().cpu()]
+            for i in range(4):
+                if role == "card":
+                    toks.append(int(torch.argmax(seq[-1])))
+                lg, cache = model.decode_step(
+                    params, ad, torch.tensor([[toks[i]]], dtype=torch.int32,
+                                             device=dv), cache)
+                seq.append(lg[0, -1].float().cpu())
+        outs[role], routes[role] = torch.stack(seq), calls
+        del model, params, pool, cache
+    torch.cuda.empty_cache()
+    flips = routing_flips(torch, routes["card"], routes["cpu"])
+    diff = float((outs["card"] - outs["cpu"]).abs().max())
+    cpu_toks = [int(t) for t in torch.argmax(outs["cpu"], -1)[:4]]
+    log(f"{tag}: prefill of {PROMPT} tokens + 4 decode steps, card vs CPU: "
+        f"max |logit diff| {diff:.3e} (tol {LOGITS_TOL}), tokens {toks} vs "
+        f"{cpu_toks}, {flips} top-k choices flipped")
+    torch.testing.assert_close(
+        outs["card"], outs["cpu"], rtol=LOGITS_TOL, atol=LOGITS_TOL,
+        msg=lambda msg: f"{tag} card vs CPU logits ({flips} flips): {msg}")
+    if cpu_toks != toks:
+        raise RuntimeError(f"{tag}: card tokens {toks} != CPU {cpu_toks}")
+
+
+def moe_vlm_steps(torch, dev, wrappers):
+    """Phase 13b: one card-vs-CPU round step each at full width and
+    SMALL_LAYERS layers, weights drawn on the card (small_step_check with
+    wide=True), uncompressed and under the config's int8 (held on
+    average): kimi-k2 (hd 112) and llama4-maverick (hd 128, top-1, RoPE
+    theta 500000) at MOE_STEP_EXPERTS experts and seq DENSE_STEP_SEQ,
+    each followed by moe_decode_check; internvl2-76b (hd 128, d_ff 28672)
+    over a batch with its 256-position prefix at seq VLM_SEQ.  Each
+    card step must launch the flash forward and backward.  Returns the
+    launches by head dim."""
+    by_hd = {}
+    steps = [("none", "none", {}), ("int8", "int8", {})]
+    for arch_name, seq, kw, plen in (
+            (KIMI, DENSE_STEP_SEQ, dict(num_experts=MOE_STEP_EXPERTS), 0),
+            (LLAMA4, DENSE_STEP_SEQ, dict(num_experts=MOE_STEP_EXPERTS), 0),
+            (VLM, VLM_SEQ, {}, 256)):
+        arch = small_arch(arch_name, kw)
+        m = arch.model
+        log(f"phase 13b: {arch_name} at full width, {SMALL_LAYERS} layers"
+            + (f", {m.num_experts} experts top-{m.moe_top_k}"
+               if m.num_experts else "")
+            + f", d_model {m.d_model}, {m.num_heads} heads over "
+            f"{m.num_kv_heads} of {m.head_dim}, seq {seq}"
+            + (f" ({plen} prefix positions)" if plen else ""))
+        cpu_params, got = small_step_check(
+            torch, dev, arch_name, seq, steps, "phase 13b", compressed="mean",
+            model_kw=kw, wide=True, prefix_len=plen, wrappers=wrappers)
+        idle = [k for k in ("flash_attention_fwd", "flash_attention_bwd")
+                if not got[k]]
+        if idle:
+            raise RuntimeError(f"phase 13b {arch_name}: never launched {idle}")
+        if m.num_experts:
+            moe_decode_check(torch, dev, arch, cpu_params,
+                             f"phase 13b {arch_name} serving")
+        del cpu_params
+        acc = by_hd.setdefault(m.head_dim, {})
+        for k, c in got.items():
+            acc[k] = acc.get(k, 0) + c
+    return by_hd
 
 
 def lora_args(torch, rand, m, dt, gen):

@@ -25,13 +25,13 @@ _REGISTRY: Dict[str, str] = {
     "qwen1.5-32b": "qwen1p5_32b",
     "mistral-large-123b": "mistral_large_123b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "internvl2-76b": "internvl2_76b",
 }
 
 # the reference's other registry ids: known, not yet ported
-_NOT_YET_PORTED = (
-    "internvl2-76b", "kimi-k2-1t-a32b",
-    "llama4-maverick-400b-a17b", "whisper-medium",
-)
+_NOT_YET_PORTED = ("whisper-medium",)
 
 
 def _canon(name: str) -> str:

@@ -53,9 +53,22 @@
 //    spills up to hd 64; a warp skips the blocks outside its band.  At hd
 //    128 the fp32 dq CTA takes 203 KB of shared memory, so one CTA fits
 //    an SM and the registers are held to that (the dk/dv accumulators
-//    alone are 128 registers); bf16's 104 KB fit two (bwd_min_ctas);
+//    alone are 128 registers); bf16's 104 KB fit two (bwd_min_ctas).  hd
+//    112 takes the same choices (174 KB in fp32, 90 KB in bf16);
 //  * ragged tails of Sq and Sk are zero-filled and masked, so no shape has
 //    to divide a tile; accumulation is fp32 for fp32 and bf16 inputs.
+//    The tensor cores truncate each fp32 accumulation, so a key summed
+//    over a whole GQA group's queries drifts: 8 heads x 512 queries are
+//    1536 accumulations of dk/dv (3 per 3xTF32 k step), ~2e-4 of |dv| at
+//    kimi-k2's shape.  In fp32 below hd 128 a warp therefore adds its
+//    dk/dv partial sums into the outputs in global memory every
+//    FLUSH_TILES query tiles (global reductions of its own elements: no
+//    other thread touches them, and one thread's adds land in program
+//    order) and starts afresh, as the fused LoRA GEMM sums fresh
+//    accumulators per k tile.  At hd 128 the flush's code takes
+//    registers the kernel does not have (144 B spilled at 255), so it
+//    sums the whole band in the accumulators, as before: fine for GQA
+//    4:1 over 512 queries (llama3-8b), ~2e-4 off at GQA 8:1 (FT).
 #include "flash_mma.cuh"
 
 namespace {
@@ -65,6 +78,10 @@ using repro::fa::Mma;
 
 constexpr int NW = 4;   // warps per CTA, 16 rows (dq) or keys (dk/dv) each
 constexpr int NS = 32;  // columns of s / dp recomputed at a time
+// fp32 dk/dv below hd 128: query tiles summed in the MMA accumulators
+// before they are added into the outputs (8 tiles of 64: 192
+// accumulations)
+constexpr int FLUSH_TILES = 8;
 
 // two stages of two 64-row tiles, then the CTA's own 16 * NW rows of two
 // operands (q and dO, or k and v)
@@ -264,6 +281,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int NN = NS / 8;
   constexpr int ND = HD / 8;
   constexpr int KPT = M::K / 8;
+  // query tiles between two flushes of dk/dv (0: one flush at the end);
+  // hd 128 has no registers left for the flush
+  constexpr int FT = sizeof(T) == 4 && HD < 128 ? FLUSH_TILES : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);  // stage s: q at 2s, dO at 2s+1
   T* ksm = sm + 4 * TILE;  // the CTA's k rows, then its v rows
@@ -333,6 +353,38 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     repro::fa::zero(dka[j]);
     repro::fa::zero(dva[j]);
   }
+  // this warp's partial sums stored into its rows of dk and dv, or
+  // added onto what an earlier flush stored there (fp32 only: a global
+  // reduction of one thread's own elements, in program order); the
+  // accumulators start afresh
+  auto flush = [&](bool add) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kw0 + g + 8 * i;
+      if (key >= Sk) continue;
+      const size_t off = koff + key * kv_rs;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const size_t at = off + 8 * j + 2 * t + e;
+          if constexpr (sizeof(T) == 4) {
+            if (add) {
+              atomicAdd(dk + at, dka[j][2 * i + e]);
+              atomicAdd(dv + at, dva[j][2 * i + e]);
+              continue;
+            }
+          }
+          dk[at] = repro::from_f<T>(dka[j][2 * i + e]);
+          dv[at] = repro::from_f<T>(dva[j][2 * i + e]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      repro::fa::zero(dka[j]);
+      repro::fa::zero(dva[j]);
+    }
+  };
 
   for (int it = 0; it < ntiles; ++it) {
     const int qt = q_lo + (it % nqt) * BK;
@@ -399,22 +451,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-  }
-  repro::fa::cp_async_wait<0>();  // no tile: the own rows' copies
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = kw0 + g + 8 * i;
-    if (key >= Sk) continue;
-    const size_t off = koff + key * kv_rs;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      dk[off + 8 * j + 2 * t] = repro::from_f<T>(dka[j][2 * i]);
-      dk[off + 8 * j + 2 * t + 1] = repro::from_f<T>(dka[j][2 * i + 1]);
-      dv[off + 8 * j + 2 * t] = repro::from_f<T>(dva[j][2 * i]);
-      dv[off + 8 * j + 2 * t + 1] = repro::from_f<T>(dva[j][2 * i + 1]);
+    if constexpr (FT > 0) {
+      if ((it + 1) % FT == 0 && it + 1 < ntiles) flush(it + 1 > FT);
     }
   }
+  repro::fa::cp_async_wait<0>();  // no tile: the own rows' copies
+  flush(FT > 0 && ntiles > FT);
 }
 
 template <typename T, int HD>
@@ -467,6 +509,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     case 64:
       return launch_hd<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq,
                               Sk, H, KVH, q_offset, causal, window, scale, s);
+    case 112:
+      return launch_hd<T, 112>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq,
+                               Sk, H, KVH, q_offset, causal, window, scale, s);
     case 128:
       return launch_hd<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq,
                                Sk, H, KVH, q_offset, causal, window, scale, s);
@@ -487,6 +532,7 @@ extern "C" int flash_bwd_smem(int dkv, int hd, int dtype) {
     case 16: dq = f32 ? dq_smem_bytes<float, 16>() : dq_smem_bytes<BF, 16>(); break;
     case 32: dq = f32 ? dq_smem_bytes<float, 32>() : dq_smem_bytes<BF, 32>(); break;
     case 64: dq = f32 ? dq_smem_bytes<float, 64>() : dq_smem_bytes<BF, 64>(); break;
+    case 112: dq = f32 ? dq_smem_bytes<float, 112>() : dq_smem_bytes<BF, 112>(); break;
     case 128: dq = f32 ? dq_smem_bytes<float, 128>() : dq_smem_bytes<BF, 128>(); break;
     default: return -1;
   }

@@ -43,7 +43,9 @@
 //    accumulator's 64, which spilled at 255, so the Q tile stays in a
 //    fifth shared-memory tile (169 KB: one CTA per SM) and a warp reads
 //    its fragments from there per k step, as the backward does
-//    (fwd_q_in_smem);
+//    (fwd_q_in_smem).  hd 112 (7168 / 64 heads) takes the hd-128 choices:
+//    its 14 TF32 k steps and 14 accumulator tiles hold nearly as many
+//    registers, and its five tiles of 116-float rows take 145 KB;
 //  * a warp skips the tiles and 32-key blocks outside the causal/window
 //    band of its 16 rows, the _tile_live predicate; whole tiles outside
 //    the CTA's band are never loaded;
@@ -305,6 +307,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     case 64:
       return launch_hd<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, KVH, q_offset,
                               causal, window, scale, s);
+    case 112:
+      return launch_hd<T, 112>(q, k, v, out, lse, B, Sq, Sk, H, KVH,
+                               q_offset, causal, window, scale, s);
     case 128:
       return launch_hd<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, KVH,
                                q_offset, causal, window, scale, s);
@@ -323,6 +328,7 @@ extern "C" int flash_fwd_smem(int hd, int dtype) {
     case 16: return f32 ? fwd_smem_bytes<float, 16>() : fwd_smem_bytes<BF, 16>();
     case 32: return f32 ? fwd_smem_bytes<float, 32>() : fwd_smem_bytes<BF, 32>();
     case 64: return f32 ? fwd_smem_bytes<float, 64>() : fwd_smem_bytes<BF, 64>();
+    case 112: return f32 ? fwd_smem_bytes<float, 112>() : fwd_smem_bytes<BF, 112>();
     case 128: return f32 ? fwd_smem_bytes<float, 128>() : fwd_smem_bytes<BF, 128>();
     default: return -1;
   }

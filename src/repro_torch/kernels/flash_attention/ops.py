@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 
 
 def _check(q, k, v, *others):

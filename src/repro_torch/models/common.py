@@ -21,20 +21,21 @@ Params = Dict[str, Any]
 
 
 # ---------------------------------------------------------------------------
-# Initializers (drawn on the CPU from an explicit generator, so one seed
-# gives the same weights on every device)
+# Initializers (drawn on the generator's device from an explicit
+# generator: a CPU generator gives the same weights on every device)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, *, lead=()) -> torch.Tensor:
     scale = (1.0 / d_in) ** 0.5
-    return (torch.randn(tuple(lead) + (d_in, d_out), generator=gen)
-            * scale).to(dtype)
+    return (torch.randn(tuple(lead) + (d_in, d_out), generator=gen,
+                        device=gen.device) * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.float32) -> torch.Tensor:
-    return (torch.randn((vocab, d), generator=gen) * 0.02).to(dtype)
+    return (torch.randn((vocab, d), generator=gen, device=gen.device)
+            * 0.02).to(dtype)
 
 
 def init_norm(d: int, *, bias: bool, dtype=torch.float32, lead=()) -> Params:

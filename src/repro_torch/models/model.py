@@ -20,12 +20,16 @@ Training activations carry the client axis first ((N, B, S, d)); caches
 are updated in place and returned.  The port has the dense decoder
 (learned positions or RoPE, per-layer sliding windows, GQA: gpt2-small,
 opt-125m, gpt-neo-125m, llama3-8b, phi4-mini, qwen1.5-32b,
-mistral-large), the SSM kind (mamba2-780m, ``models/ssm.py``) and the
-hybrid of the two (zamba2-1.2b: SSD layers with attention layers
-between them), each in training, prefill and decode.  An SSM layer's
-cache is its conv window and its fp32 state; the attention layers' k/v
-and the shared "len" are the dense decoder's.  The encoder and the MoE
-kind raise NotImplementedError with a pointer to ROADMAP.md.
+mistral-large), the MoE decoder (kimi-k2, llama4-maverick: the MLP is
+``transformer.moe_apply``, whose router loss each layer returns and
+``forward`` sums as ``aux``), the vlm decoder (internvl2: a batch's
+"prefix" embeddings replace its first positions), the SSM kind
+(mamba2-780m, ``models/ssm.py``) and the hybrid of the two (zamba2-1.2b:
+SSD layers with attention layers between them), each in training,
+prefill and decode.  An SSM layer's cache is its conv window and its
+fp32 state; the attention layers' k/v and the shared "len" are the dense
+decoder's.  The encoder (whisper) raises NotImplementedError with a
+pointer to ROADMAP.md.
 
 Memory knobs of a train step, as in the reference:
 
@@ -173,7 +177,7 @@ def flat_runs(groups: Sequence[GroupSpec]) -> List[Tuple[str, int, int]]:
 
 
 def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         return f"the {cfg.family} family"
     return None
 
@@ -222,8 +226,10 @@ class Model(nn.Module):
 
     def init_params(self, generator: torch.Generator,
                     dtype=torch.float32) -> Params:
-        """Random weights from `generator` (a CPU generator: the draw is
-        the same for every device), moved to this model's device."""
+        """Random weights from `generator`, moved to this model's device.
+        A CPU generator draws the same weights for every device; a
+        generator on the card draws the dense and MoE weights there (no
+        host copy of a model too large to draw quickly on the CPU)."""
         cfg = self.cfg
         p: Params = {"embed": {"tok": common.embed_init(
             generator, cfg.vocab_size, cfg.d_model, dtype)}}
@@ -241,7 +247,10 @@ class Model(nn.Module):
                 continue
             p[g.name] = transformer.init_attention(
                 generator, cfg, g.size, cross=g.cross, dtype=dtype)
-            if cfg.d_ff:
+            if g.kind == "attn_moe":
+                p[g.name].update(transformer.init_moe(
+                    generator, cfg, g.size, dtype=dtype))
+            elif cfg.d_ff:
                 p[g.name].update(transformer.init_mlp(
                     generator, cfg, g.size, dtype=dtype))
         return _to_device(p, self.device)
@@ -283,9 +292,14 @@ class Model(nn.Module):
 
     # -- embedding / head ------------------------------------------------------
 
-    def embed(self, params: Params, tokens, *, positions=None):
+    def embed(self, params: Params, tokens, *, positions=None, prefix=None):
+        """Token embeddings; a prefix ([N,] B, P, d) (the vlm frontend's
+        patch embeddings) replaces the first P positions."""
         cfg = self.cfg
         x = params["embed"]["tok"][tokens.long()]
+        if prefix is not None:
+            plen = prefix.shape[-2]
+            x = torch.cat([prefix.to(x.dtype), x[..., plen:, :]], dim=-2)
         if cfg.learned_pos:
             if positions is None:
                 positions = torch.arange(tokens.shape[-1],
@@ -311,15 +325,17 @@ class Model(nn.Module):
 
         mode: "train" (full sequences, no cache), "prefill" (full
         sequences; fills `cache` if given) or "decode" (one token per slot
-        against `cache`).  Returns (x, new_cache); the cache's k/v tensors
-        are written in place.
+        against `cache`).  Returns (x, aux, new_cache): aux sums the MoE
+        layers' router losses (0.0 without any), and the cache's k/v
+        tensors are written in place.
 
         `boundary(x, flat_id) -> x` is applied to every layer output with
         its flat layer id: the round engine compresses the smashed
         activation there, where each client's cut sits.  A stateful
         boundary (`boundary.stateful`, the smashed error-feedback hook)
         threads a carry, `x, carry = boundary(x, carry, flat_id)`, from
-        `boundary.init()`; run_blocks then returns (x, new_cache, carry).
+        `boundary.init()`; run_blocks then returns (x, aux, new_cache,
+        carry).
         `remat` (train mode, under autograd) recomputes each layer,
         boundary included, in the backward (see the module docstring)."""
         if mode not in ("train", "prefill", "decode"):
@@ -342,6 +358,7 @@ class Model(nn.Module):
             rope = common.rope_angles(positions, self.cfg.head_dim,
                                       self.cfg.rope_theta)
 
+        aux = 0.0
         flat_base = 0
         for name, lo, hi in self.runs:
             g = self.group_by_name[name]
@@ -364,25 +381,26 @@ class Model(nn.Module):
                 layer = functools.partial(
                     self._layer, g, i, p_l, ad_l, mode=mode, cache=c_l,
                     rope=rope, boundary=boundary, fid=run_flat_lo + (i - lo))
-                args = (x, bcarry) if stateful else (x,)
-                out = (layer(*args) if remat == "none"
-                       else _recomputed(layer, *args, remat=remat))
-                x, bcarry = out if stateful else (out, None)
+                x, bcarry, a = (layer(x, bcarry) if remat == "none"
+                                else _recomputed(layer, x, bcarry,
+                                                 remat=remat))
+                aux = aux + a
         new_cache = None
         if cache is not None:
             new_cache = dict(cache)
             step = 1 if mode == "decode" else x.shape[-2]
             new_cache["len"] = cache_len + step
         if stateful:
-            return x, new_cache, bcarry
-        return x, new_cache
+            return x, aux, new_cache, bcarry
+        return x, aux, new_cache
 
     def _layer(self, g: GroupSpec, i: int, p_l, ad_l, x, bcarry=None, *,
                mode: str, cache, rope, boundary, fid: int):
         """One layer of group g (local index i, whose attention window is
-        the group's per-layer window) and the cut-layer hook; with a
-        stateful hook, (x, carry) in and out."""
+        the group's per-layer window) and the cut-layer hook: (x, the
+        stateful hook's carry or None, the layer's router loss)."""
         cfg = self.cfg
+        aux = 0.0
         if g.kind == "ssm":
             out, new = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
                                      cache=cache)
@@ -395,13 +413,16 @@ class Model(nn.Module):
                 p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
                 window=g.window_of(i), rope=rope, cache=cache)
             x = x + attn_out
-            if cfg.d_ff:
+            if g.kind == "attn_moe":
+                out, aux = transformer.moe_apply(p_l, ad_l, x, cfg=cfg)
+                x = x + out
+            elif cfg.d_ff:
                 x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
         if getattr(boundary, "stateful", False):
-            return boundary(x, bcarry, fid)
-        if boundary is not None:
+            x, bcarry = boundary(x, bcarry, fid)
+        elif boundary is not None:
             x = boundary(x, fid)
-        return x
+        return x, bcarry, aux
 
     # -- top-level entry points ------------------------------------------------
 
@@ -410,28 +431,30 @@ class Model(nn.Module):
                 return_boundary: bool = False):
         """Full forward to hidden states (pre-head).
 
-        batch: {"tokens": ([N,] B, S)}.  Returns (x, aux, new_cache); aux
-        is the MoE router loss in the reference, 0 for the dense decoder.
-        return_boundary=True appends a stateful boundary's last carry
-        (the smashed error-feedback residual)."""
-        if "prefix" in batch or "frames" in batch:
+        batch: {"tokens": ([N,] B, S)[, "prefix": ([N,] B, P, d)]}.
+        Returns (x, aux, new_cache); aux is the MoE layers' summed router
+        loss, 0.0 for every other kind.  return_boundary=True appends a
+        stateful boundary's last carry (the smashed error-feedback
+        residual)."""
+        if "frames" in batch:
             raise NotImplementedError(
-                "modality prefixes and encoder frames are not ported yet "
+                "encoder frames (whisper) are not ported yet "
                 f"({_FAMILIES})")
         cfg = self.cfg
         tokens = batch["tokens"]
         positions = (cache["len"][..., None] if mode == "decode"
                      else torch.arange(tokens.shape[-1],
                                        device=tokens.device))
-        x = self.embed(params, tokens, positions=positions)
-        x, new_cache, *bcarry = self.run_blocks(
+        x = self.embed(params, tokens, positions=positions,
+                       prefix=batch.get("prefix"))
+        x, aux, new_cache, *bcarry = self.run_blocks(
             params, adapters, x, mode=mode, remat=remat, cache=cache,
             boundary=boundary)
         x = apply_norm(params["final_norm"], x, kind=cfg.norm,
                        eps=cfg.norm_eps)
         if return_boundary:
-            return (x, 0.0, new_cache, *bcarry)
-        return x, 0.0, new_cache
+            return (x, aux, new_cache, *bcarry)
+        return x, aux, new_cache
 
     def loss(self, params, adapters, batch, *, remat: str = "none",
              ce_chunk: int = 0, per_client: bool = False, boundary=None):
@@ -525,6 +548,41 @@ class Model(nn.Module):
                 "k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
         return cache
+
+
+    # -- input shapes ------------------------------------------------------------
+
+    def input_specs(self, kind: str, seq_len: int, global_batch: int, *,
+                    num_clients: int = 0, dtype=torch.float32
+                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """{input: (shape, dtype)} of a "train", "prefill" or "decode"
+        batch, as the reference's ``input_specs`` gives them (its
+        ShapeConfig's seq_len, global_batch and kind); a train batch
+        splits global_batch over num_clients when given.  The vlm family
+        adds its "prefix" of frontend_prefix_len positions."""
+        cfg = self.cfg
+        s, b = seq_len, global_batch
+
+        def tok_shape(extra: Tuple[int, ...]):
+            if num_clients:
+                return (num_clients, b // num_clients) + extra
+            return (b,) + extra
+
+        specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+        if kind == "train":
+            specs["tokens"] = (tok_shape((s,)), torch.int32)
+            specs["labels"] = (tok_shape((s,)), torch.int32)
+            specs["loss_mask"] = (tok_shape((s,)), torch.float32)
+        elif kind == "prefill":
+            specs["tokens"] = ((b, s), torch.int32)
+        else:
+            specs["tokens"] = ((b, 1), torch.int32)
+        if cfg.family == "vlm" and cfg.frontend_prefix_len \
+                and kind in ("train", "prefill"):
+            p_d = (cfg.frontend_prefix_len, cfg.d_model)
+            specs["prefix"] = (tok_shape(p_d) if kind == "train"
+                               else (b,) + p_d, dtype)
+        return specs
 
 
 def build_model(arch: ArchConfig, *, device: DeviceLike = None) -> Model:

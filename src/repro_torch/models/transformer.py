@@ -7,6 +7,12 @@ attention kernel (differentiable: its backward is a kernel too), with the
 client axis flattened into the batch; "decode" runs one token per slot
 against a contiguous or paged KV cache through the flash-decode kernel.
 
+The MoE block (``moe_apply``) routes each token to its top-k experts
+with per-group capacity, as the reference does, and computes the experts
+as batched products over the expert axis; its dispatch and combine move
+rows by index instead of the reference's one-hot einsums (the same
+function; see ``moe_apply``).
+
 LoRA adapters (``lora_apply``): an "ids" leaf marks the serving pool (the
 indexed LoRA kernel); rank-2 leaves are one shared adapter (the fused
 LoRA kernel through ``common.lora_dense``); rank-3 leaves are per-client
@@ -22,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import roadmap
 from repro_torch.config import ModelConfig
@@ -241,3 +248,123 @@ def mlp_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig):
     hmid = activate(hin, gate, cfg.activation)
     return lora_apply(hmid, p["w_out"], _ad(adapters, "mlp_out"),
                       p.get("b_out"))
+
+
+# ---------------------------------------------------------------------------
+# MoE block (token-choice top-k routing with per-group capacity)
+#
+# params: norm2{scale}, router (d, E), we_in/we_gate (E, d, ff), we_out
+#         (E, ff, d); the shared expert ws_in/ws_gate (d, sf), ws_out (sf, d)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
+             dtype) -> Params:
+    d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    lead = (n_layers,)
+    p: Params = {
+        "norm2": common.init_norm(d, bias=False, dtype=dtype, lead=lead),
+        "router": common.dense_init(gen, d, e, dtype, lead=lead),
+        "we_in": common.dense_init(gen, d, ff, dtype, lead=lead + (e,)),
+        "we_out": common.dense_init(gen, ff, d, dtype, lead=lead + (e,)),
+    }
+    if is_glu(cfg.activation):
+        p["we_gate"] = common.dense_init(gen, d, ff, dtype, lead=lead + (e,))
+    if cfg.num_shared_experts:
+        sf = ff * cfg.num_shared_experts
+        p["ws_in"] = common.dense_init(gen, d, sf, dtype, lead=lead)
+        p["ws_out"] = common.dense_init(gen, sf, d, dtype, lead=lead)
+        if is_glu(cfg.activation):
+            p["ws_gate"] = common.dense_init(gen, d, sf, dtype, lead=lead)
+    return p
+
+
+MOE_GROUP_TOKENS = 4096    # the reference's routing-group size
+
+
+def moe_capacity(cfg: ModelConfig, s: int) -> int:
+    """Slots per expert in a routing group of s tokens, in Python float
+    arithmetic as the reference computes it; a decode token (s = 1) gets
+    k, so it is never dropped."""
+    k, e = cfg.moe_top_k, cfg.num_experts
+    cap = max(int(k * s * cfg.moe_capacity_factor / e), 4 if s > 1 else k)
+    return min(cap, s * k)
+
+
+def moe_route(cfg: ModelConfig, yg, router):
+    """Routing of groups yg (G, T, d): (probs (G, T, E) fp32, top-k values
+    renormalised and indices (G, T, k), queue positions (G, T, k), cap).
+    A (token, choice) pair's position counts the earlier pairs of its
+    expert in token-major, choice-minor order; a pair at a position >=
+    cap is dropped."""
+    e, k = cfg.num_experts, cfg.moe_top_k
+    g, s = yg.shape[0], yg.shape[1]
+    probs = torch.softmax((yg @ router.to(yg.dtype)).float(), dim=-1)
+    topv, topi = torch.topk(probs, k, dim=-1)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    flat = F.one_hot(topi, e).reshape(g, s * k, e)            # int64
+    pos = ((torch.cumsum(flat, 1) - flat) * flat).sum(-1).reshape(g, s, k)
+    return probs, topv, topi, pos, moe_capacity(cfg, s)
+
+
+def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig):
+    """The MoE sub-block (pre-norm, residual added by the caller).
+
+    x: ([N,] B, S, d).  Returns (out like x, aux).  Tokens regroup as
+    (-1, S, d), so every sequence (of every client) is a routing group;
+    a sequence longer than MOE_GROUP_TOKENS that it divides is cut into
+    groups of that size.  The reference dispatches and combines with
+    one-hot einsums over (G, T, E, C); here the kept pairs' rows are
+    copied into an (E, G, min(C, T), d) buffer by index (exactly), the
+    experts run as batched products over E, and each token sums its k
+    weighted expert rows gathered back by index (the same sum in another
+    order).
+    A dropped pair weighs 0.  aux = router_aux_loss * E * mean over
+    groups of sum_e(me * pe): me, the share of (token, choice) pairs
+    routed to e before any drop (no gradient), pe the mean router
+    probability (with gradient)."""
+    e, k, d = cfg.num_experts, cfg.moe_top_k, cfg.d_model
+    s = x.shape[-2]
+    y = apply_norm(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
+    yg = y.reshape(-1, s, d)                                  # (G, T, d)
+    if s > MOE_GROUP_TOKENS and s % MOE_GROUP_TOKENS == 0:
+        yg = yg.reshape(-1, MOE_GROUP_TOKENS, d)
+    g, s = yg.shape[0], yg.shape[1]
+    probs, topv, topi, pos, cap = moe_route(cfg, yg, p["router"])
+    keep = pos < cap
+    wgt = topv * keep                                         # (G, T, k)
+
+    # slot of each kept pair in the (E, G, C) buffer; dropped pairs all
+    # write the spare row past the end, which is cut off.  A token picks
+    # an expert once, so an expert's queue in a group holds at most s
+    # pairs: C = min(cap, s) slots lose nothing (a decode tick's groups
+    # of one token take 1 slot an expert, not the cap of k)
+    c = min(cap, s)
+    grp = torch.arange(g, device=x.device)[:, None, None]
+    slot = torch.where(keep, (topi * g + grp) * c + pos, e * g * c)
+    rows = yg[:, :, None, :].expand(g, s, k, d).reshape(-1, d)
+    buf = yg.new_zeros((e * g * c + 1, d)).index_put(
+        (slot.reshape(-1),), rows)
+    xe = buf[:-1].reshape(e, g * c, d)
+    hin = torch.bmm(xe, p["we_in"])
+    gate = torch.bmm(xe, p["we_gate"]) if "we_gate" in p else None
+    ye = torch.bmm(activate(hin, gate, cfg.activation), p["we_out"])
+    # a dropped pair gathers row 0 at weight 0
+    got = ye.reshape(-1, d).index_select(
+        0, torch.where(keep, slot, 0).reshape(-1)).reshape(g, s, k, d)
+    out = (got * wgt.to(got.dtype)[..., None]).sum(2)
+
+    aux = 0.0
+    if cfg.router_aux_loss:
+        me = F.one_hot(topi, e).sum(2).float().mean(1)        # (G, E)
+        pe = probs.mean(1)
+        aux = cfg.router_aux_loss * e * torch.mean(torch.sum(me * pe, -1))
+
+    if cfg.num_shared_experts:
+        hin_s = lora_apply(y, p["ws_in"], _ad(adapters, "mlp_in"))
+        gate_s = None
+        if "ws_gate" in p:
+            gate_s = lora_apply(y, p["ws_gate"], _ad(adapters, "mlp_gate"))
+        shared = lora_apply(activate(hin_s, gate_s, cfg.activation),
+                            p["ws_out"], _ad(adapters, "mlp_out"))
+        return out.reshape(shared.shape) + shared, aux
+    return out.reshape(y.shape), aux

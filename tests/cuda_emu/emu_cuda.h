@@ -145,6 +145,7 @@ inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
 // plain operation (atom.add.acq_rel is rewritten into it), and an L2-only
 // load is a load
 inline int atomicAdd(int* p, int v) { const int old = *p; *p = old + v; return old; }
+inline float atomicAdd(float* p, float v) { const float old = *p; *p = old + v; return old; }
 inline float __ldcg(const float* p) { return *p; }
 inline float4 __ldcg(const float4* p) { return *p; }
 inline EmuWarp& emu_warp() { return *emu_block->warps[threadIdx.x / 32]; }

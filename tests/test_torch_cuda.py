@@ -63,7 +63,7 @@ FLASH_SIZES = [(s, s) for s in (1, 15, 16, 17, 63, 64, 65, 200)] + [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 9])
 @pytest.mark.parametrize("q_offset", [0, 4])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("sq,sk", FLASH_SIZES)
 def test_flash_kernel_matches_plain(cuda, dtype, window, q_offset, hd, sq,
                                     sk):
@@ -314,7 +314,7 @@ def _flash_inputs(gen, dtype, b=2, sq=37, sk=41, h=4, kvh=2, hd=64):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 9])
 @pytest.mark.parametrize("q_offset", [0, 4])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("sq,sk", FLASH_SIZES)
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, window, q_offset, hd,
                                         sq, sk):
@@ -1241,3 +1241,166 @@ def test_engine_options_on_card_match_cpu(cuda, name):
     scale = max(float(d.abs().max()) for d in d_c)
     for a, b in zip(d_k, d_c):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=share * scale)
+
+
+# ---------------------------------------------------------------------------
+# Head dim 112 and the MoE family (kimi-k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 112])
+@pytest.mark.parametrize("sq,sk,window", [(17, 65, 0), (200, 200, 9),
+                                          (512, 512, 0), (1024, 1024, 0)])
+def test_flash_gqa8_matches_plain(cuda, dtype, hd, sq, sk, window):
+    """kimi-k2's GQA, 8 query heads over 1 kv head, forward and backward,
+    at ragged lengths and at 512 and 1024 (64 and 128 query tiles for
+    each key tile: the fp32 dk/dv kernel adds its partial sums into the
+    outputs every 8), at kimi-k2's head dim 112 and at 64.  At hd 128
+    the kernel has no registers for that flush and drifts ~2e-4 at GQA
+    8:1 over 512 queries (csrc/flash_bwd.cu; ROADMAP Queue C)."""
+    gen = torch.Generator().manual_seed(hd + sq)
+    q, do = (_randn(gen, 2, sq, 8, hd, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, 2, sk, 1, hd, dtype=dtype) for _ in range(2))
+    out, lse = fops.flash_attention_fwd(q.to(cuda), k.to(cuda), v.to(cuda),
+                                        window=window)
+    want, want_lse = fops.flash_attention_fwd(q, k, v, window=window)
+    _close(out, want, dtype)
+    _close(lse, want_lse, dtype)
+    got = fops.flash_attention_bwd(*[t.to(cuda) for t in
+                                     (q, k, v, want, want_lse, do)],
+                                   window=window)
+    for g, w in zip(got, fops.flash_attention_bwd(q, k, v, want, want_lse,
+                                                  do, window=window)):
+        _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_hd112_gqa8_matches_plain(cuda, dtype):
+    """Decode at kimi-k2's head dim and GQA 8:1 (64 heads over 8 at full
+    width), at every chunk edge, contiguous and paged; paged bit-equal to
+    contiguous."""
+    gen = torch.Generator().manual_seed(1128)
+    lens = _decode_edge_lens(208)
+    b, s, h, kvh, hd = len(lens), 208, 16, 2, 112
+    q = _randn(gen, b, h, hd, dtype=dtype)
+    k = _randn(gen, b, s, kvh, hd, dtype=dtype)
+    v = _randn(gen, b, s, kvh, hd, dtype=dtype)
+    clen = torch.tensor(lens, dtype=torch.int32)
+    kp, vp, pt = _paged_copy(gen, k, v)
+    got = dops.decode_attention(*(t.to(cuda) for t in (q, k, v, clen)))
+    _close(got, dops.decode_attention(q, k, v, clen), dtype)
+    paged = dops.decode_attention_paged(*(t.to(cuda) for t in
+                                          (q, kp, vp, pt, clen)))
+    _close(paged, dops.decode_attention_paged(q, kp, vp, pt, clen), dtype)
+    assert torch.equal(paged, got)
+
+
+def _kimi_hd112():
+    """Reduced kimi-k2 at head dim 112: d_model 448 over 4 heads and 2 kv
+    heads, 8 experts top-2 with a shared expert, capacity factor 1.25
+    (pairs are dropped at seq 48)."""
+    arch = reduced(get_config("kimi-k2-1t-a32b"), layers=3, d_model=448,
+                   vocab=256, seq_len=48, experts=8)
+    return arch.replace(model=dataclasses.replace(arch.model,
+                                                  moe_capacity_factor=1.25))
+
+
+def _kimi_routes():
+    """Records each MoE layer's top-k choices (transformer.moe_route)."""
+    from repro_torch.models import transformer
+
+    calls, route = [], transformer.moe_route
+
+    def recording(cfg, yg, router):
+        got = route(cfg, yg, router)
+        calls.append((got[2].cpu(), int((got[3] >= got[4]).sum())))
+        return got
+
+    return calls, route, recording
+
+
+@pytest.mark.cuda
+def test_moe_hd112_forward_and_round_on_card_match_cpu(cuda):
+    """Reduced kimi-k2 at head dim 112 on the card and on the CPU plain
+    path from one draw of the weights: the same top-k choices in every
+    layer (with drops), logits within 1e-3, then one round's per-client
+    losses (aux included) within 1e-4 and adapter gradients within 1e-2
+    of the largest, uncompressed: this reduced model is ill-conditioned
+    there (the CPU's own fp32 gradients sit 1.5e-3 of the largest from
+    the same step with the weights and adapters in float64)."""
+    from repro_torch.models import transformer
+
+    arch = _kimi_hd112()
+    assert arch.model.head_dim == 112
+    rng = np.random.default_rng(12)
+    toks = rng.integers(3, 256, size=(3, 2, 49)).astype(np.int32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(arch, device=dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        calls, route, recording = _kimi_routes()
+        transformer.moe_route = recording
+        try:
+            with torch.no_grad():
+                x, aux, _ = model.forward(params, None, {
+                    "tokens": torch.as_tensor(toks[0, :, :-1], device=dev)})
+                logits = model.head(params, x).cpu()
+        finally:
+            transformer.moe_route = route
+        state = rounds.init_state(model, torch.Generator().manual_seed(1),
+                                  num_clients=3)
+        gen = torch.Generator().manual_seed(2)
+        for side in ("client_adapters", "server_adapters"):
+            for targets in state[side].values():
+                for leaf in targets.values():
+                    leaf["B"] = _randn(gen, *leaf["B"].shape,
+                                       scale=0.05).to(dev)
+        state["cuts"] = torch.tensor([1, 2, 2], dtype=torch.int32)
+        _, met, gc, gs = rounds.round_grads(
+            model, params, state, batch, np.array([0.2, 0.3, 0.5]),
+            boundary=smashed.make_boundary(smashed.make_compressor("none"),
+                                           state["cuts"]))
+        out[str(dev)] = (calls, logits, met["ce"] + met["aux"],
+                         tree_leaves(gc) + tree_leaves(gs))
+    (r_k, lg_k, ce_k, g_k), (r_c, lg_c, ce_c, g_c) = out[str(cuda)], out["cpu"]
+    assert len(r_k) == len(r_c) == 3
+    for (ik, dk), (ic, dc) in zip(r_k, r_c):
+        assert torch.equal(ik, ic) and dk == dc
+    assert sum(d for _, d in r_c) > 0
+    torch.testing.assert_close(lg_k, lg_c, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(ce_k.cpu(), ce_c, rtol=1e-4, atol=1e-4)
+    scale = max(float(g.abs().max()) for g in g_c)
+    for gk, gc_ in zip(g_k, g_c):
+        torch.testing.assert_close(gk.cpu(), gc_, rtol=1e-3,
+                                   atol=1e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [0, 8])
+def test_moe_hd112_engine_on_card_matches_serial_reference(cuda, page_size):
+    """Reduced kimi-k2 at head dim 112 served on the card: prompts of a
+    bucket's length (16 and 32), so the engine's prefill has the serial
+    reference's capacity; tokens equal to the card's one-request serial
+    reference up to a top-2 logit gap."""
+    model = build_model(_kimi_hd112(), device=cuda)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    pool = serving.build_adapter_pool(model, torch.Generator().manual_seed(1),
+                                      3, ranks=[4, 2, 4])
+    rng = np.random.default_rng(14)
+    reqs = [serving.Request(rid=i, adapter=i % 3,
+                            tokens=rng.integers(3, 250, size=plen),
+                            max_new=10) for i, plen in enumerate((16, 32, 16))]
+    res = serving.ServingEngine(
+        model, params, pool,
+        serving.ServeConfig(num_slots=2, max_len=48, page_size=page_size),
+        device=cuda).run(reqs)
+    want, logits = serving.serial_reference(model, params, pool, reqs,
+                                            max_len=48, return_logits=True)
+    for r in res:
+        top2 = torch.topk(logits[r["rid"]], 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(gaps))
+        assert r["tokens"][:upto] == want[r["rid"]][:upto]

@@ -105,9 +105,17 @@ CASES_128 = [(33, 80, 4, 1, 128, True, 17, 3),
              (65, 17, 2, 2, 128, False, 0, 0),
              (70, 70, 4, 2, 128, True, 0, 0)]
 
+# head dim 112 (kimi-k2: 7168 over 64 heads; 14 TF32 and 7 bf16 k steps,
+# rows of 116 and 120 elements): GQA 8:1 with a window and an offset over
+# ragged lengths, a ragged non-causal block, GQA 8:1 causal past one
+# 64-key tile
+CASES_112 = [(33, 80, 8, 1, 112, True, 17, 3),
+             (65, 17, 2, 2, 112, False, 0, 0),
+             (70, 70, 8, 1, 112, True, 0, 0)]
+
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", CASES + CASES_128,
+@pytest.mark.parametrize("case", CASES + CASES_128 + CASES_112,
                          ids=lambda c: "-".join(map(str, c)))
 def test_emulated_kernels_match_plain(lib, dtype, case):
     sq, sk, h, kvh, hd, causal, window, q_offset = case

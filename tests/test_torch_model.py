@@ -73,7 +73,7 @@ def test_port_config_copy_matches_reference(shrink):
 
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_get_config("kimi-k2-1t-a32b")
+        t_get_config("whisper-medium")
     with pytest.raises(KeyError):
         t_get_config("no-such-model")
 
@@ -229,8 +229,11 @@ def test_model_without_device_raises_when_no_cuda(monkeypatch):
 
 
 def test_unported_model_paths_raise(pair):
-    """What the port leaves out raises: the MoE family (RoPE and sliding
-    windows run: tests/test_torch_dense_families.py).  A stateful (error
+    """What the port leaves out raises: the audio family (whisper's
+    encoder and cross-attention), Model.encode and a batch of encoder
+    "frames" (RoPE and sliding windows run:
+    tests/test_torch_dense_families.py; the MoE and vlm families:
+    tests/test_torch_moe.py, tests/test_torch_vlm.py).  A stateful (error
     feedback) cut boundary runs: its carry comes back from run_blocks,
     and remat, chunked cross entropy and the rest run too
     (tests/test_torch_memory_knobs.py, tests/test_torch_engine_options.py)."""
@@ -241,10 +244,19 @@ def test_unported_model_paths_raise(pair):
 
     ef_boundary.stateful = True
     ef_boundary.init = lambda: torch.zeros(())
-    x, _, carry = model_t.run_blocks(params_t, None, torch.zeros(1, 2, 32),
-                                     mode="train", boundary=ef_boundary)
+    x, aux, _, carry = model_t.run_blocks(
+        params_t, None, torch.zeros(1, 2, 32), mode="train",
+        boundary=ef_boundary)
     assert float(carry) == sum(range(model_t.num_flat_layers))
+    assert aux == 0.0
     arch = t_reduced(t_get_config("gpt2-small"), **SMALL)
-    moe = arch.replace(model=dataclasses.replace(arch.model, family="moe"))
-    with pytest.raises(NotImplementedError, match="the moe family"):
-        Model(moe, device="cpu")
+    audio = arch.replace(model=dataclasses.replace(
+        arch.model, family="audio", num_encoder_layers=2))
+    with pytest.raises(NotImplementedError, match="the audio family"):
+        Model(audio, device="cpu")
+    with pytest.raises(NotImplementedError, match="Model.encode"):
+        model_t.encode(params_t, None, torch.zeros(1, 16, 32))
+    with pytest.raises(NotImplementedError, match="frames"):
+        model_t.forward(params_t, None,
+                        {"tokens": torch.zeros(1, 4, dtype=torch.int32),
+                         "frames": torch.zeros(1, 16, 32)})
