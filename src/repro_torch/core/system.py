@@ -44,10 +44,15 @@ Device and randomness: the model, its base parameters and the adapters
 and optimizer slots of the round state live on `device` (the card unless
 the caller names the CPU); `cuts` and `round` are int32 host tensors.
 The reference draws base parameters and state from jax.random.PRNGKey
-(seed); here a torch.Generator seeded with `seed` draws the base
+(seed); here a CPU torch.Generator seeded with `seed` draws the base
 parameters and one seeded with `seed + 1` the round state, so the two
 packages start from different weights at one seed (parity tests copy the
-reference's weights in through repro_torch.bridge).  Data, loaders, the
+reference's weights in through repro_torch.bridge), and one seed gives
+the same weights on every device.  draw_on_device=True draws the base
+parameters on `device` instead (on the card, a model of tens of GB needs
+no host draw), which gives other weights than the host's at one seed: a
+checkpoint, which holds the state but not the base weights, records the
+device type they were drawn on, and restoring it under another raises.  Data, loaders, the
 speed model and traces are numpy and seeded exactly as the reference's.
 
 Population mode (population P > 0): the engine's client axis is a cohort
@@ -153,11 +158,14 @@ def _np(x) -> np.ndarray:
 
 class SplitFTSystem:
     def __init__(self, arch: ArchConfig, sys_cfg: SystemConfig = None, *,
-                 seed: int = 0, device: DeviceLike = None):
+                 seed: int = 0, device: DeviceLike = None,
+                 draw_on_device: bool = False):
         self.arch = arch
         self.sys = sys_cfg or SystemConfig()
         self.seed = seed
         self.device = resolve_device(device)
+        self.draw_device = (self.device if draw_on_device
+                            else torch.device("cpu"))
 
         sched_name = self.sys.scheduler
         if sched_name is None:
@@ -315,7 +323,7 @@ class SplitFTSystem:
         self.server_step_norm = _pick(self.sys.server_step_norm,
                                       arch.split.server_step_norm)
         self.base_params = self.model.init_params(
-            torch.Generator().manual_seed(seed))
+            torch.Generator(device=self.draw_device).manual_seed(seed))
         state = rounds.init_state(self.model,
                                   torch.Generator().manual_seed(seed + 1),
                                   num_clients=n)
@@ -1219,6 +1227,7 @@ class SplitFTSystem:
             "c3_weights": self.c3_weights.tolist(),
             "active": self.pool.active.tolist(),
             "seed": self.seed,
+            "weights_drawn_on": self.draw_device.type,
             "sim_clock": self.sim_clock,
             "scheduler": self.scheduler.name,
             # template signature: lets restore() explain a leaf-count
@@ -1292,6 +1301,14 @@ class SplitFTSystem:
                         "use a fresh checkpoint dir")
             return False
         tree, meta, step = got
+        drawn = meta.get("weights_drawn_on")
+        if drawn is not None and drawn != self.draw_device.type:
+            raise ValueError(
+                f"checkpoint step {step} was trained on base weights drawn "
+                f"on {drawn}, but this run draws them on "
+                f"{self.draw_device.type} (one seed gives other weights "
+                f"there); restore it with draw_on_device={drawn != 'cpu'}"
+                + (f" on a {drawn} device" if drawn != "cpu" else ""))
         if self.store is not None:
             # the loud mismatch checks come after a successful load, so
             # restore_latest's corruption fallback cannot swallow them

@@ -59,16 +59,16 @@
 //    to divide a tile; accumulation is fp32 for fp32 and bf16 inputs.
 //    The tensor cores truncate each fp32 accumulation, so a key summed
 //    over a whole GQA group's queries drifts: 8 heads x 512 queries are
-//    1536 accumulations of dk/dv (3 per 3xTF32 k step), ~2e-4 of |dv| at
-//    kimi-k2's shape.  In fp32 below hd 128 a warp therefore adds its
-//    dk/dv partial sums into the outputs in global memory every
+//    1536 accumulations of dk/dv (3 per 3xTF32 k step), 2e-4 to 5e-4 of
+//    |dv| at kimi-k2's and internvl2's shapes.  In fp32 a warp therefore
+//    adds its dk/dv partial sums into the outputs in global memory every
 //    FLUSH_TILES query tiles (global reductions of its own elements: no
 //    other thread touches them, and one thread's adds land in program
 //    order) and starts afresh, as the fused LoRA GEMM sums fresh
-//    accumulators per k tile.  At hd 128 the flush's code takes
-//    registers the kernel does not have (144 B spilled at 255), so it
-//    sums the whole band in the accumulators, as before: fine for GQA
-//    4:1 over 512 queries (llama3-8b), ~2e-4 off at GQA 8:1 (FT).
+//    accumulators per k tile.  At hd 128 that flush spills at 255
+//    registers when s^T and dp^T are recomputed 32 columns at a time, so
+//    there the dk/dv kernel recomputes 16 at a time (NC), which frees
+//    16 registers and spills nothing.
 #include "flash_mma.cuh"
 
 namespace {
@@ -78,9 +78,8 @@ using repro::fa::Mma;
 
 constexpr int NW = 4;   // warps per CTA, 16 rows (dq) or keys (dk/dv) each
 constexpr int NS = 32;  // columns of s / dp recomputed at a time
-// fp32 dk/dv below hd 128: query tiles summed in the MMA accumulators
-// before they are added into the outputs (8 tiles of 64: 192
-// accumulations)
+// fp32 dk/dv: query tiles summed in the MMA accumulators before they are
+// added into the outputs (8 tiles of 64: 192 accumulations)
 constexpr int FLUSH_TILES = 8;
 
 // two stages of two 64-row tiles, then the CTA's own 16 * NW rows of two
@@ -278,12 +277,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int LD = HD + repro::fa::Pad<T>::value;
   constexpr int TILE = BK * LD;
   constexpr int NKC = HD / M::K;
-  constexpr int NN = NS / 8;
+  // columns of s^T / dp^T recomputed at a time: NS, but 16 in fp32 at
+  // hd 128, where 32 leave no registers for the flush
+  constexpr int NC = sizeof(T) == 4 && HD == 128 ? 16 : NS;
+  constexpr int NN = NC / 8;
   constexpr int ND = HD / 8;
   constexpr int KPT = M::K / 8;
-  // query tiles between two flushes of dk/dv (0: one flush at the end);
-  // hd 128 has no registers left for the flush
-  constexpr int FT = sizeof(T) == 4 && HD < 128 ? FLUSH_TILES : 0;
+  // query tiles between two flushes of dk/dv (0: one flush at the end)
+  constexpr int FT = sizeof(T) == 4 ? FLUSH_TILES : 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);  // stage s: q at 2s, dO at 2s+1
   T* ksm = sm + 4 * TILE;  // the CTA's k rows, then its v rows
@@ -396,9 +397,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* dos = qs + TILE;
     const float* ls = rows + 2 * (it & 1) * BK;
 #pragma unroll 1
-    for (int c0 = 0; c0 < BK; c0 += NS) {
+    for (int c0 = 0; c0 < BK; c0 += NC) {
       const int qb0 = qt + c0;
-      if (!warp_live || qb0 >= wq_hi || qb0 + NS <= wq_lo) continue;
+      if (!warp_live || qb0 >= wq_hi || qb0 + NC <= wq_lo) continue;
       float s[NN][4], dp[NN][4];  // s^T, dp^T: keys x queries
 #pragma unroll
       for (int n = 0; n < NN; ++n) {
@@ -419,10 +420,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       // every (key, query) pair of the block visible?
-      const bool full = qb0 + NS <= Sq && kw0 + 16 <= Sk &&
+      const bool full = qb0 + NC <= Sq && kw0 + 16 <= Sk &&
                         (!causal || qb0 + q_offset >= kw0 + 15) &&
                         (window <= 0 ||
-                         qb0 + NS - 1 + q_offset - kw0 < window);
+                         qb0 + NC - 1 + q_offset - kw0 < window);
 #pragma unroll
       for (int n = 0; n < NN; ++n)
 #pragma unroll

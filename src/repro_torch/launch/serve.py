@@ -15,7 +15,8 @@ draws the base weights from the seed as the train run did; from a
 population checkpoint it serves pids 0..--adapters-1 from the restored
 store.  The flags are the reference CLI's
 (src/repro/launch/serve.py) plus --device (default: the card; the CPU
-runs only when asked for).
+runs only when asked for) and --draw-on-device (as the train CLI's;
+with --ckpt the checkpoint's metadata says where they were drawn).
 """
 
 from __future__ import annotations
@@ -50,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    ap.add_argument("--draw-on-device", action="store_true",
+                    help="draw the random base weights on --device (no "
+                         "host draw of a model of tens of GB; one seed "
+                         "then gives other weights than the default host "
+                         "draw; with --ckpt the checkpoint decides)")
     return ap
 
 
@@ -58,7 +64,9 @@ def checkpoint_config(ckpt_dir: str) -> dict:
     checkpoint under `ckpt_dir`, from its metadata: the scheduler, the
     options that add state leaves (adapter and smashed error feedback,
     edge groups, the co-controller's policy) and the population; under
-    "cohort", a population run's cohort size (the arch's num_clients)."""
+    "cohort", a population run's cohort size (the arch's num_clients),
+    and under "draw_on_device" whether its base weights were drawn on
+    the device (SplitFTSystem's draw_on_device)."""
     from repro_torch.checkpoint import CheckpointManager
 
     mgr = CheckpointManager(ckpt_dir)
@@ -80,6 +88,7 @@ def checkpoint_config(ckpt_dir: str) -> dict:
     if meta.get("population"):
         kw.update(population=int(meta["population"]),
                   cohort=int(meta["cohort"]))
+    kw["draw_on_device"] = meta.get("weights_drawn_on", "cpu") != "cpu"
     return kw
 
 
@@ -101,13 +110,14 @@ def main(argv=None):
     if args.ckpt:
         kw = checkpoint_config(args.ckpt)
         cohort = kw.pop("cohort", None)
+        draw = kw.pop("draw_on_device")
         if cohort:
             arch = arch.replace(data=dataclasses.replace(
                 arch.data, num_clients=cohort))
         system = SplitFTSystem(
             arch, SystemConfig(num_samples=64, eval_samples=16,
                                checkpoint_dir=args.ckpt, **kw),
-            seed=args.seed, device=args.device)
+            seed=args.seed, device=args.device, draw_on_device=draw)
         if not system.restore():
             raise FileNotFoundError(f"no loadable checkpoint under "
                                     f"{args.ckpt}")
@@ -125,8 +135,10 @@ def main(argv=None):
     else:
         model = build_model(arch, device=args.device)
         # independent generators per consumer, as the reference splits
-        # keys
-        params = model.init_params(torch.Generator().manual_seed(args.seed))
+        # keys; the base weights drawn where SplitFTSystem draws them
+        params = model.init_params(torch.Generator(
+            device=model.device if args.draw_on_device else "cpu"
+        ).manual_seed(args.seed))
         pool = serving.build_adapter_pool(
             model, torch.Generator().manual_seed(args.seed + 1),
             args.adapters)

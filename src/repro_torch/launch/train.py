@@ -16,7 +16,9 @@
 Port of src/repro/launch/train.py: the same flags, plus --device (default:
 the card; the CPU runs only when asked for) and --remat (the round
 engine's layer recompute, TrainConfig.remat: the paper's batch 4 of
-mamba2-780m fits one card under "full").  It builds a
+mamba2-780m fits one card under "full") and --draw-on-device (the random
+base weights drawn on the card: kimi-k2 at full width needs no host
+draw of tens of GB).  It builds a
 repro_torch.core.system.SplitFTSystem, resumes from <out>/ckpt when a
 checkpoint is there, and writes <out>/history.jsonl (one row per round)
 and <out>/final.json in the reference's format.  Every scheduler
@@ -185,6 +187,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda (default) or cpu")
+    ap.add_argument("--draw-on-device", action="store_true",
+                    help="draw the random base weights on --device (no "
+                         "host draw of a model of tens of GB; one seed "
+                         "then gives other weights than the default host "
+                         "draw)")
     ap.add_argument("--remat", default=None,
                     choices=[None, "none", "dots", "full"],
                     help="recompute each layer in the backward: 'full' "
@@ -262,7 +269,8 @@ def main(argv=None):
         checkpoint_dir=os.path.join(args.out, "ckpt"),
         checkpoint_every=max(args.rounds // 5, 1))
     system = SplitFTSystem(arch, sys_cfg, seed=args.seed,
-                           device=args.device)
+                           device=args.device,
+                           draw_on_device=args.draw_on_device)
     if system.restore():
         print(f"resumed from round {int(system.state['round'])}")
 

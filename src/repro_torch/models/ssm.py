@@ -65,8 +65,8 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
         "in_proj": common.dense_init(gen, d, in_proj_dim(cfg), dtype,
                                      lead=lead),
         "conv_w": (torch.randn((n_layers, cfg.ssm_conv_width,
-                                conv_channels(cfg)), generator=gen)
-                   * 0.1).to(dtype),
+                                conv_channels(cfg)), generator=gen,
+                               device=gen.device) * 0.1).to(dtype),
         "conv_b": torch.zeros((n_layers, conv_channels(cfg)), dtype=dtype),
         # A = -exp(0) = -1 and dt bias 0.5 at init, as in the reference
         "A_log": torch.zeros((n_layers, h), dtype=dtype),

@@ -291,15 +291,23 @@ def moe_capacity(cfg: ModelConfig, s: int) -> int:
 
 
 def moe_route(cfg: ModelConfig, yg, router):
-    """Routing of groups yg (G, T, d): (probs (G, T, E) fp32, top-k values
-    renormalised and indices (G, T, k), queue positions (G, T, k), cap).
-    A (token, choice) pair's position counts the earlier pairs of its
-    expert in token-major, choice-minor order; a pair at a position >=
-    cap is dropped."""
-    e, k = cfg.num_experts, cfg.moe_top_k
-    g, s = yg.shape[0], yg.shape[1]
+    """Routing of groups yg (G, T, d): the router's fp32 probabilities
+    (G, T, E), their top-k choices, and moe_queue's values, queue
+    positions and cap for those choices."""
     probs = torch.softmax((yg @ router.to(yg.dtype)).float(), dim=-1)
-    topv, topi = torch.topk(probs, k, dim=-1)
+    _, topi = torch.topk(probs, cfg.moe_top_k, dim=-1)
+    return moe_queue(cfg, probs, topi)
+
+
+def moe_queue(cfg: ModelConfig, probs, topi):
+    """(probs, the top-k values at the choices topi (G, T, k)
+    renormalised, topi, queue positions (G, T, k), cap).  A (token,
+    choice) pair's position counts the earlier pairs of its expert in
+    token-major, choice-minor order; a pair at a position >= cap is
+    dropped."""
+    e = cfg.num_experts
+    g, s, k = topi.shape
+    topv = probs.gather(-1, topi)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     flat = F.one_hot(topi, e).reshape(g, s * k, e)            # int64
     pos = ((torch.cumsum(flat, 1) - flat) * flat).sum(-1).reshape(g, s, k)

@@ -1249,16 +1249,15 @@ def test_engine_options_on_card_match_cpu(cuda, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [64, 112])
+@pytest.mark.parametrize("hd", [64, 112, 128])
 @pytest.mark.parametrize("sq,sk,window", [(17, 65, 0), (200, 200, 9),
                                           (512, 512, 0), (1024, 1024, 0)])
 def test_flash_gqa8_matches_plain(cuda, dtype, hd, sq, sk, window):
-    """kimi-k2's GQA, 8 query heads over 1 kv head, forward and backward,
-    at ragged lengths and at 512 and 1024 (64 and 128 query tiles for
-    each key tile: the fp32 dk/dv kernel adds its partial sums into the
-    outputs every 8), at kimi-k2's head dim 112 and at 64.  At hd 128
-    the kernel has no registers for that flush and drifts ~2e-4 at GQA
-    8:1 over 512 queries (csrc/flash_bwd.cu; ROADMAP Queue C)."""
+    """GQA 8:1 (kimi-k2, llama4-maverick, internvl2-76b), 8 query heads
+    over 1 kv head, forward and backward, at ragged lengths and at 512
+    and 1024 (64 and 128 query tiles for each key tile: the fp32 dk/dv
+    kernel adds its partial sums into the outputs every 8), at kimi-k2's
+    head dim 112, at the others' 128 and at 64."""
     gen = torch.Generator().manual_seed(hd + sq)
     q, do = (_randn(gen, 2, sq, 8, hd, dtype=dtype) for _ in range(2))
     k, v = (_randn(gen, 2, sk, 1, hd, dtype=dtype) for _ in range(2))

@@ -98,12 +98,14 @@ CASES = [(1, 1, 2, 1, 16, True, 0, 0), (17, 65, 4, 2, 32, True, 9, 4),
          (63, 200, 2, 1, 16, False, 9, 0)]
 
 
-# head dim 128 (the llama, phi4, qwen and mistral layers): GQA 4:1 with a
-# window and an offset over ragged lengths, a ragged non-causal block, and
-# GQA 2:1 causal past one 64-key tile
+# head dim 128 (the llama, phi4, qwen, mistral, llama4 and internvl2
+# layers): GQA 4:1 with a window and an offset over ragged lengths, a
+# ragged non-causal block, GQA 2:1 causal past one 64-key tile, and GQA
+# 8:1 past it (16 query tiles for a key tile: the fp32 dk/dv flush)
 CASES_128 = [(33, 80, 4, 1, 128, True, 17, 3),
              (65, 17, 2, 2, 128, False, 0, 0),
-             (70, 70, 4, 2, 128, True, 0, 0)]
+             (70, 70, 4, 2, 128, True, 0, 0),
+             (70, 70, 8, 1, 128, True, 0, 0)]
 
 # head dim 112 (kimi-k2: 7168 over 64 heads; 14 TF32 and 7 bf16 k steps,
 # rows of 116 and 120 elements): GQA 8:1 with a window and an offset over

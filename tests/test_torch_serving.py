@@ -226,7 +226,7 @@ def test_serve_cli_has_reference_flags_and_device():
             if a.option_strings}
     ref = {a.option_strings[0] for a in j_serve.build_parser()._actions
            if a.option_strings}
-    assert mine == ref | {"--device"}
+    assert mine == ref | {"--device", "--draw-on-device"}
     assert t_serve.build_parser().parse_args([]).device == "cuda"
 
 

@@ -227,6 +227,27 @@ def test_restore_refuses_a_changed_state_template(tmp_path):
         t.restore()
 
 
+def test_restore_refuses_weights_drawn_elsewhere(tmp_path):
+    """A checkpoint records the device type its base weights were drawn
+    on (SplitFTSystem's draw_on_device); one seed gives other weights on
+    another, so a run that draws them elsewhere refuses to restore it.
+    On the CPU, draw_on_device draws the host's weights."""
+    from repro_torch.tree import tree_leaves
+
+    t = _port(_resume_cfg(tmp_path))
+    t.save(1)
+    meta = t.ckpt.metadata(1)
+    assert meta["weights_drawn_on"] == "cpu"
+    here = t_system.SplitFTSystem(t.arch, t.sys, seed=0, device="cpu",
+                                  draw_on_device=True)
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(t.base_params), tree_leaves(here.base_params)))
+    assert here.restore()
+    t.ckpt.save(2, t.state, metadata=dict(meta, weights_drawn_on="cuda"))
+    with pytest.raises(ValueError, match="drawn on cuda"):
+        here.restore()
+
+
 def test_serve_model_gives_the_global_adapters():
     t = _port({"adaptive": False})
     t.run(1, log_every=0)
@@ -316,7 +337,7 @@ def test_cli_has_every_reference_flag_and_device():
     ref = _option_strings(j_train.build_parser())
     port = _option_strings(t_train.build_parser())
     assert ref <= port
-    assert port - ref == {"--device", "--remat"}
+    assert port - ref == {"--device", "--remat", "--draw-on-device"}
 
 
 def _history(path):
