@@ -83,7 +83,24 @@ at full width (random weights from a seed):
     top-k choices compared first.  The flash kernels are held against
     their plain versions at head dim 112 too (tile edges, kimi-k2's
     train, prefill and decode shapes), and the LoRA and int8 kernels at
-    its widths (K = 7168; N = 7168 and 896).
+    its widths (K = 7168; N = 7168 and 896);
+  * the audio family: whisper-medium at full width and depth (24
+    encoder layers over 1500 frames of the stub frontend, 24 decoder
+    layers with cross-attention, 817M parameters drawn on the card), 3
+    rounds of the round engine's own steps in a thin loop (5 clients x
+    batch 1 x 448 decoder positions, the config's cut 4 inside the
+    encoder), then requests served from the trained adapters through
+    Model.prefill (the encoder and the cross cache) and decode_step,
+    batched and alone, tokens equal and logits held against the card's
+    own train-mode forward; one card-vs-CPU step each uncompressed, int8
+    and under remat "full" at 2 encoder + 2 decoder layers with cuts in
+    the encoder and at its last layer, then prefill + 4 decode steps.
+    The flash kernels are held non-causal at whisper's encoder (1500 x
+    1500) and cross (448 x 1500) shapes and ragged edges, the decode
+    kernel as the cross read at cache length 1500, the fused LoRA
+    forward and backward, the indexed LoRA and the int8 kernels at its
+    widths and the path's row counts, and phase 3 times the attention
+    kernels and the indexed LoRA at a request's encoder prefill (M 1500).
 
 The launch counters are read around each path.  Every phase that fails
 raises, so the exit code is non-zero; without a GPU it exits 1 before
@@ -321,9 +338,37 @@ WIDE_HD = ("flash_attention_fwd", "flash_attention_bwd", "decode_attention",
            "decode_attention_paged")
 WIDE_HDS = (128, 112)
 
+# the audio family: whisper-medium (24 encoder + 24 decoder layers,
+# d_model 1024, 16 heads of 64 over 16, d_ff 4096, vocab 51865 untied,
+# 1500 encoder frames of the stub frontend).  Phase 14: full width and
+# depth, weights drawn on the card, ROUNDS rounds of the round engine's
+# steps in a thin loop at 5 clients x batch W_BATCH x seq W_SEQ
+# (whisper's text context) over 1500 frames each, the config's cut 4
+# (inside the encoder) and smashed default ("none"); then W_REQUESTS
+# requests over W_ADAPTERS trained adapters, each with its own frames and
+# a W_PROMPT-token prompt, W_NEW new tokens each, batched and alone.
+# Phase 14b: the card-vs-CPU step at SMALL_LAYERS encoder and
+# SMALL_LAYERS decoder layers over 1500 frames at seq W_SEQ, W_STEPS.
+WHISPER = "whisper-medium"
+W_BATCH, W_SEQ = 1, 448
+W_REQUESTS, W_ADAPTERS, W_PROMPT, W_NEW = 4, 2, 8, 32
+W_STEPS = [("none", "none", {}), ("int8", "int8", {}),
+           ("none, remat full", "none", dict(remat="full"))]
+# phase 2: the flash kernels non-causal at ragged edges (Sq, Sk, hd,
+# window, q_offset) at B 2, GQA 4/2: one query and 65 over 1500 keys, the
+# 16-row, 8-key and 64-key tile edges off the diagonal, a 28-key tail
+# (1500's), keys past a 64-row query grid, and a window with an offset
+FLASH_NONCAUSAL_EDGES = [(1, 1500, 64, 0, 0), (17, 65, 32, 0, 0),
+                         (65, 1500, 64, 0, 0), (448, 28, 64, 0, 0),
+                         (200, 1, 16, 0, 0), (63, 200, 64, 9, 4),
+                         (1500, 64, 64, 0, 0)]
+
 
 def hd_row(kname: str, hd: int) -> str:
-    return f"{kname} (hd {hd})"
+    """The result line's row of kernel `kname` at head dim `hd`: the
+    attention kernels at a head dim of WIDE_HDS have rows of their own."""
+    return (f"{kname} (hd {hd})" if hd in WIDE_HDS and kname in WIDE_HD
+            else kname)
 
 
 def log(msg: str) -> None:
@@ -572,35 +617,80 @@ def host_top(torch, run, top: int = 8):
                   for e in rows[:top]]
 
 
+def profiled_pass(torch, fn, names, iters: int = 10):
+    """One profiled pass of `iters` calls of fn: (device ms per call of
+    each kernel whose name contains one of `names`, {kernel name:
+    launches per call}), or (None, None) when the profiler recorded no
+    device activity."""
+    fn()
+    torch.cuda.synchronize()
+    _, busy, by_name, kernels = device_busy(
+        torch, lambda: [fn() for _ in range(iters)])
+    if busy is None:
+        return None, None
+    return ({n: sum(v for k, v in by_name.items() if n in k) * 1e3 / iters
+             for n in names},
+            {k: c / iters for k, c in kernels.items()})
+
+
+def launch_counts(per_kernel, names) -> dict:
+    """{"kernels/call": all kernels per call, "own/call": those whose
+    name contains one of `names`}."""
+    return {"kernels/call": sum(per_kernel.values()),
+            "own/call": sum(c for k, c in per_kernel.items()
+                            if any(n in k for n in names))}
+
+
 def pass_ms(torch, fn, names, iters: int = 10, launches: bool = False):
     """Device ms per call of each kernel whose name contains one of
     `names`, from torch.profiler over `iters` calls of fn; None when the
     profiler recorded no device activity.  launches: also the device
     kernels per call, of any name ("kernels/call") and of those names
     ("own/call")."""
-    fn()
-    torch.cuda.synchronize()
-    _, busy, by_name, kernels = device_busy(
-        torch, lambda: [fn() for _ in range(iters)])
-    if busy is None:
-        return None
-    out = {n: sum(v for k, v in by_name.items() if n in k) * 1e3 / iters
-           for n in names}
-    if launches:
-        out["kernels/call"] = sum(kernels.values()) / iters
-        out["own/call"] = sum(c for k, c in kernels.items()
-                              if any(n in k for n in names)) / iters
+    out, per_kernel = profiled_pass(torch, fn, names, iters)
+    if out is not None and launches:
+        out.update(launch_counts(per_kernel, names))
     return out
 
 
-def check_kernels_per_call(passes, own: int, total: int, what: str) -> None:
-    """The profiler's kernels per call: `own` of the listed kernels and
-    `total` in all (nothing to check when the profiler saw nothing)."""
-    if passes is not None and (passes["own/call"] != own
-                               or passes["kernels/call"] != total):
-        raise RuntimeError(f"{what}: {passes['own/call']} own kernels and "
-                           f"{passes['kernels/call']} in all per call, "
-                           f"want {own} and {total}")
+def check_kernels_per_call(torch, fn, names, own: int, total: int,
+                           what: str, tries: int = 3):
+    """pass_ms(launches=True) of fn, held to `own` kernels per call of
+    `names` and `total` in all.  A record the profiler drops can only
+    lower a count, so a pass below them is logged and profiled again, up
+    to `tries` passes; each kernel's count is the highest over the
+    passes so far.  Fails at once when a pass or those highest counts
+    show more launches than wanted (an extra launch fails on the first
+    pass), and when no pass shows exactly `own` and `total`.  Returns
+    the pass that shows them (None when the profiler saw nothing)."""
+    highest, dropped = {}, []
+    for i in range(tries):
+        out, per_kernel = profiled_pass(torch, fn, names)
+        if out is None:
+            return None
+        for k, c in per_kernel.items():
+            highest[k] = max(highest.get(k, 0.0), c)
+        got, most = launch_counts(per_kernel, names), launch_counts(
+            highest, names)
+        for counts, which in ((got, f"pass {i + 1}"),
+                              (most, f"the highest over {i + 1} passes")):
+            if counts["own/call"] > own or counts["kernels/call"] > total:
+                raise RuntimeError(
+                    f"{what}: {counts['own/call']} own kernels and "
+                    f"{counts['kernels/call']} in all per call in {which}, "
+                    f"want {own} and {total}")
+        if got == {"kernels/call": total, "own/call": own}:
+            if dropped:
+                log(f"phase 3: {what}: the profiler dropped launch records "
+                    f"in {len(dropped)} pass(es) ({'; '.join(dropped)}); "
+                    f"pass {i + 1} shows {own} own kernels and {total} in "
+                    f"all per call")
+            out.update(got)
+            return out
+        dropped.append(f"pass {i + 1}: {got['own/call']} own kernels and "
+                       f"{got['kernels/call']} in all per call")
+    raise RuntimeError(f"{what}: no pass of {tries} shows {own} own kernels "
+                       f"and {total} in all per call: {'; '.join(dropped)}")
 
 
 def fmt_passes(passes) -> str:
@@ -763,7 +853,9 @@ def main() -> int:
                 raise RuntimeError(f"paged decode differs from contiguous "
                                    f"decode (window={window}, {dname})")
         check_serving_invariants(torch, rand, dname, dt, dev, gen)
-        check_flash_edges(torch, rand, dname, dt, errs)
+        check_flash_cases(torch, rand, dname, dt, errs, [
+            (2, sq, sk, 4, 2, hd, True, window, q_offset)
+            for sq, sk, hd, window, q_offset in FLASH_EDGES])
         check_training_kernels(torch, rand, dname, dt, errs)
         check_mamba2_kernels(torch, rand, dname, dt, errs)
         check_wide_kernels(torch, rand, dname, dt, dev, gen, errs, hd=128,
@@ -773,29 +865,20 @@ def main() -> int:
                            heads=KIMI_HEADS, edge_heads=(8, 1), train_b=5,
                            what="kimi-k2")
         check_dense_widths(torch, rand, dname, dt, gen, errs, kd=4096,
-                           ns=(4096, 1024), m_eval=10240, what="llama3-8b")
+                           ns=(4096, 1024), m_evals=(10240,),
+                           what="llama3-8b")
         check_dense_widths(torch, rand, dname, dt, gen, errs, kd=7168,
-                           ns=(7168, 896), m_eval=2560, what="kimi-k2")
+                           ns=(7168, 896), m_evals=(2560,), what="kimi-k2")
+        check_whisper_kernels(torch, rand, dname, dt, dev, gen, errs)
         log(f"phase 2 ({dname}, tol {TOL[dname]}): max |kernel - plain| "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         if dname == "float32":
             worst = errs
 
     # -- phase 3: times at the paths' shapes (fp32) -------------------------
-    rows = {}
-    b, s, h, hd = 1, PROMPT, 12, 64
-    q, k, v = rand(b, s, h, hd), rand(b, s, h, hd), rand(b, s, h, hd)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = s * (s + 1) // 2
-    rows["flash_attention_fwd"] = dict(
-        ms=cuda_ms(torch, lambda: fops.flash_attention_fwd(q, k, v)),
-        plain_ms=cuda_ms(torch, lambda: fops.ref.attention_fwd(q, k, v)),
-        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
-        # read q, k, v; write out, lse.  Per visible pair: s and p v
-        **work(4 * (4 * b * s * h * hd + b * h * s), 4 * hd * h * b * pairs,
-               products=True),
-        shape=f"B={b} S={s} H={h} hd={hd} causal fp32 (serving prefill)")
+    rows = time_flash_cases(torch, F, rand, worst, [
+        ("flash_attention_fwd", None, 1, PROMPT, PROMPT, 12, 12, 64, True,
+         "serving prefill")])
     kd, r = 768, 16
     for kname, m in (("lora_matmul_indexed", SLOTS),
                      ("lora_matmul_indexed (prefill)", PROMPT)):
@@ -871,6 +954,7 @@ def main() -> int:
     rows.update(time_wide_kernels(torch, F, rand, dev, gen, worst, hd=112,
                                   heads=KIMI_HEADS, train_b=5,
                                   what="kimi-k2"))
+    rows.update(time_whisper_kernels(torch, F, rand, dev, worst))
     for kname, row in rows.items():
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
@@ -1079,6 +1163,13 @@ def main() -> int:
     for hd, got in moe_vlm_steps(torch, dev, wrappers).items():
         add_launches(launches, got, hd=hd)
 
+    # -- phase 14: whisper-medium at full width and depth, train and serve --
+    add_launches(launches, whisper_phase(torch, dev, wrappers, name, card),
+                 hd=64)
+
+    # -- phase 14b: whisper-medium, card vs CPU -----------------------------
+    add_launches(launches, whisper_steps(torch, dev, wrappers), hd=64)
+
     # -- results ----------------------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
     lk = "src/repro/kernels/lora_matmul/kernel.py"
@@ -1179,28 +1270,41 @@ def check_serving_invariants(torch, rand, dname, dt, dev, gen):
         f"contiguous, repeats equal (bit for bit)")
 
 
-def check_flash_edges(torch, rand, dname, dt, errs):
+def check_flash_cases(torch, rand, dname, dt, errs, cases, show=0):
     """Phase 2: the flash forward and backward against their plain
-    versions at FLASH_EDGES."""
+    versions at each (B, Sq, Sk, H, KVH, hd, causal, window, q_offset) of
+    `cases`; errs' rows at each case's head dim (hd_row) take the larger
+    error.  The first `show` cases log their backward errors beside the
+    gradients' scale."""
     from repro_torch.kernels.flash_attention import ops as fops
 
-    for sq, sk, hd, window, q_offset in FLASH_EDGES:
-        q, do = rand(2, sq, 4, hd, dtype=dt), rand(2, sq, 4, hd, dtype=dt)
-        k, v = rand(2, sk, 2, hd, dtype=dt), rand(2, sk, 2, hd, dtype=dt)
-        kw = dict(window=window, q_offset=q_offset)
-        what = f"Sq={sq} Sk={sk} hd={hd} window={window} q_offset={q_offset}"
+    for i, (b, sq, sk, hq, hk, hd, causal, window, q_offset) in enumerate(
+            cases):
+        q, do = rand(b, sq, hq, hd, dtype=dt), rand(b, sq, hq, hd, dtype=dt)
+        k, v = rand(b, sk, hk, hd, dtype=dt), rand(b, sk, hk, hd, dtype=dt)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        desc = (f"B={b} Sq={sq} Sk={sk} H={hq} KVH={hk} hd={hd} "
+                f"causal={causal} window={window} q_offset={q_offset}")
+        fwd = hd_row("flash_attention_fwd", hd)
+        bwd = hd_row("flash_attention_bwd", hd)
         out, lse = fops.flash_attention_fwd(q, k, v, **kw)
         r_out, r_lse = fops.ref.attention_fwd(q, k, v, **kw)
-        errs["flash_attention_fwd"] = max(
-            errs["flash_attention_fwd"],
-            max_err(torch, out, r_out, dname, f"flash {what}"),
-            max_err(torch, lse, r_lse, dname, f"flash lse {what}"))
+        errs[fwd] = max(errs[fwd],
+                        max_err(torch, out, r_out, dname, f"flash {desc}"),
+                        max_err(torch, lse, r_lse, dname,
+                                f"flash lse {desc}"))
         got = fops.flash_attention_bwd(q, k, v, r_out, r_lse, do, **kw)
         want = fops.ref.attention_bwd(q, k, v, r_out, r_lse, do, **kw)
-        errs["flash_attention_bwd"] = max(
-            [errs["flash_attention_bwd"]]
-            + [max_err(torch, g, w, dname, f"flash bwd {what} d{n}")
-               for n, g, w in zip("qkv", got, want)])
+        e = [max_err(torch, g, w, dname, f"flash bwd {desc} d{n}")
+             for n, g, w in zip("qkv", got, want)]
+        errs[bwd] = max([errs[bwd]] + e)
+        if i < show:
+            log(f"phase 2 ({dname}): flash {desc}: max |kernel - plain| "
+                f"dq, dk, dv [{', '.join(f'{x:.3e}' for x in e)}] at max "
+                f"|dq|, |dk|, |dv| "
+                f"{fmt(float(w.float().abs().max()) for w in want)}")
+        del q, k, v, do, out, lse, r_out, r_lse, got, want
+    torch.cuda.empty_cache()
 
 
 def same_bits(torch, kname, first, again, what):
@@ -1319,7 +1423,6 @@ def time_training_kernels(torch, F, rand, errs):
     held against its plain version on the same inputs (at TOL["float32"];
     the int8 kernels bit for bit), and errs[kernel] takes the larger
     error."""
-    from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels import _build
     from repro_torch.kernels.lora_matmul import ops as lops
     from repro_torch.kernels.smashed_quant import ops as sops
@@ -1338,49 +1441,11 @@ def time_training_kernels(torch, F, rand, errs):
                                    f"its plain version")
         at_path[kname] = 0.0
 
-    rows = {}
     # flash forward and backward: 12 each per train step at B*H = 5
     # clients x 4 x 12 heads
-    b, s, h, hd = 20, 512, 12, 64
-    q, k, v, do = (rand(b, s, h, hd) for _ in range(4))
-    out, lse = fops.flash_attention_fwd(q, k, v)
-    check("flash_attention_fwd",
-          zip((out, lse), fops.ref.attention_fwd(q, k, v)),
-          f"flash fwd B={b} S={s} H={h}")
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
-    pairs = b * h * s * (s + 1) // 2
-    with torch.no_grad():
-        rows["flash_attention_fwd (gpt2 train)"] = dict(
-            ms=cuda_ms(torch, lambda: fops.flash_attention_fwd(q, k, v),
-                       iters=20),
-            plain_ms=cuda_ms(torch, lambda: fops.ref.attention_fwd(q, k, v),
-                             iters=10),
-            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), iters=20),
-            **work(4 * (4 * b * s * h * hd + b * h * s), 4 * hd * pairs,
-                   products=True),
-            shape=f"B={b} S={s} H={h} hd={hd} causal fp32 (B*H={b * h}, "
-                  f"the gpt2 train and eval steps)")
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    do_t = do.transpose(1, 2).contiguous()
-    check("flash_attention_bwd",
-          zip(fops.flash_attention_bwd(q, k, v, out, lse, do),
-              fops.ref.attention_bwd(q, k, v, out, lse, do)),
-          f"flash bwd B={b} S={s} H={h}")
-    rows["flash_attention_bwd"] = dict(
-        ms=cuda_ms(torch, lambda: fops.flash_attention_bwd(q, k, v, out, lse,
-                                                           do), iters=20),
-        plain_ms=cuda_ms(torch, lambda: fops.ref.attention_bwd(
-            q, k, v, out, lse, do), iters=10),
-        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-            o_lib, (qt, kt, vt), do_t, retain_graph=True), iters=20),
-        # read q, k, v, out, do, lse; write dq, dk, dv.  Per visible pair:
-        # s, dp, dq, dk, dv, 2 hd FLOPs each
-        **work(4 * (8 * b * s * h * hd + b * h * s), 10 * hd * pairs,
-               products=True),
-        shape=f"B={b} S={s} H={h} hd={hd} causal fp32 (B*H={b * h}); "
-              f"library = SDPA backward through autograd")
+    rows = time_flash_cases(torch, F, rand, errs, [
+        ("flash_attention_fwd (gpt2 train)", "flash_attention_bwd", 20, 512,
+         512, 12, 12, 64, True, "B*H=240, the gpt2 train and eval steps")])
     # fused LoRA: 48 per eval step over every token of the 5 clients
     m, kd, r = 10240, 768, 16
     x, g = rand(m, kd), rand(m, kd)
@@ -1419,9 +1484,9 @@ def time_training_kernels(torch, F, rand, errs):
 
     # the backward: 3 kernels of its own (gb thin pass, dx GEMM, dA/dB
     # pass) and the wrapper's 2 torch ops for dscale = sum(xa * gb)
-    bwd_passes = pass_ms(torch, lambda: lops.lora_matmul_bwd(
-        x, w, a, bb, sc, g, xa), LORA_BWD_PASSES, launches=True)
-    check_kernels_per_call(bwd_passes, 3, 5, "fused LoRA backward")
+    bwd_passes = check_kernels_per_call(
+        torch, lambda: lops.lora_matmul_bwd(x, w, a, bb, sc, g, xa),
+        LORA_BWD_PASSES, 3, 5, "fused LoRA backward")
     rows["lora_matmul_bwd"] = dict(
         ms=cuda_ms(torch, lambda: lops.lora_matmul_bwd(x, w, a, bb, sc, g,
                                                        xa)),
@@ -1466,8 +1531,8 @@ def time_training_kernels(torch, F, rand, errs):
             ("int8_dequantize_smashed",
              lambda: sops.int8_dequantize_smashed(q8, scale),
              "dequant_kernel")):
-        int8_passes[kname] = pass_ms(torch, fn, (kern,), launches=True)
-        check_kernels_per_call(int8_passes[kname], 1, 1, kname)
+        int8_passes[kname] = check_kernels_per_call(torch, fn, (kern,), 1,
+                                                    1, kname)
     rows["int8_roundtrip_smashed"] = dict(
         ms=cuda_ms(torch, lambda: sops.int8_roundtrip_smashed(xs)),
         plain_ms=cuda_ms(torch, lambda: sops.ref.roundtrip(
@@ -2855,7 +2920,8 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
     have chosen otherwise is logged, and the step is held as any other.
     The vlm family's batch carries the prefix that Model.input_specs
     gives a train batch (normal x 0.02, as the reference's tests draw
-    it), and the loss mask drops the labels inside it.
+    it), and the loss mask drops the labels inside it; the audio
+    family's carries its frames, drawn the same way.
     wrappers: returns the kernel launches of the card's steps."""
     from repro_torch.core import rounds, smashed
     from repro_torch.models.model import build_model
@@ -2870,6 +2936,8 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
     if "prefix" in specs:
         shape, _ = specs["prefix"]
         prefix = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+    if "frames" in specs:
+        frames = frames_of(rng, specs["frames"][0])
     weights = np.array([0.25, 0.75], np.float32)
     buckets = CO_SYS["compressor_buckets"]
     out = {}
@@ -2911,6 +2979,8 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
                 batch["loss_mask"] = np.broadcast_to(
                     np.arange(seq) >= prefix.shape[-2] - 1,
                     batch["labels"].shape).astype(np.float32)
+            if "frames" in specs:
+                batch["frames"] = frames[:, :b]
             if wide:
                 log(f"{tag} ({label}, {role}): host memory available "
                     f"{host_available_gib():.1f} GiB")
@@ -3022,12 +3092,10 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
 
 
 def add_launches(launches, got, *, hd):
-    """Adds a path's launches to the result line's counts; at head dim
-    128 or 112 the flash and decode kernels' launches go to their rows at
-    that head dim."""
+    """Adds a path's launches to the result line's counts, each at its row
+    for head dim `hd` (hd_row)."""
     for kname, c in got.items():
-        launches[hd_row(kname, hd) if hd in WIDE_HDS and kname in WIDE_HD
-                 else kname] += c
+        launches[hd_row(kname, hd)] += c
 
 
 def check_wide_kernels(torch, rand, dname, dt, dev, gen, errs, *, hd, heads,
@@ -3042,33 +3110,14 @@ def check_wide_kernels(torch, rand, dname, dt, dev, gen, errs, *, hd, heads,
     and paged.  Each against its plain version; paged decode equal to
     contiguous bit for bit.  Fills errs' rows at that head dim."""
     from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
 
     h, kvh = heads
-    cases = [(2, sq, sk, *edge_heads, window, q_offset)
+    cases = [(2, sq, sk, *edge_heads, hd, True, window, q_offset)
              for sq, sk, _, window, q_offset in FLASH_EDGES]
-    cases += [(train_b, 512, 512, h, kvh, 0, 0),
-              (1, PROMPT, PROMPT, h, kvh, 0, 0)]
-    cases += [(b, s, s, hq, hk, 0, 0) for b, s, hq, hk in more]
-    fwd = hd_row("flash_attention_fwd", hd)
-    bwd = hd_row("flash_attention_bwd", hd)
-    for b, sq, sk, hq, hk, window, q_offset in cases:
-        q, do = rand(b, sq, hq, hd, dtype=dt), rand(b, sq, hq, hd, dtype=dt)
-        k, v = rand(b, sk, hk, hd, dtype=dt), rand(b, sk, hk, hd, dtype=dt)
-        kw = dict(window=window, q_offset=q_offset)
-        desc = (f"hd {hd} B={b} Sq={sq} Sk={sk} H={hq} KVH={hk} "
-                f"window={window} q_offset={q_offset}")
-        out, lse = fops.flash_attention_fwd(q, k, v, **kw)
-        r_out, r_lse = fops.ref.attention_fwd(q, k, v, **kw)
-        errs[fwd] = max(errs[fwd],
-                        max_err(torch, out, r_out, dname, f"flash {desc}"),
-                        max_err(torch, lse, r_lse, dname,
-                                f"flash lse {desc}"))
-        got = fops.flash_attention_bwd(q, k, v, r_out, r_lse, do, **kw)
-        want = fops.ref.attention_bwd(q, k, v, r_out, r_lse, do, **kw)
-        errs[bwd] = max([errs[bwd]] + [
-            max_err(torch, g, w, dname, f"flash bwd {desc} d{n}")
-            for n, g, w in zip("qkv", got, want)])
+    cases += [(b, s, s, hq, hk, hd, True, 0, 0)
+              for b, s, hq, hk in [(train_b, 512, h, kvh), (1, PROMPT, h, kvh),
+                                   *more]]
+    check_flash_cases(torch, rand, dname, dt, errs, cases)
     lens = [128 + 4 * i for i in range(SLOTS)]
     for window in (0, 100):
         q, k, v, clen = decode_args(torch, rand, dt, dev, s=MAX_LEN, lens=lens,
@@ -3095,16 +3144,19 @@ def check_wide_kernels(torch, rand, dname, dt, dev, gen, errs, *, hd, heads,
             f"{k} {errs[hd_row(k, hd)]:.3e}" for k in WIDE_HD))
 
 
-def check_dense_widths(torch, rand, dname, dt, gen, errs, *, kd, ns, m_eval,
-                       what):
-    """Phase 2 at a wide model's widths (llama3-8b: K = 4096 into N = 4096
-    for q, o and 1024 for k, v; kimi-k2: K = 7168 into 7168 and 896): the
-    indexed LoRA at its tick and prefill (M = SLOTS and PROMPT) and the
-    fused LoRA forward at its eval step (M = m_eval: 5 clients x batch x
-    512), each against its plain version at r 16; the int8 quantizers at d
-    = K (G 5, M = m_eval / 5) bit for bit.  At K = 4096 the indexed LoRA
-    adds 64 K slices in order (12 at gpt2's 768); at d = 4096 the int8
-    kernels run 64 clusters a message."""
+def check_dense_widths(torch, rand, dname, dt, gen, errs, *, kd, ns, m_evals,
+                       what, seq=512, requests=(), grads=False):
+    """Phase 2 at a model's widths (llama3-8b: K = 4096 into N = 4096 for
+    q, o and 1024 for k, v; kimi-k2: K = 7168 into 7168 and 896;
+    whisper-medium: K = N = 1024): the indexed LoRA at a tick and a
+    prefill (M = SLOTS and PROMPT rows over 4 adapters) and at the x of
+    each (B, S) of `requests` (request i on adapter i % W_ADAPTERS), the
+    fused LoRA forward at each M of `m_evals` (5 clients x batch x seq:
+    the eval step's) and, with `grads`, its backward there, each against
+    its plain version at r 16; the int8 quantizers at d = K over G 5
+    messages of m_evals[0] / 5 rows (batch x `seq`) bit for bit.  At K =
+    4096 the indexed LoRA adds 64 K slices in order (12 at gpt2's 768);
+    at d = 4096 the int8 kernels run 64 clusters a message."""
     from repro_torch.kernels.lora_matmul import ops as lops
     from repro_torch.kernels.smashed_quant import ops as sops
 
@@ -3117,26 +3169,42 @@ def check_dense_widths(torch, rand, dname, dt, gen, errs, *, kd, ns, m_eval,
              ).to(dt)
         b = (rand(p, r, n, scale=0.02) * mask.to(dev)[:, :, None]).to(dt)
         scale = (16.0 / torch.tensor(RANKS, dtype=torch.float32)).to(dev)
-        for m in (SLOTS, PROMPT):
-            x = rand(m, kd, dtype=dt)
-            ids = torch.randint(0, p, (m,), generator=gen,
-                                dtype=torch.int32).to(dev)
+        cases = [((m,), torch.randint(0, p, (m,), generator=gen,
+                                      dtype=torch.int32))
+                 for m in (SLOTS, PROMPT)]
+        cases += [(shape, torch.arange(shape[0], dtype=torch.int32)
+                   % W_ADAPTERS) for shape in requests]
+        for shape, ids in cases:
+            x, ids = rand(*shape, kd, dtype=dt), ids.to(dev)
             errs["lora_matmul_indexed"] = max(
                 errs["lora_matmul_indexed"],
                 max_err(torch, lops.lora_matmul_indexed(x, w, a, b, scale,
                                                         ids),
                         lops.ref.lora_matmul_indexed(x, w, a, b, scale, ids),
-                        dname, f"indexed LoRA M={m} K={kd} N={n}"))
-        x = rand(m_eval, kd, dtype=dt)
+                        dname, f"indexed LoRA x{shape} K={kd} N={n}"))
         sc = torch.tensor(2.0, device=dev)
-        got = lops.lora_matmul_fwd(x, w, a[0], b[0], sc)
-        want = lops.ref.lora_matmul_fwd(x, w, a[0], b[0], sc)
-        errs["lora_matmul_fwd"] = max(
-            [errs["lora_matmul_fwd"]]
-            + [max_err(torch, g, wt, dname, f"fused LoRA {part} M={m_eval} "
-                       f"K={kd} N={n}", scaled=True)
-               for part, g, wt in zip(("y", "xa"), got, want)])
-    xs = rand(5, m_eval // 2560, 512, kd, dtype=dt)
+        for m in m_evals:
+            x = rand(m, kd, dtype=dt)
+            what_m = f"M={m} K={kd} N={n}"
+            y, xa = lops.lora_matmul_fwd(x, w, a[0], b[0], sc)
+            want_y, want_xa = lops.ref.lora_matmul_fwd(x, w, a[0], b[0], sc)
+            errs["lora_matmul_fwd"] = max(
+                [errs["lora_matmul_fwd"]]
+                + [max_err(torch, g, wt, dname, f"fused LoRA {part} {what_m}",
+                           scaled=True)
+                   for part, g, wt in (("y", y, want_y), ("xa", xa, want_xa))])
+            if grads:
+                g = rand(m, n, dtype=dt)
+                errs["lora_matmul_bwd"] = max(
+                    [errs["lora_matmul_bwd"]]
+                    + [max_err(torch, got, want, dname,
+                               f"fused LoRA bwd {what_m} {i}", scaled=True)
+                       for i, (got, want) in enumerate(zip(
+                           lops.lora_matmul_bwd(x, w, a[0], b[0], sc, g,
+                                                want_xa),
+                           lops.ref.lora_matmul_bwd(x, w, a[0], b[0], sc, g,
+                                                    want_xa)))])
+    xs = rand(5, m_evals[0] // (5 * seq), seq, kd, dtype=dt)
     x3 = xs.reshape(5, -1, kd)
     q8, s8 = sops.int8_quantize_smashed(xs)
     want_q, want_s = sops.ref.quantize(x3)
@@ -3154,8 +3222,78 @@ def check_dense_widths(torch, rand, dname, dt, gen, errs, *, kd, ns, m_eval,
                                f"bit-equal to its plain version")
     log(f"phase 2 ({dname}): at {what}'s widths (K = {kd}, N = "
         f"{' and '.join(map(str, ns))}) the indexed LoRA (M = {SLOTS}, "
-        f"{PROMPT}) and the fused LoRA forward (M = {m_eval}) agree with "
-        f"their plain versions, the int8 kernels (d = {kd}) bit for bit")
+        f"{PROMPT}; x of {list(requests)}) and the fused LoRA forward"
+        f"{' and backward' if grads else ''} (M = {list(m_evals)}) agree "
+        f"with their plain versions, the int8 kernels (d = {kd}, "
+        f"{tuple(xs.shape)}) bit for bit")
+
+
+def time_flash_cases(torch, F, rand, errs, cases):
+    """Phase 3: the flash kernels (fp32) at each (forward row, backward row
+    or None, B, Sq, Sk, H, KVH, hd, causal, what) of `cases`.  Each timed
+    call's result is first held against its plain version (errs' row at
+    hd takes the larger error), then timed beside it and SDPA (the
+    backward through autograd).  Bounds: 4 hd FLOPs per visible pair
+    forward (s and p v), 10 hd backward (s, dp, dq, dk, dv), at 3xTF32,
+    the CUDA-core bound beside them; a pair is visible in all Sq Sk
+    non-causal, in Sq (Sq + 1) / 2 causal."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    rows = {}
+    for fkey, bkey, b, sq, sk, h, kvh, hd, causal, what in cases:
+        fwd = hd_row("flash_attention_fwd", hd)
+        bwd = hd_row("flash_attention_bwd", hd)
+        q, k, v = rand(b, sq, h, hd), rand(b, sk, kvh, hd), rand(b, sk, kvh, hd)
+        out, lse = fops.flash_attention_fwd(q, k, v, causal=causal)
+        r_out, r_lse = fops.ref.attention_fwd(q, k, v, causal=causal)
+        errs[fwd] = max(errs[fwd],
+                        max_err(torch, out, r_out, "float32", f"{fkey} out"),
+                        max_err(torch, lse, r_lse, "float32", f"{fkey} lse"))
+        del r_out, r_lse
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        sdpa = dict(is_causal=causal, enable_gqa=h != kvh)
+        pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+        shape = (f"B={b} Sq={sq} Sk={sk} H={h} KVH={kvh} hd={hd} "
+                 f"{'causal' if causal else 'non-causal'} fp32 ({what})")
+        with torch.no_grad():
+            rows[fkey] = dict(
+                ms=cuda_ms(torch, lambda: fops.flash_attention_fwd(
+                    q, k, v, causal=causal), iters=20),
+                plain_ms=cuda_ms(torch, lambda: fops.ref.attention_fwd(
+                    q, k, v, causal=causal), iters=5),
+                library_ms=cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, **sdpa), iters=20),
+                # read q, k, v; write out, lse
+                **work(4 * (2 * b * sq * h * hd + 2 * b * sk * kvh * hd
+                            + b * h * sq), 4 * hd * pairs, products=True),
+                shape=shape)
+        if bkey is not None:
+            do = rand(b, sq, h, hd)
+            errs[bwd] = max([errs[bwd]] + [
+                max_err(torch, g, w, "float32", f"{bkey} d{n}")
+                for n, g, w in zip("qkv", fops.flash_attention_bwd(
+                    q, k, v, out, lse, do, causal=causal),
+                    fops.ref.attention_bwd(q, k, v, out, lse, do,
+                                           causal=causal))])
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+            do_t = do.transpose(1, 2).contiguous()
+            rows[bkey] = dict(
+                ms=cuda_ms(torch, lambda: fops.flash_attention_bwd(
+                    q, k, v, out, lse, do, causal=causal), iters=20),
+                plain_ms=cuda_ms(torch, lambda: fops.ref.attention_bwd(
+                    q, k, v, out, lse, do, causal=causal), iters=5),
+                library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+                    o_lib, (qt, kt, vt), do_t, retain_graph=True), iters=20),
+                # read q, k, v, out, do, lse; write dq, dk, dv
+                **work(4 * (4 * b * sq * h * hd + 4 * b * sk * kvh * hd
+                            + b * h * sq), 10 * hd * pairs, products=True),
+                shape=shape + "; library = SDPA backward through autograd")
+            del do, o_lib, do_t
+        del q, k, v, out, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
 
 
 def time_wide_kernels(torch, F, rand, dev, gen, errs, *, hd, heads, train_b,
@@ -3163,71 +3301,19 @@ def time_wide_kernels(torch, F, rand, dev, gen, errs, *, hd, heads, train_b,
     """Phase 3 at head dim `hd` (fp32), at a wide model's shapes (128:
     llama3-8b's 32 heads over 8, 5 clients x batch 4; 112: kimi-k2's 64
     over 8, 5 clients x batch 1): the flash forward and backward at its
-    train step (B `train_b`, S 512, causal), the forward at its serving
-    prefill (B 1, S PROMPT), and the decode kernels at its tick (SLOTS
-    slots, cache lengths 128..156), contiguous and paged.  Each timed
-    call's result is first held against its plain version (errs takes
-    the larger error).  The library call is SDPA with enable_gqa (the
-    backward through autograd)."""
+    train step (B `train_b`, S 512, causal) and the forward at its serving
+    prefill (B 1, S PROMPT) (time_flash_cases), and the decode kernels at
+    its tick (SLOTS slots, cache lengths 128..156), contiguous and paged.
+    Each timed call's result is first held against its plain version
+    (errs takes the larger error)."""
     from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.flash_attention import ops as fops
 
     h, kvh = heads
-    fwd = hd_row("flash_attention_fwd", hd)
-    bwd = hd_row("flash_attention_bwd", hd)
-    rows = {}
-    for key, b, s, step in ((fwd, train_b, 512, f"the {what} train step"),
-                            (f"flash_attention_fwd (hd {hd}, prefill)", 1,
-                             PROMPT, f"the {what} serving prefill")):
-        q, k, v = rand(b, s, h, hd), rand(b, s, kvh, hd), rand(b, s, kvh, hd)
-        out, lse = fops.flash_attention_fwd(q, k, v)
-        r_out, r_lse = fops.ref.attention_fwd(q, k, v)
-        errs[fwd] = max(errs[fwd],
-                        max_err(torch, out, r_out, "float32", f"{key} out"),
-                        max_err(torch, lse, r_lse, "float32", f"{key} lse"))
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                      for t in (q, k, v))
-        pairs = b * h * s * (s + 1) // 2
-        shape = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} causal fp32 "
-                 f"({step})")
-        with torch.no_grad():
-            rows[key] = dict(
-                ms=cuda_ms(torch, lambda: fops.flash_attention_fwd(q, k, v),
-                           iters=20),
-                plain_ms=cuda_ms(torch, lambda: fops.ref.attention_fwd(
-                    q, k, v), iters=10),
-                library_ms=cuda_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True),
-                    iters=20),
-                # read q, k, v; write out, lse.  Per visible pair: s, p v
-                **work(4 * (2 * b * s * (h + kvh) * hd + b * h * s),
-                       4 * hd * pairs, products=True),
-                shape=shape)
-        if key != fwd:
-            continue
-        do = rand(b, s, h, hd)
-        errs[bwd] = max([errs[bwd]] + [
-            max_err(torch, g, w, "float32", f"{bwd} d{n}")
-            for n, g, w in zip("qkv", fops.flash_attention_bwd(
-                q, k, v, out, lse, do), fops.ref.attention_bwd(
-                q, k, v, out, lse, do))])
-        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True)
-        do_t = do.transpose(1, 2).contiguous()
-        rows[bwd] = dict(
-            ms=cuda_ms(torch, lambda: fops.flash_attention_bwd(
-                q, k, v, out, lse, do), iters=20),
-            plain_ms=cuda_ms(torch, lambda: fops.ref.attention_bwd(
-                q, k, v, out, lse, do), iters=10),
-            library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
-                o_lib, (qt, kt, vt), do_t, retain_graph=True), iters=20),
-            # read q, k, v, out, do, lse; write dq, dk, dv.  Per visible
-            # pair: s, dp, dq, dk, dv, 2 hd FLOPs each
-            **work(4 * (4 * b * s * (h + kvh) * hd + b * h * s),
-                   10 * hd * pairs, products=True),
-            shape=shape + "; library = SDPA backward through autograd")
-        del o_lib, qt, kt, vt
+    rows = time_flash_cases(torch, F, rand, errs, [
+        (hd_row("flash_attention_fwd", hd), hd_row("flash_attention_bwd", hd),
+         train_b, 512, 512, h, kvh, hd, True, f"the {what} train step"),
+        (f"flash_attention_fwd (hd {hd}, prefill)", None, 1, PROMPT, PROMPT,
+         h, kvh, hd, True, f"the {what} serving prefill")])
     lens = [128 + 4 * i for i in range(SLOTS)]
     q1, kc, vc, clen = decode_args(torch, rand, torch.float32, dev,
                                    s=MAX_LEN, lens=lens, heads=heads, hd=hd)
@@ -3903,17 +3989,22 @@ def kimi_phase(torch, dev, wrappers, name, card):
     return {k: got[k] + served[k] for k in got}
 
 
-def moe_decode_check(torch, dev, arch, cpu_params, tag):
-    """Prefill of one PROMPT-token request and 4 decode steps through the
-    indexed pool (ranks RANKS), on the card and on the CPU from the same
-    weights: the card's tokens fed to both, logits within LOGITS_TOL and
-    each step's token equal; the top-k choices' flips are logged."""
+def decode_check(torch, dev, arch, cpu_params, tag):
+    """Prefill of one PROMPT-token request (for the audio family with its
+    encoder frames) and 4 decode steps through the indexed pool (ranks
+    RANKS), on the card and on the CPU from the same weights: the card's
+    tokens fed to both, logits within LOGITS_TOL and each step's token
+    equal; an MoE model's top-k choices' flips are logged."""
     from repro_torch.models.model import build_model
     from repro_torch.runtime import serving
     from repro_torch.tree import tree_map
 
+    m = arch.model
     rng = np.random.default_rng(SEED + 13)
-    prompt = rng.integers(3, arch.model.vocab_size, size=PROMPT)
+    prompt = {"tokens": rng.integers(3, m.vocab_size, size=(1, PROMPT))
+              .astype(np.int32)}
+    if m.family == "audio":
+        prompt["frames"] = frames_of(rng, (1, m.encoder_seq_len, m.d_model))
     outs, toks, routes = {}, [], {}
     for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
         model = build_model(arch, device=dv)
@@ -3924,8 +4015,9 @@ def moe_decode_check(torch, dev, arch, cpu_params, tag):
         ad = serving.attach_ids(pool, [1])
         with torch.no_grad(), recorded_routing() as calls:
             cache = model.init_cache((1,), MAX_LEN)
-            lg, cache = model.prefill(params, ad, {"tokens": torch.as_tensor(
-                prompt[None].astype(np.int32), device=dv)}, cache)
+            lg, cache = model.prefill(params, ad, {
+                k: torch.as_tensor(v, device=dv) for k, v in prompt.items()},
+                cache)
             seq = [lg[0, -1].float().cpu()]
             for i in range(4):
                 if role == "card":
@@ -3940,9 +4032,12 @@ def moe_decode_check(torch, dev, arch, cpu_params, tag):
     flips = routing_flips(torch, routes["card"], routes["cpu"])
     diff = float((outs["card"] - outs["cpu"]).abs().max())
     cpu_toks = [int(t) for t in torch.argmax(outs["cpu"], -1)[:4]]
-    log(f"{tag}: prefill of {PROMPT} tokens + 4 decode steps, card vs CPU: "
+    log(f"{tag}: prefill of {PROMPT} tokens"
+        + (f" over {m.encoder_seq_len} frames" if "frames" in prompt else "")
+        + f" + 4 decode steps, card vs CPU: "
         f"max |logit diff| {diff:.3e} (tol {LOGITS_TOL}), tokens {toks} vs "
-        f"{cpu_toks}, {flips} top-k choices flipped")
+        f"{cpu_toks}" + (f", {flips} top-k choices flipped"
+                         if m.family == "moe" else ""))
     torch.testing.assert_close(
         outs["card"], outs["cpu"], rtol=LOGITS_TOL, atol=LOGITS_TOL,
         msg=lambda msg: f"{tag} card vs CPU logits ({flips} flips): {msg}")
@@ -3956,7 +4051,7 @@ def moe_vlm_steps(torch, dev, wrappers):
     wide=True), uncompressed and under the config's int8 (held on
     average): kimi-k2 (hd 112) and llama4-maverick (hd 128, top-1, RoPE
     theta 500000) at MOE_STEP_EXPERTS experts and seq DENSE_STEP_SEQ,
-    each followed by moe_decode_check; internvl2-76b (hd 128, d_ff 28672)
+    each followed by decode_check; internvl2-76b (hd 128, d_ff 28672)
     over a batch with its 256-position prefix at seq VLM_SEQ.  Each
     card step must launch the flash forward and backward.  Returns the
     launches by head dim."""
@@ -3983,13 +4078,457 @@ def moe_vlm_steps(torch, dev, wrappers):
         if idle:
             raise RuntimeError(f"phase 13b {arch_name}: never launched {idle}")
         if m.num_experts:
-            moe_decode_check(torch, dev, arch, cpu_params,
+            decode_check(torch, dev, arch, cpu_params,
                              f"phase 13b {arch_name} serving")
         del cpu_params
         acc = by_hd.setdefault(m.head_dim, {})
         for k, c in got.items():
             acc[k] = acc.get(k, 0) + c
     return by_hd
+
+
+def whisper_flash():
+    """whisper-medium's attention at phase 14's train step (5 clients x
+    batch W_BATCH, 16 heads of 64, MHA): (what, B, Sq, Sk, H, hd, causal)
+    of the encoder's self-attention (non-causal, S 1500: 23 full 64-key
+    tiles and a tail of 28; each key sums 1500 queries in the backward,
+    past the fp32 flush of every 8 query tiles), the cross-attention
+    (non-causal, Sq W_SEQ over Sk 1500) and the decoder's self-attention
+    (causal, S W_SEQ)."""
+    from repro_torch.configs import get_config
+
+    m = get_config(WHISPER).model
+    b, h, hd, enc = 5 * W_BATCH, m.num_heads, m.head_dim, m.encoder_seq_len
+    return [("encoder", b, enc, enc, h, hd, False),
+            ("cross", b, W_SEQ, enc, h, hd, False),
+            ("decoder", b, W_SEQ, W_SEQ, h, hd, True)]
+
+
+def check_whisper_kernels(torch, rand, dname, dt, dev, gen, errs):
+    """Phase 2 at whisper-medium's shapes: the flash forward and backward
+    at whisper_flash() and FLASH_NONCAUSAL_EDGES (B 2, GQA 4/2); the LoRA
+    and int8 kernels at its widths (check_dense_widths: the fused LoRA
+    forward and backward at the eval step's and the global-adapter
+    gradient's M of 7500 encoder and 2240 decoder rows, the indexed LoRA
+    at phase 14's served batches, the int8 kernels over 1500-row
+    messages); and the decode kernel as the cross read (W_REQUESTS slots,
+    cache_len 1500 for each) against the flash forward's plain version at
+    Sq 1, non-causal.  Each against its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    m = get_config(WHISPER).model
+    h, hd, enc = m.num_heads, m.head_dim, m.encoder_seq_len
+    check_flash_cases(torch, rand, dname, dt, errs, [
+        (b, sq, sk, hq, hq, d, causal, 0, 0)
+        for _, b, sq, sk, hq, d, causal in whisper_flash()] + [
+        (2, sq, sk, 4, 2, d, False, window, q_offset)
+        for sq, sk, d, window, q_offset in FLASH_NONCAUSAL_EDGES], show=3)
+    b = 5 * W_BATCH
+    check_dense_widths(
+        torch, rand, dname, dt, gen, errs, kd=m.d_model, ns=(m.d_model,),
+        m_evals=(b * enc, b * W_SEQ), what=WHISPER, seq=enc, grads=True,
+        requests=((W_REQUESTS, 1), (W_REQUESTS, W_PROMPT),
+                  (W_REQUESTS, enc), (1, enc)))
+    q = rand(W_REQUESTS, h, hd, dtype=dt)
+    k, v = rand(W_REQUESTS, enc, h, hd, dtype=dt), rand(W_REQUESTS, enc, h,
+                                                        hd, dtype=dt)
+    full = torch.full((W_REQUESTS,), enc, dtype=torch.int32, device=dev)
+    want, _ = fops.ref.attention_fwd(q[:, None].contiguous(), k, v,
+                                     causal=False)
+    errs["decode_attention"] = max(
+        errs["decode_attention"],
+        max_err(torch, dops.decode_attention(q, k, v, full), want[:, 0],
+                dname, "decode as the whisper cross read"))
+    del q, k, v, want
+    torch.cuda.empty_cache()
+    log(f"phase 2 ({dname}): whisper's flash shapes (encoder {enc} x {enc} "
+        f"and cross {W_SEQ} x {enc} non-causal, decoder {W_SEQ} causal, B "
+        f"{b}, {h} heads of {hd}), {len(FLASH_NONCAUSAL_EDGES)} non-causal "
+        f"edges and the decode kernel as the cross read at cache_len {enc}: "
+        f"max |kernel - plain| so far flash fwd "
+        f"{errs['flash_attention_fwd']:.3e}, bwd "
+        f"{errs['flash_attention_bwd']:.3e}, decode "
+        f"{errs['decode_attention']:.3e}")
+
+
+def time_whisper_kernels(torch, F, rand, dev, errs):
+    """Phase 3 at whisper-medium's shapes (fp32): the flash forward and
+    backward at whisper_flash() (time_flash_cases); the decode kernel as
+    the cross read (W_REQUESTS slots at cache_len 1500); the indexed LoRA
+    at a request's prefill of the encoder (M = 1500 rows of one adapter,
+    K = N = 1024, r 16).  Each timed call's result is first held against
+    its plain version; the library calls are SDPA and none for the
+    indexed LoRA."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.lora_matmul import ops as lops
+
+    cfg = get_config(WHISPER).model
+    h, hd, enc = cfg.num_heads, cfg.head_dim, cfg.encoder_seq_len
+    rows = time_flash_cases(torch, F, rand, errs, [
+        (f"flash_attention_fwd (whisper {w})",
+         f"flash_attention_bwd (whisper {w})", b, sq, sk, hq, hq, d, causal,
+         f"the whisper train step's {w} attention")
+        for w, b, sq, sk, hq, d, causal in whisper_flash()])
+    n = W_REQUESTS
+    q1 = rand(n, h, hd)
+    kc, vc = rand(n, enc, h, hd), rand(n, enc, h, hd)
+    full = torch.full((n,), enc, dtype=torch.int32, device=dev)
+    errs["decode_attention"] = max(errs["decode_attention"], max_err(
+        torch, dops.decode_attention(q1, kc, vc, full),
+        fops.ref.attention_fwd(q1[:, None].contiguous(), kc, vc,
+                               causal=False)[0][:, 0], "float32",
+        "whisper cross read"))
+    ks, vs = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    chunk = _build.library().decode_attention_chunk()
+    rows["decode_attention (whisper cross read)"] = dict(
+        ms=cuda_ms(torch, lambda: dops.decode_attention(q1, kc, vc, full)),
+        plain_ms=cuda_ms(torch, lambda: dops.ref.decode_attention(
+            q1, kc, vc, full)),
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q1[:, :, None, :], ks, vs)),
+        passes=pass_ms(torch, lambda: dops.decode_attention(q1, kc, vc, full),
+                       ("decode_kernel",), launches=True),
+        # read q, the cross cache, the lengths; write out
+        **work(4 * (2 * n * h * hd + 2 * n * enc * h * hd + n),
+               4 * n * enc * h * hd),
+        shape=f"B={n} cache_len {enc} for every slot, H={h} hd={hd} fp32 "
+              f"(a whisper decode step's cross read), "
+              f"{h * n * ((enc - 1) // chunk + 1)} CTAs")
+
+    kd, r, m = cfg.d_model, 16, enc
+    x = rand(m, kd)
+    w = rand(kd, kd, scale=kd ** -0.5)
+    a = rand(W_ADAPTERS, kd, r, scale=r ** -0.5)
+    bb = rand(W_ADAPTERS, r, kd, scale=0.02)
+    sc = torch.full((W_ADAPTERS,), 2.0, device=dev)
+    ids = torch.full((m,), 1, dtype=torch.int32, device=dev)
+    args = (x, w, a, bb, sc, ids)
+    errs["lora_matmul_indexed"] = max(
+        errs["lora_matmul_indexed"],
+        max_err(torch, lops.lora_matmul_indexed(*args),
+                lops.ref.lora_matmul_indexed(*args), "float32",
+                f"indexed LoRA M={m} K=N={kd}"))
+    rows["lora_matmul_indexed (whisper prefill)"] = dict(
+        ms=cuda_ms(torch, lambda: lops.lora_matmul_indexed(*args)),
+        plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_indexed(*args)),
+        library_ms=None,
+        passes=pass_ms(torch, lambda: lops.lora_matmul_indexed(*args),
+                       ("lora_indexed_kernel",), launches=True),
+        # read x, W, one adapter's A and B, the scales and ids; write y
+        **work(4 * (2 * m * kd + kd * kd + 2 * kd * r + W_ADAPTERS + m),
+               2 * m * kd * kd + 4 * m * kd * r, products=True),
+        shape=f"M={m} K=N={kd} r={r} one adapter fp32 (a whisper request's "
+              f"encoder q/k/v/o in its prefill), "
+              f"{_build.library().lora_indexed_ctas(m, kd, kd)} CTAs")
+    return rows
+
+
+def whisper_arch():
+    """whisper-medium at full width and depth, phase 14's setting: 5
+    clients x batch W_BATCH x seq W_SEQ; the config's cut 4 (inside the
+    encoder), r_cut 8, r_others 16 and smashed default ("none")."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config(WHISPER)
+    return arch.replace(
+        train=dataclasses.replace(arch.train, batch_size=W_BATCH,
+                                  seq_len=W_SEQ),
+        data=dataclasses.replace(arch.data, num_clients=5))
+
+
+def frames_of(rng, shape):
+    """Stub frontend frames as the reference's tests draw them: normal x
+    0.02, fp32."""
+    return (rng.standard_normal(shape, dtype=np.float32) * 0.02)
+
+
+def whisper_phase(torch, dev, wrappers, name, card):
+    """Phase 14: whisper_arch() at full width and depth, weights drawn on
+    the card from SEED.  ROUNDS rounds of the round engine's own steps
+    (rounds.init_state, make_train_step, make_eval_step) in a thin loop:
+    tokens and labels from the data pipeline (the synthetic corpus,
+    HashTokenizer, the length-Dirichlet partition, as SplitFTSystem draws
+    them), frames drawn from SEED per round, FedAvg weights by sample
+    counts.  A train step launches the flash forward and backward once
+    per encoder layer and twice per decoder layer (self and cross); an
+    eval step the flash forward as often and the fused LoRA forward per
+    layer and target.  Peak device memory below PEAK_SHARE of the
+    card, finite losses.  Then the global-adapter gradient (the fused
+    LoRA backward), then serving the trained adapters: W_REQUESTS
+    requests over W_ADAPTERS of them, each with its own frames and a
+    W_PROMPT-token prompt, W_NEW new tokens, batched (one prefill of all
+    of them, then decode steps) and each alone; tokens batched equal to
+    alone up to a top-2 gap (decided_steps), the served logits within
+    LOGITS_TOL of the card's own train-mode forward over the same frames
+    and tokens.  Returns the launches of the path."""
+    from repro_torch.core import rounds, split
+    from repro_torch.data import (HashTokenizer, make_client_loaders,
+                                  partition_dataset, stack_client_batches,
+                                  synthetic_corpus)
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import serving
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch = whisper_arch()
+    m, t = arch.model, arch.train
+    n, enc_l, dec_l = arch.data.num_clients, m.num_encoder_layers, m.num_layers
+    targets = len(arch.lora.targets)
+    t0 = time.perf_counter()
+    model = build_model(arch, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    tok = HashTokenizer(m.vocab_size)
+    samples = [np.asarray(tok.encode(s), np.int32)
+               for s in synthetic_corpus(NUM_SAMPLES, seed=arch.data.seed)]
+    parts = partition_dataset(
+        [len(s) for s in samples], n, strategy=arch.data.partition,
+        alpha=arch.data.alpha, num_classes=arch.data.num_length_classes,
+        seed=arch.data.seed)
+    loaders = make_client_loaders(samples, parts, batch_size=t.batch_size,
+                                  seq_len=t.seq_len, seed=SEED)
+    ev_tokens = [np.asarray(tok.encode(s), np.int32) for s in
+                 synthetic_corpus(EVAL_SAMPLES, seed=arch.data.seed + 777)]
+    ev_loaders = make_client_loaders(
+        ev_tokens, [np.arange(len(ev_tokens))] * n, batch_size=t.batch_size,
+        seq_len=t.seq_len, seed=SEED + 999)
+    weights = np.array([len(p) for p in parts], np.float32)
+    active = np.ones(n, np.float32)
+    rng = np.random.default_rng(SEED + 14)
+    state = rounds.init_state(model, torch.Generator().manual_seed(SEED + 3),
+                              num_clients=n)
+    train = TimedStep(torch, rounds.make_train_step(
+        model, smashed_compress=arch.split.smashed_compress), wrappers)
+    ev = TimedStep(torch, rounds.make_eval_step(model), wrappers)
+    log(f"phase 14: {arch.name} at full width and depth: {enc_l} encoder + "
+        f"{dec_l} decoder layers, d_model {m.d_model}, {m.num_heads} heads "
+        f"of {m.head_dim}, d_ff {m.d_ff}, vocab {m.vocab_size} untied, "
+        f"{m.encoder_seq_len} frames; {n_params / 1e6:.1f}M parameters drawn "
+        f"on the card; {n} clients (samples {weights.astype(int).tolist()}) "
+        f"x batch {t.batch_size} x seq {t.seq_len}, cut "
+        f"{arch.split.cut_layer} (inside the encoder), r_cut "
+        f"{arch.lora.r_cut} r_others {arch.lora.r_others}, smashed "
+        f"{arch.split.smashed_compress}, {t.optimizer} lr {t.lr_client}; "
+        f"built in {time.perf_counter() - t0:.1f} s")
+
+    def with_frames(batch):
+        batch["frames"] = frames_of(rng, (n, t.batch_size, m.encoder_seq_len,
+                                          m.d_model))
+        return batch
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(ROUNDS):
+        batch = with_frames(stack_client_batches([ld.batch(r)
+                                                  for ld in loaders]))
+        state, met = train(params, state, batch, weights, active,
+                           t.lr_client, t.lr_server)
+        ebatch = with_frames(stack_client_batches([ld.batch(r)
+                                                   for ld in ev_loaders]))
+        e_loss, e_met = ev(params, state, ebatch, weights)
+        vals = [met["ce"], met["accuracy"], e_met["ce"], e_met["accuracy"]]
+        if not all(torch.isfinite(v).all() for v in vals):
+            raise RuntimeError(f"phase 14 round {r}: non-finite loss")
+        log(f"phase 14 round {r} [{name}, {card}]: train ce "
+            f"{fmt(vals[0].cpu())} acc {fmt(vals[1].cpu())}; eval ce "
+            f"{fmt(vals[2].cpu())} acc {fmt(vals[3].cpu())}; train step "
+            f"{train.calls[-1][2] * 1e3:.1f} ms, eval step "
+            f"{ev.calls[-1][2] * 1e3:.1f} ms; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    got = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_round = [(c, tl, el) for (c, tl, _), (_, el, _) in
+                 zip(train.calls, ev.calls)]
+    attn = enc_l + 2 * dec_l
+    check_launches(
+        per_round,
+        lambda p: {"flash_attention_fwd": attn, "flash_attention_bwd": attn},
+        {"flash_attention_fwd": attn,
+         "lora_matmul_fwd": targets * (enc_l + dec_l)},
+        "whisper training")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak > PEAK_SHARE * total:
+        raise RuntimeError(f"phase 14: peaks at {peak / 2**30:.2f} GiB, over "
+                           f"{PEAK_SHARE} of the card's "
+                           f"{total / 2**30:.2f} GiB")
+    nonzero = lambda d: {k: c for k, c in d.items() if c}  # noqa: E731
+    log(f"phase 14 [{name}, {card}]: train step "
+        f"{fmt([c[2] * 1e3 for c in train.calls])} ms "
+        f"({n * t.batch_size * (t.seq_len + m.encoder_seq_len) / train.calls[-1][2]:.0f}"
+        f" decoder + encoder positions/s), eval step "
+        f"{fmt([c[2] * 1e3 for c in ev.calls])} ms; launches per train step "
+        f"{nonzero(per_round[-1][1])}, per eval step "
+        f"{nonzero(per_round[-1][2])}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB")
+    wall, busy, by_name, _ = device_busy(
+        torch, lambda: (train.fn(*train.last), ev.fn(*ev.last)))
+    if busy is not None:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"phase 14 profile [{name}, {card}]: one train + one eval step "
+            f"under torch.profiler: wall {wall:.3f} s, device busy "
+            f"{busy:.3f} s (idle share {1 - busy / wall:.3f}); top device "
+            f"time: " + "; ".join(f"{k[:60]} {v * 1e3:.1f} ms"
+                                  for k, v in top))
+    else:
+        log(f"phase 14 profile [{name}, {card}]: device busy share not "
+            f"measured (the profiler recorded no device activity)")
+
+    # the global model's eval-loss gradient w.r.t. its served adapters
+    for w in wrappers.values():
+        w.launches = 0
+    eff = split.serve_adapters(model, state["client_adapters"],
+                               state["server_adapters"], state["cuts"],
+                               weights)
+    eff = tree_map(lambda x: x.detach().requires_grad_(True), eff)
+    with torch.enable_grad():
+        per, _ = model.loss(params, eff, {
+            k: torch.as_tensor(v, device=dev) for k, v in ev.last[2].items()},
+            per_client=True)
+        grads = torch.autograd.grad(per.sum(), tree_leaves(eff))
+    torch.cuda.synchronize()
+    n_ad = targets * (enc_l + dec_l)
+    if not all(torch.isfinite(g).all() for g in grads) or \
+            wrappers["lora_matmul_bwd"].launches != n_ad:
+        raise RuntimeError(f"phase 14: the global-adapter gradient launched "
+                           f"the fused LoRA backward "
+                           f"{wrappers['lora_matmul_bwd'].launches} times "
+                           f"(want {n_ad}) or is not finite")
+    got["lora_matmul_bwd"] += n_ad
+    del eff, grads, per
+
+    pool = serving.pool_head(serving.pool_from_state(model, state),
+                             W_ADAPTERS)
+    del state, train, ev
+    torch.cuda.empty_cache()
+    served = whisper_serving(torch, dev, wrappers, model, params, pool, rng,
+                             "phase 14 serving", name, card)
+    del model, params, pool
+    torch.cuda.empty_cache()
+    return {k: got[k] + served[k] for k in got}
+
+
+def whisper_serving(torch, dev, wrappers, model, params, pool, rng, tag,
+                    name, card):
+    """W_REQUESTS requests (adapter i % W_ADAPTERS, their own frames, a
+    W_PROMPT-token prompt) through Model.prefill and W_NEW - 1
+    decode_steps, batched and each alone; see whisper_phase.  Returns
+    the launches of the batched run."""
+    from repro_torch.runtime import serving
+
+    m = model.cfg
+    ids = [i % W_ADAPTERS for i in range(W_REQUESTS)]
+    prompts = rng.integers(3, m.vocab_size, size=(W_REQUESTS, W_PROMPT))
+    frames = frames_of(rng, (W_REQUESTS, m.encoder_seq_len, m.d_model))
+    max_len = W_PROMPT + W_NEW
+
+    def generate(rows):
+        """Prefill then decode for the requests `rows` as one batch:
+        (tokens (R, W_NEW), logits (R, W_NEW, V) on the host, prefill s,
+        decode s per step)."""
+        ad = serving.attach_ids(pool, [ids[i] for i in rows])
+        cache = model.init_cache((len(rows),), max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, ad, {
+            "tokens": torch.as_tensor(prompts[rows].astype(np.int32),
+                                      device=dev),
+            "frames": torch.as_tensor(frames[rows], device=dev)}, cache)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        steps = [lg[:, -1].float()]
+        toks = [torch.argmax(steps[-1], -1).to(torch.int32)]
+        t0 = time.perf_counter()
+        for _ in range(W_NEW - 1):
+            lg, cache = model.decode_step(params, ad, toks[-1][:, None],
+                                          cache)
+            steps.append(lg[:, -1].float())
+            toks.append(torch.argmax(steps[-1], -1).to(torch.int32))
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / (W_NEW - 1)
+        return (torch.stack(toks, 1).cpu().numpy(),
+                torch.stack(steps, 1).cpu(), t_pre, t_dec)
+
+    with torch.no_grad():
+        generate([0])                                   # warm
+        for w in wrappers.values():
+            w.launches = 0
+        rows = list(range(W_REQUESTS))
+        toks, logits, t_pre, t_dec = generate(rows)
+        got = {k: w.launches for k, w in wrappers.items()}
+        alone = [generate([i]) for i in rows]
+        wall, busy, _, kernels = device_busy(torch, lambda: generate(rows))
+        # the card's own train-mode forward over prompt + served tokens
+        seq = np.concatenate([prompts, toks[:, :-1]], 1).astype(np.int32)
+        x, _, _ = model.forward(params, serving.attach_ids(pool, ids), {
+            "tokens": torch.as_tensor(seq, device=dev),
+            "frames": torch.as_tensor(frames, device=dev)})
+        full = model.head(params, x[:, W_PROMPT - 1:]).float().cpu()
+        del x
+    if not torch.isfinite(logits).all():
+        raise RuntimeError(f"{tag}: non-finite logits")
+    for i, (tk, lg, _, _) in enumerate(alone):
+        upto = decided_steps(torch, lg[0])
+        if list(toks[i, :upto]) != list(tk[0, :upto]):
+            raise RuntimeError(f"{tag}: request {i} batched tokens "
+                               f"{toks[i].tolist()} != alone "
+                               f"{tk[0].tolist()} before step {upto}")
+    diff = float((logits - full).abs().max())
+    torch.testing.assert_close(
+        logits, full, rtol=LOGITS_TOL, atol=LOGITS_TOL,
+        msg=lambda msg: f"{tag}: served vs train-mode logits: {msg}")
+    idle = "not measured" if busy is None else f"{1 - busy / wall:.3f}"
+    per_tok = (sum(kernels.values()) / W_NEW if busy is not None
+               else float("nan"))
+    need = {"flash_attention_fwd", "lora_matmul_indexed", "decode_attention"}
+    if any(not got[k] for k in need):
+        raise RuntimeError(f"{tag}: never launched "
+                           f"{[k for k in need if not got[k]]}")
+    log(f"{tag} [{name}, {card}]: {W_REQUESTS} requests over {W_ADAPTERS} "
+        f"adapters, prompts of {W_PROMPT} tokens with {m.encoder_seq_len} "
+        f"frames each, {W_NEW} new tokens: batched prefill "
+        f"{t_pre * 1e3:.1f} ms, decode {t_dec * 1e3:.2f} ms per step; alone "
+        f"prefill {fmt([a[2] * 1e3 for a in alone])} ms, decode "
+        f"{fmt([a[3] * 1e3 for a in alone])} ms per step; batched tokens == "
+        f"alone (top-2 gap {TOP2_GAP}); served logits vs the train-mode "
+        f"forward max |diff| {diff:.3e} (tol {LOGITS_TOL}); under the "
+        f"profiler: wall {wall:.3f} s, idle share {idle}, "
+        f"{per_tok:.1f} device kernels per token (prefill included); "
+        f"launches of the batched run "
+        f"{ {k: c for k, c in got.items() if c} }")
+    return got
+
+
+def whisper_steps(torch, dev, wrappers):
+    """Phase 14b: whisper-medium at full width, SMALL_LAYERS encoder and
+    SMALL_LAYERS decoder layers, 1500 frames, seq W_SEQ: one card-vs-CPU
+    round step each uncompressed, under int8 (held on average) and under
+    remat "full" (small_step_check at cuts [1, 2]: inside the encoder and
+    at its last layer), then the same weights' prefill and 4 decode
+    steps card vs CPU (decode_check).  Returns the launches of the
+    card's steps."""
+    kw = dict(num_encoder_layers=SMALL_LAYERS)
+    arch = small_arch(WHISPER, kw)
+    m = arch.model
+    log(f"phase 14b: {WHISPER} at full width, {m.num_encoder_layers} "
+        f"encoder + {m.num_layers} decoder layers, d_model {m.d_model}, "
+        f"{m.encoder_seq_len} frames, seq {W_SEQ}")
+    cpu_params, got = small_step_check(
+        torch, dev, WHISPER, W_SEQ, W_STEPS, "phase 14b", compressed="mean",
+        model_kw=kw, wrappers=wrappers)
+    idle = [k for k in ("flash_attention_fwd", "flash_attention_bwd")
+            if not got[k]]
+    if idle:
+        raise RuntimeError(f"phase 14b: never launched {idle}")
+    decode_check(torch, dev, arch, cpu_params, "phase 14b serving")
+    return got
 
 
 def lora_args(torch, rand, m, dt, gen):

@@ -1,9 +1,7 @@
 """Architecture config registry of the PyTorch port.
 
-Only the architectures whose serving or training path has been ported
-are registered; ``get_config`` of any other name of the reference's registry
-says that the architecture is not yet ported (ROADMAP.md).
-Names resolve with dashes or underscores, as in the reference.
+Every architecture of the reference's registry, under the same ids;
+names resolve with dashes or underscores, as in the reference.
 """
 
 from __future__ import annotations
@@ -11,7 +9,6 @@ from __future__ import annotations
 import importlib
 from typing import Dict
 
-from repro_torch import roadmap
 from repro_torch.config import ArchConfig
 
 # registry id -> module name
@@ -28,10 +25,8 @@ _REGISTRY: Dict[str, str] = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "internvl2-76b": "internvl2_76b",
+    "whisper-medium": "whisper_medium",
 }
-
-# the reference's other registry ids: known, not yet ported
-_NOT_YET_PORTED = ("whisper-medium",)
 
 
 def _canon(name: str) -> str:
@@ -43,8 +38,4 @@ def get_config(name: str) -> ArchConfig:
     if key in _REGISTRY:
         mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[key]}")
         return mod.config()
-    if key in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not yet ported to repro_torch "
-            f"(ported: {sorted(_REGISTRY)}; see {roadmap.FAMILIES})")
     raise KeyError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")

@@ -107,6 +107,7 @@ def main(argv=None):
     arch = get_config(args.arch)
     if args.reduced:
         arch = reduced_cfg(arch)
+    serving.check_engine_serves(arch)
     if args.ckpt:
         kw = checkpoint_config(args.ckpt)
         cohort = kw.pop("cohort", None)

@@ -14,22 +14,33 @@ reference, as nested dicts of tensors with the reference's names):
                                                   -> (loss, metrics)
   prefill(params, adapters, batch, cache)         -> (logits_last, cache)
   decode_step(params, adapters, tokens, cache)    -> (logits, cache)
+  encode(params, adapters, frames, remat, boundary) -> encoder output
   init_cache(lead, max_len, dtype)                -> cache
 
 Training activations carry the client axis first ((N, B, S, d)); caches
-are updated in place and returned.  The port has the dense decoder
+are updated in place and returned.  The port has every family of the
+reference, each in training, prefill and decode: the dense decoder
 (learned positions or RoPE, per-layer sliding windows, GQA: gpt2-small,
 opt-125m, gpt-neo-125m, llama3-8b, phi4-mini, qwen1.5-32b,
 mistral-large), the MoE decoder (kimi-k2, llama4-maverick: the MLP is
 ``transformer.moe_apply``, whose router loss each layer returns and
 ``forward`` sums as ``aux``), the vlm decoder (internvl2: a batch's
 "prefix" embeddings replace its first positions), the SSM kind
-(mamba2-780m, ``models/ssm.py``) and the hybrid of the two (zamba2-1.2b:
-SSD layers with attention layers between them), each in training,
-prefill and decode.  An SSM layer's cache is its conv window and its
-fp32 state; the attention layers' k/v and the shared "len" are the dense
-decoder's.  The encoder (whisper) raises NotImplementedError with a
-pointer to ROADMAP.md.
+(mamba2-780m, ``models/ssm.py``), the hybrid of the two (zamba2-1.2b:
+SSD layers with attention layers between them) and the audio
+encoder-decoder (whisper-medium).  An SSM layer's cache is its conv
+window and its fp32 state; the attention layers' k/v and the shared
+"len" are the dense decoder's.
+
+The audio family's flat layers are the encoder's ("enc", non-causal,
+ids 0..Le-1) and then the decoder's ("dec", causal, with
+cross-attention).  A batch's "frames" ([N,] B, S_enc, d), the stub
+frontend's embeddings, go through ``encode`` (their own positions,
+the encoder stack in train mode, its own final norm; a cut-layer
+boundary inside it acts there, as in the reference), and the decoder
+runs from flat id Le with the encoder's output as the cross-attention
+memory.  A prefill encodes and writes each decoder layer's cross cache
+(xk/xv, S_enc positions); a decode step reads it and runs no encoder.
 
 Memory knobs of a train step, as in the reference:
 
@@ -68,7 +79,6 @@ from repro_torch.models.common import apply_norm
 Params = Dict[str, Any]
 
 _SERVING = roadmap.SERVING
-_FAMILIES = roadmap.FAMILIES
 
 REMATS = ("none", "dots", "full")
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -176,12 +186,6 @@ def flat_runs(groups: Sequence[GroupSpec]) -> List[Tuple[str, int, int]]:
     return [tuple(r) for r in runs]
 
 
-def _unsupported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        return f"the {cfg.family} family"
-    return None
-
-
 def _index_tree(t, i):
     if t is None:
         return None
@@ -211,11 +215,6 @@ class Model(nn.Module):
         super().__init__()
         self.arch = arch
         self.cfg = arch.model
-        missing = _unsupported(self.cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{arch.name}: {missing} is not ported to repro_torch yet "
-                f"({_FAMILIES})")
         self.device = resolve_device(device)
         self.groups: Tuple[GroupSpec, ...] = build_groups(self.cfg)
         self.runs = flat_runs(self.groups)
@@ -241,6 +240,11 @@ class Model(nn.Module):
                 generator, cfg.d_model, cfg.vocab_size, dtype)
         p["final_norm"] = common.init_norm(
             cfg.d_model, bias=cfg.norm == "layernorm", dtype=dtype)
+        if cfg.family == "audio":
+            p["embed"]["enc_pos"] = common.embed_init(
+                generator, cfg.encoder_seq_len, cfg.d_model, dtype)
+            p["enc_norm"] = common.init_norm(
+                cfg.d_model, bias=cfg.norm == "layernorm", dtype=dtype)
         for g in self.groups:
             if g.kind == "ssm":
                 p[g.name] = ssm.init_ssm(generator, cfg, g.size, dtype=dtype)
@@ -286,6 +290,9 @@ class Model(nn.Module):
                         t["mlp_in"] = (d, cfg.d_ff)
                     if "mlp_out" in want:
                         t["mlp_out"] = (cfg.d_ff, d)
+                if g.cross and "xq" in want:
+                    t["xq"] = (d, h * hd)
+                    t["xo"] = (h * hd, d)
             if t:
                 spec[g.name] = t
         return spec
@@ -318,10 +325,12 @@ class Model(nn.Module):
 
     def run_blocks(self, params: Params, adapters: Optional[Params], x, *,
                    mode: str = "train", remat: str = "none",
-                   cache: Optional[Params] = None, layer_lo: int = 0,
-                   layer_hi: Optional[int] = None, boundary=None):
+                   cache: Optional[Params] = None, memory=None,
+                   layer_lo: int = 0, layer_hi: Optional[int] = None,
+                   boundary=None):
         """Run flat layers [layer_lo, layer_hi) over activations x
-        ([N,] B, S, d).
+        ([N,] B, S, d).  memory: the encoder's output, which the
+        cross-attention groups attend to (train and prefill).
 
         mode: "train" (full sequences, no cache), "prefill" (full
         sequences; fills `cache` if given) or "decode" (one token per slot
@@ -349,6 +358,10 @@ class Model(nn.Module):
         hi_total = self.num_flat_layers if layer_hi is None else layer_hi
         cache_len = cache["len"] if cache is not None else None
         pages = cache.get("pages") if cache is not None else None
+        # a decode step reads every slot's whole cross cache
+        mem_len = (torch.full_like(cache_len, self.cfg.encoder_seq_len)
+                   if mode == "decode" and self.cfg.family == "audio"
+                   else None)
         rope = None
         if self.cfg.use_rope:
             # each slot's next position in decode, else 0..S-1 (a prefill
@@ -370,16 +383,20 @@ class Model(nn.Module):
                 p_l = _index_tree(params[g.name], i)
                 ad_l = _index_tree(adapters.get(g.name) if adapters else None,
                                    i)
-                c_l = None
+                c_l = mem_l = None
                 if cache is not None:
                     # views of layer i: the layer writes its cache there
                     c_l = _index_tree(cache[g.name], i)
+                    if g.cross:
+                        mem_l = {"k": c_l.pop("xk"), "v": c_l.pop("xv"),
+                                 "len": mem_len}
                     if g.kind != "ssm":
                         c_l["len"] = cache_len
                         if pages is not None:
                             c_l["pages"] = pages
                 layer = functools.partial(
                     self._layer, g, i, p_l, ad_l, mode=mode, cache=c_l,
+                    memory=memory if g.cross else None, mem_cache=mem_l,
                     rope=rope, boundary=boundary, fid=run_flat_lo + (i - lo))
                 x, bcarry, a = (layer(x, bcarry) if remat == "none"
                                 else _recomputed(layer, x, bcarry,
@@ -395,10 +412,12 @@ class Model(nn.Module):
         return x, aux, new_cache
 
     def _layer(self, g: GroupSpec, i: int, p_l, ad_l, x, bcarry=None, *,
-               mode: str, cache, rope, boundary, fid: int):
+               mode: str, cache, memory, mem_cache, rope, boundary, fid: int):
         """One layer of group g (local index i, whose attention window is
         the group's per-layer window) and the cut-layer hook: (x, the
-        stateful hook's carry or None, the layer's router loss)."""
+        stateful hook's carry or None, the layer's router loss).  A cross
+        group's layer also attends to `memory` or its cross cache
+        `mem_cache`."""
         cfg = self.cfg
         aux = 0.0
         if g.kind == "ssm":
@@ -411,7 +430,8 @@ class Model(nn.Module):
         else:
             attn_out, _ = transformer.attention_apply(
                 p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
-                window=g.window_of(i), rope=rope, cache=cache)
+                window=g.window_of(i), rope=rope, cache=cache, memory=memory,
+                mem_cache=mem_cache)
             x = x + attn_out
             if g.kind == "attn_moe":
                 out, aux = transformer.moe_apply(p_l, ad_l, x, cfg=cfg)
@@ -431,17 +451,22 @@ class Model(nn.Module):
                 return_boundary: bool = False):
         """Full forward to hidden states (pre-head).
 
-        batch: {"tokens": ([N,] B, S)[, "prefix": ([N,] B, P, d)]}.
+        batch: {"tokens": ([N,] B, S)[, "prefix": ([N,] B, P, d)]
+        [, "frames": ([N,] B, S_enc, d)]}; the audio family encodes the
+        frames (train and prefill; a decode step reads the cross cache)
+        and runs its decoder from the encoder's last flat id.
         Returns (x, aux, new_cache); aux is the MoE layers' summed router
         loss, 0.0 for every other kind.  return_boundary=True appends a
         stateful boundary's last carry (the smashed error-feedback
         residual)."""
-        if "frames" in batch:
-            raise NotImplementedError(
-                "encoder frames (whisper) are not ported yet "
-                f"({_FAMILIES})")
         cfg = self.cfg
         tokens = batch["tokens"]
+        memory, lo = None, 0
+        if cfg.family == "audio":
+            if mode != "decode":
+                memory = self.encode(params, adapters, batch["frames"],
+                                     remat=remat, boundary=boundary)
+            lo = self.group_by_name["enc"].size
         positions = (cache["len"][..., None] if mode == "decode"
                      else torch.arange(tokens.shape[-1],
                                        device=tokens.device))
@@ -449,7 +474,7 @@ class Model(nn.Module):
                        prefix=batch.get("prefix"))
         x, aux, new_cache, *bcarry = self.run_blocks(
             params, adapters, x, mode=mode, remat=remat, cache=cache,
-            boundary=boundary)
+            memory=memory, layer_lo=lo, boundary=boundary)
         x = apply_norm(params["final_norm"], x, kind=cfg.norm,
                        eps=cfg.norm_eps)
         if return_boundary:
@@ -507,9 +532,25 @@ class Model(nn.Module):
             sums = tuple(a + b for a, b in zip(sums, got))
         return sums
 
-    def encode(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Model.encode (whisper) is not ported yet ({_FAMILIES})")
+    def encode(self, params, adapters, frames, *, remat: str = "none",
+               boundary=None):
+        """frames ([N,] B, S_enc, d), the stub frontend's embeddings ->
+        the encoder's output: the frames plus their positions through the
+        encoder stack in train mode (no cache, also in a prefill) and its
+        final norm.  `boundary` acts on the encoder's layers as on any
+        other; a stateful one raises, as in the reference."""
+        if getattr(boundary, "stateful", False):
+            raise NotImplementedError(
+                "stateful (error-feedback) smashed boundaries are not "
+                "supported across the encoder stack")
+        cfg = self.cfg
+        x = frames + params["embed"]["enc_pos"].to(frames.dtype)
+        x, _, _ = self.run_blocks(params, adapters, x, mode="train",
+                                  remat=remat, layer_lo=0,
+                                  layer_hi=self.group_by_name["enc"].size,
+                                  boundary=boundary)
+        return apply_norm(params["enc_norm"], x, kind=cfg.norm,
+                          eps=cfg.norm_eps)
 
     def prefill(self, params, adapters, batch, cache):
         x, _, cache = self.forward(params, adapters, batch, cache=cache,
@@ -526,9 +567,11 @@ class Model(nn.Module):
     def init_cache(self, lead: Tuple[int, ...], max_len: int,
                    dtype=torch.float32) -> Params:
         """lead = (B,). One stacked entry per group, on this model's
-        device: (Lg, B, max_len, KVH, hd) k and v for attention, and for
-        SSM layers the conv window (Lg, B, W-1, C) in `dtype` and the
-        state (Lg, B, H, P, N) in fp32."""
+        device: (Lg, B, max_len, KVH, hd) k and v for attention (and for
+        a cross-attention group the cross cache xk/xv, (Lg, B, S_enc,
+        KVH, hd); the encoder has none), and for SSM layers the conv
+        window (Lg, B, W-1, C) in `dtype` and the state (Lg, B, H, P, N)
+        in fp32."""
         cfg = self.cfg
         if len(lead) != 1:
             raise NotImplementedError(
@@ -537,16 +580,21 @@ class Model(nn.Module):
         batch = lead[-1]
         cache: Params = {"len": torch.zeros((batch,), dtype=torch.int32,
                                             device=self.device)}
+        kv = (cfg.num_kv_heads, cfg.head_dim)
         for g in self.groups:
+            if g.name == "enc":
+                continue
             if g.kind == "ssm":
                 cache[g.name] = ssm.init_ssm_cache(
                     cfg, (g.size,) + tuple(lead), dtype, device=self.device)
                 continue
-            shape = (g.size,) + tuple(lead) + (max_len, cfg.num_kv_heads,
-                                               cfg.head_dim)
+            lens = {"k": max_len, "v": max_len}
+            if g.cross:
+                lens.update(xk=cfg.encoder_seq_len, xv=cfg.encoder_seq_len)
             cache[g.name] = {
-                "k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+                name: torch.zeros((g.size,) + tuple(lead) + (n,) + kv,
+                                  dtype=dtype, device=self.device)
+                for name, n in lens.items()}
         return cache
 
 
@@ -559,7 +607,9 @@ class Model(nn.Module):
         batch, as the reference's ``input_specs`` gives them (its
         ShapeConfig's seq_len, global_batch and kind); a train batch
         splits global_batch over num_clients when given.  The vlm family
-        adds its "prefix" of frontend_prefix_len positions."""
+        adds its "prefix" of frontend_prefix_len positions, the audio
+        family its "frames" of encoder_seq_len positions (train and
+        prefill)."""
         cfg = self.cfg
         s, b = seq_len, global_batch
 
@@ -582,6 +632,10 @@ class Model(nn.Module):
             p_d = (cfg.frontend_prefix_len, cfg.d_model)
             specs["prefix"] = (tok_shape(p_d) if kind == "train"
                                else (b,) + p_d, dtype)
+        if cfg.family == "audio" and kind in ("train", "prefill"):
+            e_d = (cfg.encoder_seq_len, cfg.d_model)
+            specs["frames"] = (tok_shape(e_d) if kind == "train"
+                               else (b,) + e_d, dtype)
         return specs
 
 

@@ -7,6 +7,14 @@ attention kernel (differentiable: its backward is a kernel too), with the
 client axis flattened into the batch; "decode" runs one token per slot
 against a contiguous or paged KV cache through the flash-decode kernel.
 
+Cross-attention (the whisper decoder, ``init_attention(cross=True)``)
+follows the self-attention sub-block inside ``attention_apply``: its
+queries come from the decoder, its keys and values from the encoder's
+output (``memory``), non-causal over every encoder position.  A prefill
+writes those keys and values into the cross cache; each decode step
+reads them back through the flash-decode kernel at a cache length of
+all of them.
+
 The MoE block (``moe_apply``) routes each token to its top-k experts
 with per-group capacity, as the reference does, and computes the experts
 as batched products over the expert axis; its dispatch and combine move
@@ -30,7 +38,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import roadmap
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -82,15 +89,12 @@ def _ad(adapters: Optional[Params], name: str) -> Optional[Params]:
 # Attention block
 #
 # params: norm1{scale[,bias]}, wq (d, H*hd), wk/wv (d, KVH*hd), wo (H*hd, d)
-#         [bq/bk/bv/bo biases]
+#         [bq/bk/bv/bo biases], and for cross-attention: xnorm, xwq, xwk,
+#         xwv, xwo (no biases)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
                    cross: bool, dtype) -> Params:
-    if cross:
-        raise NotImplementedError(
-            "cross-attention (whisper) is not ported yet "
-            f"({roadmap.FAMILIES})")
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = (n_layers,)
     p: Params = {
@@ -106,6 +110,13 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
         p["bk"] = torch.zeros((n_layers, kvh * hd), dtype=dtype)
         p["bv"] = torch.zeros((n_layers, kvh * hd), dtype=dtype)
         p["bo"] = torch.zeros((n_layers, d), dtype=dtype)
+    if cross:
+        p["xnorm"] = common.init_norm(d, bias=cfg.norm == "layernorm",
+                                      dtype=dtype, lead=lead)
+        p["xwq"] = common.dense_init(gen, d, h * hd, dtype, lead=lead)
+        p["xwk"] = common.dense_init(gen, d, kvh * hd, dtype, lead=lead)
+        p["xwv"] = common.dense_init(gen, d, kvh * hd, dtype, lead=lead)
+        p["xwo"] = common.dense_init(gen, h * hd, d, dtype, lead=lead)
     return p
 
 
@@ -130,11 +141,13 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     cache: {"k": (B, Smax, KVH, hd), "v": ..., "len": (B,)} for contiguous
     decode, or the paged form {"k": (n_pages, ps, KVH, hd), "v": ...,
     "pages": (B, P_max), "len": (B,)}; its k/v tensors are written in
-    place."""
-    if memory is not None or mem_cache is not None:
-        raise NotImplementedError(
-            "cross-attention (whisper) is not ported yet "
-            f"({roadmap.FAMILIES})")
+    place.
+
+    memory ([N,] B, S_enc, d), the encoder's output, or mem_cache {"k":
+    (B, S_enc, KVH, hd), "v": ..., "len": (B,) of S_enc in decode}, the
+    cross cache, adds the cross-attention sub-block (``_cross_attention``)
+    to the output: a prefill (memory and mem_cache) writes the cross cache
+    in place, a decode step (mem_cache alone) reads it."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = x.shape[-2]
 
@@ -197,7 +210,47 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
 
     out = lora_apply(_merge_heads(o), p["wo"], _ad(adapters, "o"),
                      p.get("bo"))
+    if memory is not None or mem_cache is not None:
+        out = out + _cross_attention(p, adapters, x + out, cfg=cfg,
+                                     mode=mode, memory=memory,
+                                     mem_cache=mem_cache)
     return out, new_cache
+
+
+def _cross_attention(p: Params, adapters: Optional[Params], x, *,
+                     cfg: ModelConfig, mode: str, memory, mem_cache):
+    """The cross-attention sub-block of a decoder layer over x = the
+    layer's input plus its self-attention output: q from xnorm(x), k and
+    v from the encoder output (train and prefill: the flash kernel,
+    non-causal over S_enc keys; a prefill also copies k and v into the
+    cross cache) or from the cross cache (decode: the flash-decode
+    kernel at a cache length of S_enc for every slot, the same function
+    for one query).  The cross projections take an adapter only where
+    "xq"/"xo" are LoRA targets, as in the reference."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    y = apply_norm(p["xnorm"], x, kind=cfg.norm, eps=cfg.norm_eps)
+    q = _split_heads(lora_apply(y, p["xwq"], _ad(adapters, "xq")), h, hd)
+    if mode == "decode":
+        if mem_cache is None or memory is not None or q.shape[-3] != 1:
+            raise ValueError("cross-attention decode takes one token per "
+                             "slot and the cross cache")
+        o = decode_ops.decode_attention(q[:, 0].contiguous(), mem_cache["k"],
+                                        mem_cache["v"],
+                                        mem_cache["len"])[:, None]
+    else:
+        mk = _split_heads(lora_apply(memory, p["xwk"], _ad(adapters, "xk")),
+                          kvh, hd)
+        mv = _split_heads(lora_apply(memory, p["xwv"], _ad(adapters, "xv")),
+                          kvh, hd)
+        if mem_cache is not None:   # prefill: populate the cross cache
+            mem_cache["k"].copy_(mk)
+            mem_cache["v"].copy_(mv)
+        lead = x.shape[:-2]
+        o = flash_ops.flash_attention(
+            q.reshape((-1,) + q.shape[-3:]), mk.reshape((-1,) + mk.shape[-3:]),
+            mv.reshape((-1,) + mv.shape[-3:]), causal=False)
+        o = o.reshape(lead + o.shape[1:])
+    return lora_apply(_merge_heads(o), p["xwo"], _ad(adapters, "xo"))
 
 
 def _write_cache(cache, kv_new, idx):

@@ -12,4 +12,3 @@ def _item(title: str) -> str:
 
 
 SERVING = _item("Serving follow-ups")
-FAMILIES = _item("Remaining families, all reduced")

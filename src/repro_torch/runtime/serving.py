@@ -18,7 +18,12 @@ in the reference: ``serial_reference`` runs ``Model.prefill`` and
 ``Model.decode_step`` one request at a time, their conv windows and SSD
 states in the model's cache, through the indexed pool.  The engine
 refuses them, as the reference's engine cannot serve them: it installs
-only k/v into a slot and pads each prompt to a bucket.
+only k/v into a slot and pads each prompt to a bucket.  The audio family
+(whisper) is served the same way, with each request's encoder frames in
+its prefill batch (``Model.prefill``, then ``decode_step`` against the
+cross cache); the engine refuses it too, since the reference's engine
+passes only tokens to the prefill and has no cross cache in its slots
+(``check_engine_serves``).
 
 PyTorch runs eagerly, so the reference's retrace counters have no
 counterpart here; the kernel wrappers' launch counters show which kernels
@@ -41,6 +46,7 @@ import torch
 
 from repro_torch.core import lora as lora_lib, split as split_lib
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import build_groups
 from repro_torch.runtime import kv_cache
 
 Params = Dict[str, Any]
@@ -171,6 +177,28 @@ class ServeConfig:
 # Engine
 
 
+def check_engine_serves(arch) -> None:
+    """Raises NotImplementedError for the configs (ArchConfig)
+    ServingEngine does not serve, as the reference's engine cannot: SSM
+    and hybrid models (recurrent caches) and the audio family (encoder
+    frames)."""
+    if any(g.kind == "ssm" for g in build_groups(arch.model)):
+        raise NotImplementedError(
+            f"{arch.name}: ServingEngine serves attention caches "
+            "only, as the reference's engine does: it installs only k/v "
+            "into a slot and pads each prompt to a bucket, which would "
+            "run the pad tokens through the SSM recurrence.  Serve SSM "
+            "and hybrid models with serial_reference (Model.prefill and "
+            "decode_step, one request at a time)")
+    if arch.model.family == "audio":
+        raise NotImplementedError(
+            f"{arch.name}: ServingEngine serves decoder-only models, "
+            "as the reference's engine does: its requests carry tokens "
+            "only and its slots hold no cross-attention cache, so it has "
+            "no encoder frames to prefill.  Serve the audio family with "
+            "Model.prefill (a batch with \"frames\") and Model.decode_step")
+
+
 class ServingEngine:
     """Slot scheduler + prefill/decode over a stacked adapter pool.
 
@@ -186,14 +214,7 @@ class ServingEngine:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
         mcfg = model.cfg
-        if any(g.kind == "ssm" for g in model.groups):
-            raise NotImplementedError(
-                f"{model.arch.name}: ServingEngine serves attention caches "
-                "only, as the reference's engine does: it installs only k/v "
-                "into a slot and pads each prompt to a bucket, which would "
-                "run the pad tokens through the SSM recurrence.  Serve SSM "
-                "and hybrid models with serial_reference (Model.prefill and "
-                "decode_step, one request at a time)")
+        check_engine_serves(model.arch)
         if mcfg.learned_pos and cfg.max_len > mcfg.max_position_embeddings:
             raise ValueError(
                 f"max_len={cfg.max_len} exceeds the learned position table "

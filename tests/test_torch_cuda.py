@@ -1403,3 +1403,123 @@ def test_moe_hd112_engine_on_card_matches_serial_reference(cuda, page_size):
         gaps = (top2[:, 0] - top2[:, 1]).tolist()
         upto = next((i for i, g in enumerate(gaps) if g < 1e-4), len(gaps))
         assert r["tokens"][:upto] == want[r["rid"]][:upto]
+
+
+# whisper-medium's attention at hd 64 (16 heads, MHA), non-causal: the
+# decoder's cross-attention (448 text positions over 1500 encoder frames)
+# and the encoder's self-attention (1500 over 1500): 23 full 64-key tiles
+# and a tail of 28, 24 query tiles for each key (the fp32 dk/dv flush
+# every 8)
+WHISPER_FLASH = [(448, 1500), (1500, 1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", WHISPER_FLASH)
+def test_flash_noncausal_whisper_shapes_match_plain(cuda, dtype, sq, sk):
+    """The flash forward and backward, non-causal, at whisper's cross and
+    encoder shapes (B 2, 16 heads of 64), against the plain versions."""
+    gen = torch.Generator().manual_seed(sq + sk)
+    q, do = (_randn(gen, 2, sq, 16, 64, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, 2, sk, 16, 64, dtype=dtype) for _ in range(2))
+    out, lse = fops.flash_attention_fwd(q.to(cuda), k.to(cuda), v.to(cuda),
+                                        causal=False)
+    want, want_lse = fops.flash_attention_fwd(q, k, v, causal=False)
+    _close(out, want, dtype)
+    _close(lse, want_lse, dtype)
+    got = fops.flash_attention_bwd(*(t.to(cuda) for t in (
+        q, k, v, want, want_lse, do)), causal=False)
+    for g, w in zip(got, fops.flash_attention_bwd(q, k, v, want, want_lse,
+                                                  do, causal=False)):
+        _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_cross_read_matches_flash(cuda, dtype):
+    """The decode kernel as whisper's cross read: one query per slot over
+    all 1500 encoder positions (cache_len 1500 for every slot) is the
+    flash forward's plain version at Sq = 1, non-causal."""
+    gen = torch.Generator().manual_seed(15)
+    q = _randn(gen, 4, 16, 64, dtype=dtype)
+    k, v = (_randn(gen, 4, 1500, 16, 64, dtype=dtype) for _ in range(2))
+    full = torch.full((4,), 1500, dtype=torch.int32)
+    got = dops.decode_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                full.to(cuda))
+    want, _ = fops.flash_attention_fwd(q[:, None], k, v, causal=False)
+    _close(got, want[:, 0], dtype)
+
+
+def _whisper_small():
+    """Reduced whisper-medium: 2 encoder and 2 decoder layers, d_model 64
+    over 4 heads of 16, the encoder over 100 frames (a ragged 36-key tail
+    past a 64-key tile)."""
+    arch = reduced(get_config("whisper-medium"), layers=2, d_model=64,
+                   vocab=256, seq_len=24)
+    return arch.replace(model=dataclasses.replace(arch.model,
+                                                  encoder_seq_len=100))
+
+
+@pytest.mark.cuda
+def test_whisper_on_card_matches_cpu(cuda):
+    """Reduced whisper on the card and on the CPU plain path from one set
+    of weights: the logits of a train-mode forward (encoder, decoder with
+    cross-attention), a prefill of 8 tokens through the indexed pool then
+    3 decode steps against the cross cache (logits 1e-3, tokens equal),
+    and one round's losses and adapter gradients at cuts [1, 2, 2] (in
+    the encoder and at its last layer) under int8 smashed activations
+    (gradients to 1e-2 of the largest, as
+    test_round_grads_on_card_match_cpu)."""
+    arch = _whisper_small()
+    rng = np.random.default_rng(16)
+    toks = rng.integers(3, 256, size=(3, 1, 25)).astype(np.int32)
+    frames = (rng.standard_normal((3, 1, 100, 64)) * 0.02).astype(np.float32)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:],
+             "frames": frames}
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(arch, device=dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            x, _, _ = model.forward(params, None, {
+                k: torch.as_tensor(batch[k][:, 0], device=dev)
+                for k in ("tokens", "frames")})
+            logits = model.head(params, x).cpu()
+            pool = serving.build_adapter_pool(
+                model, torch.Generator().manual_seed(1), 2)
+            ad = serving.attach_ids(pool, [0, 1])
+            cache = model.init_cache((2,), 16)
+            lg, cache = model.prefill(params, ad, {
+                "tokens": torch.as_tensor(toks[:2, 0, :8], device=dev),
+                "frames": torch.as_tensor(frames[:2, 0], device=dev)}, cache)
+            served = [lg[:, -1].cpu()]
+            for i in range(3):
+                tok = torch.argmax(served[-1], -1).to(torch.int32)
+                lg, cache = model.decode_step(params, ad,
+                                              tok[:, None].to(dev), cache)
+                served.append(lg[:, -1].cpu())
+        state = rounds.init_state(model, torch.Generator().manual_seed(1),
+                                  num_clients=3)
+        gen = torch.Generator().manual_seed(2)
+        for side in ("client_adapters", "server_adapters"):
+            for targets in state[side].values():
+                for leaf in targets.values():
+                    leaf["B"] = _randn(gen, *leaf["B"].shape,
+                                       scale=0.05).to(dev)
+        state["cuts"] = torch.tensor([1, 2, 2], dtype=torch.int32)
+        _, met, gc, gs = rounds.round_grads(
+            model, params, state, batch, np.array([0.2, 0.3, 0.5]),
+            boundary=smashed.make_boundary(smashed.make_compressor("int8"),
+                                           state["cuts"]))
+        out[str(dev)] = (logits, torch.stack(served), met["ce"],
+                         tree_leaves(gc) + tree_leaves(gs))
+    (lg_k, sv_k, ce_k, g_k), (lg_c, sv_c, ce_c, g_c) = (out[str(cuda)],
+                                                        out["cpu"])
+    torch.testing.assert_close(lg_k, lg_c, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(sv_k, sv_c, rtol=1e-3, atol=1e-3)
+    assert torch.equal(sv_k.argmax(-1), sv_c.argmax(-1))
+    torch.testing.assert_close(ce_k.cpu(), ce_c, rtol=1e-4, atol=1e-4)
+    scale = max(float(g.abs().max()) for g in g_c)
+    for gk, gc_ in zip(g_k, g_c):
+        torch.testing.assert_close(gk.cpu(), gc_, rtol=1e-3,
+                                   atol=1e-2 * scale)

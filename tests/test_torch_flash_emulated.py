@@ -116,8 +116,16 @@ CASES_112 = [(33, 80, 8, 1, 112, True, 17, 3),
              (70, 70, 8, 1, 112, True, 0, 0)]
 
 
+# whisper's cross-attention shapes at hd 64, non-causal with Sq != Sk:
+# 40 decoder queries over 200 encoder keys (3 full 64-key tiles and a
+# ragged tail), and 530 queries over 24 keys (past 8 query tiles: the
+# fp32 dk/dv flush, then a ragged 18-row tile)
+CASES_CROSS = [(40, 200, 2, 2, 64, False, 0, 0),
+               (530, 24, 1, 1, 64, False, 0, 0)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", CASES + CASES_128 + CASES_112,
+@pytest.mark.parametrize("case", CASES + CASES_128 + CASES_112 + CASES_CROSS,
                          ids=lambda c: "-".join(map(str, c)))
 def test_emulated_kernels_match_plain(lib, dtype, case):
     sq, sk, h, kvh, hd, causal, window, q_offset = case

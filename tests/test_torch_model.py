@@ -17,6 +17,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.config import reduced as j_reduced  # noqa: E402
+from repro import configs as j_configs  # noqa: E402
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.core import lora as j_lora  # noqa: E402
 from repro.models.model import build_model as j_build_model  # noqa: E402
@@ -72,8 +73,11 @@ def test_port_config_copy_matches_reference(shrink):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        t_get_config("whisper-medium")
+    """Every architecture of the reference's registry is registered in the
+    port, under its id and with underscores; an unknown name raises."""
+    for name in j_configs.list_configs():
+        assert t_get_config(name).name == j_get_config(name).name
+        assert t_get_config(name.replace("-", "_")).name == name
     with pytest.raises(KeyError):
         t_get_config("no-such-model")
 
@@ -229,15 +233,14 @@ def test_model_without_device_raises_when_no_cuda(monkeypatch):
 
 
 def test_unported_model_paths_raise(pair):
-    """What the port leaves out raises: the audio family (whisper's
-    encoder and cross-attention), Model.encode and a batch of encoder
-    "frames" (RoPE and sliding windows run:
-    tests/test_torch_dense_families.py; the MoE and vlm families:
-    tests/test_torch_moe.py, tests/test_torch_vlm.py).  A stateful (error
-    feedback) cut boundary runs: its carry comes back from run_blocks,
-    and remat, chunked cross entropy and the rest run too
+    """What the port leaves out raises: the serving engine with an audio
+    model (its requests carry no encoder frames, as the reference's) and
+    a decode cache with a client axis.  Every family runs (the audio
+    family: tests/test_torch_audio.py).  A stateful (error feedback) cut
+    boundary runs: its carry comes back from run_blocks, and remat,
+    chunked cross entropy and the rest run too
     (tests/test_torch_memory_knobs.py, tests/test_torch_engine_options.py)."""
-    _, (model_t, params_t, _) = pair
+    _, (model_t, params_t, pool_t) = pair
 
     def ef_boundary(x, carry, fid):
         return x, carry + fid
@@ -249,14 +252,13 @@ def test_unported_model_paths_raise(pair):
         boundary=ef_boundary)
     assert float(carry) == sum(range(model_t.num_flat_layers))
     assert aux == 0.0
-    arch = t_reduced(t_get_config("gpt2-small"), **SMALL)
-    audio = arch.replace(model=dataclasses.replace(
-        arch.model, family="audio", num_encoder_layers=2))
-    with pytest.raises(NotImplementedError, match="the audio family"):
-        Model(audio, device="cpu")
-    with pytest.raises(NotImplementedError, match="Model.encode"):
-        model_t.encode(params_t, None, torch.zeros(1, 16, 32))
-    with pytest.raises(NotImplementedError, match="frames"):
-        model_t.forward(params_t, None,
-                        {"tokens": torch.zeros(1, 4, dtype=torch.int32),
-                         "frames": torch.zeros(1, 16, 32)})
+    audio = build_model(t_reduced(t_get_config("whisper-medium"), **SMALL),
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="encoder frames"):
+        t_serving.ServingEngine(
+            audio, audio.init_params(torch.Generator().manual_seed(0)),
+            t_serving.build_adapter_pool(
+                audio, torch.Generator().manual_seed(1), 2),
+            t_serving.ServeConfig(num_slots=2, max_len=32), device="cpu")
+    with pytest.raises(NotImplementedError, match="client axis"):
+        model_t.init_cache((2, 1), 16)
