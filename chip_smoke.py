@@ -100,9 +100,28 @@ at full width (random weights from a seed):
     kernel as the cross read at cache length 1500, the fused LoRA
     forward and backward, the indexed LoRA and the int8 kernels at its
     widths and the path's row counts, and phase 3 times the attention
-    kernels and the indexed LoRA at a request's encoder prefill (M 1500).
+    kernels and the indexed LoRA at a request's encoder prefill (M 1500);
+  * the dry-run's serving cells (phase 15, ``repro_torch.launch.dryrun``
+    on the host first, its predicted FLOPs, bytes, bound and peak
+    printed beside the card's wall time and peak): llama3-8b at full
+    width and 2 of its 32 layers, decode_32k (one decode step at B 128
+    over a contiguous bf16 cache of 32768 positions drawn from the seed;
+    its rows within tolerance of a B=2 step, the decode kernel's and
+    the indexed LoRA's rows bit for bit; the B=2 step against the CPU)
+    and prefill_32k (the largest batch up to P15_BATCH_CAP that the
+    dry-run fits in 90% of the card; then one decode step; row 0's
+    logits against the train-mode forward); mamba2-780m in full,
+    long_500k (a cache made for 524288 positions, a 300-token prompt and
+    4 decode steps) and prefill_32k, their paths also in fp32 against
+    the train-mode forward.  The flash forward at S 32768, the decode
+    kernel at capacity 32768, the indexed LoRA at M 32768 and the SSD
+    scan at S 32768 are held against their plain versions and timed.
+    ``python3 chip_smoke.py --only 15`` builds and runs phase 15 alone.
 
-The launch counters are read around each path.  Every phase that fails
+The launch counters are read around each path, and every profile of a
+path holds its count of the port's own kernels to them (a profile that
+lost records is taken again, up to 3 times, then fails).  Every phase
+that fails
 raises, so the exit code is non-zero; without a GPU it exits 1 before
 printing any result.  The last line is {"ok": true, "device": {...}};
 the line before it lists the kernels with their launches on the paths
@@ -114,6 +133,7 @@ TF32 is off for matmuls and cuDNN: fp32 means fp32 here.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -364,6 +384,28 @@ FLASH_NONCAUSAL_EDGES = [(1, 1500, 64, 0, 0), (17, 65, 32, 0, 0),
                          (1500, 64, 64, 0, 0)]
 
 
+# phase 15: the dry-run's serving cells on the card (launch/dryrun.py).
+# llama3-8b at full width and 2 of its 32 layers: decode_32k (B 128
+# over a contiguous cache of 32768 positions) and prefill_32k; mamba2-780m
+# in full: long_500k (a cache made for 524288 positions, a prompt of
+# P15_PROMPT tokens and P15_NEW decode steps) and prefill_32k.  A
+# prefill's batch is the largest up to P15_BATCH_CAP that the dry-run
+# fits in PEAK_SHARE of the card; the cap keeps the phase within its
+# time (the length is never cut).
+P15_SEQ, P15_LONG = 32768, 524288
+P15_LLAMA_LAYERS = 2
+P15_BATCH_CAP = {"llama3-8b": 8, "mamba2-780m": 2}
+P15_PROMPT, P15_NEW = 300, 4
+P15_FLASH_ROWS = 512          # the plain flash's query rows per call
+P15_PLAIN_ROWS = 16           # the plain decode's sequences per call
+P15_SSD = (1, P15_SEQ, 48, 64, 1, 128, 256)   # mamba2's prefill SSD
+# the result line's rows of the kernels at phase 15's lengths
+P15_ROWS = ("flash_attention_fwd (hd 128, S 32768)",
+            "decode_attention (hd 128, capacity 32768)",
+            "lora_matmul_indexed (M 32768)",
+            "ssd_scan (final state, S 32768)")
+
+
 def hd_row(kname: str, hd: int) -> str:
     """The result line's row of kernel `kname` at head dim `hd`: the
     attention kernels at a head dim of WIDE_HDS have rows of their own."""
@@ -567,27 +609,80 @@ def mma_build_report(_build, lib_path) -> None:
                            f"with spills: {bad}")
 
 
-def device_busy(torch, run):
-    """Run `run` under torch.profiler's CUDA activity.  Returns (wall s,
-    device-busy s or None, {kernel name: device s}, {kernel name:
-    launches}); busy is the union of the recorded device intervals, None
-    when nothing was recorded."""
+# device kernels that one launch of each wrapper runs (csrc/*.cu): the
+# fused LoRA forward is its thin pass and its GEMM, the backward those
+# and the dA/dB pass; the SSD scan's four passes; the flash backward's dq
+# and dk/dv kernels
+OWN_PER_LAUNCH = {"flash_attention_fwd": 1, "flash_attention_bwd": 2,
+                  "lora_matmul_indexed": 1, "decode_attention": 1,
+                  "decode_attention_paged": 1, "lora_matmul_fwd": 2,
+                  "lora_matmul_bwd": 3, "int8_roundtrip_smashed": 1,
+                  "int8_quantize_smashed": 1, "int8_dequantize_smashed": 1,
+                  "ssd_scan": 4, "ssd_scan (final state)": 4}
+
+
+def port_wrappers() -> dict:
+    """{row name: wrapper} of every hand-written kernel's wrapper; each
+    counts its launches in `.launches`."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.smashed_quant import ops as sops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"flash_attention_fwd": fops.flash_attention_fwd,
+            "lora_matmul_indexed": lops.lora_matmul_indexed,
+            "decode_attention": dops.decode_attention,
+            "decode_attention_paged": dops.decode_attention_paged,
+            "flash_attention_bwd": fops.flash_attention_bwd,
+            "lora_matmul_fwd": lops.lora_matmul_fwd,
+            "lora_matmul_bwd": lops.lora_matmul_bwd,
+            "int8_roundtrip_smashed": sops.int8_roundtrip_smashed,
+            "int8_quantize_smashed": sops.int8_quantize_smashed,
+            "int8_dequantize_smashed": sops.int8_dequantize_smashed,
+            "ssd_scan": ssd_ops.ssd_scan_fwd,
+            "ssd_scan (final state)": ssd_ops.ssd_scan_fwd_state}
+
+
+# throwaway kernels that open every profile (torch.cuda._sleep's
+# spin_kernel, left out of the counts)
+PROFILE_PREFIX = 256
+
+
+def _profile(torch, run, prefix: int = PROFILE_PREFIX):
+    """(wall s, [(device event name, start us, end us)]) of `run` under
+    torch.profiler's CUDA activity.  `prefix` throwaway kernels run
+    first inside the profile: late in a whole script the profiler lost
+    the first ~30 device records of a session (phase 11's decode step,
+    its first indexed-LoRA kernel among them, in three passes running,
+    with or without a discarded warm-up step or idle time before the
+    run; the same step early in a process lost none)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(prefix):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return wall, [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name]
+
+
+def summarize(events):
+    """(device-busy s or None, {name: device s}, {kernel name: launches})
+    of profiler events; busy is the union of the intervals, None when
+    there are none."""
     spans, by_name, kernels = [], {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                (e.time_range.end - e.time_range.start) * 1e-6
-            if not e.name.startswith(("Memcpy", "Memset")):
-                kernels[e.name] = kernels.get(e.name, 0) + 1
+    for name, lo, hi in events:
+        spans.append((lo, hi))
+        by_name[name] = by_name.get(name, 0.0) + (hi - lo) * 1e-6
+        if not name.startswith(("Memcpy", "Memset")):
+            kernels[name] = kernels.get(name, 0) + 1
     if not spans:
-        return wall, None, {}, {}
+        return None, {}, {}
     busy, cur_lo, cur_hi = 0.0, None, None
     for lo, hi in sorted(spans):
         if cur_hi is None or lo > cur_hi:
@@ -597,7 +692,71 @@ def device_busy(torch, run):
         else:
             cur_hi = max(cur_hi, hi)
     busy += cur_hi - cur_lo
-    return wall, busy * 1e-6, by_name, kernels
+    return busy * 1e-6, by_name, kernels
+
+
+OWN_KERNELS = tuple(MMA_KERNELS) + tuple(CUDA_CORE_KERNELS) + (
+    "ssd_state_pass",)
+
+
+def own_by_name(kernels) -> dict:
+    """{the port's kernel name: launches} among {device name: launches}."""
+    out = {}
+    for k, c in kernels.items():
+        for n in OWN_KERNELS:
+            if n in k:
+                out[n] = out.get(n, 0) + c
+                break
+    return out
+
+
+def own_kernels(kernels) -> int:
+    """Device kernels of the port's own sources among {name: launches}."""
+    return sum(own_by_name(kernels).values())
+
+
+def profile_short(kernels, launched):
+    """None when a profile's {kernel name: launches} holds as many of the
+    port's own kernels as the wrappers' counters say ran ({row: wrapper
+    launches}); else what is missing.  A record the profiler drops can
+    only lower the count."""
+    want = sum(OWN_PER_LAUNCH[k] * c for k, c in launched.items())
+    got = own_kernels(kernels)
+    if got >= want:
+        return None
+    return (f"{got} of the port's own kernels recorded "
+            f"({own_by_name(kernels)}), {want} launched "
+            f"({ {k: c for k, c in launched.items() if c} })")
+
+
+def device_busy(torch, run, what: str, tries: int = 3):
+    """Run `run` under torch.profiler's CUDA activity.  Returns (wall s,
+    device-busy s or None, {kernel name: device s}, {kernel name:
+    launches}); busy is the union of the recorded device intervals, None
+    when nothing was recorded.
+
+    The wrappers' launch counters are read around each pass: a profile
+    that holds fewer of the port's own kernels than they say ran lost
+    records, so it is logged with its counts and `run` is profiled
+    again, up to `tries` passes in all; then the phase fails.  No short
+    profile's figures are returned."""
+    wrappers = port_wrappers()
+    short = []
+    for i in range(tries):
+        before = {k: w.launches for k, w in wrappers.items()}
+        wall, events = _profile(torch, run, prefix=PROFILE_PREFIX * (i + 1))
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        busy, by_name, kernels = summarize(events)
+        gap = profile_short(kernels, launched)
+        if gap is None:
+            if short:
+                log(f"{what}: profile pass {i + 1} holds every launch after "
+                    f"{len(short)} short one(s)")
+            return wall, busy, by_name, kernels
+        short.append(f"pass {i + 1}: {gap}")
+        log(f"{what}: the profiler dropped records in pass {i + 1}: {gap}")
+    raise RuntimeError(f"{what}: no profile of {tries} holds the port's own "
+                       f"kernels: {'; '.join(short)}")
 
 
 def host_top(torch, run, top: int = 8):
@@ -625,7 +784,7 @@ def profiled_pass(torch, fn, names, iters: int = 10):
     fn()
     torch.cuda.synchronize()
     _, busy, by_name, kernels = device_busy(
-        torch, lambda: [fn() for _ in range(iters)])
+        torch, lambda: [fn() for _ in range(iters)], "phase 3 pass")
     if busy is None:
         return None, None
     return ({n: sum(v for k, v in by_name.items() if n in k) * 1e3 / iters
@@ -750,7 +909,13 @@ def max_err(torch, got, want, dtype: str, what: str,
     return err
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
+    ap.add_argument("--only", choices=["15"], default=None,
+                    help="build, then run this phase alone (no result "
+                         "line); the contract's run takes no argument")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -794,21 +959,16 @@ def main() -> int:
     def rand(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dtype).to(dev)
 
-    wrappers = {"flash_attention_fwd": fops.flash_attention_fwd,
-                "lora_matmul_indexed": lops.lora_matmul_indexed,
-                "decode_attention": dops.decode_attention,
-                "decode_attention_paged": dops.decode_attention_paged,
-                "flash_attention_bwd": fops.flash_attention_bwd,
-                "lora_matmul_fwd": lops.lora_matmul_fwd,
-                "lora_matmul_bwd": lops.lora_matmul_bwd,
-                "int8_roundtrip_smashed": sops.int8_roundtrip_smashed,
-                "int8_quantize_smashed": sops.int8_quantize_smashed,
-                "int8_dequantize_smashed": sops.int8_dequantize_smashed,
-                "ssd_scan": ssd_ops.ssd_scan_fwd,
-                "ssd_scan (final state)": ssd_ops.ssd_scan_fwd_state}
+    wrappers = port_wrappers()
     rows_of = list(wrappers) + [hd_row(k, hd) for hd in WIDE_HDS
-                                for k in WIDE_HD]
+                                for k in WIDE_HD] + list(P15_ROWS)
     worst = {k: 0.0 for k in rows_of}
+    if args.only == "15":
+        launches, rows = {k: 0 for k in rows_of}, {}
+        phase15(torch, dev, wrappers, name, card, F, launches, worst, rows)
+        log(f"phase 15 alone: max |kernel - plain| "
+            + ", ".join(f"{k} {worst[k]:.3e}" for k in P15_ROWS))
+        return 0
 
     # -- phase 2: every kernel against its plain version ---------------------
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -1170,6 +1330,9 @@ def main() -> int:
     # -- phase 14b: whisper-medium, card vs CPU -----------------------------
     add_launches(launches, whisper_steps(torch, dev, wrappers), hd=64)
 
+    # -- phase 15: the dry-run's serving cells at 32k and 500k --------------
+    phase15(torch, dev, wrappers, name, card, F, launches, worst, rows)
+
     # -- results ----------------------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
     lk = "src/repro/kernels/lora_matmul/kernel.py"
@@ -1193,6 +1356,8 @@ def main() -> int:
     for hd in WIDE_HDS:
         for kname in WIDE_HD:
             sources[hd_row(kname, hd)] = sources[kname]
+    for kname in P15_ROWS:
+        sources[kname] = sources[kname.split(" (")[0]]
     kernels = []
     for kname, (src, replaces) in sources.items():
         row = rows[kname]
@@ -1215,7 +1380,8 @@ def profile_run(torch, serving, engine, reqs, name, card, tag="phase 4"):
     again = [serving.Request(rid=2000 + r.rid, adapter=r.adapter,
                              tokens=r.tokens, max_new=r.max_new)
              for r in reqs]
-    wall, busy, by_name, _ = device_busy(torch, lambda: engine.run(again))
+    wall, busy, by_name, _ = device_busy(torch, lambda: engine.run(again),
+                                         f"{tag} profile")
     if busy is None:
         log(f"{tag} profile [{name}, {card}]: device busy share not "
             f"measured (the profiler recorded no device activity); wall "
@@ -1662,6 +1828,21 @@ def check_mamba2_kernels(torch, rand, dname, dt, errs):
             f"N={n} r={r}: max |kernel - plain| {e:.3e}")
 
 
+def ssd_work(b, s, h, p, g, n, q, es, final_state):
+    """(bytes, FLOPs, the C.B part of the FLOPs) of an SSD scan's bound:
+    read x, dt, A, B, C once and write y (and the fp32 final state) once,
+    x, B, C and y in `es`-byte elements; operations per (b, h, chunk)
+    the inter-chunk term C . s (2 Q N P), the state update (2 Q P N) and
+    the causal half of M @ x (2 Q(Q+1)/2 P), and per (b, group, chunk)
+    the causal half of C . B (2 Q(Q+1)/2 N)."""
+    nc, pairs = s // q, q * (q + 1) // 2
+    cb_flops = b * nc * g * 2 * pairs * n
+    flops = b * nc * h * (4 * q * n * p + 2 * pairs * p) + cb_flops
+    nbytes = es * (2 * b * s * h * p + 2 * b * s * g * n) \
+        + 4 * (b * s * h + h + (b * h * p * n if final_state else 0))
+    return nbytes, flops, cb_flops
+
+
 def time_ssd_kernel(torch, rand, errs, shape, final_state=False):
     """Phase 3 for the SSD kernel at a mamba2 training path's shape (fp32;
     SSD_PATH or SSD_PATH4), or with final_state at a prefill's (a prompt
@@ -1672,12 +1853,7 @@ def time_ssd_kernel(torch, rand, errs, shape, final_state=False):
     kernel and plain times beside the bound, the device time of each of
     its four passes, and the FLOPs its MMAs execute beside the bound's.
     No PyTorch call computes the SSD scan: the library column is null.
-
-    Bound: read x, dt, A, B, C once and write y (and the final state)
-    once; operations per (b, h, chunk) are the inter-chunk term C . s
-    (2 Q N P), the state update (2 Q P N) and the causal half of M @ x
-    (2 Q(Q+1)/2 P), and per (b, group, chunk) the causal half of C . B
-    (2 Q(Q+1)/2 N)."""
+    The bound is ssd_work's."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     b, s, h, p, g, n, q = shape
@@ -1707,11 +1883,7 @@ def time_ssd_kernel(torch, rand, errs, shape, final_state=False):
         e = max_err(torch, kernel(), plain(), "float32",
                     "ssd at the path's shape", scaled=True)
     errs[kname] = max(errs[kname], e)
-    nc, pairs = s // q, q * (q + 1) // 2
-    cb_flops = b * nc * g * 2 * pairs * n
-    flops = b * nc * h * (4 * q * n * p + 2 * pairs * p) + cb_flops
-    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
-                  + (b * h * p * n if final_state else 0))
+    nbytes, flops, cb_flops = ssd_work(b, s, h, p, g, n, q, 4, final_state)
     executed = ssd_executed_flops(b, s, h, p, g, n, q)
     if executed["cb"] > 2 * cb_flops:
         raise RuntimeError(f"SSD C.B^T executes {executed['cb']} FLOPs, "
@@ -2001,7 +2173,8 @@ def run_rounds(torch, arch, dev, wrappers, tag, name, card,
                  zip(train.calls, ev.calls)]
 
     wall, busy, by_name, _ = device_busy(
-        torch, lambda: (train.fn(*train.last), ev.fn(*ev.last)))
+        torch, lambda: (train.fn(*train.last), ev.fn(*ev.last)),
+        f"{tag} profile")
     if busy is None:
         log(f"{tag} profile [{name}, {card}]: device busy share not "
             f"measured (the profiler recorded no device activity); wall "
@@ -3618,7 +3791,8 @@ def serve_serially(torch, dev, wrappers, model, params, pool, tag, name,
                             if w.launches - before[k]})
         one = torch.tensor([[tok]], dtype=torch.int32, device=dev)
         dwall, busy, _, kernels = device_busy(
-            torch, lambda: model.decode_step(params, ad, one, cache))
+            torch, lambda: model.decode_step(params, ad, one, cache),
+            f"{tag} decode profile")
     busy_txt = ("device busy not measured (no profiler activity)"
                 if busy is None else
                 f"{sum(kernels.values())} device kernels, device busy "
@@ -4369,7 +4543,8 @@ def whisper_phase(torch, dev, wrappers, name, card):
         f"{nonzero(per_round[-1][2])}; max_memory_allocated "
         f"{peak / 2**30:.2f} GiB of the card's {total / 2**30:.2f} GiB")
     wall, busy, by_name, _ = device_busy(
-        torch, lambda: (train.fn(*train.last), ev.fn(*ev.last)))
+        torch, lambda: (train.fn(*train.last), ev.fn(*ev.last)),
+        "phase 14 profile")
     if busy is not None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         log(f"phase 14 profile [{name}, {card}]: one train + one eval step "
@@ -4464,7 +4639,8 @@ def whisper_serving(torch, dev, wrappers, model, params, pool, rng, tag,
         toks, logits, t_pre, t_dec = generate(rows)
         got = {k: w.launches for k, w in wrappers.items()}
         alone = [generate([i]) for i in rows]
-        wall, busy, _, kernels = device_busy(torch, lambda: generate(rows))
+        wall, busy, _, kernels = device_busy(torch, lambda: generate(rows),
+                                             f"{tag} profile")
         # the card's own train-mode forward over prompt + served tokens
         seq = np.concatenate([prompts, toks[:, :-1]], 1).astype(np.int32)
         x, _, _ = model.forward(params, serving.attach_ids(pool, ids), {
@@ -4528,6 +4704,595 @@ def whisper_steps(torch, dev, wrappers):
     if idle:
         raise RuntimeError(f"phase 14b: never launched {idle}")
     decode_check(torch, dev, arch, cpu_params, "phase 14b serving")
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the dry-run's serving cells on the card
+
+
+def p15_arch(name: str):
+    """llama3-8b at full width cut to P15_LLAMA_LAYERS layers; mamba2-780m
+    as it is."""
+    from repro_torch.configs import get_config
+    arch = get_config(name)
+    if name == "llama3-8b":
+        arch = arch.replace(model=dataclasses.replace(
+            arch.model, num_layers=P15_LLAMA_LAYERS))
+    return arch
+
+
+def p15_shape(name: str, batch=None):
+    from repro_torch.config import SHAPES
+    shape = SHAPES[name]
+    seq = P15_LONG if name == "long_500k" else P15_SEQ
+    return dataclasses.replace(shape, seq_len=seq,
+                               global_batch=batch or shape.global_batch)
+
+
+def p15_predict(arch, shape, tag):
+    """dryrun.run_cell's record of the cell, printed."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, shape, verbose=False)
+    roof = rec["roofline"]
+    log(f"{tag} predicted (dry-run, traced in {rec['trace_s']:.1f} s on the "
+        f"host): {rec['flops']:.4e} FLOPs, {rec['bytes']:.4e} HBM bytes, "
+        f"bound {roof['step_s_lower_bound'] * 1e3:.3f} ms "
+        f"({roof['dominant']}), peak {rec['peak_bytes'] / 2**30:.2f} GiB, "
+        f"kernel calls {rec['kernel_calls']}")
+    return rec
+
+
+def p15_batch(torch, arch, name):
+    """The largest batch up to P15_BATCH_CAP whose predicted peak fits in
+    PEAK_SHARE of the card, and its record."""
+    from repro_torch.launch import dryrun
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = min(P15_BATCH_CAP[arch.name], p15_shape(name).global_batch)
+    for b in range(cap, 0, -1):
+        rec = dryrun.run_cell(arch, p15_shape(name, b), verbose=False)
+        if rec["peak_bytes"] <= PEAK_SHARE * total:
+            return b, rec
+        log(f"phase 15 {arch.name} {name}: batch {b} predicted at "
+            f"{rec['peak_bytes'] / 2**30:.2f} GiB, over {PEAK_SHARE} of "
+            f"{total / 2**30:.2f} GiB")
+    raise RuntimeError(f"phase 15 {arch.name} {name}: the dry-run fits no "
+                       f"batch in {PEAK_SHARE} of the card")
+
+
+def p15_measured(torch, tag, rec, wall_s, peak, base):
+    """The cell's measured peak, max_memory_allocated less what earlier
+    phases left allocated (`base`, read before the cell's arguments),
+    against the dry-run's."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    ratio = (peak - base) / rec["peak_bytes"]
+    log(f"{tag} measured: wall {wall_s * 1e3:.2f} ms, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB, "
+        f"{(peak - base) / 2**30:.2f} GiB over the {base / 2**30:.2f} GiB "
+        f"allocated before the cell; measured / predicted peak {ratio:.3f}")
+    return ratio
+
+
+def counted(torch, wrappers, fn):
+    """(fn(), wall s, {row: launches}) with every counter set to 0 just
+    before fn and read just after."""
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {k: w.launches for k, w in wrappers.items()
+                       if w.launches}
+
+
+def p15_profile(torch, tag, run):
+    wall, busy, by_name, kernels = device_busy(torch, run, tag)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"{tag} profile: device busy {busy * 1e3:.2f} ms of {wall * 1e3:.2f} "
+        f"ms wall (idle share {1 - busy / wall:.3f}), {sum(kernels.values())} "
+        f"device kernels; top: " + "; ".join(
+            f"{k[:50]} {v * 1e3:.2f} ms" for k, v in top))
+    return busy
+
+
+def p15_llama_decode(torch, dev, wrappers, name, card, launches, worst, rows,
+                     F):
+    """decode_32k at B 128: one Model.decode_step over a contiguous cache
+    of 32768 positions drawn from the seed, len 32767 in every row."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import serving
+    from repro_torch.tree import tree_map
+
+    tag = "phase 15 llama3-8b decode_32k"
+    arch = p15_arch("llama3-8b")
+    shape = p15_shape("decode_32k")
+    b, s = shape.global_batch, shape.seq_len
+    rec = p15_predict(arch, shape, tag)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cgen = torch.Generator(device=dev).manual_seed(SEED)
+    model = build_model(arch, device=dev)
+    params = model.init_params(cgen, dtype=torch.bfloat16)
+    pool = serving.build_adapter_pool(
+        model, torch.Generator().manual_seed(SEED + 1), 1,
+        dtype=torch.bfloat16)
+    cache = model.init_cache((b,), s, torch.bfloat16)
+    for t in cache["dec"].values():
+        t.normal_(generator=cgen)
+    cache["len"].fill_(s - 1)
+    tokens = torch.randint(3, arch.model.vocab_size, (b, 1), generator=cgen,
+                           device=dev, dtype=torch.int32)
+    rows2 = [0, b - 1]
+    small = {"len": cache["len"][rows2].clone(),
+             "dec": {k: v[:, rows2].clone() for k, v in cache["dec"].items()}}
+    cpu_small = {"len": small["len"].cpu(),
+                 "dec": {k: v.cpu() for k, v in small["dec"].items()}}
+    ad = serving.attach_ids(pool, [0] * b)
+    # the peak from here: the cell's arguments, then its step (the
+    # weights' fp32 draw before is not the cell's)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        (logits, _), wall, got = counted(
+            torch, wrappers,
+            lambda: model.decode_step(params, ad, tokens, cache))
+        peak = torch.cuda.max_memory_allocated()
+        want = {"decode_attention": P15_LLAMA_LAYERS,
+                "lora_matmul_indexed": 4 * P15_LLAMA_LAYERS}
+        if got != want:
+            raise RuntimeError(f"{tag}: launches {got}, want {want}")
+        launches["decode_attention (hd 128, capacity 32768)"] += \
+            got["decode_attention"]
+        launches["lora_matmul_indexed"] += got["lora_matmul_indexed"]
+        ratio = p15_measured(torch, tag, rec, wall, peak, base)
+        # rows 0 and B-1 alone, over copies of their caches
+        logits2, _ = model.decode_step(
+            params, serving.attach_ids(pool, [0, 0]), tokens[rows2], small)
+        same_logits = torch.equal(logits2, logits[rows2])
+        e_rows = max_err(torch, logits2, logits[rows2], "bfloat16",
+                         f"{tag} B=2 vs B={b} logits", scaled=True)
+        # the hand-written kernels' rows at this shape do not depend on B
+        dq = torch.randn((b, arch.model.num_heads, arch.model.head_dim),
+                         generator=cgen, device=dev).to(torch.bfloat16)
+        k0, v0 = cache["dec"]["k"][0], cache["dec"]["v"][0]
+        clen = torch.full((b,), s, dtype=torch.int32, device=dev)
+        if not torch.equal(
+                dops.decode_attention(dq[rows2], k0[rows2], v0[rows2],
+                                      clen[rows2]),
+                dops.decode_attention(dq, k0, v0, clen)[rows2]):
+            raise RuntimeError(f"{tag}: decode kernel rows 0 and {b - 1} "
+                               f"differ between B={b} and B=2")
+        qa = pool["dec"]["q"]
+        xq = torch.randn((b, arch.model.d_model), generator=cgen,
+                         device=dev).to(torch.bfloat16)
+        ids = torch.zeros((b,), dtype=torch.int32, device=dev)
+        wq = params["dec"]["wq"][0]
+        if not torch.equal(
+                lops.lora_matmul_indexed(xq[rows2], wq, qa["A"][0],
+                                         qa["B"][0], qa["scale"][0],
+                                         ids[rows2]),
+                lops.lora_matmul_indexed(xq, wq, qa["A"][0], qa["B"][0],
+                                         qa["scale"][0], ids)[rows2]):
+            raise RuntimeError(f"{tag}: indexed LoRA rows 0 and {b - 1} "
+                               f"differ between M={b} and M=2")
+        log(f"{tag}: rows 0 and {b - 1} of the step: logits "
+            f"{'bit for bit equal to' if same_logits else f'within {e_rows:.3e} of'} "
+            f"a B=2 step over copies of their caches (the MLP and the head "
+            f"are cuBLAS GEMMs, blocked by M); the decode kernel's and the "
+            f"indexed LoRA's rows at this shape bit for bit at B=2 and "
+            f"B={b}")
+        # the B=2 step on the CPU's plain path
+        cpu_model = build_model(arch, device="cpu")
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        cpu_logits, _ = cpu_model.decode_step(
+            cpu_params, serving.attach_ids(tree_map(lambda t: t.cpu(), pool),
+                                           [0, 0]),
+            tokens[rows2].cpu(), cpu_small)
+        e_cpu = max_err(torch, logits2, cpu_logits, "bfloat16",
+                        f"{tag} card vs CPU logits", scaled=True)
+        log(f"{tag}: the B=2 step's logits within {e_cpu:.3e} of the CPU's "
+            f"plain path (tol {TOL['bfloat16']} x max |logit| "
+            f"{float(cpu_logits.float().abs().max()):.3f})")
+        del cpu_model, cpu_params, cpu_logits, cpu_small
+        # the kernel at this shape against its plain version, by rows
+        q = dq
+        out = dops.decode_attention(q, k0, v0, clen)
+
+        def plain():
+            return torch.cat([dops.ref.decode_attention(
+                q[i:i + P15_PLAIN_ROWS], k0[i:i + P15_PLAIN_ROWS],
+                v0[i:i + P15_PLAIN_ROWS], clen[i:i + P15_PLAIN_ROWS])
+                for i in range(0, b, P15_PLAIN_ROWS)])
+        row = "decode_attention (hd 128, capacity 32768)"
+        worst[row] = max(worst[row], max_err(
+            torch, out, plain(), "bfloat16", f"{tag} decode kernel"))
+        len0 = torch.full_like(cache["len"], s - 1)
+        busy = p15_profile(torch, tag, lambda: model.decode_step(
+            params, ad, tokens, dict(cache, len=len0)))
+        h, kvh, hd = (arch.model.num_heads, arch.model.num_kv_heads,
+                      arch.model.head_dim)
+        ms = cuda_ms(torch, lambda: dops.decode_attention(q, k0, v0, clen),
+                     iters=20)
+        plain_ms = cuda_ms(torch, plain, iters=2, warmup=1)
+        # SDPA over (B, KVH) with a kv head's query group as its rows:
+        # the same function, one call
+        ks, vs = k0.transpose(1, 2).contiguous(), v0.transpose(1, 2).contiguous()
+        del cache, small, pool, ad, params, model, k0, v0
+        torch.cuda.empty_cache()
+        qs = q.reshape(b, kvh, h // kvh, hd)
+        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs), iters=10)
+        del ks, vs
+        nbytes = 2 * (2 * b * s * kvh * hd + 2 * b * h * hd) + 4 * b
+        rows[row] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound=bound(nbytes, 4 * b * h * s * hd, "bfloat16"),
+            cuda_core_bound=None,
+            shape=f"B={b} capacity {s} cache_len {s}, H={h}/{kvh} hd={hd} "
+                  f"bf16, {kvh * b * ((s - 1) // 64 + 1)} CTAs")
+    torch.cuda.empty_cache()
+    return dict(ratio=ratio, wall=wall, busy=busy)
+
+
+def p15_logits_vs_forward(torch, tag, model, params, pool, toks, nxt,
+                          last_logits, step_logits, held=True):
+    """Row 0's prefill logits at its last position and the next decode
+    step's, against the card's own train-mode forward over the prompt
+    and the decoded token: held at TOL["bfloat16"] of the logits' scale
+    where `held`, else only reported (an SSM's bf16 recurrent step
+    against its chunked scan; p15_ssm_fp32 holds that path)."""
+    from repro_torch.runtime import serving
+    seq = torch.cat([toks[:1], nxt[:1]], dim=1)
+    x, _, _ = model.forward(params, serving.attach_ids(pool, [0]),
+                            {"tokens": seq})
+    want = model.head(params, x[:, -2:]).float()[0]
+    del x
+    got = torch.stack([last_logits[0, -1].float(), step_logits[0, -1].float()])
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{tag}: non-finite logits")
+    scale = float(want.abs().max())
+    if held:
+        e = max_err(torch, got, want, "bfloat16",
+                    f"{tag} prefill-then-decode logits vs the train-mode "
+                    f"forward", scaled=True)
+    else:
+        e = float((got - want).abs().max())
+    log(f"{tag}: row 0's last prefill logits and the next step's within "
+        f"{e:.3e} of the card's own train-mode forward over "
+        f"{seq.shape[1]} tokens, max |logit| {scale:.3f} "
+        + (f"(tol {TOL['bfloat16']} x max |logit|)" if held else
+           "(bf16, reported; the fp32 run below holds the path)"))
+    return e
+
+
+def p15_ssm_fp32(torch, dev, arch, toks, n_new, tag):
+    """The SSM cell's path in fp32 (weights and the adapter from the same
+    seeds): row 0's prompt prefilled, n_new greedy decode steps, every
+    step's logits within SSM_LOGITS_TOL of the card's own train-mode
+    forward, as phase 11 holds them."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import serving
+    model = build_model(arch, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    pool = serving.build_adapter_pool(
+        model, torch.Generator().manual_seed(SEED + 1), 1)
+    ad = serving.attach_ids(pool, [0])
+    prompt = toks[:1]
+    with torch.no_grad():
+        cache = model.init_cache((1,), prompt.shape[1] + n_new)
+        lg, cache = model.prefill(params, ad, {"tokens": prompt}, cache)
+        outs, seq = [lg[0, -1]], []
+        for _ in range(n_new):
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+            seq.append(tok)
+            lg, cache = model.decode_step(params, ad, tok, cache)
+            outs.append(lg[0, -1])
+        x, _, _ = model.forward(params, ad, {
+            "tokens": torch.cat([prompt] + seq, dim=1)})
+        want = model.head(params, x[0, prompt.shape[1] - 1:])
+        got = torch.stack(outs)
+        del x
+    e = float((got - want).abs().max())
+    torch.testing.assert_close(
+        got, want, rtol=SSM_LOGITS_TOL, atol=SSM_LOGITS_TOL,
+        msg=lambda m: f"{tag} fp32 logits vs the train-mode forward: {m}")
+    log(f"{tag}: in fp32, the prefill of {prompt.shape[1]} tokens and "
+        f"{n_new} decode step(s): {n_new + 1} logits within {e:.3e} of the "
+        f"card's own train-mode forward (tol {SSM_LOGITS_TOL})")
+    del model, params, pool, ad, cache
+    torch.cuda.empty_cache()
+    return e
+
+
+def p15_prefill(torch, dev, wrappers, name, card, launches, arch_name):
+    """prefill_32k: Model.prefill of B sequences of 32768 tokens into a
+    cache of 32769 positions, then one decode step."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import serving
+
+    arch = p15_arch(arch_name)
+    b, rec = p15_batch(torch, arch, "prefill_32k")
+    s = P15_SEQ
+    tag = f"phase 15 {arch_name} prefill_32k (batch {b})"
+    log(f"{tag}: batch {b} of 32: the largest up to the phase's time cap "
+        f"{P15_BATCH_CAP[arch_name]} whose predicted peak fits in "
+        f"{PEAK_SHARE} of the card")
+    p15_predict(arch, p15_shape("prefill_32k", b), tag)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cgen = torch.Generator(device=dev).manual_seed(SEED)
+    model = build_model(arch, device=dev)
+    params = model.init_params(cgen, dtype=torch.bfloat16)
+    pool = serving.build_adapter_pool(
+        model, torch.Generator().manual_seed(SEED + 1), 1,
+        dtype=torch.bfloat16)
+    cache = model.init_cache((b,), s + 1, torch.bfloat16)
+    toks = torch.randint(3, arch.model.vocab_size, (b, s), generator=cgen,
+                         device=dev, dtype=torch.int32)
+    ad = serving.attach_ids(pool, [0] * b)
+    ssm = arch.model.family == "ssm"
+    big = "ssd_scan (final state)" if ssm else "flash_attention_fwd"
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        len0 = cache["len"].clone()
+        (logits, cache), wall, got = counted(
+            torch, wrappers,
+            lambda: model.prefill(params, ad, {"tokens": toks}, cache))
+        layers = arch.model.num_layers
+        if got.get(big) != layers or "lora_matmul_indexed" not in got \
+                or set(got) != {big, "lora_matmul_indexed"}:
+            raise RuntimeError(f"{tag}: prefill launches {got}")
+        launches[P15_ROWS[3] if ssm else P15_ROWS[0]] += got[big]
+        launches["lora_matmul_indexed (M 32768)"] += \
+            got["lora_matmul_indexed"]
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        (step, _), dwall, dgot = counted(
+            torch, wrappers, lambda: model.decode_step(params, ad, nxt, cache))
+        peak = torch.cuda.max_memory_allocated()
+        dec = "lora_matmul_indexed"
+        if not ssm:
+            launches["decode_attention (hd 128, capacity 32768)"] += \
+                dgot.pop("decode_attention", 0)
+        launches[dec] += dgot.pop(dec, 0)
+        if dgot:
+            raise RuntimeError(f"{tag}: decode step launches {dgot}")
+        log(f"{tag}: prefill launches {got}; {b * s} tokens in "
+            f"{wall * 1e3:.1f} ms ({b * s / wall:.0f} tokens/s); the decode "
+            f"step after it {dwall * 1e3:.2f} ms")
+        ratio = p15_measured(torch, tag, rec, wall, peak, base)
+        e = p15_logits_vs_forward(torch, tag, model, params, pool, toks,
+                                  nxt, logits, step, held=not ssm)
+        busy = p15_profile(torch, tag, lambda: model.prefill(
+            params, ad, {"tokens": toks}, dict(cache, len=len0)))
+    del model, params, pool, cache, ad
+    torch.cuda.empty_cache()
+    if ssm:
+        e = p15_ssm_fp32(torch, dev, arch, toks, 1, tag)
+    return dict(ratio=ratio, wall=wall, busy=busy, batch=b, err=e)
+
+
+def p15_long(torch, dev, wrappers, name, card, launches):
+    """long_500k on mamba2-780m: init_cache at 524288 positions (the
+    recurrent cache does not grow with it), a prompt of P15_PROMPT tokens,
+    P15_NEW decode steps; the logits against the train-mode forward."""
+    from repro_torch.models.model import build_model
+    from repro_torch.runtime import serving
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tag = "phase 15 mamba2-780m long_500k"
+    arch = p15_arch("mamba2-780m")
+    shape = p15_shape("long_500k")
+    rec = p15_predict(arch, shape, tag)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cgen = torch.Generator(device=dev).manual_seed(SEED)
+    model = build_model(arch, device=dev)
+    params = model.init_params(cgen, dtype=torch.bfloat16)
+    pool = serving.build_adapter_pool(
+        model, torch.Generator().manual_seed(SEED + 1), 1,
+        dtype=torch.bfloat16)
+    nbytes = lambda c: sum(t.numel() * t.element_size()  # noqa: E731
+                           for t in tree_leaves(c))
+    cache = model.init_cache((1,), shape.seq_len, torch.bfloat16)
+    short = model.init_cache((1,), P15_PROMPT + P15_NEW, torch.bfloat16)
+    if nbytes(cache) != nbytes(short):
+        raise RuntimeError(f"{tag}: the cache at {shape.seq_len} positions "
+                           f"holds {nbytes(cache)} bytes, at "
+                           f"{P15_PROMPT + P15_NEW} {nbytes(short)}")
+    del short
+    ad = serving.attach_ids(pool, [0])
+    toks = torch.randint(3, arch.model.vocab_size, (1, P15_PROMPT),
+                         generator=cgen, device=dev, dtype=torch.int32)
+    layers = arch.model.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        (lg, cache), pwall, got = counted(
+            torch, wrappers,
+            lambda: model.prefill(params, ad, {"tokens": toks}, cache))
+        if got != {"ssd_scan (final state)": layers,
+                   "lora_matmul_indexed": 2 * layers}:
+            raise RuntimeError(f"{tag}: prefill launches {got}")
+        for k, c in got.items():
+            launches[k] += c
+        seq, outs, walls = [], [lg[0, -1].float()], []
+        for _ in range(P15_NEW):
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+            seq.append(tok)
+            (lg, cache), w, got = counted(
+                torch, wrappers,
+                lambda: model.decode_step(params, ad, tok, cache))
+            if got != {"lora_matmul_indexed": 2 * layers}:
+                raise RuntimeError(f"{tag}: decode launches {got}")
+            launches["lora_matmul_indexed"] += got["lora_matmul_indexed"]
+            outs.append(lg[0, -1].float())
+            walls.append(w)
+        peak = torch.cuda.max_memory_allocated()
+        full = torch.cat([toks] + seq, dim=1)
+        x, _, _ = model.forward(params, ad, {"tokens": full})
+        want = model.head(params, x[0, P15_PROMPT - 1:]).float()
+        got_l = torch.stack(outs)
+        if not torch.isfinite(got_l).all():
+            raise RuntimeError(f"{tag}: non-finite logits")
+        e = float((got_l - want).abs().max())
+        log(f"{tag}: cache of {nbytes(cache)} bytes at {shape.seq_len} "
+            f"positions, as at {P15_PROMPT + P15_NEW}; prefill of "
+            f"{P15_PROMPT} tokens {pwall * 1e3:.2f} ms, decode steps "
+            f"{fmt([w * 1e3 for w in walls])} ms; {P15_NEW + 1} bf16 logits "
+            f"within {e:.3e} of the card's own train-mode forward, max "
+            f"|logit| {float(want.abs().max()):.3f} (reported; the fp32 run "
+            f"below holds the path)")
+        ratio = p15_measured(torch, tag, rec, min(walls), peak, base)
+        state = tree_map(lambda t: t.clone(), cache)
+        busy = p15_profile(torch, tag, lambda: model.decode_step(
+            params, ad, tok, state))
+    del model, params, pool, cache, state
+    torch.cuda.empty_cache()
+    p15_ssm_fp32(torch, dev, arch, toks, P15_NEW, tag)
+    return dict(ratio=ratio, wall=min(walls), busy=busy)
+
+
+def p15_kernels(torch, dev, F, worst, rows):
+    """The flash forward at S 32768 (hd 128, GQA 4:1, causal, bf16), the
+    indexed LoRA at M 32768 (llama's q, K = N = 4096, one adapter) and
+    the SSD scan with its final state at mamba2's B 1, S 32768, each held
+    against its plain version and timed beside its bound."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    s, h, kvh, hd = P15_SEQ, LLAMA_HEADS[0], LLAMA_HEADS[1], 128
+    q, k, v = rand(1, s, h, hd), rand(1, s, kvh, hd), rand(1, s, kvh, hd)
+    off = s - P15_FLASH_ROWS
+    with torch.no_grad():
+        out, lse = fops.flash_attention_fwd(q, k, v)
+        qt = q[:, off:].contiguous()
+        r_out, r_lse = fops.ref.attention_fwd(qt, k, v, q_offset=off)
+        o_out, o_lse = fops.flash_attention_fwd(qt, k, v, q_offset=off)
+        lse_tail = lse.reshape(h, s)[:, off:].reshape(h, P15_FLASH_ROWS, 1)
+        row = P15_ROWS[0]
+        worst[row] = max(
+            max_err(torch, out[:, off:], r_out, "bfloat16",
+                    "flash S 32768, last rows"),
+            max_err(torch, lse_tail, r_lse, "bfloat16",
+                    "flash S 32768 lse, last rows"),
+            max_err(torch, o_out, r_out, "bfloat16",
+                    "flash q_offset, last rows"),
+            max_err(torch, o_lse, r_lse, "bfloat16",
+                    "flash q_offset lse, last rows"))
+
+        def plain():
+            for lo in range(0, s, P15_FLASH_ROWS):
+                fops.ref.attention_fwd(q[:, lo:lo + P15_FLASH_ROWS], k, v,
+                                       q_offset=lo)
+        # SDPA over the kv heads repeated for each query head (copied
+        # outside the timed call)
+        qs = q.transpose(1, 2)
+        ks, vs = (t.transpose(1, 2).repeat_interleave(h // kvh, dim=1)
+                  for t in (k, v))
+        flops = 4 * h * hd * s * (s + 1) // 2
+        rows[row] = dict(
+            ms=cuda_ms(torch, lambda: fops.flash_attention_fwd(q, k, v),
+                       iters=5, warmup=1),
+            plain_ms=cuda_ms(torch, plain, iters=1, warmup=1),
+            library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), iters=5, warmup=1),
+            bound=bound(2 * s * hd * (2 * h + 2 * kvh) + 4 * h * s, flops,
+                        "bfloat16"),
+            cuda_core_bound=None,
+            shape=f"B=1 S={s} causal H={h}/{kvh} hd={hd} bf16 (the plain "
+                  f"version in {s // P15_FLASH_ROWS} calls of "
+                  f"{P15_FLASH_ROWS} query rows)")
+        del q, k, v, qs, ks, vs, out, lse, qt, r_out, r_lse, o_out, o_lse
+
+        m, kd, r = s, 4096, 16
+        x, w = rand(m, kd), rand(kd, kd, scale=kd ** -0.5)
+        a, bb = rand(1, kd, r, scale=r ** -0.5), rand(1, r, kd, scale=0.02)
+        sc = torch.full((1,), 2.0, device=dev)
+        ids = torch.zeros((m,), dtype=torch.int32, device=dev)
+        args = (x, w, a, bb, sc, ids)
+        row = P15_ROWS[2]
+        worst[row] = max(worst[row], max_err(
+            torch, lops.lora_matmul_indexed(*args),
+            lops.ref.lora_matmul_indexed(*args), "bfloat16",
+            f"indexed LoRA M={m} K=N={kd}", scaled=True))
+        chunks = len(lops.row_chunks(m, kd, kd, r))
+        rows[row] = dict(
+            ms=cuda_ms(torch, lambda: lops.lora_matmul_indexed(*args),
+                       iters=10),
+            plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_indexed(
+                *args), iters=3, warmup=1),
+            library_ms=None,
+            bound=bound(2 * (2 * m * kd + kd * kd + 2 * kd * r) + 4 * (m + 1),
+                        2 * m * kd * kd + 2 * m * r * 2 * kd, "bfloat16"),
+            cuda_core_bound=None,
+            shape=f"M={m} K=N={kd} r={r} one adapter bf16 (llama's q in a "
+                  f"prefill of 32768 tokens), {chunks} launches of "
+                  f"{lops.row_chunks(m, kd, kd, r)[0][1]} rows")
+        del x, w, a, bb, sc, ids, args
+
+        b, s2, h2, p, g, n, chunk = P15_SSD
+        x = rand(b, s2, h2, p)
+        dt = torch.nn.functional.softplus(rand(b, s2, h2, dtype=torch.float32)
+                                          + 0.5).contiguous()
+        a = -torch.exp(rand(h2, dtype=torch.float32, scale=0.5))
+        bm, c = rand(b, s2, g, n, scale=0.3), rand(b, s2, g, n, scale=0.3)
+        ins = (x, dt, a, bm, c)
+        got = ssd_ops.ssd_scan(*ins, chunk=chunk, return_state=True)
+        want = ssd_ops.ref.ssd_chunked(*ins, chunk=chunk, return_state=True)
+        row = P15_ROWS[3]
+        worst[row] = max(
+            max_err(torch, got[0], want[0], "bfloat16", "ssd S 32768 y",
+                    scaled=True),
+            max_err(torch, got[1], want[1], "bfloat16",
+                    "ssd S 32768 final state", scaled=True))
+        nbytes, flops, _ = ssd_work(b, s2, h2, p, g, n, chunk, 2, True)
+        rows[row] = dict(
+            ms=cuda_ms(torch, lambda: ssd_ops.ssd_scan(
+                *ins, chunk=chunk, return_state=True), iters=10),
+            plain_ms=cuda_ms(torch, lambda: ssd_ops.ref.ssd_chunked(
+                *ins, chunk=chunk, return_state=True), iters=3, warmup=1),
+            library_ms=None,
+            bound=bound(nbytes, flops, "bfloat16"), cuda_core_bound=None,
+            shape=f"B={b} S={s2} H={h2} P={p} G={g} N={n} chunk={chunk} bf16 "
+                  f"with the final state (mamba2's prefill)")
+    torch.cuda.empty_cache()
+
+
+def phase15(torch, dev, wrappers, name, card, F, launches, worst, rows):
+    """Phase 15: the dry-run's serving cells on the card, each beside its
+    prediction; the kernels at the cells' lengths held and timed."""
+    t0 = time.perf_counter()
+    got = {"llama3-8b decode_32k": p15_llama_decode(
+        torch, dev, wrappers, name, card, launches, worst, rows, F)}
+    got["llama3-8b prefill_32k"] = p15_prefill(
+        torch, dev, wrappers, name, card, launches, "llama3-8b")
+    got["mamba2-780m long_500k"] = p15_long(torch, dev, wrappers, name,
+                                            card, launches)
+    got["mamba2-780m prefill_32k"] = p15_prefill(
+        torch, dev, wrappers, name, card, launches, "mamba2-780m")
+    p15_kernels(torch, dev, F, worst, rows)
+    for kname in P15_ROWS:
+        row = rows[kname]
+        lib = ("n/a" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f}")
+        log(f"phase 15 [{name}, {card}] {kname} at {row['shape']}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{lib} ms, bound {row['bound'][0]:.4f} ms ({row['bound'][1]}); "
+            f"launches on phase 15's paths {launches[kname]}")
+    log(f"phase 15 [{name}, {card}]: measured / predicted peak " + ", ".join(
+        f"{k} {v['ratio']:.3f}" for k, v in got.items())
+        + f"; the phase took {time.perf_counter() - t0:.1f} s")
+    idle = [k for k in P15_ROWS if not launches[k]]
+    if idle:
+        raise RuntimeError(f"phase 15 never launched {idle}")
     return got
 
 

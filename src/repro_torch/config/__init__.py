@@ -2,7 +2,10 @@ from repro_torch.config.base import (
     ArchConfig,
     DataConfig,
     LoRAConfig,
+    MeshConfig,
     ModelConfig,
+    SHAPES,
+    ShapeConfig,
     SplitConfig,
     TrainConfig,
     reduced,
@@ -12,7 +15,10 @@ __all__ = [
     "ArchConfig",
     "DataConfig",
     "LoRAConfig",
+    "MeshConfig",
     "ModelConfig",
+    "SHAPES",
+    "ShapeConfig",
     "SplitConfig",
     "TrainConfig",
     "reduced",

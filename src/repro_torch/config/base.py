@@ -9,11 +9,15 @@ Everything a run needs is described by a tree of frozen dataclasses:
   TrainConfig       -- optimizer / schedule / remat / dtype knobs
   DataConfig        -- dataset + partitioner (C4)
 
+  ShapeConfig       -- one assigned shape cell (SHAPES: train_4k,
+                       prefill_32k, decode_32k, long_500k)
+  MeshConfig        -- the device layout a cell is sized for
+
 The port keeps its own copy so that it never imports the JAX package; the
 fields and defaults are the reference's, so a config built here describes
-the same model as the reference's config of the same name.  The TPU
-dry-run's shape cells and mesh geometry are not copied: nothing in the
-port reads them.
+the same model as the reference's config of the same name, and an
+(arch x shape) cell of the dry-run (``repro_torch.launch.dryrun``) is the
+reference's cell.
 """
 
 from __future__ import annotations
@@ -347,6 +351,40 @@ class DataConfig:
     population: int = 0
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+# The four assigned shape cells (identical for every LM arch).
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
 # ---------------------------------------------------------------------------
 # Top-level arch config
 
@@ -363,6 +401,14 @@ class ArchConfig:
     @property
     def name(self) -> str:
         return self.model.name
+
+    def shape_applicable(self, shape: ShapeConfig) -> Tuple[bool, str]:
+        """Whether an assigned shape cell applies to this arch."""
+        if shape.name == "long_500k" and not self.model.supports_long_context:
+            return False, "quadratic attention: long_500k skipped per brief"
+        if shape.name == "long_500k" and self.model.family == "audio":
+            return False, "enc-dec audio: 500k target length architecturally undefined"
+        return True, ""
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

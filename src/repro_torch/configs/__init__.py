@@ -2,12 +2,14 @@
 
 Every architecture of the reference's registry, under the same ids;
 names resolve with dashes or underscores, as in the reference.
+``ASSIGNED`` are the ten architectures of the dry-run's cells,
+``PAPER_MODELS`` the paper's own three.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List
 
 from repro_torch.config import ArchConfig
 
@@ -28,6 +30,14 @@ _REGISTRY: Dict[str, str] = {
     "whisper-medium": "whisper_medium",
 }
 
+ASSIGNED = [
+    "internvl2-76b", "zamba2-1.2b", "qwen1.5-32b", "phi4-mini-3.8b",
+    "llama3-8b", "mistral-large-123b", "kimi-k2-1t-a32b",
+    "llama4-maverick-400b-a17b", "mamba2-780m", "whisper-medium",
+]
+
+PAPER_MODELS = ["gpt2-small", "opt-125m", "gpt-neo-125m"]
+
 
 def _canon(name: str) -> str:
     return name.lower().replace("_", "-")
@@ -39,3 +49,7 @@ def get_config(name: str) -> ArchConfig:
         mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[key]}")
         return mod.config()
     raise KeyError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")
+
+
+def list_configs() -> List[str]:
+    return sorted(_REGISTRY)

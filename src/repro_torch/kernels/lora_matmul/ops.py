@@ -18,6 +18,10 @@ fallback.
     gradient.  The kernel splits K over CTAs and combines the slices in
     one launch: it takes a workspace (allocated per call) and a counter
     per output tile, kept zeroed between calls (``_build.counters``).
+    The workspace grows with M, so a long prefill's rows go through the
+    kernel in chunks (``row_chunks``), one launch each into the slices of
+    one output; a row does not depend on the rows beside it, so the
+    chunks give the one-launch result bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +32,33 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.lora_matmul import ref
 
 MAX_RANK = 64
+
+# The indexed kernel's tiling (csrc/lora_indexed.cu: BM, BN, KSL): its
+# fp32 workspace holds a BM x (BN + r) tile per (row tile, column tile,
+# K slice).  One launch takes at most INDEXED_WORK_CAP bytes of it and at
+# most INDEXED_MAX_ROW_TILES row tiles (the grid's z limit).
+INDEXED_BM, INDEXED_BN, INDEXED_KSL = 16, 64, 64
+INDEXED_WORK_CAP = 512 * 2**20
+INDEXED_MAX_ROW_TILES = 65535
+
+
+def indexed_work_bytes(m: int, k: int, n: int, r: int) -> int:
+    """Bytes of fp32 workspace one launch over m rows takes (the kernel's
+    ``lora_indexed_work`` times 4)."""
+    tiles = (-(-m // INDEXED_BM) * -(-n // INDEXED_BN)
+             * -(-k // INDEXED_KSL))
+    return 4 * tiles * INDEXED_BM * (INDEXED_BN + r)
+
+
+def row_chunks(m: int, k: int, n: int, r: int):
+    """The row ranges [(lo, hi), ...] the indexed kernel's launches take
+    for an (m, k) x (k, n) product at rank r: whole row tiles, as many as
+    keep a launch's workspace within INDEXED_WORK_CAP and its grid within
+    INDEXED_MAX_ROW_TILES (at least one), covering [0, m) in order."""
+    per_tile = indexed_work_bytes(INDEXED_BM, k, n, r)
+    tiles = max(1, min(INDEXED_WORK_CAP // per_tile, INDEXED_MAX_ROW_TILES))
+    rows = tiles * INDEXED_BM
+    return [(lo, min(lo + rows, m)) for lo in range(0, m, rows)]
 
 
 def _stream(t):
@@ -186,17 +217,22 @@ def lora_matmul_indexed(x, w, a_pool, b_pool, scale, ids):
     rid = ref.row_ids(ids, lead)
     m = rid.shape[0]
     lib = _build.library()
+    xs = x.reshape(m, k_dim)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    work = torch.empty((lib.lora_indexed_work(m, k_dim, n, r),),
+    chunks = row_chunks(m, k_dim, n, r)
+    rows = max((hi - lo for lo, hi in chunks), default=0)
+    work = torch.empty((lib.lora_indexed_work(rows, k_dim, n, r),),
                        dtype=torch.float32, device=x.device)
     ctr = _build.counters("lora_indexed", x.device,
-                          lib.lora_indexed_counters(m, n))
-    err = lib.lora_indexed(
-        x.data_ptr(), w.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(),
-        scale.data_ptr(), rid.data_ptr(), work.data_ptr(), ctr.data_ptr(),
-        y.data_ptr(), m, k_dim, n, r, p, code, _stream(x))
-    _build.check(err, "lora_indexed")
-    lora_matmul_indexed.launches += 1
+                          lib.lora_indexed_counters(rows, n))
+    for lo, hi in chunks:
+        err = lib.lora_indexed(
+            xs[lo:hi].data_ptr(), w.data_ptr(), a_pool.data_ptr(),
+            b_pool.data_ptr(), scale.data_ptr(), rid[lo:hi].data_ptr(),
+            work.data_ptr(), ctr.data_ptr(), y[lo:hi].data_ptr(), hi - lo,
+            k_dim, n, r, p, code, _stream(x))
+        _build.check(err, "lora_indexed")
+        lora_matmul_indexed.launches += 1
     return y.reshape(*lead, n)
 
 

@@ -71,7 +71,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import roadmap
-from repro_torch.config import ArchConfig, ModelConfig
+from repro_torch.config import ArchConfig, ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common, ssm, transformer
 from repro_torch.models.common import apply_norm
@@ -600,17 +600,21 @@ class Model(nn.Module):
 
     # -- input shapes ------------------------------------------------------------
 
-    def input_specs(self, kind: str, seq_len: int, global_batch: int, *,
+    def input_specs(self, kind, seq_len: Optional[int] = None,
+                    global_batch: Optional[int] = None, *,
                     num_clients: int = 0, dtype=torch.float32
                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """{input: (shape, dtype)} of a "train", "prefill" or "decode"
-        batch, as the reference's ``input_specs`` gives them (its
-        ShapeConfig's seq_len, global_batch and kind); a train batch
-        splits global_batch over num_clients when given.  The vlm family
-        adds its "prefix" of frontend_prefix_len positions, the audio
-        family its "frames" of encoder_seq_len positions (train and
-        prefill)."""
+        batch, as the reference's ``input_specs`` gives them.  `kind` is
+        a ShapeConfig, as in the reference, or its kind with seq_len and
+        global_batch beside it.  A train batch splits global_batch over
+        num_clients when given.  The vlm family adds its "prefix" of
+        frontend_prefix_len positions, the audio family its "frames" of
+        encoder_seq_len positions (train and prefill)."""
         cfg = self.cfg
+        if isinstance(kind, ShapeConfig):
+            kind, seq_len, global_batch = (kind.kind, kind.seq_len,
+                                           kind.global_batch)
         s, b = seq_len, global_batch
 
         def tok_shape(extra: Tuple[int, ...]):

@@ -69,7 +69,9 @@ def lora_apply(x, w, adapter: Optional[Params], bias=None):
     else:
         # per-client adapters: batch the low-rank path over axis 0
         a, b, scale = adapter["A"], adapter["B"], adapter["scale"]
-        xa = torch.einsum("n...k,nkr->n...r", x, a)
+        # bf16 activations against fp32 adapters (the dry-run's train
+        # cells): the low-rank path runs in the adapters' dtype
+        xa = torch.einsum("n...k,nkr->n...r", x.to(a.dtype), a)
         delta = torch.einsum("n...r,nrd->n...d", xa, b)
         extra = (1,) * (x.dim() - 1)          # broadcast over all but N
         y = x @ w + scale.reshape(scale.shape[:1] + extra).to(x.dtype) \

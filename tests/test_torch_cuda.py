@@ -139,6 +139,25 @@ def test_lora_indexed_rows_do_not_depend_on_m(cuda, dtype):
         assert torch.equal(one[0], full[i])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_indexed_row_chunks_equal_one_launch(cuda, dtype, monkeypatch):
+    """With the workspace cap lowered to 3 row tiles, M = 100 goes
+    through the kernel in 3 launches (48 + 48 + 4 rows) into one output,
+    which equals the one-launch result bit for bit and counts 3."""
+    gen = torch.Generator().manual_seed(26)
+    args = tuple(t.to(cuda) for t in _lora_pool_inputs(gen, dtype, 100))
+    one = lops.lora_matmul_indexed(*args)
+    k, n, r = args[0].shape[-1], args[1].shape[1], args[2].shape[-1]
+    monkeypatch.setattr(lops, "INDEXED_WORK_CAP",
+                        lops.indexed_work_bytes(3 * lops.INDEXED_BM, k, n, r))
+    assert lops.row_chunks(100, k, n, r) == [(0, 48), (48, 96), (96, 100)]
+    before = lops.lora_matmul_indexed.launches
+    chunked = lops.lora_matmul_indexed(*args)
+    assert lops.lora_matmul_indexed.launches - before == 3
+    assert torch.equal(chunked, one)
+
+
 def _decode_edge_lens(s):
     """Cache lengths at the decode kernels' chunk edges (0, 1, CH - 1, CH,
     CH + 1, CH the kernels' positions per chunk) and the capacity s."""
