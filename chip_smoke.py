@@ -116,7 +116,19 @@ at full width (random weights from a seed):
     the train-mode forward.  The flash forward at S 32768, the decode
     kernel at capacity 32768, the indexed LoRA at M 32768 and the SSD
     scan at S 32768 are held against their plain versions and timed.
-    ``python3 chip_smoke.py --only 15`` builds and runs phase 15 alone.
+    ``python3 chip_smoke.py --only 15`` builds and runs phase 15 alone;
+  * the cohort split over torch.distributed ranks (phase 16,
+    ``runtime.sharding.ClientShard``): gpt2-small at full width, 4
+    clients x batch 4 x seq 512, cut 2, int8 smashed, 2 rounds of
+    ``SplitFTSystem.run`` with SGD and with the config's AdamW, each
+    unsharded, under NCCL at world size 1 (bit for bit the unsharded
+    run) and in 2 gloo ranks that share the card
+    (``launch.sharded.run_ranks``; each rank holds 2 rows, launches per
+    step what the unsharded steps launch, and matches the unsharded
+    run's losses and state as P16_LOSS_RTOL, GRAD_TOL["int8"] and
+    P16_OUTLIERS say, through ``runtime.agreement``); round walls and
+    each rank's peak printed.  ``python3 chip_smoke.py --only 16``
+    builds and runs phase 16 alone.
 
 The launch counters are read around each path, and every profile of a
 path holds its count of the port's own kernels to them (a profile that
@@ -404,6 +416,44 @@ P15_ROWS = ("flash_attention_fwd (hd 128, S 32768)",
             "decode_attention (hd 128, capacity 32768)",
             "lora_matmul_indexed (M 32768)",
             "ssd_scan (final state, S 32768)")
+# phase 16: the cohort split over torch.distributed ranks (ClientShard):
+# gpt2-small at full width, P16_CLIENTS clients x batch 4 x seq 512, cut
+# 2, int8 smashed, P16_ROUNDS rounds, three times for each optimizer of
+# P16_TRAIN: unsharded, under NCCL at world size 1 (bit for bit the
+# unsharded run) and in P16_RANKS gloo ranks that share the card.  A
+# rank's GEMMs run at half the batch, and cuBLAS picks its kernels by
+# shape, so a client's activations differ in their last bits from the
+# unsharded run's and a few int8 codes at the cut take the neighbouring
+# step: the state's float leaves are held as int8-compressed gradients
+# are (GRAD_TOL["int8"]), with P16_OUTLIERS, the losses within
+# P16_LOSS_RTOL, every discrete leaf and record equal
+# (repro_torch.runtime.agreement, as the CPU tests of the sharded engine).
+P16_ROUNDS, P16_CLIENTS, P16_RANKS = 2, 4, 2
+# optimizer -> TrainConfig fields over gpt2-small's: SGD, and the config's
+# own AdamW (lr 5e-5, grad_clip 1.0)
+P16_TRAIN = {"sgd": dict(optimizer="sgd", lr_client=0.05, lr_server=0.05),
+             "adamw": {}}
+P16_RTOL, P16_ATOL_OF_MAX = GRAD_TOL["int8"]
+# optimizer -> the losses' rtol.  AdamW's round-2 losses follow its
+# round-1 sign flips (below): 1.04e-6 measured on an H100 (700 W)
+P16_LOSS_RTOL = {"sgd": 1e-6, "adamw": 4e-6}
+# optimizer -> per round {top-level state key: the largest share of a
+# leaf's elements outside the tolerance}: AdamW's first steps move an
+# element by ~lr sign(g), so where a flipped int8 code changes the sign
+# of a small gradient element the two runs step it by lr in opposite
+# directions, and the next round's gradients and moments follow
+# (repro_torch.runtime.agreement).  About 4x the shares measured on an
+# H100 (700 W): after round 1, 1.6e-3 and 1.0e-3 of the client and
+# server adapters' elements; after round 2, 4.1e-3 and 2.2e-3 of the
+# adapters', 2.1e-2 and 4.0e-3 of the client and server moments'.
+P16_OUTLIERS = {"sgd": ({}, {}),
+                "adamw": ({"client_adapters": 6e-3, "server_adapters": 6e-3},
+                          {"client_adapters": 1.6e-2,
+                           "server_adapters": 1.6e-2, "opt_c": 8e-2,
+                           "opt_s": 1.6e-2})}
+# the result line's rows that phase 16's rounds launch
+P16_ROWS = ("flash_attention_fwd", "flash_attention_bwd", "lora_matmul_fwd",
+            "lora_matmul_bwd", "int8_roundtrip_smashed")
 
 
 def hd_row(kname: str, hd: int) -> str:
@@ -643,19 +693,25 @@ def port_wrappers() -> dict:
             "ssd_scan (final state)": ssd_ops.ssd_scan_fwd_state}
 
 
-# throwaway kernels that open every profile (torch.cuda._sleep's
+# throwaway kernels that open and close every profile (torch.cuda._sleep's
 # spin_kernel, left out of the counts)
 PROFILE_PREFIX = 256
+# passes of one profile before its phase fails
+PROFILE_TRIES = 5
 
 
 def _profile(torch, run, prefix: int = PROFILE_PREFIX):
-    """(wall s, [(device event name, start us, end us)]) of `run` under
-    torch.profiler's CUDA activity.  `prefix` throwaway kernels run
-    first inside the profile: late in a whole script the profiler lost
-    the first ~30 device records of a session (phase 11's decode step,
-    its first indexed-LoRA kernel among them, in three passes running,
-    with or without a discarded warm-up step or idle time before the
-    run; the same step early in a process lost none)."""
+    """(wall s, [(device event name, start us, end us)], (spin kernels
+    recorded before the run, after it)) of `run` under torch.profiler's
+    CUDA activity.  `prefix` throwaway kernels run first inside the
+    profile, and as many after `run` before the profile stops: late in a
+    whole script the profiler lost the first ~30 device records of a
+    session (phase 11's decode step, its first indexed-LoRA kernel among
+    them, in three passes running, with or without a discarded warm-up
+    step or idle time before the run; the same step early in a process
+    lost none), and on another H100 it lost 5 to 354 records of phase
+    4's serving run in three passes, all of them of decode steps, which
+    is what the run ends with."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(prefix):
@@ -665,10 +721,18 @@ def _profile(torch, run, prefix: int = PROFILE_PREFIX):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, [(e.name, e.time_range.start, e.time_range.end)
-                  for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "spin_kernel" not in e.name]
+        for _ in range(prefix):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    events, spins = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        span = (e.name, e.time_range.start, e.time_range.end)
+        (spins if "spin_kernel" in e.name else events).append(span)
+    first = min((lo for _, lo, _ in events), default=None)
+    before = sum(1 for _, lo, _ in spins if first is None or lo < first)
+    return wall, events, (before, len(spins) - before)
 
 
 def summarize(events):
@@ -729,7 +793,7 @@ def profile_short(kernels, launched):
             f"({ {k: c for k, c in launched.items() if c} })")
 
 
-def device_busy(torch, run, what: str, tries: int = 3):
+def device_busy(torch, run, what: str, tries: int = PROFILE_TRIES):
     """Run `run` under torch.profiler's CUDA activity.  Returns (wall s,
     device-busy s or None, {kernel name: device s}, {kernel name:
     launches}); busy is the union of the recorded device intervals, None
@@ -738,13 +802,14 @@ def device_busy(torch, run, what: str, tries: int = 3):
     The wrappers' launch counters are read around each pass: a profile
     that holds fewer of the port's own kernels than they say ran lost
     records, so it is logged with its counts and `run` is profiled
-    again, up to `tries` passes in all; then the phase fails.  No short
-    profile's figures are returned."""
+    again, with a longer prefix and suffix, up to `tries` passes in all;
+    then the phase fails.  No short profile's figures are returned."""
     wrappers = port_wrappers()
     short = []
     for i in range(tries):
         before = {k: w.launches for k, w in wrappers.items()}
-        wall, events = _profile(torch, run, prefix=PROFILE_PREFIX * (i + 1))
+        pad = PROFILE_PREFIX * (i + 1)
+        wall, events, spins = _profile(torch, run, prefix=pad)
         launched = {k: w.launches - before[k] for k, w in wrappers.items()}
         busy, by_name, kernels = summarize(events)
         gap = profile_short(kernels, launched)
@@ -753,6 +818,8 @@ def device_busy(torch, run, what: str, tries: int = 3):
                 log(f"{what}: profile pass {i + 1} holds every launch after "
                     f"{len(short)} short one(s)")
             return wall, busy, by_name, kernels
+        gap += (f"; spin kernels recorded {spins[0]} of {pad} before the "
+                f"run, {spins[1]} of {pad} after it")
         short.append(f"pass {i + 1}: {gap}")
         log(f"{what}: the profiler dropped records in pass {i + 1}: {gap}")
     raise RuntimeError(f"{what}: no profile of {tries} holds the port's own "
@@ -813,7 +880,7 @@ def pass_ms(torch, fn, names, iters: int = 10, launches: bool = False):
 
 
 def check_kernels_per_call(torch, fn, names, own: int, total: int,
-                           what: str, tries: int = 3):
+                           what: str, tries: int = PROFILE_TRIES):
     """pass_ms(launches=True) of fn, held to `own` kernels per call of
     `names` and `total` in all.  A record the profiler drops can only
     lower a count, so a pass below them is logged and profiled again, up
@@ -912,7 +979,7 @@ def max_err(torch, got, want, dtype: str, what: str,
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
-    ap.add_argument("--only", choices=["15"], default=None,
+    ap.add_argument("--only", choices=["15", "16"], default=None,
                     help="build, then run this phase alone (no result "
                          "line); the contract's run takes no argument")
     args = ap.parse_args(argv)
@@ -968,6 +1035,10 @@ def main(argv=None) -> int:
         phase15(torch, dev, wrappers, name, card, F, launches, worst, rows)
         log(f"phase 15 alone: max |kernel - plain| "
             + ", ".join(f"{k} {worst[k]:.3e}" for k in P15_ROWS))
+        return 0
+    if args.only == "16":
+        got = phase16(torch, dev, wrappers, name, card)
+        log(f"phase 16 alone: launches {got}")
         return 0
 
     # -- phase 2: every kernel against its plain version ---------------------
@@ -1332,6 +1403,10 @@ def main(argv=None) -> int:
 
     # -- phase 15: the dry-run's serving cells at 32k and 500k --------------
     phase15(torch, dev, wrappers, name, card, F, launches, worst, rows)
+
+    # -- phase 16: the cohort split over ranks, NCCL and gloo ---------------
+    for kname, c in phase16(torch, dev, wrappers, name, card).items():
+        launches[kname] += c
 
     # -- results ----------------------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
@@ -2268,13 +2343,15 @@ def global_adapter_grad(torch, dev, wrappers, system, n_adapters, tag, name,
     autograd on lora_dense (the round itself has no rank-2 backward),
     on the system's last eval batch.  Every gradient must be finite and
     the backward kernel launch once per adapter.  Returns its launches."""
+    from repro_torch.runtime.sharding import shard_client_batch
     from repro_torch.tree import tree_leaves, tree_map
 
     for w in wrappers.values():
         w.launches = 0
     params, eff = system.serve_model()
     eff = tree_map(lambda x: x.detach().requires_grad_(True), eff)
-    ebatch = system.eval_step.last[2]
+    # this rank's rows of the batch under a split cohort (phase 16)
+    ebatch = shard_client_batch(system.eval_step.last[2], system.cohort)
     t0 = time.perf_counter()
     with torch.enable_grad():
         per, _ = system.model.loss(
@@ -5294,6 +5371,202 @@ def phase15(torch, dev, wrappers, name, card, F, launches, worst, rows):
     if idle:
         raise RuntimeError(f"phase 15 never launched {idle}")
     return got
+
+
+def p16_arch(opt: str):
+    import dataclasses
+
+    arch = gpt2_int8()
+    return arch.replace(
+        data=dataclasses.replace(arch.data, num_clients=P16_CLIENTS),
+        train=dataclasses.replace(arch.train, **P16_TRAIN[opt]))
+
+
+def p16_run(torch, dev, wrappers, policy, opt, tag, name, card) -> dict:
+    """P16_ROUNDS rounds of phase 16's system under `policy` (None or a
+    ClientShard) and optimizer `opt`, then the fused LoRA backward at the
+    eval shape on this rank's rows (global_adapter_grad).  Returns per
+    round its wall and step seconds, each step's launches and the shard's
+    collectives and bytes all-reduced, the gathered state after each
+    round (numpy), the records, the rows this process holds, its
+    max_memory_allocated and the LoRA backward's launches."""
+    from repro_torch.core.system import SplitFTSystem, SystemConfig
+    from repro_torch.runtime.sharding import gather_state
+    from repro_torch.tree import tree_map
+
+    system = SplitFTSystem(p16_arch(opt), SystemConfig(
+        num_samples=NUM_SAMPLES, eval_samples=EVAL_SAMPLES), seed=SEED,
+        device=dev, policy=policy)
+    train = system.train_step = TimedStep(torch, system.train_step, wrappers)
+    ev = system.eval_step = TimedStep(torch, system.eval_step, wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rounds, states = [], []
+    for r in range(P16_ROUNDS):
+        before = ((policy.collectives, policy.bytes_reduced) if policy
+                  else (0, 0))
+        t0 = time.perf_counter()
+        system.run(1, log_every=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = ((policy.collectives, policy.bytes_reduced) if policy
+                 else (0, 0))
+        rounds.append({"wall": wall, "train_s": train.calls[-1][2],
+                       "eval_s": ev.calls[-1][2],
+                       "train": train.calls[-1][1], "eval": ev.calls[-1][1],
+                       "collectives": after[0] - before[0],
+                       "bytes": after[1] - before[1]})
+        states.append(tree_map(lambda x: x.detach().cpu().numpy(),
+                               gather_state(system.state, system.cohort)))
+        rec = system.history[-1]
+        if not np.isfinite(rec["loss"]):
+            raise RuntimeError(f"{tag} round {r}: non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    bwd = global_adapter_grad(torch, dev, wrappers, system, 48, tag, name,
+                              card)
+    log(f"{tag} [{name}, {card}]: rows {system.state['cuts'].shape[0]} of "
+        f"{P16_CLIENTS}; round wall "
+        + ", ".join(f"{x['wall'] * 1e3:.1f} ms (train {x['train_s'] * 1e3:.1f}"
+                    f" + eval {x['eval_s'] * 1e3:.1f})" for x in rounds)
+        + f"; losses {[float(h['loss']) for h in system.history]}; "
+        f"collectives per round {[x['collectives'] for x in rounds]}, "
+        f"bytes all-reduced {[x['bytes'] for x in rounds]}; "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB")
+    return {"rounds": rounds, "states": states,
+            "history": [dict(h) for h in system.history],
+            "rows": int(system.state["cuts"].shape[0]), "peak": peak,
+            "lora_bwd": bwd}
+
+
+def p16_rank(rank: int, world: int, out_dir: str, device: str = "cuda"):
+    """Phase 16 on one of P16_RANKS gloo ranks that share the card (run
+    by repro_torch.launch.sharded.run_ranks in a process of its own)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.runtime.sharding import ClientShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    shard = ClientShard(make_client_mesh(world), device=dev, backend="gloo")
+    got = {opt: p16_run(torch, dev, port_wrappers(), shard, opt,
+                        f"phase 16 {opt} gloo rank {rank} of {world}",
+                        torch.cuda.get_device_name(0), card_line())
+           for opt in P16_TRAIN}
+    torch.save(got, Path(out_dir) / f"gloo_rank{rank}.pt")
+
+
+def p16_compare(got, want, what, opt):
+    """A sharded run's states and records against the unsharded run's
+    (repro_torch.runtime.agreement, as the CPU tests of the sharded
+    engine).  Logs and returns per round the largest |diff| / max|leaf|
+    of a float leaf."""
+    from repro_torch.runtime import agreement
+
+    gaps = [agreement.check_state(a, b, rtol=P16_RTOL,
+                                  atol_of_max=P16_ATOL_OF_MAX,
+                                  outliers=out)
+            for a, b, out in zip(got["states"], want["states"],
+                                 P16_OUTLIERS[opt], strict=True)]
+    loss = agreement.check_history(got["history"], want["history"],
+                                   loss_rtol=P16_LOSS_RTOL[opt])
+    log(f"{what}: per round and state key the largest |diff| / max|leaf| "
+        "and the largest share of a leaf's elements outside the "
+        "tolerance: "
+        + "; ".join(f"round {r}: " + ", ".join(
+            f"{k} {v:.3e} {o:.3e}" for k, (v, o) in g.items())
+            for r, g in enumerate(gaps))
+        + f"; losses' largest relative difference {loss:.3e}")
+    return [max(v for v, _ in g.values()) for g in gaps]
+
+
+def phase16(torch, dev, wrappers, name, card):
+    """Phase 16: the cohort split over torch.distributed ranks, for each
+    optimizer of P16_TRAIN.  Returns the launches of every run (the gloo
+    ranks' read from their processes)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.launch.sharded import process_group, run_ranks
+    from repro_torch.runtime import agreement
+    from repro_torch.runtime.sharding import ClientShard
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p16_"))
+    try:
+        plain = {opt: p16_run(torch, dev, wrappers, None, opt,
+                              f"phase 16 {opt} unsharded", name, card)
+                 for opt in P16_TRAIN}
+        with process_group(0, 1, tmp / "nccl", backend="nccl"):
+            shard = ClientShard(make_client_mesh(1), device=dev)
+            nccl = {opt: p16_run(torch, dev, wrappers, shard, opt,
+                                 f"phase 16 {opt} {shard.backend} world 1",
+                                 name, card)
+                    for opt in P16_TRAIN}
+        t1 = time.perf_counter()
+        run_ranks(p16_rank, P16_RANKS, tmp / "gloo",
+                  args=(str(tmp), dev.type))
+        spawned = time.perf_counter() - t1
+        gloo = [torch.load(tmp / f"gloo_rank{r}.pt", weights_only=False)
+                for r in range(P16_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    worst = {}
+    for opt in P16_TRAIN:
+        agreement.same_bits(
+            {k: nccl[opt][k] for k in ("states", "history")},
+            {k: plain[opt][k] for k in ("states", "history")},
+            f"phase 16 {opt} NCCL world 1")
+        worst[opt] = p16_compare(gloo[0][opt], plain[opt],
+                                 f"phase 16 {opt} {P16_RANKS} gloo ranks",
+                                 opt)
+        for r, g in enumerate(x[opt] for x in gloo):
+            if g["rows"] != P16_CLIENTS // P16_RANKS:
+                raise RuntimeError(
+                    f"phase 16 {opt} gloo rank {r} holds {g['rows']} "
+                    f"rows, want {P16_CLIENTS // P16_RANKS}")
+            for i, (a, b) in enumerate(zip(g["rounds"],
+                                           plain[opt]["rounds"])):
+                for step in ("train", "eval"):
+                    if a[step] != b[step]:
+                        raise RuntimeError(
+                            f"phase 16 {opt} gloo rank {r} round {i} "
+                            f"{step} step launches {a[step]}, unsharded "
+                            f"{b[step]}")
+            if g["lora_bwd"] != plain[opt]["lora_bwd"]:
+                raise RuntimeError(f"phase 16 {opt} gloo rank {r}: fused "
+                                   f"LoRA backward launches "
+                                   f"{g['lora_bwd']}")
+    launches = {k: 0 for k in P16_ROWS}
+    for runs in [plain, nccl] + gloo:
+        for run in runs.values():
+            for x in run["rounds"]:
+                for step in ("train", "eval"):
+                    for k, c in x[step].items():
+                        if k in launches:
+                            launches[k] += c
+            launches["lora_matmul_bwd"] += run["lora_bwd"]
+    idle = [k for k, c in launches.items() if not c]
+    if idle:
+        raise RuntimeError(f"phase 16 never launched {idle}")
+    log(f"phase 16 [{name}, {card}]: NCCL at world size 1 == unsharded bit "
+        f"for bit; {P16_RANKS} gloo ranks on the card hold "
+        f"{P16_CLIENTS // P16_RANKS} rows each, per-step launches == "
+        f"unsharded, max |diff| / max|leaf| per round "
+        + ", ".join(f"{opt} {[f'{w:.3e}' for w in worst[opt]]}"
+                    for opt in P16_TRAIN)
+        + f" (rtol {P16_RTOL}, atol {P16_ATOL_OF_MAX} x max, outliers "
+        f"{P16_OUTLIERS}); peak per rank (GiB): "
+        + "; ".join(f"{opt} unsharded {plain[opt]['peak'] / 2**30:.3f}, "
+                    f"NCCL {nccl[opt]['peak'] / 2**30:.3f}, gloo "
+                    f"{[round(g[opt]['peak'] / 2**30, 3) for g in gloo]}"
+                    for opt in P16_TRAIN)
+        + f"; spawn + {P16_RANKS} ranks {spawned:.1f} s; the phase took "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
 
 
 def lora_args(torch, rand, m, dt, gen):

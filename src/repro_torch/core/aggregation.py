@@ -17,7 +17,10 @@ receive the broadcast.
 With per-client effective ranks (the co-controller's rank_cut), each
 rank column is averaged only over the clients whose rank covers it.  With
 edge groups (``num_edges > 1``) the average runs in two tiers, clients
-to edges to the server, which telescopes to the flat average.
+to edges to the server, which telescopes to the flat average.  Under a
+split cohort (runtime.sharding.Cohort) each sum over clients is a
+rank-local partial sum followed by one all-reduce SUM, and
+``broadcast_after_agg`` writes the aggregate into the rank's own rows.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from repro_torch.core import lora as lora_lib
 from repro_torch.core.split import client_layer_masks, group_masks
 from repro_torch.models.model import Model
+from repro_torch.runtime.sharding import UNSHARDED, Cohort
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
@@ -48,7 +52,8 @@ def _on(x, dev):
 
 def fedavg(model: Model, client_adapters: Params, cuts, weights, active,
            steps=None, staleness=None, staleness_power: float = 0.5,
-           ranks=None, edge_assign=None, num_edges: int = 1) -> Params:
+           ranks=None, edge_assign=None, num_edges: int = 1,
+           cohort: Cohort = UNSHARDED) -> Params:
     """Aggregate: returns the per-layer tree without the client axis.
 
     steps: optional (N,) effective local-step counts (weights divided by
@@ -60,7 +65,10 @@ def fedavg(model: Model, client_adapters: Params, cuts, weights, active,
     kill the column for good: B = 0 at init gives a zeroed A column no
     gradient).  edge_assign/num_edges: the two-tier mode
     (`_fedavg_two_tier`); num_edges <= 1 or no assignment is the flat
-    path verbatim."""
+    path verbatim.  cohort: a runtime.sharding.Cohort whose rank holds
+    a block of the client axis of every per-client argument; each sum
+    over clients is then this rank's partial sum, summed over the ranks
+    in one all-reduce, and every rank returns the whole aggregate."""
     dev = model.device
     masks = client_layer_masks(model.num_flat_layers, cuts).to(dev)
     w = _on(weights, dev) * _on(active, dev)
@@ -72,28 +80,41 @@ def fedavg(model: Model, client_adapters: Params, cuts, weights, active,
     if edge_assign is not None and num_edges > 1:
         return _fedavg_two_tier(model, client_adapters, masks, w,
                                 ranks=ranks, edge_assign=edge_assign,
-                                num_edges=num_edges)
-    out: Params = {}
+                                num_edges=num_edges, cohort=cohort)
+    part: Dict[Any, torch.Tensor] = {}       # this rank's partial sums
     for gname, targets in client_adapters.items():
         g = model.group_by_name[gname]
         ids = torch.as_tensor(g.layer_ids, device=dev)
         mu = masks.index_select(1, ids).T * w                 # (Lg, N)
-        denom = torch.clamp(mu.sum(1), min=1e-9)[:, None, None]
+        part[gname] = mu.sum(1)
         if ranks is not None:
             cmask = lora_lib.rank_masks_for_group(model, gname, ranks)
             mu_col = mu[..., None] * cmask                    # (Lg, N, r)
-            col_sum = mu_col.sum(1)                           # (Lg, r)
+            part[gname, "col"] = mu_col.sum(1)                # (Lg, r)
+        for tname, ad in targets.items():
+            for k in ("A", "B"):
+                part[gname, tname, k] = torch.einsum("ln,ln...->l...", mu,
+                                                     ad[k])
+            if ranks is not None:
+                part[gname, tname, "cA"] = torch.einsum(
+                    "lnr,lndr->ldr", mu_col, ad["A"])
+                part[gname, tname, "cB"] = torch.einsum(
+                    "lnr,lnrd->lrd", mu_col, ad["B"])
+    tot = cohort.sum_dict(part)
+    out: Params = {}
+    for gname, targets in client_adapters.items():
+        denom = torch.clamp(tot[gname], min=1e-9)[:, None, None]
+        if ranks is not None:
+            col_sum = tot[gname, "col"]
             col_denom = torch.clamp(col_sum, min=1e-9)
             owned = col_sum > 1e-9
         out[gname] = {}
-        for tname, ad in targets.items():
-            agg_a = torch.einsum("ln,ln...->l...", mu, ad["A"]) / denom
-            agg_b = torch.einsum("ln,ln...->l...", mu, ad["B"]) / denom
+        for tname in targets:
+            agg_a = tot[gname, tname, "A"] / denom
+            agg_b = tot[gname, tname, "B"] / denom
             if ranks is not None:
-                col_a = torch.einsum("lnr,lndr->ldr", mu_col, ad["A"]) \
-                    / col_denom[:, None, :]
-                col_b = torch.einsum("lnr,lnrd->lrd", mu_col, ad["B"]) \
-                    / col_denom[:, :, None]
+                col_a = tot[gname, tname, "cA"] / col_denom[:, None, :]
+                col_b = tot[gname, tname, "cB"] / col_denom[:, :, None]
                 agg_a = torch.where(owned[:, None, :], col_a, agg_a)
                 agg_b = torch.where(owned[:, :, None], col_b, agg_b)
             out[gname][tname] = {"A": agg_a, "B": agg_b}
@@ -101,7 +122,8 @@ def fedavg(model: Model, client_adapters: Params, cuts, weights, active,
 
 
 def _fedavg_two_tier(model: Model, client_adapters: Params, masks, w, *,
-                     ranks, edge_assign, num_edges: int) -> Params:
+                     ranks, edge_assign, num_edges: int,
+                     cohort: Cohort = UNSHARDED) -> Params:
     """Hierarchical aggregation: clients -> edge groups -> server.
 
     Tier 1 averages within each edge with the flat path's weights mu;
@@ -110,41 +132,54 @@ def _fedavg_two_tier(model: Model, client_adapters: Params, masks, w, *,
     has denom_e ~ 0 and drops out; a layer nobody owns keeps its previous
     value as in the flat path.  The math telescopes to the flat average;
     the point is the system: the server ingests E adapter streams instead
-    of N, which the speed model prices in the adapter-sync phase."""
+    of N, which the speed model prices in the adapter-sync phase.  The
+    edge sums over clients are partial sums under a cohort (fedavg)."""
     dev = model.device
     ea = torch.as_tensor(edge_assign).long() % num_edges
     onehot = torch.nn.functional.one_hot(ea, num_edges).float().to(dev)
-    out: Params = {}
+    part: Dict[Any, torch.Tensor] = {}
     for gname, targets in client_adapters.items():
         g = model.group_by_name[gname]
         ids = torch.as_tensor(g.layer_ids, device=dev)
         mu = masks.index_select(1, ids).T * w                 # (Lg, N)
         mu_e = torch.einsum("ln,ne->lne", mu, onehot)         # (Lg, N, E)
-        denom_e = mu_e.sum(1)                                 # (Lg, E)
-        safe_e = torch.clamp(denom_e, min=1e-9)
-        denom = torch.clamp(denom_e.sum(1), min=1e-9)         # (Lg,)
+        part[gname] = mu_e.sum(1)                             # (Lg, E)
         if ranks is not None:
             cmask = lora_lib.rank_masks_for_group(model, gname, ranks)
             mu_col = mu[..., None] * cmask                    # (Lg, N, r)
             col_e = torch.einsum("lnr,ne->lner", mu_col, onehot)
-            col_sum_e = col_e.sum(1)                          # (Lg, E, r)
+            part[gname, "col"] = col_e.sum(1)                 # (Lg, E, r)
+        for tname, ad in targets.items():
+            for k in ("A", "B"):
+                part[gname, tname, k] = torch.einsum(
+                    "lne,ln...->le...", mu_e, ad[k])          # (Lg,E,..)
+            if ranks is not None:
+                part[gname, tname, "cA"] = torch.einsum(
+                    "lner,lndr->ledr", col_e, ad["A"])
+                part[gname, tname, "cB"] = torch.einsum(
+                    "lner,lnrd->lerd", col_e, ad["B"])
+    tot = cohort.sum_dict(part)
+    out: Params = {}
+    for gname, targets in client_adapters.items():
+        denom_e = tot[gname]
+        safe_e = torch.clamp(denom_e, min=1e-9)
+        denom = torch.clamp(denom_e.sum(1), min=1e-9)         # (Lg,)
+        if ranks is not None:
+            col_sum_e = tot[gname, "col"]
             col_safe_e = torch.clamp(col_sum_e, min=1e-9)
             col_sum = col_sum_e.sum(1)                        # (Lg, r)
             col_denom = torch.clamp(col_sum, min=1e-9)
             owned = col_sum > 1e-9
         out[gname] = {}
-        for tname, ad in targets.items():
+        for tname in targets:
             tier = {}
             for k in ("A", "B"):
-                edge = torch.einsum("lne,ln...->le...", mu_e, ad[k]) \
-                    / safe_e[:, :, None, None]                # (Lg,E,..)
+                edge = tot[gname, tname, k] / safe_e[:, :, None, None]
                 tier[k] = torch.einsum("le,le...->l...", denom_e, edge) \
                     / denom[:, None, None]
             if ranks is not None:
-                ecol_a = torch.einsum("lner,lndr->ledr", col_e, ad["A"]) \
-                    / col_safe_e[:, :, None, :]
-                ecol_b = torch.einsum("lner,lnrd->lerd", col_e, ad["B"]) \
-                    / col_safe_e[:, :, :, None]
+                ecol_a = tot[gname, tname, "cA"] / col_safe_e[:, :, None, :]
+                ecol_b = tot[gname, tname, "cB"] / col_safe_e[:, :, :, None]
                 col_a = torch.einsum("ler,ledr->ldr", col_sum_e, ecol_a) \
                     / col_denom[:, None, :]
                 col_b = torch.einsum("ler,lerd->lrd", col_sum_e, ecol_b) \

@@ -40,6 +40,25 @@ decision waits on the device.  Where the reference scans or conds on the
 device, the port loops and branches on the host: the local-steps loop
 stops after the last inner step in which some client is active, since
 the reference's later inner steps select every leaf back unchanged.
+
+Client-axis sharding (``shard``, a runtime.sharding.ClientShard): each
+rank of the group holds its block of the cohort's rows of every
+client-axis leaf, and each step takes the full (N,) weights and mask and
+the full batch, and keeps its rows of them (``shard_state``,
+``shard_client_batch``), as the reference's engines pin the state and
+batch to the mesh's "data" axis on entry and exit.  Every sum over
+clients is a rank-local partial sum followed by an all-reduce: the
+weight normalization, the round loss, the server adapters' gradients
+(before their optimizer step, so every rank takes the same one), the
+clip norm of the client tree, FedAvg and the eval adapters; top-k
+adapter compression gathers the rows, int8 takes a MAX of the amax.
+Every host decision that reads the cohort (whether an inner step or a
+tick has an active client, the buffer fill) is taken on cohort-wide
+values, and per-client metrics come back as (N,) on every rank.  The
+MoE router loss is a mean over the cohort's routing groups (every
+sequence of every client is one), so each rank adds its own mean times
+1 / world.  Any random draw of the state is made for the whole cohort
+and then sliced, so no result depends on the world size.
 """
 
 from __future__ import annotations
@@ -53,6 +72,8 @@ from repro_torch.models.model import Model
 from repro_torch.optim.compression import (ErrorFeedback, int8_dequantize,
                                            int8_quantize)
 from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.runtime.sharding import (UNSHARDED, Cohort, cohort_of,
+                                          shard_client_batch, shard_state)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
@@ -129,6 +150,52 @@ def _state_ranks(model: Model, state: Params, cuts):
                                     model.arch.lora, r_cut=rank_cut)
 
 
+def _cohort_of(shard, weights) -> Cohort:
+    """The cohort of the host's full (N,) weights under `shard`."""
+    n = weights.shape[0] if hasattr(weights, "shape") else len(weights)
+    return cohort_of(shard, int(n))
+
+
+def _local(cohort: Cohort, x, device=None):
+    """This rank's rows of a full (N,) host vector, as a float tensor."""
+    return cohort.rows(torch.as_tensor(x, dtype=torch.float32,
+                                       device=device))
+
+
+def _replicated_rows(state, key, cohort: Cohort):
+    """This rank's rows of a replicated per-client leaf (the
+    co-controller's topk_frac, which state_specs does not shard)."""
+    x = state.get(key)
+    return None if x is None else cohort.rows(x)
+
+
+def _any_per_row(mask, cohort: Cohort):
+    """(K, N) host mask -> K bools: whether row k holds a nonzero entry
+    anywhere in the cohort (one MAX over the ranks)."""
+    local = (mask > 0).any(dim=1).to(torch.int32)
+    return [bool(v) for v in cohort.max(local)]
+
+
+def _gather_metrics(metrics, cohort: Cohort):
+    """Per-client metrics ((N_local,) rows) gathered to (N,)."""
+    if not cohort.split:
+        return metrics
+    keys = [k for k, v in metrics.items()
+            if isinstance(v, torch.Tensor) and v.dim() >= 1
+            and v.shape[0] == cohort.n_local]
+    full = cohort.gather_rows_many([metrics[k] for k in keys],
+                                   [0] * len(keys))
+    return dict(metrics, **dict(zip(keys, full)))
+
+
+def _weighted_total(wn, ce, aux, cohort: Cohort):
+    """The cohort's weights-averaged loss sum_i wn_i (ce_i + aux), wn
+    normalized over the cohort, aux (the router loss) cohort-wide."""
+    if not cohort.split:
+        return (wn * (ce + aux)).sum()
+    return cohort.sum((wn * ce).sum()) + cohort.sum(wn.sum()) * aux
+
+
 def _keep_rows(active, new, old):
     """new where the client (axis 0) was active, old elsewhere: a client
     that sent nothing keeps its smashed residual."""
@@ -145,7 +212,7 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
                     async_buffer: bool = False, buffer_size: int = 2,
                     staleness_power: float = 0.5, num_edges: int = 1,
                     server_step_norm: bool = True,
-                    all_inner_steps: bool = False):
+                    all_inner_steps: bool = False, shard=None):
     """Build the round step.
 
     step(base_params, state, batch, weights, active, lr_c, lr_s)
@@ -192,7 +259,10 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
     num_edges > 1: two-tier FedAvg over state["edge_assign"]
     (with_edge_assign).  server_step_norm scales each client's server
     gradient by 1/K_i under local steps (1/(steps in buffer) under
-    async); exactly 1 at K_i = 1, where the step is bitwise unchanged."""
+    async); exactly 1 at K_i = 1, where the step is bitwise unchanged.
+
+    shard: a runtime.sharding.ClientShard; the step then returns this
+    rank's rows of the state (see the module docstring)."""
     if max_local_steps < 1:
         raise ValueError(f"max_local_steps must be >= 1, got "
                          f"{max_local_steps}")
@@ -208,7 +278,8 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
             smashed.make_compressor(nm, topk_frac=smashed_topk_frac)
             for nm in compressor_buckets)
     common = dict(remat=remat, ce_chunk=ce_chunk, buckets=buckets,
-                  num_edges=num_edges, server_step_norm=server_step_norm)
+                  num_edges=num_edges, server_step_norm=server_step_norm,
+                  shard=shard)
     if async_buffer:
         if max_local_steps > 1 or microbatch > 1:
             raise ValueError("the async engine runs one local step per "
@@ -236,34 +307,40 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
     dev = model.device
 
     def step(base_params, state, batch, weights, active, lr_c, lr_s):
+        cohort = _cohort_of(shard, weights)
+        state = shard_state(state, cohort)
+        batch = shard_client_batch(batch, cohort)
         sm_ef = state.get("smashed_ef")
         if sm_ef is not None and microbatch > 1:
             raise ValueError("smashed error feedback does not compose "
                              "with microbatch accumulation")
         cad, sad = state["client_adapters"], state["server_adapters"]
         cuts = state["cuts"]
-        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
-        active = torch.as_tensor(active, dtype=torch.float32, device=dev)
+        weights = _local(cohort, weights, device=dev)
+        active = _local(cohort, active, device=dev)
         boundary = _cut_boundary(smasher, buckets,
                                  state.get("smashed_choice"), cuts,
                                  residual=sm_ef,
-                                 topk_frac=state.get("topk_frac"))
+                                 topk_frac=_replicated_rows(
+                                     state, "topk_frac", cohort))
         total, metrics, g_cad, g_sad = round_grads(
             model, base_params, state, batch, weights * active,
             boundary=boundary, remat=remat, ce_chunk=ce_chunk,
-            microbatch=microbatch)
+            microbatch=microbatch, cohort=cohort)
         new_sm_ef = metrics.pop("smashed_ef", None)
         with torch.no_grad():
             if new_sm_ef is not None:
                 new_sm_ef = _keep_rows(active, new_sm_ef, sm_ef)
-            new_cad, opt_c = opt.update(g_cad, state["opt_c"], cad, lr_c)
+            new_cad, opt_c = opt.update(g_cad, state["opt_c"], cad, lr_c,
+                                        norm_sum=cohort.sum)
             new_sad, opt_s = opt.update(g_sad, state["opt_s"], sad, lr_s)
             new_cad, ef = _round_aggregate(
                 model, **agg, cad_start=cad, new_cad=new_cad,
                 new_sad=new_sad, cuts=cuts, weights=weights, active=active,
                 ef=state.get("ef"), round_idx=state["round"],
                 ranks=_state_ranks(model, state, cuts),
-                edge_assign=state.get("edge_assign"), num_edges=num_edges)
+                edge_assign=state.get("edge_assign"), num_edges=num_edges,
+                cohort=cohort)
         new_state = dict(state)
         new_state.update(client_adapters=new_cad, server_adapters=new_sad,
                          opt_c=opt_c, opt_s=opt_s,
@@ -273,14 +350,15 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
         if new_sm_ef is not None:
             new_state["smashed_ef"] = new_sm_ef
         metrics["total"] = total
-        return new_state, metrics
+        return new_state, _gather_metrics(metrics, cohort)
 
     return step
 
 
 def round_grads(model: Model, base_params, state: Params, batch, weights,
                 boundary=None, *, remat: str = "none", ce_chunk: int = 0,
-                microbatch: int = 1, server_scale=None):
+                microbatch: int = 1, server_scale=None,
+                cohort: Cohort = UNSHARDED):
     """f1-f5 of one round: the weighted round loss and its gradients.
 
     weights: (N,) survivor-masked FedAvg x C3 weights, normalized here.
@@ -292,12 +370,21 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
     as the reference's scan does.  Returns (total, per-client metrics
     (with a stateful boundary's new residual as "smashed_ef"),
     client-adapter grads, server-adapter grads), all detached; grads
-    have the adapters' trees."""
+    have the adapters' trees.
+
+    cohort: the state, batch and weights hold this rank's rows of a
+    split cohort.  The weights are then normalized over the cohort, the
+    total and the router loss ("aux") are the cohort's, and the server
+    grads are summed over the ranks; the per-client metrics and the
+    client grads are this rank's rows."""
     cad, sad = state["client_adapters"], state["server_adapters"]
     batch = {k: torch.as_tensor(v, device=model.device)
              for k, v in batch.items()}
     wl = torch.as_tensor(weights, dtype=torch.float32, device=model.device)
-    wl = wl / torch.clamp(wl.sum(), min=1e-9)
+    wl = wl / torch.clamp(cohort.sum(wl.sum()), min=1e-9)
+    # under a split cohort each rank's term carries its share of the
+    # router loss: its own groups' mean / world (equal groups per rank)
+    w_aux = cohort.sum(wl.sum()) / cohort.world if cohort.split else None
     leaves = [t.detach().requires_grad_(True)
               for t in tree_leaves(cad) + tree_leaves(sad)]
     n_c = len(tree_leaves(cad))
@@ -316,7 +403,8 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
             per_loss, met = model.loss(base_params, eff, mb, remat=remat,
                                        ce_chunk=ce_chunk, per_client=True,
                                        boundary=boundary)
-            t = (wl * per_loss).sum()
+            t = ((wl * per_loss).sum() if w_aux is None
+                 else (wl * met["ce"]).sum() + w_aux * met["aux"])
             g = torch.autograd.grad(t, leaves, allow_unused=True)
         g = [torch.zeros_like(x) if gi is None else gi
              for x, gi in zip(leaves, g)]
@@ -332,6 +420,12 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
         total = total * scale
         metrics = {k: v * scale for k, v in metrics.items()}
         grads = [g * scale for g in grads]
+    if cohort.active:
+        # every rank takes the same server step: its gradient is the
+        # cohort's sum, and so are the total and the router loss
+        g_srv = cohort.sum_many(grads[n_c:] + [total, metrics["aux"]])
+        grads[n_c:], total, aux = g_srv[:-2], g_srv[-2], g_srv[-1]
+        metrics["aux"] = aux / cohort.world if cohort.split else aux
     return (total, metrics, tree_unflatten(cad, grads[:n_c]),
             tree_unflatten(sad, grads[n_c:]))
 
@@ -339,7 +433,8 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
 def _round_aggregate(model: Model, *, compress, topk_frac, agg_every,
                      cad_start, new_cad, new_sad, cuts, weights, active,
                      ef, round_idx, steps=None, ranks=None,
-                     edge_assign=None, num_edges: int = 1):
+                     edge_assign=None, num_edges: int = 1,
+                     cohort: Cohort = UNSHARDED):
     """b1-b3 at the round boundary, shared by the sync and local-steps
     engines: optional adapter-delta compression (top-k + error feedback,
     or int8), survivor- and step-normalized FedAvg (flat or two-tier),
@@ -351,16 +446,17 @@ def _round_aggregate(model: Model, *, compress, topk_frac, agg_every,
     cad_for_agg = new_cad
     if compress == "topk":
         delta = aggregation.adapter_delta(new_cad, cad_start)
-        dense, ef, _ = ErrorFeedback.apply(delta, ef, topk_frac)
+        dense, ef, _ = ErrorFeedback.apply(delta, ef, topk_frac, cohort)
         cad_for_agg = aggregation.apply_delta(cad_start, dense)
     elif compress == "int8":
         delta = aggregation.adapter_delta(new_cad, cad_start)
-        deq = int8_dequantize(int8_quantize(delta))
+        deq = int8_dequantize(int8_quantize(delta, cohort))
         deq = tree_map(lambda d, ref: d.to(ref.dtype), deq, delta)
         cad_for_agg = aggregation.apply_delta(cad_start, deq)
     agg = aggregation.fedavg(model, cad_for_agg, cuts, weights, active,
                              steps=steps, ranks=ranks,
-                             edge_assign=edge_assign, num_edges=num_edges)
+                             edge_assign=edge_assign, num_edges=num_edges,
+                             cohort=cohort)
     return aggregation.broadcast_after_agg(model, cad_for_agg, agg, new_sad,
                                            cuts), ef
 
@@ -395,7 +491,7 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
                            agg_every, compress, topk_frac,
                            max_local_steps: int, buckets=None,
                            num_edges: int = 1, server_step_norm: bool = True,
-                           all_inner_steps: bool = False):
+                           all_inner_steps: bool = False, shard=None):
     """The K-inner-step engine (see make_train_step).
 
     batch leaves carry a leading (K,) step axis; state carries
@@ -410,17 +506,21 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
     dev = model.device
 
     def step(base_params, state, batch, weights, active, lr_c, lr_s):
+        cohort = _cohort_of(shard, weights)
+        state = shard_state(state, cohort)
+        batch = shard_client_batch(batch, cohort, step_axis=True)
         cad, sad = state["client_adapters"], state["server_adapters"]
         cuts = state["cuts"]
-        choice, tfrac = state.get("smashed_choice"), state.get("topk_frac")
+        choice = state.get("smashed_choice")
+        tfrac = _replicated_rows(state, "topk_frac", cohort)
         budgets = _host(state["step_budgets"])
-        act_h = _host(active)
+        act_h = _local(cohort, _host(active))
         acts_h = torch.stack([act_h * (k < budgets).float()
                               for k in range(K)])             # (K, N)
-        live = [bool((a > 0).any()) for a in acts_h]
+        live = _any_per_row(acts_h, cohort)
         n_steps = K if all_inner_steps else max(1, sum(live))
         acts = acts_h[:n_steps].to(dev)
-        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        weights = _local(cohort, weights, device=dev)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         # 1/K_i server-gradient normalization: exactly 1.0 where
         # budgets == 1 (bitwise the sync step's gradient)
@@ -439,12 +539,13 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
                                          server_adapters=sad_c),
                 {key: v[k] for key, v in batch.items()}, weights * sa,
                 boundary=boundary, remat=remat, ce_chunk=ce_chunk,
-                server_scale=srv_scale)
+                server_scale=srv_scale, cohort=cohort)
             new_ef = met.pop("smashed_ef", None)
             if k == 0:
                 metrics, total = met, t
             with torch.no_grad():
-                new_cad, new_opt_c = opt.update(g_cad, opt_c, cad_c, lr_c)
+                new_cad, new_opt_c = opt.update(g_cad, opt_c, cad_c, lr_c,
+                                                norm_sum=cohort.sum)
                 cad_c = _select_clients(sa, live[k], new_cad, cad_c)
                 opt_c = _select_clients(sa, live[k], new_opt_c, opt_c)
                 new_sad, new_opt_s = opt.update(g_sad, opt_s, sad_c, lr_s)
@@ -463,7 +564,8 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
                 active=act_h.to(dev), ef=state.get("ef"),
                 round_idx=state["round"], steps=eff_steps,
                 ranks=_state_ranks(model, state, cuts),
-                edge_assign=state.get("edge_assign"), num_edges=num_edges)
+                edge_assign=state.get("edge_assign"), num_edges=num_edges,
+                cohort=cohort)
         new_state = dict(state)
         new_state.update(client_adapters=new_cad, server_adapters=sad_c,
                          opt_c=opt_c, opt_s=opt_s,
@@ -473,7 +575,7 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
         if ef_c is not None:
             new_state["smashed_ef"] = ef_c
         metrics["total"] = total
-        return new_state, metrics
+        return new_state, _gather_metrics(metrics, cohort)
 
     return step
 
@@ -484,7 +586,8 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
 
 def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
                      buffer_size: int, staleness_power: float, buckets=None,
-                     num_edges: int = 1, server_step_norm: bool = True):
+                     num_edges: int = 1, server_step_norm: bool = True,
+                     shard=None):
     """One event tick of the buffered asynchronous engine.
 
     step(base_params, state, batch, weights, active, lr_c, lr_s)
@@ -509,22 +612,26 @@ def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
     dev = model.device
 
     def step(base_params, state, batch, weights, active, lr_c, lr_s):
+        cohort = _cohort_of(shard, weights)
+        state = shard_state(state, cohort)
+        batch = shard_client_batch(batch, cohort)
         cad, sad = state["client_adapters"], state["server_adapters"]
         cuts = state["cuts"]
-        act_h = _host(active)
-        n = act_h.shape[0]
+        n = _host(active).shape[0]
         if M > n:
             raise ValueError(
                 f"buffer_size={M} can never fill: only {n} distinct "
                 "clients exist; clamp it to the fleet size")
-        any_act = bool((act_h > 0).any())
+        act_h = _local(cohort, _host(active))
+        any_act = _any_per_row(act_h[None], cohort)[0]
         act = act_h.to(dev)
         sm_ef = state.get("smashed_ef")
-        weights = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        weights = _local(cohort, weights, device=dev)
         boundary = _cut_boundary(smasher, buckets,
                                  state.get("smashed_choice"), cuts,
                                  residual=sm_ef,
-                                 topk_frac=state.get("topk_frac"))
+                                 topk_frac=_replicated_rows(
+                                     state, "topk_frac", cohort))
         # this tick is the finisher's (buffer_steps + 1)-th local step
         # since its last flush: exactly 1.0 right after a flush
         srv_scale = (1.0 / (_host(state["buffer_steps"]) + 1.0)
@@ -532,16 +639,18 @@ def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
         total, metrics, g_cad, g_sad = round_grads(
             model, base_params, state, batch, weights * act,
             boundary=boundary, remat=remat, ce_chunk=ce_chunk,
-            server_scale=srv_scale)
+            server_scale=srv_scale, cohort=cohort)
         new_sm_ef = metrics.pop("smashed_ef", None)
         with torch.no_grad():
-            wf = weights / torch.clamp(weights.sum(), min=1e-9)
-            fleet_total = (wf * (metrics["ce"] + metrics["aux"])).sum()
+            wf = weights / torch.clamp(cohort.sum(weights.sum()), min=1e-9)
+            fleet_total = _weighted_total(wf, metrics["ce"], metrics["aux"],
+                                          cohort)
             if new_sm_ef is not None:
                 new_sm_ef = _keep_rows(act, new_sm_ef, sm_ef)
             # only the finishing clients' rows and slots advance; the
             # server side advances whenever anyone finishes
-            new_cad, opt_c = opt.update(g_cad, state["opt_c"], cad, lr_c)
+            new_cad, opt_c = opt.update(g_cad, state["opt_c"], cad, lr_c,
+                                        norm_sum=cohort.sum)
             new_cad = _select_clients(act, any_act, new_cad, cad)
             opt_c = _select_clients(act, any_act, opt_c, state["opt_c"])
             new_sad, opt_s = opt.update(g_sad, state["opt_s"], sad, lr_s)
@@ -551,7 +660,7 @@ def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
             # buffer bookkeeping, on the host
             buf = torch.clamp(_host(state["buffer_mask"]) + act_h, 0.0, 1.0)
             bsteps = _host(state["buffer_steps"]) + act_h
-            fill = buf.sum()
+            fill = cohort.sum(buf.sum())
             staleness = (state["global_version"]
                          - state["adapter_version"]).float()
             aggregate = bool(fill >= M)
@@ -564,7 +673,7 @@ def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
                     staleness_power=staleness_power,
                     ranks=_state_ranks(model, state, cuts),
                     edge_assign=state.get("edge_assign"),
-                    num_edges=num_edges)
+                    num_edges=num_edges, cohort=cohort)
                 new_cad = aggregation.broadcast_after_agg(
                     model, new_cad, agg, new_sad, cuts, recv_mask=buf)
                 gver = gver + 1
@@ -584,29 +693,40 @@ def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
                        buffer_fill=fill, buffer_mask=buf,
                        staleness=staleness,
                        aggregated=torch.tensor(aggregate))
-        return new_state, metrics
+        return new_state, _gather_metrics(metrics, cohort)
 
     return step
 
 
-def make_eval_step(model: Model, *, ce_chunk: int = 0):
+def make_eval_step(model: Model, *, ce_chunk: int = 0, shard=None):
     """Evaluate the GLOBAL model (paper b4) on per-client eval batches.
 
     step(base_params, state, batch, weights) -> (per-client loss (N,),
     metrics): the inputs to the C3 rule.  The global adapters are shared
     (rank-2) leaves, so every q/k/v/o projection runs the fused LoRA
     kernel over all N * B * S tokens at once; the state's "rank_cut", if
-    any, sets the serving ranks."""
+    any, sets the serving ranks.  shard: each rank evaluates its rows of
+    the cohort, and the losses and metrics come back as (N,)."""
     dev = model.device
 
     @torch.no_grad()
     def step(base_params, state, batch, weights):
+        cohort = _cohort_of(shard, weights)
+        state = shard_state(state, cohort)
+        batch = shard_client_batch(batch, cohort)
         eff = split.serve_adapters(model, state["client_adapters"],
                                    state["server_adapters"], state["cuts"],
-                                   weights, rank_cut=state.get("rank_cut"))
+                                   _local(cohort, weights, device=dev),
+                                   rank_cut=state.get("rank_cut"),
+                                   cohort=cohort)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        return model.loss(base_params, eff, batch, ce_chunk=ce_chunk,
-                          per_client=True)
+        loss, met = model.loss(base_params, eff, batch, ce_chunk=ce_chunk,
+                               per_client=True)
+        if not cohort.split:
+            return loss, met
+        met = _gather_metrics(met, cohort)
+        met["aux"] = cohort.sum(met["aux"]) / cohort.world
+        return met["ce"] + met["aux"], met
 
     return step
 

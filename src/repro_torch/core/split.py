@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core import lora as lora_lib
 from repro_torch.models.model import Model
+from repro_torch.runtime.sharding import UNSHARDED, Cohort
 
 Params = Dict[str, Any]
 
@@ -94,36 +95,42 @@ def merge_adapters(model: Model, client_adapters: Params,
 
 def serve_adapters(model: Model, client_adapters: Params,
                    server_adapters: Params, cuts, weights,
-                   rank_cut=None) -> Params:
+                   rank_cut=None, cohort: Cohort = UNSHARDED) -> Params:
     """Global-model adapters for evaluation and serving (paper b4).
 
     Per flat layer: the FedAvg-weighted mix of the client copies (for
     clients that own the layer) and the server copy (for the rest).  The
     serving rank of a layer is the weighted mean rank, truncated to an
     integer in fp32 as in the reference.  rank_cut: optional (N,)
-    per-client rank-at-cut (see merge_adapters)."""
+    per-client rank-at-cut (see merge_adapters).  cohort: a
+    runtime.sharding.Cohort whose rank holds a block of the client axis
+    of the client adapters, cuts, weights and rank_cut; each sum over
+    clients is then summed over the ranks, in one all-reduce."""
     dev = model.device
     masks = client_layer_masks(model.num_flat_layers, cuts).to(dev)
     w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
-    w = w / torch.clamp(w.sum(), min=1e-9)
+    w = w / torch.clamp(cohort.sum(w.sum()), min=1e-9)
     ranks = lora_lib.effective_ranks(model.num_flat_layers, cuts,
                                      model.arch.lora, r_cut=rank_cut)
-    mean_ranks = (w[:, None] * ranks.to(dev)).sum(0)          # (M,)
-
-    out: Params = {}
+    part = {"ranks": (w[:, None] * ranks.to(dev)).sum(0)}      # (M,)
     for gname, targets in client_adapters.items():
         g = model.group_by_name[gname]
         ids = torch.as_tensor(g.layer_ids, device=dev)
         m = masks.index_select(1, ids).T                      # (Lg, N)
         wm = m * w[None, :]                                   # client share
-        ws = ((1.0 - m) * w[None, :]).sum(1)[:, None, None]   # server share
-        out[gname] = {}
+        part[gname] = ((1.0 - m) * w[None, :]).sum(1)         # server share
         for tname, ad in targets.items():
+            for k in ("A", "B"):
+                part[gname, tname, k] = torch.einsum("ln,ln...->l...", wm,
+                                                     ad[k])
+    part = cohort.sum_dict(part)
+    out: Params = {}
+    for gname, targets in client_adapters.items():
+        ws = part[gname][:, None, None]
+        out[gname] = {}
+        for tname in targets:
             srv = server_adapters[gname][tname]
-            out[gname][tname] = {
-                "A": torch.einsum("ln,ln...->l...", wm, ad["A"])
-                + ws * srv["A"],
-                "B": torch.einsum("ln,ln...->l...", wm, ad["B"])
-                + ws * srv["B"],
-            }
-    return lora_lib.mask_adapters(model, out, mean_ranks.to(torch.int32))
+            out[gname][tname] = {k: part[gname, tname, k] + ws * srv[k]
+                                 for k in ("A", "B")}
+    return lora_lib.mask_adapters(model, out,
+                                  part["ranks"].to(torch.int32))

@@ -65,6 +65,19 @@ scatter it back at its end (the async loop at each aggregation, where
 the event pipeline restarts only when the cohort's membership changed).
 Checkpoints then hold the engine state and the store, and the sampler's
 RNG state in their metadata.
+
+Client-axis sharding (``policy``, a runtime.sharding.ClientShard; the
+reference's ``policy=`` takes its mesh): every rank of the group runs
+this host loop on the same seed (data pipeline, scheduler, clock,
+deadlines, elastic membership, controllers, population sampler), so the
+host decisions are the same on every rank, and ``self.state`` holds the
+rank's rows of the cohort (``shard_state``).  Every host read of a
+client-axis leaf goes through a row gather, every host write of one is
+sliced, and once a round rank 0 broadcasts a digest of the round's host
+decisions (cuts and policy, active mask, weights, clock), against which
+every rank checks its own: ranks that disagree raise together.  A
+checkpoint holds the gathered state, written by rank 0, so it restores
+under any world size.
 """
 
 from __future__ import annotations
@@ -93,6 +106,9 @@ from repro_torch.runtime import timemodel
 from repro_torch.runtime import traces as traces_lib
 from repro_torch.runtime.elastic import ClientPool
 from repro_torch.runtime.population import CohortSampler, PopulationStore
+from repro_torch.runtime.sharding import (ClientShard, cohort_of,
+                                          gather_state, shard_state,
+                                          state_client_axis)
 from repro_torch.runtime.straggler import SpeedModel
 
 
@@ -159,11 +175,18 @@ def _np(x) -> np.ndarray:
 class SplitFTSystem:
     def __init__(self, arch: ArchConfig, sys_cfg: SystemConfig = None, *,
                  seed: int = 0, device: DeviceLike = None,
-                 draw_on_device: bool = False):
+                 draw_on_device: bool = False,
+                 policy: Optional[ClientShard] = None):
         self.arch = arch
         self.sys = sys_cfg or SystemConfig()
         self.seed = seed
         self.device = resolve_device(device)
+        if policy is not None and policy.device.type != self.device.type:
+            raise ValueError(f"the shard's collectives run on "
+                             f"{policy.device}, the system on {self.device}")
+        self.shard = policy
+        self.cohort = cohort_of(policy, arch.data.num_clients)
+        self._written: Dict[str, np.ndarray] = {}
         self.draw_device = (self.device if draw_on_device
                             else torch.device("cpu"))
 
@@ -338,7 +361,7 @@ class SplitFTSystem:
         init_choice = (self.comp_buckets.index(self.smashed_compress)
                        if self.smashed_compress in self.comp_buckets
                        else 0)
-        self.state = rounds.prepare_state(
+        state = rounds.prepare_state(
             state, max_local_steps=self.scheduler.max_steps,
             async_buffer=is_async,
             rank_cut=init_rank if co else None,
@@ -346,6 +369,8 @@ class SplitFTSystem:
             topk_frac=(self.smashed_topk_frac
                        if (co and self.continuous_topk) else None),
             edge_groups=self.num_edges)
+        # drawn for the whole cohort on every rank, then sliced
+        self.state = shard_state(state, self.cohort)
         self.train_step = rounds.make_train_step(
             self.model, remat=arch.train.remat,
             agg_every=self.sys.agg_every, compress=self.sys.compress,
@@ -356,8 +381,8 @@ class SplitFTSystem:
             max_local_steps=self.scheduler.max_steps,
             async_buffer=is_async, buffer_size=buf, staleness_power=spow,
             num_edges=self.num_edges,
-            server_step_norm=self.server_step_norm)
-        self.eval_step = rounds.make_eval_step(self.model)
+            server_step_norm=self.server_step_norm, shard=policy)
+        self.eval_step = rounds.make_eval_step(self.model, shard=policy)
 
         # ---- C3 state ----
         self.c3_weights = np.ones(n)
@@ -377,7 +402,7 @@ class SplitFTSystem:
                           bw_mean=self.speed.bw_mean,
                           bw_sigma=self.speed.bw_sigma)
                      if self.speed is not None else {})
-            self.store = PopulationStore(self.population, self.state,
+            self.store = PopulationStore(self.population, state,
                                          seed=seed, **sp_kw)
             self.sampler = CohortSampler(self.population, n, seed=seed)
         else:
@@ -471,10 +496,11 @@ class SplitFTSystem:
         per-cohort memo caches."""
         pids = np.asarray(pids, np.int64)
         self._cohort_pids = pids
-        self.state = self.store.gather(self.state, pids)
+        self.state = shard_state(self.store.gather(self.state, pids),
+                                 self.cohort)
         if "edge_assign" in self.state:
-            self.state["edge_assign"] = torch.as_tensor(
-                pids % self.num_edges, dtype=torch.int32)
+            self._set_leaf("edge_assign", torch.as_tensor(
+                pids % self.num_edges, dtype=torch.int32))
         self._cohort_cursors = self.store.cursors(pids)
         self.c3_weights = self.store.c3_weights(pids)
         self.loaders = [self._loader_for(int(p)) for p in pids]
@@ -518,8 +544,9 @@ class SplitFTSystem:
             # (inactive and dropped clients advance too, as the fleet
             # path's batch(r) stream does)
             cursors = np.asarray(self._cohort_cursors) + 1
-        self.store.scatter(self.state, self._cohort_pids,
-                           cursors=cursors, c3_weights=self.c3_weights)
+        self.store.scatter(gather_state(self.state, self.cohort),
+                           self._cohort_pids, cursors=cursors,
+                           c3_weights=self.c3_weights)
         self._cohort_scattered = True
 
     def _batch_index(self, i: int, r: int) -> int:
@@ -556,8 +583,37 @@ class SplitFTSystem:
     def _eval_batch(self, r: int):
         return stack_client_batches([l.batch(r) for l in self.eval_loaders])
 
+    def _leaf(self, key: str) -> torch.Tensor:
+        """A top-level state leaf for the host: the whole cohort's rows
+        of a client-axis leaf (a row gather under a split cohort)."""
+        x = self.state[key]
+        if (self.shard is None
+                or state_client_axis((key,), x.dim()) is None):
+            return x
+        return gather_state({key: x}, self.cohort)[key]
+
+    def _set_leaf(self, key: str, full: torch.Tensor):
+        """A host decision for the whole cohort into the state: this
+        rank's rows of a client-axis leaf.  The ranks' decisions are
+        checked against rank 0's once a round (_check_ranks_agree)."""
+        if self.shard is None:
+            self.state[key] = full
+            return
+        self._written[key] = _np(full).copy()
+        self.state[key] = shard_state({key: full}, self.cohort)[key]
+
+    def _check_ranks_agree(self, r: int, rec: Dict[str, Any]):
+        """Raise on every rank unless every rank took the same host
+        decisions in round r (no-op without a shard)."""
+        if self.shard is None:
+            return
+        self.shard.check_agree(
+            f"round {r}", np.int64(r), rec["active"], self._weights32(),
+            np.float64(self.sim_clock), self.pool.active,
+            *(self._written[k] for k in sorted(self._written)))
+
     def _cuts(self) -> np.ndarray:
-        return _np(self.state["cuts"]).copy()
+        return _np(self._leaf("cuts")).copy()
 
     # ------------------------------------------------------------------
     # round-loop pieces (one engine call + host-side policy around it)
@@ -565,10 +621,8 @@ class SplitFTSystem:
     def _state_policy(self):
         """The co-controller's per-client (rank_cut, smashed_choice) from
         round state as numpy, (None, None) under the static policy."""
-        rank = self.state.get("rank_cut")
-        choice = self.state.get("smashed_choice")
-        return (None if rank is None else _np(rank),
-                None if choice is None else _np(choice))
+        return tuple(_np(self._leaf(k)) if k in self.state else None
+                     for k in ("rank_cut", "smashed_choice"))
 
     def _state_frac(self) -> Optional[np.ndarray]:
         """The co-controller's per-client topk keep fraction from round
@@ -607,7 +661,7 @@ class SplitFTSystem:
         """The SpeedModel.phase_times argument set for one assignment,
         shared by the charged clock, the pricer's predictions and the
         telemetry baselines."""
-        ea = (_np(self.state["edge_assign"])
+        ea = (_np(self._leaf("edge_assign"))
               if (self.num_edges > 1 and "edge_assign" in self.state)
               else None)
         kw = dict(
@@ -730,7 +784,7 @@ class SplitFTSystem:
         }
         for k in rounds.POLICY:
             if k in self.state:
-                rec[k] = _np(self.state[k]).copy()
+                rec[k] = _np(self._leaf(k)).copy()
         if plan.times is not None:
             rec["round_time_sim"] = plan.times
             rec["sim_time"] = plan.sim_time
@@ -776,8 +830,8 @@ class SplitFTSystem:
                 self._cuts(), accs, self.arch.split,
                 self.model.num_flat_layers, round_times=times,
                 active=active)
-            self.state["cuts"] = torch.as_tensor(new_cuts,
-                                                 dtype=torch.int32)
+            self._set_leaf("cuts", torch.as_tensor(new_cuts,
+                                                   dtype=torch.int32))
             rec["weights"] = self.c3_weights.copy()
             return
         rank_np, choice_np = self._state_policy()
@@ -800,12 +854,13 @@ class SplitFTSystem:
                     price=lambda c, rk, ci, fr: self.predict_round_times(
                         r + 1, c, rk, ci, topk_frac=fr),
                     topk_frac=frac_np, **kw)
-            self.state["topk_frac"] = torch.as_tensor(new_frac,
-                                                      dtype=torch.float32)
-        self.state["cuts"] = torch.as_tensor(new_cuts, dtype=torch.int32)
-        self.state["rank_cut"] = torch.as_tensor(new_rank, dtype=torch.int32)
-        self.state["smashed_choice"] = torch.as_tensor(new_comp,
-                                                       dtype=torch.int32)
+            self._set_leaf("topk_frac", torch.as_tensor(
+                new_frac, dtype=torch.float32))
+        self._set_leaf("cuts", torch.as_tensor(new_cuts, dtype=torch.int32))
+        self._set_leaf("rank_cut", torch.as_tensor(new_rank,
+                                                   dtype=torch.int32))
+        self._set_leaf("smashed_choice", torch.as_tensor(new_comp,
+                                                         dtype=torch.int32))
         rec["predicted_time"] = pred
         rec["weights"] = self.c3_weights.copy()
 
@@ -816,6 +871,7 @@ class SplitFTSystem:
         if self._adaptive and (r + 1) % self.sys.adjust_every == 0:
             self._adjust_c3(r, rec, self._weights32(),
                             rec.get("round_time_sim"))
+        self._check_ranks_agree(r, rec)
         self.history.append(rec)
         if callback:
             callback(rec)
@@ -861,8 +917,8 @@ class SplitFTSystem:
             batch = (self._train_batch(r) if k == 1
                      else self._train_batches(r, k))
             if "step_budgets" in self.state:
-                self.state["step_budgets"] = torch.as_tensor(
-                    plan.step_budgets, dtype=torch.int32)
+                self._set_leaf("step_budgets", torch.as_tensor(
+                    plan.step_budgets, dtype=torch.int32))
             self.state, metrics = self.train_step(
                 self.base_params, self.state, batch, self._weights32(),
                 plan.active.astype(np.float32), lr_c, lr_s)
@@ -1258,10 +1314,15 @@ class SplitFTSystem:
             # the sampler's RNG state, so a restored run draws the same
             # cohort sequence
             meta["cohort_sampler"] = self.sampler.state_dict()
-            tree = {"engine": self.state, "pop": self.store.state_tree()}
-        else:
-            tree = self.state
-        self.ckpt.save(step, tree, metadata=meta)
+        # the whole cohort (a collective), written once: a checkpoint does
+        # not depend on the world size
+        full = gather_state(self.state, self.cohort)
+        tree = (full if self.store is None
+                else {"engine": full, "pop": self.store.state_tree()})
+        if self.shard is None or self.shard.rank == 0:
+            self.ckpt.save(step, tree, metadata=meta)
+        if self.shard is not None:
+            self.shard.barrier()
 
     def restore(self) -> bool:
         """Resume from the newest loadable checkpoint; False when there is
@@ -1327,13 +1388,17 @@ class SplitFTSystem:
                     f"population={self.population}; resume without "
                     "--population or use a fresh checkpoint dir")
             self.sampler.load_state_dict(meta["cohort_sampler"])
-            self.state = bridge.state_from_numpy(tree["engine"], self.device)
+            self.state = shard_state(
+                bridge.state_from_numpy(tree["engine"], self.device),
+                self.cohort)
             self.store.load_state_tree(tree["pop"])
             self._cohort_pids = None
             self._cohort_cursors = None
             self._cohort_scattered = True
         else:
-            self.state = bridge.state_from_numpy(tree, self.device)
+            self.state = shard_state(bridge.state_from_numpy(tree,
+                                                             self.device),
+                                     self.cohort)
         self.c3_weights = np.asarray(meta.get("c3_weights",
                                               self.c3_weights))
         if "active" in meta:
@@ -1353,6 +1418,9 @@ class SplitFTSystem:
         """(base_params, global adapters) for the serving path."""
         eff = serve_adapters(self.model, self.state["client_adapters"],
                              self.state["server_adapters"],
-                             self.state["cuts"], self._weights32(),
-                             rank_cut=self.state.get("rank_cut"))
+                             self.state["cuts"],
+                             self.cohort.rows(torch.as_tensor(
+                                 self._weights32())),
+                             rank_cut=self.state.get("rank_cut"),
+                             cohort=self.cohort)
         return self.base_params, eff

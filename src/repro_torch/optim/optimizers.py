@@ -1,7 +1,9 @@
 """Optimizers as pure (init, update) pairs over trees of tensors.
 
 Port of src/repro/optim/optimizers.py.  ``update(grads, state, params,
-lr)`` returns (new_params, new_state) and changes nothing in place.  The
+lr)`` returns (new_params, new_state) and changes nothing in place;
+``norm_sum`` sums the clip's squared norm over the ranks that each hold
+a block of a client-stacked tree.  The
 step counter ``state["count"]`` is an int32 tensor on the parameters'
 device: a scalar when every parameter takes the same number of steps
 (the sync path), or a per-client (N,) vector that the local-steps and
@@ -39,8 +41,8 @@ def sgd(momentum: float = 0.0, weight_decay: float = 0.0,
             state["mu"] = tree_map(torch.zeros_like, params)
         return state
 
-    def update(grads, state, params, lr):
-        grads = _clip(grads, grad_clip)
+    def update(grads, state, params, lr, *, norm_sum=None):
+        grads = _clip(grads, grad_clip, norm_sum)
         new_state = {"count": state["count"] + 1}
         step = grads
         if momentum:
@@ -61,8 +63,8 @@ def adamw(beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
                                   device=p.device), params)
         return {"m": zeros(), "v": zeros(), "count": _count(params)}
 
-    def update(grads, state, params, lr):
-        grads = _clip(grads, grad_clip)
+    def update(grads, state, params, lr, *, norm_sum=None):
+        grads = _clip(grads, grad_clip, norm_sum)
         cnt = state["count"] + 1
         m = tree_map(lambda m_, g: beta1 * m_ + (1 - beta1) * g.float(),
                      state["m"], grads)
@@ -92,12 +94,16 @@ def _bc_broadcast(bc, leaf):
     return bc.reshape((1, -1) + (1,) * (leaf.dim() - 2))
 
 
-def _clip(grads, clip: float):
+def _clip(grads, clip: float, norm_sum=None):
     """Scale the whole tree to global norm <= clip: one norm over every
-    leaf, so in a client-stacked tree all clients share the scale."""
+    leaf, so in a client-stacked tree all clients share the scale.
+    norm_sum, when the tree holds one rank's rows of the cohort, sums
+    the squared norm over the ranks (Cohort.sum)."""
     if not clip:
         return grads
     gsq = sum(g.float().square().sum() for g in tree_leaves(grads))
+    if norm_sum is not None:
+        gsq = norm_sum(gsq)
     scale = torch.clamp(clip / torch.clamp(torch.sqrt(gsq), min=1e-12),
                         max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads)

@@ -12,4 +12,4 @@ def _item(title: str) -> str:
 
 
 SERVING = _item("Serving follow-ups")
-SHARDING = _item("Client-axis sharding over several cards")
+PARAM_SHARDING = _item("Parameter sharding over several cards")

@@ -31,6 +31,12 @@ bit as they were and later in-place updates of the engine cannot reach
 them.  Leaves that are host tensors in the engine (bridge.HOST_STATE)
 stay on the host.
 
+Under client-axis sharding (runtime.sharding.ClientShard) every rank
+keeps a whole store, identical on every rank since every rank runs the
+same host loop on the same seed: gather() builds the whole cohort and
+the system keeps its rank's rows (shard_state); scatter() takes the
+cohort's rows gathered from every rank (gather_state).
+
 A fresh pid's slot is column (pid % C) of the *initial* engine state,
 so with P == C population mode starts from exactly the fleet state;
 speed and bandwidth draws are keyed by pid

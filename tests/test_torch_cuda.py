@@ -1542,3 +1542,47 @@ def test_whisper_on_card_matches_cpu(cuda):
     for gk, gc_ in zip(g_k, g_c):
         torch.testing.assert_close(gk.cpu(), gc_, rtol=1e-3,
                                    atol=1e-2 * scale)
+
+
+# ---------------------------------------------------------------------------
+# the cohort split over ranks on the card (chip_smoke.py phase 16 runs it
+# at full width)
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_the_card(cuda, tmp_path):
+    """NCCL at world size 1 is the unsharded run bit for bit; 2 gloo
+    ranks that share the card hold N/2 rows each and match the unsharded
+    run within the CPU tests' tolerances, the float leaves within
+    CARD_ATOL_OF_MAX x max|leaf| or CARD_BOUNDS
+    (tests/torch_sharded_cases.py); every case is held before the test
+    says which failed."""
+    import torch_sharded_cases as cases
+
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.launch.sharded import process_group, run_ranks
+    from repro_torch.runtime.sharding import ClientShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with process_group(0, 1, tmp_path / "nccl", backend="nccl"):
+        shard = ClientShard(make_client_mesh(1), device=cuda)
+        assert shard.backend == "nccl"
+        for name in cases.CARD_CASES:
+            _, got = cases.run_case(name, shard, tmp_path, cuda)
+            _, want = cases.run_case(name, None, tmp_path, cuda)
+            cases.same_bits(got, want)
+    run_ranks(cases.card_rank, 2, tmp_path / "gloo", args=(str(tmp_path),))
+    failed = {}
+    for name in cases.CARD_CASES:
+        for r in range(2):
+            rows = torch.load(tmp_path / f"rows_{name}_{r}.pt")
+            assert set(rows.values()) == {cases.CASES[name][0] // 2}
+        try:
+            cases.held(torch.load(tmp_path / f"sharded_{name}.pt",
+                                  weights_only=False),
+                       torch.load(tmp_path / f"plain_{name}.pt",
+                                  weights_only=False), name,
+                       cases.CARD_ATOL_OF_MAX, cases.CARD_BOUNDS)
+        except AssertionError as e:
+            failed[name] = str(e)
+    assert not failed, failed

@@ -358,8 +358,8 @@ def test_device_busy_profiles_again_when_short_then_fails(monkeypatch):
 
     def fake_profile(torch_, run, prefix=256):
         run()
-        passes.append(1)
-        return 0.1, full if len(passes) == 3 else full[:1]
+        passes.append(prefix)
+        return 0.1, full if len(passes) == 3 else full[:1], (prefix, prefix)
 
     def run():
         w.launches += 2
@@ -369,10 +369,15 @@ def test_device_busy_profiles_again_when_short_then_fails(monkeypatch):
         "lora_matmul_indexed": w})
     wall, busy, _, kernels = cs.device_busy(torch, run, "test")
     assert len(passes) == 3 and kernels == {"lora_indexed_kernel": 2}
+    # each pass pads the run with more throwaway kernels than the last
+    assert passes == [cs.PROFILE_PREFIX * (i + 1) for i in range(3)]
     passes.clear()
     monkeypatch.setattr(cs, "_profile",
-                        lambda t, r, prefix=256: (r(), passes.append(1),
-                                              (0.1, full[:1]))[-1])
-    with pytest.raises(RuntimeError, match="no profile of 3"):
+                        lambda t, r, prefix=256: (r(), passes.append(prefix),
+                                              (0.1, full[:1], (prefix, 0)))[-1])
+    tries = cs.PROFILE_TRIES
+    with pytest.raises(RuntimeError, match=f"no profile of {tries}") as err:
         cs.device_busy(torch, run, "test")
-    assert len(passes) == 3
+    assert len(passes) == tries
+    assert f"{cs.PROFILE_PREFIX} of {cs.PROFILE_PREFIX} before the run, " \
+        f"0 of {cs.PROFILE_PREFIX} after it" in str(err.value)
