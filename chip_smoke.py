@@ -128,7 +128,24 @@ at full width (random weights from a seed):
     run's losses and state as P16_LOSS_RTOL, GRAD_TOL["int8"] and
     P16_OUTLIERS say, through ``runtime.agreement``); round walls and
     each rank's peak printed.  ``python3 chip_smoke.py --only 16``
-    builds and runs phase 16 alone.
+    builds and runs phase 16 alone;
+  * parameter sharding of the dense family (phase 17,
+    ``runtime.sharding.MeshShard``): llama3-8b at full width, 4 of its 32
+    layers, cut 2, phase 9's 5 clients x batch 4 x seq 512, SGD, 2
+    rounds of ``SplitFTSystem.run`` without and with int8 smashed
+    activations, each unsharded, under NCCL at world size 1 on a (1, 1)
+    mesh (bit for bit the unsharded run) and in 2 gloo ranks that share
+    the card on a (1, 2) mesh: tensor parallelism over "model" (16 of the
+    32 heads and their 4 KV heads, half the FFN width and of the
+    vocabulary on each rank, the vocab-parallel cross entropy).  Each
+    rank records the shapes its flash and fused LoRA kernels ran at, its
+    launches, its peak and its init's peak (held to its blocks, one full
+    leaf and the round state: each leaf is narrowed as it is drawn, so no
+    rank holds the whole tree); its results are held to the unsharded run's
+    (P17_TOL, through ``runtime.agreement``), and the kernels of the path
+    are held against their plain versions and timed at the TP-local
+    shapes.  ``python3 chip_smoke.py --only 17`` builds and runs phase 17
+    alone.
 
 The launch counters are read around each path, and every profile of a
 path holds its count of the port's own kernels to them (a profile that
@@ -454,6 +471,39 @@ P16_OUTLIERS = {"sgd": ({}, {}),
 # the result line's rows that phase 16's rounds launch
 P16_ROWS = ("flash_attention_fwd", "flash_attention_bwd", "lora_matmul_fwd",
             "lora_matmul_bwd", "int8_roundtrip_smashed")
+# phase 17: parameter sharding of the dense family (MeshShard): llama3-8b
+# at full width, P17_LAYERS of its 32 layers, cut P17_CUT, phase 9's 5
+# clients x batch 4 x seq 512, the cross entropy in chunks of
+# LLAMA_CE_CHUNK, SGD, P17_ROUNDS rounds, for each smashed compressor of
+# P17_SMASHED: unsharded, under NCCL at world size 1 on a (1, 1) mesh (bit
+# for bit the unsharded run) and in P17_RANKS gloo ranks that share the
+# card on a (1, P17_RANKS) mesh (tensor parallelism over "model").
+P17_LAYERS, P17_CUT, P17_ROUNDS, P17_RANKS = 4, 2, 2, 2
+P17_SMASHED = ("none", "int8")
+# what else a rank's init may hold on the card beside its blocks, one full
+# leaf and the round state (the generator, the caching allocator's
+# rounding)
+P17_INIT_SLACK = 64 * 2**20
+P17_TRAIN = dict(optimizer="sgd", lr_client=0.05, lr_server=0.05)
+# smashed compressor -> (rtol, atol as a share of max|leaf|, the losses'
+# rtol) of the gloo ranks' state and records against the unsharded run.  A
+# rank's GEMMs run at other shapes (N 2048 for wq, K 2048 for wo, half the
+# vocabulary), and cuBLAS picks its kernels by shape, so every sum runs in
+# another order; without compression the float leaves are held as the
+# card-vs-CPU steps hold uncompressed gradients (GRAD_TOL["none"]), with
+# int8 as int8-compressed ones (a code at the cut may take the
+# neighbouring step)
+P17_TOL = {"none": GRAD_TOL["none"] + (1e-5,),
+           "int8": GRAD_TOL["int8"] + (1e-5,)}
+# the shapes each rank's kernels run at on the (1, 2) mesh: the flash
+# kernels over (B, S, heads, hd) of q and of k, the fused LoRA over (K, N)
+P17_FLASH = {((20, 512, 16, 128), (20, 512, 4, 128))}
+P17_LORA = {(4096, 2048), (4096, 1024), (2048, 4096)}
+P17_WQ = (4096, 2048)        # the timed fused LoRA shape: wq's block
+# the result line's rows of the kernels at those shapes
+P17_ROWS = ("flash_attention_fwd (hd 128, TP 2)",
+            "flash_attention_bwd (hd 128, TP 2)",
+            "lora_matmul_fwd (TP 2)", "lora_matmul_bwd (TP 2)")
 
 
 def hd_row(kname: str, hd: int) -> str:
@@ -979,7 +1029,7 @@ def max_err(torch, got, want, dtype: str, what: str,
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
-    ap.add_argument("--only", choices=["15", "16"], default=None,
+    ap.add_argument("--only", choices=["15", "16", "17"], default=None,
                     help="build, then run this phase alone (no result "
                          "line); the contract's run takes no argument")
     args = ap.parse_args(argv)
@@ -1027,8 +1077,9 @@ def main(argv=None) -> int:
         return (torch.randn(shape, generator=gen) * scale).to(dtype).to(dev)
 
     wrappers = port_wrappers()
-    rows_of = list(wrappers) + [hd_row(k, hd) for hd in WIDE_HDS
-                                for k in WIDE_HD] + list(P15_ROWS)
+    rows_of = (list(wrappers) + [hd_row(k, hd) for hd in WIDE_HDS
+                                 for k in WIDE_HD] + list(P15_ROWS)
+               + list(P17_ROWS))
     worst = {k: 0.0 for k in rows_of}
     if args.only == "15":
         launches, rows = {k: 0 for k in rows_of}, {}
@@ -1039,6 +1090,12 @@ def main(argv=None) -> int:
     if args.only == "16":
         got = phase16(torch, dev, wrappers, name, card)
         log(f"phase 16 alone: launches {got}")
+        return 0
+    if args.only == "17":
+        launches, rows = {k: 0 for k in rows_of}, {}
+        phase17(torch, dev, F, wrappers, name, card, launches, worst, rows)
+        log(f"phase 17 alone: launches "
+            f"{ {k: c for k, c in launches.items() if c} }")
         return 0
 
     # -- phase 2: every kernel against its plain version ---------------------
@@ -1408,6 +1465,9 @@ def main(argv=None) -> int:
     for kname, c in phase16(torch, dev, wrappers, name, card).items():
         launches[kname] += c
 
+    # -- phase 17: parameter sharding, TP over "model", NCCL and gloo ------
+    phase17(torch, dev, F, wrappers, name, card, launches, worst, rows)
+
     # -- results ----------------------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
     lk = "src/repro/kernels/lora_matmul/kernel.py"
@@ -1431,7 +1491,7 @@ def main(argv=None) -> int:
     for hd in WIDE_HDS:
         for kname in WIDE_HD:
             sources[hd_row(kname, hd)] = sources[kname]
-    for kname in P15_ROWS:
+    for kname in P15_ROWS + P17_ROWS:
         sources[kname] = sources[kname.split(" (")[0]]
     kernels = []
     for kname, (src, replaces) in sources.items():
@@ -5567,6 +5627,442 @@ def phase16(torch, dev, wrappers, name, card):
         + f"; spawn + {P16_RANKS} ranks {spawned:.1f} s; the phase took "
         f"{time.perf_counter() - t0:.1f} s; launches {launches}")
     return launches
+
+
+def p17_arch(smashed: str):
+    """llama3-8b at full width, P17_LAYERS deep, cut P17_CUT, SGD, the
+    smashed compressor `smashed`; phase 9's clients, batch and seq."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config("llama3-8b")
+    return arch.replace(
+        model=dataclasses.replace(arch.model, num_layers=P17_LAYERS),
+        split=dataclasses.replace(arch.split, cut_layer=P17_CUT,
+                                  cut_buckets=(P17_CUT,),
+                                  smashed_compress=smashed),
+        train=dataclasses.replace(arch.train, **P17_TRAIN))
+
+
+@contextlib.contextmanager
+def recorded_shapes():
+    """While open, the yielded dict collects the shapes the model hands
+    the flash kernels ((B, S, H, hd) of q and of k) and the fused LoRA
+    ((K, N) of W), at the module attributes the blocks call (the kernels'
+    own wrappers and counters stay as they are)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.lora_matmul import ops as lops
+
+    got = {"flash": set(), "lora": set()}
+    flash, lora = fops.flash_attention, lops.lora_matmul
+
+    def flash_rec(q, k, v, **kw):
+        got["flash"].add((tuple(q.shape), tuple(k.shape)))
+        return flash(q, k, v, **kw)
+
+    def lora_rec(x, w, a, b, scale):
+        got["lora"].add(tuple(w.shape))
+        return lora(x, w, a, b, scale)
+
+    fops.flash_attention, lops.lora_matmul = flash_rec, lora_rec
+    try:
+        yield got
+    finally:
+        fops.flash_attention, lops.lora_matmul = flash, lora
+
+
+def p17_grad(torch, dev, wrappers, system, shard):
+    """The fused LoRA backward on the global model's eval loss (as
+    global_adapter_grad, on this rank's blocks of the base weights):
+    returns its launches and each gradient's largest |value|."""
+    from repro_torch.core.split import serve_adapters
+    from repro_torch.models.common import ShardingPolicy
+    from repro_torch.runtime.sharding import shard_client_batch
+    from repro_torch.tree import tree_leaves, tree_map
+
+    policy = ShardingPolicy.for_model(shard, system.arch)
+    eff = serve_adapters(
+        system.model, system.state["client_adapters"],
+        system.state["server_adapters"], system.state["cuts"],
+        system.cohort.rows(torch.as_tensor(system._weights32())),
+        cohort=system.cohort)
+    eff = tree_map(lambda x: x.detach().requires_grad_(True), eff)
+    ebatch = shard_client_batch(system.eval_step.last[2], system.cohort)
+    before = wrappers["lora_matmul_bwd"].launches
+    with torch.enable_grad():
+        per, _ = system.model.loss(
+            system.base_params, eff,
+            {k: torch.as_tensor(v, device=dev) for k, v in ebatch.items()},
+            per_client=True, ce_chunk=LLAMA_CE_CHUNK, policy=policy)
+        grads = torch.autograd.grad(per.sum(), tree_leaves(eff))
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise RuntimeError("phase 17: non-finite global-adapter gradient")
+    return (wrappers["lora_matmul_bwd"].launches - before,
+            [float(g.abs().max()) for g in grads])
+
+
+def p17_block_bytes(params) -> int:
+    """The bytes of base weights that param_specs gives each rank of the
+    (1, P17_RANKS) mesh."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import axis_sizes, param_specs
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_mesh(1, P17_RANKS)
+    sizes = axis_sizes(mesh)
+    total = 0
+    for x, spec in zip(tree_leaves(params),
+                       tree_leaves(param_specs(params, mesh))):
+        share = 1
+        for entry in spec:
+            for a in (() if entry is None else entry if
+                      isinstance(entry, tuple) else (entry,)):
+                share *= sizes[a]
+        total += x.numel() * x.element_size() // share
+    return total
+
+
+def p17_run(torch, dev, wrappers, shard, smashed, tag) -> dict:
+    """P17_ROUNDS rounds of phase 17's system under `shard` (None or a
+    MeshShard), then the global-adapter gradient.  Returns the gathered
+    state after each round (numpy), the records, per step its launches,
+    the kernels' shapes, the gradient's launches and sizes, the bytes of
+    base weights this process holds and its max_memory_allocated over
+    the rounds.  The system and its weights are gone when it returns."""
+    import functools
+
+    from repro_torch.core import rounds
+    from repro_torch.core.system import SplitFTSystem, SystemConfig
+    from repro_torch.runtime.sharding import gather_state
+    from repro_torch.tree import tree_leaves, tree_map
+
+    factories = rounds.make_train_step, rounds.make_eval_step
+    rounds.make_train_step, rounds.make_eval_step = (
+        functools.partial(f, ce_chunk=LLAMA_CE_CHUNK) for f in factories)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    try:
+        system = SplitFTSystem(p17_arch(smashed), SystemConfig(
+            num_samples=NUM_SAMPLES, eval_samples=EVAL_SAMPLES), seed=SEED,
+            device=dev, draw_on_device=True, policy=shard)
+    finally:
+        rounds.make_train_step, rounds.make_eval_step = factories
+    torch.cuda.synchronize()
+    # the init's peak over what the process held before it
+    init_peak = torch.cuda.max_memory_allocated() - held
+    base = sum(x.numel() * x.element_size()
+               for x in tree_leaves(system.base_params))
+    largest = max(x.numel() * x.element_size()
+                  for x in tree_leaves(system.base_params))
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(system.state)
+                      if isinstance(x, torch.Tensor) and x.is_cuda)
+    # unsharded: the bytes param_specs gives one rank of the ranks' mesh
+    block = (p17_block_bytes(system.base_params) if shard is None
+             else base)
+    train = system.train_step = TimedStep(torch, system.train_step, wrappers)
+    ev = system.eval_step = TimedStep(torch, system.eval_step, wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    states, walls = [], []
+    with recorded_shapes() as shapes:
+        for r in range(P17_ROUNDS):
+            t0 = time.perf_counter()
+            system.run(1, log_every=0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            states.append(tree_map(lambda x: x.detach().cpu().numpy(),
+                                   gather_state(system.state,
+                                                system.cohort)))
+            if not np.isfinite(system.history[-1]["loss"]):
+                raise RuntimeError(f"{tag} round {r}: non-finite loss")
+        peak = torch.cuda.max_memory_allocated()
+        bwd, gmax = p17_grad(torch, dev, wrappers, system, shard)
+    out = {"states": states, "history": [dict(h) for h in system.history],
+           "train": [c[1] for c in train.calls],
+           "eval": [c[1] for c in ev.calls],
+           "step_s": [(c[2], e[2]) for c, e in zip(train.calls, ev.calls)],
+           "walls": walls, "shapes": shapes, "lora_bwd": bwd,
+           "grad_max": gmax, "base_bytes": base, "block_bytes": block,
+           "peak": peak, "init_peak": init_peak, "largest_leaf": largest,
+           "state_bytes": state_bytes,
+           "collectives": shard.collectives if shard is not None else 0,
+           "bytes": shard.bytes_reduced if shard is not None else 0}
+    del system, train, ev
+    torch.cuda.empty_cache()
+    log(f"{tag}: round walls {fmt([w * 1e3 for w in walls])} ms, train "
+        f"steps {fmt([a * 1e3 for a, _ in out['step_s']])} ms, eval steps "
+        f"{fmt([b * 1e3 for _, b in out['step_s']])} ms; "
+        f"losses {[float(h['loss']) for h in out['history']]}; base "
+        f"weights {base / 2**30:.3f} GiB, init peak {init_peak / 2**30:.3f} "
+        f"GiB, max_memory_allocated {peak / 2**30:.3f} GiB; collectives "
+        f"{out['collectives']}, bytes "
+        f"all-reduced {out['bytes']}")
+    return out
+
+
+def p17_rank(rank: int, world: int, out_dir: str, device: str = "cuda"):
+    """Phase 17 on one of P17_RANKS gloo ranks that share the card, on a
+    (1, P17_RANKS) mesh (run by repro_torch.launch.sharded.run_ranks in a
+    process of its own)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import MeshShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    shard = MeshShard(make_mesh(1, world), device=dev, backend="gloo")
+    got = {sm: p17_run(torch, dev, port_wrappers(), shard, sm,
+                       f"phase 17 {sm} gloo rank {rank} of {world} "
+                       f"{shard.coords}")
+           for sm in P17_SMASHED}
+    torch.save(got, Path(out_dir) / f"gloo_rank{rank}.pt")
+
+
+def p17_want(run, smashed):
+    """Launches per train and eval step on every run: the flash forward
+    and backward once a layer, the int8 round trip twice a distinct cut
+    (int8 only), the fused LoRA forward once a layer and target in the
+    eval step; its backward in the global-adapter gradient."""
+    targets = 4
+    train = {"flash_attention_fwd": P17_LAYERS,
+             "flash_attention_bwd": P17_LAYERS,
+             "int8_roundtrip_smashed": 2 if smashed == "int8" else 0}
+    ev = {"flash_attention_fwd": P17_LAYERS,
+          "lora_matmul_fwd": targets * P17_LAYERS}
+    for what, want, steps in (("train", train, run["train"]),
+                              ("eval", ev, run["eval"])):
+        for i, got in enumerate(steps):
+            for k, c in want.items():
+                if got[k] != c:
+                    raise RuntimeError(f"phase 17 {smashed} {what} step {i} "
+                                       f"launched {k} {got[k]} times, want "
+                                       f"{c}")
+    if run["lora_bwd"] != targets * P17_LAYERS:
+        raise RuntimeError(f"phase 17 {smashed}: the fused LoRA backward "
+                           f"launched {run['lora_bwd']} times")
+
+
+def p17_kernels(torch, F, rand, worst, rows):
+    """The kernels of phase 17's path at the TP-local shapes of a (1, 2)
+    mesh (fp32): the flash forward and backward over 16 query heads and 4
+    KV heads of 128 (B 20, S 512, causal) through time_flash_cases; the
+    fused LoRA forward and backward at M 10240 (the eval step's rows) for
+    wq (K 4096, N 2048), wk and wv (4096, 1024) and wo (2048, 4096), r 16
+    (P17_LORA).  Each against its plain version first (worst takes the
+    larger error at the TP rows), then timed beside the plain version
+    and, for flash, SDPA; the LoRA rows are P17_WQ's."""
+    from repro_torch.kernels.lora_matmul import ops as lops
+
+    errs = {hd_row(k, 128): 0.0 for k in WIDE_HD}
+    got = time_flash_cases(torch, F, rand, errs, [
+        (P17_ROWS[0], P17_ROWS[1], 20, 512, 512, 16, 4, 128, True,
+         "a llama3-8b train step's block on one of 2 \"model\" ranks")])
+    for i, k in enumerate(("flash_attention_fwd", "flash_attention_bwd")):
+        worst[P17_ROWS[i]] = max(worst[P17_ROWS[i]], errs[hd_row(k, 128)])
+    rows.update(got)
+    m, r = 10240, 16
+    for kd, n in sorted(P17_LORA):
+        x, g = rand(m, kd), rand(m, n)
+        w = rand(kd, n, scale=kd ** -0.5)
+        a, bb = rand(kd, r, scale=r ** -0.5), rand(r, n, scale=0.02)
+        sc = torch.tensor(2.0, device=x.device)
+        y, xa = lops.lora_matmul_fwd(x, w, a, bb, sc)
+        what = f"M={m} K={kd} N={n}"
+        worst[P17_ROWS[2]] = max([worst[P17_ROWS[2]]] + [
+            max_err(torch, got_, want, "float32", f"TP lora fwd {what}",
+                    scaled=True)
+            for got_, want in zip((y, xa), lops.ref.lora_matmul_fwd(
+                x, w, a, bb, sc))])
+        worst[P17_ROWS[3]] = max([worst[P17_ROWS[3]]] + [
+            max_err(torch, got_, want, "float32", f"TP lora bwd {what}",
+                    scaled=True)
+            for got_, want in zip(
+                lops.lora_matmul_bwd(x, w, a, bb, sc, g, xa),
+                lops.ref.lora_matmul_bwd(x, w, a, bb, sc, g, xa))])
+        if (kd, n) != P17_WQ:
+            continue
+        mat, low = 2 * m * kd * n, 2 * m * r * (kd + n)
+        rows[P17_ROWS[2]] = dict(
+            ms=cuda_ms(torch, lambda: lops.lora_matmul_fwd(x, w, a, bb, sc)),
+            plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_fwd(
+                x, w, a, bb, sc)),
+            library_ms=None,
+            # read x, W, A, B; write y, xa
+            **work(4 * (m * kd + kd * n + kd * r + r * n + m * n + m * r),
+                   mat + low, products=True),
+            shape=f"{what} r={r} fp32 (wq's column block)")
+        rows[P17_ROWS[3]] = dict(
+            ms=cuda_ms(torch, lambda: lops.lora_matmul_bwd(
+                x, w, a, bb, sc, g, xa)),
+            plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_bwd(
+                x, w, a, bb, sc, g, xa)),
+            library_ms=None,
+            # read x, W, A, B, g, xa; write dx, dA, dB
+            **work(4 * (2 * m * kd + kd * n + 2 * kd * r + 2 * r * n
+                        + m * n + m * r), mat + 2 * low + 2 * m * r,
+                   products=True),
+            shape=f"{what} r={r} fp32 (wq's column block)")
+        del x, g, w, a, bb, y, xa
+        torch.cuda.empty_cache()
+    log("phase 17: the kernels at the TP-local shapes agree with their "
+        "plain versions: " + ", ".join(f"{k} {worst[k]:.3e}"
+                                       for k in P17_ROWS)
+        + f" (tol {TOL['float32']}, the LoRA's scaled by its rows)")
+    for kname in P17_ROWS:
+        row = rows[kname]
+        lib = ("n/a" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f}")
+        log(f"phase 17 [{torch.cuda.get_device_name(0)}, {card_line()}] "
+            f"{kname} at {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
+            f"{row['bound'][0]:.4f} ms ({row['bound'][1]}); fp32 CUDA-core "
+            f"bound {row['cuda_core_bound']:.4f} ms")
+
+
+def p17_compare(got, want, what, smashed):
+    """A sharded run's states and records against the unsharded run's:
+    logs per round and state key the largest |diff| / max|leaf| and the
+    share of a leaf's elements outside the tolerance, then holds them to
+    P17_TOL (runtime.agreement)."""
+    from repro_torch.runtime import agreement
+
+    rtol, atol, loss_rtol = P17_TOL[smashed]
+    seen = [agreement.check_state(a, b, rtol=rtol, atol_of_max=atol,
+                                  outliers={k: 1.0 for k in b})
+            for a, b in zip(got["states"], want["states"], strict=True)]
+    loss = agreement.check_history(got["history"], want["history"],
+                                   loss_rtol=1.0)
+    log(f"{what}: per round and state key the largest |diff| / max|leaf| "
+        "and the share of a leaf's elements outside the tolerance: "
+        + "; ".join(f"round {r}: " + ", ".join(
+            f"{k} {v:.3e} {o:.3e}" for k, (v, o) in g.items())
+            for r, g in enumerate(seen))
+        + f"; losses' largest relative difference {loss:.3e}")
+    for a, b in zip(got["states"], want["states"]):
+        agreement.check_state(a, b, rtol=rtol, atol_of_max=atol)
+    agreement.check_history(got["history"], want["history"],
+                            loss_rtol=loss_rtol)
+    return max(v for g in seen for v, _ in g.values()), loss
+
+
+def phase17(torch, dev, F, wrappers, name, card, launches, worst, rows):
+    """Phase 17: parameter sharding of the dense family's training round,
+    for each smashed compressor of P17_SMASHED.  Adds every run's
+    launches to `launches` (the flash and fused LoRA kernels at the
+    TP-local shapes to P17_ROWS, the rest to their rows), fills `worst`
+    and `rows` at P17_ROWS."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharded import process_group, run_ranks
+    from repro_torch.runtime import agreement
+    from repro_torch.runtime.sharding import MeshShard
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 17)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p17_"))
+    try:
+        plain = {sm: p17_run(torch, dev, wrappers, None, sm,
+                             f"phase 17 {sm} unsharded")
+                 for sm in P17_SMASHED}
+        with process_group(0, 1, tmp / "nccl", backend="nccl"):
+            shard = MeshShard(make_mesh(1, 1), device=dev)
+            nccl = {sm: p17_run(torch, dev, wrappers, shard, sm,
+                                f"phase 17 {sm} {shard.backend} world 1")
+                    for sm in P17_SMASHED}
+            del shard
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        run_ranks(p17_rank, make_mesh(1, P17_RANKS), tmp / "gloo",
+                  args=(str(tmp), dev.type))
+        spawned = time.perf_counter() - t1
+        gloo = [torch.load(tmp / f"gloo_rank{r}.pt", weights_only=False)
+                for r in range(P17_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    gaps = {}
+    for sm in P17_SMASHED:
+        agreement.same_bits(
+            {k: nccl[sm][k] for k in ("states", "history")},
+            {k: plain[sm][k] for k in ("states", "history")},
+            f"phase 17 {sm} NCCL world 1")
+        for run in [plain[sm], nccl[sm]] + [g[sm] for g in gloo]:
+            p17_want(run, sm)
+        gaps[sm] = p17_compare(gloo[0][sm], plain[sm],
+                               f"phase 17 {sm} {P17_RANKS} gloo ranks", sm)
+        for r, g in enumerate(x[sm] for x in gloo):
+            if g["shapes"]["flash"] != P17_FLASH or \
+                    g["shapes"]["lora"] != P17_LORA:
+                raise RuntimeError(f"phase 17 {sm} gloo rank {r} ran its "
+                                   f"kernels at {g['shapes']}, want flash "
+                                   f"{P17_FLASH} and LoRA {P17_LORA}")
+            if g["base_bytes"] != plain[sm]["block_bytes"]:
+                raise RuntimeError(f"phase 17 {sm} gloo rank {r} holds "
+                                   f"{g['base_bytes']} bytes of base "
+                                   "weights, param_specs gives it "
+                                   f"{plain[sm]['block_bytes']}")
+            # each leaf narrowed as it is drawn: the init holds the rank's
+            # blocks, one full leaf and the round state, never the tree
+            bound = (g["base_bytes"] + plain[sm]["largest_leaf"]
+                     + g["state_bytes"] + P17_INIT_SLACK)
+            if g["init_peak"] > bound:
+                raise RuntimeError(f"phase 17 {sm} gloo rank {r}: the init "
+                                   f"peaked at {g['init_peak']} bytes, over "
+                                   f"its blocks, one full leaf and the "
+                                   f"state ({bound})")
+    # the unsharded runs' kernels ran at the full shapes: their launches go
+    # to the kernels' rows, the ranks' at the TP-local shapes to P17_ROWS
+    tp_row = {"flash_attention_fwd": P17_ROWS[0],
+              "flash_attention_bwd": P17_ROWS[1],
+              "lora_matmul_fwd": P17_ROWS[2], "lora_matmul_bwd": P17_ROWS[3]}
+    for runs, tp in [(plain, False), (nccl, False)] + [(g, True)
+                                                       for g in gloo]:
+        for run in runs.values():
+            for step in run["train"] + run["eval"]:
+                for k, c in step.items():
+                    row = tp_row.get(k, k) if tp else hd_row(k, 128)
+                    launches[row] += c
+            launches[tp_row["lora_matmul_bwd"] if tp
+                     else "lora_matmul_bwd"] += run["lora_bwd"]
+    p17_kernels(torch, F, rand, worst, rows)
+    log(f"phase 17 [{name}, {card}]: llama3-8b at full width, "
+        f"{P17_LAYERS} layers; NCCL at world size 1 on a (1, 1) mesh == "
+        f"unsharded bit for bit; {P17_RANKS} gloo ranks on a (1, "
+        f"{P17_RANKS}) mesh ran the flash kernels at {sorted(P17_FLASH)} "
+        f"and the fused LoRA at {sorted(P17_LORA)}, per-step launches as "
+        "the unsharded steps'; largest |diff| / max|leaf| and losses' "
+        "relative difference "
+        + ", ".join(f"{sm} {gaps[sm][0]:.3e} {gaps[sm][1]:.3e} (tol "
+                    f"{P17_TOL[sm]})" for sm in P17_SMASHED)
+        + "; base weights per process (GiB): unsharded "
+        f"{plain[P17_SMASHED[0]]['base_bytes'] / 2**30:.3f}, gloo "
+        f"{[round(g[P17_SMASHED[0]]['base_bytes'] / 2**30, 3) for g in gloo]}"
+        + "; init peak per process (GiB): "
+        + "; ".join(f"{sm} unsharded {plain[sm]['init_peak'] / 2**30:.3f}, "
+                    f"NCCL {nccl[sm]['init_peak'] / 2**30:.3f}, gloo "
+                    f"{[round(g[sm]['init_peak'] / 2**30, 3) for g in gloo]}"
+                    f" (bound: blocks + largest leaf "
+                    f"{plain[sm]['largest_leaf'] / 2**30:.3f} + state)"
+                    for sm in P17_SMASHED)
+        + "; peak per process (GiB): "
+        + "; ".join(f"{sm} unsharded {plain[sm]['peak'] / 2**30:.3f}, NCCL "
+                    f"{nccl[sm]['peak'] / 2**30:.3f}, gloo "
+                    f"{[round(g[sm]['peak'] / 2**30, 3) for g in gloo]}"
+                    for sm in P17_SMASHED)
+        + f"; spawn + {P17_RANKS} ranks {spawned:.1f} s; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def lora_args(torch, rand, m, dt, gen):

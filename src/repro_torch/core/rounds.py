@@ -41,10 +41,10 @@ device, the port loops and branches on the host: the local-steps loop
 stops after the last inner step in which some client is active, since
 the reference's later inner steps select every leaf back unchanged.
 
-Client-axis sharding (``shard``, a runtime.sharding.ClientShard): each
-rank of the group holds its block of the cohort's rows of every
-client-axis leaf, and each step takes the full (N,) weights and mask and
-the full batch, and keeps its rows of them (``shard_state``,
+Sharding (``shard``, a runtime.sharding.MeshShard or ClientShard): each
+rank holds its block of the cohort's rows, over the mesh's "data" axis,
+of every client-axis leaf, and each step takes the full (N,) weights
+and mask and the full batch, and keeps its rows of them (``shard_state``,
 ``shard_client_batch``), as the reference's engines pin the state and
 batch to the mesh's "data" axis on entry and exit.  Every sum over
 clients is a rank-local partial sum followed by an all-reduce: the
@@ -58,7 +58,10 @@ values, and per-client metrics come back as (N,) on every rank.  The
 MoE router loss is a mean over the cohort's routing groups (every
 sequence of every client is one), so each rank adds its own mean times
 1 / world.  Any random draw of the state is made for the whole cohort
-and then sliced, so no result depends on the world size.
+and then sliced, so no result depends on the world size.  Under a
+MeshShard the model runs on the rank's blocks of the base weights
+(models/common.ShardingPolicy), and an adapter gradient that a rank
+computed a part of is summed over "model" first (``round_grads``).
 """
 
 from __future__ import annotations
@@ -68,13 +71,15 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core import aggregation, lora as lora_lib, smashed, split
+from repro_torch.models.common import NO_SHARDING, ShardingPolicy
 from repro_torch.models.model import Model
 from repro_torch.optim.compression import (ErrorFeedback, int8_dequantize,
                                            int8_quantize)
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.runtime.sharding import (UNSHARDED, Cohort, cohort_of,
                                           shard_client_batch, shard_state)
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import (tree_leaves, tree_leaves_with_path, tree_map,
+                              tree_unflatten)
 
 Params = Dict[str, Any]
 
@@ -277,9 +282,10 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
         buckets = tuple(
             smashed.make_compressor(nm, topk_frac=smashed_topk_frac)
             for nm in compressor_buckets)
+    policy = ShardingPolicy.for_model(shard, model.arch)
     common = dict(remat=remat, ce_chunk=ce_chunk, buckets=buckets,
                   num_edges=num_edges, server_step_norm=server_step_norm,
-                  shard=shard)
+                  shard=shard, policy=policy)
     if async_buffer:
         if max_local_steps > 1 or microbatch > 1:
             raise ValueError("the async engine runs one local step per "
@@ -326,7 +332,7 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
         total, metrics, g_cad, g_sad = round_grads(
             model, base_params, state, batch, weights * active,
             boundary=boundary, remat=remat, ce_chunk=ce_chunk,
-            microbatch=microbatch, cohort=cohort)
+            microbatch=microbatch, cohort=cohort, policy=policy)
         new_sm_ef = metrics.pop("smashed_ef", None)
         with torch.no_grad():
             if new_sm_ef is not None:
@@ -358,7 +364,8 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
 def round_grads(model: Model, base_params, state: Params, batch, weights,
                 boundary=None, *, remat: str = "none", ce_chunk: int = 0,
                 microbatch: int = 1, server_scale=None,
-                cohort: Cohort = UNSHARDED):
+                cohort: Cohort = UNSHARDED,
+                policy: ShardingPolicy = NO_SHARDING):
     """f1-f5 of one round: the weighted round loss and its gradients.
 
     weights: (N,) survivor-masked FedAvg x C3 weights, normalized here.
@@ -376,7 +383,12 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
     split cohort.  The weights are then normalized over the cohort, the
     total and the router loss ("aux") are the cohort's, and the server
     grads are summed over the ranks; the per-client metrics and the
-    client grads are this rank's rows."""
+    client grads are this rank's rows.
+
+    policy: the base weights are a MeshShard's blocks; the adapters are
+    whole on every "model" rank (adapter_specs), so a leaf whose gradient
+    this rank computed a part of is summed over "model"
+    (``ShardingPolicy.partial_targets``) before the sums over clients."""
     cad, sad = state["client_adapters"], state["server_adapters"]
     batch = {k: torch.as_tensor(v, device=model.device)
              for k, v in batch.items()}
@@ -402,7 +414,7 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
                 rank_cut=state.get("rank_cut"), server_scale=server_scale)
             per_loss, met = model.loss(base_params, eff, mb, remat=remat,
                                        ce_chunk=ce_chunk, per_client=True,
-                                       boundary=boundary)
+                                       boundary=boundary, policy=policy)
             t = ((wl * per_loss).sum() if w_aux is None
                  else (wl * met["ce"]).sum() + w_aux * met["aux"])
             g = torch.autograd.grad(t, leaves, allow_unused=True)
@@ -420,6 +432,12 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
         total = total * scale
         metrics = {k: v * scale for k, v in metrics.items()}
         grads = [g * scale for g in grads]
+    tp_parts = policy.partial_targets(model.cfg, base_params)
+    paths = [*tree_leaves_with_path(cad), *tree_leaves_with_path(sad)]
+    idx = [i for i, (keys, _) in enumerate(paths)
+           if tuple(keys[:2]) in tp_parts]
+    for i, g in zip(idx, policy.tp_sum_many([grads[i] for i in idx])):
+        grads[i] = g
     if cohort.active:
         # every rank takes the same server step: its gradient is the
         # cohort's sum, and so are the total and the router loss
@@ -491,7 +509,8 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
                            agg_every, compress, topk_frac,
                            max_local_steps: int, buckets=None,
                            num_edges: int = 1, server_step_norm: bool = True,
-                           all_inner_steps: bool = False, shard=None):
+                           all_inner_steps: bool = False, shard=None,
+                           policy: ShardingPolicy = NO_SHARDING):
     """The K-inner-step engine (see make_train_step).
 
     batch leaves carry a leading (K,) step axis; state carries
@@ -539,7 +558,7 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
                                          server_adapters=sad_c),
                 {key: v[k] for key, v in batch.items()}, weights * sa,
                 boundary=boundary, remat=remat, ce_chunk=ce_chunk,
-                server_scale=srv_scale, cohort=cohort)
+                server_scale=srv_scale, cohort=cohort, policy=policy)
             new_ef = met.pop("smashed_ef", None)
             if k == 0:
                 metrics, total = met, t
@@ -587,7 +606,7 @@ def _make_local_steps_step(model: Model, opt, smasher, *, remat, ce_chunk,
 def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
                      buffer_size: int, staleness_power: float, buckets=None,
                      num_edges: int = 1, server_step_norm: bool = True,
-                     shard=None):
+                     shard=None, policy: ShardingPolicy = NO_SHARDING):
     """One event tick of the buffered asynchronous engine.
 
     step(base_params, state, batch, weights, active, lr_c, lr_s)
@@ -639,7 +658,7 @@ def _make_async_step(model: Model, opt, smasher, *, remat, ce_chunk,
         total, metrics, g_cad, g_sad = round_grads(
             model, base_params, state, batch, weights * act,
             boundary=boundary, remat=remat, ce_chunk=ce_chunk,
-            server_scale=srv_scale, cohort=cohort)
+            server_scale=srv_scale, cohort=cohort, policy=policy)
         new_sm_ef = metrics.pop("smashed_ef", None)
         with torch.no_grad():
             wf = weights / torch.clamp(cohort.sum(weights.sum()), min=1e-9)
@@ -706,8 +725,10 @@ def make_eval_step(model: Model, *, ce_chunk: int = 0, shard=None):
     (rank-2) leaves, so every q/k/v/o projection runs the fused LoRA
     kernel over all N * B * S tokens at once; the state's "rank_cut", if
     any, sets the serving ranks.  shard: each rank evaluates its rows of
-    the cohort, and the losses and metrics come back as (N,)."""
+    the cohort, and the losses and metrics come back as (N,); a MeshShard
+    also runs the model on its blocks of the base weights."""
     dev = model.device
+    policy = ShardingPolicy.for_model(shard, model.arch)
 
     @torch.no_grad()
     def step(base_params, state, batch, weights):
@@ -721,7 +742,7 @@ def make_eval_step(model: Model, *, ce_chunk: int = 0, shard=None):
                                    cohort=cohort)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         loss, met = model.loss(base_params, eff, batch, ce_chunk=ce_chunk,
-                               per_client=True)
+                               per_client=True, policy=policy)
         if not cohort.split:
             return loss, met
         met = _gather_metrics(met, cohort)

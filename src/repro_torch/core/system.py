@@ -66,29 +66,37 @@ the event pipeline restarts only when the cohort's membership changed).
 Checkpoints then hold the engine state and the store, and the sampler's
 RNG state in their metadata.
 
-Client-axis sharding (``policy``, a runtime.sharding.ClientShard; the
+Sharding (``policy``, a runtime.sharding.MeshShard or ClientShard; the
 reference's ``policy=`` takes its mesh): every rank of the group runs
 this host loop on the same seed (data pipeline, scheduler, clock,
 deadlines, elastic membership, controllers, population sampler), so the
 host decisions are the same on every rank, and ``self.state`` holds the
-rank's rows of the cohort (``shard_state``).  Every host read of a
-client-axis leaf goes through a row gather, every host write of one is
-sliced, and once a round rank 0 broadcasts a digest of the round's host
-decisions (cuts and policy, active mask, weights, clock), against which
-every rank checks its own: ranks that disagree raise together.  A
-checkpoint holds the gathered state, written by rank 0, so it restores
-under any world size.
+rank's rows of the cohort over the mesh's "data" axis
+(``shard_state``).  A MeshShard also places the base weights once, at
+init, by ``param_specs`` (``leaf_block``, each leaf narrowed as it is
+drawn, so no rank holds the full tree: FSDP over "data", heads, FFN
+width and vocabulary over "model", the dense family only), and the
+engine's steps run the model on those blocks (models/common.
+ShardingPolicy); the adapters stay whole on every "model" rank.  Every
+host read of a client-axis leaf goes through a row gather, every host
+write of one is sliced, and once a round rank 0 broadcasts a digest of
+the round's host decisions (cuts and policy, active mask, weights,
+clock), against which every rank checks its own: ranks that disagree
+raise together.  A checkpoint holds the gathered state (no base
+weights), written by rank 0, so it restores under any mesh, sharded or
+not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch import bridge
+from repro_torch import bridge, roadmap
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import ArchConfig
 from repro_torch.core import adaptive, comm, rounds, smashed
@@ -100,15 +108,16 @@ from repro_torch.data import (ClientDataLoader, make_client_loaders,
 from repro_torch.data.pipeline import stack_client_batches
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import NO_SHARDING, ShardingPolicy
 from repro_torch.models.model import build_model
 from repro_torch.runtime import straggler
 from repro_torch.runtime import timemodel
 from repro_torch.runtime import traces as traces_lib
 from repro_torch.runtime.elastic import ClientPool
 from repro_torch.runtime.population import CohortSampler, PopulationStore
-from repro_torch.runtime.sharding import (ClientShard, cohort_of,
-                                          gather_state, shard_state,
-                                          state_client_axis)
+from repro_torch.runtime.sharding import (MeshShard, cohort_of,
+                                          gather_state, leaf_block,
+                                          shard_state, state_client_axis)
 from repro_torch.runtime.straggler import SpeedModel
 
 
@@ -176,7 +185,7 @@ class SplitFTSystem:
     def __init__(self, arch: ArchConfig, sys_cfg: SystemConfig = None, *,
                  seed: int = 0, device: DeviceLike = None,
                  draw_on_device: bool = False,
-                 policy: Optional[ClientShard] = None):
+                 policy: Optional[MeshShard] = None):
         self.arch = arch
         self.sys = sys_cfg or SystemConfig()
         self.seed = seed
@@ -345,8 +354,17 @@ class SplitFTSystem:
                                       arch.split.edge_groups) or 1)
         self.server_step_norm = _pick(self.sys.server_step_norm,
                                       arch.split.server_step_norm)
+        # the model's policy first: a family or mesh the port does not
+        # place raises before any weight is drawn
+        self.model_policy = ShardingPolicy.for_model(policy, arch)
+        # each leaf narrowed to this rank's block as it is drawn: no rank
+        # ever holds the full tree
+        place = (None if self.model_policy is NO_SHARDING else
+                 functools.partial(leaf_block, mesh=policy.mesh,
+                                   rank=policy.rank))
         self.base_params = self.model.init_params(
-            torch.Generator(device=self.draw_device).manual_seed(seed))
+            torch.Generator(device=self.draw_device).manual_seed(seed),
+            place=place)
         state = rounds.init_state(self.model,
                                   torch.Generator().manual_seed(seed + 1),
                                   num_clients=n)
@@ -1415,7 +1433,13 @@ class SplitFTSystem:
 
     # ------------------------------------------------------------------
     def serve_model(self):
-        """(base_params, global adapters) for the serving path."""
+        """(base_params, global adapters) for the serving path, which
+        takes whole base weights."""
+        if self.model_policy is not NO_SHARDING:
+            raise NotImplementedError(
+                "the serving path is policy-free, as the reference's: it "
+                "takes whole base weights, not a MeshShard's blocks "
+                f"({roadmap.PARAM_SHARDING})")
         eff = serve_adapters(self.model, self.state["client_adapters"],
                              self.state["server_adapters"],
                              self.state["cuts"],

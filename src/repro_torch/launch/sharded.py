@@ -1,25 +1,28 @@
 """The rank launcher: run one callable on every rank of a process group.
 
 The counterpart of the reference's ``with mesh:``.  ``run_ranks`` spawns
-`world` processes (torch.multiprocessing, start method "spawn"), joins
-each to one gloo group through a file store in a directory
-that the caller gives (no TCP port to collide with another group on the
-host), sets one intra-op thread per rank, runs ``fn(rank, world,
-*args)`` and returns rank 0's result.  A rank that raises fails the
-call, and torch.multiprocessing ends the other ranks.  ``process_group``
-joins the calling process itself, on gloo or NCCL (a group of one on a
-card: NCCL refuses two ranks on one device, so ranks that share a card
-run gloo).
+one process per rank of a mesh (torch.multiprocessing, start method
+"spawn"), joins each to one gloo group through a file store in a
+directory that the caller gives (no TCP port to collide with another
+group on the host), sets one intra-op thread per rank, runs ``fn(rank,
+world, *args)`` and returns rank 0's result.  A rank finds its (data,
+model) coordinates with ``runtime.sharding.mesh_coords(mesh, rank)``
+(row-major, as jax.make_mesh orders devices), which is what a
+``MeshShard`` built on the same mesh reads.  A rank that raises fails
+the call, and torch.multiprocessing ends the other ranks.
+``process_group`` joins the calling process itself, on gloo or NCCL (a
+group of one on a card: NCCL refuses two ranks on one device, so ranks
+that share a card run gloo).
 
-    from repro_torch.launch.mesh import make_client_mesh
-    from repro_torch.runtime.sharding import ClientShard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import MeshShard
 
     def train(rank, world):           # at module level: it is pickled
-        shard = ClientShard(make_client_mesh(world), device="cpu")
+        shard = MeshShard(make_mesh(2, 2), device="cpu")
         system = SplitFTSystem(arch, cfg, device="cpu", policy=shard)
         return system.run(2, log_every=0)
 
-    history = run_ranks(train, 4, "/path/to/empty/dir")
+    history = run_ranks(train, make_mesh(2, 2), "/path/to/empty/dir")
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from pathlib import Path
 from typing import Any, Callable, Sequence
 
 import torch
+
+from repro_torch.config import MeshConfig
 
 
 @contextlib.contextmanager
@@ -57,14 +62,16 @@ def _rank_main(rank: int, fn: Callable, world: int, init_dir: str,
         torch.save(out, Path(init_dir) / "result.pt")
 
 
-def run_ranks(fn: Callable, world: int, init_dir, *,
+def run_ranks(fn: Callable, world, init_dir, *,
               args: Sequence[Any] = ()) -> Any:
-    """fn(rank, world, *args) on `world` spawned gloo ranks; rank 0's
-    result.
+    """fn(rank, world, *args) on `world` spawned gloo ranks (a count, or
+    a MeshConfig: one rank per entry of the mesh); rank 0's result.
     fn must be importable at module level (spawn pickles it by name); a
     store or result that an earlier group left in init_dir is removed
     first."""
     import torch.multiprocessing as mp
+    if isinstance(world, MeshConfig):
+        world = world.num_devices
     init_dir = Path(init_dir)
     init_dir.mkdir(parents=True, exist_ok=True)
     for name in ("store", "result.pt"):

@@ -1,23 +1,219 @@
 """Shared model primitives: initializers, norms, activations, the
-LoRA-aware dense projection and the loss.
+LoRA-aware dense projection, the loss, and the sharding policy.
 
-Port of src/repro/models/common.py for one card: no sharding policy (there
-is no mesh).
-Parameters are nested dicts of tensors with the reference's names and
-layouts (``W`` is (d_in, d_out), per-group stacks keep the leading layer
-axis), so a JAX tree converted by ``repro_torch.bridge`` drops in as is.
+Port of src/repro/models/common.py.  Parameters are nested dicts of
+tensors with the reference's names and layouts (``W`` is (d_in, d_out),
+per-group stacks keep the leading layer axis), so a JAX tree converted by
+``repro_torch.bridge`` drops in as is.
+
+``ShardingPolicy`` is the counterpart of the reference's: where the
+reference constrains activations and XLA derives the collectives from
+``param_specs``, the port's blocks call the policy's collectives
+themselves, over the ranks of a ``runtime.sharding.MeshShard``: the FSDP
+gather of a layer's base weights over "data", and the two Megatron-style
+functions over "model" around each column- and row-parallel pair
+(``copy_to_tp``, ``reduce_from_tp``).  ``NO_SHARDING`` (no shard) calls
+nothing, so the unsharded path is the one-card path bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import roadmap
 from repro_torch.kernels.lora_matmul import ops as lora_ops
+from repro_torch.runtime.sharding import FSDP_AXES, logical_spec
 
 Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Sharding policy
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; the gradient summed over the "model" ranks (each
+    rank's consumers of x are its column blocks)."""
+
+    @staticmethod
+    def forward(ctx, x, policy):
+        ctx.policy = policy
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.policy.tp_sum(g), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The partial sums of a row-parallel product summed over the "model"
+    ranks; the gradient passes as it is (every rank's consumers of the
+    sum are the same)."""
+
+    @staticmethod
+    def forward(ctx, x, policy):
+        return policy.tp_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class ShardingPolicy:
+    """The collectives of a model whose base weights a MeshShard placed
+    (``runtime.sharding.leaf_block``), or none (``NO_SHARDING``).
+
+    ``tp`` / ``tp_rank``: the "model" axis's size and this rank's index
+    on it, read from the shard; a dim that ``param_specs`` splits over
+    "model" (heads, FFN width, vocabulary) holds this rank's block
+    ``tp_rank`` of ``tp``.
+    ``fsdp`` / ``fsdp_rank``: the same on "data", over which the base
+    weights' d_model dims are split and gathered layer by layer
+    (``gather``).  Which dims are split is read from the leaves' shapes
+    against the config's, which ``fit_spec``'s divisibility rule makes
+    the same thing."""
+
+    def __init__(self, shard=None):
+        self.shard = shard
+
+    @property
+    def tp(self) -> int:
+        return 1 if self.shard is None else self.shard.model_size
+
+    @property
+    def tp_rank(self) -> int:
+        return 0 if self.shard is None else self.shard.model_rank
+
+    @property
+    def fsdp(self) -> int:
+        return 1 if self.shard is None else self.shard.data_size
+
+    @property
+    def fsdp_rank(self) -> int:
+        return 0 if self.shard is None else self.shard.data_rank
+
+    @classmethod
+    def for_model(cls, shard, arch) -> "ShardingPolicy":
+        """The policy of a model under `shard`: NO_SHARDING without one
+        or under a ClientShard (base weights whole).  The port places the
+        dense family only: another family on a mesh of more than one
+        rank raises (on one rank its blocks are whole: NO_SHARDING), and
+        so does a head count that the "model" axis does not divide (the
+        reference would split a head across devices)."""
+        if shard is None or not getattr(shard, "places_params", False):
+            return NO_SHARDING
+        cfg = arch.model
+        if cfg.family != "dense":
+            if shard.world == 1:
+                return NO_SHARDING
+            raise NotImplementedError(
+                f"{arch.name} is of the {cfg.family} family: the port "
+                "places the base weights of the dense family only so far "
+                f"(experts, SSM and hybrid layers, the audio and vlm "
+                f"families under TP): see {roadmap.PARAM_SHARDING}")
+        if cfg.num_heads % shard.model_size:
+            raise ValueError(
+                f"{arch.name}: {cfg.num_heads} heads do not divide over a "
+                f"\"model\" axis of {shard.model_size}; the port computes "
+                f"whole heads ({roadmap.PARAM_SHARDING})")
+        return cls(shard)
+
+    # -- collectives ----------------------------------------------------
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shard.all_reduce([x], "sum", axis="model")[0]
+
+    def tp_sum_many(self, xs):
+        if self.tp == 1 or not xs:
+            return list(xs)
+        return self.shard.all_reduce(list(xs), "sum", axis="model")
+
+    def tp_max(self, x: torch.Tensor) -> torch.Tensor:
+        """MAX over the "model" ranks, no gradient."""
+        return self.shard.all_reduce([x.detach()], "max", axis="model")[0]
+
+    def copy_to_tp(self, x):
+        return x if self.tp == 1 else _CopyToTP.apply(x, self)
+
+    def reduce_from_tp(self, x):
+        return x if self.tp == 1 else _ReduceFromTP.apply(x, self)
+
+    def partial_targets(self, cfg, params: Params) -> frozenset:
+        """The (group, target) pairs whose adapter gradient this rank
+        computes only a part of, read from the rank's base leaves by the
+        tests the blocks make (``block``): the attention's when wq holds
+        a block of the heads (a column or row block, or the KV heads its
+        query heads read), the MLP's when w_in holds one of the FFN
+        width.  A target whose whole computation every rank repeats (a
+        width that fit_spec leaves whole) has its full gradient on every
+        rank."""
+        parts = set()
+        for name, g in params.items():
+            if not isinstance(g, dict) or "wq" not in g:
+                continue
+            if self.block(cfg.num_heads * cfg.head_dim,
+                          g["wq"].shape[-1]) is not None:
+                parts |= {(name, t) for t in ("q", "k", "v", "o")}
+            if "w_in" in g and self.block(cfg.d_ff,
+                                          g["w_in"].shape[-1]) is not None:
+                parts |= {(name, t) for t in ("mlp_in", "mlp_gate",
+                                              "mlp_out")}
+        return frozenset(parts)
+
+    # -- blocks -----------------------------------------------------------
+    def block(self, full: int, local: int) -> Optional[int]:
+        """The offset of this rank's block of a dim of `full` entries held
+        as `local`, or None when the dim is whole."""
+        if self.tp == 1 or local == full:
+            return None
+        if local * self.tp != full:
+            raise ValueError(f"a block of {local} of {full} entries is not "
+                             f"one of {self.tp} \"model\" blocks")
+        return self.tp_rank * local
+
+    def gather(self, p: Params, d_model: int) -> Params:
+        """One layer's (or the embedding's) leaves with every d_model dim
+        that FSDP split over "data" gathered (one SUM of zero-filled
+        buffers, exact).  The base weights are frozen: a leaf that
+        requires grad raises."""
+        if self.fsdp == 1:
+            return p
+        todo = []
+        for name, leaf in p.items():
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            spec = logical_spec(name, leaf.dim())
+            for dim, ax in enumerate(spec):
+                if ax == FSDP_AXES and leaf.shape[dim] != d_model:
+                    todo.append((name, dim))
+        if not todo:
+            return p
+        bufs = []
+        for name, dim in todo:
+            leaf = p[name]
+            if leaf.requires_grad:
+                raise ValueError(f"base leaf {name!r} requires grad: the "
+                                 "FSDP gather carries no gradient")
+            n = leaf.shape[dim]
+            if n * self.fsdp != d_model:
+                raise ValueError(f"{name}: a block of {n} is not one of "
+                                 f"{self.fsdp} \"data\" blocks of "
+                                 f"{d_model}")
+            shape = list(leaf.shape)
+            shape[dim] = d_model
+            buf = leaf.new_zeros(shape)
+            buf.narrow(dim, self.fsdp_rank * n, n).copy_(leaf)
+            bufs.append(buf)
+        with torch.no_grad():
+            full = self.shard.all_reduce(bufs, "sum", axis="data")
+        out = dict(p)
+        out.update({name: t for (name, _), t in zip(todo, full)})
+        return out
+
+
+NO_SHARDING = ShardingPolicy()
 
 
 # ---------------------------------------------------------------------------
@@ -25,11 +221,17 @@ Params = Dict[str, Any]
 # generator: a CPU generator gives the same weights on every device)
 
 
+def whole(name: str, leaf: torch.Tensor) -> torch.Tensor:
+    """The `place` of the initializers that keeps every leaf whole."""
+    return leaf
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, *, lead=()) -> torch.Tensor:
     scale = (1.0 / d_in) ** 0.5
-    return (torch.randn(tuple(lead) + (d_in, d_out), generator=gen,
-                        device=gen.device) * scale).to(dtype)
+    # scaled in place: one leaf-sized buffer while it is drawn
+    return torch.randn(tuple(lead) + (d_in, d_out), generator=gen,
+                       device=gen.device).mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
@@ -38,10 +240,13 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
             * 0.02).to(dtype)
 
 
-def init_norm(d: int, *, bias: bool, dtype=torch.float32, lead=()) -> Params:
-    p = {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype)}
+def init_norm(d: int, *, bias: bool, dtype=torch.float32, lead=(),
+              place=whole) -> Params:
+    p = {"scale": place("scale", torch.ones(tuple(lead) + (d,),
+                                            dtype=dtype))}
     if bias:
-        p["bias"] = torch.zeros(tuple(lead) + (d,), dtype=dtype)
+        p["bias"] = place("bias", torch.zeros(tuple(lead) + (d,),
+                                              dtype=dtype))
     return p
 
 

@@ -105,14 +105,49 @@ def _recomputed(fn, *args, remat: str):
                            preserve_rng_state=False, **kw)
 
 
-def _ce_sums(logits, labels, mask, keep: int):
+def _ce_sums(logits, labels, mask, keep: int,
+             policy: common.ShardingPolicy = common.NO_SHARDING,
+             vocab_lo: Optional[int] = None):
     """(nll_sum, hit_sum, count) reduced over all but the first `keep`
-    dims, in fp32; the same sums as the reference's ``_ce_sums``."""
+    dims, in fp32; the same sums as the reference's ``_ce_sums``.  With
+    vocab_lo, `logits` are this rank's block of the vocabulary, from
+    vocab_lo on (``_vocab_parallel_ce``)."""
+    if vocab_lo is not None:
+        return _vocab_parallel_ce(logits, labels, mask, keep, policy,
+                                  vocab_lo)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     correct = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = (lse - correct) * mask
     hits = (torch.argmax(lf, dim=-1) == labels.long()).float() * mask
+    dims = tuple(range(keep, nll.dim()))
+    return nll.sum(dims), hits.sum(dims), mask.sum(dims)
+
+
+def _vocab_parallel_ce(logits, labels, mask, keep: int,
+                       policy: common.ShardingPolicy, lo: int):
+    """The CE sums over logits split by vocabulary over the "model" ranks,
+    no rank holding a full-vocabulary row: the row max (a MAX over the
+    ranks, no gradient), the sum of the exponentials and the target's
+    logit (each a SUM, reduce_from_tp), and the argmax as the lowest
+    vocabulary index that holds the global max (a MAX of negated
+    indices), torch.argmax's first occurrence."""
+    lf = logits.float()
+    lab = labels.long()
+    vl = lf.shape[-1]
+    m = policy.tp_max(lf.max(dim=-1).values)
+    sumexp = policy.reduce_from_tp(torch.exp(lf - m[..., None]).sum(-1))
+    lse = torch.log(sumexp) + m
+    mine = (lab >= lo) & (lab < lo + vl)
+    local = torch.gather(lf, -1, torch.where(mine, lab - lo, 0)[..., None])
+    correct = policy.reduce_from_tp(
+        torch.where(mine, local[..., 0], torch.zeros_like(local[..., 0])))
+    nll = (lse - correct) * mask
+    with torch.no_grad():
+        lmax, larg = lf.max(dim=-1).values, torch.argmax(lf, dim=-1)
+        none = torch.full_like(larg, -(2 ** 62))
+        first = -policy.tp_max(torch.where(lmax == m, -(larg + lo), none))
+        hits = (first == lab).float() * mask
     dims = tuple(range(keep, nll.dim()))
     return nll.sum(dims), hits.sum(dims), mask.sum(dims)
 
@@ -224,39 +259,52 @@ class Model(nn.Module):
     # -- parameter init ------------------------------------------------------
 
     def init_params(self, generator: torch.Generator,
-                    dtype=torch.float32) -> Params:
+                    dtype=torch.float32, place=None) -> Params:
         """Random weights from `generator`, moved to this model's device.
         A CPU generator draws the same weights for every device; a
         generator on the card draws the dense and MoE weights there (no
-        host copy of a model too large to draw quickly on the CPU)."""
+        host copy of a model too large to draw quickly on the CPU).
+
+        place(name, leaf): the part of each leaf to keep (a MeshShard's
+        block, ``runtime.sharding.leaf_block``), called as soon as the
+        leaf is drawn, so that no more than one full leaf is alive at a
+        time beside the kept parts; the dense family only."""
         cfg = self.cfg
-        p: Params = {"embed": {"tok": common.embed_init(
-            generator, cfg.vocab_size, cfg.d_model, dtype)}}
+        if place is None:
+            place = common.whole
+        elif cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name}: the port places the base weights of the "
+                f"dense family only ({roadmap.PARAM_SHARDING})")
+        norm = functools.partial(common.init_norm, cfg.d_model,
+                                 bias=cfg.norm == "layernorm", dtype=dtype,
+                                 place=place)
+        p: Params = {"embed": {"tok": place("tok", common.embed_init(
+            generator, cfg.vocab_size, cfg.d_model, dtype))}}
         if cfg.learned_pos:
-            p["embed"]["pos"] = common.embed_init(
-                generator, cfg.max_position_embeddings, cfg.d_model, dtype)
+            p["embed"]["pos"] = place("pos", common.embed_init(
+                generator, cfg.max_position_embeddings, cfg.d_model, dtype))
         if not cfg.tie_embeddings:
-            p["embed"]["head"] = common.dense_init(
-                generator, cfg.d_model, cfg.vocab_size, dtype)
-        p["final_norm"] = common.init_norm(
-            cfg.d_model, bias=cfg.norm == "layernorm", dtype=dtype)
+            p["embed"]["head"] = place("head", common.dense_init(
+                generator, cfg.d_model, cfg.vocab_size, dtype))
+        p["final_norm"] = norm()
         if cfg.family == "audio":
             p["embed"]["enc_pos"] = common.embed_init(
                 generator, cfg.encoder_seq_len, cfg.d_model, dtype)
-            p["enc_norm"] = common.init_norm(
-                cfg.d_model, bias=cfg.norm == "layernorm", dtype=dtype)
+            p["enc_norm"] = norm()
         for g in self.groups:
             if g.kind == "ssm":
                 p[g.name] = ssm.init_ssm(generator, cfg, g.size, dtype=dtype)
                 continue
             p[g.name] = transformer.init_attention(
-                generator, cfg, g.size, cross=g.cross, dtype=dtype)
+                generator, cfg, g.size, cross=g.cross, dtype=dtype,
+                place=place)
             if g.kind == "attn_moe":
                 p[g.name].update(transformer.init_moe(
                     generator, cfg, g.size, dtype=dtype))
             elif cfg.d_ff:
                 p[g.name].update(transformer.init_mlp(
-                    generator, cfg, g.size, dtype=dtype))
+                    generator, cfg, g.size, dtype=dtype, place=place))
         return _to_device(p, self.device)
 
     # -- adapter spec (consumed by repro_torch.core.lora) ---------------------
@@ -299,11 +347,24 @@ class Model(nn.Module):
 
     # -- embedding / head ------------------------------------------------------
 
-    def embed(self, params: Params, tokens, *, positions=None, prefix=None):
+    def embed(self, params: Params, tokens, *, positions=None, prefix=None,
+              policy: common.ShardingPolicy = common.NO_SHARDING):
         """Token embeddings; a prefix ([N,] B, P, d) (the vlm frontend's
-        patch embeddings) replaces the first P positions."""
+        patch embeddings) replaces the first P positions.  When `tok`
+        holds a "model" block of the vocabulary, each rank looks up the
+        tokens of its block (zero rows for the others) and the rows are
+        summed over the ranks, exactly."""
         cfg = self.cfg
-        x = params["embed"]["tok"][tokens.long()]
+        tok = params["embed"]["tok"]
+        lo = policy.block(cfg.vocab_size, tok.shape[0])
+        if lo is None:
+            x = tok[tokens.long()]
+        else:
+            ids = tokens.long() - lo
+            mine = (ids >= 0) & (ids < tok.shape[0])
+            x = tok[torch.where(mine, ids, 0)] * mine[..., None].to(
+                tok.dtype)
+            x = policy.reduce_from_tp(x)
         if prefix is not None:
             plen = prefix.shape[-2]
             x = torch.cat([prefix.to(x.dtype), x[..., plen:, :]], dim=-2)
@@ -316,10 +377,24 @@ class Model(nn.Module):
             x = x + pos_tab[positions.long()].to(x.dtype)
         return x
 
-    def head(self, params: Params, x):
-        if self.cfg.tie_embeddings:
-            return x @ params["embed"]["tok"].T
-        return x @ params["embed"]["head"]
+    def head(self, params: Params, x,
+             policy: common.ShardingPolicy = common.NO_SHARDING):
+        """Logits; under a vocabulary split over "model", this rank's
+        block of them (x enters through copy_to_tp)."""
+        cfg = self.cfg
+        w = (params["embed"]["tok"].T if cfg.tie_embeddings
+             else params["embed"]["head"])
+        if policy.block(cfg.vocab_size, w.shape[-1]) is not None:
+            x = policy.copy_to_tp(x)
+        return x @ w
+
+    def _vocab_lo(self, params: Params, policy: common.ShardingPolicy):
+        """The first vocabulary index of this rank's logits, or None when
+        the head is whole."""
+        e = params["embed"]
+        vl = (e["tok"].shape[0] if self.cfg.tie_embeddings
+              else e["head"].shape[-1])
+        return policy.block(self.cfg.vocab_size, vl)
 
     # -- block execution -------------------------------------------------------
 
@@ -327,7 +402,8 @@ class Model(nn.Module):
                    mode: str = "train", remat: str = "none",
                    cache: Optional[Params] = None, memory=None,
                    layer_lo: int = 0, layer_hi: Optional[int] = None,
-                   boundary=None):
+                   boundary=None,
+                   policy: common.ShardingPolicy = common.NO_SHARDING):
         """Run flat layers [layer_lo, layer_hi) over activations x
         ([N,] B, S, d).  memory: the encoder's output, which the
         cross-attention groups attend to (train and prefill).
@@ -346,7 +422,10 @@ class Model(nn.Module):
         `boundary.init()`; run_blocks then returns (x, aux, new_cache,
         carry).
         `remat` (train mode, under autograd) recomputes each layer,
-        boundary included, in the backward (see the module docstring)."""
+        boundary included, in the backward (see the module docstring).
+        `policy`: each layer gathers its FSDP-split base weights first
+        (so remat gathers them again in the backward instead of keeping
+        them) and runs its TP blocks (models/common.ShardingPolicy)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         if remat not in REMATS:
@@ -397,7 +476,8 @@ class Model(nn.Module):
                 layer = functools.partial(
                     self._layer, g, i, p_l, ad_l, mode=mode, cache=c_l,
                     memory=memory if g.cross else None, mem_cache=mem_l,
-                    rope=rope, boundary=boundary, fid=run_flat_lo + (i - lo))
+                    rope=rope, boundary=boundary, fid=run_flat_lo + (i - lo),
+                    policy=policy)
                 x, bcarry, a = (layer(x, bcarry) if remat == "none"
                                 else _recomputed(layer, x, bcarry,
                                                  remat=remat))
@@ -412,7 +492,8 @@ class Model(nn.Module):
         return x, aux, new_cache
 
     def _layer(self, g: GroupSpec, i: int, p_l, ad_l, x, bcarry=None, *,
-               mode: str, cache, memory, mem_cache, rope, boundary, fid: int):
+               mode: str, cache, memory, mem_cache, rope, boundary, fid: int,
+               policy: common.ShardingPolicy = common.NO_SHARDING):
         """One layer of group g (local index i, whose attention window is
         the group's per-layer window) and the cut-layer hook: (x, the
         stateful hook's carry or None, the layer's router loss).  A cross
@@ -420,6 +501,7 @@ class Model(nn.Module):
         `mem_cache`."""
         cfg = self.cfg
         aux = 0.0
+        p_l = policy.gather(p_l, cfg.d_model)
         if g.kind == "ssm":
             out, new = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
                                      cache=cache)
@@ -431,13 +513,14 @@ class Model(nn.Module):
             attn_out, _ = transformer.attention_apply(
                 p_l, ad_l, x, cfg=cfg, mode=mode, causal=g.causal,
                 window=g.window_of(i), rope=rope, cache=cache, memory=memory,
-                mem_cache=mem_cache)
+                mem_cache=mem_cache, policy=policy)
             x = x + attn_out
             if g.kind == "attn_moe":
                 out, aux = transformer.moe_apply(p_l, ad_l, x, cfg=cfg)
                 x = x + out
             elif cfg.d_ff:
-                x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg)
+                x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg,
+                                              policy=policy)
         if getattr(boundary, "stateful", False):
             x, bcarry = boundary(x, bcarry, fid)
         elif boundary is not None:
@@ -448,7 +531,8 @@ class Model(nn.Module):
 
     def forward(self, params, adapters, batch, *, cache=None,
                 mode: str = "train", remat: str = "none", boundary=None,
-                return_boundary: bool = False):
+                return_boundary: bool = False,
+                policy: common.ShardingPolicy = common.NO_SHARDING):
         """Full forward to hidden states (pre-head).
 
         batch: {"tokens": ([N,] B, S)[, "prefix": ([N,] B, P, d)]
@@ -458,7 +542,9 @@ class Model(nn.Module):
         Returns (x, aux, new_cache); aux is the MoE layers' summed router
         loss, 0.0 for every other kind.  return_boundary=True appends a
         stateful boundary's last carry (the smashed error-feedback
-        residual)."""
+        residual).  `policy`: the base weights are a MeshShard's blocks
+        (runtime.sharding.leaf_block), the embedding's gathered over
+        "data" (``loss`` does it); see run_blocks."""
         cfg = self.cfg
         tokens = batch["tokens"]
         memory, lo = None, 0
@@ -471,10 +557,10 @@ class Model(nn.Module):
                      else torch.arange(tokens.shape[-1],
                                        device=tokens.device))
         x = self.embed(params, tokens, positions=positions,
-                       prefix=batch.get("prefix"))
+                       prefix=batch.get("prefix"), policy=policy)
         x, aux, new_cache, *bcarry = self.run_blocks(
             params, adapters, x, mode=mode, remat=remat, cache=cache,
-            memory=memory, layer_lo=lo, boundary=boundary)
+            memory=memory, layer_lo=lo, boundary=boundary, policy=policy)
         x = apply_norm(params["final_norm"], x, kind=cfg.norm,
                        eps=cfg.norm_eps)
         if return_boundary:
@@ -482,7 +568,8 @@ class Model(nn.Module):
         return x, aux, new_cache
 
     def loss(self, params, adapters, batch, *, remat: str = "none",
-             ce_chunk: int = 0, per_client: bool = False, boundary=None):
+             ce_chunk: int = 0, per_client: bool = False, boundary=None,
+             policy: common.ShardingPolicy = common.NO_SHARDING):
         """Next-token CE.  batch needs "tokens", "labels"[, "loss_mask"].
 
         per_client=True keeps the leading client axis un-reduced: returns
@@ -491,21 +578,29 @@ class Model(nn.Module):
         cut-layer hook (see run_blocks); a stateful (error-feedback)
         boundary's new residual comes back as metrics["smashed_ef"].
         `remat` and `ce_chunk` are the memory knobs of the module
-        docstring."""
+        docstring.  `policy`: see forward; the embedding and head leaves
+        are gathered over "data" once, for the embedding, the head and
+        every CE chunk, and a vocabulary split over "model" takes the
+        vocab-parallel CE (``_vocab_parallel_ce``)."""
+        params = dict(params, embed=policy.gather(params["embed"],
+                                                  self.cfg.d_model))
         stateful = bool(getattr(boundary, "stateful", False))
         x, aux, _, *bcarry = self.forward(
             params, adapters, batch, mode="train", remat=remat,
-            boundary=boundary, return_boundary=stateful)
+            boundary=boundary, return_boundary=stateful, policy=policy)
         labels = batch["labels"]
         mask = batch.get("loss_mask")
         mask = (torch.ones(labels.shape, device=x.device) if mask is None
                 else mask.float())
         keep = 1 if per_client else 0
         s = x.shape[-2]
+        vlo = self._vocab_lo(params, policy)
         if ce_chunk and s > ce_chunk and s % ce_chunk == 0:
-            sums = self._chunked_ce(params, x, labels, mask, ce_chunk, keep)
+            sums = self._chunked_ce(params, x, labels, mask, ce_chunk, keep,
+                                    policy, vlo)
         else:
-            sums = _ce_sums(self.head(params, x), labels, mask, keep)
+            sums = _ce_sums(self.head(params, x, policy), labels, mask,
+                            keep, policy, vlo)
         nll_sum, hits, cnt = sums
         cnt = torch.clamp(cnt, min=1.0)
         nll, acc = nll_sum / cnt, hits / cnt
@@ -515,12 +610,16 @@ class Model(nn.Module):
             metrics["smashed_ef"] = bcarry[0]
         return nll + aux, metrics
 
-    def _chunked_ce(self, params, x, labels, mask, chunk: int, keep: int):
+    def _chunked_ce(self, params, x, labels, mask, chunk: int, keep: int,
+                    policy: common.ShardingPolicy = common.NO_SHARDING,
+                    vocab_lo: Optional[int] = None):
         """The CE sums over sequence chunks, summed in chunk order from
         zero as the reference's scan; each chunk's head and sums are
-        recomputed in the backward, so one chunk's logits are live."""
+        recomputed in the backward, so one chunk's logits are live (its
+        collectives run again there, in the same order on every rank)."""
         def body(x_c, l_c, m_c):
-            return _ce_sums(self.head(params, x_c), l_c, m_c, keep)
+            return _ce_sums(self.head(params, x_c, policy), l_c, m_c, keep,
+                            policy, vocab_lo)
 
         zero = torch.zeros(x.shape[:keep], device=x.device)
         sums = (zero, zero, zero)

@@ -38,12 +38,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import roadmap
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.lora_matmul import ops as lora_ops
 from repro_torch.models import common
-from repro_torch.models.common import activate, apply_norm, is_glu
+from repro_torch.models.common import (NO_SHARDING, ShardingPolicy,
+                                       activate, apply_norm, is_glu)
 
 Params = Dict[str, Any]
 
@@ -52,13 +54,26 @@ Params = Dict[str, Any]
 # LoRA application
 
 
-def lora_apply(x, w, adapter: Optional[Params], bias=None):
+def lora_apply(x, w, adapter: Optional[Params], bias=None, *,
+               cols: Optional[Tuple[int, int]] = None,
+               rows: Optional[Tuple[int, int]] = None):
     """y = x @ W (+ s (x A) B) (+ bias).
 
     x: (N, ..., k) or (..., k).  Rank-3 adapter leaves carry a leading
     client axis matching x's axis 0; an "ids" leaf ((B,) int32) marks the
     serving pool layout instead (stacked (P, ...) adapters, each row of x
-    picks its own)."""
+    picks its own).
+
+    W may be a tensor-parallel block of the adapted projection: cols =
+    (offset, count) of a column block (the adapter's B narrowed to those
+    columns), rows = (offset, count) of a row block (A narrowed to those
+    rows; x holds the same rows of the input features)."""
+    if adapter is not None and (cols is not None or rows is not None):
+        adapter = dict(adapter)
+        if cols is not None:
+            adapter["B"] = adapter["B"].narrow(-1, *cols)
+        if rows is not None:
+            adapter["A"] = adapter["A"].narrow(-2, *rows)
     if adapter is None:
         y = x @ w
     elif "ids" in adapter:
@@ -96,29 +111,31 @@ def _ad(adapters: Optional[Params], name: str) -> Optional[Params]:
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
-                   cross: bool, dtype) -> Params:
+                   cross: bool, dtype, place=common.whole) -> Params:
+    """place(name, leaf): the part of each leaf to keep, called as soon as
+    the leaf is drawn (``Model.init_params``)."""
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lead = (n_layers,)
-    p: Params = {
-        "norm1": common.init_norm(d, bias=cfg.norm == "layernorm",
-                                  dtype=dtype, lead=lead),
-        "wq": common.dense_init(gen, d, h * hd, dtype, lead=lead),
-        "wk": common.dense_init(gen, d, kvh * hd, dtype, lead=lead),
-        "wv": common.dense_init(gen, d, kvh * hd, dtype, lead=lead),
-        "wo": common.dense_init(gen, h * hd, d, dtype, lead=lead),
-    }
+
+    def norm():
+        return common.init_norm(d, bias=cfg.norm == "layernorm",
+                                dtype=dtype, lead=lead, place=place)
+
+    def dense(prefix):
+        for name, d_in, d_out in (("wq", d, h * hd), ("wk", d, kvh * hd),
+                                  ("wv", d, kvh * hd), ("wo", h * hd, d)):
+            p[prefix + name] = place(prefix + name, common.dense_init(
+                gen, d_in, d_out, dtype, lead=lead))
+
+    p: Params = {"norm1": norm()}
+    dense("")
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((n_layers, h * hd), dtype=dtype)
-        p["bk"] = torch.zeros((n_layers, kvh * hd), dtype=dtype)
-        p["bv"] = torch.zeros((n_layers, kvh * hd), dtype=dtype)
-        p["bo"] = torch.zeros((n_layers, d), dtype=dtype)
+        for name, n in (("bq", h * hd), ("bk", kvh * hd), ("bv", kvh * hd),
+                        ("bo", d)):
+            p[name] = place(name, torch.zeros((n_layers, n), dtype=dtype))
     if cross:
-        p["xnorm"] = common.init_norm(d, bias=cfg.norm == "layernorm",
-                                      dtype=dtype, lead=lead)
-        p["xwq"] = common.dense_init(gen, d, h * hd, dtype, lead=lead)
-        p["xwk"] = common.dense_init(gen, d, kvh * hd, dtype, lead=lead)
-        p["xwv"] = common.dense_init(gen, d, kvh * hd, dtype, lead=lead)
-        p["xwo"] = common.dense_init(gen, h * hd, d, dtype, lead=lead)
+        p["xnorm"] = norm()
+        dense("x")
     return p
 
 
@@ -134,7 +151,8 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
                     cfg: ModelConfig, mode: str, causal: bool, window: int,
                     rope: Optional[Tuple[Any, Any]] = None,
                     cache: Optional[Params] = None, memory=None,
-                    mem_cache: Optional[Params] = None):
+                    mem_cache: Optional[Params] = None,
+                    policy: ShardingPolicy = NO_SHARDING):
     """One attention sub-block (pre-norm, residual added by the caller).
 
     x: ([N,] B, S, d).  Returns (attn_out, new_cache).  rope: (cos, sin)
@@ -149,17 +167,42 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     (B, S_enc, KVH, hd), "v": ..., "len": (B,) of S_enc in decode}, the
     cross cache, adds the cross-attention sub-block (``_cross_attention``)
     to the output: a prefill (memory and mem_cache) writes the cross cache
-    in place, a decode step (mem_cache alone) reads it."""
+    in place, a decode step (mem_cache alone) reads it.
+
+    policy: when wq holds a "model" block of the heads (a MeshShard's,
+    train mode only), the sub-block runs on that block (Megatron's
+    layout): wq (and bq) hold the block's columns and wo its rows; wk and
+    wv stay whole by param_specs, so the rank computes the full K and V
+    and keeps the KV heads its query heads read (``_kv_heads``).  The
+    input enters through copy_to_tp (its gradient summed over "model"),
+    the output projection's partial sums leave through reduce_from_tp,
+    and bo is added once, after the sum."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = x.shape[-2]
+    lo = policy.block(h * hd, p["wq"].shape[-1])
+    hl = p["wq"].shape[-1] // hd
+    blk = None if lo is None else (lo, hl * hd)
+    if lo is not None and (mode != "train" or cache is not None
+                           or memory is not None or mem_cache is not None):
+        raise NotImplementedError(
+            "tensor-parallel attention runs the training forward only: "
+            f"see {roadmap.PARAM_SHARDING}")
 
     y = apply_norm(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    q = _split_heads(lora_apply(y, p["wq"], _ad(adapters, "q"), p.get("bq")),
-                     h, hd)
+    if lo is not None:
+        y = policy.copy_to_tp(y)
+    q = _split_heads(lora_apply(y, p["wq"], _ad(adapters, "q"), p.get("bq"),
+                                cols=blk), hl, hd)
     k = _split_heads(lora_apply(y, p["wk"], _ad(adapters, "k"), p.get("bk")),
                      kvh, hd)
     v = _split_heads(lora_apply(y, p["wv"], _ad(adapters, "v"), p.get("bv")),
                      kvh, hd)
+    if lo is not None:
+        kv = _kv_heads(h, kvh, lo // hd, hl)
+        if isinstance(kv, tuple):
+            k, v = (t.narrow(-2, *kv) for t in (k, v))
+        else:
+            k, v = (t.index_select(-2, kv.to(t.device)) for t in (k, v))
     if rope is not None:
         cos, sin = rope
         q = common.apply_rope(q, cos, sin)
@@ -201,8 +244,10 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     else:
         lead = x.shape[:-2]           # ([N,] B): flatten clients into B
         o = flash_ops.flash_attention(
-            q.reshape((-1,) + q.shape[-3:]), k.reshape((-1,) + k.shape[-3:]),
-            v.reshape((-1,) + v.shape[-3:]), causal=causal, window=window)
+            q.reshape((-1,) + q.shape[-3:]),
+            k.reshape((-1,) + k.shape[-3:]).contiguous(),
+            v.reshape((-1,) + v.shape[-3:]).contiguous(), causal=causal,
+            window=window)
         o = o.reshape(lead + o.shape[1:])
         if cache is not None:   # prefill: populate the cache
             _bulk_write(cache["k"], k)
@@ -210,13 +255,32 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "len": cache["len"] + k.shape[-3]}
 
-    out = lora_apply(_merge_heads(o), p["wo"], _ad(adapters, "o"),
-                     p.get("bo"))
+    out = lora_apply(_merge_heads(o), p["wo"], _ad(adapters, "o"), rows=blk)
+    if lo is not None:
+        out = policy.reduce_from_tp(out)
+    if "bo" in p:
+        out = out + p["bo"]
     if memory is not None or mem_cache is not None:
         out = out + _cross_attention(p, adapters, x + out, cfg=cfg,
                                      mode=mode, memory=memory,
                                      mem_cache=mem_cache)
     return out, new_cache
+
+
+def _kv_heads(h: int, kvh: int, first_q: int, n: int):
+    """The KV heads that query heads [first_q, first_q + n) read under GQA
+    (head j reads KV head j // (h / kvh)): (first, count) when each of
+    them serves the same number of the block's query heads, the flash
+    kernels' GQA layout; else a (n,) index of one KV head per query
+    head."""
+    group = h // kvh
+    want = torch.arange(first_q, first_q + n) // group
+    first, count = int(want[0]), int(want[-1]) - int(want[0]) + 1
+    if n % count == 0 and torch.equal(
+            want, torch.arange(first, first + count).repeat_interleave(
+                n // count)):
+        return (first, count)
+    return want
 
 
 def _cross_attention(p: Params, adapters: Optional[Params], x, *,
@@ -276,33 +340,51 @@ def _bulk_write(cache, kv):
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *, dtype,
-             d_ff: Optional[int] = None) -> Params:
+             d_ff: Optional[int] = None, place=common.whole) -> Params:
+    """place: as in ``init_attention``."""
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     lead = (n_layers,)
-    p: Params = {
-        "norm2": common.init_norm(d, bias=cfg.norm == "layernorm",
-                                  dtype=dtype, lead=lead),
-        "w_in": common.dense_init(gen, d, ff, dtype, lead=lead),
-        "w_out": common.dense_init(gen, ff, d, dtype, lead=lead),
-    }
+    p: Params = {"norm2": common.init_norm(
+        d, bias=cfg.norm == "layernorm", dtype=dtype, lead=lead, place=place)}
+    shapes = [("w_in", d, ff), ("w_out", ff, d)]
     if is_glu(cfg.activation):
-        p["w_gate"] = common.dense_init(gen, d, ff, dtype, lead=lead)
+        shapes.append(("w_gate", d, ff))
+    for name, d_in, d_out in shapes:
+        p[name] = place(name, common.dense_init(gen, d_in, d_out, dtype,
+                                                lead=lead))
     if cfg.mlp_bias:
-        p["b_in"] = torch.zeros((n_layers, ff), dtype=dtype)
-        p["b_out"] = torch.zeros((n_layers, d), dtype=dtype)
+        p["b_in"] = place("b_in", torch.zeros((n_layers, ff), dtype=dtype))
+        p["b_out"] = place("b_out", torch.zeros((n_layers, d), dtype=dtype))
     return p
 
 
-def mlp_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig):
+def mlp_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
+              policy: ShardingPolicy = NO_SHARDING):
+    """The MLP sub-block (pre-norm, residual added by the caller).  When
+    w_in holds a "model" block of the FFN width, it runs tensor-parallel:
+    w_in, w_gate and b_in hold the block's columns and w_out its rows,
+    the input enters through copy_to_tp, the partial sums leave through
+    reduce_from_tp, and b_out is added once, after the sum."""
     y = apply_norm(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    hin = lora_apply(y, p["w_in"], _ad(adapters, "mlp_in"), p.get("b_in"))
+    ff = p["w_in"].shape[-1]
+    lo = policy.block(cfg.d_ff, ff)
+    blk = None if lo is None else (lo, ff)
+    if lo is not None:
+        y = policy.copy_to_tp(y)
+    hin = lora_apply(y, p["w_in"], _ad(adapters, "mlp_in"), p.get("b_in"),
+                     cols=blk)
     gate = None
     if "w_gate" in p:
-        gate = lora_apply(y, p["w_gate"], _ad(adapters, "mlp_gate"))
+        gate = lora_apply(y, p["w_gate"], _ad(adapters, "mlp_gate"),
+                          cols=blk)
     hmid = activate(hin, gate, cfg.activation)
-    return lora_apply(hmid, p["w_out"], _ad(adapters, "mlp_out"),
-                      p.get("b_out"))
+    out = lora_apply(hmid, p["w_out"], _ad(adapters, "mlp_out"), rows=blk)
+    if lo is not None:
+        out = policy.reduce_from_tp(out)
+    if "b_out" in p:
+        out = out + p["b_out"]
+    return out
 
 
 # ---------------------------------------------------------------------------

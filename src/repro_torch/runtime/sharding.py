@@ -1,5 +1,5 @@
-"""Sharding rules, and the rank layer that splits the cohort over
-torch.distributed ranks.
+"""Sharding rules, and the rank layer that splits the cohort and the
+base weights over torch.distributed ranks.
 
 Port of src/repro/runtime/sharding.py.  Two halves:
 
@@ -17,24 +17,32 @@ Port of src/repro/runtime/sharding.py.  Two halves:
   which is what the reference's ``PartitionSpec`` holds.  Only shapes
   are read, so meta and fake tensors do (the dry-run's cells).
 
-* The rank layer, the counterpart of the reference's ``constrain_state``
-  and ``constrain_client_batch``.  Of the tables, the port executes the
-  client axis only: each rank of a process group over the mesh's "data"
-  axis holds its block of the cohort's rows of every client-axis leaf
-  (``state_specs``), and every global leaf (server adapters and their
-  optimizer slots, the round counter, the base weights) whole.  A
-  ``ClientShard`` is this process's place in the group; a ``Cohort`` is
-  one cohort size under it, with the collectives the round engine needs:
-  a sum and a max over ranks, and a row gather into the full cohort,
-  built as an all-reduce SUM into a zero-filled (N, ...) buffer (exact:
-  every entry is one rank's value plus zeros), since gloo takes only
-  all_reduce and broadcast on CUDA tensors and NCCL refuses two ranks on
-  one device.  When N does not divide the "data" axis, ``fit_spec`` drops
-  the axis: every rank then holds the whole cohort and no collective
-  runs, since a sum over ranks would count every client ``world`` times.
-  The FSDP, TP and EP rules wait for ``repro_torch.roadmap.
-  PARAM_SHARDING``; a mesh whose "model" or "pod" axis is larger than 1
-  raises.
+* The rank layer, the counterpart of the reference's ``constrain_state``,
+  ``constrain_client_batch`` and of XLA's placement of ``param_specs``.
+  A ``MeshShard`` is this process's place on a ("data", "model") mesh
+  of torch.distributed ranks (row-major, ``mesh_coords``), with one
+  process group per axis.  Over "data" each rank holds its block of the
+  cohort's rows of every client-axis leaf (``state_specs``); a
+  ``Cohort`` is one cohort size under it, with the collectives the round
+  engine needs: a sum and a max over the "data" ranks, and a row gather
+  into the full cohort, built as an all-reduce SUM into a zero-filled
+  (N, ...) buffer (exact: every entry is one rank's value plus zeros),
+  since gloo takes only all_reduce and broadcast on CUDA tensors and
+  NCCL refuses two ranks on one device.  When N does not divide the
+  "data" axis, ``fit_spec`` drops the axis: every rank then holds the
+  whole cohort and no client collective runs, since a sum over ranks
+  would count every client ``world`` times.  The base weights of the
+  dense family are placed by ``param_specs`` (``leaf_block``, each
+  leaf as it is drawn; ``local_params``, a whole tree): FSDP
+  over "data" on their d_model dims, heads, FFN width and vocabulary
+  over "model"; ``models.common.ShardingPolicy`` gathers and reduces
+  them in the blocks.  Server adapters, optimizer slots and the round
+  counter stay whole on every rank.  A ``ClientShard`` is the client
+  axis alone (an (n, 1) mesh, every base weight whole).  EP for the MoE
+  experts, TP for the SSM, hybrid, audio and vlm families, the "pod"
+  axis and sequence parallelism wait for ``repro_torch.roadmap.
+  PARAM_SHARDING``: such a family under a MeshShard
+  (``ShardingPolicy.for_model``), and a MeshShard on such a mesh, raise.
 
 Leaf paths come from repro_torch.tree.tree_leaves_with_path; joined
 with "/" they are the reference's.
@@ -145,7 +153,7 @@ def state_specs(state, mesh):
     return tree_map_with_path(spec_of, state)
 
 
-def _leaf_spec_for_path(path: str, ndim: int) -> Spec:
+def logical_spec(path: str, ndim: int) -> Spec:
     """Logical spec by parameter name; dims right-aligned to the leaf."""
     name = path.split("/")[-1]
 
@@ -188,7 +196,7 @@ def param_specs(params, mesh):
     """Spec tree of the model parameters."""
     return tree_map_with_path(
         lambda keys, leaf: fit_spec(
-            tuple(leaf.shape), _leaf_spec_for_path("/".join(keys),
+            tuple(leaf.shape), logical_spec("/".join(keys),
                                                    leaf.dim()),
             mesh), params)
 
@@ -258,54 +266,129 @@ def cache_specs(cache, mesh):
 # ---------------------------------------------------------------------------
 # the rank layer
 
+EXECUTED_AXES = ("data", "model")
 
-def _check_client_mesh(mesh):
+
+def mesh_coords(mesh, rank: int) -> Dict[str, int]:
+    """{axis: index} of `rank` on the mesh, ranks placed in row-major
+    order over the axes as listed (the order jax.make_mesh gives its
+    devices)."""
     sizes = axis_sizes(mesh)
-    wide = {a: s for a, s in sizes.items() if a != CLIENT_AXIS and s > 1}
+    names = list(sizes)
+    idx = np.unravel_index(int(rank), tuple(sizes[a] for a in names))
+    return {a: int(i) for a, i in zip(names, idx)}
+
+
+def axis_ranks(mesh, axis: str) -> List[List[int]]:
+    """The rank groups along `axis`: each list holds the ranks that differ
+    only in their `axis` coordinate, in that coordinate's order."""
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
+    grid = np.arange(int(np.prod([sizes[a] for a in names]))).reshape(
+        tuple(sizes[a] for a in names))
+    lines = np.moveaxis(grid, names.index(axis), -1).reshape(
+        -1, sizes[axis])
+    return [[int(r) for r in line] for line in lines]
+
+
+def _check_mesh(mesh):
+    sizes = axis_sizes(mesh)
+    wide = {a: s for a, s in sizes.items()
+            if a not in EXECUTED_AXES and s > 1}
     if wide:
         raise NotImplementedError(
-            f"mesh axes {wide} shard the base weights, heads or experts "
-            "(param_specs); the port executes only the client axis "
-            f"(\"data\") so far: see {roadmap.PARAM_SHARDING}")
+            f"mesh axes {wide}: the port executes the (\"data\", "
+            f"\"model\") axes only so far: see {roadmap.PARAM_SHARDING}")
+    return sizes
+
+
+def _check_client_mesh(mesh):
+    sizes = _check_mesh(mesh)
+    if sizes.get(TP_AXIS, 1) > 1:
+        raise NotImplementedError(
+            f"a \"model\" axis of {sizes[TP_AXIS]} splits heads, the FFN "
+            "and the vocabulary (param_specs), which ClientShard leaves "
+            "whole: a MeshShard executes them for the dense family; the "
+            f"rest waits for {roadmap.PARAM_SHARDING}")
     return sizes.get(CLIENT_AXIS, 1)
 
 
-class ClientShard:
-    """This process's rank in a torch.distributed process group over the
-    mesh's "data" axis (the reference's mesh under
-    ``ShardingPolicy.client_mode``).
+class _Axis:
+    """One mesh axis as this rank sees it: its size, this rank's index on
+    it and the process group over its ranks (None: the default group,
+    when the axis spans every rank)."""
+
+    def __init__(self, size: int, index: int, group=None):
+        self.size, self.index, self.group = size, index, group
+
+
+class MeshShard:
+    """This process's rank in a torch.distributed process group over a
+    ("data", "model") mesh (the reference's mesh under
+    ``ShardingPolicy(mesh, client_mode=True)``), ranks placed in
+    row-major order (``mesh_coords``).
+
+    The cohort's rows split over "data" (``Cohort``), and the base
+    weights are placed by ``param_specs`` (``leaf_block``): FSDP over
+    "data", heads, FFN width and vocabulary over "model";
+    ``models.common.ShardingPolicy`` gathers and reduces them in the
+    model's forward and backward.  One subgroup per axis (``dist.
+    new_group``, made on every rank in the same order); an axis that
+    spans every rank uses the default group.
 
     The default group must exist (``repro_torch.launch.sharded`` starts
-    one per rank) with the mesh's "data" size as its world size, on the
-    backend
+    one per rank) with the mesh's size as its world size, on the backend
     that `device` takes: NCCL for a CUDA device, gloo for the CPU or when
     the caller names it (two ranks that share one card).  Nothing falls
-    back: another backend or world size raises.  ``collectives`` and
-    ``bytes_reduced`` count this rank's collectives and the bytes it
-    put into them."""
+    back: another backend or world size raises, and so does a mesh axis
+    other than "data" and "model" larger than 1.  ``collectives`` and
+    ``bytes_reduced`` count this rank's collectives and the bytes it put
+    into them."""
+
+    places_params = True
 
     def __init__(self, mesh: MeshConfig, *, device="cpu",
                  backend: Optional[str] = None):
         import torch.distributed as dist
-        world = _check_client_mesh(mesh)
+        sizes = self._check(mesh)
         self.mesh = mesh
         self.device = torch.device(device)
         self.backend = backend or ("nccl" if self.device.type == "cuda"
                                    else "gloo")
         if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError(
-                "ClientShard needs a torch.distributed process group; "
-                "start the ranks with repro_torch.launch.sharded")
+                f"{type(self).__name__} needs a torch.distributed process "
+                "group; start the ranks with repro_torch.launch.sharded")
         got = dist.get_backend()
         if got != self.backend:
             raise ValueError(f"the process group runs {got!r}, but this "
                              f"shard asks for {self.backend!r}")
         self.rank = dist.get_rank()
         self.world = dist.get_world_size()
-        if self.world != world:
-            raise ValueError(f"the mesh's \"data\" axis has {world} ranks, "
-                             f"the process group {self.world}")
+        want = int(np.prod(list(sizes.values()))) if sizes else 1
+        if self.world != want:
+            raise ValueError(f"the mesh {sizes} has {want} ranks, the "
+                             f"process group {self.world}")
+        self.coords = mesh_coords(mesh, self.rank)
+        self.axes: Dict[str, _Axis] = {}
+        for a in EXECUTED_AXES:
+            size = sizes.get(a, 1)
+            group = None
+            if 1 < size < self.world:
+                for ranks in axis_ranks(mesh, a):
+                    g = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        group = g
+            self.axes[a] = _Axis(size, self.coords.get(a, 0), group)
+        self.data_size = self.axes[CLIENT_AXIS].size
+        self.data_rank = self.axes[CLIENT_AXIS].index
+        self.model_size = self.axes[TP_AXIS].size
+        self.model_rank = self.axes[TP_AXIS].index
         self.collectives = self.bytes_reduced = 0
+
+    @staticmethod
+    def _check(mesh):
+        return _check_mesh(mesh)
 
     # -- collectives ----------------------------------------------------
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
@@ -315,12 +398,16 @@ class ClientShard:
             return t.to(self.device)
         return t.clone()
 
-    def all_reduce(self, tensors: Sequence[torch.Tensor], op: str
-                   ) -> List[torch.Tensor]:
-        """SUM or MAX of each tensor over the ranks, one collective per
-        dtype (the tensors packed flat).  Returns new tensors on the
-        inputs' devices."""
+    def all_reduce(self, tensors: Sequence[torch.Tensor], op: str,
+                   axis: str = CLIENT_AXIS) -> List[torch.Tensor]:
+        """SUM or MAX of each tensor over the ranks of mesh axis `axis`,
+        one collective per dtype (the tensors packed flat).  Returns new
+        tensors on the inputs' devices.  Over an axis of one rank inside
+        a larger group it runs no collective."""
         import torch.distributed as dist
+        ax = self.axes[axis]
+        if ax.size == 1 and self.world > 1:
+            return [t.clone() for t in tensors]
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         out: List[Optional[torch.Tensor]] = [None] * len(tensors)
         by_dtype: Dict[torch.dtype, List[int]] = {}
@@ -329,9 +416,11 @@ class ClientShard:
         for idx in by_dtype.values():
             parts = [tensors[i] for i in idx]
             dev = parts[0].device
-            flat = self._wire(torch.cat([p.reshape(-1).to(dev)
-                                         for p in parts]))
-            dist.all_reduce(flat, op=red)
+            # cat makes a new tensor: the collective writes no input
+            flat = torch.cat([p.reshape(-1).to(dev) for p in parts])
+            if self.backend == "nccl" and flat.device.type != "cuda":
+                flat = flat.to(self.device)
+            dist.all_reduce(flat, op=red, group=ax.group)
             self.collectives += 1
             self.bytes_reduced += flat.numel() * flat.element_size()
             off = 0
@@ -376,25 +465,78 @@ class ClientShard:
             dist.barrier()
 
 
+class ClientShard(MeshShard):
+    """A MeshShard of the client axis alone, on an (n, 1) mesh: each rank
+    holds its block of the cohort's rows, and every global leaf, the
+    base weights included, whole (PR 27's layout, which phase 16 and the
+    client-axis tests run).  A "model" axis larger than 1 raises."""
+
+    places_params = False
+
+    @staticmethod
+    def _check(mesh):
+        _check_client_mesh(mesh)
+        return _check_mesh(mesh)
+
+
+def leaf_block(name: str, leaf: torch.Tensor, *, mesh,
+               rank: int) -> torch.Tensor:
+    """`rank`'s block of one base leaf (its path, or the last name of it,
+    is all that ``logical_spec`` reads), as ``param_specs`` places it on
+    the mesh (``fit_spec``'s divisibility rule included: a dim that an
+    axis does not divide stays whole): a copy, so the full leaf can be
+    freed.  ``Model.init_params(place=...)`` calls it on each leaf as it
+    is drawn."""
+    sizes = axis_sizes(mesh)
+    coords = mesh_coords(mesh, rank)
+    spec = fit_spec(tuple(leaf.shape), logical_spec(name, leaf.dim()), mesh)
+    out = leaf
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        index, count = 0, 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            index = index * sizes[a] + coords[a]
+            count *= sizes[a]
+        n = leaf.shape[dim] // count
+        out = out.narrow(dim, index * n, n)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def local_params(params, mesh, shard):
+    """This rank's block of every base leaf (``leaf_block``): copies, so
+    the full tree can be freed.  `shard` gives the rank (a MeshShard, or
+    anything with a ``rank``)."""
+    return tree_map_with_path(
+        lambda keys, leaf: leaf_block("/".join(keys), leaf, mesh=mesh,
+                                      rank=shard.rank), params)
+
+
 class Cohort:
-    """A cohort of n clients under a ClientShard (or none): which rows
-    of the client axis this rank holds, and the collectives over them.
+    """A cohort of n clients under a MeshShard (or none): which rows of
+    the client axis this rank holds, and the collectives over them, over
+    the ranks of the mesh's "data" axis.
 
     The rows are split when the shard's "data" axis divides n (fit_spec's
-    rule) and has more than one rank: rank r holds the block [r n / w,
-    (r + 1) n / w).  `active` says whether the collectives run: at world
-    size 1 they do (each is the identity on its value), and without a
-    shard, or when the axis does not divide n, every collective returns
-    its input and every rank holds the whole cohort."""
+    rule) and has more than one rank: the rank at "data" index r holds
+    the block [r n / w, (r + 1) n / w).  `active` says whether the
+    collectives run: at world size 1 they do (each is the identity on its
+    value), and without a shard, or when the axis does not divide n,
+    every collective returns its input and every rank holds the whole
+    cohort."""
 
-    def __init__(self, shard: Optional[ClientShard], n: int):
+    def __init__(self, shard: Optional[MeshShard], n: int):
         self.shard = shard
         self.n = int(n)
-        self.active = shard is not None and self.n % shard.world == 0
-        self.world = shard.world if self.active else 1
+        size, index = 1, 0
+        if shard is not None:
+            size = axis_sizes(shard.mesh).get(CLIENT_AXIS, 1)
+            index = mesh_coords(shard.mesh, shard.rank).get(CLIENT_AXIS, 0)
+        self.active = shard is not None and self.n % size == 0
+        self.world = size if self.active else 1
         self.split = self.active and self.world > 1
         self.n_local = self.n // self.world
-        self.lo = shard.rank * self.n_local if self.split else 0
+        self.lo = index * self.n_local if self.split else 0
 
     # -- rows -----------------------------------------------------------
     def rows(self, x, axis: int = 0):
@@ -449,7 +591,7 @@ class Cohort:
 UNSHARDED = Cohort(None, 0)
 
 
-def cohort_of(shard: Optional[ClientShard], n: int) -> Cohort:
+def cohort_of(shard: Optional[MeshShard], n: int) -> Cohort:
     return UNSHARDED if shard is None else Cohort(shard, n)
 
 
