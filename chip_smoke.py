@@ -132,8 +132,8 @@ at full width (random weights from a seed):
   * parameter sharding of the dense family (phase 17,
     ``runtime.sharding.MeshShard``): llama3-8b at full width, 4 of its 32
     layers, cut 2, phase 9's 5 clients x batch 4 x seq 512, SGD, 2
-    rounds of ``SplitFTSystem.run`` without and with int8 smashed
-    activations, each unsharded, under NCCL at world size 1 on a (1, 1)
+    rounds of ``SplitFTSystem.run`` without smashed compression,
+    unsharded, under NCCL at world size 1 on a (1, 1)
     mesh (bit for bit the unsharded run) and in 2 gloo ranks that share
     the card on a (1, 2) mesh: tensor parallelism over "model" (16 of the
     32 heads and their 4 KV heads, half the FFN width and of the
@@ -145,7 +145,25 @@ at full width (random weights from a seed):
     (P17_TOL, through ``runtime.agreement``), and the kernels of the path
     are held against their plain versions and timed at the TP-local
     shapes.  ``python3 chip_smoke.py --only 17`` builds and runs phase 17
-    alone.
+    alone;
+  * parameter sharding of the MoE and hybrid families (phase 18):
+    kimi-k2 at full width (2 of its 61 layers, 32 of its 384 experts,
+    top-8 at capacity 1.25, int8 smashed) and zamba2-1.2b at full width
+    (6 of its 38 layers: 5 SSM, 1 attention; fp8 smashed), 5 clients x
+    batch 4 x seq 512, SGD, 2 rounds each, unsharded, under NCCL at
+    world size 1 (bit for bit) and in 2 gloo ranks on a (1, 2) mesh:
+    the experts over "model" (each rank its 16, the router's logits
+    gathered whole, so every rank routes alike; the gloo ranks by the
+    unsharded run's choices, their own flips counted) and the SSM heads
+    over "model" (in_proj and the conv gathered, a rank's heads taken,
+    the gated norm's sum of squares summed over the ranks).  Each
+    rank's blocks, kernel shapes, per-step launches (equal to the
+    unsharded steps'), peaks and bytes all-reduced are checked or
+    printed, its state held to the unsharded run's (P18_TOL), and the
+    kernels held and timed at the TP-local shapes.  ``python3
+    chip_smoke.py --only 18`` builds and runs phase 18 alone, and with
+    ``--p18-smashed none`` without compression at the cut (the gloo
+    state then within P18_TOL["none"], no element outside).
 
 The launch counters are read around each path, and every profile of a
 path holds its count of the port's own kernels to them (a profile that
@@ -312,7 +330,8 @@ LLAMA_HEADS = (32, 8)
 # served prompt of GEN_PROMPT tokens plus GEN_NEW runs decode past it
 GEN_ARCHS = ("opt-125m", "gpt-neo-125m")
 GEN_ROUNDS, GEN_PROMPT, GEN_NEW, GEN_MAX_LEN = 3, 288, 16, 320
-# phase 10b: one card-vs-CPU step each at full width, 2 layers, seq 64
+# phase 10b: one card-vs-CPU step each at full width, 2 layers, seq
+# DENSE_STEP_SEQ
 DENSE_STEP_ARCHS = ("phi4-mini-3.8b", "qwen1.5-32b", "mistral-large-123b")
 DENSE_STEP_SEQ = 64
 # phases 11 and 12: SSM and hybrid models served one request at a time
@@ -420,10 +439,11 @@ FLASH_NONCAUSAL_EDGES = [(1, 1500, 64, 0, 0), (17, 65, 32, 0, 0),
 # P15_PROMPT tokens and P15_NEW decode steps) and prefill_32k.  A
 # prefill's batch is the largest up to P15_BATCH_CAP that the dry-run
 # fits in PEAK_SHARE of the card; the cap keeps the phase within its
-# time (the length is never cut).
+# time (the length is never cut; the caps were 8 and 2 until phase 18
+# needed the room).
 P15_SEQ, P15_LONG = 32768, 524288
 P15_LLAMA_LAYERS = 2
-P15_BATCH_CAP = {"llama3-8b": 8, "mamba2-780m": 2}
+P15_BATCH_CAP = {"llama3-8b": 2, "mamba2-780m": 1}
 P15_PROMPT, P15_NEW = 300, 4
 P15_FLASH_ROWS = 512          # the plain flash's query rows per call
 P15_PLAIN_ROWS = 16           # the plain decode's sequences per call
@@ -479,7 +499,8 @@ P16_ROWS = ("flash_attention_fwd", "flash_attention_bwd", "lora_matmul_fwd",
 # for bit the unsharded run) and in P17_RANKS gloo ranks that share the
 # card on a (1, P17_RANKS) mesh (tensor parallelism over "model").
 P17_LAYERS, P17_CUT, P17_ROUNDS, P17_RANKS = 4, 2, 2, 2
-P17_SMASHED = ("none", "int8")
+# int8 under TP is phase 18's (kimi-k2's smashed activations)
+P17_SMASHED = ("none",)
 # what else a rank's init may hold on the card beside its blocks, one full
 # leaf and the round state (the generator, the caching allocator's
 # rounding)
@@ -504,6 +525,69 @@ P17_WQ = (4096, 2048)        # the timed fused LoRA shape: wq's block
 P17_ROWS = ("flash_attention_fwd (hd 128, TP 2)",
             "flash_attention_bwd (hd 128, TP 2)",
             "lora_matmul_fwd (TP 2)", "lora_matmul_bwd (TP 2)")
+
+
+# phase 18: parameter sharding of the MoE family (EP: the experts over
+# "model", their ff dim over "data") and of the hybrid family (TP over the
+# SSM heads) in the training round.  kimi-k2 at full width, cut to
+# P18_KIMI_LAYERS of its 61 layers and P18_KIMI_EXPERTS of its 384 experts
+# (still top-8 at capacity 1.25: pairs are dropped in every layer call),
+# int8 smashed, the cross entropy in chunks of KIMI_CE_CHUNK; zamba2-1.2b
+# at full width, P18_Z_LAYERS of its 38 layers (SSM layers 0-4, attention
+# at P18_Z_ATTN), fp8 smashed.  5 clients x batch P18_BATCH x seq 512,
+# SGD, P18_ROUNDS rounds, each model unsharded, under NCCL at world size 1
+# on a (1, 1) mesh (bit for bit the unsharded run) and in P17_RANKS gloo
+# ranks that share the card on a (1, P17_RANKS) mesh.  The gloo ranks
+# route by the unsharded run's top-k choices (recorded_routing's replay:
+# a "model" sum that moves a logit's last bit can flip a choice), their
+# own flips counted and every rank's own choices checked equal.
+P18_MODELS = (KIMI, "zamba2-1.2b")
+P18_KIMI_LAYERS, P18_KIMI_EXPERTS = 2, 32
+P18_Z_LAYERS, P18_Z_ATTN = 6, (5,)
+P18_CUT = {KIMI: 1, "zamba2-1.2b": 2}
+P18_CE_CHUNK = {KIMI: KIMI_CE_CHUNK, "zamba2-1.2b": 0}
+P18_BATCH, P18_ROUNDS = 4, 2
+# smashed compressor -> (rtol, atol as a share of max|leaf|, the losses'
+# rtol): phase 17's compressed tolerance, for int8 and fp8 alike (a code
+# at the cut may take the neighbouring step)
+P18_TOL = {"none": P17_TOL["none"], "int8": P17_TOL["int8"],
+           "fp8": P17_TOL["int8"]}
+# (model, smashed compressor) -> {leaf path: the largest share of its
+# elements outside P18_TOL}: a few int8 (kimi-k2) or fp8 (zamba2) codes at
+# the cut take the neighbouring step (the ranks' sums run in another
+# order), and the attention backward carries such a code into the q and k
+# adapters' B past 2e-3 x max|leaf|: kimi-k2 2.145e-3 and 2.592e-3 after
+# rounds 1 and 2 on 3.5e-5 and 3.9e-5 of client_adapters/dec/k/B's
+# elements; zamba2 2.496e-3 after round 1 on 3.1e-5 of attn/q/B's and
+# attn/k/B's, client and server (an H100 at 700 W).  About 4x the shares
+# measured; every other leaf is held to P18_TOL with no element outside
+P18_OUTLIERS = {
+    (KIMI, "int8"): {f"client_adapters/dec/{t}/B": 1.6e-4
+                     for t in ("q", "k")},
+    ("zamba2-1.2b", "fp8"): {f"{side}_adapters/attn/{t}/B": 1.2e-4
+                             for side in ("client", "server")
+                             for t in ("q", "k")}}
+# the shapes each rank's kernels run at on the (1, 2) mesh (recorded_shapes)
+P18_SHAPES = {
+    KIMI: {"flash": {((20, 512, 32, 112), (20, 512, 4, 112))},
+           "lora": {(7168, 3584), (7168, 896), (3584, 7168)},
+           "ssd": set()},
+    "zamba2-1.2b": {"flash": {((20, 512, 16, 64), (20, 512, 16, 64))},
+                    # q, k and v, o; in_proj's columns of a rank's heads
+                    # (x, z, dt) and B, C; out_proj's rows
+                    "lora": {(2048, 1024), (2048, 2048), (1024, 2048),
+                             (2048, 4256)},
+                    "ssd": {(20, 512, 32, 64)}}}
+P18_SSD_SHAPE = (20, 512, 32, 64, 1, 64, 256)   # (B, S, H, P, G, N, chunk)
+# the result line's rows of the kernels at those shapes
+P18_ROWS = ("flash_attention_fwd (hd 112, TP 2)",
+            "flash_attention_bwd (hd 112, TP 2)",
+            "flash_attention_fwd (hd 64, TP 2)",
+            "flash_attention_bwd (hd 64, TP 2)",
+            "lora_matmul_fwd (kimi-k2, TP 2)",
+            "lora_matmul_bwd (kimi-k2, TP 2)",
+            "lora_matmul_fwd (zamba2, TP 2)", "lora_matmul_bwd (zamba2, TP 2)",
+            "ssd_scan (TP 2)")
 
 
 def hd_row(kname: str, hd: int) -> str:
@@ -1029,10 +1113,16 @@ def max_err(torch, got, want, dtype: str, what: str,
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
-    ap.add_argument("--only", choices=["15", "16", "17"], default=None,
+    ap.add_argument("--only", choices=["15", "16", "17", "18"], default=None,
                     help="build, then run this phase alone (no result "
                          "line); the contract's run takes no argument")
+    ap.add_argument("--p18-smashed", choices=["none", "int8", "fp8"],
+                    default=None,
+                    help="with --only 18: both models' smashed compressor "
+                         "(default: each config's own)")
     args = ap.parse_args(argv)
+    if args.p18_smashed and args.only != "18":
+        ap.error("--p18-smashed goes with --only 18")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -1062,6 +1152,14 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {name}; TF32 off (matmul and cuDNN)")
 
+    # the wall time of each section, logged as it ends
+    clock = {"name": "phase 1", "t": time.perf_counter()}
+
+    def lap(name):
+        now = time.perf_counter()
+        log(f"wall: {clock['name']} {now - clock['t']:.1f} s")
+        clock.update(name=name, t=now)
+
     # -- phase 1: build -----------------------------------------------------
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -1079,7 +1177,7 @@ def main(argv=None) -> int:
     wrappers = port_wrappers()
     rows_of = (list(wrappers) + [hd_row(k, hd) for hd in WIDE_HDS
                                  for k in WIDE_HD] + list(P15_ROWS)
-               + list(P17_ROWS))
+               + list(P17_ROWS) + list(P18_ROWS))
     worst = {k: 0.0 for k in rows_of}
     if args.only == "15":
         launches, rows = {k: 0 for k in rows_of}, {}
@@ -1097,7 +1195,15 @@ def main(argv=None) -> int:
         log(f"phase 17 alone: launches "
             f"{ {k: c for k, c in launches.items() if c} }")
         return 0
+    if args.only == "18":
+        launches, rows = {k: 0 for k in rows_of}, {}
+        phase18(torch, dev, F, wrappers, name, card, launches, worst, rows,
+                smashed=args.p18_smashed)
+        log(f"phase 18 alone: launches "
+            f"{ {k: c for k, c in launches.items() if c} }")
+        return 0
 
+    lap("phase 2")
     # -- phase 2: every kernel against its plain version ---------------------
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         errs = {k: 0.0 for k in rows_of}
@@ -1163,6 +1269,7 @@ def main(argv=None) -> int:
         if dname == "float32":
             worst = errs
 
+    lap("phase 3")
     # -- phase 3: times at the paths' shapes (fp32) -------------------------
     rows = time_flash_cases(torch, F, rand, worst, [
         ("flash_attention_fwd", None, 1, PROMPT, PROMPT, 12, 12, 64, True,
@@ -1265,6 +1372,7 @@ def main(argv=None) -> int:
             f"{lib} ms, bound {row['bound'][0]:.4f} ms "
             f"({row['bound'][1]}){extra}")
 
+    lap("phase 4")
     # -- phase 4: the serving path ------------------------------------------
     arch = get_config("gpt2-small")
     model = build_model(arch, device=dev)
@@ -1367,21 +1475,25 @@ def main(argv=None) -> int:
         f"plain path: max |diff| {diff:.3e} (tol {LOGITS_TOL}: fp32 sums "
         f"in another order through 12 layers and the 50257-wide head)")
 
+    lap("phase 5")
     # -- phase 5: the training path ------------------------------------------
     got, accuracy_times, fleet = train_phase(torch, dev, wrappers, name,
                                              card)
     for kname, c in got.items():
         launches[kname] += c
 
+    lap("phase 5b, 5c")
     # -- phase 5b, 5c: checkpoint resume, the train CLI ----------------------
     resume_phase(torch, dev, wrappers, name, card)
     cli_phase(torch, wrappers, name, card)
 
+    lap("phase 5d")
     # -- phase 5d: gpt2-small under the phase-time co-controller ------------
     for kname, c in co_phase(torch, dev, wrappers, name, card,
                              accuracy_times).items():
         launches[kname] += c
 
+    lap("phases 5e-5h")
     # -- phases 5e-5h: local steps, two-tier FedAvg, async, trained serving -
     ls_system, got = local_steps_phase(torch, dev, wrappers, name, card)
     for phase in (got, edge_phase(torch, dev, wrappers, name, card),
@@ -1392,17 +1504,20 @@ def main(argv=None) -> int:
             launches[kname] += c
     del ls_system
 
+    lap("phase 5i")
     # -- phase 5i: population mode ------------------------------------------
     for kname, c in population_phase(torch, dev, wrappers, name, card,
                                      accuracy_times, fleet).items():
         launches[kname] += c
     del fleet
 
+    lap("phase 6")
     # -- phase 6: one step at full width, reduced depth, card vs CPU --------
     small_step_check(torch, dev, "gpt2-small", SMALL_SEQ, GPT2_STEPS,
                      "phase 6")
     engine_step_check(torch, dev)
 
+    lap("phase 7, 7b")
     # -- phase 7, 7b: the mamba2 training path, batch 1 and batch 4 ---------
     for kname, c in mamba2_phase(torch, dev, wrappers, name, card).items():
         launches[kname] += c
@@ -1410,10 +1525,12 @@ def main(argv=None) -> int:
                                         card).items():
         launches[kname] += c
 
+    lap("phase 8")
     # -- phase 8: one mamba2 step at full width, reduced depth, card vs CPU -
     small_step_check(torch, dev, "mamba2-780m", M_SEQ, MAMBA2_STEPS,
                      "phase 8")
 
+    lap("phase 9, 9b")
     # -- phase 9, 9b: llama3-8b at full width, training and serving ---------
     system, got = llama_phase(torch, dev, wrappers, name, card)
     add_launches(launches, got, hd=128)
@@ -1423,11 +1540,13 @@ def main(argv=None) -> int:
     small_step_check(torch, dev, "llama3-8b", SMALL_SEQ, LLAMA_STEPS,
                      "phase 9 step", compressed="mean")
 
+    lap("phase 10")
     # -- phase 10: opt-125m and gpt-neo-125m, training and serving ----------
     for arch_name in GEN_ARCHS:
         add_launches(launches, generalizability_phase(
             torch, dev, wrappers, name, card, arch_name), hd=64)
 
+    lap("phase 10b")
     # -- phase 10b: phi4-mini, qwen1.5-32b, mistral-large, card vs CPU ------
     for arch_name in DENSE_STEP_ARCHS:
         comp = get_config(arch_name).split.smashed_compress
@@ -1435,39 +1554,53 @@ def main(argv=None) -> int:
                          [("none", "none", {}), (comp, comp, {})],
                          "phase 10b", compressed="mean")
 
+    lap("phase 11")
     # -- phase 11: mamba2-780m serving at full width and depth ---------------
     add_launches(launches, mamba2_serving_phase(torch, dev, wrappers, name,
                                                 card), hd=64)
 
+    lap("phase 12")
     # -- phase 12: zamba2-1.2b at full width, training and serving ----------
     add_launches(launches, zamba2_phase(torch, dev, wrappers, name, card),
                  hd=64)
 
+    lap("phase 13")
     # -- phase 13: kimi-k2 at full width, training and serving --------------
     add_launches(launches, kimi_phase(torch, dev, wrappers, name, card),
                  hd=112)
 
+    lap("phase 13b")
     # -- phase 13b: kimi-k2, llama4-maverick, internvl2-76b, card vs CPU ----
     for hd, got in moe_vlm_steps(torch, dev, wrappers).items():
         add_launches(launches, got, hd=hd)
 
+    lap("phase 14")
     # -- phase 14: whisper-medium at full width and depth, train and serve --
     add_launches(launches, whisper_phase(torch, dev, wrappers, name, card),
                  hd=64)
 
+    lap("phase 14b")
     # -- phase 14b: whisper-medium, card vs CPU -----------------------------
     add_launches(launches, whisper_steps(torch, dev, wrappers), hd=64)
 
+    lap("phase 15")
     # -- phase 15: the dry-run's serving cells at 32k and 500k --------------
     phase15(torch, dev, wrappers, name, card, F, launches, worst, rows)
 
+    lap("phase 16")
     # -- phase 16: the cohort split over ranks, NCCL and gloo ---------------
     for kname, c in phase16(torch, dev, wrappers, name, card).items():
         launches[kname] += c
 
+    lap("phase 17")
     # -- phase 17: parameter sharding, TP over "model", NCCL and gloo ------
     phase17(torch, dev, F, wrappers, name, card, launches, worst, rows)
 
+    lap("phase 18")
+    # -- phase 18: parameter sharding, EP (MoE) and TP over SSM heads -------
+    phase18(torch, dev, F, wrappers, name, card, launches, worst, rows)
+
+    lap("results")
     # -- results ----------------------------------------------------------------
     fa = "src/repro/kernels/flash_attention/kernel.py"
     lk = "src/repro/kernels/lora_matmul/kernel.py"
@@ -1491,7 +1624,7 @@ def main(argv=None) -> int:
     for hd in WIDE_HDS:
         for kname in WIDE_HD:
             sources[hd_row(kname, hd)] = sources[kname]
-    for kname in P15_ROWS + P17_ROWS:
+    for kname in P15_ROWS + P17_ROWS + P18_ROWS:
         sources[kname] = sources[kname.split(" (")[0]]
     kernels = []
     for kname, (src, replaces) in sources.items():
@@ -4151,8 +4284,8 @@ def recorded_routing(on=True, replay=None):
         return
     route = transformer.moe_route
 
-    def recording(cfg, yg, router):
-        got = route(cfg, yg, router)
+    def recording(cfg, yg, router, **kw):
+        got = route(cfg, yg, router, **kw)
         own = got[2].detach().cpu()
         if replay is not None:
             if len(calls) >= len(replay):
@@ -5648,14 +5781,17 @@ def p17_arch(smashed: str):
 @contextlib.contextmanager
 def recorded_shapes():
     """While open, the yielded dict collects the shapes the model hands
-    the flash kernels ((B, S, H, hd) of q and of k) and the fused LoRA
-    ((K, N) of W), at the module attributes the blocks call (the kernels'
-    own wrappers and counters stay as they are)."""
+    the flash kernels ((B, S, H, hd) of q and of k), the fused LoRA ((K,
+    N) of W) and the SSD scan ((B, S, H, P) of x), at the module
+    attributes the blocks call (the kernels' own wrappers and counters
+    stay as they are)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    got = {"flash": set(), "lora": set()}
-    flash, lora = fops.flash_attention, lops.lora_matmul
+    got = {"flash": set(), "lora": set(), "ssd": set()}
+    flash, lora, scan = fops.flash_attention, lops.lora_matmul, \
+        ssd_ops.ssd_scan
 
     def flash_rec(q, k, v, **kw):
         got["flash"].add((tuple(q.shape), tuple(k.shape)))
@@ -5665,17 +5801,25 @@ def recorded_shapes():
         got["lora"].add(tuple(w.shape))
         return lora(x, w, a, b, scale)
 
+    def scan_rec(x, *args, **kw):
+        got["ssd"].add(tuple(x.shape))
+        return scan(x, *args, **kw)
+
     fops.flash_attention, lops.lora_matmul = flash_rec, lora_rec
+    ssd_ops.ssd_scan = scan_rec
     try:
         yield got
     finally:
         fops.flash_attention, lops.lora_matmul = flash, lora
+        ssd_ops.ssd_scan = scan
 
 
-def p17_grad(torch, dev, wrappers, system, shard):
+def p17_grad(torch, dev, wrappers, system, shard,
+             ce_chunk=LLAMA_CE_CHUNK):
     """The fused LoRA backward on the global model's eval loss (as
-    global_adapter_grad, on this rank's blocks of the base weights):
-    returns its launches and each gradient's largest |value|."""
+    global_adapter_grad, on this rank's blocks of the base weights, the
+    cross entropy in chunks of `ce_chunk`): returns its launches and
+    each gradient's largest |value|."""
     from repro_torch.core.split import serve_adapters
     from repro_torch.models.common import ShardingPolicy
     from repro_torch.runtime.sharding import shard_client_batch
@@ -5694,11 +5838,11 @@ def p17_grad(torch, dev, wrappers, system, shard):
         per, _ = system.model.loss(
             system.base_params, eff,
             {k: torch.as_tensor(v, device=dev) for k, v in ebatch.items()},
-            per_client=True, ce_chunk=LLAMA_CE_CHUNK, policy=policy)
+            per_client=True, ce_chunk=ce_chunk, policy=policy)
         grads = torch.autograd.grad(per.sum(), tree_leaves(eff))
     torch.cuda.synchronize()
     if not all(torch.isfinite(g).all() for g in grads):
-        raise RuntimeError("phase 17: non-finite global-adapter gradient")
+        raise RuntimeError("non-finite global-adapter gradient")
     return (wrappers["lora_matmul_bwd"].launches - before,
             [float(g.abs().max()) for g in grads])
 
@@ -5724,86 +5868,6 @@ def p17_block_bytes(params) -> int:
     return total
 
 
-def p17_run(torch, dev, wrappers, shard, smashed, tag) -> dict:
-    """P17_ROUNDS rounds of phase 17's system under `shard` (None or a
-    MeshShard), then the global-adapter gradient.  Returns the gathered
-    state after each round (numpy), the records, per step its launches,
-    the kernels' shapes, the gradient's launches and sizes, the bytes of
-    base weights this process holds and its max_memory_allocated over
-    the rounds.  The system and its weights are gone when it returns."""
-    import functools
-
-    from repro_torch.core import rounds
-    from repro_torch.core.system import SplitFTSystem, SystemConfig
-    from repro_torch.runtime.sharding import gather_state
-    from repro_torch.tree import tree_leaves, tree_map
-
-    factories = rounds.make_train_step, rounds.make_eval_step
-    rounds.make_train_step, rounds.make_eval_step = (
-        functools.partial(f, ce_chunk=LLAMA_CE_CHUNK) for f in factories)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    try:
-        system = SplitFTSystem(p17_arch(smashed), SystemConfig(
-            num_samples=NUM_SAMPLES, eval_samples=EVAL_SAMPLES), seed=SEED,
-            device=dev, draw_on_device=True, policy=shard)
-    finally:
-        rounds.make_train_step, rounds.make_eval_step = factories
-    torch.cuda.synchronize()
-    # the init's peak over what the process held before it
-    init_peak = torch.cuda.max_memory_allocated() - held
-    base = sum(x.numel() * x.element_size()
-               for x in tree_leaves(system.base_params))
-    largest = max(x.numel() * x.element_size()
-                  for x in tree_leaves(system.base_params))
-    state_bytes = sum(x.numel() * x.element_size()
-                      for x in tree_leaves(system.state)
-                      if isinstance(x, torch.Tensor) and x.is_cuda)
-    # unsharded: the bytes param_specs gives one rank of the ranks' mesh
-    block = (p17_block_bytes(system.base_params) if shard is None
-             else base)
-    train = system.train_step = TimedStep(torch, system.train_step, wrappers)
-    ev = system.eval_step = TimedStep(torch, system.eval_step, wrappers)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    states, walls = [], []
-    with recorded_shapes() as shapes:
-        for r in range(P17_ROUNDS):
-            t0 = time.perf_counter()
-            system.run(1, log_every=0)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            states.append(tree_map(lambda x: x.detach().cpu().numpy(),
-                                   gather_state(system.state,
-                                                system.cohort)))
-            if not np.isfinite(system.history[-1]["loss"]):
-                raise RuntimeError(f"{tag} round {r}: non-finite loss")
-        peak = torch.cuda.max_memory_allocated()
-        bwd, gmax = p17_grad(torch, dev, wrappers, system, shard)
-    out = {"states": states, "history": [dict(h) for h in system.history],
-           "train": [c[1] for c in train.calls],
-           "eval": [c[1] for c in ev.calls],
-           "step_s": [(c[2], e[2]) for c, e in zip(train.calls, ev.calls)],
-           "walls": walls, "shapes": shapes, "lora_bwd": bwd,
-           "grad_max": gmax, "base_bytes": base, "block_bytes": block,
-           "peak": peak, "init_peak": init_peak, "largest_leaf": largest,
-           "state_bytes": state_bytes,
-           "collectives": shard.collectives if shard is not None else 0,
-           "bytes": shard.bytes_reduced if shard is not None else 0}
-    del system, train, ev
-    torch.cuda.empty_cache()
-    log(f"{tag}: round walls {fmt([w * 1e3 for w in walls])} ms, train "
-        f"steps {fmt([a * 1e3 for a, _ in out['step_s']])} ms, eval steps "
-        f"{fmt([b * 1e3 for _, b in out['step_s']])} ms; "
-        f"losses {[float(h['loss']) for h in out['history']]}; base "
-        f"weights {base / 2**30:.3f} GiB, init peak {init_peak / 2**30:.3f} "
-        f"GiB, max_memory_allocated {peak / 2**30:.3f} GiB; collectives "
-        f"{out['collectives']}, bytes "
-        f"all-reduced {out['bytes']}")
-    return out
-
-
 def p17_rank(rank: int, world: int, out_dir: str, device: str = "cuda"):
     """Phase 17 on one of P17_RANKS gloo ranks that share the card, on a
     (1, P17_RANKS) mesh (run by repro_torch.launch.sharded.run_ranks in a
@@ -5817,9 +5881,10 @@ def p17_rank(rank: int, world: int, out_dir: str, device: str = "cuda"):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
     shard = MeshShard(make_mesh(1, world), device=dev, backend="gloo")
-    got = {sm: p17_run(torch, dev, port_wrappers(), shard, sm,
-                       f"phase 17 {sm} gloo rank {rank} of {world} "
-                       f"{shard.coords}")
+    got = {sm: sharded_run(torch, dev, port_wrappers(), shard,
+                           p17_arch(sm), P17_ROUNDS, LLAMA_CE_CHUNK,
+                           f"phase 17 {sm} gloo rank {rank} of {world} "
+                           f"{shard.coords}")
            for sm in P17_SMASHED}
     torch.save(got, Path(out_dir) / f"gloo_rank{rank}.pt")
 
@@ -5857,8 +5922,6 @@ def p17_kernels(torch, F, rand, worst, rows):
     (P17_LORA).  Each against its plain version first (worst takes the
     larger error at the TP rows), then timed beside the plain version
     and, for flash, SDPA; the LoRA rows are P17_WQ's."""
-    from repro_torch.kernels.lora_matmul import ops as lops
-
     errs = {hd_row(k, 128): 0.0 for k in WIDE_HD}
     got = time_flash_cases(torch, F, rand, errs, [
         (P17_ROWS[0], P17_ROWS[1], 20, 512, 512, 16, 4, 128, True,
@@ -5866,59 +5929,25 @@ def p17_kernels(torch, F, rand, worst, rows):
     for i, k in enumerate(("flash_attention_fwd", "flash_attention_bwd")):
         worst[P17_ROWS[i]] = max(worst[P17_ROWS[i]], errs[hd_row(k, 128)])
     rows.update(got)
-    m, r = 10240, 16
     for kd, n in sorted(P17_LORA):
-        x, g = rand(m, kd), rand(m, n)
-        w = rand(kd, n, scale=kd ** -0.5)
-        a, bb = rand(kd, r, scale=r ** -0.5), rand(r, n, scale=0.02)
-        sc = torch.tensor(2.0, device=x.device)
-        y, xa = lops.lora_matmul_fwd(x, w, a, bb, sc)
-        what = f"M={m} K={kd} N={n}"
-        worst[P17_ROWS[2]] = max([worst[P17_ROWS[2]]] + [
-            max_err(torch, got_, want, "float32", f"TP lora fwd {what}",
-                    scaled=True)
-            for got_, want in zip((y, xa), lops.ref.lora_matmul_fwd(
-                x, w, a, bb, sc))])
-        worst[P17_ROWS[3]] = max([worst[P17_ROWS[3]]] + [
-            max_err(torch, got_, want, "float32", f"TP lora bwd {what}",
-                    scaled=True)
-            for got_, want in zip(
-                lops.lora_matmul_bwd(x, w, a, bb, sc, g, xa),
-                lops.ref.lora_matmul_bwd(x, w, a, bb, sc, g, xa))])
-        if (kd, n) != P17_WQ:
-            continue
-        mat, low = 2 * m * kd * n, 2 * m * r * (kd + n)
-        rows[P17_ROWS[2]] = dict(
-            ms=cuda_ms(torch, lambda: lops.lora_matmul_fwd(x, w, a, bb, sc)),
-            plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_fwd(
-                x, w, a, bb, sc)),
-            library_ms=None,
-            # read x, W, A, B; write y, xa
-            **work(4 * (m * kd + kd * n + kd * r + r * n + m * n + m * r),
-                   mat + low, products=True),
-            shape=f"{what} r={r} fp32 (wq's column block)")
-        rows[P17_ROWS[3]] = dict(
-            ms=cuda_ms(torch, lambda: lops.lora_matmul_bwd(
-                x, w, a, bb, sc, g, xa)),
-            plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_bwd(
-                x, w, a, bb, sc, g, xa)),
-            library_ms=None,
-            # read x, W, A, B, g, xa; write dx, dA, dB
-            **work(4 * (2 * m * kd + kd * n + 2 * kd * r + 2 * r * n
-                        + m * n + m * r), mat + 2 * low + 2 * m * r,
-                   products=True),
-            shape=f"{what} r={r} fp32 (wq's column block)")
-        del x, g, w, a, bb, y, xa
-        torch.cuda.empty_cache()
+        lora_tp_rows(torch, rand, worst, rows, P17_ROWS[2], P17_ROWS[3],
+                     10240, kd, n, "wq's column block",
+                     timed=(kd, n) == P17_WQ)
     log("phase 17: the kernels at the TP-local shapes agree with their "
         "plain versions: " + ", ".join(f"{k} {worst[k]:.3e}"
                                        for k in P17_ROWS)
         + f" (tol {TOL['float32']}, the LoRA's scaled by its rows)")
-    for kname in P17_ROWS:
+    log_tp_rows(torch, "phase 17", P17_ROWS, rows)
+
+
+def log_tp_rows(torch, phase, names, rows):
+    """One line per timed row of `names`: its kernel, plain, library and
+    bound times, with the card."""
+    for kname in names:
         row = rows[kname]
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
-        log(f"phase 17 [{torch.cuda.get_device_name(0)}, {card_line()}] "
+        log(f"{phase} [{torch.cuda.get_device_name(0)}, {card_line()}] "
             f"{kname} at {row['shape']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{row['bound'][0]:.4f} ms ({row['bound'][1]}); fp32 CUDA-core "
@@ -5973,13 +6002,16 @@ def phase17(torch, dev, F, wrappers, name, card, launches, worst, rows):
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p17_"))
     try:
-        plain = {sm: p17_run(torch, dev, wrappers, None, sm,
-                             f"phase 17 {sm} unsharded")
+        plain = {sm: sharded_run(torch, dev, wrappers, None, p17_arch(sm),
+                                 P17_ROUNDS, LLAMA_CE_CHUNK,
+                                 f"phase 17 {sm} unsharded")
                  for sm in P17_SMASHED}
         with process_group(0, 1, tmp / "nccl", backend="nccl"):
             shard = MeshShard(make_mesh(1, 1), device=dev)
-            nccl = {sm: p17_run(torch, dev, wrappers, shard, sm,
-                                f"phase 17 {sm} {shard.backend} world 1")
+            nccl = {sm: sharded_run(torch, dev, wrappers, shard,
+                                    p17_arch(sm), P17_ROUNDS,
+                                    LLAMA_CE_CHUNK, f"phase 17 {sm} "
+                                    f"{shard.backend} world 1")
                     for sm in P17_SMASHED}
             del shard
         torch.cuda.empty_cache()
@@ -6063,6 +6095,447 @@ def phase17(torch, dev, F, wrappers, name, card, launches, worst, rows):
                     for sm in P17_SMASHED)
         + f"; spawn + {P17_RANKS} ranks {spawned:.1f} s; the phase took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def p18_arch(model: str, smashed=None):
+    """Phase 18's cut of `model` (kimi-k2 or zamba2-1.2b) at full width:
+    its depth (and kimi-k2's experts), cut, P18_BATCH x M_SEQ, SGD; the
+    smashed compressor `smashed`, or the config's own."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch = get_config(model)
+    m = arch.model
+    if model == KIMI:
+        m = dataclasses.replace(m, num_layers=P18_KIMI_LAYERS,
+                                num_experts=P18_KIMI_EXPERTS)
+    else:
+        m = dataclasses.replace(m, num_layers=P18_Z_LAYERS,
+                                attn_layer_indices=P18_Z_ATTN)
+    cut = P18_CUT[model]
+    return arch.replace(
+        model=m,
+        split=dataclasses.replace(
+            arch.split, cut_layer=cut, cut_buckets=(cut,),
+            smashed_compress=smashed or arch.split.smashed_compress),
+        train=dataclasses.replace(arch.train, batch_size=P18_BATCH,
+                                  seq_len=M_SEQ, **P17_TRAIN))
+
+
+def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
+                tag, replay=None) -> dict:
+    """n_rounds rounds of `arch` under `shard` (None or a MeshShard), the
+    cross entropy in chunks of `ce_chunk`, weights drawn on the card, then
+    the global-adapter gradient.  Returns the gathered state after each round
+    (numpy), the records, per step its launches and wall seconds, the
+    kernels' shapes, the gradient's launches and sizes, the bytes of base
+    weights this process holds (unsharded: the bytes param_specs gives one
+    rank of the (1, P17_RANKS) mesh), its init's peak and its
+    max_memory_allocated over the rounds, and the bytes it all-reduced a
+    round.  An MoE model records each layer call's routing
+    (recorded_routing) per round; replay: the unsharded run's per-round
+    calls, whose choices this run routes by (its own flips against them
+    counted); under a shard every rank's own choices are checked equal
+    each round (check_agree).  The system and its weights are gone when
+    it returns."""
+    import functools
+
+    from repro_torch.core import rounds
+    from repro_torch.core.system import SplitFTSystem, SystemConfig
+    from repro_torch.runtime.sharding import gather_state
+    from repro_torch.tree import tree_leaves, tree_map
+
+    moe = arch.model.family == "moe"
+    factories = rounds.make_train_step, rounds.make_eval_step
+    rounds.make_train_step, rounds.make_eval_step = (
+        functools.partial(f, ce_chunk=ce_chunk) for f in factories)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    try:
+        system = SplitFTSystem(arch, SystemConfig(
+            num_samples=NUM_SAMPLES, eval_samples=EVAL_SAMPLES), seed=SEED,
+            device=dev, draw_on_device=True, policy=shard)
+    finally:
+        rounds.make_train_step, rounds.make_eval_step = factories
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() - held
+    leaves = tree_leaves(system.base_params)
+    base = sum(x.numel() * x.element_size() for x in leaves)
+    largest = max(x.numel() * x.element_size() for x in leaves)
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(system.state)
+                      if isinstance(x, torch.Tensor) and x.is_cuda)
+    block = p17_block_bytes(system.base_params) if shard is None else base
+    train = system.train_step = TimedStep(torch, system.train_step, wrappers)
+    ev = system.eval_step = TimedStep(torch, system.eval_step, wrappers)
+    reduced0 = shard.bytes_reduced if shard is not None else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    states, walls, routes, flips, drops = [], [], [], 0, []
+    with recorded_shapes() as shapes:
+        for r in range(n_rounds):
+            t0 = time.perf_counter()
+            with recorded_routing(on=moe, replay=(
+                    None if replay is None else replay[r])) as calls:
+                system.run(1, log_every=0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if moe:
+                if shard is not None:
+                    shard.check_agree(f"{tag} routing round {r}",
+                                      *[c.numpy() for c, _ in calls])
+                if replay is not None:
+                    flips += routing_flips(torch, calls, replay[r])
+                routes.append(calls)
+                drops.append([share for _, share in calls])
+            states.append(tree_map(lambda x: x.detach().cpu().numpy(),
+                                   gather_state(system.state,
+                                                system.cohort)))
+            if not np.isfinite(system.history[-1]["loss"]):
+                raise RuntimeError(f"{tag} round {r}: non-finite loss")
+        peak = torch.cuda.max_memory_allocated()
+        reduced = (shard.bytes_reduced - reduced0) if shard is not None \
+            else 0
+        bwd, gmax = p17_grad(torch, dev, wrappers, system, shard,
+                             ce_chunk=ce_chunk)
+    out = {"states": states, "history": [dict(h) for h in system.history],
+           "train": [c[1] for c in train.calls],
+           "eval": [c[1] for c in ev.calls],
+           "step_s": [(c[2], e[2]) for c, e in zip(train.calls, ev.calls)],
+           "walls": walls, "shapes": shapes, "lora_bwd": bwd,
+           "grad_max": gmax, "base_bytes": base, "block_bytes": block,
+           "peak": peak, "init_peak": init_peak, "largest_leaf": largest,
+           "state_bytes": state_bytes, "routes": routes, "flips": flips,
+           "drops": drops, "round_bytes": reduced / n_rounds}
+    del system, train, ev
+    torch.cuda.empty_cache()
+    log(f"{tag}: round walls {fmt([w * 1e3 for w in walls])} ms, train "
+        f"steps {fmt([a * 1e3 for a, _ in out['step_s']])} ms, eval steps "
+        f"{fmt([b * 1e3 for _, b in out['step_s']])} ms; "
+        f"losses {[float(h['loss']) for h in out['history']]}; base "
+        f"weights {base / 2**30:.3f} GiB, init peak {init_peak / 2**30:.3f} "
+        f"GiB, max_memory_allocated {peak / 2**30:.3f} GiB; bytes "
+        f"all-reduced a round {out['round_bytes']:.0f}"
+        + (f"; routing flips against the unsharded run {flips}"
+           if moe and replay is not None else ""))
+    return out
+
+
+def p18_rank(rank: int, world: int, out_dir: str, device: str = "cuda",
+             smashed=None):
+    """Phase 18 on one of P17_RANKS gloo ranks that share the card, on a
+    (1, P17_RANKS) mesh: each model of P18_MODELS (smashed: as
+    p18_arch), the MoE one routed by the unsharded run's choices
+    (p18_routes.pt in out_dir)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import MeshShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    shard = MeshShard(make_mesh(1, world), device=dev, backend="gloo")
+    replay = torch.load(Path(out_dir) / "p18_routes.pt", weights_only=False)
+    got = {}
+    for model in P18_MODELS:
+        got[model] = sharded_run(
+            torch, dev, port_wrappers(), shard, p18_arch(model, smashed),
+            P18_ROUNDS,
+            P18_CE_CHUNK[model], f"phase 18 {model} gloo rank {rank} of "
+            f"{world} {shard.coords}", replay=replay.get(model))
+        got[model].pop("routes")
+    torch.save(got, Path(out_dir) / f"p18_gloo_rank{rank}.pt")
+
+
+def lora_tp_rows(torch, rand, worst, rows, fwd_row, bwd_row, m, kd, n,
+                 what, timed=True):
+    """The fused LoRA forward and backward at (M, K, N), r 16, fp32: held
+    against their plain versions (worst's rows take the errors), then
+    (`timed`) timed beside them and the bound at `rows`' rows."""
+    from repro_torch.kernels.lora_matmul import ops as lops
+
+    r = 16
+    x, g = rand(m, kd), rand(m, n)
+    w = rand(kd, n, scale=kd ** -0.5)
+    a, bb = rand(kd, r, scale=r ** -0.5), rand(r, n, scale=0.02)
+    sc = torch.tensor(2.0, device=x.device)
+    y, xa = lops.lora_matmul_fwd(x, w, a, bb, sc)
+    shape = f"M={m} K={kd} N={n}"
+    worst[fwd_row] = max([worst[fwd_row]] + [
+        max_err(torch, got_, want, "float32", f"TP lora fwd {shape}",
+                scaled=True)
+        for got_, want in zip((y, xa), lops.ref.lora_matmul_fwd(
+            x, w, a, bb, sc))])
+    worst[bwd_row] = max([worst[bwd_row]] + [
+        max_err(torch, got_, want, "float32", f"TP lora bwd {shape}",
+                scaled=True)
+        for got_, want in zip(lops.lora_matmul_bwd(x, w, a, bb, sc, g, xa),
+                              lops.ref.lora_matmul_bwd(x, w, a, bb, sc, g,
+                                                       xa))])
+    if not timed:
+        return
+    mat, low = 2 * m * kd * n, 2 * m * r * (kd + n)
+    rows[fwd_row] = dict(
+        ms=cuda_ms(torch, lambda: lops.lora_matmul_fwd(x, w, a, bb, sc)),
+        plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_fwd(
+            x, w, a, bb, sc)),
+        library_ms=None,
+        # read x, W, A, B; write y, xa
+        **work(4 * (m * kd + kd * n + kd * r + r * n + m * n + m * r),
+               mat + low, products=True),
+        shape=f"{shape} r={r} fp32 ({what})")
+    rows[bwd_row] = dict(
+        ms=cuda_ms(torch, lambda: lops.lora_matmul_bwd(
+            x, w, a, bb, sc, g, xa)),
+        plain_ms=cuda_ms(torch, lambda: lops.ref.lora_matmul_bwd(
+            x, w, a, bb, sc, g, xa)),
+        library_ms=None,
+        # read x, W, A, B, g, xa; write dx, dA, dB
+        **work(4 * (2 * m * kd + kd * n + 2 * kd * r + 2 * r * n + m * n
+                    + m * r), mat + 2 * low + 2 * m * r, products=True),
+        shape=f"{shape} r={r} fp32 ({what})")
+    del x, g, w, a, bb, y, xa
+    torch.cuda.empty_cache()
+
+
+def p18_kernels(torch, F, rand, worst, rows):
+    """The kernels of phase 18's paths at the TP-local shapes of a (1, 2)
+    mesh (fp32), each against its plain version first, then timed beside
+    it, SDPA (flash) and the bound: the flash forward and backward over
+    kimi-k2's 32 query heads and 4 KV heads of 112 and zamba2's 16 heads
+    of 64 (B 20, S 512, causal); the fused LoRA forward and backward at
+    M 10240 at kimi-k2's wq block (K 7168, N 3584) and zamba2's ssm_in
+    block (K 2048, N 4256: the rank's x, z and dt columns and B, C); the
+    SSD scan over zamba2's 32 heads of a rank (P 64, N 64, chunk
+    256)."""
+    errs = {k: 0.0 for k in ("flash_attention_fwd", "flash_attention_bwd",
+                             hd_row("flash_attention_fwd", 112),
+                             hd_row("flash_attention_bwd", 112),
+                             "ssd_scan")}
+    rows.update(time_flash_cases(torch, F, rand, errs, [
+        (P18_ROWS[0], P18_ROWS[1], 20, 512, 512, 32, 4, 112, True,
+         "a kimi-k2 train step's block on one of 2 \"model\" ranks"),
+        (P18_ROWS[2], P18_ROWS[3], 20, 512, 512, 16, 16, 64, True,
+         "a zamba2 train step's block on one of 2 \"model\" ranks")]))
+    for i, (k, hd) in enumerate((("flash_attention_fwd", 112),
+                                 ("flash_attention_bwd", 112),
+                                 ("flash_attention_fwd", 64),
+                                 ("flash_attention_bwd", 64))):
+        worst[P18_ROWS[i]] = max(worst[P18_ROWS[i]], errs[hd_row(k, hd)])
+    lora_tp_rows(torch, rand, worst, rows, P18_ROWS[4], P18_ROWS[5],
+                 10240, 7168, 3584, "kimi-k2's wq column block")
+    lora_tp_rows(torch, rand, worst, rows, P18_ROWS[6], P18_ROWS[7],
+                 10240, 2048, 4256, "zamba2's ssm_in block: a rank's heads")
+    rows[P18_ROWS[8]] = time_ssd_kernel(torch, rand, errs, P18_SSD_SHAPE)
+    worst[P18_ROWS[8]] = max(worst[P18_ROWS[8]], errs["ssd_scan"])
+    log("phase 18: the kernels at the TP-local shapes agree with their "
+        "plain versions: " + ", ".join(f"{k} {worst[k]:.3e}"
+                                       for k in P18_ROWS)
+        + f" (tol {TOL['float32']}, the LoRA's and the SSD's scaled)")
+    log_tp_rows(torch, "phase 18", P18_ROWS, rows)
+
+
+def p18_same_launches(run, want, what):
+    """Every train and eval step of `run` launched what the unsharded
+    run's same step did, kernel by kernel."""
+    for kind in ("train", "eval"):
+        if len(run[kind]) != len(want[kind]):
+            raise RuntimeError(f"{what}: {len(run[kind])} {kind} steps, "
+                               f"unsharded {len(want[kind])}")
+        for i, (got, ref) in enumerate(zip(run[kind], want[kind])):
+            if got != ref:
+                raise RuntimeError(f"{what} {kind} step {i} launched {got}, "
+                                   f"the unsharded step {ref}")
+    if run["lora_bwd"] != want["lora_bwd"]:
+        raise RuntimeError(f"{what}: the fused LoRA backward launched "
+                           f"{run['lora_bwd']} times, unsharded "
+                           f"{want['lora_bwd']}")
+
+
+def phase18(torch, dev, F, wrappers, name, card, launches, worst, rows,
+            smashed=None):
+    """Phase 18: parameter sharding of the MoE (EP over "model") and
+    hybrid (TP over the SSM heads) families' training round, for each
+    model of P18_MODELS: unsharded, under NCCL at world size 1 on a (1, 1)
+    mesh (bit for bit the unsharded run) and in P17_RANKS gloo ranks that
+    share the card on a (1, P17_RANKS) mesh (within P18_TOL, routed by
+    the unsharded run's choices, flips counted).  Adds every run's
+    launches to `launches` (the ranks' at the TP-local shapes to
+    P18_ROWS), fills `worst` and `rows` at P18_ROWS.  smashed: every
+    run's smashed compressor (as p18_arch; the configs' own by default,
+    "none" to see the gap without codes at the cut)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharded import process_group, run_ranks
+    from repro_torch.runtime import agreement
+    from repro_torch.runtime.sharding import MeshShard
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 18)
+
+    def rand(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype).to(dev)
+
+    archs = {m: p18_arch(m, smashed) for m in P18_MODELS}
+    for model in P18_MODELS:
+        m = archs[model].model
+        log(f"phase 18: {model} at full width (d_model {m.d_model}, "
+            f"{m.num_heads} heads over {m.num_kv_heads} of {m.head_dim}, "
+            f"vocab {m.vocab_size}"
+            + (f", {m.num_experts} of 384 experts top-{m.moe_top_k} at "
+               f"capacity {m.moe_capacity_factor}, d_ff {m.moe_d_ff} per "
+               f"expert, {m.num_shared_experts} shared"
+               if m.family == "moe" else
+               f", {m.ssm_heads} SSM heads of {m.ssm_head_dim}, state "
+               f"{m.ssm_state}, attention at {list(m.attn_layer_indices)}")
+            + f"), {m.num_layers} layers, cut {P18_CUT[model]}, 5 clients x "
+            f"batch {P18_BATCH} x seq {M_SEQ}, SGD, smashed "
+            f"{archs[model].split.smashed_compress}, {P18_ROUNDS} rounds")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p18_"))
+    try:
+        plain = {m: sharded_run(torch, dev, wrappers, None, archs[m],
+                                P18_ROUNDS, P18_CE_CHUNK[m],
+                                f"phase 18 {m} unsharded")
+                 for m in P18_MODELS}
+        torch.save({m: plain[m]["routes"] for m in P18_MODELS
+                    if plain[m]["routes"]}, tmp / "p18_routes.pt")
+        with process_group(0, 1, tmp / "nccl", backend="nccl"):
+            shard = MeshShard(make_mesh(1, 1), device=dev)
+            nccl = {m: sharded_run(torch, dev, wrappers, shard,
+                                   archs[m], P18_ROUNDS,
+                                   P18_CE_CHUNK[m], f"phase 18 {m} "
+                                   f"{shard.backend} world 1")
+                    for m in P18_MODELS}
+            del shard
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        run_ranks(p18_rank, make_mesh(1, P17_RANKS), tmp / "gloo",
+                  args=(str(tmp), dev.type, smashed))
+        spawned = time.perf_counter() - t1
+        gloo = [torch.load(tmp / f"p18_gloo_rank{r}.pt", weights_only=False)
+                for r in range(P17_RANKS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    gaps, bad = {}, []
+    for model in P18_MODELS:
+        sm = archs[model].split.smashed_compress
+        agreement.same_bits(
+            {k: nccl[model][k] for k in ("states", "history")},
+            {k: plain[model][k] for k in ("states", "history")},
+            f"phase 18 {model} NCCL world 1")
+        for run, what in [(nccl[model], "NCCL world 1")] + [
+                (g[model], f"gloo rank {r}") for r, g in enumerate(gloo)]:
+            p18_same_launches(run, plain[model], f"phase 18 {model} {what}")
+        if plain[model]["drops"]:
+            # every MoE layer call of a train step drops pairs
+            train = [s for rnd in plain[model]["drops"] for s in rnd]
+            if not all(s > 0 for s in train):
+                raise RuntimeError(f"phase 18 {model}: drop shares {train}: "
+                                   "every layer call must drop pairs")
+        rtol, atol, loss_rtol = P18_TOL[sm]
+        seen = [agreement.check_state(a, b, rtol=rtol, atol_of_max=atol,
+                                      outliers={k: 1.0 for k in b})
+                for a, b in zip(gloo[0][model]["states"],
+                                plain[model]["states"], strict=True)]
+        loss = agreement.check_history(gloo[0][model]["history"],
+                                       plain[model]["history"], loss_rtol=1.0)
+        log(f"phase 18 {model} {P17_RANKS} gloo ranks: per round and state "
+            "key the largest |diff| / max|leaf| and the share of a leaf's "
+            "elements outside the tolerance: "
+            + "; ".join(f"round {r}: " + ", ".join(
+                f"{k} {v:.3e} {o:.3e}" for k, (v, o) in g.items())
+                for r, g in enumerate(seen))
+            + f"; losses' largest relative difference {loss:.3e}")
+        gaps[model] = (max(v for g in seen for v, _ in g.values()), loss)
+        try:
+            for a, b in zip(gloo[0][model]["states"],
+                            plain[model]["states"]):
+                agreement.check_state(a, b, rtol=rtol, atol_of_max=atol,
+                                      outliers=P18_OUTLIERS.get((model, sm),
+                                                                {}))
+            agreement.check_history(gloo[0][model]["history"],
+                                    plain[model]["history"],
+                                    loss_rtol=loss_rtol)
+        except agreement.Mismatch as e:
+            # the other model's results are logged before the phase fails
+            bad.append(f"phase 18 {model}: {e}")
+        for r, g in enumerate(x[model] for x in gloo):
+            got = {k: g["shapes"][k] for k in ("flash", "lora", "ssd")}
+            want = P18_SHAPES[model]
+            if got != want:
+                raise RuntimeError(f"phase 18 {model} gloo rank {r} ran its "
+                                   f"kernels at {got}, want {want}")
+            if g["base_bytes"] != plain[model]["block_bytes"]:
+                raise RuntimeError(f"phase 18 {model} gloo rank {r} holds "
+                                   f"{g['base_bytes']} bytes of base "
+                                   "weights, param_specs gives it "
+                                   f"{plain[model]['block_bytes']}")
+            bound = (g["base_bytes"] + plain[model]["largest_leaf"]
+                     + g["state_bytes"] + P17_INIT_SLACK)
+            if g["init_peak"] > bound:
+                raise RuntimeError(f"phase 18 {model} gloo rank {r}: the "
+                                   f"init peaked at {g['init_peak']} bytes, "
+                                   f"over its blocks, one full leaf and the "
+                                   f"state ({bound})")
+    # the unsharded runs' kernels ran at the full shapes: their launches go
+    # to the kernels' rows, the ranks' at the TP-local shapes to P18_ROWS
+    for model, hd, tp_row in (
+            (KIMI, 112, {"flash_attention_fwd": P18_ROWS[0],
+                         "flash_attention_bwd": P18_ROWS[1],
+                         "lora_matmul_fwd": P18_ROWS[4],
+                         "lora_matmul_bwd": P18_ROWS[5]}),
+            ("zamba2-1.2b", 64, {"flash_attention_fwd": P18_ROWS[2],
+                                 "flash_attention_bwd": P18_ROWS[3],
+                                 "lora_matmul_fwd": P18_ROWS[6],
+                                 "lora_matmul_bwd": P18_ROWS[7],
+                                 "ssd_scan": P18_ROWS[8]})):
+        for run, tp in [(plain[model], False), (nccl[model], False)] + [
+                (g[model], True) for g in gloo]:
+            for step in run["train"] + run["eval"]:
+                for k, c in step.items():
+                    launches[tp_row.get(k, k) if tp else hd_row(k, hd)] += c
+            launches[tp_row["lora_matmul_bwd"] if tp
+                     else "lora_matmul_bwd"] += run["lora_bwd"]
+    p18_kernels(torch, F, rand, worst, rows)
+    gib = lambda x: round(x / 2**30, 3)  # noqa: E731
+    for model in P18_MODELS:
+        p, n = plain[model], nccl[model]
+        ranks = [g[model] for g in gloo]
+        log(f"phase 18 [{name}, {card}] {model}: NCCL at world size 1 on a "
+            f"(1, 1) mesh == unsharded bit for bit; {P17_RANKS} gloo ranks "
+            f"on a (1, {P17_RANKS}) mesh ran their kernels at "
+            f"{P18_SHAPES[model]}, per-step launches as the unsharded "
+            f"steps'; largest |diff| / max|leaf| {gaps[model][0]:.3e}, "
+            f"losses' relative difference {gaps[model][1]:.3e} (tol "
+            f"{P18_TOL[archs[model].split.smashed_compress]})"
+            + (f"; routing flips against the unsharded run "
+               f"{[g['flips'] for g in ranks]}, dropped share per layer "
+               f"call {fmt(p['drops'][0])}" if p["drops"] else "")
+            + f"; base weights (GiB): unsharded {gib(p['base_bytes'])}, "
+            f"gloo {[gib(g['base_bytes']) for g in ranks]}; init peak "
+            f"(GiB): unsharded {gib(p['init_peak'])}, NCCL "
+            f"{gib(n['init_peak'])}, gloo "
+            f"{[gib(g['init_peak']) for g in ranks]}"
+            f" (bound: blocks + largest leaf {gib(p['largest_leaf'])} + "
+            f"state); train peak (GiB): unsharded {gib(p['peak'])}, NCCL "
+            f"{gib(n['peak'])}, gloo {[gib(g['peak']) for g in ranks]}; "
+            f"train steps (ms): unsharded "
+            f"{fmt([a * 1e3 for a, _ in p['step_s']])}, gloo rank 0 "
+            f"{fmt([a * 1e3 for a, _ in ranks[0]['step_s']])}; eval steps "
+            f"(ms): unsharded {fmt([b * 1e3 for _, b in p['step_s']])}, "
+            f"gloo rank 0 {fmt([b * 1e3 for _, b in ranks[0]['step_s']])}; "
+            f"bytes all-reduced a round per gloo rank "
+            f"{[round(g['round_bytes']) for g in ranks]}")
+    log(f"phase 18 [{name}, {card}]: spawn + {P17_RANKS} ranks "
+        f"{spawned:.1f} s; the phase took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise RuntimeError("; ".join(bad))
 
 
 def lora_args(torch, rand, m, dt, gen):

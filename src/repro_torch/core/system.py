@@ -75,7 +75,8 @@ rank's rows of the cohort over the mesh's "data" axis
 (``shard_state``).  A MeshShard also places the base weights once, at
 init, by ``param_specs`` (``leaf_block``, each leaf narrowed as it is
 drawn, so no rank holds the full tree: FSDP over "data", heads, FFN
-width and vocabulary over "model", the dense family only), and the
+width, vocabulary, SSM heads and MoE experts over "model", the dense,
+MoE, SSM and hybrid families), and the
 engine's steps run the model on those blocks (models/common.
 ShardingPolicy); the adapters stay whole on every "model" rank.  Every
 host read of a client-axis leaf goes through a row gather, every host

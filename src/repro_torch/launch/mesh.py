@@ -34,8 +34,8 @@ def make_production_mesh(*, num_cards: int = 1) -> MeshConfig:
 
 def make_mesh(data: int = 1, model: int = 1) -> MeshConfig:
     """(data, model) over ("data", "model"): data * model ranks, the
-    cohort's rows over "data" and the dense family's base weights by
-    param_specs over both axes."""
+    cohort's rows over "data" and the base weights of the dense, MoE,
+    SSM and hybrid families by param_specs over both axes."""
     if data < 1 or model < 1:
         raise ValueError(f"axis sizes must be >= 1, got ({data}, {model})")
     return MeshConfig(shape=(data, model), axes=AXES)

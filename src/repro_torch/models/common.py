@@ -10,9 +10,13 @@ per-group stacks keep the leading layer axis), so a JAX tree converted by
 reference constrains activations and XLA derives the collectives from
 ``param_specs``, the port's blocks call the policy's collectives
 themselves, over the ranks of a ``runtime.sharding.MeshShard``: the FSDP
-gather of a layer's base weights over "data", and the two Megatron-style
+gather of a layer's base weights over "data", the two Megatron-style
 functions over "model" around each column- and row-parallel pair
-(``copy_to_tp``, ``reduce_from_tp``).  ``NO_SHARDING`` (no shard) calls
+(``copy_to_tp``, ``reduce_from_tp``), the exact gather of a block over
+"model" (``tp_gather``: the router's logits, the SSM's ``in_proj`` and
+conv), and the moves of the MoE experts' activations over "data"
+(``data_gather_rows``, ``data_reduce_rows``: the experts' weights stay
+where ``param_specs`` put them).  ``NO_SHARDING`` (no shard) calls
 nothing, so the unsharded path is the one-card path bit for bit.
 """
 
@@ -28,6 +32,12 @@ from repro_torch.kernels.lora_matmul import ops as lora_ops
 from repro_torch.runtime.sharding import FSDP_AXES, logical_spec
 
 Params = Dict[str, Any]
+
+# the families whose base weights a MeshShard places
+PLACED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the MoE experts' stacks, split over "model" (the expert axis) and
+# "data" (their ff dim)
+EXPERT_LEAVES = frozenset({"we_in", "we_gate", "we_out"})
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +72,55 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _GatherTP(torch.autograd.Function):
+    """This rank's block of a dim's `full` entries into the whole dim on
+    every "model" rank (a SUM of zero-filled buffers: exact); the
+    gradient keeps the rank's block (every rank's consumers of the whole
+    are the same)."""
+
+    @staticmethod
+    def forward(ctx, x, policy, dim):
+        ctx.dim, ctx.lo, ctx.n = dim, policy.tp_rank * x.shape[dim], \
+            x.shape[dim]
+        return policy.fill([(x, dim)], "model")[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every "data" rank's rows of dim 1 into one tensor, rank-major (a SUM
+    of zero-filled buffers: exact); the gradient is the rows' sum over
+    the "data" ranks, this rank's block kept (the conjugate: a
+    reduce-scatter, built from one all-reduce)."""
+
+    @staticmethod
+    def forward(ctx, x, policy):
+        ctx.policy, ctx.n = policy, x.shape[1]
+        return policy.fill([(x, 1)], "data")[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.policy.data_keep(ctx.policy.data_sum(g), ctx.n), None
+
+
+class _ReduceRows(torch.autograd.Function):
+    """The partial sums over the "data" ranks of every rank's rows of dim
+    1, this rank's block kept (a reduce-scatter); the gradient is every
+    rank's block of the rows gathered again (an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, policy):
+        ctx.policy = policy
+        return policy.data_keep(policy.data_sum(x), x.shape[1]
+                                // policy.fsdp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.policy.fill([(g, 1)], "data")[0], None
+
+
 class ShardingPolicy:
     """The collectives of a model whose base weights a MeshShard placed
     (``runtime.sharding.leaf_block``), or none (``NO_SHARDING``).
@@ -72,9 +131,10 @@ class ShardingPolicy:
     ``tp_rank`` of ``tp``.
     ``fsdp`` / ``fsdp_rank``: the same on "data", over which the base
     weights' d_model dims are split and gathered layer by layer
-    (``gather``).  Which dims are split is read from the leaves' shapes
-    against the config's, which ``fit_spec``'s divisibility rule makes
-    the same thing."""
+    (``gather``), and the MoE experts' ff dim split and never gathered
+    (``moe_apply`` moves the dispatched rows instead).  Which dims are
+    split is read from the leaves' shapes against the config's, which
+    ``fit_spec``'s divisibility rule makes the same thing."""
 
     def __init__(self, shard=None):
         self.shard = shard
@@ -99,26 +159,35 @@ class ShardingPolicy:
     def for_model(cls, shard, arch) -> "ShardingPolicy":
         """The policy of a model under `shard`: NO_SHARDING without one
         or under a ClientShard (base weights whole).  The port places the
-        dense family only: another family on a mesh of more than one
-        rank raises (on one rank its blocks are whole: NO_SHARDING), and
-        so does a head count that the "model" axis does not divide (the
+        dense, MoE (experts over "model", their ff dim over "data"), SSM
+        and hybrid families; the audio and vlm families on a mesh of more
+        than one rank raise (on one rank their blocks are whole:
+        NO_SHARDING), and so does a head count that the "model" axis
+        does not divide: the attention heads of a family that has
+        attention, the SSM heads of one that has SSM layers (the
         reference would split a head across devices)."""
         if shard is None or not getattr(shard, "places_params", False):
             return NO_SHARDING
         cfg = arch.model
-        if cfg.family != "dense":
+        if cfg.family not in PLACED_FAMILIES:
             if shard.world == 1:
                 return NO_SHARDING
             raise NotImplementedError(
                 f"{arch.name} is of the {cfg.family} family: the port "
-                "places the base weights of the dense family only so far "
-                f"(experts, SSM and hybrid layers, the audio and vlm "
-                f"families under TP): see {roadmap.PARAM_SHARDING}")
-        if cfg.num_heads % shard.model_size:
-            raise ValueError(
-                f"{arch.name}: {cfg.num_heads} heads do not divide over a "
-                f"\"model\" axis of {shard.model_size}; the port computes "
-                f"whole heads ({roadmap.PARAM_SHARDING})")
+                "places the base weights of the dense, MoE, SSM and hybrid "
+                "families only so far (the audio and vlm families under "
+                f"TP): see {roadmap.PARAM_SHARDING}")
+        counts = []
+        if cfg.family != "ssm":
+            counts.append(("heads", cfg.num_heads))
+        if cfg.family in ("ssm", "hybrid"):
+            counts.append(("SSM heads", cfg.ssm_heads))
+        for what, n in counts:
+            if n % shard.model_size:
+                raise ValueError(
+                    f"{arch.name}: {n} {what} do not divide over a "
+                    f"\"model\" axis of {shard.model_size}; the port "
+                    f"computes whole heads ({roadmap.PARAM_SHARDING})")
         return cls(shard)
 
     # -- collectives ----------------------------------------------------
@@ -140,26 +209,87 @@ class ShardingPolicy:
     def reduce_from_tp(self, x):
         return x if self.tp == 1 else _ReduceFromTP.apply(x, self)
 
+    def sum_tp(self, x):
+        """The sum over the "model" ranks of per-rank parts whose
+        consumers differ by rank (the gated norm's sum of squares over
+        the rank's heads): summed forward, and the gradient summed
+        backward too."""
+        return self.reduce_from_tp(self.copy_to_tp(x))
+
+    def fill(self, parts, axis: str):
+        """Each (x, dim) of `parts`, this rank's block of `dim`, into the
+        whole dim on every rank of `axis` (the blocks rank-major), no
+        gradient: one SUM of zero-filled buffers (exact) for all of
+        them."""
+        size, rank = ((self.tp, self.tp_rank) if axis == "model"
+                      else (self.fsdp, self.fsdp_rank))
+        bufs = []
+        for x, dim in parts:
+            n = x.shape[dim]
+            shape = list(x.shape)
+            shape[dim] = n * size
+            buf = x.detach().new_zeros(shape)
+            buf.narrow(dim, rank * n, n).copy_(x.detach())
+            bufs.append(buf)
+        with torch.no_grad():
+            return self.shard.all_reduce(bufs, "sum", axis=axis)
+
+    def tp_gather(self, x: torch.Tensor, dim: int):
+        """The whole of a dim that "model" splits, on every rank (the
+        router's logits, the SSM's in_proj and conv): each rank's
+        consumers of the whole are the same, so the gradient keeps the
+        rank's block."""
+        return x if self.tp == 1 else _GatherTP.apply(x, self, dim)
+
+    # -- the MoE experts' rows over "data" (their ff dim is split) --------
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shard.all_reduce([x], "sum", axis="data")[0]
+
+    def data_keep(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        return x.narrow(1, self.fsdp_rank * n, n).contiguous()
+
+    def data_gather_rows(self, x):
+        """The experts' dispatched rows (E_local, n, d) of every "data"
+        rank, (E_local, fsdp n, d): each rank then runs its block of the
+        experts' ff dim over all of them."""
+        return x if self.fsdp == 1 else _GatherRows.apply(x, self)
+
+    def data_reduce_rows(self, x):
+        """The partial expert outputs of every rank's ff block summed over
+        "data", this rank's rows kept: the inverse move of
+        data_gather_rows."""
+        return x if self.fsdp == 1 else _ReduceRows.apply(x, self)
+
     def partial_targets(self, cfg, params: Params) -> frozenset:
         """The (group, target) pairs whose adapter gradient this rank
         computes only a part of, read from the rank's base leaves by the
         tests the blocks make (``block``): the attention's when wq holds
         a block of the heads (a column or row block, or the KV heads its
         query heads read), the MLP's when w_in holds one of the FFN
-        width.  A target whose whole computation every rank repeats (a
-        width that fit_spec leaves whole) has its full gradient on every
-        rank."""
+        width, the shared expert's (the same targets) when ws_in holds
+        one of its width, and the SSM's when A_log holds a block of its
+        heads (``ssm_apply``: in_proj's columns of those heads and B and
+        C, which every head reads; out_proj's rows).  A target whose
+        whole computation every rank repeats (a width that fit_spec
+        leaves whole) has its full gradient on every rank."""
         parts = set()
+        mlp = ("mlp_in", "mlp_gate", "mlp_out")
         for name, g in params.items():
-            if not isinstance(g, dict) or "wq" not in g:
+            if not isinstance(g, dict):
                 continue
-            if self.block(cfg.num_heads * cfg.head_dim,
-                          g["wq"].shape[-1]) is not None:
+            if "wq" in g and self.block(cfg.num_heads * cfg.head_dim,
+                                        g["wq"].shape[-1]) is not None:
                 parts |= {(name, t) for t in ("q", "k", "v", "o")}
             if "w_in" in g and self.block(cfg.d_ff,
                                           g["w_in"].shape[-1]) is not None:
-                parts |= {(name, t) for t in ("mlp_in", "mlp_gate",
-                                              "mlp_out")}
+                parts |= {(name, t) for t in mlp}
+            if "ws_in" in g and self.block(
+                    cfg.moe_d_ff * cfg.num_shared_experts,
+                    g["ws_in"].shape[-1]) is not None:
+                parts |= {(name, t) for t in mlp}
+            if "A_log" in g and self.block(cfg.ssm_heads,
+                                           g["A_log"].shape[-1]) is not None:
+                parts |= {(name, "ssm_in"), (name, "ssm_out")}
         return frozenset(parts)
 
     # -- blocks -----------------------------------------------------------
@@ -176,13 +306,14 @@ class ShardingPolicy:
     def gather(self, p: Params, d_model: int) -> Params:
         """One layer's (or the embedding's) leaves with every d_model dim
         that FSDP split over "data" gathered (one SUM of zero-filled
-        buffers, exact).  The base weights are frozen: a leaf that
-        requires grad raises."""
+        buffers, exact); the MoE experts' leaves stay as they are.  The
+        base weights are frozen: a leaf that requires grad raises."""
         if self.fsdp == 1:
             return p
         todo = []
         for name, leaf in p.items():
-            if not isinstance(leaf, torch.Tensor):
+            # the experts' ff dim stays split: moe_apply moves rows
+            if not isinstance(leaf, torch.Tensor) or name in EXPERT_LEAVES:
                 continue
             spec = logical_spec(name, leaf.dim())
             for dim, ax in enumerate(spec):
@@ -190,24 +321,16 @@ class ShardingPolicy:
                     todo.append((name, dim))
         if not todo:
             return p
-        bufs = []
         for name, dim in todo:
             leaf = p[name]
             if leaf.requires_grad:
                 raise ValueError(f"base leaf {name!r} requires grad: the "
                                  "FSDP gather carries no gradient")
-            n = leaf.shape[dim]
-            if n * self.fsdp != d_model:
-                raise ValueError(f"{name}: a block of {n} is not one of "
-                                 f"{self.fsdp} \"data\" blocks of "
-                                 f"{d_model}")
-            shape = list(leaf.shape)
-            shape[dim] = d_model
-            buf = leaf.new_zeros(shape)
-            buf.narrow(dim, self.fsdp_rank * n, n).copy_(leaf)
-            bufs.append(buf)
-        with torch.no_grad():
-            full = self.shard.all_reduce(bufs, "sum", axis="data")
+            if leaf.shape[dim] * self.fsdp != d_model:
+                raise ValueError(f"{name}: a block of {leaf.shape[dim]} is "
+                                 f"not one of {self.fsdp} \"data\" blocks "
+                                 f"of {d_model}")
+        full = self.fill([(p[name], dim) for name, dim in todo], "data")
         out = dict(p)
         out.update({name: t for (name, _), t in zip(todo, full)})
         return out

@@ -267,15 +267,17 @@ class Model(nn.Module):
 
         place(name, leaf): the part of each leaf to keep (a MeshShard's
         block, ``runtime.sharding.leaf_block``), called as soon as the
-        leaf is drawn, so that no more than one full leaf is alive at a
-        time beside the kept parts; the dense family only."""
+        leaf is drawn whole (the draw is the unsharded one), so that no
+        more than one full leaf is alive at a time beside the kept parts;
+        the families of ``common.PLACED_FAMILIES``."""
         cfg = self.cfg
         if place is None:
             place = common.whole
-        elif cfg.family != "dense":
+        elif cfg.family not in common.PLACED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name}: the port places the base weights of the "
-                f"dense family only ({roadmap.PARAM_SHARDING})")
+                f"{', '.join(common.PLACED_FAMILIES)} families only "
+                f"({roadmap.PARAM_SHARDING})")
         norm = functools.partial(common.init_norm, cfg.d_model,
                                  bias=cfg.norm == "layernorm", dtype=dtype,
                                  place=place)
@@ -294,14 +296,15 @@ class Model(nn.Module):
             p["enc_norm"] = norm()
         for g in self.groups:
             if g.kind == "ssm":
-                p[g.name] = ssm.init_ssm(generator, cfg, g.size, dtype=dtype)
+                p[g.name] = ssm.init_ssm(generator, cfg, g.size, dtype=dtype,
+                                         place=place)
                 continue
             p[g.name] = transformer.init_attention(
                 generator, cfg, g.size, cross=g.cross, dtype=dtype,
                 place=place)
             if g.kind == "attn_moe":
                 p[g.name].update(transformer.init_moe(
-                    generator, cfg, g.size, dtype=dtype))
+                    generator, cfg, g.size, dtype=dtype, place=place))
             elif cfg.d_ff:
                 p[g.name].update(transformer.init_mlp(
                     generator, cfg, g.size, dtype=dtype, place=place))
@@ -504,7 +507,7 @@ class Model(nn.Module):
         p_l = policy.gather(p_l, cfg.d_model)
         if g.kind == "ssm":
             out, new = ssm.ssm_apply(p_l, ad_l, x, cfg=cfg, mode=mode,
-                                     cache=cache)
+                                     cache=cache, policy=policy)
             if new is not None:
                 for k in ("conv", "state"):
                     cache[k].copy_(new[k])
@@ -516,7 +519,8 @@ class Model(nn.Module):
                 mem_cache=mem_cache, policy=policy)
             x = x + attn_out
             if g.kind == "attn_moe":
-                out, aux = transformer.moe_apply(p_l, ad_l, x, cfg=cfg)
+                out, aux = transformer.moe_apply(p_l, ad_l, x, cfg=cfg,
+                                                 policy=policy)
                 x = x + out
             elif cfg.d_ff:
                 x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg,

@@ -11,6 +11,19 @@ Port of src/repro/models/ssm.py.  Block structure (arXiv:2405.21060):
 
 LoRA targets: "ssm_in" (in_proj) and "ssm_out" (out_proj).
 
+Tensor parallelism (train mode, under a MeshShard's policy): a "model"
+rank runs its contiguous block of the heads.  ``param_specs`` splits
+A_log, D and dt_bias by heads and out_proj's rows (d_inner follows the
+heads), but in_proj's columns and the conv's channels in contiguous
+blocks that do not fall on head boundaries ([x | z | B | C | dt] and
+[x | B | C]), so the layer gathers in_proj, conv_w and conv_b over
+"model" (exactly; recomputed under remat, as the FSDP gather) and takes
+its heads' x, z and dt columns and the B and C columns (one group,
+which every head reads).  The gated RMSNorm's sum of squares
+runs over all of d_inner: it is summed over the ranks
+(``ShardingPolicy.sum_tp``).  out_proj is row-parallel and its partial
+sums leave through reduce_from_tp.
+
 Decode carries two cache pieces per layer, as in the reference:
   conv:  ([N,]B, W-1, d_conv_ch) rolling window of pre-conv activations
   state: ([N,]B, H, P, N_state) SSD recurrent state, fp32
@@ -36,11 +49,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import roadmap
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models import common
-from repro_torch.models.common import apply_norm
+from repro_torch.models.common import NO_SHARDING, ShardingPolicy, apply_norm
 from repro_torch.models.transformer import _ad, lora_apply
 
 Params = Dict[str, Any]
@@ -55,37 +69,65 @@ def in_proj_dim(cfg: ModelConfig) -> int:
 
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
-             dtype) -> Params:
+             dtype, place=common.whole) -> Params:
     """Random weights from `gen` (the reference's init scales; a torch
-    generator gives other numbers than a JAX key)."""
+    generator gives other numbers than a JAX key).  place: as in
+    ``transformer.init_attention``."""
     d, di, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
     lead = (n_layers,)
-    return {
-        "norm1": common.init_norm(d, bias=False, dtype=dtype, lead=lead),
-        "in_proj": common.dense_init(gen, d, in_proj_dim(cfg), dtype,
-                                     lead=lead),
-        "conv_w": (torch.randn((n_layers, cfg.ssm_conv_width,
-                                conv_channels(cfg)), generator=gen,
-                               device=gen.device) * 0.1).to(dtype),
-        "conv_b": torch.zeros((n_layers, conv_channels(cfg)), dtype=dtype),
-        # A = -exp(0) = -1 and dt bias 0.5 at init, as in the reference
-        "A_log": torch.zeros((n_layers, h), dtype=dtype),
-        "D": torch.ones((n_layers, h), dtype=dtype),
-        "dt_bias": torch.full((n_layers, h), 0.5, dtype=dtype),
-        "gnorm": common.init_norm(di, bias=False, dtype=dtype, lead=lead),
-        "out_proj": common.dense_init(gen, di, d, dtype, lead=lead),
-    }
+    p = {"norm1": common.init_norm(d, bias=False, dtype=dtype, lead=lead,
+                                   place=place)}
+    p["in_proj"] = place("in_proj", common.dense_init(
+        gen, d, in_proj_dim(cfg), dtype, lead=lead))
+    p["conv_w"] = place("conv_w", (torch.randn(
+        (n_layers, cfg.ssm_conv_width, conv_channels(cfg)), generator=gen,
+        device=gen.device) * 0.1).to(dtype))
+    p["conv_b"] = place("conv_b", torch.zeros((n_layers, conv_channels(cfg)),
+                                              dtype=dtype))
+    # A = -exp(0) = -1 and dt bias 0.5 at init, as in the reference
+    p["A_log"] = place("A_log", torch.zeros((n_layers, h), dtype=dtype))
+    p["D"] = place("D", torch.ones((n_layers, h), dtype=dtype))
+    p["dt_bias"] = place("dt_bias", torch.full((n_layers, h), 0.5,
+                                               dtype=dtype))
+    p["gnorm"] = common.init_norm(di, bias=False, dtype=dtype, lead=lead,
+                                  place=place)
+    p["out_proj"] = place("out_proj", common.dense_init(gen, di, d, dtype,
+                                                        lead=lead))
+    return p
 
 
-def _split_proj(cfg: ModelConfig, proj):
-    di = cfg.d_inner
-    gn = cfg.ssm_groups * cfg.ssm_state
+def _split_proj(proj, di: int, gn: int):
+    """[x (di) | z (di) | B (gn) | C (gn) | dt] of a projection (all of
+    them, or a "model" rank's heads and groups)."""
     x = proj[..., :di]
     z = proj[..., di:2 * di]
     b = proj[..., 2 * di:2 * di + gn]
     c = proj[..., 2 * di + gn:2 * di + 2 * gn]
     dt = proj[..., 2 * di + 2 * gn:]
     return x, z, b, c, dt
+
+
+def _tp_columns(cfg: ModelConfig, h_lo: int, hl: int, device):
+    """in_proj's columns and the conv's channels of heads [h_lo, h_lo + hl)
+    and of B and C (one group, which every head reads), in the layouts'
+    order."""
+    if cfg.ssm_groups != 1:
+        raise NotImplementedError(
+            f"{cfg.ssm_groups} SSM groups: tensor-parallel SSM layers take "
+            f"one B/C group ({roadmap.PARAM_SHARDING})")
+    ph, di = cfg.ssm_head_dim, cfg.d_inner
+    x = torch.arange(h_lo * ph, (h_lo + hl) * ph, device=device)
+    bc = torch.arange(2 * cfg.ssm_state, device=device)
+    dt = torch.arange(h_lo, h_lo + hl, device=device)
+    cols = torch.cat([x, di + x, 2 * di + bc, 2 * di + bc.numel() + dt])
+    chans = torch.cat([x, di + bc])
+    return cols, chans
+
+
+def _whole(policy: ShardingPolicy, w, full: int):
+    """A leaf whose last dim "model" split (param_specs' contiguous
+    blocks), whole on every rank; as it is when whole already."""
+    return w if w.shape[-1] == full else policy.tp_gather(w, -1)
 
 
 def _causal_conv(xbc, w, b):
@@ -102,22 +144,51 @@ def _causal_conv(xbc, w, b):
 
 
 def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
-              mode: str, cache: Optional[Params] = None):
+              mode: str, cache: Optional[Params] = None,
+              policy: ShardingPolicy = NO_SHARDING):
     """One SSD sub-block.  u ([N,]B,S,d) -> (out, new_cache).
 
     mode "decode" (S = 1) steps `cache` {"conv", "state"} by one token;
     otherwise the full sequence runs through the chunked scan, and with a
     cache (prefill) the new cache holds the last W - 1 pre-conv
     activations and the final state.  The new cache is returned, not
-    written: the caller stores it."""
+    written: the caller stores it.
+
+    policy: when A_log holds a "model" block of the heads (a MeshShard's,
+    train mode only), the layer runs those heads (the module docstring):
+    the input enters through copy_to_tp, in_proj and the conv are
+    gathered whole and narrowed to the heads' columns (the adapter's B
+    to the same columns), the gated norm's sum of squares is summed over
+    the ranks and out_proj's partial sums leave through
+    reduce_from_tp."""
     h, ph = cfg.ssm_heads, cfg.ssm_head_dim
     g, ns, di = cfg.ssm_groups, cfg.ssm_state, cfg.d_inner
+    gn = g * ns
+    hl = p["A_log"].shape[-1]
+    h_lo = policy.block(h, hl)
+    ad_in = _ad(adapters, "ssm_in")
+    w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
 
     y = apply_norm(p["norm1"], u, kind=cfg.norm, eps=cfg.norm_eps)
-    proj = lora_apply(y, p["in_proj"], _ad(adapters, "ssm_in"))
-    x, z, bmat, cmat, dt = _split_proj(cfg, proj)
+    if h_lo is not None:
+        if mode != "train" or cache is not None:
+            raise NotImplementedError(
+                "tensor-parallel SSM layers run the training forward only: "
+                f"see {roadmap.PARAM_SHARDING}")
+        y = policy.copy_to_tp(y)
+        cols, chans = _tp_columns(cfg, h_lo, hl, y.device)
+        w_in = _whole(policy, w_in, in_proj_dim(cfg)).index_select(-1, cols)
+        conv_w = _whole(policy, conv_w, conv_channels(cfg)).index_select(
+            -1, chans)
+        conv_b = _whole(policy, conv_b, conv_channels(cfg)).index_select(
+            -1, chans)
+        if ad_in is not None:
+            ad_in = dict(ad_in, B=ad_in["B"].index_select(-1, cols))
+        h, di = hl, hl * ph
+    proj = lora_apply(y, w_in, ad_in)
+    x, z, bmat, cmat, dt = _split_proj(proj, di, gn)
     xbc = torch.cat([x, bmat, cmat], dim=-1)
-    width = p["conv_w"].shape[0]
+    width = conv_w.shape[0]
     new_cache = None
     if mode == "decode":
         if cache is None or u.shape[-2] != 1:
@@ -126,12 +197,12 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
         wdt = torch.promote_types(cache["conv"].dtype, xbc.dtype)
         win = torch.cat([cache["conv"].to(wdt), xbc.to(wdt)], dim=-2)
         conv_out = torch.einsum("...wc,wc->...c", win,
-                                p["conv_w"].to(win.dtype))
-        conv_out = conv_out + p["conv_b"].to(conv_out.dtype)
+                                conv_w.to(win.dtype))
+        conv_out = conv_out + conv_b.to(conv_out.dtype)
         conv_out = F.silu(conv_out)[..., None, :]              # (...,1,C)
         new_conv = win[..., 1:, :]
     else:
-        conv_out = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+        conv_out = F.silu(_causal_conv(xbc, conv_w, conv_b))
         if cache is not None:
             # the last W-1 pre-conv activations, zeros before the prompt
             keep = xbc[..., -(width - 1):, :]
@@ -140,8 +211,8 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
 
     lead, s = u.shape[:-2], u.shape[-2]
     xh = conv_out[..., :di].reshape(lead + (s, h, ph))
-    bh = conv_out[..., di:di + g * ns].reshape(lead + (s, g, ns))
-    ch = conv_out[..., di + g * ns:].reshape(lead + (s, g, ns))
+    bh = conv_out[..., di:di + gn].reshape(lead + (s, g, ns))
+    ch = conv_out[..., di + gn:].reshape(lead + (s, g, ns))
     dtp = F.softplus(dt.float() + p["dt_bias"].float())
     a = -torch.exp(p["A_log"].float())
 
@@ -178,11 +249,23 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
     yss = yss + p["D"].to(yss.dtype)[:, None] * xh
     yflat2 = yss.reshape(lead + (s, di))
 
-    # gated RMSNorm then output projection
+    # gated RMSNorm over all of d_inner, then the output projection: under
+    # TP each rank's heads' share of the mean square is summed over the
+    # ranks (the factor is 1.0 unsharded: apply_norm's arithmetic)
     gated = yflat2 * F.silu(z.to(yflat2.dtype))
-    gated = apply_norm(p["gnorm"], gated, kind="rmsnorm", eps=cfg.norm_eps)
-    return lora_apply(gated, p["out_proj"], _ad(adapters, "ssm_out")), \
-        new_cache
+    lo = (h_lo or 0) * ph
+    gf = gated.float()
+    var = policy.sum_tp(torch.mean(gf * gf, dim=-1, keepdim=True)
+                        * (di / cfg.d_inner))
+    gated = (gf * torch.rsqrt(var + cfg.norm_eps)
+             * p["gnorm"]["scale"].narrow(-1, lo, di).float()
+             ).to(gated.dtype)
+    w_out = p["out_proj"]
+    if w_out.shape[-2] != di:
+        w_out = w_out.narrow(-2, lo, di)
+    out = lora_apply(gated, w_out, _ad(adapters, "ssm_out"),
+                     rows=None if h_lo is None else (lo, di))
+    return policy.reduce_from_tp(out), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, lead: Tuple[int, ...], dtype, *,

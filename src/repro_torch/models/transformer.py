@@ -395,23 +395,26 @@ def mlp_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
-             dtype) -> Params:
+             dtype, place=common.whole) -> Params:
+    """place: as in ``init_attention`` (each expert stack is drawn whole
+    and narrowed, so the draw is the unsharded one)."""
     d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     lead = (n_layers,)
     p: Params = {
-        "norm2": common.init_norm(d, bias=False, dtype=dtype, lead=lead),
-        "router": common.dense_init(gen, d, e, dtype, lead=lead),
-        "we_in": common.dense_init(gen, d, ff, dtype, lead=lead + (e,)),
-        "we_out": common.dense_init(gen, ff, d, dtype, lead=lead + (e,)),
-    }
+        "norm2": common.init_norm(d, bias=False, dtype=dtype, lead=lead,
+                                  place=place)}
+    shapes = [("router", d, e, lead), ("we_in", d, ff, lead + (e,)),
+              ("we_out", ff, d, lead + (e,))]
     if is_glu(cfg.activation):
-        p["we_gate"] = common.dense_init(gen, d, ff, dtype, lead=lead + (e,))
+        shapes.append(("we_gate", d, ff, lead + (e,)))
     if cfg.num_shared_experts:
         sf = ff * cfg.num_shared_experts
-        p["ws_in"] = common.dense_init(gen, d, sf, dtype, lead=lead)
-        p["ws_out"] = common.dense_init(gen, sf, d, dtype, lead=lead)
+        shapes += [("ws_in", d, sf, lead), ("ws_out", sf, d, lead)]
         if is_glu(cfg.activation):
-            p["ws_gate"] = common.dense_init(gen, d, sf, dtype, lead=lead)
+            shapes.append(("ws_gate", d, sf, lead))
+    for name, d_in, d_out, lead_ in shapes:
+        p[name] = place(name, common.dense_init(gen, d_in, d_out, dtype,
+                                                lead=lead_))
     return p
 
 
@@ -427,11 +430,17 @@ def moe_capacity(cfg: ModelConfig, s: int) -> int:
     return min(cap, s * k)
 
 
-def moe_route(cfg: ModelConfig, yg, router):
+def moe_route(cfg: ModelConfig, yg, router,
+              policy: ShardingPolicy = NO_SHARDING):
     """Routing of groups yg (G, T, d): the router's fp32 probabilities
     (G, T, E), their top-k choices, and moe_queue's values, queue
-    positions and cap for those choices."""
-    probs = torch.softmax((yg @ router.to(yg.dtype)).float(), dim=-1)
+    positions and cap for those choices.  When `router` holds a "model"
+    block of the experts, each rank computes that block of the logits
+    and gathers the whole (exactly), so every rank routes alike."""
+    logits = yg @ router.to(yg.dtype)
+    if policy.block(cfg.num_experts, router.shape[-1]) is not None:
+        logits = policy.tp_gather(logits, -1)
+    probs = torch.softmax(logits.float(), dim=-1)
     _, topi = torch.topk(probs, cfg.moe_top_k, dim=-1)
     return moe_queue(cfg, probs, topi)
 
@@ -451,7 +460,8 @@ def moe_queue(cfg: ModelConfig, probs, topi):
     return probs, topv, topi, pos, moe_capacity(cfg, s)
 
 
-def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig):
+def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
+              policy: ShardingPolicy = NO_SHARDING):
     """The MoE sub-block (pre-norm, residual added by the caller).
 
     x: ([N,] B, S, d).  Returns (out like x, aux).  Tokens regroup as
@@ -466,17 +476,47 @@ def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig):
     A dropped pair weighs 0.  aux = router_aux_loss * E * mean over
     groups of sum_e(me * pe): me, the share of (token, choice) pairs
     routed to e before any drop (no gradient), pe the mean router
-    probability (with gradient)."""
+    probability (with gradient).
+
+    policy: under a MeshShard the experts are split over "model" (EP:
+    this rank's contiguous block of E / tp of them, and the router's
+    block of the logits, gathered whole) and their ff dim over "data".
+    Every rank routes alike from the whole logits (the same top-k, queue
+    positions, drops and aux as unsharded), fills its experts' buffer
+    with the kept pairs routed to them and runs them; over "data" the
+    rows move, not the weights: each rank runs its ff block over the
+    dispatched rows of every "data" rank (``data_gather_rows``) and
+    keeps its own rows of the sum (``data_reduce_rows``).  The routed
+    partial output and the shared expert's row-parallel one (ws_in and
+    ws_gate column blocks, ws_out rows, as ``mlp_apply``) leave through
+    one reduce_from_tp.  Each rank's combine weights' gradient covers
+    its own experts' pairs, so the weights enter through copy_to_tp: the
+    router's whole logits then get the whole gradient on every rank."""
     e, k, d = cfg.num_experts, cfg.moe_top_k, cfg.d_model
     s = x.shape[-2]
     y = apply_norm(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    yg = y.reshape(-1, s, d)                                  # (G, T, d)
+    e_loc = p["we_in"].shape[-3]
+    e_lo = policy.block(e, e_loc)
+    sf = cfg.moe_d_ff * cfg.num_shared_experts
+    s_lo = (policy.block(sf, p["ws_in"].shape[-1])
+            if cfg.num_shared_experts else None)
+    # the input's consumers that hold a "model" block: their gradients
+    # are this rank's part
+    y_tp = (policy.copy_to_tp(y) if e_lo is not None or s_lo is not None
+            else y)
+    y_ep = y_tp if e_lo is not None else y
+    yg = y_ep.reshape(-1, s, d)                               # (G, T, d)
     if s > MOE_GROUP_TOKENS and s % MOE_GROUP_TOKENS == 0:
         yg = yg.reshape(-1, MOE_GROUP_TOKENS, d)
     g, s = yg.shape[0], yg.shape[1]
-    probs, topv, topi, pos, cap = moe_route(cfg, yg, p["router"])
+    probs, topv, topi, pos, cap = moe_route(cfg, yg, p["router"],
+                                            policy=policy)
     keep = pos < cap
     wgt = topv * keep                                         # (G, T, k)
+    if e_lo is not None:
+        keep = keep & (topi >= e_lo) & (topi < e_lo + e_loc)
+        wgt = policy.copy_to_tp(wgt) * keep
+        topi = topi - e_lo
 
     # slot of each kept pair in the (E, G, C) buffer; dropped pairs all
     # write the spare row past the end, which is cut off.  A token picks
@@ -485,14 +525,20 @@ def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig):
     # of one token take 1 slot an expert, not the cap of k)
     c = min(cap, s)
     grp = torch.arange(g, device=x.device)[:, None, None]
-    slot = torch.where(keep, (topi * g + grp) * c + pos, e * g * c)
+    slot = torch.where(keep, (topi * g + grp) * c + pos, e_loc * g * c)
     rows = yg[:, :, None, :].expand(g, s, k, d).reshape(-1, d)
-    buf = yg.new_zeros((e * g * c + 1, d)).index_put(
+    buf = yg.new_zeros((e_loc * g * c + 1, d)).index_put(
         (slot.reshape(-1),), rows)
-    xe = buf[:-1].reshape(e, g * c, d)
+    xe = buf[:-1].reshape(e_loc, g * c, d)
+    # the experts' ff dim split over "data" (fit_spec may leave it whole)
+    ff_split = p["we_in"].shape[-1] != cfg.moe_d_ff
+    if ff_split:
+        xe = policy.data_gather_rows(xe)
     hin = torch.bmm(xe, p["we_in"])
     gate = torch.bmm(xe, p["we_gate"]) if "we_gate" in p else None
     ye = torch.bmm(activate(hin, gate, cfg.activation), p["we_out"])
+    if ff_split:
+        ye = policy.data_reduce_rows(ye)
     # a dropped pair gathers row 0 at weight 0
     got = ye.reshape(-1, d).index_select(
         0, torch.where(keep, slot, 0).reshape(-1)).reshape(g, s, k, d)
@@ -500,16 +546,31 @@ def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig):
 
     aux = 0.0
     if cfg.router_aux_loss:
-        me = F.one_hot(topi, e).sum(2).float().mean(1)        # (G, E)
+        me = F.one_hot(topi if e_lo is None else topi + e_lo,
+                       e).sum(2).float().mean(1)              # (G, E)
         pe = probs.mean(1)
         aux = cfg.router_aux_loss * e * torch.mean(torch.sum(me * pe, -1))
 
+    # the parts that hold a "model" block are summed over the ranks
+    # together; a whole part is added once, after the sum
+    out = out.reshape(y.shape)
+    blocked, whole = (out, None) if e_lo is not None else (None, out)
     if cfg.num_shared_experts:
-        hin_s = lora_apply(y, p["ws_in"], _ad(adapters, "mlp_in"))
+        y_s = y_tp if s_lo is not None else y
+        blk = None if s_lo is None else (s_lo, p["ws_in"].shape[-1])
+        hin_s = lora_apply(y_s, p["ws_in"], _ad(adapters, "mlp_in"),
+                           cols=blk)
         gate_s = None
         if "ws_gate" in p:
-            gate_s = lora_apply(y, p["ws_gate"], _ad(adapters, "mlp_gate"))
+            gate_s = lora_apply(y_s, p["ws_gate"], _ad(adapters, "mlp_gate"),
+                                cols=blk)
         shared = lora_apply(activate(hin_s, gate_s, cfg.activation),
-                            p["ws_out"], _ad(adapters, "mlp_out"))
-        return out.reshape(shared.shape) + shared, aux
-    return out.reshape(y.shape), aux
+                            p["ws_out"], _ad(adapters, "mlp_out"), rows=blk)
+        if s_lo is None:
+            whole = shared if whole is None else whole + shared
+        else:
+            blocked = shared if blocked is None else blocked + shared
+    if blocked is None:
+        return whole, aux
+    summed = policy.reduce_from_tp(blocked)
+    return (summed if whole is None else summed + whole), aux

@@ -14,7 +14,8 @@ so where a gradient element is smaller than the sharded run's rounding
 (or than the change that a flipped int8 code at the cut makes), the two
 runs step it by lr in opposite directions: ``outliers`` lets at most a
 given share of a leaf's elements lie outside the tolerance, for the
-top-level keys it names.  Every failure raises ``Mismatch`` (an
+leaves it names by path ("client_adapters/dec/k/B") or by top-level
+key.  Every failure raises ``Mismatch`` (an
 AssertionError) naming each leaf or record that is out of bounds.
 """
 
@@ -71,8 +72,8 @@ def check_state(got, want, *, rtol: float, atol_of_max: float,
                 ) -> Dict[str, Tuple[float, float]]:
     """Hold state tree `got` to `want` (see the module docstring); a
     float leaf under a top-level key of `bounds` takes that key's
-    atol_of_max, one under a key of `outliers` may have that share of
-    its elements outside the tolerance.  Returns per top-level key of a
+    atol_of_max, one that `outliers` names (its path, else its top-level
+    key) may have that share of its elements outside the tolerance.  Returns per top-level key of a
     float leaf the largest |diff| / max|leaf| and the largest share of a
     leaf's elements outside the tolerance."""
     bounds, outliers = bounds or {}, outliers or {}
@@ -98,7 +99,7 @@ def check_state(got, want, *, rtol: float, atol_of_max: float,
         out = float(np.mean(~np.isclose(x, y, rtol=rtol, atol=atol)))
         was = gaps.get(keys[0], (0.0, 0.0))
         gaps[keys[0]] = (max(was[0], share), max(was[1], out))
-        if out > outliers.get(keys[0], 0.0):
+        if out > outliers.get(path, outliers.get(keys[0], 0.0)):
             bad.append(f"{path} ({share:.3e} of max|leaf|, {out:.3e} of "
                        "its elements outside)")
     if bad:

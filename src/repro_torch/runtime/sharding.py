@@ -32,17 +32,19 @@ Port of src/repro/runtime/sharding.py.  Two halves:
   "data" axis, ``fit_spec`` drops the axis: every rank then holds the
   whole cohort and no client collective runs, since a sum over ranks
   would count every client ``world`` times.  The base weights of the
-  dense family are placed by ``param_specs`` (``leaf_block``, each
-  leaf as it is drawn; ``local_params``, a whole tree): FSDP
-  over "data" on their d_model dims, heads, FFN width and vocabulary
-  over "model"; ``models.common.ShardingPolicy`` gathers and reduces
-  them in the blocks.  Server adapters, optimizer slots and the round
-  counter stay whole on every rank.  A ``ClientShard`` is the client
-  axis alone (an (n, 1) mesh, every base weight whole).  EP for the MoE
-  experts, TP for the SSM, hybrid, audio and vlm families, the "pod"
-  axis and sequence parallelism wait for ``repro_torch.roadmap.
-  PARAM_SHARDING``: such a family under a MeshShard
-  (``ShardingPolicy.for_model``), and a MeshShard on such a mesh, raise.
+  dense, MoE, SSM and hybrid families are placed by ``param_specs``
+  (``leaf_block``, each leaf as it is drawn; ``local_params``, a whole
+  tree): FSDP over "data" on their d_model dims, heads, FFN width,
+  vocabulary and SSM heads over "model", the MoE experts over "model"
+  (EP) with their ff dim over "data"; ``models.common.ShardingPolicy``
+  gathers and reduces them in the blocks (the experts' weights never
+  move: their activations do).  Server adapters, optimizer slots and
+  the round counter stay whole on every rank.  A ``ClientShard`` is the
+  client axis alone (an (n, 1) mesh, every base weight whole).  TP for
+  the audio and vlm families, the "pod" axis and sequence parallelism
+  wait for ``repro_torch.roadmap.PARAM_SHARDING``: such a family under a
+  MeshShard (``ShardingPolicy.for_model``), and a MeshShard on such a
+  mesh, raise.
 
 Leaf paths come from repro_torch.tree.tree_leaves_with_path; joined
 with "/" they are the reference's.
@@ -308,8 +310,9 @@ def _check_client_mesh(mesh):
         raise NotImplementedError(
             f"a \"model\" axis of {sizes[TP_AXIS]} splits heads, the FFN "
             "and the vocabulary (param_specs), which ClientShard leaves "
-            "whole: a MeshShard executes them for the dense family; the "
-            f"rest waits for {roadmap.PARAM_SHARDING}")
+            "whole: a MeshShard executes them for the dense, MoE, SSM and "
+            "hybrid families; the audio and vlm families wait for "
+            f"{roadmap.PARAM_SHARDING}")
     return sizes.get(CLIENT_AXIS, 1)
 
 
@@ -330,7 +333,8 @@ class MeshShard:
 
     The cohort's rows split over "data" (``Cohort``), and the base
     weights are placed by ``param_specs`` (``leaf_block``): FSDP over
-    "data", heads, FFN width and vocabulary over "model";
+    "data", heads, FFN width, vocabulary, SSM heads and MoE experts over
+    "model", the experts' ff dim over "data";
     ``models.common.ShardingPolicy`` gathers and reduces them in the
     model's forward and backward.  One subgroup per axis (``dist.
     new_group``, made on every rank in the same order); an axis that

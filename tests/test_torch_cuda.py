@@ -1623,3 +1623,42 @@ def test_param_sharding_on_the_card(cuda, tmp_path):
         except AssertionError as e:
             failed[name] = str(e)
     assert not failed, failed
+
+
+@pytest.mark.cuda
+def test_param_sharding_families_on_the_card(cuda, tmp_path):
+    """Expert parallelism and TP over the SSM heads on one card
+    (tests/torch_param_sharding_family_cases.py: a kimi-like MoE and a
+    zamba2-like hybrid, head dim 16): NCCL at world size 1 on a (1, 1)
+    mesh is the unsharded run bit for bit, and 2 gloo ranks that share
+    the card on a (1, 2) mesh route as the unsharded run does (every
+    layer call's choices and drops) and match its state within rtol 1e-5
+    and CARD_ATOL_OF_MAX = 1e-4 x max|leaf|, the losses within
+    CARD_LOSS_RTOL = 1e-5."""
+    import torch_param_sharding_family_cases as cases
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharded import process_group, run_ranks
+    from repro_torch.runtime.sharding import MeshShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with process_group(0, 1, tmp_path / "nccl", backend="nccl"):
+        shard = MeshShard(make_mesh(1, 1), device=cuda)
+        assert shard.backend == "nccl"
+        for name in cases.CARD_CASES:
+            cases.same_bits(cases.run_case(name, shard, tmp_path, cuda),
+                            cases.run_case(name, None, tmp_path, cuda))
+    run_ranks(cases.card_rank, make_mesh(1, 2), tmp_path / "gloo",
+              args=(str(tmp_path),))
+    failed = {}
+    for name in cases.CARD_CASES:
+        got, want = (torch.load(tmp_path / f"card_{kind}_{name}.pt",
+                                weights_only=False)
+                     for kind in ("sharded", "plain"))
+        try:
+            cases.same_routing(got, want)
+            cases.held(got, want, cases.CARD_ATOL_OF_MAX,
+                       cases.CARD_LOSS_RTOL)
+        except AssertionError as e:
+            failed[name] = str(e)
+    assert not failed, failed

@@ -45,9 +45,10 @@ when the next is drawn, so a rank's init peak is its blocks plus one
 full leaf, and the blocks are ``local_params`` of the full tree bit for
 bit.
 
-Refusals: the MoE, SSM, hybrid, audio and vlm configs, and a head count
-that the "model" axis does not divide, raise in every rank and name the
-ROADMAP item.
+Refusals: the audio and vlm configs, and a head count that the "model"
+axis does not divide, raise in every rank and name the ROADMAP item; the
+MoE, SSM and hybrid configs build under both meshes, each rank holding
+its blocks (tests/test_torch_param_sharding_families.py trains them).
 
 Time: ~75 s alone: ~45 s for the two spawns, ~25 s for the JAX
 reference's 5 cases.
@@ -337,6 +338,26 @@ def test_unsupported_configs_raise_with_the_roadmap_pointer(runs, mesh):
         got_kind, msg = raised[label]
         assert got_kind == kind, (label, raised[label])
         assert roadmap.PARAM_SHARDING in msg, label
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("name", cases.PLACED)
+def test_moe_ssm_and_hybrid_configs_are_placed(runs, name, mesh):
+    """The MoE, SSM and hybrid configs that the mesh once refused build
+    under it, each rank holding param_specs' blocks by bytes
+    (tests/test_torch_param_sharding_families.py trains them)."""
+    out, _ = runs
+    m = MESHES[mesh]
+    full = build_model(cases.placed_arch(name), device="cpu"
+                       ).init_params(torch.Generator().manual_seed(0))
+    specs = dict(tree_leaves_with_path(sh.param_specs(full, m)))
+    got = [_load(out, f"placed_{mesh}_{r}")[name]
+           for r in range(m.num_devices)]
+    for keys, leaf in tree_leaves_with_path(full):
+        share = int(np.prod([sh.axis_sizes(m)[a] for e in specs[keys]
+                             for a in _axes(e)]))
+        want = leaf.numel() * leaf.element_size() // share
+        assert {g["/".join(keys)] for g in got} == {want}, keys
 
 
 def test_policy_is_a_no_op_without_a_mesh_shard():

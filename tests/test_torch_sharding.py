@@ -323,6 +323,35 @@ def test_collectives_at_world_size_one(one_rank):
     one_rank.check_agree("a test", np.arange(3))
 
 
+def test_agreement_outliers_by_leaf_path():
+    """An `outliers` entry that names a leaf's path covers that leaf
+    alone, and takes precedence over its top-level key's."""
+    from repro_torch.runtime import agreement
+
+    rng = np.random.default_rng(1)
+    y = {"client_adapters": {"q": {"B": rng.standard_normal(1000)
+                                   .astype(np.float32)},
+                             "v": {"B": rng.standard_normal(1000)
+                                   .astype(np.float32)}}}
+    x = tree_map(np.copy, y)
+    x["client_adapters"]["q"]["B"][3] += 0.5
+    kw = dict(rtol=1e-5, atol_of_max=1e-6)
+    agreement.check_state(x, y, **kw,
+                          outliers={"client_adapters/q/B": 1e-3})
+    with pytest.raises(agreement.Mismatch, match="client_adapters/q/B"):
+        agreement.check_state(x, y, **kw,
+                              outliers={"client_adapters/v/B": 1e-3})
+    with pytest.raises(agreement.Mismatch, match="client_adapters/q/B"):
+        agreement.check_state(x, y, **kw,
+                              outliers={"client_adapters": 1e-3,
+                                        "client_adapters/q/B": 0.0})
+    x["client_adapters"]["v"]["B"][5] += 0.5
+    with pytest.raises(agreement.Mismatch, match="1 leaves out of bounds: "
+                       "client_adapters/v/B"):
+        agreement.check_state(x, y, **kw,
+                              outliers={"client_adapters/q/B": 1e-3})
+
+
 def test_agreement_bounds_outliers_and_bits():
     """runtime.agreement, which the sharded tests and chip_smoke.py's
     phase 16 hold runs with: per-key bounds, a share of outlying

@@ -13,6 +13,9 @@ without a shard, and writes what it found into the output directory:
   plain_<case>.pt           the unsharded run of the case
   raised_<mesh>.pt          rank 0: what SplitFTSystem said of each config
                             that the mesh does not execute
+  placed_<mesh>_<r>.pt      rank r: {config: {leaf path: bytes}} of the
+                            blocks SplitFTSystem placed for each PLACED
+                            config
   ckpt_2x2_to_plain.pt,     a checkpoint of the first round saved under
   ckpt_plain_to_2x2.pt      the (2, 2) mesh and finished unsharded, and
                             the other way round
@@ -101,13 +104,14 @@ OPTIONS = {
 OPTIONS_MESH = "2x2"
 
 # configs a mesh of more than one rank does not place (a family the
-# slice leaves out, or a head count the "model" axis does not divide)
-REFUSED = {"kimi-k2-1t-a32b": "NotImplementedError",
-           "mamba2-780m": "NotImplementedError",
-           "zamba2-1.2b": "NotImplementedError",
-           "whisper-medium": "NotImplementedError",
+# port leaves out, or a head count the "model" axis does not divide)
+REFUSED = {"whisper-medium": "NotImplementedError",
            "internvl2-76b": "NotImplementedError",
            "gpt2-small (3 heads)": "ValueError"}
+# configs of the families that the (1, 4) mesh placed only from the MoE,
+# SSM and hybrid ports on (tests/test_torch_param_sharding_families.py
+# trains them): each builds on every mesh and holds param_specs' blocks
+PLACED = ("kimi-k2-1t-a32b", "mamba2-780m", "zamba2-1.2b")
 
 
 def case_arch(name: str, reduced=reduced, get_config=get_config):
@@ -133,6 +137,13 @@ def refused_arch(label: str):
     if label.endswith("(3 heads)"):
         arch = arch.replace(model=dataclasses.replace(
             arch.model, num_heads=3, num_kv_heads=3, head_dim=16))
+    return arch.replace(data=dataclasses.replace(arch.data,
+                                                 num_clients=N_CLIENTS))
+
+
+def placed_arch(name: str):
+    """A PLACED config at a width whose heads (and SSM heads) 4 divides."""
+    arch = reduced(get_config(name), layers=2, d_model=64, vocab=256)
     return arch.replace(data=dataclasses.replace(arch.data,
                                                  num_clients=N_CLIENTS))
 
@@ -225,6 +236,12 @@ def rank_main(rank: int, world: int, out: str, mesh_name: str):
             raised[label] = (type(e).__name__, str(e))
     if rank == 0:
         torch.save(raised, out / f"raised_{mesh_name}.pt")
+    placed = {}
+    for name in PLACED:
+        system = SplitFTSystem(placed_arch(name), SystemConfig(**SYS),
+                               seed=0, device="cpu", policy=shard)
+        placed[name] = base_bytes(system.base_params)
+    torch.save(placed, out / f"placed_{mesh_name}_{rank}.pt")
     plain = []
     if mesh_name == OPTIONS_MESH:
         for name in OPTIONS:
