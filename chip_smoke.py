@@ -42,7 +42,7 @@ at full width (random weights from a seed):
     "full" (and one step under "dots"), each peak of device memory under
     90% of the card; then the card-vs-CPU step at 2 layers and seq 512
     (SSD chunk 256), with and without remat;
-  * the dense family at head dim 128: llama3-8b at full width (8 of its
+  * the dense family at head dim 128: llama3-8b at full width (6 of its
     32 layers, RoPE, 32 heads over 8 kv heads, the 128256-wide untied
     head under the chunked cross entropy), 3 rounds through
     SplitFTSystem.run at the paper setting with int8 smashed activations,
@@ -110,12 +110,13 @@ at full width (random weights from a seed):
     the indexed LoRA's rows bit for bit; the B=2 step against the CPU)
     and prefill_32k (the largest batch up to P15_BATCH_CAP that the
     dry-run fits in 90% of the card; then one decode step; row 0's
-    logits against the train-mode forward); mamba2-780m in full,
-    long_500k (a cache made for 524288 positions, a 300-token prompt and
-    4 decode steps) and prefill_32k, their paths also in fp32 against
-    the train-mode forward.  The flash forward at S 32768, the decode
-    kernel at capacity 32768, the indexed LoRA at M 32768 and the SSD
-    scan at S 32768 are held against their plain versions and timed.
+    logits against the train-mode forward); mamba2-780m at full width
+    and 24 of its 48 layers, long_500k (a cache made for 524288
+    positions, a 300-token prompt and 4 decode steps) and prefill_32k,
+    their paths also in fp32 against the train-mode forward.  The flash
+    forward at S 32768, the decode kernel at capacity 32768, the indexed
+    LoRA at M 32768 and the SSD scan at S 32768 are held against their
+    plain versions and timed.
     ``python3 chip_smoke.py --only 15`` builds and runs phase 15 alone;
   * the cohort split over torch.distributed ranks (phase 16,
     ``runtime.sharding.ClientShard``): gpt2-small at full width, 4
@@ -130,9 +131,9 @@ at full width (random weights from a seed):
     each rank's peak printed.  ``python3 chip_smoke.py --only 16``
     builds and runs phase 16 alone;
   * parameter sharding of the dense family (phase 17,
-    ``runtime.sharding.MeshShard``): llama3-8b at full width, 4 of its 32
-    layers, cut 2, phase 9's 5 clients x batch 4 x seq 512, SGD, 2
-    rounds of ``SplitFTSystem.run`` without smashed compression,
+    ``runtime.sharding.MeshShard``): llama3-8b at full width, 2 of its 32
+    layers, cut 1, 5 clients x batch 2 x seq 512, SGD, 1 round of
+    ``SplitFTSystem.run`` without smashed compression,
     unsharded, under NCCL at world size 1 on a (1, 1)
     mesh (bit for bit the unsharded run) and in 2 gloo ranks that share
     the card on a (1, 2) mesh: tensor parallelism over "model" (16 of the
@@ -149,8 +150,8 @@ at full width (random weights from a seed):
   * parameter sharding of the MoE and hybrid families (phase 18):
     kimi-k2 at full width (2 of its 61 layers, 32 of its 384 experts,
     top-8 at capacity 1.25, int8 smashed) and zamba2-1.2b at full width
-    (6 of its 38 layers: 5 SSM, 1 attention; fp8 smashed), 5 clients x
-    batch 4 x seq 512, SGD, 2 rounds each, unsharded, under NCCL at
+    (4 of its 38 layers: 3 SSM, 1 attention; fp8 smashed), 5 clients x
+    batch 2 x seq 512, SGD, 1 round each, unsharded, under NCCL at
     world size 1 (bit for bit) and in 2 gloo ranks on a (1, 2) mesh:
     the experts over "model" (each rank its 16, the router's logits
     gathered whole, so every rank routes alike; the gloo ranks by the
@@ -163,7 +164,24 @@ at full width (random weights from a seed):
     kernels held and timed at the TP-local shapes.  ``python3
     chip_smoke.py --only 18`` builds and runs phase 18 alone, and with
     ``--p18-smashed none`` without compression at the cut (the gloo
-    state then within P18_TOL["none"], no element outside).
+    state then within P18_TOL["none"], no element outside);
+  * parameter sharding of the audio and vlm families, sequence
+    parallelism and the "pod" axis (phase 19): whisper-medium at full
+    width (2 + 2 layers over 1500 frames, cut 1 in the encoder) and
+    internvl2-76b at full width (2 layers, its 256-position prefix), 5
+    clients x batch 2, SGD, no compression at the cut, 1 round
+    through ``SplitFTSystem.run`` with the frontend's input fed
+    (``with_frontend``), each unsharded, under NCCL at world size 1 (bit
+    for bit) and in 2 gloo ranks on a (1, 2) mesh with the residual
+    stream's sequence split over "model" (the reference's default for
+    both families); then gpt2-small at full width (4 layers, int8 at
+    the cut) on a (2, 1, 2) ("pod", "data", "model") mesh of 4 gloo
+    ranks (each client's rows over "pod", FSDP over "pod", the int8
+    round trip over each whole message gathered at the cut).  Each
+    rank's shapes, launches, bytes and init peak are checked and its
+    state held to the unsharded run's (P19_TOL); the kernels are held
+    and timed at the TP-local shapes.  ``python3 chip_smoke.py --only
+    19`` builds and runs phase 19 alone.
 
 The launch counters are read around each path, and every profile of a
 path holds its count of the port's own kernels to them (a profile that
@@ -181,6 +199,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -323,7 +342,7 @@ FLASH_EDGES = [(1, 1, 16, 0, 0), (15, 15, 32, 9, 4), (16, 16, 64, 0, 4),
 # 128256-wide head in chunks of LLAMA_CE_CHUNK positions; the paper
 # setting otherwise (5 clients, batch 4, seq 512, r_cut 8, r_others 16,
 # the config's int8 smashed activations).  Phase 9b serves the same model.
-LLAMA_LAYERS, LLAMA_CUT, LLAMA_BUCKETS, LLAMA_CE_CHUNK = 8, 4, (2, 4), 128
+LLAMA_LAYERS, LLAMA_CUT, LLAMA_BUCKETS, LLAMA_CE_CHUNK = 6, 4, (2, 4), 128
 LLAMA_HEADS = (32, 8)
 # phase 10: opt-125m and gpt-neo-125m at full size and the paper setting;
 # gpt-neo's 256-wide window bites on its odd layers at seq 512, and the
@@ -435,14 +454,15 @@ FLASH_NONCAUSAL_EDGES = [(1, 1500, 64, 0, 0), (17, 65, 32, 0, 0),
 # phase 15: the dry-run's serving cells on the card (launch/dryrun.py).
 # llama3-8b at full width and 2 of its 32 layers: decode_32k (B 128
 # over a contiguous cache of 32768 positions) and prefill_32k; mamba2-780m
-# in full: long_500k (a cache made for 524288 positions, a prompt of
-# P15_PROMPT tokens and P15_NEW decode steps) and prefill_32k.  A
-# prefill's batch is the largest up to P15_BATCH_CAP that the dry-run
+# at full width and 24 of its 48 layers (all 48 until the whole script
+# needed the room): long_500k (a cache made for 524288 positions, a
+# prompt of P15_PROMPT tokens and P15_NEW decode steps) and prefill_32k.
+# A prefill's batch is the largest up to P15_BATCH_CAP that the dry-run
 # fits in PEAK_SHARE of the card; the cap keeps the phase within its
 # time (the length is never cut; the caps were 8 and 2 until phase 18
 # needed the room).
 P15_SEQ, P15_LONG = 32768, 524288
-P15_LLAMA_LAYERS = 2
+P15_LLAMA_LAYERS, P15_MAMBA2_LAYERS = 2, 24
 P15_BATCH_CAP = {"llama3-8b": 2, "mamba2-780m": 1}
 P15_PROMPT, P15_NEW = 300, 4
 P15_FLASH_ROWS = 512          # the plain flash's query rows per call
@@ -492,13 +512,15 @@ P16_OUTLIERS = {"sgd": ({}, {}),
 P16_ROWS = ("flash_attention_fwd", "flash_attention_bwd", "lora_matmul_fwd",
             "lora_matmul_bwd", "int8_roundtrip_smashed")
 # phase 17: parameter sharding of the dense family (MeshShard): llama3-8b
-# at full width, P17_LAYERS of its 32 layers, cut P17_CUT, phase 9's 5
-# clients x batch 4 x seq 512, the cross entropy in chunks of
+# at full width, P17_LAYERS of its 32 layers, cut P17_CUT, 5 clients x
+# batch P17_BATCH x seq 512 (phase 9's batch 4, and 2 rounds, until the
+# whole script needed the room), the cross entropy in chunks of
 # LLAMA_CE_CHUNK, SGD, P17_ROUNDS rounds, for each smashed compressor of
-# P17_SMASHED: unsharded, under NCCL at world size 1 on a (1, 1) mesh (bit
-# for bit the unsharded run) and in P17_RANKS gloo ranks that share the
-# card on a (1, P17_RANKS) mesh (tensor parallelism over "model").
-P17_LAYERS, P17_CUT, P17_ROUNDS, P17_RANKS = 4, 2, 2, 2
+# P17_SMASHED: unsharded, under NCCL at world size 1 on a (1, 1) mesh
+# (bit for bit the unsharded run) and in P17_RANKS gloo ranks that share
+# the card on a (1, P17_RANKS) mesh (tensor parallelism over "model").
+P17_LAYERS, P17_CUT, P17_ROUNDS, P17_RANKS = 2, 1, 1, 2
+P17_BATCH = 2
 # int8 under TP is phase 18's (kimi-k2's smashed activations)
 P17_SMASHED = ("none",)
 # what else a rank's init may hold on the card beside its blocks, one full
@@ -518,7 +540,7 @@ P17_TOL = {"none": GRAD_TOL["none"] + (1e-5,),
            "int8": GRAD_TOL["int8"] + (1e-5,)}
 # the shapes each rank's kernels run at on the (1, 2) mesh: the flash
 # kernels over (B, S, heads, hd) of q and of k, the fused LoRA over (K, N)
-P17_FLASH = {((20, 512, 16, 128), (20, 512, 4, 128))}
+P17_FLASH = {((5 * P17_BATCH, 512, 16, 128), (5 * P17_BATCH, 512, 4, 128))}
 P17_LORA = {(4096, 2048), (4096, 1024), (2048, 4096)}
 P17_WQ = (4096, 2048)        # the timed fused LoRA shape: wq's block
 # the result line's rows of the kernels at those shapes
@@ -533,7 +555,7 @@ P17_ROWS = ("flash_attention_fwd (hd 128, TP 2)",
 # P18_KIMI_LAYERS of its 61 layers and P18_KIMI_EXPERTS of its 384 experts
 # (still top-8 at capacity 1.25: pairs are dropped in every layer call),
 # int8 smashed, the cross entropy in chunks of KIMI_CE_CHUNK; zamba2-1.2b
-# at full width, P18_Z_LAYERS of its 38 layers (SSM layers 0-4, attention
+# at full width, P18_Z_LAYERS of its 38 layers (SSM layers 0-2, attention
 # at P18_Z_ATTN), fp8 smashed.  5 clients x batch P18_BATCH x seq 512,
 # SGD, P18_ROUNDS rounds, each model unsharded, under NCCL at world size 1
 # on a (1, 1) mesh (bit for bit the unsharded run) and in P17_RANKS gloo
@@ -543,10 +565,11 @@ P17_ROWS = ("flash_attention_fwd (hd 128, TP 2)",
 # own flips counted and every rank's own choices checked equal.
 P18_MODELS = (KIMI, "zamba2-1.2b")
 P18_KIMI_LAYERS, P18_KIMI_EXPERTS = 2, 32
-P18_Z_LAYERS, P18_Z_ATTN = 6, (5,)
+P18_Z_LAYERS, P18_Z_ATTN = 4, (3,)
 P18_CUT = {KIMI: 1, "zamba2-1.2b": 2}
 P18_CE_CHUNK = {KIMI: KIMI_CE_CHUNK, "zamba2-1.2b": 0}
-P18_BATCH, P18_ROUNDS = 4, 2
+# (2 rounds until the whole script needed the room)
+P18_BATCH, P18_ROUNDS = 2, 1
 # smashed compressor -> (rtol, atol as a share of max|leaf|, the losses'
 # rtol): phase 17's compressed tolerance, for int8 and fp8 alike (a code
 # at the cut may take the neighbouring step)
@@ -569,16 +592,16 @@ P18_OUTLIERS = {
                              for t in ("q", "k")}}
 # the shapes each rank's kernels run at on the (1, 2) mesh (recorded_shapes)
 P18_SHAPES = {
-    KIMI: {"flash": {((20, 512, 32, 112), (20, 512, 4, 112))},
+    KIMI: {"flash": {((10, 512, 32, 112), (10, 512, 4, 112))},
            "lora": {(7168, 3584), (7168, 896), (3584, 7168)},
            "ssd": set()},
-    "zamba2-1.2b": {"flash": {((20, 512, 16, 64), (20, 512, 16, 64))},
+    "zamba2-1.2b": {"flash": {((10, 512, 16, 64), (10, 512, 16, 64))},
                     # q, k and v, o; in_proj's columns of a rank's heads
                     # (x, z, dt) and B, C; out_proj's rows
                     "lora": {(2048, 1024), (2048, 2048), (1024, 2048),
                              (2048, 4256)},
-                    "ssd": {(20, 512, 32, 64)}}}
-P18_SSD_SHAPE = (20, 512, 32, 64, 1, 64, 256)   # (B, S, H, P, G, N, chunk)
+                    "ssd": {(10, 512, 32, 64)}}}
+P18_SSD_SHAPE = (10, 512, 32, 64, 1, 64, 256)   # (B, S, H, P, G, N, chunk)
 # the result line's rows of the kernels at those shapes
 P18_ROWS = ("flash_attention_fwd (hd 112, TP 2)",
             "flash_attention_bwd (hd 112, TP 2)",
@@ -590,6 +613,64 @@ P18_ROWS = ("flash_attention_fwd (hd 112, TP 2)",
             "ssd_scan (TP 2)")
 
 
+# phase 19: parameter sharding of the audio and vlm families (TP over
+# "model", their encoder's and decoder's streams under sequence
+# parallelism, the reference's default for both), and of a client's batch
+# rows over "pod", in the training round.  whisper-medium at full width,
+# P19_W_ENC of its 24 encoder and P19_W_DEC of its 24 decoder layers, cut
+# 1 (in the encoder), 5 clients x batch P19_BATCH x W_SEQ tokens over 1500
+# frames; internvl2-76b at full width, P19_V_LAYERS of its 80 layers, cut
+# 1, 5 x P19_BATCH x P19_V_SEQ with its 256-position prefix, the cross
+# entropy in chunks of LLAMA_CE_CHUNK; both SGD, smashed none, the rounds
+# of P19_ROUNDS, unsharded, under NCCL at world size 1 on a (1, 1) mesh
+# (bit for bit the unsharded run) and in P17_RANKS gloo ranks that share
+# the card on a (1, P17_RANKS) mesh.  Then phase 16's gpt2-small at full
+# width and P19_POD_LAYERS of its 12 layers (4 clients x batch 4 x seq
+# 512, cut 2, int8 at the cut, SGD) on a ("pod", "data", "model") mesh of
+# P19_POD_MESH: unsharded, NCCL at world size 1 on (1, 1, 1), and 4 gloo
+# ranks: each client's rows over "pod", TP and SP over "model", FSDP over
+# "pod", the int8 round trip over each whole message gathered at the cut.
+P19_W_ENC, P19_W_DEC, P19_V_LAYERS, P19_CUT = 2, 2, 2, 1
+P19_BATCH, P19_V_SEQ = 2, 512
+# rounds a run takes: whisper-medium's and internvl2-76b's 1 (2 until the
+# whole script needed the room), the pod run's 2
+P19_ROUNDS = {WHISPER: 1, VLM: 1, "pod": 2}
+P19_POD_MESH = (2, 1, 2)          # ("pod", "data", "model")
+P19_POD_LAYERS = 4
+P19_MODELS = (WHISPER, VLM)
+# the tolerances: without compression as phase 17's; the pod run with int8
+# at the cut as phase 16 holds its SGD run (a code may take the
+# neighbouring step), losses within rtol 1e-6
+P19_TOL = {WHISPER: P17_TOL["none"], VLM: P17_TOL["none"],
+           "pod": GRAD_TOL["int8"] + (1e-6,)}
+# the shapes each rank's kernels run at: the flash kernels over (B, S,
+# heads, hd) of q and of k (whisper: the encoder, the cross read, the
+# decoder), the fused LoRA over (K, N), the int8 round trip over the
+# message (the gathered one on the pod mesh)
+P19_SHAPES = {
+    WHISPER: {"flash": {((10, 1500, 8, 64), (10, 1500, 8, 64)),
+                        ((10, 448, 8, 64), (10, 1500, 8, 64)),
+                        ((10, 448, 8, 64), (10, 448, 8, 64))},
+              "lora": {(1024, 512), (1024, 1024), (512, 1024)},
+              "int8": set()},
+    VLM: {"flash": {((10, 512, 32, 128), (10, 512, 4, 128))},
+          "lora": {(8192, 4096), (8192, 1024), (4096, 8192)},
+          "int8": set()},
+    "pod": {"flash": {((8, 512, 6, 64), (8, 512, 6, 64))},
+            "lora": {(768, 384), (768, 768), (384, 768)},
+            "int8": {(4, 4, 512, 768)}}}
+# the fused LoRA at internvl2's wq block (timed) and w_in block (held)
+P19_LORA = ((8192, 4096), (8192, 14336))
+P19_INT8 = (4, 4, 512, 768)
+# the result line's rows of the kernels at those shapes
+P19_ROWS = ("flash_attention_fwd (hd 64, TP 2, SP)",
+            "flash_attention_bwd (hd 64, TP 2, SP)",
+            "flash_attention_fwd (hd 128, TP 2, SP)",
+            "flash_attention_bwd (hd 128, TP 2, SP)",
+            "lora_matmul_fwd (TP 2, SP)", "lora_matmul_bwd (TP 2, SP)",
+            "int8_roundtrip_smashed (gathered message)")
+
+
 def hd_row(kname: str, hd: int) -> str:
     """The result line's row of kernel `kname` at head dim `hd`: the
     attention kernels at a head dim of WIDE_HDS have rows of their own."""
@@ -598,7 +679,24 @@ def hd_row(kname: str, hd: int) -> str:
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Prints msg after the time of day (UTC, to a tenth of a second), so
+    that a cut run's output shows where its time went."""
+    t = time.time()
+    print(f"[{time.strftime('%H:%M:%S', time.gmtime(t))}.{int(t * 10) % 10}] "
+          f"{msg}", flush=True)
+
+
+def host_cpus() -> str:
+    """The host's CPUs as this process sees them: the count, those it may
+    run on, and the cgroup's CPU quota where one is set."""
+    import os
+    quota = "none"
+    with contextlib.suppress(OSError, ValueError):
+        limit, period = Path("/sys/fs/cgroup/cpu.max").read_text().split()
+        if limit != "max":
+            quota = f"{int(limit) / int(period):g} CPUs"
+    return (f"{os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} in its "
+            f"affinity, cgroup quota {quota}")
 
 
 def fmt(values) -> str:
@@ -670,8 +768,37 @@ CUDA_CORE_KERNELS = {"decode_kernel": "decode_attention",
                      "dequant_kernel": "smashed_quant"}
 
 
-def mma_build_report(_build, lib_path) -> None:
-    """Phase 1: each tensor-core kernel's registers and spills (ptxas -v,
+def start_sass(_build, lib_path):
+    """Starts `cuobjdump -sass` of the built library in the background
+    (phase 2 runs meanwhile); returns a function that waits for it and
+    returns its output.  A dump still running when the script exits is
+    killed."""
+    import atexit
+    import tempfile
+
+    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([cuobjdump, "-sass", str(lib_path)], stdout=out,
+                            stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+
+    def result() -> str:
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+        if proc.returncode:
+            raise RuntimeError(f"cuobjdump -sass exited {proc.returncode}: "
+                               f"{err[-2000:]}")
+        out.seek(0)
+        return out.read()
+    return result
+
+
+def mma_build_report(_build, lib_path, sass: str) -> None:
+    """Phase 1's report (logged after phase 2, during which start_sass
+    dumps the SASS): each tensor-core kernel's registers and spills (ptxas -v,
     from the build's logs), its shared memory (the SSD passes' at the
     mamba2 path's N and chunk, the decode kernel's at the serving path's
     hd 64 and group 1), and the count of tensor-core MMA instructions
@@ -715,10 +842,6 @@ def mma_build_report(_build, lib_path) -> None:
             m = re.search(r"(\d+) bytes smem", line)
             if m:
                 info[cur]["static_smem"] = int(m.group(1))
-    cuobjdump = str(Path(_build.find_nvcc()).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
     cur = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -859,14 +982,74 @@ def _profile(torch, run, prefix: int = PROFILE_PREFIX):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
     events, spins = [], []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    for e in raw_events(prof):
+        if e.device_type() != torch.autograd.DeviceType.CUDA or hidden(e):
             continue
-        span = (e.name, e.time_range.start, e.time_range.end)
-        (spins if "spin_kernel" in e.name else events).append(span)
+        lo = e.start_ns() / 1e3
+        span = (e.name(), lo, lo + e.duration_ns() / 1e3)
+        (spins if "spin_kernel" in span[0] else events).append(span)
     first = min((lo for _, lo, _ in events), default=None)
     before = sum(1 for _, lo, _ in spins if first is None or lo < first)
     return wall, events, (before, len(spins) - before)
+
+
+def raw_events(prof):
+    """The profiler's raw (kineto) events.  Parsing them into
+    FunctionEvents (prof.events(), key_averages()) takes seconds for each
+    10^5 events, and a whole-path profile holds that many: _profile and
+    host_self_times read the raw ones."""
+    return prof.profiler.kineto_results.events()
+
+
+def hidden(event) -> bool:
+    """Whether the profiler's own parsing would leave a raw event out (its
+    bookkeeping records)."""
+    from torch.autograd.profiler_util import _filter_name
+    return (_filter_name(event.name())
+            or getattr(event, "is_hidden_event", lambda: False)())
+
+
+def host_self_times(torch, events) -> dict:
+    """{host op: (self CPU us, calls)} of raw profiler events, as
+    key_averages() gives them: per thread, an op nested in another (its
+    interval inside the other's) is its child, and an op's self time is
+    its duration less its children's; an op that is the only child of an
+    op of its own name is merged into it (one call).  Ops that start and
+    end on other threads, and device events, have no self CPU time."""
+    cpu = torch.autograd.DeviceType.CPU
+    threads = {}
+    for e in events:
+        if (e.device_type() != cpu or e.is_async() or hidden(e)
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        lo = e.start_ns()
+        threads.setdefault(e.start_thread_id(), []).append(
+            (lo, -(lo + e.duration_ns()), e.name()))
+    out = {}
+    for spans in threads.values():
+        spans.sort()
+        stack, done = [], []     # [end, name, self ns, children, parent]
+        for lo, neg_hi, name in spans:
+            hi = -neg_hi
+            while stack and (lo >= stack[-1][0] or hi > stack[-1][0]):
+                stack.pop()
+            parent = stack[-1] if stack else None
+            if parent:
+                parent[2] -= hi - lo
+                parent[3] += 1
+            stack.append([hi, name, hi - lo, 0, parent])
+            done.append(stack[-1])
+        for op in reversed(done):
+            parent = op[4]
+            if parent and parent[1] == op[1] and parent[3] == 1:
+                parent[2] += op[2]
+                parent[3] = op[3]
+                op[1] = None
+        for _, name, own, _, _ in done:
+            if name is not None:
+                us, n = out.get(name, (0.0, 0))
+                out[name] = (us + own / 1e3, n + 1)
+    return out
 
 
 def summarize(events):
@@ -972,9 +1155,9 @@ def host_top(torch, run, top: int = 8):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    return wall, [(e.key, e.self_cpu_time_total * 1e-3, e.count)
-                  for e in rows[:top]]
+    rows = sorted(host_self_times(torch, raw_events(prof)).items(),
+                  key=lambda kv: -kv[1][0])
+    return wall, [(k, us * 1e-3, n) for k, (us, n) in rows[:top]]
 
 
 def profiled_pass(torch, fn, names, iters: int = 10):
@@ -1113,7 +1296,8 @@ def max_err(torch, got, want, dtype: str, what: str,
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
-    ap.add_argument("--only", choices=["15", "16", "17", "18"], default=None,
+    ap.add_argument("--only", choices=["15", "16", "17", "18", "19"],
+                    default=None,
                     help="build, then run this phase alone (no result "
                          "line); the contract's run takes no argument")
     ap.add_argument("--p18-smashed", choices=["none", "int8", "fp8"],
@@ -1148,9 +1332,10 @@ def main(argv=None) -> int:
 
     # -- phase 0: the card --------------------------------------------------
     card = card_line()
-    log(f"card: {card}")
+    print(f"card: {card}", flush=True)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"device {name}; TF32 off (matmul and cuDNN)")
+        f"device {name}; TF32 off (matmul and cuDNN); host: {host_cpus()}, "
+        f"torch threads {torch.get_num_threads()}")
 
     # the wall time of each section, logged as it ends
     clock = {"name": "phase 1", "t": time.perf_counter()}
@@ -1167,7 +1352,7 @@ def main(argv=None) -> int:
     log(f"phase 1: built {lib_path.name} from "
         f"{[p.name for p in _build.sources()]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    mma_build_report(_build, lib_path)
+    sass = start_sass(_build, lib_path)
 
     gen = torch.Generator().manual_seed(SEED)
 
@@ -1175,13 +1360,18 @@ def main(argv=None) -> int:
         return (torch.randn(shape, generator=gen) * scale).to(dtype).to(dev)
 
     wrappers = port_wrappers()
+    cells = (start_p15_cells(torch.cuda.get_device_properties(0).total_memory)
+             if args.only in (None, "15") else None)
     rows_of = (list(wrappers) + [hd_row(k, hd) for hd in WIDE_HDS
                                  for k in WIDE_HD] + list(P15_ROWS)
-               + list(P17_ROWS) + list(P18_ROWS))
+               + list(P17_ROWS) + list(P18_ROWS) + list(P19_ROWS))
     worst = {k: 0.0 for k in rows_of}
+    if args.only:
+        mma_build_report(_build, lib_path, sass())
     if args.only == "15":
         launches, rows = {k: 0 for k in rows_of}, {}
-        phase15(torch, dev, wrappers, name, card, F, launches, worst, rows)
+        phase15(torch, dev, wrappers, name, card, F, launches, worst, rows,
+                cells)
         log(f"phase 15 alone: max |kernel - plain| "
             + ", ".join(f"{k} {worst[k]:.3e}" for k in P15_ROWS))
         return 0
@@ -1200,6 +1390,12 @@ def main(argv=None) -> int:
         phase18(torch, dev, F, wrappers, name, card, launches, worst, rows,
                 smashed=args.p18_smashed)
         log(f"phase 18 alone: launches "
+            f"{ {k: c for k, c in launches.items() if c} }")
+        return 0
+    if args.only == "19":
+        launches, rows = {k: 0 for k in rows_of}, {}
+        phase19(torch, dev, F, wrappers, name, card, launches, worst, rows)
+        log(f"phase 19 alone: launches "
             f"{ {k: c for k, c in launches.items() if c} }")
         return 0
 
@@ -1268,6 +1464,7 @@ def main(argv=None) -> int:
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         if dname == "float32":
             worst = errs
+    mma_build_report(_build, lib_path, sass())
 
     lap("phase 3")
     # -- phase 3: times at the paths' shapes (fp32) -------------------------
@@ -1538,7 +1735,7 @@ def main(argv=None) -> int:
                                                card, system), hd=128)
     del system
     small_step_check(torch, dev, "llama3-8b", SMALL_SEQ, LLAMA_STEPS,
-                     "phase 9 step", compressed="mean")
+                     "phase 9 step", compressed="mean", wide=True)
 
     lap("phase 10")
     # -- phase 10: opt-125m and gpt-neo-125m, training and serving ----------
@@ -1552,7 +1749,7 @@ def main(argv=None) -> int:
         comp = get_config(arch_name).split.smashed_compress
         small_step_check(torch, dev, arch_name, DENSE_STEP_SEQ,
                          [("none", "none", {}), (comp, comp, {})],
-                         "phase 10b", compressed="mean")
+                         "phase 10b", compressed="mean", wide=True)
 
     lap("phase 11")
     # -- phase 11: mamba2-780m serving at full width and depth ---------------
@@ -1585,7 +1782,8 @@ def main(argv=None) -> int:
 
     lap("phase 15")
     # -- phase 15: the dry-run's serving cells at 32k and 500k --------------
-    phase15(torch, dev, wrappers, name, card, F, launches, worst, rows)
+    phase15(torch, dev, wrappers, name, card, F, launches, worst, rows,
+            cells)
 
     lap("phase 16")
     # -- phase 16: the cohort split over ranks, NCCL and gloo ---------------
@@ -1599,6 +1797,10 @@ def main(argv=None) -> int:
     lap("phase 18")
     # -- phase 18: parameter sharding, EP (MoE) and TP over SSM heads -------
     phase18(torch, dev, F, wrappers, name, card, launches, worst, rows)
+
+    lap("phase 19")
+    # -- phase 19: audio and vlm under TP and SP, the "pod" axis ------------
+    phase19(torch, dev, F, wrappers, name, card, launches, worst, rows)
 
     lap("results")
     # -- results ----------------------------------------------------------------
@@ -1624,7 +1826,7 @@ def main(argv=None) -> int:
     for hd in WIDE_HDS:
         for kname in WIDE_HD:
             sources[hd_row(kname, hd)] = sources[kname]
-    for kname in P15_ROWS + P17_ROWS + P18_ROWS:
+    for kname in P15_ROWS + P17_ROWS + P18_ROWS + P19_ROWS:
         sources[kname] = sources[kname.split(" (")[0]]
     kernels = []
     for kname, (src, replaces) in sources.items():
@@ -3238,7 +3440,8 @@ def mamba2_phase(torch, dev, wrappers, name, card):
     arch = mamba2_arch(M_BATCH)
     layers = arch.model.num_layers
     _, got, per_round, _ = run_rounds(torch, arch, dev, wrappers, "phase 7",
-                                      name, card, host_profile=True)
+                                      name, card, host_profile=True,
+                                      draw_on_device=True)
     check_launches(per_round, lambda p: {"ssd_scan": layers},
                    {"ssd_scan": layers, "lora_matmul_fwd": 2 * layers},
                    "mamba2-780m training")
@@ -3260,7 +3463,8 @@ def mamba2_batch4_phase(torch, dev, wrappers, name, card):
     arch = mamba2_arch(M4_BATCH, remat="full")
     layers = arch.model.num_layers
     system, got, per_round, _ = run_rounds(torch, arch, dev, wrappers,
-                                           "phase 7b", name, card)
+                                           "phase 7b", name, card,
+                                           draw_on_device=True)
     peak_full = torch.cuda.max_memory_allocated()
     check_launches(per_round, lambda p: {"ssd_scan": 2 * layers},
                    {"ssd_scan": layers, "lora_matmul_fwd": 2 * layers},
@@ -3353,10 +3557,10 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
     A remat step is also compared with the card's own step without remat,
     and whether they are bitwise is logged.  model_kw: more fields of the
     reduced model config (a hybrid's attention layer indices, an MoE
-    model's expert count).  wide=True (phase 13b: models of 15 to 25 GB)
-    draws the weights on the card and copies them to the CPU (a CPU draw
-    takes minutes) and logs the host's free memory before each step.  An
-    MoE model's CPU step routes by the card's top-k choices
+    model's expert count).  wide=True (phases 9, 10b and 13b: models of 2
+    to 25 GB) draws the weights on the card and copies them to the CPU (a
+    CPU draw takes minutes) and logs the host's free memory before each
+    step.  An MoE model's CPU step routes by the card's top-k choices
     (recorded_routing's replay), since a choice flipped on a near-tie of
     the router's probabilities would move its token's expert output
     wholesale; the number of (token, choice) pairs that the CPU would
@@ -3834,7 +4038,7 @@ def llama_phase(torch, dev, wrappers, name, card):
         f"{m.vocab_size}, untied head, RoPE theta {m.rope_theta:g}")
     system, got, per_round, times = run_rounds(
         torch, arch, dev, wrappers, "phase 9", name, card,
-        ce_chunk=LLAMA_CE_CHUNK)
+        ce_chunk=LLAMA_CE_CHUNK, draw_on_device=True)
     peak = torch.cuda.max_memory_allocated()
     check_launches(
         per_round,
@@ -4138,7 +4342,7 @@ def mamba2_serving_phase(torch, dev, wrappers, name, card):
 
     arch = get_config("mamba2-780m")
     model = build_model(arch, device=dev)
-    params = model.init_params(torch.Generator().manual_seed(SEED))
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
     pool = serving.build_adapter_pool(
         model, torch.Generator().manual_seed(SEED + 1), len(SSM_RANKS),
         ranks=SSM_RANKS)
@@ -4205,7 +4409,8 @@ def zamba2_phase(torch, dev, wrappers, name, card):
         f"{arch.split.cut_layer} over {arch.split.cut_buckets}, smashed "
         f"{arch.split.smashed_compress}")
     system, got, per_round, times = run_rounds(torch, arch, dev, wrappers,
-                                               "phase 12", name, card)
+                                               "phase 12", name, card,
+                                               draw_on_device=True)
     peak = torch.cuda.max_memory_allocated()
     check_launches(
         per_round,
@@ -4983,13 +5188,12 @@ def whisper_steps(torch, dev, wrappers):
 
 def p15_arch(name: str):
     """llama3-8b at full width cut to P15_LLAMA_LAYERS layers; mamba2-780m
-    as it is."""
+    at full width cut to P15_MAMBA2_LAYERS."""
     from repro_torch.configs import get_config
     arch = get_config(name)
-    if name == "llama3-8b":
-        arch = arch.replace(model=dataclasses.replace(
-            arch.model, num_layers=P15_LLAMA_LAYERS))
-    return arch
+    return arch.replace(model=dataclasses.replace(
+        arch.model, num_layers={"llama3-8b": P15_LLAMA_LAYERS,
+                                "mamba2-780m": P15_MAMBA2_LAYERS}[name]))
 
 
 def p15_shape(name: str, batch=None):
@@ -5000,10 +5204,91 @@ def p15_shape(name: str, batch=None):
                                global_batch=batch or shape.global_batch)
 
 
-def p15_predict(arch, shape, tag):
-    """dryrun.run_cell's record of the cell, printed."""
+# the dry-run's records of phase 15's cells, {(arch, shape, batch):
+# record}: traced by a child process while phases 2-14 run (a 32768-token
+# prefill's trace takes ~25 s on the host), or when first asked for
+P15_RECORDS: dict = {}
+
+
+def p15_record(arch, shape):
+    """dryrun.run_cell's record of the cell, traced now unless
+    P15_RECORDS holds it."""
     from repro_torch.launch import dryrun
-    rec = dryrun.run_cell(arch, shape, verbose=False)
+    key = (arch.name, shape.name, shape.global_batch)
+    if key not in P15_RECORDS:
+        P15_RECORDS[key] = dryrun.run_cell(arch, shape, verbose=False)
+    return P15_RECORDS[key]
+
+
+def p15_cells(total: int) -> dict:
+    """The records of every cell phase 15 runs, its prefills' batch
+    search on a card of `total` bytes included (no GPU: fake tensors on
+    the host)."""
+    for arch_name, cell in (("llama3-8b", "decode_32k"),
+                            ("llama3-8b", "prefill_32k"),
+                            ("mamba2-780m", "long_500k"),
+                            ("mamba2-780m", "prefill_32k")):
+        arch = p15_arch(arch_name)
+        if cell == "prefill_32k":
+            p15_batch(arch, cell, total, quiet=True)
+        else:
+            p15_record(arch, p15_shape(cell))
+    return dict(P15_RECORDS)
+
+
+def _p15_cells_to(out: str, total: int) -> None:
+    """A child process's p15_cells, pickled to `out` (no GPU)."""
+    import pickle
+
+    import torch
+    torch.set_num_threads(1)
+    Path(out).write_bytes(pickle.dumps(p15_cells(total)))
+
+
+def start_p15_cells(total: int):
+    """Starts p15_cells in a child process (daemonic: killed if the script
+    exits first); returns a function that waits for it and adds its
+    records to P15_RECORDS."""
+    import atexit
+    import multiprocessing
+    import pickle
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p15_"))
+    out = tmp / "cells.pkl"
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_p15_cells_to, args=(str(out), total), daemon=True)
+    proc.start()
+
+    def stop():
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    atexit.register(stop)
+
+    def result() -> None:
+        t0 = time.perf_counter()
+        proc.join(timeout=900)
+        if proc.exitcode != 0:
+            stop()
+            raise RuntimeError(f"the dry-run of phase 15's cells: exit code "
+                               f"{proc.exitcode} (its traceback is on "
+                               f"stderr)")
+        P15_RECORDS.update(pickle.loads(out.read_bytes()))
+        stop()
+        log(f"phase 15: the dry-run's records of its cells, traced in a "
+            f"child process beside phases 2-14 (waited "
+            f"{time.perf_counter() - t0:.1f} s for it)")
+    return result
+
+
+def p15_predict(arch, shape, tag, rec=None):
+    """dryrun.run_cell's record of the cell (`rec` where the caller has
+    it), printed."""
+    if rec is None:
+        rec = p15_record(arch, shape)
     roof = rec["roofline"]
     log(f"{tag} predicted (dry-run, traced in {rec['trace_s']:.1f} s on the "
         f"host): {rec['flops']:.4e} FLOPs, {rec['bytes']:.4e} HBM bytes, "
@@ -5013,19 +5298,18 @@ def p15_predict(arch, shape, tag):
     return rec
 
 
-def p15_batch(torch, arch, name):
+def p15_batch(arch, name, total: int, quiet: bool = False):
     """The largest batch up to P15_BATCH_CAP whose predicted peak fits in
-    PEAK_SHARE of the card, and its record."""
-    from repro_torch.launch import dryrun
-    total = torch.cuda.get_device_properties(0).total_memory
+    PEAK_SHARE of a card of `total` bytes, and its record."""
     cap = min(P15_BATCH_CAP[arch.name], p15_shape(name).global_batch)
     for b in range(cap, 0, -1):
-        rec = dryrun.run_cell(arch, p15_shape(name, b), verbose=False)
+        rec = p15_record(arch, p15_shape(name, b))
         if rec["peak_bytes"] <= PEAK_SHARE * total:
             return b, rec
-        log(f"phase 15 {arch.name} {name}: batch {b} predicted at "
-            f"{rec['peak_bytes'] / 2**30:.2f} GiB, over {PEAK_SHARE} of "
-            f"{total / 2**30:.2f} GiB")
+        if not quiet:
+            log(f"phase 15 {arch.name} {name}: batch {b} predicted at "
+                f"{rec['peak_bytes'] / 2**30:.2f} GiB, over {PEAK_SHARE} "
+                f"of {total / 2**30:.2f} GiB")
     raise RuntimeError(f"phase 15 {arch.name} {name}: the dry-run fits no "
                        f"batch in {PEAK_SHARE} of the card")
 
@@ -5283,13 +5567,14 @@ def p15_prefill(torch, dev, wrappers, name, card, launches, arch_name):
     from repro_torch.runtime import serving
 
     arch = p15_arch(arch_name)
-    b, rec = p15_batch(torch, arch, "prefill_32k")
+    b, rec = p15_batch(arch, "prefill_32k",
+                       torch.cuda.get_device_properties(0).total_memory)
     s = P15_SEQ
     tag = f"phase 15 {arch_name} prefill_32k (batch {b})"
     log(f"{tag}: batch {b} of 32: the largest up to the phase's time cap "
         f"{P15_BATCH_CAP[arch_name]} whose predicted peak fits in "
         f"{PEAK_SHARE} of the card")
-    p15_predict(arch, p15_shape("prefill_32k", b), tag)
+    p15_predict(arch, p15_shape("prefill_32k", b), tag, rec)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     cgen = torch.Generator(device=dev).manual_seed(SEED)
@@ -5536,10 +5821,14 @@ def p15_kernels(torch, dev, F, worst, rows):
     torch.cuda.empty_cache()
 
 
-def phase15(torch, dev, wrappers, name, card, F, launches, worst, rows):
+def phase15(torch, dev, wrappers, name, card, F, launches, worst, rows,
+            cells=None):
     """Phase 15: the dry-run's serving cells on the card, each beside its
-    prediction; the kernels at the cells' lengths held and timed."""
+    prediction (cells: start_p15_cells' wait, else traced here); the
+    kernels at the cells' lengths held and timed."""
     t0 = time.perf_counter()
+    if cells is not None:
+        cells()
     got = {"llama3-8b decode_32k": p15_llama_decode(
         torch, dev, wrappers, name, card, launches, worst, rows, F)}
     got["llama3-8b prefill_32k"] = p15_prefill(
@@ -5763,8 +6052,9 @@ def phase16(torch, dev, wrappers, name, card):
 
 
 def p17_arch(smashed: str):
-    """llama3-8b at full width, P17_LAYERS deep, cut P17_CUT, SGD, the
-    smashed compressor `smashed`; phase 9's clients, batch and seq."""
+    """llama3-8b at full width, P17_LAYERS deep, cut P17_CUT, batch
+    P17_BATCH, SGD, the smashed compressor `smashed`; phase 9's clients
+    and seq."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5775,23 +6065,27 @@ def p17_arch(smashed: str):
         split=dataclasses.replace(arch.split, cut_layer=P17_CUT,
                                   cut_buckets=(P17_CUT,),
                                   smashed_compress=smashed),
-        train=dataclasses.replace(arch.train, **P17_TRAIN))
+        train=dataclasses.replace(arch.train, batch_size=P17_BATCH,
+                                  **P17_TRAIN))
 
 
 @contextlib.contextmanager
 def recorded_shapes():
     """While open, the yielded dict collects the shapes the model hands
     the flash kernels ((B, S, H, hd) of q and of k), the fused LoRA ((K,
-    N) of W) and the SSD scan ((B, S, H, P) of x), at the module
+    N) of W), the SSD scan ((B, S, H, P) of x) and the int8 kernels (the
+    message, at the layout helper the wrapper calls first), at the module
     attributes the blocks call (the kernels' own wrappers and counters
     stay as they are)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.lora_matmul import ops as lops
+    from repro_torch.kernels.smashed_quant import ops as sops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    got = {"flash": set(), "lora": set(), "ssd": set()}
+    got = {"flash": set(), "lora": set(), "ssd": set(), "int8": set()}
     flash, lora, scan = fops.flash_attention, lops.lora_matmul, \
         ssd_ops.ssd_scan
+    canon = sops._canon
 
     def flash_rec(q, k, v, **kw):
         got["flash"].add((tuple(q.shape), tuple(k.shape)))
@@ -5805,13 +6099,17 @@ def recorded_shapes():
         got["ssd"].add(tuple(x.shape))
         return scan(x, *args, **kw)
 
+    def int8_rec(x):
+        got["int8"].add(tuple(x.shape))
+        return canon(x)
+
     fops.flash_attention, lops.lora_matmul = flash_rec, lora_rec
-    ssd_ops.ssd_scan = scan_rec
+    ssd_ops.ssd_scan, sops._canon = scan_rec, int8_rec
     try:
         yield got
     finally:
         fops.flash_attention, lops.lora_matmul = flash, lora
-        ssd_ops.ssd_scan = scan
+        ssd_ops.ssd_scan, sops._canon = scan, canon
 
 
 def p17_grad(torch, dev, wrappers, system, shard,
@@ -5847,14 +6145,14 @@ def p17_grad(torch, dev, wrappers, system, shard,
             [float(g.abs().max()) for g in grads])
 
 
-def p17_block_bytes(params) -> int:
-    """The bytes of base weights that param_specs gives each rank of the
-    (1, P17_RANKS) mesh."""
+def p17_block_bytes(params, mesh=None) -> int:
+    """The bytes of base weights that param_specs gives each rank of
+    `mesh` (the (1, P17_RANKS) mesh by default)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.runtime.sharding import axis_sizes, param_specs
     from repro_torch.tree import tree_leaves
 
-    mesh = make_mesh(1, P17_RANKS)
+    mesh = mesh or make_mesh(1, P17_RANKS)
     sizes = axis_sizes(mesh)
     total = 0
     for x, spec in zip(tree_leaves(params),
@@ -5916,22 +6214,22 @@ def p17_want(run, smashed):
 def p17_kernels(torch, F, rand, worst, rows):
     """The kernels of phase 17's path at the TP-local shapes of a (1, 2)
     mesh (fp32): the flash forward and backward over 16 query heads and 4
-    KV heads of 128 (B 20, S 512, causal) through time_flash_cases; the
-    fused LoRA forward and backward at M 10240 (the eval step's rows) for
+    KV heads of 128 (B 10, S 512, causal) through time_flash_cases; the
+    fused LoRA forward and backward at M 5120 (the eval step's rows) for
     wq (K 4096, N 2048), wk and wv (4096, 1024) and wo (2048, 4096), r 16
     (P17_LORA).  Each against its plain version first (worst takes the
     larger error at the TP rows), then timed beside the plain version
     and, for flash, SDPA; the LoRA rows are P17_WQ's."""
     errs = {hd_row(k, 128): 0.0 for k in WIDE_HD}
     got = time_flash_cases(torch, F, rand, errs, [
-        (P17_ROWS[0], P17_ROWS[1], 20, 512, 512, 16, 4, 128, True,
+        (P17_ROWS[0], P17_ROWS[1], 5 * P17_BATCH, 512, 512, 16, 4, 128, True,
          "a llama3-8b train step's block on one of 2 \"model\" ranks")])
     for i, k in enumerate(("flash_attention_fwd", "flash_attention_bwd")):
         worst[P17_ROWS[i]] = max(worst[P17_ROWS[i]], errs[hd_row(k, 128)])
     rows.update(got)
     for kd, n in sorted(P17_LORA):
         lora_tp_rows(torch, rand, worst, rows, P17_ROWS[2], P17_ROWS[3],
-                     10240, kd, n, "wq's column block",
+                     5 * P17_BATCH * 512, kd, n, "wq's column block",
                      timed=(kd, n) == P17_WQ)
     log("phase 17: the kernels at the TP-local shapes agree with their "
         "plain versions: " + ", ".join(f"{k} {worst[k]:.3e}"
@@ -5947,11 +6245,12 @@ def log_tp_rows(torch, phase, names, rows):
         row = rows[kname]
         lib = ("n/a" if row["library_ms"] is None
                else f"{row['library_ms']:.4f}")
+        cc = ("" if row["cuda_core_bound"] is None else
+              f"; fp32 CUDA-core bound {row['cuda_core_bound']:.4f} ms")
         log(f"{phase} [{torch.cuda.get_device_name(0)}, {card_line()}] "
             f"{kname} at {row['shape']}: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{row['bound'][0]:.4f} ms ({row['bound'][1]}); fp32 CUDA-core "
-            f"bound {row['cuda_core_bound']:.4f} ms")
+            f"{row['bound'][0]:.4f} ms ({row['bound'][1]}){cc}")
 
 
 def p17_compare(got, want, what, smashed):
@@ -6124,21 +6423,22 @@ def p18_arch(model: str, smashed=None):
 
 
 def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
-                tag, replay=None) -> dict:
+                tag, replay=None, mesh=None) -> dict:
     """n_rounds rounds of `arch` under `shard` (None or a MeshShard), the
     cross entropy in chunks of `ce_chunk`, weights drawn on the card, then
     the global-adapter gradient.  Returns the gathered state after each round
     (numpy), the records, per step its launches and wall seconds, the
     kernels' shapes, the gradient's launches and sizes, the bytes of base
     weights this process holds (unsharded: the bytes param_specs gives one
-    rank of the (1, P17_RANKS) mesh), its init's peak and its
-    max_memory_allocated over the rounds, and the bytes it all-reduced a
-    round.  An MoE model records each layer call's routing
-    (recorded_routing) per round; replay: the unsharded run's per-round
-    calls, whose choices this run routes by (its own flips against them
-    counted); under a shard every rank's own choices are checked equal
-    each round (check_agree).  The system and its weights are gone when
-    it returns."""
+    rank of `mesh`, the (1, P17_RANKS) mesh by default), its init's peak
+    and its max_memory_allocated over the rounds, and the bytes it
+    all-reduced a round.  The audio and vlm families' batches carry their
+    frontend's input (``with_frontend``).  An MoE model records each layer
+    call's routing (recorded_routing) per round; replay: the unsharded
+    run's per-round calls, whose choices this run routes by (its own flips
+    against them counted); under a shard every rank's own choices are
+    checked equal each round (check_agree).  The system and its weights
+    are gone when it returns."""
     import functools
 
     from repro_torch.core import rounds
@@ -6147,6 +6447,10 @@ def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
     from repro_torch.tree import tree_leaves, tree_map
 
     moe = arch.model.family == "moe"
+    # an earlier run's system is freed here (its cycles), so the peaks
+    # below are this run's
+    gc.collect()
+    torch.cuda.empty_cache()
     factories = rounds.make_train_step, rounds.make_eval_step
     rounds.make_train_step, rounds.make_eval_step = (
         functools.partial(f, ce_chunk=ce_chunk) for f in factories)
@@ -6159,6 +6463,7 @@ def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
             device=dev, draw_on_device=True, policy=shard)
     finally:
         rounds.make_train_step, rounds.make_eval_step = factories
+    with_frontend(system)
     torch.cuda.synchronize()
     init_peak = torch.cuda.max_memory_allocated() - held
     leaves = tree_leaves(system.base_params)
@@ -6167,7 +6472,8 @@ def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
     state_bytes = sum(x.numel() * x.element_size()
                       for x in tree_leaves(system.state)
                       if isinstance(x, torch.Tensor) and x.is_cuda)
-    block = p17_block_bytes(system.base_params) if shard is None else base
+    block = (p17_block_bytes(system.base_params, mesh) if shard is None
+             else base)
     train = system.train_step = TimedStep(torch, system.train_step, wrappers)
     ev = system.eval_step = TimedStep(torch, system.eval_step, wrappers)
     reduced0 = shard.bytes_reduced if shard is not None else 0
@@ -6306,8 +6612,8 @@ def p18_kernels(torch, F, rand, worst, rows):
     mesh (fp32), each against its plain version first, then timed beside
     it, SDPA (flash) and the bound: the flash forward and backward over
     kimi-k2's 32 query heads and 4 KV heads of 112 and zamba2's 16 heads
-    of 64 (B 20, S 512, causal); the fused LoRA forward and backward at
-    M 10240 at kimi-k2's wq block (K 7168, N 3584) and zamba2's ssm_in
+    of 64 (B 10, S 512, causal); the fused LoRA forward and backward at
+    M 5120 at kimi-k2's wq block (K 7168, N 3584) and zamba2's ssm_in
     block (K 2048, N 4256: the rank's x, z and dt columns and B, C); the
     SSD scan over zamba2's 32 heads of a rank (P 64, N 64, chunk
     256)."""
@@ -6316,9 +6622,9 @@ def p18_kernels(torch, F, rand, worst, rows):
                              hd_row("flash_attention_bwd", 112),
                              "ssd_scan")}
     rows.update(time_flash_cases(torch, F, rand, errs, [
-        (P18_ROWS[0], P18_ROWS[1], 20, 512, 512, 32, 4, 112, True,
+        (P18_ROWS[0], P18_ROWS[1], 10, 512, 512, 32, 4, 112, True,
          "a kimi-k2 train step's block on one of 2 \"model\" ranks"),
-        (P18_ROWS[2], P18_ROWS[3], 20, 512, 512, 16, 16, 64, True,
+        (P18_ROWS[2], P18_ROWS[3], 10, 512, 512, 16, 16, 64, True,
          "a zamba2 train step's block on one of 2 \"model\" ranks")]))
     for i, (k, hd) in enumerate((("flash_attention_fwd", 112),
                                  ("flash_attention_bwd", 112),
@@ -6326,9 +6632,11 @@ def p18_kernels(torch, F, rand, worst, rows):
                                  ("flash_attention_bwd", 64))):
         worst[P18_ROWS[i]] = max(worst[P18_ROWS[i]], errs[hd_row(k, hd)])
     lora_tp_rows(torch, rand, worst, rows, P18_ROWS[4], P18_ROWS[5],
-                 10240, 7168, 3584, "kimi-k2's wq column block")
+                 5 * P18_BATCH * M_SEQ, 7168, 3584,
+                 "kimi-k2's wq column block")
     lora_tp_rows(torch, rand, worst, rows, P18_ROWS[6], P18_ROWS[7],
-                 10240, 2048, 4256, "zamba2's ssm_in block: a rank's heads")
+                 5 * P18_BATCH * M_SEQ, 2048, 4256,
+                 "zamba2's ssm_in block: a rank's heads")
     rows[P18_ROWS[8]] = time_ssd_kernel(torch, rand, errs, P18_SSD_SHAPE)
     worst[P18_ROWS[8]] = max(worst[P18_ROWS[8]], errs["ssd_scan"])
     log("phase 18: the kernels at the TP-local shapes agree with their "
@@ -6534,6 +6842,340 @@ def phase18(torch, dev, F, wrappers, name, card, launches, worst, rows,
             f"{[round(g['round_bytes']) for g in ranks]}")
     log(f"phase 18 [{name}, {card}]: spawn + {P17_RANKS} ranks "
         f"{spawned:.1f} s; the phase took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise RuntimeError("; ".join(bad))
+
+
+def with_frontend(system):
+    """The system's train and eval batches with its family's frontend
+    input (which the data pipeline does not make): the audio family's
+    frames ([N, B, 1500, d]), the vlm family's prefix, drawn per round
+    from SEED as frames_of draws them; other families' batches as they
+    are.  Returns the system."""
+    cfg = system.arch.model
+    key = {"audio": "frames", "vlm": "prefix"}.get(cfg.family)
+    if key is None:
+        return system
+    length = (cfg.encoder_seq_len if key == "frames"
+              else cfg.frontend_prefix_len)
+    train, ev = system._train_batch, system._eval_batch
+
+    def add(batch, seed):
+        n, b = batch["tokens"].shape[:2]
+        return dict(batch, **{key: frames_of(np.random.default_rng(seed),
+                                             (n, b, length, cfg.d_model))})
+
+    system._train_batch = lambda r: add(train(r), SEED + 190 + r)
+    system._eval_batch = lambda r: add(ev(r), SEED + 1190 + r)
+    return system
+
+
+def p19_arch(model: str):
+    """Phase 19's cut of `model` at full width: whisper-medium at
+    P19_W_ENC + P19_W_DEC layers over W_SEQ tokens, internvl2-76b at
+    P19_V_LAYERS over P19_V_SEQ; cut P19_CUT, 5 clients x batch
+    P19_BATCH, SGD, smashed none; "pod": phase 16's gpt2-small with SGD
+    (int8 at the cut) at P19_POD_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    if model == "pod":
+        arch = p16_arch("sgd")
+        return arch.replace(
+            model=dataclasses.replace(arch.model,
+                                      num_layers=P19_POD_LAYERS),
+            split=dataclasses.replace(arch.split, cut_buckets=(
+                arch.split.cut_layer,)))
+    arch = get_config(model)
+    if model == WHISPER:
+        m = dataclasses.replace(arch.model, num_layers=P19_W_DEC,
+                                num_encoder_layers=P19_W_ENC)
+        seq = W_SEQ
+    else:
+        m = dataclasses.replace(arch.model, num_layers=P19_V_LAYERS)
+        seq = P19_V_SEQ
+    return arch.replace(
+        model=m,
+        split=dataclasses.replace(arch.split, cut_layer=P19_CUT,
+                                  cut_buckets=(P19_CUT,),
+                                  smashed_compress="none"),
+        data=dataclasses.replace(arch.data, num_clients=5),
+        train=dataclasses.replace(arch.train, batch_size=P19_BATCH,
+                                  seq_len=seq, **P17_TRAIN))
+
+
+P19_CE_CHUNK = {WHISPER: 0, VLM: LLAMA_CE_CHUNK, "pod": 0}
+
+
+def p19_mesh(model: str):
+    from repro_torch.launch.mesh import make_mesh
+
+    if model == "pod":
+        pod, data, tp = P19_POD_MESH
+        return make_mesh(data, tp, pod=pod)
+    return make_mesh(1, P17_RANKS)
+
+
+def p19_rank(rank: int, world: int, out_dir: str, models, device="cuda"):
+    """Phase 19 on one of `world` gloo ranks that share the card: each of
+    `models` on its mesh (p19_mesh), sequence parallelism at the
+    reference's default (on for these families)."""
+    import torch
+
+    from repro_torch.runtime.sharding import MeshShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    got = {}
+    for model in models:
+        shard = MeshShard(p19_mesh(model), device=dev, backend="gloo")
+        got[model] = sharded_run(
+            torch, dev, port_wrappers(), shard, p19_arch(model),
+            P19_ROUNDS[model],
+            P19_CE_CHUNK[model], f"phase 19 {model} gloo rank {rank} of "
+            f"{world} {shard.coords}")
+        got[model].pop("routes")
+        del shard
+    torch.save(got, Path(out_dir) / f"p19_gloo_rank{rank}_{world}.pt")
+
+
+def p19_kernels(torch, F, rand, worst, rows):
+    """The kernels of phase 19's paths at the TP-local shapes of a (1, 2)
+    mesh (fp32), each against its plain version first, then timed beside
+    it, SDPA (flash) and the bound: the flash forward and backward over 8
+    of whisper-medium's 16 heads of 64 (B 10) at the encoder (S 1500,
+    non-causal), the cross read (448 queries over 1500 keys) and the
+    decoder (S 448, causal), the encoder's in the result line; over 32 of
+    internvl2-76b's 64 heads and 4 of its 8 KV heads of 128 (B 10, S 512,
+    causal); the fused LoRA forward and backward at M 5120 (internvl2's
+    eval step) at its wq block (K 8192, N 4096, timed) and w_in block (K
+    8192, N 14336, held); the int8 round trip over the pod run's gathered
+    message (4 clients x 4 rows x 512 x 768)."""
+    from repro_torch.kernels.smashed_quant import ops as sops
+
+    errs = {k: 0.0 for k in ("flash_attention_fwd", "flash_attention_bwd",
+                             hd_row("flash_attention_fwd", 128),
+                             hd_row("flash_attention_bwd", 128))}
+    w_cases = [("encoder", 1500, 1500, False), ("cross", 448, 1500, False),
+               ("decoder", 448, 448, True)]
+    for what, sq, sk, causal in w_cases:
+        got = time_flash_cases(torch, F, rand, errs, [
+            (f"{P19_ROWS[0]} {what}", f"{P19_ROWS[1]} {what}", 10, sq, sk,
+             8, 8, 64, causal, f"whisper's {what} on one of 2 \"model\" "
+             "ranks")])
+        if what != "encoder":       # the encoder's is logged with the rows
+            log_tp_rows(torch, "phase 19", list(got), got)
+        else:
+            rows[P19_ROWS[0]] = got[f"{P19_ROWS[0]} {what}"]
+            rows[P19_ROWS[1]] = got[f"{P19_ROWS[1]} {what}"]
+    rows.update(time_flash_cases(torch, F, rand, errs, [
+        (P19_ROWS[2], P19_ROWS[3], 10, P19_V_SEQ, P19_V_SEQ, 32, 4, 128,
+         True, "an internvl2-76b train step's block on one of 2 \"model\" "
+         "ranks")]))
+    for i, k in enumerate(("flash_attention_fwd", "flash_attention_bwd",
+                           hd_row("flash_attention_fwd", 128),
+                           hd_row("flash_attention_bwd", 128))):
+        worst[P19_ROWS[i]] = max(worst[P19_ROWS[i]], errs[k])
+    for kd, n in P19_LORA:
+        lora_tp_rows(torch, rand, worst, rows, P19_ROWS[4], P19_ROWS[5],
+                     5 * P19_BATCH * P19_V_SEQ, kd, n,
+                     "internvl2-76b's wq column block",
+                     timed=(kd, n) == P19_LORA[0])
+    xs = rand(*P19_INT8)
+    g, m, d = P19_INT8[0], P19_INT8[1] * P19_INT8[2], P19_INT8[3]
+    worst[P19_ROWS[6]] = max(worst[P19_ROWS[6]], max_err(
+        torch, sops.int8_roundtrip_smashed(xs).reshape(g, m, d),
+        sops.ref.roundtrip(xs.reshape(g, m, d)), "float32",
+        "int8 round trip, the gathered message"))
+    rows[P19_ROWS[6]] = dict(
+        ms=cuda_ms(torch, lambda: sops.int8_roundtrip_smashed(xs)),
+        plain_ms=cuda_ms(torch, lambda: sops.ref.roundtrip(
+            xs.reshape(g, m, d))),
+        library_ms=None,
+        # read x, write its round trip
+        **work(4 * 2 * g * m * d, 6 * g * m * d),
+        shape=f"G={g} M={m} d={d} fp32 (the pod run's message, gathered "
+              "over \"pod\" and \"model\" at the cut)")
+    del xs
+    torch.cuda.empty_cache()
+    log("phase 19: the kernels at the TP-local shapes agree with their "
+        "plain versions: " + ", ".join(f"{k} {worst[k]:.3e}"
+                                       for k in P19_ROWS)
+        + f" (tol {TOL['float32']}, the LoRA's scaled by its rows)")
+    log_tp_rows(torch, "phase 19", P19_ROWS, rows)
+
+
+def p19_check(run, want, model, what, bad):
+    """A gloo rank's run of `model` against the unsharded run: shapes,
+    launches per step, bytes held and the init's peak (raise); its state
+    and records within P19_TOL (appended to `bad`).  Returns the largest
+    |diff| / max|leaf| and the losses' relative difference."""
+    from repro_torch.runtime import agreement
+
+    got = {k: run["shapes"][k] for k in ("flash", "lora", "int8")}
+    if got != P19_SHAPES[model]:
+        raise RuntimeError(f"{what} ran its kernels at {got}, want "
+                           f"{P19_SHAPES[model]}")
+    p18_same_launches(run, want, what)
+    if run["base_bytes"] != want["block_bytes"]:
+        raise RuntimeError(f"{what} holds {run['base_bytes']} bytes of base "
+                           f"weights, param_specs gives it "
+                           f"{want['block_bytes']}")
+    bound = (run["base_bytes"] + want["largest_leaf"] + run["state_bytes"]
+             + P17_INIT_SLACK)
+    if run["init_peak"] > bound:
+        raise RuntimeError(f"{what}: the init peaked at {run['init_peak']} "
+                           f"bytes, over its blocks, one full leaf and the "
+                           f"state ({bound})")
+    rtol, atol, loss_rtol = P19_TOL[model]
+    seen = [agreement.check_state(a, b, rtol=rtol, atol_of_max=atol,
+                                  outliers={k: 1.0 for k in b})
+            for a, b in zip(run["states"], want["states"], strict=True)]
+    loss = agreement.check_history(run["history"], want["history"],
+                                   loss_rtol=1.0)
+    log(f"{what}: per round and state key the largest |diff| / max|leaf| "
+        "and the share of a leaf's elements outside the tolerance: "
+        + "; ".join(f"round {r}: " + ", ".join(
+            f"{k} {v:.3e} {o:.3e}" for k, (v, o) in g.items())
+            for r, g in enumerate(seen))
+        + f"; losses' largest relative difference {loss:.3e}")
+    try:
+        for a, b in zip(run["states"], want["states"]):
+            agreement.check_state(a, b, rtol=rtol, atol_of_max=atol)
+        agreement.check_history(run["history"], want["history"],
+                                loss_rtol=loss_rtol)
+    except agreement.Mismatch as e:
+        bad.append(f"{what}: {e}")
+    return max(v for g in seen for v, _ in g.values()), loss
+
+
+def phase19(torch, dev, F, wrappers, name, card, launches, worst, rows):
+    """Phase 19: parameter sharding of the audio and vlm families' training
+    round under sequence parallelism, and the "pod" axis: each model of
+    P19_MODELS and the pod run unsharded, under NCCL at world size 1 on a
+    mesh of ones (bit for bit the unsharded run), and in gloo ranks that
+    share the card (P17_RANKS on (1, P17_RANKS) for the two models, one
+    spawn; 4 on P19_POD_MESH for the pod run, another), each held by
+    p19_check.  Adds every run's launches to `launches` (the ranks' to
+    P19_ROWS), fills `worst` and `rows` at P19_ROWS."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharded import process_group, run_ranks
+    from repro_torch.runtime import agreement
+    from repro_torch.runtime.sharding import MeshShard
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 19)
+
+    def rand(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype).to(dev)
+
+    models = P19_MODELS + ("pod",)
+    for model in models:
+        arch = p19_arch(model)
+        m = arch.model
+        log(f"phase 19: {model} ({arch.name}) at full width (d_model "
+            f"{m.d_model}, {m.num_heads} heads over {m.num_kv_heads} of "
+            f"{m.head_dim}, vocab {m.vocab_size}), {m.num_layers} layers"
+            + (f" + {m.num_encoder_layers} encoder layers over "
+               f"{m.encoder_seq_len} frames" if m.family == "audio" else "")
+            + (f", a {m.frontend_prefix_len}-position prefix"
+               if m.family == "vlm" else "")
+            + f", cut {arch.split.cut_layer}, {arch.data.num_clients} "
+            f"clients x batch {arch.train.batch_size} x seq "
+            f"{arch.train.seq_len}, SGD, smashed "
+            f"{arch.split.smashed_compress}, {P19_ROUNDS[model]} round(s); "
+            f"mesh "
+            f"{dict(zip(p19_mesh(model).axes, p19_mesh(model).shape))}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_p19_"))
+    spawned = {}
+    try:
+        plain = {m: sharded_run(torch, dev, wrappers, None, p19_arch(m),
+                                P19_ROUNDS[m], P19_CE_CHUNK[m],
+                                f"phase 19 {m} unsharded", mesh=p19_mesh(m))
+                 for m in models}
+        nccl = {}
+        with process_group(0, 1, tmp / "nccl", backend="nccl"):
+            for m in models:
+                ones = (make_mesh(1, 1, pod=1) if m == "pod"
+                        else make_mesh(1, 1))
+                shard = MeshShard(ones, device=dev)
+                nccl[m] = sharded_run(torch, dev, wrappers, shard,
+                                      p19_arch(m), P19_ROUNDS[m],
+                                      P19_CE_CHUNK[m], f"phase 19 {m} "
+                                      f"{shard.backend} world 1")
+                del shard
+        torch.cuda.empty_cache()
+        gloo = {}
+        for group, world in ((P19_MODELS, P17_RANKS),
+                             (("pod",), p19_mesh("pod").num_devices)):
+            t1 = time.perf_counter()
+            run_ranks(p19_rank, world, tmp / f"gloo{world}",
+                      args=(str(tmp), group, dev.type))
+            spawned[world] = time.perf_counter() - t1
+            ranks = [torch.load(tmp / f"p19_gloo_rank{r}_{world}.pt",
+                                weights_only=False) for r in range(world)]
+            for m in group:
+                gloo[m] = [g[m] for g in ranks]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    gaps, bad = {}, []
+    for m in models:
+        agreement.same_bits(
+            {k: nccl[m][k] for k in ("states", "history")},
+            {k: plain[m][k] for k in ("states", "history")},
+            f"phase 19 {m} NCCL world 1")
+        p18_same_launches(nccl[m], plain[m], f"phase 19 {m} NCCL world 1")
+        got = [p19_check(g, plain[m], m, f"phase 19 {m} gloo rank {r}",
+                         bad) for r, g in enumerate(gloo[m])]
+        gaps[m] = got[0]
+    # the unsharded runs' kernels ran at the full shapes: their launches go
+    # to the kernels' rows, the ranks' at the TP-local shapes to P19_ROWS
+    for m, hd in ((WHISPER, 64), (VLM, 128), ("pod", 64)):
+        tp_row = {"flash_attention_fwd": P19_ROWS[0 if hd == 64 else 2],
+                  "flash_attention_bwd": P19_ROWS[1 if hd == 64 else 3],
+                  "lora_matmul_fwd": P19_ROWS[4],
+                  "lora_matmul_bwd": P19_ROWS[5],
+                  "int8_roundtrip_smashed": P19_ROWS[6]}
+        for run, tp in [(plain[m], False), (nccl[m], False)] + [
+                (g, True) for g in gloo[m]]:
+            for step in run["train"] + run["eval"]:
+                for k, c in step.items():
+                    launches[tp_row.get(k, k) if tp else hd_row(k, hd)] += c
+            launches[tp_row["lora_matmul_bwd"] if tp
+                     else "lora_matmul_bwd"] += run["lora_bwd"]
+    p19_kernels(torch, F, rand, worst, rows)
+    gib = lambda x: round(x / 2**30, 3)  # noqa: E731
+    for m in models:
+        p, n, ranks = plain[m], nccl[m], gloo[m]
+        log(f"phase 19 [{name}, {card}] {m}: NCCL at world size 1 == "
+            f"unsharded bit for bit; {len(ranks)} gloo ranks on "
+            f"{p19_mesh(m).shape} ran their kernels at {P19_SHAPES[m]}, "
+            f"per-step launches as the unsharded steps'; largest |diff| / "
+            f"max|leaf| {gaps[m][0]:.3e}, losses' relative difference "
+            f"{gaps[m][1]:.3e} (tol {P19_TOL[m]}); losses unsharded "
+            f"{[float(h['loss']) for h in p['history']]}; base weights "
+            f"(GiB): unsharded {gib(p['base_bytes'])}, gloo "
+            f"{[gib(g['base_bytes']) for g in ranks]}; init peak (GiB): "
+            f"unsharded {gib(p['init_peak'])}, NCCL {gib(n['init_peak'])}, "
+            f"gloo {[gib(g['init_peak']) for g in ranks]} (bound: blocks + "
+            f"largest leaf {gib(p['largest_leaf'])} + state); train peak "
+            f"(GiB): unsharded {gib(p['peak'])}, NCCL {gib(n['peak'])}, "
+            f"gloo {[gib(g['peak']) for g in ranks]}; train steps (ms): "
+            f"unsharded {fmt([a * 1e3 for a, _ in p['step_s']])}, gloo "
+            f"rank 0 {fmt([a * 1e3 for a, _ in ranks[0]['step_s']])}; eval "
+            f"steps (ms): unsharded {fmt([b * 1e3 for _, b in p['step_s']])}"
+            f", gloo rank 0 {fmt([b * 1e3 for _, b in ranks[0]['step_s']])}"
+            f"; bytes all-reduced a round per gloo rank "
+            f"{[round(g['round_bytes']) for g in ranks]}")
+    log(f"phase 19 [{name}, {card}]: spawns (world: s) "
+        f"{ {w: round(s, 1) for w, s in spawned.items()} }; the phase took "
+        f"{time.perf_counter() - t0:.1f} s")
     if bad:
         raise RuntimeError("; ".join(bad))
 

@@ -61,7 +61,12 @@ sequence of every client is one), so each rank adds its own mean times
 and then sliced, so no result depends on the world size.  Under a
 MeshShard the model runs on the rank's blocks of the base weights
 (models/common.ShardingPolicy), and an adapter gradient that a rank
-computed a part of is summed over "model" first (``round_grads``).
+computed a part of is summed over "model" first (``round_grads``);
+where the loss split each client's batch rows over "pod", every
+gradient is summed over "pod" too.  The cut's compressor sees each
+client's whole message on every rank (``ShardingPolicy.whole_message``),
+so a smashed residual is whole and equal on every "pod" and "model"
+rank.
 """
 
 from __future__ import annotations
@@ -266,8 +271,8 @@ def make_train_step(model: Model, *, remat: str = "none", ce_chunk: int = 0,
     gradient by 1/K_i under local steps (1/(steps in buffer) under
     async); exactly 1 at K_i = 1, where the step is bitwise unchanged.
 
-    shard: a runtime.sharding.ClientShard; the step then returns this
-    rank's rows of the state (see the module docstring)."""
+    shard: a runtime.sharding.ClientShard or MeshShard; the step then
+    returns this rank's rows of the state (see the module docstring)."""
     if max_local_steps < 1:
         raise ValueError(f"max_local_steps must be >= 1, got "
                          f"{max_local_steps}")
@@ -388,7 +393,12 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
     policy: the base weights are a MeshShard's blocks; the adapters are
     whole on every "model" rank (adapter_specs), so a leaf whose gradient
     this rank computed a part of is summed over "model"
-    (``ShardingPolicy.partial_targets``) before the sums over clients."""
+    (``ShardingPolicy.partial_targets``) before the sums over clients.
+    Where the loss split each client's batch rows over "pod"
+    (``ShardingPolicy.split_rows``: per microbatch, since each slice's
+    rows are split alike), every gradient is this rank's rows' part and
+    is summed over "pod"; the loss and metrics are already the
+    clients' (the loss sums over "pod" itself)."""
     cad, sad = state["client_adapters"], state["server_adapters"]
     batch = {k: torch.as_tensor(v, device=model.device)
              for k, v in batch.items()}
@@ -406,6 +416,7 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
                   [:, a] for k, v in batch.items()}
                  for a in range(microbatch)]
     total = metrics = grads = None
+    pod_rows = policy.split_rows(parts[0])[1].rows
     for mb in parts:
         with torch.enable_grad():
             eff = split.merge_adapters(
@@ -438,6 +449,8 @@ def round_grads(model: Model, base_params, state: Params, batch, weights,
            if tuple(keys[:2]) in tp_parts]
     for i, g in zip(idx, policy.tp_sum_many([grads[i] for i in idx])):
         grads[i] = g
+    if pod_rows:
+        grads = policy.pod_sum_many(grads)
     if cohort.active:
         # every rank takes the same server step: its gradient is the
         # cohort's sum, and so are the total and the router loss

@@ -183,7 +183,15 @@ def make_boundary(compressor: Optional[SmashedCompressor], cuts,
     fid)`; the last carry is the new residual, a detached tensor that the
     layer returns (so a recomputed layer cannot write it twice).  Error
     feedback tracks f2; the f4 cotangent is compressed memorylessly by
-    the straight-through backward."""
+    the straight-through backward.
+
+    The hook's ``fids`` are the flat layers where it acts.  Under a
+    MeshShard that splits the stream (a client's batch rows over "pod",
+    its sequence over "model"), the model runs the hook there on the
+    whole message (``ShardingPolicy.whole_message``: gathered, compressed
+    with its per-channel or per-message scales, the rank's block kept,
+    and so for the f4 cotangent), and the residual is whole on every
+    rank."""
     if compressor is None:
         return None
     cut_ids = [int(c) - 1 for c in torch.as_tensor(cuts).tolist()]
@@ -199,6 +207,7 @@ def make_boundary(compressor: Optional[SmashedCompressor], cuts,
                 return x
             return torch.where(_mask(fid, x), compressor.apply(x), x)
 
+        boundary.fids = frozenset(sel)
         return boundary
 
     resid = residual.detach()
@@ -213,6 +222,7 @@ def make_boundary(compressor: Optional[SmashedCompressor], cuts,
         return torch.where(mask, y, x), torch.where(mask, new_r, carry)
 
     ef_boundary.stateful = True
+    ef_boundary.fids = frozenset(sel)
     ef_boundary.init = lambda: torch.zeros_like(resid)
     return ef_boundary
 
@@ -259,4 +269,5 @@ def make_multi_boundary(compressors, cuts, choice, topk_frac=None):
             out = torch.where(mask, y, out)
         return out
 
+    boundary.fids = frozenset(sel)
     return boundary

@@ -74,11 +74,12 @@ host decisions are the same on every rank, and ``self.state`` holds the
 rank's rows of the cohort over the mesh's "data" axis
 (``shard_state``).  A MeshShard also places the base weights once, at
 init, by ``param_specs`` (``leaf_block``, each leaf narrowed as it is
-drawn, so no rank holds the full tree: FSDP over "data", heads, FFN
-width, vocabulary, SSM heads and MoE experts over "model", the dense,
-MoE, SSM and hybrid families), and the
-engine's steps run the model on those blocks (models/common.
-ShardingPolicy); the adapters stay whole on every "model" rank.  Every
+drawn, so no rank holds the full tree: FSDP over ("pod", "data"),
+heads, FFN width, vocabulary, SSM heads and MoE experts over "model",
+every family), and the engine's steps run the model on those blocks
+(models/common.ShardingPolicy: each client's batch rows over "pod", and
+under the MeshShard's ``seq_shard`` the residual stream's sequence over
+"model"); the adapters stay whole on every "pod" and "model" rank.  Every
 host read of a client-axis leaf goes through a row gather, every host
 write of one is sliced, and once a round rank 0 broadcasts a digest of
 the round's host decisions (cuts and policy, active mask, weights,
@@ -355,8 +356,8 @@ class SplitFTSystem:
                                       arch.split.edge_groups) or 1)
         self.server_step_norm = _pick(self.sys.server_step_norm,
                                       arch.split.server_step_norm)
-        # the model's policy first: a family or mesh the port does not
-        # place raises before any weight is drawn
+        # the model's policy first: a mesh the port does not place
+        # raises before any weight is drawn
         self.model_policy = ShardingPolicy.for_model(policy, arch)
         # each leaf narrowed to this rank's block as it is drawn: no rank
         # ever holds the full tree

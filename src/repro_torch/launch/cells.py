@@ -40,6 +40,7 @@ from repro_torch.bridge import HOST_STATE
 from repro_torch.config import ArchConfig, MeshConfig, ShapeConfig
 from repro_torch.core import lora as lora_lib, rounds
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.common import NO_SEQ_SHARD_FAMILIES
 from repro_torch.models.model import Model, build_model
 from repro_torch.runtime import serving
 
@@ -91,13 +92,15 @@ def _fake_inputs(specs) -> Dict[str, torch.Tensor]:
 
 
 def _auto_microbatch(arch: ArchConfig, shape: ShapeConfig, mesh: MeshConfig,
-                     num_clients: int, *, budget: float = CARD_BUDGET) -> int:
+                     num_clients: int, *, seq_shard: bool,
+                     budget: float = CARD_BUDGET) -> int:
     """Pick the gradient-accumulation factor so activations fit HBM.
 
     Empirical activation model (calibrated on the llama3-8b dry-run):
-    bytes/device ~ tokens_per_device * d_model * 2 * (2.2 * L + 20).
-    The reference also divides the tokens by the model axis under
-    sequence parallelism, which the port does not have."""
+    bytes/device ~ tokens_per_device * d_model * 2 * (2.2 * L + 20);
+    the clients over "data", each client's rows over "pod", and under
+    sequence parallelism the tokens over "model" (the residual stream's
+    block of a rank, ``ShardingPolicy.for_stream``)."""
     m = arch.model
     axes = dict(zip(mesh.axes, mesh.shape))
     data_shards = axes.get("data", 1)
@@ -106,6 +109,8 @@ def _auto_microbatch(arch: ArchConfig, shape: ShapeConfig, mesh: MeshConfig,
     n_shard = max(num_clients // data_shards, 1)
     b_shard = max(per_client_b // pod_shards, 1)
     tokens_pd = n_shard * b_shard * shape.seq_len
+    if seq_shard:
+        tokens_pd /= axes.get("model", 1)
     layers = m.num_layers + m.num_encoder_layers
     est = tokens_pd * m.d_model * 2 * (2.2 * layers + 20)
     if m.num_experts:
@@ -153,8 +158,15 @@ def build_train_cell(arch: ArchConfig, shape: ShapeConfig,
                      remat: str = "full", ce_chunk: int = 512,
                      microbatch: int = 0, scheduler: str = "sync",
                      max_local_steps: int = 0, overlap_comm: bool = False,
+                     seq_shard: Optional[bool] = None,
                      budget: float = CARD_BUDGET) -> Cell:
+    """The round step's cell.  seq_shard: sequence parallelism on the
+    mesh's "model" axis (None: the reference's rule, on unless the family
+    is SSM or hybrid, whose SSD scan needs the contiguous sequence); it
+    sets the activation budget's tokens per card, as the reference's."""
     mesh = mesh or make_host_mesh()
+    if seq_shard is None:
+        seq_shard = arch.model.family not in NO_SEQ_SHARD_FAMILIES
     k_steps = 1
     if scheduler == "local_steps":
         k_steps = max_local_steps or arch.split.max_local_steps
@@ -171,7 +183,7 @@ def build_train_cell(arch: ArchConfig, shape: ShapeConfig,
         microbatch = 1
     elif microbatch <= 0:
         microbatch = _auto_microbatch(arch, shape, mesh, num_clients,
-                                      budget=budget)
+                                      seq_shard=seq_shard, budget=budget)
     arch = tune_arch_for_cell(arch, shape, num_clients=num_clients)
     model = build_model(arch, device="cpu")
     n = num_clients
@@ -236,7 +248,14 @@ def served_adapters(adapters, batch: int):
 
 
 def build_serve_cell(arch: ArchConfig, shape: ShapeConfig,
-                     mesh: Optional[MeshConfig] = None) -> Cell:
+                     mesh: Optional[MeshConfig] = None, *,
+                     seq_shard: bool = True) -> Cell:
+    """A prefill or decode cell of the served global model.  seq_shard:
+    the reference's knob (on by default, for a prefill only: a decode
+    step is one token); the serving path runs on whole weights, so it
+    changes nothing here until serving runs on a mesh
+    (``repro_torch.roadmap.PARAM_SHARDING``)."""
+    del seq_shard
     arch = tune_arch_for_cell(arch, shape, num_clients=1)
     model = build_model(arch, device="cpu")
     b = shape.global_batch

@@ -3,24 +3,29 @@
 Port of src/repro/launch/mesh.py.  Functions, not module constants, and
 they touch no device: importing this module or calling them needs no
 card.  A layout is a ``MeshConfig`` (axis sizes and names) over
-("data", "model"), one torch.distributed rank per entry, ranks placed in
-row-major order (``runtime.sharding.mesh_coords``).  The dry-run's cells
-read it for their activation budget (``make_production_mesh``).  The
-port executes a mesh of any (data, model) shape (``make_mesh``) through
-a ``runtime.sharding.MeshShard`` (``launch.sharded`` starts its ranks):
-the cohort's rows over "data", and, for the dense family, the base
-weights by ``param_specs`` (FSDP over "data"; heads, FFN width and
-vocabulary over "model").  ``make_client_mesh`` is the (n, 1) layout of
-the client axis alone (``ClientShard``).  Experts, SSM and hybrid layers
-and the audio and vlm families are not split over "model" yet
-(``repro_torch.roadmap.PARAM_SHARDING``).
+("data", "model") or ("pod", "data", "model"), one torch.distributed
+rank per entry, ranks placed in row-major order
+(``runtime.sharding.mesh_coords``).  The dry-run's cells read it for
+their activation budget (``make_production_mesh``).  The port executes
+a mesh of any shape (``make_mesh``) through a
+``runtime.sharding.MeshShard`` (``launch.sharded`` starts its ranks):
+the cohort's rows over "data", each client's batch rows over "pod", and
+the base weights by ``param_specs`` (FSDP over ("pod", "data"); heads,
+FFN width, vocabulary, experts and SSM heads over "model"; the residual
+stream's sequence over "model" under sequence parallelism).
+``make_client_mesh`` is the (n, 1) layout of the client axis alone
+(``ClientShard``).  Serving on a mesh waits for
+``repro_torch.roadmap.PARAM_SHARDING``.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 from repro_torch.config import MeshConfig
 
 AXES = ("data", "model")
+POD_AXES = ("pod",) + AXES
 
 
 def make_production_mesh(*, num_cards: int = 1) -> MeshConfig:
@@ -32,13 +37,19 @@ def make_production_mesh(*, num_cards: int = 1) -> MeshConfig:
     return MeshConfig(shape=(1, num_cards), axes=AXES)
 
 
-def make_mesh(data: int = 1, model: int = 1) -> MeshConfig:
-    """(data, model) over ("data", "model"): data * model ranks, the
-    cohort's rows over "data" and the base weights of the dense, MoE,
-    SSM and hybrid families by param_specs over both axes."""
-    if data < 1 or model < 1:
-        raise ValueError(f"axis sizes must be >= 1, got ({data}, {model})")
-    return MeshConfig(shape=(data, model), axes=AXES)
+def make_mesh(data: int = 1, model: int = 1,
+              pod: Optional[int] = None) -> MeshConfig:
+    """(data, model) over ("data", "model"), or with `pod` (1 included)
+    (pod, data, model) over ("pod", "data", "model"): one rank per
+    entry, the cohort's rows over "data", each client's batch rows over
+    "pod" and the base weights of every family by param_specs over all
+    the axes."""
+    sizes = (data, model) if pod is None else (pod, data, model)
+    if min(sizes) < 1:
+        raise ValueError(f"axis sizes must be >= 1, got {sizes}")
+    if pod is None:
+        return MeshConfig(shape=sizes, axes=AXES)
+    return MeshConfig(shape=sizes, axes=POD_AXES)
 
 
 def make_client_mesh(num_cards: int = 1) -> MeshConfig:

@@ -10,19 +10,30 @@ per-group stacks keep the leading layer axis), so a JAX tree converted by
 reference constrains activations and XLA derives the collectives from
 ``param_specs``, the port's blocks call the policy's collectives
 themselves, over the ranks of a ``runtime.sharding.MeshShard``: the FSDP
-gather of a layer's base weights over "data", the two Megatron-style
-functions over "model" around each column- and row-parallel pair
-(``copy_to_tp``, ``reduce_from_tp``), the exact gather of a block over
-"model" (``tp_gather``: the router's logits, the SSM's ``in_proj`` and
-conv), and the moves of the MoE experts' activations over "data"
-(``data_gather_rows``, ``data_reduce_rows``: the experts' weights stay
-where ``param_specs`` put them).  ``NO_SHARDING`` (no shard) calls
-nothing, so the unsharded path is the one-card path bit for bit.
+gather of a layer's base weights over the FSDP axes ("pod", "data"),
+the two Megatron-style functions over "model" around each column- and
+row-parallel pair (``enter``, ``leave``: ``copy_to_tp`` and
+``reduce_from_tp``, or under sequence parallelism the gather of the
+sequence and the reduce-scatter back to the rank's block), the exact
+gather of a block over "model" (``tp_gather``: the router's logits, the
+SSM's ``in_proj`` and conv), the moves of the MoE experts' activations
+over the FSDP axes (``data_gather_rows``, ``data_reduce_rows``: the
+experts' weights stay where ``param_specs`` put them), the split of a
+client's batch rows over "pod" (``split_rows``, the loss's sums over
+them) and the whole message at the cut (``whole_message``).
+``NO_SHARDING`` (no shard) calls nothing, so the unsharded path is the
+one-card path bit for bit.
+
+Every gather is a SUM of zero-filled buffers and every reduce-scatter
+an all-reduce SUM then the rank's block: gloo takes only all_reduce and
+broadcast on CUDA tensors, and so the gathered values are exact and a
+reduce-scatter's block holds the bits of the whole sum's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import copy
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,15 +44,28 @@ from repro_torch.runtime.sharding import FSDP_AXES, logical_spec
 
 Params = Dict[str, Any]
 
-# the families whose base weights a MeshShard places
-PLACED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-# the MoE experts' stacks, split over "model" (the expert axis) and
-# "data" (their ff dim)
+# the MoE experts' stacks, split over "model" (the expert axis) and the
+# FSDP axes (their ff dim)
 EXPERT_LEAVES = frozenset({"we_in", "we_gate", "we_out"})
+# the families whose residual stream the reference splits over "model"
+# unless told otherwise (src/repro/launch/cells.py: the SSD scan needs
+# the contiguous sequence)
+NO_SEQ_SHARD_FAMILIES = ("ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
 # Sharding policy
+
+
+def _axes(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _axis_name(axes) -> Any:
+    """A mesh axis as MeshShard.all_reduce takes it: a name for one axis,
+    the tuple for the FSDP axes joined."""
+    axes = _axes(axes)
+    return axes[0] if len(axes) == 1 else axes
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -58,67 +82,95 @@ class _CopyToTP(torch.autograd.Function):
         return ctx.policy.tp_sum(g), None
 
 
-class _ReduceFromTP(torch.autograd.Function):
-    """The partial sums of a row-parallel product summed over the "model"
-    ranks; the gradient passes as it is (every rank's consumers of the
-    sum are the same)."""
+class _Reduce(torch.autograd.Function):
+    """The partial sums of every rank of `axes` summed; the gradient
+    passes as it is (every rank's consumers of the sum are the same):
+    reduce_from_tp over "model", the loss's sums over "pod"."""
 
     @staticmethod
-    def forward(ctx, x, policy):
-        return policy.tp_sum(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherTP(torch.autograd.Function):
-    """This rank's block of a dim's `full` entries into the whole dim on
-    every "model" rank (a SUM of zero-filled buffers: exact); the
-    gradient keeps the rank's block (every rank's consumers of the whole
-    are the same)."""
-
-    @staticmethod
-    def forward(ctx, x, policy, dim):
-        ctx.dim, ctx.lo, ctx.n = dim, policy.tp_rank * x.shape[dim], \
-            x.shape[dim]
-        return policy.fill([(x, dim)], "model")[0]
+    def forward(ctx, x, policy, axes):
+        return policy.sum_over(x, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+        return g, None, None
 
 
-class _GatherRows(torch.autograd.Function):
-    """Every "data" rank's rows of dim 1 into one tensor, rank-major (a SUM
-    of zero-filled buffers: exact); the gradient is the rows' sum over
-    the "data" ranks, this rank's block kept (the conjugate: a
-    reduce-scatter, built from one all-reduce)."""
-
-    @staticmethod
-    def forward(ctx, x, policy):
-        ctx.policy, ctx.n = policy, x.shape[1]
-        return policy.fill([(x, 1)], "data")[0]
+class _Gather(torch.autograd.Function):
+    """This rank's block of `dim` into the whole dim on every rank of
+    `axes` (exact).  The gradient: with `summed`, the whole's gradient
+    summed over the ranks, this rank's block kept (a reduce-scatter: each
+    rank's consumers of the whole are its "model" blocks, or its rows);
+    without, this rank's block of it (every rank's consumers are the
+    same)."""
 
     @staticmethod
-    def backward(ctx, g):
-        return ctx.policy.data_keep(ctx.policy.data_sum(g), ctx.n), None
-
-
-class _ReduceRows(torch.autograd.Function):
-    """The partial sums over the "data" ranks of every rank's rows of dim
-    1, this rank's block kept (a reduce-scatter); the gradient is every
-    rank's block of the rows gathered again (an all-gather)."""
-
-    @staticmethod
-    def forward(ctx, x, policy):
-        ctx.policy = policy
-        return policy.data_keep(policy.data_sum(x), x.shape[1]
-                                // policy.fsdp)
+    def forward(ctx, x, policy, dim, axes, summed):
+        ctx.policy, ctx.dim, ctx.axes, ctx.summed = policy, dim, axes, summed
+        ctx.n = x.shape[dim]
+        return policy.fill([(x, dim)], axes)[0]
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.policy.fill([(g, 1)], "data")[0], None
+        if ctx.summed:
+            g = ctx.policy.sum_over(g, ctx.axes)
+        return (ctx.policy.keep(g, ctx.dim, ctx.n, ctx.axes), None, None,
+                None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """The partial sums of every rank of `axes` summed, this rank's block
+    of `dim` kept; the gradient is every rank's block gathered again."""
+
+    @staticmethod
+    def forward(ctx, x, policy, dim, axes):
+        ctx.policy, ctx.dim, ctx.axes = policy, dim, axes
+        n = x.shape[dim] // policy.axis_size(axes)
+        return policy.keep(policy.sum_over(x, axes), dim, n, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.policy.fill([(g, ctx.dim)], ctx.axes)[0], None, None, None
+
+
+class _Keep(torch.autograd.Function):
+    """This rank's block of `dim` of a whole that every rank of `axes`
+    computed alike; the gradient is every rank's block gathered (the
+    whole's gradient on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, policy, dim, axes):
+        ctx.policy, ctx.dim, ctx.axes = policy, dim, axes
+        n = x.shape[dim] // policy.axis_size(axes)
+        return policy.keep(x, dim, n, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.policy.fill([(g, ctx.dim)], ctx.axes)[0], None, None, None
+
+
+class _WholeMessage(torch.autograd.Function):
+    """fn over the whole stream: this rank's block gathered, fn run on the
+    whole (every rank alike), this rank's block of its output kept; the
+    backward gathers every rank's block of the gradient and runs fn's
+    backward on the whole, so a compressor sees whole messages both
+    ways (its straight-through backward compresses the whole
+    cotangent).  fn's extra output (a stateful hook's carry) comes back
+    through `extra`."""
+
+    @staticmethod
+    def forward(ctx, x, policy, fn, carry, extra):
+        whole = policy.whole_stream(x).requires_grad_(True)
+        with torch.enable_grad():
+            y, extra["carry"] = fn(whole, carry)
+        ctx.policy, ctx.whole, ctx.y = policy, whole, y
+        return policy.stream_block(y.detach())
+
+    @staticmethod
+    def backward(ctx, g):
+        gw = ctx.policy.whole_stream(g)
+        dx, = torch.autograd.grad(ctx.y, ctx.whole, gw)
+        return ctx.policy.stream_block(dx), None, None, None, None
 
 
 class ShardingPolicy:
@@ -129,54 +181,69 @@ class ShardingPolicy:
     on it, read from the shard; a dim that ``param_specs`` splits over
     "model" (heads, FFN width, vocabulary) holds this rank's block
     ``tp_rank`` of ``tp``.
-    ``fsdp`` / ``fsdp_rank``: the same on "data", over which the base
-    weights' d_model dims are split and gathered layer by layer
-    (``gather``), and the MoE experts' ff dim split and never gathered
-    (``moe_apply`` moves the dispatched rows instead).  Which dims are
-    split is read from the leaves' shapes against the config's, which
-    ``fit_spec``'s divisibility rule makes the same thing."""
+    ``fsdp``: the size of the FSDP axes ("pod", "data") together, over
+    which the base weights' d_model dims are split (over the axes that
+    ``fit_spec`` keeps for the dim, ``fsdp_axes``) and gathered layer by
+    layer (``gather``), and the MoE experts' ff dim split and never
+    gathered (``moe_apply`` moves the dispatched rows instead).  Which
+    dims are split is read from the leaves' shapes against the
+    config's, which ``fit_spec``'s divisibility rule makes the same
+    thing.
+    ``seq_shard``: the reference's sequence parallelism.  A policy made
+    for a stream (``for_stream``) has ``sp`` set when the stream's
+    sequence divides the "model" axis (the reference's ``act``): between
+    sub-blocks each rank then holds the block [m S/tp, (m+1) S/tp) of
+    the residual stream, norms and residual adds run on it, and each
+    sub-block gathers the sequence at its input (``enter``) and
+    reduce-scatters it at its output (``leave``).  ``rows``: the
+    client's batch rows are split over "pod" (``split_rows``)."""
 
-    def __init__(self, shard=None):
+    def __init__(self, shard=None, seq_shard: bool = False):
         self.shard = shard
+        self.seq_shard = bool(seq_shard)
+        self.sp = False
+        self.rows = False
+
+    def _size(self, attr: str) -> int:
+        return 1 if self.shard is None else getattr(self.shard, attr, 1)
+
+    def _rank(self, attr: str) -> int:
+        return 0 if self.shard is None else getattr(self.shard, attr, 0)
 
     @property
     def tp(self) -> int:
-        return 1 if self.shard is None else self.shard.model_size
+        return self._size("model_size")
 
     @property
     def tp_rank(self) -> int:
-        return 0 if self.shard is None else self.shard.model_rank
+        return self._rank("model_rank")
+
+    @property
+    def pod(self) -> int:
+        return self._size("pod_size")
 
     @property
     def fsdp(self) -> int:
-        return 1 if self.shard is None else self.shard.data_size
+        return self.pod * self._size("data_size")
 
     @property
-    def fsdp_rank(self) -> int:
-        return 0 if self.shard is None else self.shard.data_rank
+    def splits_stream(self) -> bool:
+        return self.sp or self.rows
 
     @classmethod
-    def for_model(cls, shard, arch) -> "ShardingPolicy":
+    def for_model(cls, shard, arch,
+                  seq_shard: Optional[bool] = None) -> "ShardingPolicy":
         """The policy of a model under `shard`: NO_SHARDING without one
-        or under a ClientShard (base weights whole).  The port places the
-        dense, MoE (experts over "model", their ff dim over "data"), SSM
-        and hybrid families; the audio and vlm families on a mesh of more
-        than one rank raise (on one rank their blocks are whole:
-        NO_SHARDING), and so does a head count that the "model" axis
-        does not divide: the attention heads of a family that has
-        attention, the SSM heads of one that has SSM layers (the
-        reference would split a head across devices)."""
+        or under a ClientShard (base weights whole).  A head count that
+        the "model" axis does not divide raises: the attention heads of
+        a family that has attention, the SSM heads of one that has SSM
+        layers (the reference would split a head across devices).
+        seq_shard: sequence parallelism; None takes the shard's, and
+        where that is None too the reference's rule (on unless the
+        family is SSM or hybrid)."""
         if shard is None or not getattr(shard, "places_params", False):
             return NO_SHARDING
         cfg = arch.model
-        if cfg.family not in PLACED_FAMILIES:
-            if shard.world == 1:
-                return NO_SHARDING
-            raise NotImplementedError(
-                f"{arch.name} is of the {cfg.family} family: the port "
-                "places the base weights of the dense, MoE, SSM and hybrid "
-                "families only so far (the audio and vlm families under "
-                f"TP): see {roadmap.PARAM_SHARDING}")
         counts = []
         if cfg.family != "ssm":
             counts.append(("heads", cfg.num_heads))
@@ -188,9 +255,61 @@ class ShardingPolicy:
                     f"{arch.name}: {n} {what} do not divide over a "
                     f"\"model\" axis of {shard.model_size}; the port "
                     f"computes whole heads ({roadmap.PARAM_SHARDING})")
-        return cls(shard)
+        if seq_shard is None:
+            seq_shard = getattr(shard, "seq_shard", None)
+        if seq_shard is None:
+            seq_shard = cfg.family not in NO_SEQ_SHARD_FAMILIES
+        return cls(shard, seq_shard=seq_shard)
+
+    def _with(self, **flags) -> "ShardingPolicy":
+        if all(getattr(self, k) == v for k, v in flags.items()):
+            return self
+        out = copy.copy(self)
+        out.__dict__.update(flags)
+        return out
+
+    def for_stream(self, seq_len: int) -> "ShardingPolicy":
+        """This policy for a residual stream of seq_len positions in the
+        training forward: ``sp`` when seq_shard is on and the sequence
+        divides the "model" axis, on every rank alike (the reference's
+        ``act``: a sequence that does not divide is not split)."""
+        return self._with(sp=(self.seq_shard and self.tp > 1
+                              and seq_len % self.tp == 0))
+
+    def split_rows(self, batch):
+        """(this rank's rows of a batch, the policy for them): the
+        per-client batch dim (tokens, labels, mask: second to last;
+        prefix and frames: third to last) over "pod" when "pod" divides
+        it (``batch_specs``), else the whole batch on every pod rank and
+        no sum over "pod" (each client would count pod times)."""
+        b = batch["tokens"].shape[-2]
+        if self.pod == 1 or b % self.pod:
+            return batch, self._with(rows=False)
+        n, lo = b // self.pod, self._rank("pod_rank") * (b // self.pod)
+        out = {}
+        for k, v in batch.items():
+            dim = v.dim() - (3 if k in ("prefix", "frames") else 2)
+            out[k] = v.narrow(dim, lo, n)
+        return out, self._with(rows=True)
 
     # -- collectives ----------------------------------------------------
+    def axis_size(self, axes) -> int:
+        size = 1
+        for a in _axes(axes):
+            size *= self._size(f"{a}_size")
+        return size
+
+    def axis_rank(self, axes) -> int:
+        index = 0
+        for a in _axes(axes):
+            index = index * self._size(f"{a}_size") + self._rank(f"{a}_rank")
+        return index
+
+    def sum_over(self, x: torch.Tensor, axes) -> torch.Tensor:
+        if _axes(axes) == ("model",):
+            return self.tp_sum(x)
+        return self.shard.all_reduce([x], "sum", axis=_axis_name(axes))[0]
+
     def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
         return self.shard.all_reduce([x], "sum", axis="model")[0]
 
@@ -198,6 +317,13 @@ class ShardingPolicy:
         if self.tp == 1 or not xs:
             return list(xs)
         return self.shard.all_reduce(list(xs), "sum", axis="model")
+
+    def pod_sum_many(self, xs):
+        """Tensors summed over "pod" (no gradient): the adapters'
+        gradients when the batch rows were split (``split_rows``)."""
+        if self.pod == 1 or not xs:
+            return list(xs)
+        return self.shard.all_reduce(list(xs), "sum", axis="pod")
 
     def tp_max(self, x: torch.Tensor) -> torch.Tensor:
         """MAX over the "model" ranks, no gradient."""
@@ -207,7 +333,14 @@ class ShardingPolicy:
         return x if self.tp == 1 else _CopyToTP.apply(x, self)
 
     def reduce_from_tp(self, x):
-        return x if self.tp == 1 else _ReduceFromTP.apply(x, self)
+        return self.reduce_over(x, "model")
+
+    def reduce_over(self, x, axis: str):
+        """reduce_from_tp over `axis`: summed forward, the gradient as it
+        is (the loss's sums over "pod", and over "model" where the head
+        ran on the sequence block)."""
+        return x if self.axis_size(axis) == 1 else _Reduce.apply(
+            x, self, (axis,))
 
     def sum_tp(self, x):
         """The sum over the "model" ranks of per-rank parts whose
@@ -216,13 +349,12 @@ class ShardingPolicy:
         backward too."""
         return self.reduce_from_tp(self.copy_to_tp(x))
 
-    def fill(self, parts, axis: str):
+    def fill(self, parts, axes):
         """Each (x, dim) of `parts`, this rank's block of `dim`, into the
-        whole dim on every rank of `axis` (the blocks rank-major), no
-        gradient: one SUM of zero-filled buffers (exact) for all of
-        them."""
-        size, rank = ((self.tp, self.tp_rank) if axis == "model"
-                      else (self.fsdp, self.fsdp_rank))
+        whole dim on every rank of `axes` (an axis name, or a tuple of
+        names joined; the blocks rank-major), no gradient: one SUM of
+        zero-filled buffers (exact) for all of them."""
+        size, rank = self.axis_size(axes), self.axis_rank(axes)
         bufs = []
         for x, dim in parts:
             n = x.shape[dim]
@@ -232,54 +364,141 @@ class ShardingPolicy:
             buf.narrow(dim, rank * n, n).copy_(x.detach())
             bufs.append(buf)
         with torch.no_grad():
-            return self.shard.all_reduce(bufs, "sum", axis=axis)
+            return self.shard.all_reduce(bufs, "sum",
+                                         axis=_axis_name(axes))
+
+    def keep(self, x, dim: int, n: int, axes) -> torch.Tensor:
+        """This rank's block of n entries of `dim` on `axes`."""
+        return x.narrow(dim, self.axis_rank(axes) * n, n).contiguous()
 
     def tp_gather(self, x: torch.Tensor, dim: int):
         """The whole of a dim that "model" splits, on every rank (the
-        router's logits, the SSM's in_proj and conv): each rank's
-        consumers of the whole are the same, so the gradient keeps the
-        rank's block."""
-        return x if self.tp == 1 else _GatherTP.apply(x, self, dim)
+        router's logits, the SSM's in_proj and conv, the encoder's
+        output under SP): each rank's consumers of the whole are the
+        same, so the gradient keeps the rank's block."""
+        return x if self.tp == 1 else _Gather.apply(x, self, dim,
+                                                    ("model",), False)
 
-    # -- the MoE experts' rows over "data" (their ff dim is split) --------
-    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
-        return self.shard.all_reduce([x], "sum", axis="data")[0]
+    # -- the residual stream's sub-blocks -------------------------------
+    def enter(self, y, split: bool):
+        """A sub-block's input y (its norm's output).  Without SP:
+        copy_to_tp when its consumers are "model" blocks (`split`: their
+        gradients are this rank's part), else y.  Under SP: the sequence
+        gathered, its gradient reduce-scattered when `split`, else kept
+        (every rank then computes the whole sub-block alike)."""
+        if self.sp:
+            return _Gather.apply(y, self, -2, ("model",), split)
+        return self.copy_to_tp(y) if split else y
 
-    def data_keep(self, x: torch.Tensor, n: int) -> torch.Tensor:
-        return x.narrow(1, self.fsdp_rank * n, n).contiguous()
+    def leave(self, out, split: bool):
+        """A sub-block's output.  Without SP: reduce_from_tp when it is a
+        row-parallel partial sum (`split`), else out.  Under SP: the
+        partial sums reduce-scattered over the sequence (`split`), or the
+        rank's block of a whole that every rank computed."""
+        if self.sp:
+            return (_ReduceScatter if split else _Keep).apply(
+                out, self, -2, ("model",))
+        return self.reduce_from_tp(out) if split else out
 
-    def data_gather_rows(self, x):
-        """The experts' dispatched rows (E_local, n, d) of every "data"
-        rank, (E_local, fsdp n, d): each rank then runs its block of the
-        experts' ff dim over all of them."""
-        return x if self.fsdp == 1 else _GatherRows.apply(x, self)
+    def seq_lo(self, seq_len: int) -> int:
+        """The first position of this rank's sequence block (0 without
+        SP)."""
+        return self.tp_rank * (seq_len // self.tp) if self.sp else 0
 
-    def data_reduce_rows(self, x):
+    def seq_block(self, x, dim: int = -2):
+        """The rank's sequence block of an input that every rank holds
+        whole (frames, token ids, labels), or x without SP."""
+        if not self.sp:
+            return x
+        n = x.shape[dim] // self.tp
+        return x.narrow(dim, self.tp_rank * n, n)
+
+    def whole_stream(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream's block ([N,] B, S, d) gathered into the whole
+        message on every rank, no gradient: its rows over "pod", its
+        sequence over "model", as they are split."""
+        if self.rows:
+            x = self.fill([(x, x.dim() - 3)], ("pod",))[0]
+        if self.sp:
+            x = self.fill([(x, x.dim() - 2)], ("model",))[0]
+        return x.detach()
+
+    def stream_block(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rows:
+            x = self.keep(x, x.dim() - 3, x.shape[-3] // self.pod, ("pod",))
+        if self.sp:
+            x = self.keep(x, x.dim() - 2, x.shape[-2] // self.tp,
+                          ("model",))
+        return x
+
+    def whole_message(self, fn, x, carry=None):
+        """fn(whole, carry) -> (y, carry) on the whole message of every
+        rank of a split stream (the cut: each compressor works on one
+        whole message, as the reference's does), this rank's block of y
+        kept; its gradient is fn's on the whole cotangent
+        (``_WholeMessage``).  The carry (the error-feedback residual)
+        is whole on every rank."""
+        if not self.splits_stream:
+            return fn(x, carry)
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            y, carry = fn(self.whole_stream(x), carry)
+            return self.stream_block(y), carry
+        extra = {}
+        y = _WholeMessage.apply(x, self, fn, carry, extra)
+        return y, extra["carry"]
+
+    # -- the MoE experts' rows over the FSDP axes (their ff dim split) ----
+    def fsdp_axes(self, n: int) -> Tuple[str, ...]:
+        """The FSDP axes that fit_spec keeps for a dim of n entries, in
+        order, those of one rank left out (they split nothing)."""
+        kept, prod = [], 1
+        for a in FSDP_AXES:
+            size = self._size(f"{a}_size")
+            if n % (prod * size) == 0:
+                prod *= size
+                if size > 1:
+                    kept.append(a)
+        return tuple(kept)
+
+    def data_gather_rows(self, x, n_ff: int):
+        """The experts' dispatched rows (E_local, n, d) of every rank of
+        the FSDP axes that split their ff dim of n_ff entries, (E_local,
+        ranks n, d): each rank then runs its block of the experts' ff
+        dim over all of them."""
+        axes = self.fsdp_axes(n_ff)
+        return x if not axes else _Gather.apply(x, self, 1, axes, True)
+
+    def data_reduce_rows(self, x, n_ff: int):
         """The partial expert outputs of every rank's ff block summed over
-        "data", this rank's rows kept: the inverse move of
+        those axes, this rank's rows kept: the inverse move of
         data_gather_rows."""
-        return x if self.fsdp == 1 else _ReduceRows.apply(x, self)
+        axes = self.fsdp_axes(n_ff)
+        return x if not axes else _ReduceScatter.apply(x, self, 1, axes)
 
     def partial_targets(self, cfg, params: Params) -> frozenset:
         """The (group, target) pairs whose adapter gradient this rank
         computes only a part of, read from the rank's base leaves by the
         tests the blocks make (``block``): the attention's when wq holds
         a block of the heads (a column or row block, or the KV heads its
-        query heads read), the MLP's when w_in holds one of the FFN
-        width, the shared expert's (the same targets) when ws_in holds
-        one of its width, and the SSM's when A_log holds a block of its
-        heads (``ssm_apply``: in_proj's columns of those heads and B and
-        C, which every head reads; out_proj's rows).  A target whose
-        whole computation every rank repeats (a width that fit_spec
-        leaves whole) has its full gradient on every rank."""
+        query heads read), the cross-attention's ("xq", "xo") when xwq
+        does, the MLP's when w_in holds one of the FFN width, the shared
+        expert's (the same targets) when ws_in holds one of its width,
+        and the SSM's when A_log holds a block of its heads
+        (``ssm_apply``: in_proj's columns of those heads and B and C,
+        which every head reads; out_proj's rows).  A target whose whole
+        computation every rank repeats (a width that fit_spec leaves
+        whole) has its full gradient on every rank."""
         parts = set()
         mlp = ("mlp_in", "mlp_gate", "mlp_out")
+        heads = cfg.num_heads * cfg.head_dim
         for name, g in params.items():
             if not isinstance(g, dict):
                 continue
-            if "wq" in g and self.block(cfg.num_heads * cfg.head_dim,
-                                        g["wq"].shape[-1]) is not None:
+            if "wq" in g and self.block(heads, g["wq"].shape[-1]) is not None:
                 parts |= {(name, t) for t in ("q", "k", "v", "o")}
+            if "xwq" in g and self.block(heads,
+                                         g["xwq"].shape[-1]) is not None:
+                parts |= {(name, "xq"), (name, "xo")}
             if "w_in" in g and self.block(cfg.d_ff,
                                           g["w_in"].shape[-1]) is not None:
                 parts |= {(name, t) for t in mlp}
@@ -305,11 +524,14 @@ class ShardingPolicy:
 
     def gather(self, p: Params, d_model: int) -> Params:
         """One layer's (or the embedding's) leaves with every d_model dim
-        that FSDP split over "data" gathered (one SUM of zero-filled
-        buffers, exact); the MoE experts' leaves stay as they are.  The
-        base weights are frozen: a leaf that requires grad raises."""
-        if self.fsdp == 1:
+        that FSDP split gathered over the axes fit_spec kept for it (one
+        SUM of zero-filled buffers, exact); the MoE experts' leaves stay
+        as they are.  The base weights are frozen: a leaf that requires
+        grad raises."""
+        axes = self.fsdp_axes(d_model)
+        if not axes:
             return p
+        size = self.axis_size(axes)
         todo = []
         for name, leaf in p.items():
             # the experts' ff dim stays split: moe_apply moves rows
@@ -326,11 +548,11 @@ class ShardingPolicy:
             if leaf.requires_grad:
                 raise ValueError(f"base leaf {name!r} requires grad: the "
                                  "FSDP gather carries no gradient")
-            if leaf.shape[dim] * self.fsdp != d_model:
+            if leaf.shape[dim] * size != d_model:
                 raise ValueError(f"{name}: a block of {leaf.shape[dim]} is "
-                                 f"not one of {self.fsdp} \"data\" blocks "
-                                 f"of {d_model}")
-        full = self.fill([(p[name], dim) for name, dim in todo], "data")
+                                 f"not one of {size} {axes} blocks of "
+                                 f"{d_model}")
+        full = self.fill([(p[name], dim) for name, dim in todo], axes)
         out = dict(p)
         out.update({name: t for (name, _), t in zip(todo, full)})
         return out

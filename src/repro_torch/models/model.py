@@ -124,6 +124,14 @@ def _ce_sums(logits, labels, mask, keep: int,
     return nll.sum(dims), hits.sum(dims), mask.sum(dims)
 
 
+def _summed(sums, policy: common.ShardingPolicy, axis: str):
+    """The CE sums (nll, hits, count) of this rank's part of each
+    client's tokens summed over `axis`, in one collective; the gradient
+    passes as it is (``ShardingPolicy.reduce_over``)."""
+    got = policy.reduce_over(torch.stack(list(sums)), axis)
+    return tuple(got.unbind(0))
+
+
 def _vocab_parallel_ce(logits, labels, mask, keep: int,
                        policy: common.ShardingPolicy, lo: int):
     """The CE sums over logits split by vocabulary over the "model" ranks,
@@ -150,6 +158,20 @@ def _vocab_parallel_ce(logits, labels, mask, keep: int,
         hits = (first == lab).float() * mask
     dims = tuple(range(keep, nll.dim()))
     return nll.sum(dims), hits.sum(dims), mask.sum(dims)
+
+
+def _at_cut(boundary, x, bcarry, fid: int, policy: common.ShardingPolicy):
+    """The cut-layer hook on layer `fid`'s output: (x, carry).  Where the
+    stream is split (batch rows over "pod", the sequence over "model")
+    and the hook acts at fid (``boundary.fids``, when it says), it runs
+    on the whole message (``ShardingPolicy.whole_message``)."""
+    if fid not in getattr(boundary, "fids", (fid,)):
+        return x, bcarry
+    if getattr(boundary, "stateful", False):
+        return policy.whole_message(lambda t, c: boundary(t, c, fid), x,
+                                    bcarry)
+    return policy.whole_message(lambda t, c: (boundary(t, fid), c), x,
+                                bcarry)
 
 
 # ---------------------------------------------------------------------------
@@ -268,16 +290,11 @@ class Model(nn.Module):
         place(name, leaf): the part of each leaf to keep (a MeshShard's
         block, ``runtime.sharding.leaf_block``), called as soon as the
         leaf is drawn whole (the draw is the unsharded one), so that no
-        more than one full leaf is alive at a time beside the kept parts;
-        the families of ``common.PLACED_FAMILIES``."""
+        more than one full leaf is alive at a time beside the kept
+        parts."""
         cfg = self.cfg
         if place is None:
             place = common.whole
-        elif cfg.family not in common.PLACED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the port places the base weights of the "
-                f"{', '.join(common.PLACED_FAMILIES)} families only "
-                f"({roadmap.PARAM_SHARDING})")
         norm = functools.partial(common.init_norm, cfg.d_model,
                                  bias=cfg.norm == "layernorm", dtype=dtype,
                                  place=place)
@@ -356,39 +373,48 @@ class Model(nn.Module):
         patch embeddings) replaces the first P positions.  When `tok`
         holds a "model" block of the vocabulary, each rank looks up the
         tokens of its block (zero rows for the others) and the rows are
-        summed over the ranks, exactly."""
+        summed over the ranks, exactly.  Under sequence parallelism
+        (``policy.sp``) the result is the rank's sequence block: the sum
+        over the ranks is reduce-scattered (a whole vocabulary looks up
+        the block's tokens alone), and the prefix and the positions are
+        the block's."""
         cfg = self.cfg
         tok = params["embed"]["tok"]
+        if positions is None:
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
         lo = policy.block(cfg.vocab_size, tok.shape[0])
         if lo is None:
-            x = tok[tokens.long()]
+            x = tok[policy.seq_block(tokens, -1).long()]
         else:
             ids = tokens.long() - lo
             mine = (ids >= 0) & (ids < tok.shape[0])
             x = tok[torch.where(mine, ids, 0)] * mine[..., None].to(
                 tok.dtype)
-            x = policy.reduce_from_tp(x)
-        if prefix is not None:
-            plen = prefix.shape[-2]
-            x = torch.cat([prefix.to(x.dtype), x[..., plen:, :]], dim=-2)
+            x = policy.leave(x, True)
+        s0 = policy.seq_lo(tokens.shape[-1])
+        if prefix is not None and s0 < prefix.shape[-2]:
+            # the prefix's positions of this block (all of them unsplit)
+            n = min(prefix.shape[-2] - s0, x.shape[-2])
+            x = torch.cat([prefix[..., s0:s0 + n, :].to(x.dtype),
+                           x[..., n:, :]], dim=-2)
         if cfg.learned_pos:
-            if positions is None:
-                positions = torch.arange(tokens.shape[-1],
-                                         device=tokens.device)
             pos_tab = params["embed"]["pos"]
-            positions = torch.clamp(positions, 0, pos_tab.shape[0] - 1)
+            positions = torch.clamp(policy.seq_block(positions, -1), 0,
+                                    pos_tab.shape[0] - 1)
             x = x + pos_tab[positions.long()].to(x.dtype)
         return x
 
     def head(self, params: Params, x,
              policy: common.ShardingPolicy = common.NO_SHARDING):
         """Logits; under a vocabulary split over "model", this rank's
-        block of them (x enters through copy_to_tp)."""
-        cfg = self.cfg
-        w = (params["embed"]["tok"].T if cfg.tie_embeddings
+        block of them (x enters through ``policy.enter``)."""
+        if self._vocab_lo(params, policy) is not None:
+            x = policy.enter(x, True)
+        return self._logits(params, x)
+
+    def _logits(self, params: Params, x):
+        w = (params["embed"]["tok"].T if self.cfg.tie_embeddings
              else params["embed"]["head"])
-        if policy.block(cfg.vocab_size, w.shape[-1]) is not None:
-            x = policy.copy_to_tp(x)
         return x @ w
 
     def _vocab_lo(self, params: Params, policy: common.ShardingPolicy):
@@ -448,8 +474,11 @@ class Model(nn.Module):
         if self.cfg.use_rope:
             # each slot's next position in decode, else 0..S-1 (a prefill
             # starts every request at 0)
+            # (under SP the attention runs on the gathered sequence)
             positions = (cache_len[..., None] if mode == "decode"
-                         else torch.arange(x.shape[-2], device=x.device))
+                         else torch.arange(
+                             x.shape[-2] * (policy.tp if policy.sp else 1),
+                             device=x.device))
             rope = common.rope_angles(positions, self.cfg.head_dim,
                                       self.cfg.rope_theta)
 
@@ -525,10 +554,8 @@ class Model(nn.Module):
             elif cfg.d_ff:
                 x = x + transformer.mlp_apply(p_l, ad_l, x, cfg=cfg,
                                               policy=policy)
-        if getattr(boundary, "stateful", False):
-            x, bcarry = boundary(x, bcarry, fid)
-        elif boundary is not None:
-            x = boundary(x, fid)
+        if boundary is not None:
+            x, bcarry = _at_cut(boundary, x, bcarry, fid, policy)
         return x, bcarry, aux
 
     # -- top-level entry points ------------------------------------------------
@@ -547,16 +574,27 @@ class Model(nn.Module):
         loss, 0.0 for every other kind.  return_boundary=True appends a
         stateful boundary's last carry (the smashed error-feedback
         residual).  `policy`: the base weights are a MeshShard's blocks
-        (runtime.sharding.leaf_block), the embedding's gathered over
-        "data" (``loss`` does it); see run_blocks."""
+        (runtime.sharding.leaf_block), the embedding's gathered over the
+        FSDP axes (``loss`` does it); see run_blocks.  In train mode
+        under sequence parallelism the stream, and so the result, is the
+        rank's sequence block (``ShardingPolicy.for_stream``); the
+        decoder's cross-attention reads the whole encoder output, which
+        enters through copy_to_tp once when its heads are split."""
         cfg = self.cfg
         tokens = batch["tokens"]
         memory, lo = None, 0
         if cfg.family == "audio":
             if mode != "decode":
                 memory = self.encode(params, adapters, batch["frames"],
-                                     remat=remat, boundary=boundary)
+                                     remat=remat, boundary=boundary,
+                                     policy=policy)
+                xwq = params["dec"]["xwq"]
+                if policy.block(cfg.num_heads * cfg.head_dim,
+                                xwq.shape[-1]) is not None:
+                    memory = policy.copy_to_tp(memory)
             lo = self.group_by_name["enc"].size
+        if mode == "train":
+            policy = policy.for_stream(tokens.shape[-1])
         positions = (cache["len"][..., None] if mode == "decode"
                      else torch.arange(tokens.shape[-1],
                                        device=tokens.device))
@@ -583,11 +621,20 @@ class Model(nn.Module):
         boundary's new residual comes back as metrics["smashed_ef"].
         `remat` and `ce_chunk` are the memory knobs of the module
         docstring.  `policy`: see forward; the embedding and head leaves
-        are gathered over "data" once, for the embedding, the head and
-        every CE chunk, and a vocabulary split over "model" takes the
-        vocab-parallel CE (``_vocab_parallel_ce``)."""
+        are gathered over the FSDP axes once, for the embedding, the head
+        and every CE chunk, and a vocabulary split over "model" takes the
+        vocab-parallel CE (``_vocab_parallel_ce``).  Each client's batch
+        rows are split over "pod" where "pod" divides them
+        (``ShardingPolicy.split_rows``): the CE sums and token counts, and
+        the router loss's mean, are then summed over "pod" before they
+        are divided, so every rank sees the client's loss.  Under
+        sequence parallelism the final hidden states are the rank's
+        sequence block: a split vocabulary gathers them first; a whole
+        one runs the head and the CE sums on the block and adds the sums
+        over "model"."""
         params = dict(params, embed=policy.gather(params["embed"],
                                                   self.cfg.d_model))
+        batch, policy = policy.split_rows(batch)
         stateful = bool(getattr(boundary, "stateful", False))
         x, aux, _, *bcarry = self.forward(
             params, adapters, batch, mode="train", remat=remat,
@@ -597,14 +644,25 @@ class Model(nn.Module):
         mask = (torch.ones(labels.shape, device=x.device) if mask is None
                 else mask.float())
         keep = 1 if per_client else 0
-        s = x.shape[-2]
+        stream = policy.for_stream(labels.shape[-1])
         vlo = self._vocab_lo(params, policy)
+        if vlo is not None:
+            x = stream.enter(x, True)
+        elif stream.sp:
+            labels, mask = (stream.seq_block(t, -1) for t in (labels, mask))
+        s = x.shape[-2]
         if ce_chunk and s > ce_chunk and s % ce_chunk == 0:
             sums = self._chunked_ce(params, x, labels, mask, ce_chunk, keep,
                                     policy, vlo)
         else:
-            sums = _ce_sums(self.head(params, x, policy), labels, mask,
-                            keep, policy, vlo)
+            sums = _ce_sums(self._logits(params, x), labels, mask, keep,
+                            policy, vlo)
+        if vlo is None and stream.sp:
+            sums = _summed(sums, stream, "model")
+        if policy.rows:
+            sums = _summed(sums, policy, "pod")
+            if isinstance(aux, torch.Tensor):
+                aux = policy.reduce_over(aux, "pod") / policy.pod
         nll_sum, hits, cnt = sums
         cnt = torch.clamp(cnt, min=1.0)
         nll, acc = nll_sum / cnt, hits / cnt
@@ -622,7 +680,7 @@ class Model(nn.Module):
         recomputed in the backward, so one chunk's logits are live (its
         collectives run again there, in the same order on every rank)."""
         def body(x_c, l_c, m_c):
-            return _ce_sums(self.head(params, x_c, policy), l_c, m_c, keep,
+            return _ce_sums(self._logits(params, x_c), l_c, m_c, keep,
                             policy, vocab_lo)
 
         zero = torch.zeros(x.shape[:keep], device=x.device)
@@ -636,34 +694,66 @@ class Model(nn.Module):
         return sums
 
     def encode(self, params, adapters, frames, *, remat: str = "none",
-               boundary=None):
+               boundary=None,
+               policy: common.ShardingPolicy = common.NO_SHARDING):
         """frames ([N,] B, S_enc, d), the stub frontend's embeddings ->
         the encoder's output: the frames plus their positions through the
         encoder stack in train mode (no cache, also in a prefill) and its
         final norm.  `boundary` acts on the encoder's layers as on any
-        other; a stateful one raises, as in the reference."""
+        other; a stateful one raises, as in the reference.  `policy`:
+        the encoder's layers run their TP blocks, and under sequence
+        parallelism its stream is split as the decoder's (the frames'
+        sequence block on each rank), the output gathered whole (every
+        rank's cross-attention reads all of it)."""
         if getattr(boundary, "stateful", False):
             raise NotImplementedError(
                 "stateful (error-feedback) smashed boundaries are not "
                 "supported across the encoder stack")
         cfg = self.cfg
-        x = frames + params["embed"]["enc_pos"].to(frames.dtype)
+        policy = policy.for_stream(frames.shape[-2])
+        x = policy.seq_block(frames + params["embed"]["enc_pos"].to(
+            frames.dtype))
         x, _, _ = self.run_blocks(params, adapters, x, mode="train",
                                   remat=remat, layer_lo=0,
                                   layer_hi=self.group_by_name["enc"].size,
-                                  boundary=boundary)
-        return apply_norm(params["enc_norm"], x, kind=cfg.norm,
-                          eps=cfg.norm_eps)
+                                  boundary=boundary, policy=policy)
+        x = apply_norm(params["enc_norm"], x, kind=cfg.norm,
+                       eps=cfg.norm_eps)
+        return policy.tp_gather(x, -2) if policy.sp else x
 
     def prefill(self, params, adapters, batch, cache):
+        self._check_whole(params)
         x, _, cache = self.forward(params, adapters, batch, cache=cache,
                                    mode="prefill")
         return self.head(params, x[..., -1:, :]), cache
 
     def decode_step(self, params, adapters, tokens, cache):
+        self._check_whole(params)
         x, _, cache = self.forward(params, adapters, {"tokens": tokens},
                                    cache=cache, mode="decode")
         return self.head(params, x), cache
+
+    def _check_whole(self, params):
+        """Serving takes whole base weights: a MeshShard's blocks (a
+        d_model dim split over the FSDP axes, heads, FFN width, experts,
+        vocabulary or SSM heads over "model") raise."""
+        cfg = self.cfg
+        tok = params["embed"]["tok"]
+        split = tuple(tok.shape) != (cfg.vocab_size, cfg.d_model)
+        want = {"wq": cfg.num_heads * cfg.head_dim, "w_in": cfg.d_ff,
+                "in_proj": ssm.in_proj_dim(cfg) if cfg.ssm_state else 0,
+                "router": cfg.num_experts}
+        for g in self.groups:
+            for name, n in want.items():
+                leaf = params.get(g.name, {}).get(name)
+                if leaf is not None and (leaf.shape[-1] != n
+                                         or leaf.shape[-2] != cfg.d_model):
+                    split = True
+        if split:
+            raise NotImplementedError(
+                f"{cfg.name}: the serving path takes whole base weights, "
+                "not a MeshShard's blocks: serving on a mesh waits for "
+                f"{roadmap.PARAM_SHARDING}")
 
     # -- caches ----------------------------------------------------------------
 

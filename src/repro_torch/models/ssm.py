@@ -22,7 +22,11 @@ its heads' x, z and dt columns and the B and C columns (one group,
 which every head reads).  The gated RMSNorm's sum of squares
 runs over all of d_inner: it is summed over the ranks
 (``ShardingPolicy.sum_tp``).  out_proj is row-parallel and its partial
-sums leave through reduce_from_tp.
+sums leave through reduce_from_tp.  Under sequence parallelism (off by
+default for the SSM and hybrid families, as in the reference; on when
+asked) the layer gathers the normed sequence first and reduce-scatters
+its output back to the rank's block: the SSD scan needs the contiguous
+sequence.
 
 Decode carries two cache pieces per layer, as in the reference:
   conv:  ([N,]B, W-1, d_conv_ch) rolling window of pre-conv activations
@@ -156,11 +160,14 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
 
     policy: when A_log holds a "model" block of the heads (a MeshShard's,
     train mode only), the layer runs those heads (the module docstring):
-    the input enters through copy_to_tp, in_proj and the conv are
-    gathered whole and narrowed to the heads' columns (the adapter's B
-    to the same columns), the gated norm's sum of squares is summed over
-    the ranks and out_proj's partial sums leave through
-    reduce_from_tp."""
+    the input enters through ``policy.enter`` (copy_to_tp; under a
+    forced sequence parallelism u is the rank's sequence block, normed
+    there and gathered, since the SSD scan needs the contiguous
+    sequence), in_proj and the conv are gathered whole and narrowed to
+    the heads' columns (the adapter's B to the same columns), the gated
+    norm's sum of squares is summed over the ranks and out_proj's
+    partial sums leave through ``policy.leave`` (reduce_from_tp, or the
+    reduce-scatter back to the block)."""
     h, ph = cfg.ssm_heads, cfg.ssm_head_dim
     g, ns, di = cfg.ssm_groups, cfg.ssm_state, cfg.d_inner
     gn = g * ns
@@ -175,7 +182,7 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
             raise NotImplementedError(
                 "tensor-parallel SSM layers run the training forward only: "
                 f"see {roadmap.PARAM_SHARDING}")
-        y = policy.copy_to_tp(y)
+        y = policy.enter(y, True)
         cols, chans = _tp_columns(cfg, h_lo, hl, y.device)
         w_in = _whole(policy, w_in, in_proj_dim(cfg)).index_select(-1, cols)
         conv_w = _whole(policy, conv_w, conv_channels(cfg)).index_select(
@@ -209,7 +216,7 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
             short = width - 1 - keep.shape[-2]
             new_conv = F.pad(keep, (0, 0, short, 0)) if short else keep
 
-    lead, s = u.shape[:-2], u.shape[-2]
+    lead, s = y.shape[:-2], y.shape[-2]
     xh = conv_out[..., :di].reshape(lead + (s, h, ph))
     bh = conv_out[..., di:di + gn].reshape(lead + (s, g, ns))
     ch = conv_out[..., di + gn:].reshape(lead + (s, g, ns))
@@ -265,7 +272,7 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
         w_out = w_out.narrow(-2, lo, di)
     out = lora_apply(gated, w_out, _ad(adapters, "ssm_out"),
                      rows=None if h_lo is None else (lo, di))
-    return policy.reduce_from_tp(out), new_cache
+    return policy.leave(out, h_lo is not None), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, lead: Tuple[int, ...], dtype, *,

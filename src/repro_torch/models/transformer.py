@@ -174,23 +174,26 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     layout): wq (and bq) hold the block's columns and wo its rows; wk and
     wv stay whole by param_specs, so the rank computes the full K and V
     and keeps the KV heads its query heads read (``_kv_heads``).  The
-    input enters through copy_to_tp (its gradient summed over "model"),
-    the output projection's partial sums leave through reduce_from_tp,
-    and bo is added once, after the sum."""
+    input enters through ``policy.enter`` (copy_to_tp: its gradient
+    summed over "model"; under sequence parallelism x is the rank's
+    sequence block, normed there and gathered), the output projection's
+    partial sums leave through ``policy.leave`` (reduce_from_tp, or the
+    reduce-scatter back to the block), and bo is added once, after the
+    sum.  The cross-attention sub-block runs on the same heads
+    (``_cross_attention``)."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    s = x.shape[-2]
     lo = policy.block(h * hd, p["wq"].shape[-1])
     hl = p["wq"].shape[-1] // hd
     blk = None if lo is None else (lo, hl * hd)
     if lo is not None and (mode != "train" or cache is not None
-                           or memory is not None or mem_cache is not None):
+                           or mem_cache is not None):
         raise NotImplementedError(
             "tensor-parallel attention runs the training forward only: "
             f"see {roadmap.PARAM_SHARDING}")
 
-    y = apply_norm(p["norm1"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    if lo is not None:
-        y = policy.copy_to_tp(y)
+    y = policy.enter(apply_norm(p["norm1"], x, kind=cfg.norm,
+                                eps=cfg.norm_eps), lo is not None)
+    s = y.shape[-2]
     q = _split_heads(lora_apply(y, p["wq"], _ad(adapters, "q"), p.get("bq"),
                                 cols=blk), hl, hd)
     k = _split_heads(lora_apply(y, p["wk"], _ad(adapters, "k"), p.get("bk")),
@@ -242,7 +245,7 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
         o = o[:, None]
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + 1}
     else:
-        lead = x.shape[:-2]           # ([N,] B): flatten clients into B
+        lead = y.shape[:-2]           # ([N,] B): flatten clients into B
         o = flash_ops.flash_attention(
             q.reshape((-1,) + q.shape[-3:]),
             k.reshape((-1,) + k.shape[-3:]).contiguous(),
@@ -255,15 +258,14 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "len": cache["len"] + k.shape[-3]}
 
-    out = lora_apply(_merge_heads(o), p["wo"], _ad(adapters, "o"), rows=blk)
-    if lo is not None:
-        out = policy.reduce_from_tp(out)
+    out = policy.leave(lora_apply(_merge_heads(o), p["wo"], _ad(adapters, "o"),
+                                  rows=blk), lo is not None)
     if "bo" in p:
         out = out + p["bo"]
     if memory is not None or mem_cache is not None:
         out = out + _cross_attention(p, adapters, x + out, cfg=cfg,
                                      mode=mode, memory=memory,
-                                     mem_cache=mem_cache)
+                                     mem_cache=mem_cache, policy=policy)
     return out, new_cache
 
 
@@ -284,7 +286,8 @@ def _kv_heads(h: int, kvh: int, first_q: int, n: int):
 
 
 def _cross_attention(p: Params, adapters: Optional[Params], x, *,
-                     cfg: ModelConfig, mode: str, memory, mem_cache):
+                     cfg: ModelConfig, mode: str, memory, mem_cache,
+                     policy: ShardingPolicy = NO_SHARDING):
     """The cross-attention sub-block of a decoder layer over x = the
     layer's input plus its self-attention output: q from xnorm(x), k and
     v from the encoder output (train and prefill: the flash kernel,
@@ -292,10 +295,23 @@ def _cross_attention(p: Params, adapters: Optional[Params], x, *,
     cross cache) or from the cross cache (decode: the flash-decode
     kernel at a cache length of S_enc for every slot, the same function
     for one query).  The cross projections take an adapter only where
-    "xq"/"xo" are LoRA targets, as in the reference."""
+    "xq"/"xo" are LoRA targets, as in the reference.
+
+    policy: when xwq holds a "model" block of the heads (train mode),
+    the sub-block runs on those heads as the self-attention does: xwq
+    column-parallel, xwk and xwv whole (param_specs) with the rank's KV
+    heads kept, xwo row-parallel; the xnorm output enters and the
+    partial sums leave through the policy.  `memory` is then the whole
+    encoder output on every rank, entered through copy_to_tp once for
+    every layer (``Model.forward``)."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    y = apply_norm(p["xnorm"], x, kind=cfg.norm, eps=cfg.norm_eps)
-    q = _split_heads(lora_apply(y, p["xwq"], _ad(adapters, "xq")), h, hd)
+    lo = policy.block(h * hd, p["xwq"].shape[-1])
+    hl = p["xwq"].shape[-1] // hd
+    blk = None if lo is None else (lo, hl * hd)
+    y = policy.enter(apply_norm(p["xnorm"], x, kind=cfg.norm,
+                                eps=cfg.norm_eps), lo is not None)
+    q = _split_heads(lora_apply(y, p["xwq"], _ad(adapters, "xq"), cols=blk),
+                     hl, hd)
     if mode == "decode":
         if mem_cache is None or memory is not None or q.shape[-3] != 1:
             raise ValueError("cross-attention decode takes one token per "
@@ -311,12 +327,22 @@ def _cross_attention(p: Params, adapters: Optional[Params], x, *,
         if mem_cache is not None:   # prefill: populate the cross cache
             mem_cache["k"].copy_(mk)
             mem_cache["v"].copy_(mv)
-        lead = x.shape[:-2]
+        if lo is not None:
+            kv = _kv_heads(h, kvh, lo // hd, hl)
+            if isinstance(kv, tuple):
+                mk, mv = (t.narrow(-2, *kv) for t in (mk, mv))
+            else:
+                mk, mv = (t.index_select(-2, kv.to(t.device))
+                          for t in (mk, mv))
+        lead = y.shape[:-2]
         o = flash_ops.flash_attention(
-            q.reshape((-1,) + q.shape[-3:]), mk.reshape((-1,) + mk.shape[-3:]),
-            mv.reshape((-1,) + mv.shape[-3:]), causal=False)
+            q.reshape((-1,) + q.shape[-3:]),
+            mk.reshape((-1,) + mk.shape[-3:]).contiguous(),
+            mv.reshape((-1,) + mv.shape[-3:]).contiguous(), causal=False)
         o = o.reshape(lead + o.shape[1:])
-    return lora_apply(_merge_heads(o), p["xwo"], _ad(adapters, "xo"))
+    return policy.leave(lora_apply(_merge_heads(o), p["xwo"],
+                                   _ad(adapters, "xo"), rows=blk),
+                        lo is not None)
 
 
 def _write_cache(cache, kv_new, idx):
@@ -364,14 +390,14 @@ def mlp_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
     """The MLP sub-block (pre-norm, residual added by the caller).  When
     w_in holds a "model" block of the FFN width, it runs tensor-parallel:
     w_in, w_gate and b_in hold the block's columns and w_out its rows,
-    the input enters through copy_to_tp, the partial sums leave through
-    reduce_from_tp, and b_out is added once, after the sum."""
-    y = apply_norm(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
+    the input enters through ``policy.enter`` (copy_to_tp, or the
+    sequence gathered under SP), the partial sums leave through
+    ``policy.leave``, and b_out is added once, after the sum."""
     ff = p["w_in"].shape[-1]
     lo = policy.block(cfg.d_ff, ff)
     blk = None if lo is None else (lo, ff)
-    if lo is not None:
-        y = policy.copy_to_tp(y)
+    y = policy.enter(apply_norm(p["norm2"], x, kind=cfg.norm,
+                                eps=cfg.norm_eps), lo is not None)
     hin = lora_apply(y, p["w_in"], _ad(adapters, "mlp_in"), p.get("b_in"),
                      cols=blk)
     gate = None
@@ -379,9 +405,8 @@ def mlp_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
         gate = lora_apply(y, p["w_gate"], _ad(adapters, "mlp_gate"),
                           cols=blk)
     hmid = activate(hin, gate, cfg.activation)
-    out = lora_apply(hmid, p["w_out"], _ad(adapters, "mlp_out"), rows=blk)
-    if lo is not None:
-        out = policy.reduce_from_tp(out)
+    out = policy.leave(lora_apply(hmid, p["w_out"], _ad(adapters, "mlp_out"),
+                                  rows=blk), lo is not None)
     if "b_out" in p:
         out = out + p["b_out"]
     return out
@@ -491,20 +516,27 @@ def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
     ws_gate column blocks, ws_out rows, as ``mlp_apply``) leave through
     one reduce_from_tp.  Each rank's combine weights' gradient covers
     its own experts' pairs, so the weights enter through copy_to_tp: the
-    router's whole logits then get the whole gradient on every rank."""
+    router's whole logits then get the whole gradient on every rank.
+    Under sequence parallelism x is the rank's sequence block: the
+    normed input is gathered over the sequence first (``policy.enter``),
+    so the routing groups, the capacity, the top-k, the queue positions,
+    the drops and the router loss are those of the whole sequences, and
+    the output leaves as the rank's block (``policy.leave``)."""
     e, k, d = cfg.num_experts, cfg.moe_top_k, cfg.d_model
-    s = x.shape[-2]
     y = apply_norm(p["norm2"], x, kind=cfg.norm, eps=cfg.norm_eps)
     e_loc = p["we_in"].shape[-3]
     e_lo = policy.block(e, e_loc)
     sf = cfg.moe_d_ff * cfg.num_shared_experts
     s_lo = (policy.block(sf, p["ws_in"].shape[-1])
             if cfg.num_shared_experts else None)
-    # the input's consumers that hold a "model" block: their gradients
-    # are this rank's part
-    y_tp = (policy.copy_to_tp(y) if e_lo is not None or s_lo is not None
-            else y)
-    y_ep = y_tp if e_lo is not None else y
+    # the input's consumers that hold a "model" block (their gradients
+    # are this rank's part), and those that every rank runs whole
+    y_tp = (policy.enter(y, True) if e_lo is not None or s_lo is not None
+            else None)
+    y_all = (policy.enter(y, False) if e_lo is None or (
+        cfg.num_shared_experts and s_lo is None) else None)
+    y_ep = y_tp if e_lo is not None else y_all
+    s = y_ep.shape[-2]
     yg = y_ep.reshape(-1, s, d)                               # (G, T, d)
     if s > MOE_GROUP_TOKENS and s % MOE_GROUP_TOKENS == 0:
         yg = yg.reshape(-1, MOE_GROUP_TOKENS, d)
@@ -533,12 +565,12 @@ def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
     # the experts' ff dim split over "data" (fit_spec may leave it whole)
     ff_split = p["we_in"].shape[-1] != cfg.moe_d_ff
     if ff_split:
-        xe = policy.data_gather_rows(xe)
+        xe = policy.data_gather_rows(xe, cfg.moe_d_ff)
     hin = torch.bmm(xe, p["we_in"])
     gate = torch.bmm(xe, p["we_gate"]) if "we_gate" in p else None
     ye = torch.bmm(activate(hin, gate, cfg.activation), p["we_out"])
     if ff_split:
-        ye = policy.data_reduce_rows(ye)
+        ye = policy.data_reduce_rows(ye, cfg.moe_d_ff)
     # a dropped pair gathers row 0 at weight 0
     got = ye.reshape(-1, d).index_select(
         0, torch.where(keep, slot, 0).reshape(-1)).reshape(g, s, k, d)
@@ -553,10 +585,10 @@ def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
 
     # the parts that hold a "model" block are summed over the ranks
     # together; a whole part is added once, after the sum
-    out = out.reshape(y.shape)
+    out = out.reshape(y_ep.shape)
     blocked, whole = (out, None) if e_lo is not None else (None, out)
     if cfg.num_shared_experts:
-        y_s = y_tp if s_lo is not None else y
+        y_s = y_tp if s_lo is not None else y_all
         blk = None if s_lo is None else (s_lo, p["ws_in"].shape[-1])
         hin_s = lora_apply(y_s, p["ws_in"], _ad(adapters, "mlp_in"),
                            cols=blk)
@@ -571,6 +603,7 @@ def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
         else:
             blocked = shared if blocked is None else blocked + shared
     if blocked is None:
-        return whole, aux
-    summed = policy.reduce_from_tp(blocked)
-    return (summed if whole is None else summed + whole), aux
+        return policy.leave(whole, False), aux
+    summed = policy.leave(blocked, True)
+    return (summed if whole is None
+            else summed + policy.leave(whole, False)), aux

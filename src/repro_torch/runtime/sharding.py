@@ -19,32 +19,34 @@ Port of src/repro/runtime/sharding.py.  Two halves:
 
 * The rank layer, the counterpart of the reference's ``constrain_state``,
   ``constrain_client_batch`` and of XLA's placement of ``param_specs``.
-  A ``MeshShard`` is this process's place on a ("data", "model") mesh
-  of torch.distributed ranks (row-major, ``mesh_coords``), with one
-  process group per axis.  Over "data" each rank holds its block of the
-  cohort's rows of every client-axis leaf (``state_specs``); a
-  ``Cohort`` is one cohort size under it, with the collectives the round
-  engine needs: a sum and a max over the "data" ranks, and a row gather
-  into the full cohort, built as an all-reduce SUM into a zero-filled
-  (N, ...) buffer (exact: every entry is one rank's value plus zeros),
-  since gloo takes only all_reduce and broadcast on CUDA tensors and
-  NCCL refuses two ranks on one device.  When N does not divide the
-  "data" axis, ``fit_spec`` drops the axis: every rank then holds the
-  whole cohort and no client collective runs, since a sum over ranks
-  would count every client ``world`` times.  The base weights of the
-  dense, MoE, SSM and hybrid families are placed by ``param_specs``
+  A ``MeshShard`` is this process's place on a ("data", "model") or
+  ("pod", "data", "model") mesh of torch.distributed ranks (row-major,
+  ``mesh_coords``), with one process group per axis and one over the
+  FSDP axes ("pod", "data") together.  Over "data" each rank holds its
+  block of the cohort's rows of every client-axis leaf
+  (``state_specs``); a ``Cohort`` is one cohort size under it, with the
+  collectives the round engine needs: a sum and a max over the "data"
+  ranks, and a row gather into the full cohort, built as an all-reduce
+  SUM into a zero-filled (N, ...) buffer (exact: every entry is one
+  rank's value plus zeros), since gloo takes only all_reduce and
+  broadcast on CUDA tensors and NCCL refuses two ranks on one device.
+  When N does not divide the "data" axis, ``fit_spec`` drops the axis:
+  every rank then holds the whole cohort and no client collective runs,
+  since a sum over ranks would count every client ``world`` times.  The
+  base weights of every family are placed by ``param_specs``
   (``leaf_block``, each leaf as it is drawn; ``local_params``, a whole
-  tree): FSDP over "data" on their d_model dims, heads, FFN width,
-  vocabulary and SSM heads over "model", the MoE experts over "model"
-  (EP) with their ff dim over "data"; ``models.common.ShardingPolicy``
-  gathers and reduces them in the blocks (the experts' weights never
-  move: their activations do).  Server adapters, optimizer slots and
-  the round counter stay whole on every rank.  A ``ClientShard`` is the
-  client axis alone (an (n, 1) mesh, every base weight whole).  TP for
-  the audio and vlm families, the "pod" axis and sequence parallelism
-  wait for ``repro_torch.roadmap.PARAM_SHARDING``: such a family under a
-  MeshShard (``ShardingPolicy.for_model``), and a MeshShard on such a
-  mesh, raise.
+  tree): FSDP over ("pod", "data") on their d_model dims (over the axes
+  that ``fit_spec`` keeps, the block index pod_index * data +
+  data_index where it keeps both), heads, FFN width, vocabulary and SSM
+  heads over "model", the MoE experts over "model" (EP) with their ff
+  dim over the FSDP axes; ``models.common.ShardingPolicy`` gathers and
+  reduces them in the blocks (the experts' weights never move: their
+  activations do), splits each client's batch rows over "pod"
+  (``batch_specs``) and, under ``seq_shard``, the residual stream's
+  sequence over "model".  Server adapters, optimizer slots and the
+  round counter stay whole on every rank.  A ``ClientShard`` is the
+  client axis alone (an (n, 1) mesh, every base weight whole).  Serving
+  on a mesh waits for ``repro_torch.roadmap.PARAM_SHARDING``.
 
 Leaf paths come from repro_torch.tree.tree_leaves_with_path; joined
 with "/" they are the reference's.
@@ -65,6 +67,7 @@ from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 FSDP_AXES = ("pod", "data")
 TP_AXIS = "model"
 CLIENT_AXIS = "data"
+POD_AXIS = "pod"
 
 Spec = Tuple[Any, ...]
 
@@ -268,7 +271,7 @@ def cache_specs(cache, mesh):
 # ---------------------------------------------------------------------------
 # the rank layer
 
-EXECUTED_AXES = ("data", "model")
+EXECUTED_AXES = (POD_AXIS, CLIENT_AXIS, TP_AXIS)
 
 
 def mesh_coords(mesh, rank: int) -> Dict[str, int]:
@@ -281,15 +284,22 @@ def mesh_coords(mesh, rank: int) -> Dict[str, int]:
     return {a: int(i) for a, i in zip(names, idx)}
 
 
-def axis_ranks(mesh, axis: str) -> List[List[int]]:
-    """The rank groups along `axis`: each list holds the ranks that differ
-    only in their `axis` coordinate, in that coordinate's order."""
+def _axis_key(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axis_ranks(mesh, axes) -> List[List[int]]:
+    """The rank groups along `axes` (one axis name, or several in the
+    mesh's order, joined): each list holds the ranks that differ only in
+    those coordinates, in their row-major order."""
     sizes = axis_sizes(mesh)
     names = list(sizes)
+    key = [a for a in _axis_key(axes) if a in sizes]
     grid = np.arange(int(np.prod([sizes[a] for a in names]))).reshape(
         tuple(sizes[a] for a in names))
-    lines = np.moveaxis(grid, names.index(axis), -1).reshape(
-        -1, sizes[axis])
+    lines = np.moveaxis(grid, [names.index(a) for a in key],
+                        list(range(-len(key), 0))).reshape(
+        -1, int(np.prod([sizes[a] for a in key])))
     return [[int(r) for r in line] for line in lines]
 
 
@@ -299,27 +309,29 @@ def _check_mesh(mesh):
             if a not in EXECUTED_AXES and s > 1}
     if wide:
         raise NotImplementedError(
-            f"mesh axes {wide}: the port executes the (\"data\", "
-            f"\"model\") axes only so far: see {roadmap.PARAM_SHARDING}")
+            f"mesh axes {wide}: the port executes the {EXECUTED_AXES} "
+            f"axes only: see {roadmap.PARAM_SHARDING}")
     return sizes
 
 
 def _check_client_mesh(mesh):
     sizes = _check_mesh(mesh)
-    if sizes.get(TP_AXIS, 1) > 1:
+    wide = {a: sizes[a] for a in (POD_AXIS, TP_AXIS)
+            if sizes.get(a, 1) > 1}
+    if wide:
         raise NotImplementedError(
-            f"a \"model\" axis of {sizes[TP_AXIS]} splits heads, the FFN "
-            "and the vocabulary (param_specs), which ClientShard leaves "
-            "whole: a MeshShard executes them for the dense, MoE, SSM and "
-            "hybrid families; the audio and vlm families wait for "
-            f"{roadmap.PARAM_SHARDING}")
+            f"mesh axes {wide}: \"model\" splits heads, the FFN and the "
+            "vocabulary (param_specs) and \"pod\" each client's batch rows "
+            "and the base weights' FSDP blocks, which ClientShard leaves "
+            "whole: a MeshShard executes them (the serving path on a mesh "
+            f"waits for {roadmap.PARAM_SHARDING})")
     return sizes.get(CLIENT_AXIS, 1)
 
 
 class _Axis:
-    """One mesh axis as this rank sees it: its size, this rank's index on
-    it and the process group over its ranks (None: the default group,
-    when the axis spans every rank)."""
+    """One mesh axis (or the FSDP axes joined) as this rank sees it: its
+    size, this rank's index on it and the process group over its ranks
+    (None: the default group, when the axis spans every rank)."""
 
     def __init__(self, size: int, index: int, group=None):
         self.size, self.index, self.group = size, index, group
@@ -327,17 +339,22 @@ class _Axis:
 
 class MeshShard:
     """This process's rank in a torch.distributed process group over a
-    ("data", "model") mesh (the reference's mesh under
-    ``ShardingPolicy(mesh, client_mode=True)``), ranks placed in
-    row-major order (``mesh_coords``).
+    ("data", "model") or ("pod", "data", "model") mesh (the reference's
+    mesh under ``ShardingPolicy(mesh, client_mode=True,
+    seq_shard=...)``), ranks placed in row-major order
+    (``mesh_coords``).
 
     The cohort's rows split over "data" (``Cohort``), and the base
     weights are placed by ``param_specs`` (``leaf_block``): FSDP over
-    "data", heads, FFN width, vocabulary, SSM heads and MoE experts over
-    "model", the experts' ff dim over "data";
+    ("pod", "data"), heads, FFN width, vocabulary, SSM heads and MoE
+    experts over "model", the experts' ff dim over the FSDP axes;
     ``models.common.ShardingPolicy`` gathers and reduces them in the
-    model's forward and backward.  One subgroup per axis (``dist.
-    new_group``, made on every rank in the same order); an axis that
+    model's forward and backward, splits each client's batch rows over
+    "pod" and, with `seq_shard` (None: the reference's rule, on unless
+    the family is SSM or hybrid; ``ShardingPolicy.for_model``), the
+    residual stream's sequence over "model".  One subgroup per axis and
+    one over the FSDP axes joined (``dist.new_group``, made on every
+    rank in the same order, one per distinct set of ranks); an axis that
     spans every rank uses the default group.
 
     The default group must exist (``repro_torch.launch.sharded`` starts
@@ -345,17 +362,19 @@ class MeshShard:
     that `device` takes: NCCL for a CUDA device, gloo for the CPU or when
     the caller names it (two ranks that share one card).  Nothing falls
     back: another backend or world size raises, and so does a mesh axis
-    other than "data" and "model" larger than 1.  ``collectives`` and
-    ``bytes_reduced`` count this rank's collectives and the bytes it put
-    into them."""
+    other than "pod", "data" and "model" larger than 1.  ``collectives``
+    and ``bytes_reduced`` count this rank's collectives and the bytes it
+    put into them."""
 
     places_params = True
 
     def __init__(self, mesh: MeshConfig, *, device="cpu",
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None,
+                 seq_shard: Optional[bool] = None):
         import torch.distributed as dist
         sizes = self._check(mesh)
         self.mesh = mesh
+        self.seq_shard = seq_shard
         self.device = torch.device(device)
         self.backend = backend or ("nccl" if self.device.type == "cuda"
                                    else "gloo")
@@ -374,20 +393,29 @@ class MeshShard:
             raise ValueError(f"the mesh {sizes} has {want} ranks, the "
                              f"process group {self.world}")
         self.coords = mesh_coords(mesh, self.rank)
-        self.axes: Dict[str, _Axis] = {}
-        for a in EXECUTED_AXES:
-            size = sizes.get(a, 1)
+        self.axes: Dict[Tuple[str, ...], _Axis] = {}
+        made: Dict[Tuple[Tuple[int, ...], ...], Any] = {}
+        for key in [(a,) for a in EXECUTED_AXES] + [FSDP_AXES]:
+            present = [a for a in key if a in sizes]
+            size, index = 1, 0
+            for a in present:
+                size, index = size * sizes[a], index * sizes[a] + \
+                    self.coords[a]
             group = None
             if 1 < size < self.world:
-                for ranks in axis_ranks(mesh, a):
-                    g = dist.new_group(ranks)
-                    if self.rank in ranks:
-                        group = g
-            self.axes[a] = _Axis(size, self.coords.get(a, 0), group)
-        self.data_size = self.axes[CLIENT_AXIS].size
-        self.data_rank = self.axes[CLIENT_AXIS].index
-        self.model_size = self.axes[TP_AXIS].size
-        self.model_rank = self.axes[TP_AXIS].index
+                lines = tuple(tuple(r) for r in axis_ranks(mesh, present))
+                if lines not in made:
+                    made[lines] = {line: dist.new_group(list(line))
+                                   for line in lines}
+                group = next(g for line, g in made[lines].items()
+                             if self.rank in line)
+            self.axes[key] = _Axis(size, index, group)
+        self.pod_size = self.axes[(POD_AXIS,)].size
+        self.pod_rank = self.axes[(POD_AXIS,)].index
+        self.data_size = self.axes[(CLIENT_AXIS,)].size
+        self.data_rank = self.axes[(CLIENT_AXIS,)].index
+        self.model_size = self.axes[(TP_AXIS,)].size
+        self.model_rank = self.axes[(TP_AXIS,)].index
         self.collectives = self.bytes_reduced = 0
 
     @staticmethod
@@ -403,13 +431,14 @@ class MeshShard:
         return t.clone()
 
     def all_reduce(self, tensors: Sequence[torch.Tensor], op: str,
-                   axis: str = CLIENT_AXIS) -> List[torch.Tensor]:
-        """SUM or MAX of each tensor over the ranks of mesh axis `axis`,
-        one collective per dtype (the tensors packed flat).  Returns new
-        tensors on the inputs' devices.  Over an axis of one rank inside
-        a larger group it runs no collective."""
+                   axis=CLIENT_AXIS) -> List[torch.Tensor]:
+        """SUM or MAX of each tensor over the ranks of mesh axis `axis`
+        (a name, or the FSDP axes as a tuple), one collective per dtype
+        (the tensors packed flat).  Returns new tensors on the inputs'
+        devices.  Over an axis of one rank inside a larger group it runs
+        no collective."""
         import torch.distributed as dist
-        ax = self.axes[axis]
+        ax = self.axes[_axis_key(axis)]
         if ax.size == 1 and self.world > 1:
             return [t.clone() for t in tensors]
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -472,8 +501,9 @@ class MeshShard:
 class ClientShard(MeshShard):
     """A MeshShard of the client axis alone, on an (n, 1) mesh: each rank
     holds its block of the cohort's rows, and every global leaf, the
-    base weights included, whole (PR 27's layout, which phase 16 and the
-    client-axis tests run).  A "model" axis larger than 1 raises."""
+    base weights included, whole (the layout that phase 16 and the
+    client-axis tests run).  A "model" or "pod" axis larger than 1
+    raises."""
 
     places_params = False
 

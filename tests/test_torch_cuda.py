@@ -1331,8 +1331,8 @@ def _kimi_routes():
 
     calls, route = [], transformer.moe_route
 
-    def recording(cfg, yg, router):
-        got = route(cfg, yg, router)
+    def recording(cfg, yg, router, **kw):
+        got = route(cfg, yg, router, **kw)
         calls.append((got[2].cpu(), int((got[3] >= got[4]).sum())))
         return got
 
@@ -1622,6 +1622,47 @@ def test_param_sharding_on_the_card(cuda, tmp_path):
                        cases.CARD_ATOL_OF_MAX, cases.CARD_LOSS_RTOL)
         except AssertionError as e:
             failed[name] = str(e)
+    assert not failed, failed
+
+
+@pytest.mark.cuda
+def test_param_sharding_sp_on_the_card(cuda, tmp_path):
+    """The audio and vlm families under TP with sequence parallelism, and
+    the "pod" axis, on one card (tests/torch_param_sharding_sp_cases.py,
+    head dim 16): NCCL at world size 1 on meshes of ones is the
+    unsharded run bit for bit; 2 gloo ranks that share the card on a
+    (1, 2) mesh (whisper with frames, internvl2 with a prefix) and 4 on a
+    (2, 1, 2) ("pod", "data", "model") mesh (gpt2 with int8 at the cut)
+    match the unsharded run within CARD_ATOL_OF_MAX = 1e-4 x max|leaf|
+    and losses within CARD_LOSS_RTOL = 1e-5 (int8: the cases' bound, a
+    code may step)."""
+    import torch_param_sharding_sp_cases as cases
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharded import process_group, run_ranks
+    from repro_torch.runtime.sharding import MeshShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with process_group(0, 1, tmp_path / "nccl", backend="nccl"):
+        for name, mesh in (("whisper", make_mesh(1, 1)),
+                           ("gpt2_int8", make_mesh(1, 1, pod=1))):
+            shard = MeshShard(mesh, device=cuda)
+            assert shard.backend == "nccl"
+            cases.same_bits(cases.run_case(name, shard, tmp_path, cuda),
+                            cases.run_case(name, None, tmp_path, cuda))
+    for group, (shape, _, _) in cases.CARD_GROUPS.items():
+        run_ranks(cases.card_rank, int(np.prod(shape)),
+                  tmp_path / f"gloo_{group}", args=(str(tmp_path), group))
+    failed = {}
+    for _, _, names in cases.CARD_GROUPS.values():
+        for name in names:
+            got, want = (torch.load(tmp_path / f"card_{kind}_{name}.pt",
+                                    weights_only=False)
+                         for kind in ("sharded", "plain"))
+            try:
+                cases.held(got, want, name, card=True)
+            except AssertionError as e:
+                failed[name] = str(e)
     assert not failed, failed
 
 

@@ -135,6 +135,57 @@ def test_cell_args_and_info_equal_reference(arch, shape):
     assert got.info == ref.info
 
 
+class _FakeMesh:
+    """As much of a jax Mesh as the reference's activation budget reads."""
+
+    def __init__(self, mesh: MeshConfig):
+        self.shape = dict(zip(mesh.axes, mesh.shape))
+
+
+# the four cards of one host, and a ("pod", "data", "model") layout
+SP_MESHES = {"1x4": MeshConfig((1, 4), ("data", "model")),
+             "2x2x4": MeshConfig((2, 2, 4), ("pod", "data", "model"))}
+TRAIN_CELLS = [(a, s) for a, s in CELLS if J_SHAPES[s].is_train]
+
+
+@pytest.mark.parametrize("mesh", list(SP_MESHES))
+@pytest.mark.parametrize("arch,shape", TRAIN_CELLS)
+def test_microbatch_on_a_mesh_equals_reference(arch, shape, mesh):
+    """The activation budget's microbatch on a mesh: the clients over
+    "data", each client's rows over "pod" and, under the reference's
+    default sequence parallelism (off for SSM and hybrid), the tokens
+    over "model"; and with seq_shard forced on and off."""
+    m = SP_MESHES[mesh]
+    for seq_shard in (None, True, False):
+        want_sp = (j_get_config(arch).model.family not in ("ssm", "hybrid")
+                   if seq_shard is None else seq_shard)
+        want = j_cells._auto_microbatch(
+            j_get_config(arch), J_SHAPES[shape], _FakeMesh(m),
+            cells.DRYRUN_CLIENTS, seq_shard=want_sp, budget=REF_BUDGET)
+        got = cells._auto_microbatch(
+            get_config(arch), SHAPES[shape], m, cells.DRYRUN_CLIENTS,
+            seq_shard=want_sp, budget=REF_BUDGET)
+        assert got == want, seq_shard
+
+
+@pytest.mark.parametrize("mesh", list(SP_MESHES))
+@pytest.mark.parametrize("arch", ["llama3-8b", "internvl2-76b"])
+def test_train_cell_info_on_a_mesh_equals_reference(arch, mesh):
+    """The train cell's ``info`` on a mesh: the reference's host-mesh
+    cell's, with the microbatch of its budget on that mesh under its
+    default sequence parallelism."""
+    m = SP_MESHES[mesh]
+    shape = "train_4k"
+    ref = j_cells.build_cell(j_get_config(arch), J_SHAPES[shape],
+                             j_host_mesh())
+    want = dict(ref.info, microbatch=j_cells._auto_microbatch(
+        j_get_config(arch), J_SHAPES[shape], _FakeMesh(m),
+        cells.DRYRUN_CLIENTS, seq_shard=True, budget=REF_BUDGET))
+    got = cells.build_cell(get_config(arch), SHAPES[shape], m,
+                           budget=REF_BUDGET)
+    assert got.info == want
+
+
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_model_flops_equal_reference(arch, shape):
     assert analysis.model_flops_for(get_config(arch), SHAPES[shape]) == \
@@ -381,3 +432,26 @@ def test_device_busy_profiles_again_when_short_then_fails(monkeypatch):
     assert len(passes) == tries
     assert f"{cs.PROFILE_PREFIX} of {cs.PROFILE_PREFIX} before the run, " \
         f"0 of {cs.PROFILE_PREFIX} after it" in str(err.value)
+
+
+def test_host_self_times_equal_key_averages():
+    """chip_smoke.host_self_times reads the profiler's raw events (parsing
+    them into FunctionEvents takes seconds for each 10^5): an autograd
+    step's host ops, their self CPU time and calls, as key_averages()
+    gives them, same-name nesting (aten::sum in aten::sum) included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = _chip_smoke()
+    w = torch.randn(16, 16, requires_grad=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(20):
+            y = torch.nn.functional.gelu(torch.randn(8, 16) @ w).sum()
+            y.backward()
+    got = cs.host_self_times(torch, cs.raw_events(prof))
+    want = {e.key: (e.self_cpu_time_total, e.count)
+            for e in prof.key_averages() if e.self_cpu_time_total > 0}
+    assert set(want) <= set(got) and "aten::sum" in want
+    for key, (us, calls) in want.items():
+        assert got[key][1] == calls, key
+        assert got[key][0] == pytest.approx(us, rel=1e-9, abs=1e-3), key
+    assert all(got[k][0] == 0 for k in set(got) - set(want))

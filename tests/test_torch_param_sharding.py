@@ -45,10 +45,12 @@ when the next is drawn, so a rank's init peak is its blocks plus one
 full leaf, and the blocks are ``local_params`` of the full tree bit for
 bit.
 
-Refusals: the audio and vlm configs, and a head count that the "model"
-axis does not divide, raise in every rank and name the ROADMAP item; the
-MoE, SSM and hybrid configs build under both meshes, each rank holding
-its blocks (tests/test_torch_param_sharding_families.py trains them).
+Refusals: a head count that the "model" axis does not divide, and the
+serving path (prefill, a decode step, ``serve_model``) on the rank's
+blocks, raise in every rank and name the ROADMAP item; the MoE, SSM,
+hybrid, audio and vlm configs build under both meshes, each rank holding
+its blocks (tests/test_torch_param_sharding_families.py and
+tests/test_torch_param_sharding_sp.py train them).
 
 Time: ~75 s alone: ~45 s for the two spawns, ~25 s for the JAX
 reference's 5 cases.
@@ -343,9 +345,10 @@ def test_unsupported_configs_raise_with_the_roadmap_pointer(runs, mesh):
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("name", cases.PLACED)
 def test_moe_ssm_and_hybrid_configs_are_placed(runs, name, mesh):
-    """The MoE, SSM and hybrid configs that the mesh once refused build
-    under it, each rank holding param_specs' blocks by bytes
-    (tests/test_torch_param_sharding_families.py trains them)."""
+    """The MoE, SSM, hybrid, audio and vlm configs that the mesh once
+    refused build under it, each rank holding param_specs' blocks by
+    bytes (tests/test_torch_param_sharding_families.py and
+    tests/test_torch_param_sharding_sp.py train them)."""
     out, _ = runs
     m = MESHES[mesh]
     full = build_model(cases.placed_arch(name), device="cpu"

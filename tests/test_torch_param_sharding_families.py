@@ -30,8 +30,9 @@ shared expert's adapter gradients (added by hand: the configs give an
 MoE group none) without their partial-target sum are a share of their
 max away from the unsharded gradients, with it ~1e-6.
 
-Refusals: the audio and vlm configs, and SSM heads that the "model" axis
-does not divide, raise in every rank and name the ROADMAP item.
+Refusals: SSM heads that the "model" axis does not divide, and the
+serving path (prefill, a decode step, ``serve_model``) on the rank's
+blocks, raise in every rank and name the ROADMAP item.
 
 Time: ~85 s alone, one torch thread: ~20 s for the two spawns, ~25 s
 for the JAX reference's 4 cases, the rest the placement tests at full
@@ -446,10 +447,11 @@ def test_unsupported_configs_raise_with_the_roadmap_pointer(runs, mesh):
         assert roadmap.PARAM_SHARDING in msg, label
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", FAMILIES + ("whisper-medium",
+                                             "internvl2-76b"))
 def test_for_model_places_the_families(name):
-    """ShardingPolicy.for_model takes the MoE, SSM and hybrid families on
-    a mesh whose "model" axis divides their heads."""
+    """ShardingPolicy.for_model takes the MoE, SSM, hybrid, audio and vlm
+    families on a mesh whose "model" axis divides their heads."""
 
     class _Shard:
         places_params, world, model_size = True, 4, 4

@@ -103,15 +103,20 @@ OPTIONS = {
 }
 OPTIONS_MESH = "2x2"
 
-# configs a mesh of more than one rank does not place (a family the
-# port leaves out, or a head count the "model" axis does not divide)
-REFUSED = {"whisper-medium": "NotImplementedError",
-           "internvl2-76b": "NotImplementedError",
-           "gpt2-small (3 heads)": "ValueError"}
+# what a mesh of more than one rank refuses: a head count the "model"
+# axis does not divide, and the serving path on the rank's blocks
+# (``refusal``)
+REFUSED = {"gpt2-small (3 heads)": "ValueError",
+           "gpt2-small prefill": "NotImplementedError",
+           "gpt2-small decode_step": "NotImplementedError",
+           "gpt2-small serve_model": "NotImplementedError"}
 # configs of the families that the (1, 4) mesh placed only from the MoE,
 # SSM and hybrid ports on (tests/test_torch_param_sharding_families.py
-# trains them): each builds on every mesh and holds param_specs' blocks
-PLACED = ("kimi-k2-1t-a32b", "mamba2-780m", "zamba2-1.2b")
+# trains them) and from the audio and vlm ports on
+# (tests/test_torch_param_sharding_sp.py): each builds on every mesh and
+# holds param_specs' blocks
+PLACED = ("kimi-k2-1t-a32b", "mamba2-780m", "zamba2-1.2b",
+          "whisper-medium", "internvl2-76b")
 
 
 def case_arch(name: str, reduced=reduced, get_config=get_config):
@@ -139,6 +144,26 @@ def refused_arch(label: str):
             arch.model, num_heads=3, num_kv_heads=3, head_dim=16))
     return arch.replace(data=dataclasses.replace(arch.data,
                                                  num_clients=N_CLIENTS))
+
+
+def refusal(label: str, arch, shard):
+    """(exception type name, message) of what `label` asks of `arch` under
+    `shard`: building its SplitFTSystem, and for a label that ends in a
+    serving entry point ("prefill", "decode_step", "serve_model") that
+    entry point on the rank's blocks; ("", "") when nothing raised."""
+    try:
+        system = SplitFTSystem(arch, SystemConfig(**SYS), seed=0,
+                               device="cpu", policy=shard)
+        what = label.split(" ")[-1]
+        if what == "serve_model":
+            system.serve_model()
+        elif what == "prefill":
+            system.model.prefill(system.base_params, None, {}, None)
+        elif what == "decode_step":
+            system.model.decode_step(system.base_params, None, None, None)
+        return ("", "")
+    except (NotImplementedError, ValueError) as e:
+        return (type(e).__name__, str(e))
 
 
 def placed_arch(name: str):
@@ -226,14 +251,8 @@ def rank_main(rank: int, world: int, out: str, mesh_name: str):
             torch.save(res, out / f"sharded_{mesh_name}_{name}.pt")
         if name == "llama_gqa":
             torch.save(base_bytes(base), out / f"bytes_{mesh_name}_{rank}.pt")
-    raised = {}
-    for label in REFUSED:
-        try:
-            SplitFTSystem(refused_arch(label), SystemConfig(**SYS), seed=0,
-                          device="cpu", policy=shard)
-            raised[label] = ("", "")
-        except (NotImplementedError, ValueError) as e:
-            raised[label] = (type(e).__name__, str(e))
+    raised = {label: refusal(label, refused_arch(label), shard)
+              for label in REFUSED}
     if rank == 0:
         torch.save(raised, out / f"raised_{mesh_name}.pt")
     placed = {}

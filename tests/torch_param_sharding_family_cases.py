@@ -64,6 +64,7 @@ from repro_torch.runtime import agreement
 from repro_torch.runtime.sharding import (MeshShard, gather_state,
                                           local_params, shard_state)
 from repro_torch.tree import tree_leaves_with_path, tree_map
+from torch_param_sharding_cases import refusal
 
 ROUNDS = 2
 N_CLIENTS = 4
@@ -84,11 +85,13 @@ CASES = {
 MOE_CASES = ("kimi_moe", "llama4_moe")
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 
-# configs a mesh of more than one rank does not place: a family the
-# slice leaves out, or SSM heads the "model" axis does not divide
-REFUSED = {"whisper-medium": "NotImplementedError",
-           "internvl2-76b": "NotImplementedError",
-           "mamba2-780m (3 SSM heads)": "ValueError"}
+# what a mesh of more than one rank refuses: SSM heads the "model" axis
+# does not divide, and the serving path on the rank's blocks
+# (torch_param_sharding_cases.refusal)
+REFUSED = {"mamba2-780m (3 SSM heads)": "ValueError",
+           "kimi-k2-1t-a32b prefill": "NotImplementedError",
+           "mamba2-780m decode_step": "NotImplementedError",
+           "zamba2-1.2b serve_model": "NotImplementedError"}
 
 
 def case_arch(name: str, reduced=reduced, get_config=get_config):
@@ -108,8 +111,11 @@ def case_arch(name: str, reduced=reduced, get_config=get_config):
 
 def refused_arch(label: str):
     name = label.split(" ")[0]
-    arch = reduced(get_config(name), layers=2, d_model=48, vocab=256)
-    if label.endswith("(3 SSM heads)"):
+    three = label.endswith("(3 SSM heads)")
+    # d_model 64: 8 SSM heads of 16, which every mesh divides
+    arch = reduced(get_config(name), layers=2, d_model=48 if three else 64,
+                   vocab=256)
+    if three:
         # d_inner 96 over heads of 32
         arch = arch.replace(model=dataclasses.replace(
             arch.model, ssm_head_dim=32))
@@ -293,14 +299,8 @@ def rank_main(rank: int, world: int, out: str, mesh_name: str):
     res = shared_expert_grads(shard, out)
     if rank == 0:
         torch.save(res, out / f"shared_{mesh_name}.pt")
-    raised = {}
-    for label in REFUSED:
-        try:
-            SplitFTSystem(refused_arch(label), SystemConfig(**SYS), seed=0,
-                          device="cpu", policy=shard)
-            raised[label] = ("", "")
-        except (NotImplementedError, ValueError) as e:
-            raised[label] = (type(e).__name__, str(e))
+    raised = {label: refusal(label, refused_arch(label), shard)
+              for label in REFUSED}
     if rank == 0:
         torch.save(raised, out / f"raised_{mesh_name}.pt")
     # the unsharded runs, shared out over the ranks, once (first mesh)
