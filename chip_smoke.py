@@ -547,6 +547,26 @@ P17_WQ = (4096, 2048)        # the timed fused LoRA shape: wq's block
 P17_ROWS = ("flash_attention_fwd (hd 128, TP 2)",
             "flash_attention_bwd (hd 128, TP 2)",
             "lora_matmul_fwd (TP 2)", "lora_matmul_bwd (TP 2)")
+# phases 17 and 18 serve after the round (serving on a mesh, mesh_serve):
+# each run's trained global model through serve_model on its own blocks,
+# a prefill of SERVE_PROMPT tokens for SERVE_BATCH rows into a cache of
+# SERVE_CAP positions (its rank's blocks: cache_specs splits the KV
+# sequence over "model", 128 positions a rank on 2 ranks), then
+# SERVE_STEPS decode steps at positions 126..129, across the block edge.
+# The unsharded run decodes greedily; the NCCL world-1 and gloo runs are
+# fed its tokens (kimi-k2 routed by its choices), so every step compares:
+# NCCL bit for bit, the gloo ranks' logits within SERVE_TOL of max|logit|
+# and their argmax the unsharded token wherever its top-2 gap is TOP2_GAP
+# or more.  SERVE_TOL is ~4x the largest gap measured (zamba2's 4.29e-5,
+# whose trained adapters carry the fp8 codes' flips at the cut; llama
+# 2.98e-6, kimi-k2 1.66e-5)
+SERVE_BATCH, SERVE_PROMPT, SERVE_CAP, SERVE_STEPS = 2, 126, 256, 4
+SERVE_TOL = 2e-4
+# the partial decode kernel (decode_attention_partial) at one rank's half
+# of phase 15's decode_32k: B 128, the second 16384 positions of a
+# 32768-position cache, llama3-8b's 32 heads over 8 of 128, bf16
+PARTIAL_32K = (128, 16384, 32768, 32, 8, 128)
+PARTIAL_ROW = "decode_attention_partial"
 
 
 # phase 18: parameter sharding of the MoE family (EP: the experts over
@@ -922,6 +942,7 @@ def mma_build_report(_build, lib_path, sass: str) -> None:
 # and dk/dv kernels
 OWN_PER_LAUNCH = {"flash_attention_fwd": 1, "flash_attention_bwd": 2,
                   "lora_matmul_indexed": 1, "decode_attention": 1,
+                  "decode_attention_partial": 1,
                   "decode_attention_paged": 1, "lora_matmul_fwd": 2,
                   "lora_matmul_bwd": 3, "int8_roundtrip_smashed": 1,
                   "int8_quantize_smashed": 1, "int8_dequantize_smashed": 1,
@@ -940,6 +961,7 @@ def port_wrappers() -> dict:
             "lora_matmul_indexed": lops.lora_matmul_indexed,
             "decode_attention": dops.decode_attention,
             "decode_attention_paged": dops.decode_attention_paged,
+            "decode_attention_partial": dops.decode_attention_partial,
             "flash_attention_bwd": fops.flash_attention_bwd,
             "lora_matmul_fwd": lops.lora_matmul_fwd,
             "lora_matmul_bwd": lops.lora_matmul_bwd,
@@ -1813,6 +1835,8 @@ def main(argv=None) -> int:
                "lora_matmul_indexed": ("lora_indexed.cu", f"{lk}:186"),
                "decode_attention": ("decode_attention.cu", f"{da}:187"),
                "decode_attention_paged": ("decode_attention.cu", f"{da}:133"),
+               "decode_attention_partial": ("decode_attention.cu",
+                                            f"{da}:187"),
                "flash_attention_bwd": ("flash_bwd.cu", f"{fa}:305"),
                "lora_matmul_fwd": ("lora_fused.cu", f"{lk}:99"),
                "lora_matmul_bwd": ("lora_fused.cu", f"{lk}:298"),
@@ -3558,9 +3582,11 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
     and whether they are bitwise is logged.  model_kw: more fields of the
     reduced model config (a hybrid's attention layer indices, an MoE
     model's expert count).  wide=True (phases 9, 10b and 13b: models of 2
-    to 25 GB) draws the weights on the card and copies them to the CPU (a
-    CPU draw takes minutes) and logs the host's free memory before each
-    step.  An MoE model's CPU step routes by the card's top-k choices
+    to 25 GB) draws the weights on the card (``redraw``), where the card's
+    step uses them, copies them to the CPU once for the CPU's step
+    (``to_host``; a CPU draw takes minutes) and logs the host's free
+    memory before each step.  An MoE model's CPU
+    step routes by the card's top-k choices
     (recorded_routing's replay), since a choice flipped on a near-tie of
     the router's probabilities would move its token's expert output
     wholesale; the number of (token, choice) pairs that the CPU would
@@ -3590,11 +3616,10 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
     out = {}
     # one draw of the weights (on the CPU, as init_params draws them, or
     # for a wide model on the card), copied to the other side
+    card_params = None
     if wide:
-        cpu_params = tree_map(
-            lambda t: t.cpu(), build_model(arch, device=dev).init_params(
-                torch.Generator(device=dev).manual_seed(SEED)))
-        torch.cuda.empty_cache()
+        card_params = redraw(torch, dev, arch)
+        cpu_params = to_host(torch, card_params)
     else:
         cpu_params = build_model(arch, device="cpu").init_params(
             torch.Generator().manual_seed(SEED))
@@ -3603,7 +3628,9 @@ def small_step_check(torch, dev, arch_name, seq, steps, tag,
     launches = {}
     for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
         model = build_model(arch, device=dv)
-        params = tree_map(lambda t: t.to(dv), cpu_params)
+        params = (card_params if role == "card" and card_params is not None
+                  else tree_map(lambda t: t.to(dv), cpu_params))
+        card_params = None
         state = rounds.init_state(model,
                                   torch.Generator().manual_seed(SEED + 3),
                                   num_clients=SMALL_CLIENTS)
@@ -4638,12 +4665,93 @@ def kimi_phase(torch, dev, wrappers, name, card):
     return {k: got[k] + served[k] for k in got}
 
 
-def decode_check(torch, dev, arch, cpu_params, tag):
+# the page-locked host buffer that to_host copies wide weights into, while
+# pinned_host holds one (phase 13b)
+_HOST = {"arena": None}
+
+
+def _host_sizes(tree):
+    from repro_torch.tree import tree_leaves
+
+    return [-(-x.numel() * x.element_size() // 64) * 64
+            for x in tree_leaves(tree)]
+
+
+def wide_bytes(torch, arch) -> int:
+    """The host bytes to_host takes for `arch`'s weights (a fake draw)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.model import build_model
+
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = build_model(arch, device="cpu").init_params(
+            torch.Generator().manual_seed(SEED))
+    return sum(_host_sizes(params))
+
+
+@contextlib.contextmanager
+def pinned_host(torch, nbytes: int):
+    """While open, to_host copies into one host buffer of nbytes that CUDA
+    has page-locked (cudaHostRegister), unregistered and freed on exit.
+    Locking costs ~0.7 s a GiB once, and a copy into it ~0.02 s a GiB,
+    where a copy into fresh pageable memory (`.cpu()`) costs ~0.5 s a
+    GiB every time (on an H100 host: 24.11 GiB locked in 17.14 s; 15
+    GiB copied pageable in 7.57–8.38 s), so models that take turns
+    share it."""
+    t0 = time.perf_counter()
+    buf = torch.empty(nbytes, dtype=torch.uint8)
+    rt = torch.cuda.cudart()
+    torch.cuda.check_error(rt.cudaHostRegister(buf.data_ptr(), nbytes, 0))
+    log(f"pinned {nbytes / 2**30:.2f} GiB of host memory in "
+        f"{time.perf_counter() - t0:.2f} s")
+    _HOST["arena"] = buf
+    try:
+        yield
+    finally:
+        _HOST["arena"] = None
+        torch.cuda.check_error(rt.cudaHostUnregister(buf.data_ptr()))
+        del buf
+
+
+def to_host(torch, tree):
+    """A tree of card tensors on the host: views of pinned_host's buffer,
+    valid until the next call, while one is open; else pageable copies."""
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    arena = _HOST["arena"]
+    if arena is None:
+        return tree_map(lambda t: t.cpu(), tree)
+    sizes = _host_sizes(tree)
+    if sum(sizes) > arena.numel():
+        raise RuntimeError(f"{sum(sizes)} bytes of weights for a pinned "
+                           f"buffer of {arena.numel()}")
+    out, off = [], 0
+    for x, n in zip(tree_leaves(tree), sizes):
+        view = arena[off:off + x.numel() * x.element_size()].view(
+            x.dtype).view(x.shape)
+        view.copy_(x)
+        out.append(view)
+        off += n
+    return tree_unflatten(tree, out)
+
+
+def redraw(torch, dev, arch):
+    """small_step_check's wide weights, drawn on the card from SEED: the
+    same bits at every call."""
+    from repro_torch.models.model import build_model
+
+    return build_model(arch, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(SEED))
+
+
+def decode_check(torch, dev, arch, cpu_params, tag, drawn=False):
     """Prefill of one PROMPT-token request (for the audio family with its
     encoder frames) and 4 decode steps through the indexed pool (ranks
     RANKS), on the card and on the CPU from the same weights: the card's
     tokens fed to both, logits within LOGITS_TOL and each step's token
-    equal; an MoE model's top-k choices' flips are logged."""
+    equal; an MoE model's top-k choices' flips are logged.  drawn: the
+    CPU's weights are small_step_check's wide draw, which the card draws
+    again (redraw) instead of copying them back."""
     from repro_torch.models.model import build_model
     from repro_torch.runtime import serving
     from repro_torch.tree import tree_map
@@ -4657,7 +4765,8 @@ def decode_check(torch, dev, arch, cpu_params, tag):
     outs, toks, routes = {}, [], {}
     for role, dv in (("card", dev), ("cpu", torch.device("cpu"))):
         model = build_model(arch, device=dv)
-        params = tree_map(lambda t: t.to(dv), cpu_params)
+        params = (redraw(torch, dev, arch) if drawn and role == "card"
+                  else tree_map(lambda t: t.to(dv), cpu_params))
         pool = serving.build_adapter_pool(
             model, torch.Generator().manual_seed(SEED + 1), len(RANKS),
             ranks=RANKS)
@@ -4702,37 +4811,41 @@ def moe_vlm_steps(torch, dev, wrappers):
     theta 500000) at MOE_STEP_EXPERTS experts and seq DENSE_STEP_SEQ,
     each followed by decode_check; internvl2-76b (hd 128, d_ff 28672)
     over a batch with its 256-position prefix at seq VLM_SEQ.  Each
-    card step must launch the flash forward and backward.  Returns the
-    launches by head dim."""
+    card step must launch the flash forward and backward.  The three
+    models' CPU weights take turns in one pinned host buffer
+    (pinned_host).  Returns the launches by head dim."""
     by_hd = {}
     steps = [("none", "none", {}), ("int8", "int8", {})]
-    for arch_name, seq, kw in (
-            (KIMI, DENSE_STEP_SEQ, dict(num_experts=MOE_STEP_EXPERTS)),
-            (LLAMA4, DENSE_STEP_SEQ, dict(num_experts=MOE_STEP_EXPERTS)),
-            (VLM, VLM_SEQ, {})):
-        arch = small_arch(arch_name, kw)
-        m = arch.model
-        plen = m.frontend_prefix_len if m.family == "vlm" else 0
-        log(f"phase 13b: {arch_name} at full width, {SMALL_LAYERS} layers"
-            + (f", {m.num_experts} experts top-{m.moe_top_k}"
-               if m.num_experts else "")
-            + f", d_model {m.d_model}, {m.num_heads} heads over "
-            f"{m.num_kv_heads} of {m.head_dim}, seq {seq}"
-            + (f" ({plen} prefix positions)" if plen else ""))
-        cpu_params, got = small_step_check(
-            torch, dev, arch_name, seq, steps, "phase 13b", compressed="mean",
-            model_kw=kw, wide=True, wrappers=wrappers)
-        idle = [k for k in ("flash_attention_fwd", "flash_attention_bwd")
-                if not got[k]]
-        if idle:
-            raise RuntimeError(f"phase 13b {arch_name}: never launched {idle}")
-        if m.num_experts:
-            decode_check(torch, dev, arch, cpu_params,
-                             f"phase 13b {arch_name} serving")
-        del cpu_params
-        acc = by_hd.setdefault(m.head_dim, {})
-        for k, c in got.items():
-            acc[k] = acc.get(k, 0) + c
+    models = ((KIMI, DENSE_STEP_SEQ, dict(num_experts=MOE_STEP_EXPERTS)),
+              (LLAMA4, DENSE_STEP_SEQ, dict(num_experts=MOE_STEP_EXPERTS)),
+              (VLM, VLM_SEQ, {}))
+    with pinned_host(torch, max(wide_bytes(torch, small_arch(a, kw))
+                                for a, _, kw in models)):
+        for arch_name, seq, kw in models:
+            arch = small_arch(arch_name, kw)
+            m = arch.model
+            plen = m.frontend_prefix_len if m.family == "vlm" else 0
+            log(f"phase 13b: {arch_name} at full width, {SMALL_LAYERS} "
+                "layers" + (f", {m.num_experts} experts top-{m.moe_top_k}"
+                            if m.num_experts else "")
+                + f", d_model {m.d_model}, {m.num_heads} heads over "
+                f"{m.num_kv_heads} of {m.head_dim}, seq {seq}"
+                + (f" ({plen} prefix positions)" if plen else ""))
+            cpu_params, got = small_step_check(
+                torch, dev, arch_name, seq, steps, "phase 13b",
+                compressed="mean", model_kw=kw, wide=True, wrappers=wrappers)
+            idle = [k for k in ("flash_attention_fwd", "flash_attention_bwd")
+                    if not got[k]]
+            if idle:
+                raise RuntimeError(f"phase 13b {arch_name}: never launched "
+                                   f"{idle}")
+            if m.num_experts:
+                decode_check(torch, dev, arch, cpu_params,
+                             f"phase 13b {arch_name} serving", drawn=True)
+            del cpu_params
+            acc = by_hd.setdefault(m.head_dim, {})
+            for k, c in got.items():
+                acc[k] = acc.get(k, 0) + c
     return by_hd
 
 
@@ -6179,10 +6292,11 @@ def p17_rank(rank: int, world: int, out_dir: str, device: str = "cuda"):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
     shard = MeshShard(make_mesh(1, world), device=dev, backend="gloo")
+    feed = torch.load(Path(out_dir) / "p17_serve.pt", weights_only=False)
     got = {sm: sharded_run(torch, dev, port_wrappers(), shard,
                            p17_arch(sm), P17_ROUNDS, LLAMA_CE_CHUNK,
                            f"phase 17 {sm} gloo rank {rank} of {world} "
-                           f"{shard.coords}")
+                           f"{shard.coords}", serve=feed[sm])
            for sm in P17_SMASHED}
     torch.save(got, Path(out_dir) / f"gloo_rank{rank}.pt")
 
@@ -6303,14 +6417,17 @@ def phase17(torch, dev, F, wrappers, name, card, launches, worst, rows):
     try:
         plain = {sm: sharded_run(torch, dev, wrappers, None, p17_arch(sm),
                                  P17_ROUNDS, LLAMA_CE_CHUNK,
-                                 f"phase 17 {sm} unsharded")
+                                 f"phase 17 {sm} unsharded", serve={})
                  for sm in P17_SMASHED}
+        feed = {sm: serve_feed(plain[sm]) for sm in P17_SMASHED}
+        torch.save(feed, tmp / "p17_serve.pt")
         with process_group(0, 1, tmp / "nccl", backend="nccl"):
             shard = MeshShard(make_mesh(1, 1), device=dev)
             nccl = {sm: sharded_run(torch, dev, wrappers, shard,
                                     p17_arch(sm), P17_ROUNDS,
                                     LLAMA_CE_CHUNK, f"phase 17 {sm} "
-                                    f"{shard.backend} world 1")
+                                    f"{shard.backend} world 1",
+                                    serve=feed[sm])
                     for sm in P17_SMASHED}
             del shard
         torch.cuda.empty_cache()
@@ -6323,12 +6440,15 @@ def phase17(torch, dev, F, wrappers, name, card, launches, worst, rows):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    gaps = {}
+    gaps, served = {}, {}
     for sm in P17_SMASHED:
         agreement.same_bits(
             {k: nccl[sm][k] for k in ("states", "history")},
             {k: plain[sm][k] for k in ("states", "history")},
             f"phase 17 {sm} NCCL world 1")
+        served[sm] = serve_checks(torch, plain[sm], nccl[sm],
+                                  [g[sm] for g in gloo], f"phase 17 {sm}",
+                                  P17_LAYERS)
         for run in [plain[sm], nccl[sm]] + [g[sm] for g in gloo]:
             p17_want(run, sm)
         gaps[sm] = p17_compare(gloo[0][sm], plain[sm],
@@ -6367,7 +6487,11 @@ def phase17(torch, dev, F, wrappers, name, card, launches, worst, rows):
                     launches[row] += c
             launches[tp_row["lora_matmul_bwd"] if tp
                      else "lora_matmul_bwd"] += run["lora_bwd"]
+            for step in run["serve"]["steps"]:
+                for k, c in step.items():
+                    launches[tp_row.get(k, k) if tp else hd_row(k, 128)] += c
     p17_kernels(torch, F, rand, worst, rows)
+    partial_kernels(torch, dev, F, worst, rows)
     log(f"phase 17 [{name}, {card}]: llama3-8b at full width, "
         f"{P17_LAYERS} layers; NCCL at world size 1 on a (1, 1) mesh == "
         f"unsharded bit for bit; {P17_RANKS} gloo ranks on a (1, "
@@ -6392,8 +6516,207 @@ def phase17(torch, dev, F, wrappers, name, card, launches, worst, rows):
                     f"{nccl[sm]['peak'] / 2**30:.3f}, gloo "
                     f"{[round(g[sm]['peak'] / 2**30, 3) for g in gloo]}"
                     for sm in P17_SMASHED)
+        + "; served: " + "; ".join(f"{sm} {served[sm]}"
+                                   for sm in P17_SMASHED)
         + f"; spawn + {P17_RANKS} ranks {spawned:.1f} s; the phase took "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def serve_checks(torch, plain, nccl, gloo, what, attn_layers) -> str:
+    """Phases 17 and 18's serving: NCCL at world size 1 bit for bit the
+    unsharded serve, each gloo rank held by check_served, the gloo ranks'
+    launches per step equal.  Returns the summary for the phase's log."""
+    p, n = plain["serve"], nccl["serve"]
+    check_served(torch, p, p, f"{what} unsharded serving", attn_layers,
+                 False)
+    check_served(torch, n, p, f"{what} NCCL world 1 serving", attn_layers,
+                 False)
+    if not (np.array_equal(n["logits"], p["logits"])
+            and np.array_equal(n["tokens"], p["tokens"])):
+        raise RuntimeError(f"{what}: NCCL world-1 serving is not the "
+                           "unsharded serving bit for bit")
+    gaps = []
+    for r, g in enumerate(gloo):
+        gaps.append(check_served(torch, g["serve"], p,
+                                 f"{what} gloo rank {r} serving",
+                                 attn_layers, True))
+        if g["serve"]["steps"] != gloo[0]["serve"]["steps"]:
+            raise RuntimeError(f"{what}: gloo rank {r} launched "
+                               f"{g['serve']['steps']} per serving step, "
+                               f"rank 0 {gloo[0]['serve']['steps']}")
+    line = (f"NCCL world 1 bit for bit; {len(gloo)} gloo ranks (seq_lo "
+            f"{[g['serve']['seq_lo'] for g in gloo]}, cache bytes "
+            f"{[sum(g['serve']['cache_bytes'].values()) for g in gloo]} of "
+            f"{sum(p['cache_bytes'].values())}): logits within "
+            f"{[f'{x:.3e}' for x, _ in gaps]} x max|logit| (tol "
+            f"{SERVE_TOL}), "
+            f"tokens equal on {gaps[0][1]} of {p['tokens'].size} decided "
+            f"steps; serving walls unsharded {p['wall']:.2f} s, gloo "
+            f"{fmt([g['serve']['wall'] for g in gloo])} s")
+    log(f"{what} serving: {line}")
+    return line
+
+
+def sdpa_with_lse(torch, q, k, v, scale):
+    """(one PyTorch call that returns attention's output and log-sum-exp
+    over q, k, v (B, H, L, E) views, its op's name): SDPA's flash op
+    where it takes these strides, else its memory-efficient op."""
+    def flash_op():
+        return torch.ops.aten._scaled_dot_product_flash_attention(
+            q, k, v, 0.0, False, False, scale=scale)[:2]
+
+    def efficient_op():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q, k, v, None, True, 0.0, False, scale=scale)[:2]
+
+    try:
+        flash_op()
+        return flash_op, "flash"
+    except RuntimeError as e:
+        log(f"SDPA's flash op refused these views "
+            f"({str(e).splitlines()[0]}); the efficient op instead")
+        return efficient_op, "efficient"
+
+
+def partial_32k_held(torch, got, want) -> float:
+    """The partial kernel's (o, lse) at PARTIAL_32K against its plain
+    version's: both compute in fp32 from the same bf16 inputs, so they
+    are held at TOL["float32"], absolute and relative, which is ~1% of
+    the outputs' size (sqrt(e / 16384) ~ 1.3e-2) and 1e-5 of the lse's
+    (~10): the bf16 tolerance's absolute part would pass an output
+    scaled by 0.7."""
+    return max(max_err(torch, got[0], want[0], "float32",
+                       "partial decode at decode_32k's half (bf16 inputs)"),
+               max_err(torch, got[1], want[1], "float32",
+                       "partial decode lse at decode_32k's half"))
+
+
+def partial_kernels(torch, dev, F, worst, rows):
+    """decode_attention_partial against its plain version at the serving
+    shapes of phases 17 and 18 (llama3-8b's 32 heads over 8 of 128,
+    kimi-k2's 64 over 8 of 112, zamba2's 32 over 32 of 64; fp32 and
+    bf16; one rank's block of SERVE_CAP / 2 positions from seq_lo 128,
+    and blocks from 37 (off a chunk edge) and 64 (on one), at cache
+    lengths before, inside and past the block), each block's output
+    merged with the rest's into the whole cache's plain decode; then
+    timed at PARTIAL_32K beside the plain version, SDPA's flash op with
+    its log-sum-exp (the GQA group folded into its query rows: the same
+    function over a block whose positions are all valid) and the bound:
+    the block's K and V read once."""
+    from repro_torch.kernels.decode_attention import ops as dops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    err = 0.0
+    for h, kvh, hd in ((32, 8, 128), (64, 8, 112), (32, 32, 64)):
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            for lo, n in ((SERVE_CAP // 2, SERVE_CAP // 2), (37, 96),
+                          (64, 96)):
+                b = 6
+                q = rand(b, h, hd, dtype=dt)
+                k, v = (rand(b, n, kvh, hd, dtype=dt) for _ in range(2))
+                clen = torch.tensor([0, lo, lo + 1, lo + 63, lo + n,
+                                     lo + n + 50], dtype=torch.int32,
+                                    device=dev)
+                o, lse = dops.decode_attention_partial(q, k, v, clen, lo)
+                ro, rl = dops.ref.decode_attention_partial(q, k, v, clen, lo)
+                empty = torch.isinf(rl)
+                if not torch.equal(torch.isinf(lse), empty) or \
+                        not torch.equal(o[empty.any(-1)],
+                                        torch.zeros_like(o[empty.any(-1)])):
+                    raise RuntimeError(f"partial decode ({h}/{kvh} hd {hd} "
+                                       f"{dname}, seq_lo {lo}): an empty "
+                                       "block is not zeros and -inf")
+                err = max(err, max_err(
+                    torch, o, ro, dname,
+                    f"partial decode {h}/{kvh} hd {hd} seq_lo {lo}"),
+                    max_err(torch, lse[~empty], rl[~empty], dname,
+                            f"partial decode lse seq_lo {lo}"))
+            # a cache split into 4 blocks, merged: the whole cache's decode
+            s, b = 256, 5
+            q = rand(b, h, hd, dtype=torch.float32)
+            k, v = (rand(b, s, kvh, hd, dtype=torch.float32)
+                    for _ in range(2))
+            clen = torch.tensor([0, 1, 64, 129, 256], dtype=torch.int32,
+                                device=dev)
+            parts = [dops.decode_attention_partial(
+                q, k[:, lo:lo + 64].contiguous(),
+                v[:, lo:lo + 64].contiguous(), clen, lo)
+                for lo in range(0, s, 64)]
+            err = max(err, max_err(
+                torch, dops.ref.merge_partials([o for o, _ in parts],
+                                               [m for _, m in parts]),
+                dops.ref.decode_attention(q, k, v, clen), "float32",
+                f"partial decode merged {h}/{kvh} hd {hd}"))
+    worst[PARTIAL_ROW] = max(worst[PARTIAL_ROW], err)
+
+    b, n, total, h, kvh, hd = PARTIAL_32K
+    lo = total - n
+    q = rand(b, h, hd, dtype=torch.bfloat16)
+    k, v = (rand(b, n, kvh, hd, dtype=torch.bfloat16) for _ in range(2))
+    clen = torch.full((b,), total, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        got = dops.decode_attention_partial(q, k, v, clen, lo)
+        step = P15_PLAIN_ROWS
+        want = [dops.ref.decode_attention_partial(
+            q[i:i + step], k[i:i + step], v[i:i + step], clen[i:i + step],
+            lo) for i in range(0, b, step)]
+        want = tuple(torch.cat([w[j] for w in want]) for j in range(2))
+        worst[PARTIAL_ROW] = max(worst[PARTIAL_ROW],
+                                 partial_32k_held(torch, got, want))
+        # the check must refuse a 1% error of the normalisation or of
+        # the lse at this shape (outputs ~1e-2, lse ~10)
+        for bad, what in (((got[0] * 0.99, got[1]), "an output 1% small"),
+                          ((got[0], got[1] + 0.01), "an lse 0.01 large")):
+            try:
+                partial_32k_held(torch, bad, want)
+            except AssertionError:
+                continue
+            raise RuntimeError(f"partial decode at decode_32k's half: the "
+                               f"check passes {what}")
+        del want
+
+        def plain():
+            for i in range(0, b, step):
+                dops.ref.decode_attention_partial(
+                    q[i:i + step], k[i:i + step], v[i:i + step],
+                    clen[i:i + step], lo)
+
+        # SDPA: the 4 query heads of a KV head as 4 query rows over its
+        # keys (every position valid), (B, KVH, rows, hd) views of the
+        # cache's (B, S, KVH, hd)
+        qs = q.reshape(b, kvh, h // kvh, hd)
+        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+
+        library, lib_name = sdpa_with_lse(torch, qs, ks, vs, hd ** -0.5)
+        lib_ms = cuda_ms(torch, library, iters=10, warmup=2)
+        lib_o = library()[0].reshape(b, h, hd)
+        worst_lib = float((lib_o.float() - got[0]).abs().max())
+        nbytes = 2 * b * n * kvh * hd * 2 + b * h * hd * 2 + 4 * b \
+            + 4 * b * h * (hd + 1)
+        rows[PARTIAL_ROW] = dict(
+            ms=cuda_ms(torch, lambda: dops.decode_attention_partial(
+                q, k, v, clen, lo), iters=10, warmup=2),
+            plain_ms=cuda_ms(torch, plain, iters=1, warmup=1),
+            library_ms=lib_ms,
+            bound=bound(nbytes, 4 * b * h * n * hd, "bfloat16"),
+            cuda_core_bound=None,
+            shape=f"B={b}, positions {lo}..{total - 1} of a {total}-position "
+                  f"cache (one of 2 ranks' blocks), H={h}/{kvh} hd={hd} bf16 "
+                  f"(the plain version in {b // step} calls of {step} "
+                  f"sequences; SDPA's {lib_name} op output {worst_lib:.3e} "
+                  "from the kernel's)")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    log(f"partial decode: against its plain version {worst[PARTIAL_ROW]:.3e}"
+        f" (tol {TOL['float32']} fp32, {TOL['bfloat16']} bf16, the merged "
+        f"blocks and the timed shape at fp32; a planted 1% output or 0.01 "
+        f"lse error refused there)")
+    log_tp_rows(torch, "phase 17", (PARTIAL_ROW,), rows)
 
 
 def p18_arch(model: str, smashed=None):
@@ -6423,7 +6746,7 @@ def p18_arch(model: str, smashed=None):
 
 
 def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
-                tag, replay=None, mesh=None) -> dict:
+                tag, replay=None, mesh=None, serve=None) -> dict:
     """n_rounds rounds of `arch` under `shard` (None or a MeshShard), the
     cross entropy in chunks of `ce_chunk`, weights drawn on the card, then
     the global-adapter gradient.  Returns the gathered state after each round
@@ -6437,8 +6760,10 @@ def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
     call's routing (recorded_routing) per round; replay: the unsharded
     run's per-round calls, whose choices this run routes by (its own flips
     against them counted); under a shard every rank's own choices are
-    checked equal each round (check_agree).  The system and its weights
-    are gone when it returns."""
+    checked equal each round (check_agree).  serve: after the rounds the
+    trained model serves (mesh_serve; {} greedily, else fed the tokens
+    and routes it holds), its record under "serve".  The system and its
+    weights are gone when it returns."""
     import functools
 
     from repro_torch.core import rounds
@@ -6506,6 +6831,8 @@ def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
             else 0
         bwd, gmax = p17_grad(torch, dev, wrappers, system, shard,
                              ce_chunk=ce_chunk)
+    served = (None if serve is None else
+              mesh_serve(torch, dev, wrappers, system, shard, tag, serve))
     out = {"states": states, "history": [dict(h) for h in system.history],
            "train": [c[1] for c in train.calls],
            "eval": [c[1] for c in ev.calls],
@@ -6514,7 +6841,8 @@ def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
            "grad_max": gmax, "base_bytes": base, "block_bytes": block,
            "peak": peak, "init_peak": init_peak, "largest_leaf": largest,
            "state_bytes": state_bytes, "routes": routes, "flips": flips,
-           "drops": drops, "round_bytes": reduced / n_rounds}
+           "drops": drops, "round_bytes": reduced / n_rounds,
+           "serve": served}
     del system, train, ev
     torch.cuda.empty_cache()
     log(f"{tag}: round walls {fmt([w * 1e3 for w in walls])} ms, train "
@@ -6527,6 +6855,127 @@ def sharded_run(torch, dev, wrappers, shard, arch, n_rounds, ce_chunk,
         + (f"; routing flips against the unsharded run {flips}"
            if moe and replay is not None else ""))
     return out
+
+
+def mesh_serve(torch, dev, wrappers, system, shard, tag, feed) -> dict:
+    """The trained global model served on this run's blocks: serve_model
+    (under a MeshShard the rank's base blocks, the adapters at their
+    blocks and the policy), a cache from Model.init_cache under that
+    policy (cache_specs' blocks: the KV sequence split over "model"), a
+    prefill of SERVE_PROMPT seeded tokens for SERVE_BATCH rows, then
+    SERVE_STEPS decode steps, each fed feed["tokens"]' next token (or the
+    argmax of the step before), an MoE model routed by feed["routes"]'
+    choices where given.  Returns per step the last position's logits,
+    the argmax and the kernels launched, the bytes of each cache leaf of
+    this process and those cache_specs gives it, its "seq_lo", and the
+    MoE layer calls' routing."""
+    from repro_torch.launch.cells import served_adapters
+    from repro_torch.models.common import NO_SHARDING
+    from repro_torch.runtime.sharding import axis_sizes, cache_specs
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    model = system.model
+    got = system.serve_model()
+    base, eff = got[0], got[1]
+    policy = got[2] if len(got) == 3 else NO_SHARDING
+    vocab = model.cfg.vocab_size
+    prompt = np.random.default_rng(SEED + 21).integers(
+        3, vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    fed = feed.get("tokens")
+    t0 = time.perf_counter()
+    cache = model.init_cache((SERVE_BATCH,), SERVE_CAP, policy=policy)
+    pool = served_adapters(eff, SERVE_BATCH)
+    logits, toks, steps = [], [], []
+    with torch.no_grad(), recorded_routing(
+            on=model.cfg.family == "moe", replay=feed.get("routes")) as calls:
+        for i in range(1 + SERVE_STEPS):
+            torch.cuda.synchronize()
+            before = {k: w.launches for k, w in wrappers.items()}
+            if i == 0:
+                lg, cache = model.prefill(
+                    base, pool, {"tokens": torch.as_tensor(prompt,
+                                                           device=dev)},
+                    cache, policy=policy)
+            else:
+                nxt = fed[:, i - 1] if fed is not None else toks[-1]
+                lg, cache = model.decode_step(
+                    base, pool, torch.as_tensor(nxt[:, None], device=dev),
+                    cache, policy=policy)
+            torch.cuda.synchronize()
+            steps.append({k: w.launches - before[k]
+                          for k, w in wrappers.items()
+                          if w.launches != before[k]})
+            row = lg[:, -1].float().cpu()
+            if not torch.isfinite(row).all():
+                raise RuntimeError(f"{tag} serving step {i}: non-finite "
+                                   "logits")
+            logits.append(row.numpy())
+            toks.append(row.argmax(-1).numpy().astype(np.int32))
+    wall = time.perf_counter() - t0
+    nbytes = {"/".join(k): t.numel() * t.element_size()
+              for k, t in tree_leaves_with_path(cache)
+              if isinstance(t, torch.Tensor)}
+    whole = model.init_cache((SERVE_BATCH,), SERVE_CAP)
+    want = {}
+    sizes = {} if shard is None else axis_sizes(shard.mesh)
+    for (keys, leaf), spec in zip(
+            tree_leaves_with_path(whole),
+            tree_leaves(cache_specs(whole, shard.mesh)) if shard is not None
+            else [()] * len(tree_leaves(whole))):
+        share = 1
+        for entry in spec:
+            for a in (() if entry is None else entry if
+                      isinstance(entry, tuple) else (entry,)):
+                share *= sizes[a]
+        want["/".join(keys)] = leaf.numel() * leaf.element_size() // share
+    del whole
+    out = {"logits": np.stack(logits, 1), "tokens": np.stack(toks, 1),
+           "steps": steps, "cache_bytes": nbytes, "cache_want": want,
+           "seq_lo": cache.get("seq_lo"), "routes": calls, "wall": wall}
+    log(f"{tag} serving: prefill of {SERVE_PROMPT} tokens x "
+        f"{SERVE_BATCH} + {SERVE_STEPS} decode steps into a cache of "
+        f"{SERVE_CAP} ({sum(nbytes.values()) / 2**20:.1f} MiB here, "
+        f"seq_lo {out['seq_lo']}) in {wall:.2f} s; launches per step "
+        f"{steps}")
+    return out
+
+
+def serve_feed(run) -> dict:
+    """What the NCCL and gloo runs are fed: the unsharded run's served
+    tokens and its MoE layer calls' routing."""
+    sv = run["serve"]
+    return {"tokens": sv["tokens"], "routes": sv["routes"] or None}
+
+
+def check_served(torch, got, want, what, attn_layers, sharded):
+    """A run's serving against the unsharded run's (fed its tokens): the
+    cache's bytes are cache_specs' blocks, every decode step launched the
+    decode kernel once an attention layer (the partial one where the KV
+    sequence is split), the logits within SERVE_TOL of max|logit| and
+    the argmax the unsharded token wherever its top-2 gap is TOP2_GAP or
+    more.  Returns (largest |diff| / max|logit|, steps compared by
+    token)."""
+    if got["cache_bytes"] != got["cache_want"]:
+        raise RuntimeError(f"{what}: cache bytes {got['cache_bytes']}, "
+                           f"cache_specs gives {got['cache_want']}")
+    kern = "decode_attention_partial" if sharded else "decode_attention"
+    other = "decode_attention" if sharded else "decode_attention_partial"
+    for i, step in enumerate(got["steps"][1:], 1):
+        if step.get(kern, 0) != attn_layers or step.get(other, 0):
+            raise RuntimeError(f"{what}: decode step {i} launched {step}, "
+                               f"want {kern} {attn_layers} times")
+    a, b = got["logits"], want["logits"]
+    scale = float(np.abs(b).max())
+    gap = float(np.abs(a - b).max()) / scale
+    if not gap <= SERVE_TOL:
+        raise RuntimeError(f"{what}: served logits {gap:.3e} x max|logit| "
+                           f"from the unsharded run's (tol {SERVE_TOL})")
+    top2 = np.sort(b, -1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) >= TOP2_GAP
+    if (got["tokens"] != want["tokens"])[decided].any():
+        raise RuntimeError(f"{what}: served tokens {got['tokens'].tolist()}"
+                           f" != unsharded {want['tokens'].tolist()}")
+    return gap, int(decided.sum())
 
 
 def p18_rank(rank: int, world: int, out_dir: str, device: str = "cuda",
@@ -6545,14 +6994,17 @@ def p18_rank(rank: int, world: int, out_dir: str, device: str = "cuda",
     dev = torch.device(device)
     shard = MeshShard(make_mesh(1, world), device=dev, backend="gloo")
     replay = torch.load(Path(out_dir) / "p18_routes.pt", weights_only=False)
+    feed = torch.load(Path(out_dir) / "p18_serve.pt", weights_only=False)
     got = {}
     for model in P18_MODELS:
         got[model] = sharded_run(
             torch, dev, port_wrappers(), shard, p18_arch(model, smashed),
             P18_ROUNDS,
             P18_CE_CHUNK[model], f"phase 18 {model} gloo rank {rank} of "
-            f"{world} {shard.coords}", replay=replay.get(model))
+            f"{world} {shard.coords}", replay=replay.get(model),
+            serve=feed[model])
         got[model].pop("routes")
+        got[model]["serve"].pop("routes")
     torch.save(got, Path(out_dir) / f"p18_gloo_rank{rank}.pt")
 
 
@@ -6708,16 +7160,19 @@ def phase18(torch, dev, F, wrappers, name, card, launches, worst, rows,
     try:
         plain = {m: sharded_run(torch, dev, wrappers, None, archs[m],
                                 P18_ROUNDS, P18_CE_CHUNK[m],
-                                f"phase 18 {m} unsharded")
+                                f"phase 18 {m} unsharded", serve={})
                  for m in P18_MODELS}
         torch.save({m: plain[m]["routes"] for m in P18_MODELS
                     if plain[m]["routes"]}, tmp / "p18_routes.pt")
+        feed = {m: serve_feed(plain[m]) for m in P18_MODELS}
+        torch.save(feed, tmp / "p18_serve.pt")
         with process_group(0, 1, tmp / "nccl", backend="nccl"):
             shard = MeshShard(make_mesh(1, 1), device=dev)
             nccl = {m: sharded_run(torch, dev, wrappers, shard,
                                    archs[m], P18_ROUNDS,
                                    P18_CE_CHUNK[m], f"phase 18 {m} "
-                                   f"{shard.backend} world 1")
+                                   f"{shard.backend} world 1",
+                                   serve=feed[m])
                     for m in P18_MODELS}
             del shard
         torch.cuda.empty_cache()
@@ -6730,13 +7185,19 @@ def phase18(torch, dev, F, wrappers, name, card, launches, worst, rows,
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    gaps, bad = {}, []
+    gaps, bad, served = {}, [], {}
     for model in P18_MODELS:
         sm = archs[model].split.smashed_compress
         agreement.same_bits(
             {k: nccl[model][k] for k in ("states", "history")},
             {k: plain[model][k] for k in ("states", "history")},
             f"phase 18 {model} NCCL world 1")
+        m = archs[model].model
+        served[model] = serve_checks(
+            torch, plain[model], nccl[model], [g[model] for g in gloo],
+            f"phase 18 {model}",
+            len(m.attn_layer_indices) if m.family == "hybrid"
+            else m.num_layers)
         for run, what in [(nccl[model], "NCCL world 1")] + [
                 (g[model], f"gloo rank {r}") for r, g in enumerate(gloo)]:
             p18_same_launches(run, plain[model], f"phase 18 {model} {what}")
@@ -6810,6 +7271,9 @@ def phase18(torch, dev, F, wrappers, name, card, launches, worst, rows,
                     launches[tp_row.get(k, k) if tp else hd_row(k, hd)] += c
             launches[tp_row["lora_matmul_bwd"] if tp
                      else "lora_matmul_bwd"] += run["lora_bwd"]
+            for step in run["serve"]["steps"]:
+                for k, c in step.items():
+                    launches[hd_row(k, hd)] += c
     p18_kernels(torch, F, rand, worst, rows)
     gib = lambda x: round(x / 2**30, 3)  # noqa: E731
     for model in P18_MODELS:
@@ -6839,7 +7303,8 @@ def phase18(torch, dev, F, wrappers, name, card, launches, worst, rows,
             f"(ms): unsharded {fmt([b * 1e3 for _, b in p['step_s']])}, "
             f"gloo rank 0 {fmt([b * 1e3 for _, b in ranks[0]['step_s']])}; "
             f"bytes all-reduced a round per gloo rank "
-            f"{[round(g['round_bytes']) for g in ranks]}")
+            f"{[round(g['round_bytes']) for g in ranks]}; served: "
+            f"{served[model]}")
     log(f"phase 18 [{name}, {card}]: spawn + {P17_RANKS} ranks "
         f"{spawned:.1f} s; the phase took {time.perf_counter() - t0:.1f} s")
     if bad:

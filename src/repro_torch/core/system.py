@@ -98,7 +98,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import bridge, roadmap
+from repro_torch import bridge
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import ArchConfig
 from repro_torch.core import adaptive, comm, rounds, smashed
@@ -1435,13 +1435,13 @@ class SplitFTSystem:
 
     # ------------------------------------------------------------------
     def serve_model(self):
-        """(base_params, global adapters) for the serving path, which
-        takes whole base weights."""
-        if self.model_policy is not NO_SHARDING:
-            raise NotImplementedError(
-                "the serving path is policy-free, as the reference's: it "
-                "takes whole base weights, not a MeshShard's blocks "
-                f"({roadmap.PARAM_SHARDING})")
+        """(base_params, global adapters) for the serving path.  Under a
+        MeshShard: (this rank's base blocks, the global adapters at their
+        blocks (``Model.serving_blocks``: contiguous once, for the
+        indexed LoRA kernel), the model's policy marked so), which
+        ``Model.prefill``/``decode_step`` take with a cache of the rank's
+        blocks (``Model.init_cache(policy=)``); the reference returns
+        its globally sharded base weights."""
         eff = serve_adapters(self.model, self.state["client_adapters"],
                              self.state["server_adapters"],
                              self.state["cuts"],
@@ -1449,4 +1449,7 @@ class SplitFTSystem:
                                  self._weights32())),
                              rank_cut=self.state.get("rank_cut"),
                              cohort=self.cohort)
+        if self.model_policy is not NO_SHARDING:
+            return (self.base_params, *self.model.serving_blocks(
+                self.base_params, eff, self.model_policy))
         return self.base_params, eff

@@ -47,6 +47,18 @@
 //    is 0, never exp(-inf - -inf);
 //  * paged and contiguous share every arithmetic step: only the source
 //    address of a staged row differs, so their outputs are bit-equal.
+//
+// The partial form (decode_attention_partial) attends over one block of
+// a cache whose sequence is split over ranks: k/v hold positions
+// [seq_lo, seq_lo + S) of it, the masks act on those global positions,
+// and the merge writes this block's normalised output in fp32 beside its
+// log-sum-exp, lse = m ln 2 + ln l (m, the base-2 max), so that the
+// blocks' outputs merge by their lse (decode_attention/ref.py
+// merge_partials).  A block with no valid position writes zeros and
+// lse = -inf.  With seq_lo = 0 and no lse the kernel is the whole-cache
+// one: the same steps on the same positions, the same bits.
+#include <climits>
+
 #include "mma_sync.cuh"
 
 namespace {
@@ -59,6 +71,7 @@ constexpr int MAX_HD = 128;
 constexpr int U = 4;           // positions a row group takes per step
 constexpr int NB = 8;          // chunk states the merge loads at once
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T>
 struct Vec {
@@ -104,7 +117,8 @@ __global__ void __launch_bounds__(DT, 1)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ page_table,
               const int* __restrict__ cache_len, float* __restrict__ work,
-              int* __restrict__ counters, T* __restrict__ out, int S,
+              int* __restrict__ counters, void* __restrict__ out,
+              float* __restrict__ lse, int S, int seq_lo, int cap,
               int n_pages, int ps, int p_max, int H, int KVH, int hd,
               int window, float scale) {
   constexpr int VEC = Vec<T>::N;
@@ -124,13 +138,29 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nchunk = gridDim.x;
   const int tid = threadIdx.x;
   const int capacity = PAGED ? p_max * ps : S;
-  const int clen = min(max(cache_len[b], 0), capacity);
-  const int lo = window > 0 ? max(0, clen - window) : 0;
+  // global cache length and window start; the block's valid positions
+  // [lo, clen) in its own coordinates (the whole cache: seq_lo = 0 and
+  // cap = capacity, so these are the global ones)
+  const int glen = min(max(cache_len[b], 0), cap);
+  const int glo = window > 0 ? max(0, glen - window) : 0;
+  const int clen = min(glen - seq_lo, capacity);
+  const int lo = max(glo - seq_lo, 0);
   const int bh = b * KVH + kvh;
-  T* o_b = out + (static_cast<size_t>(b) * H + kvh * group) * hd;
-  if (clen == 0) {  // no position: exact zeros
-    if (c == 0)
-      for (int i = tid; i < group * hd; i += DT) o_b[i] = repro::from_f<T>(0.f);
+  const size_t o_off = (static_cast<size_t>(b) * H + kvh * group) * hd;
+  T* o_b = static_cast<T*>(out) + o_off;
+  float* of_b = static_cast<float*>(out) + o_off;
+  if (clen <= lo) {  // no position: exact zeros (and lse = -inf)
+    if (c == 0) {
+      for (int i = tid; i < group * hd; i += DT) {
+        if (lse)
+          of_b[i] = 0.f;
+        else
+          o_b[i] = repro::from_f<T>(0.f);
+      }
+      if (lse)
+        for (int g = tid; g < group; g += DT)
+          lse[b * H + kvh * group + g] = -INFINITY;
+    }
     return;
   }
   const int c_lo = lo / CH;
@@ -307,7 +337,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mx = mn;
       }
     }
-    o_b[i] = repro::from_f<T>(ll > 0.f ? a / ll : 0.f);
+    if (lse) {
+      of_b[i] = ll > 0.f ? a / ll : 0.f;
+      if (d == 0)
+        lse[b * H + kvh * group + g] =
+            ll > 0.f ? fmaf(mx, LN2, logf(ll)) : -INFINITY;
+    } else {
+      o_b[i] = repro::from_f<T>(ll > 0.f ? a / ll : 0.f);
+    }
   }
   if (tid == 0) counters[bh] = 0;
 }
@@ -315,9 +352,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, bool PAGED>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* page_table, const int* cache_len, float* work,
-                   int* counters, void* out, int B, int S, int n_pages,
-                   int ps, int p_max, int H, int KVH, int hd, int window,
-                   float scale, cudaStream_t stream) {
+                   int* counters, void* out, float* lse, int B, int S,
+                   int seq_lo, int cap, int n_pages, int ps, int p_max,
+                   int H, int KVH, int hd, int window, float scale,
+                   cudaStream_t stream) {
   const int smem = static_cast<int>(smem_bytes<T>(H / KVH, hd));
   const cudaError_t e = repro::mma::allow_smem(decode_kernel<T, PAGED>, smem);
   if (e != cudaSuccess) return e;
@@ -325,33 +363,37 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid((capacity + CH - 1) / CH, KVH, B);
   decode_kernel<T, PAGED><<<grid, DT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), page_table, cache_len, work, counters,
-      static_cast<T*>(out), S, n_pages, ps, p_max, H, KVH, hd, window,
-      scale);
+      static_cast<const T*>(v), page_table, cache_len, work, counters, out,
+      lse, S, seq_lo, cap, n_pages, ps, p_max, H, KVH, hd, window, scale);
   return cudaGetLastError();
 }
 
+// lse null: the whole cache (seq_lo 0, cap the capacity), out in T;
+// else one block of a split cache, out and lse in fp32
 template <bool PAGED>
 int dispatch(const void* q, const void* k, const void* v,
              const void* page_table, const void* cache_len, void* work,
-             void* counters, void* out, int B, int S, int n_pages, int ps,
-             int p_max, int H, int KVH, int hd, int window, float scale,
-             int dtype, void* stream) {
-  if (KVH <= 0 || H % KVH != 0 || hd <= 0 || hd % 8 != 0 || hd > MAX_HD)
+             void* counters, void* out, void* lse, int B, int S, int seq_lo,
+             int cap, int n_pages, int ps, int p_max, int H, int KVH, int hd,
+             int window, float scale, int dtype, void* stream) {
+  if (KVH <= 0 || H % KVH != 0 || hd <= 0 || hd % 8 != 0 || hd > MAX_HD ||
+      seq_lo < 0)
     return cudaErrorInvalidValue;
   if (B <= 0) return cudaSuccess;
   const int* pt = static_cast<const int*>(page_table);
   const int* cl = static_cast<const int*>(cache_len);
   float* wk = static_cast<float*>(work);
   int* ctr = static_cast<int*>(counters);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_DTYPE_F32)
-    return launch<float, PAGED>(q, k, v, pt, cl, wk, ctr, out, B, S, n_pages,
-                                ps, p_max, H, KVH, hd, window, scale, s);
+    return launch<float, PAGED>(q, k, v, pt, cl, wk, ctr, out, ls, B, S,
+                                seq_lo, cap, n_pages, ps, p_max, H, KVH, hd,
+                                window, scale, s);
   if (dtype == REPRO_DTYPE_BF16)
-    return launch<__nv_bfloat16, PAGED>(q, k, v, pt, cl, wk, ctr, out, B, S,
-                                        n_pages, ps, p_max, H, KVH, hd,
-                                        window, scale, s);
+    return launch<__nv_bfloat16, PAGED>(q, k, v, pt, cl, wk, ctr, out, ls, B,
+                                        S, seq_lo, cap, n_pages, ps, p_max,
+                                        H, KVH, hd, window, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -383,9 +425,27 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int H, int KVH, int hd, int window,
                                 float scale, int dtype, void* stream) {
   if (S <= 0) return cudaErrorInvalidValue;
-  return dispatch<false>(q, k, v, nullptr, cache_len, work, counters, out, B,
-                         S, 1, 1, 1, H, KVH, hd, window, scale, dtype,
-                         stream);
+  return dispatch<false>(q, k, v, nullptr, cache_len, work, counters, out,
+                         nullptr, B, S, 0, S, 1, 1, 1, H, KVH, hd, window,
+                         scale, dtype, stream);
+}
+
+// one block of a cache split over its sequence: k/v (B, S, KVH, hd) hold
+// global positions [seq_lo, seq_lo + S); cache_len is global.  Writes out
+// (B, H, hd) and lse (B, H), both fp32; a row with no valid position in
+// the block gets zeros and lse = -inf.  Workspace and counters as for
+// decode_attention over S positions.
+extern "C" int decode_attention_partial(const void* q, const void* k,
+                                        const void* v, const void* cache_len,
+                                        void* work, void* counters, void* out,
+                                        void* lse, int B, int S, int seq_lo,
+                                        int H, int KVH, int hd, int window,
+                                        float scale, int dtype,
+                                        void* stream) {
+  if (S <= 0 || lse == nullptr) return cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, nullptr, cache_len, work, counters, out,
+                         lse, B, S, seq_lo, INT_MAX, 1, 1, 1, H, KVH, hd,
+                         window, scale, dtype, stream);
 }
 
 extern "C" int decode_attention_paged(const void* q, const void* k_pool,
@@ -398,6 +458,6 @@ extern "C" int decode_attention_paged(const void* q, const void* k_pool,
                                       int dtype, void* stream) {
   if (n_pages <= 0 || ps <= 0 || p_max <= 0) return cudaErrorInvalidValue;
   return dispatch<true>(q, k_pool, v_pool, page_table, cache_len, work,
-                        counters, out, B, 0, n_pages, ps, p_max, H, KVH, hd,
-                        window, scale, dtype, stream);
+                        counters, out, nullptr, B, 0, 0, p_max * ps, n_pages,
+                        ps, p_max, H, KVH, hd, window, scale, dtype, stream);
 }

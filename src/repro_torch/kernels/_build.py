@@ -69,6 +69,10 @@ SIGNATURES: Dict[str, List] = {
     # q, k, v, cache_len, workspace, counters, out, B, S, H, KVH, hd,
     # window, scale, dtype_code, stream
     "decode_attention": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, P],
+    # q, k, v, cache_len, workspace, counters, out, lse, B, S, seq_lo, H,
+    # KVH, hd, window, scale, dtype_code, stream
+    "decode_attention_partial": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                 F, I, P],
     # q, k_pool, v_pool, page_table, cache_len, workspace, counters, out, B,
     # n_pages, ps, P_max, H, KVH, hd, window, scale, dtype_code, stream
     "decode_attention_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,

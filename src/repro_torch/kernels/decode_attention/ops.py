@@ -9,6 +9,11 @@ them in one launch: it takes a workspace for the chunks' softmax states
 (allocated per call) and a counter per (sequence, kv head), kept zeroed
 between calls (``_build.counters``).  It takes head dims that are a
 multiple of 8 up to 128.
+
+``decode_attention_partial`` is the same kernel over one block of a
+cache whose sequence is split over ranks (global positions from
+seq_lo): it returns the block's fp32 output and log-sum-exp, which
+``ref.merge_partials`` merges, and counts its own launches.
 """
 
 from __future__ import annotations
@@ -82,6 +87,39 @@ def decode_attention(q, k, v, cache_len, *, scale: Optional[float] = None,
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_partial(q, k, v, cache_len, seq_lo: int, *,
+                             scale: Optional[float] = None, window: int = 0):
+    """q (B,H,hd); k/v one block (B,S_blk,KVH,hd) of a split cache, global
+    positions [seq_lo, seq_lo + S_blk); cache_len (B,) global -> (o
+    (B,H,hd) fp32, lse (B,H) fp32), as ``ref.decode_attention_partial``."""
+    s = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return ref.decode_attention_partial(q, k, v, cache_len, seq_lo,
+                                            scale=s, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_partial: unsupported device "
+                         f"{q.device}")
+    b, h, hd = q.shape
+    seq, kvh = k.shape[1], k.shape[2]
+    code = _check("decode_attention_partial", q, k, v, cache_len, (b, seq))
+    if seq_lo < 0:
+        raise ValueError(f"decode_attention_partial: seq_lo {seq_lo} < 0")
+    out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    work, ctr = _scratch("decode_attention_partial", q, kvh, seq)
+    err = _build.library().decode_attention_partial(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
+        work.data_ptr(), ctr.data_ptr(), out.data_ptr(), lse.data_ptr(), b,
+        seq, int(seq_lo), h, kvh, hd, int(window), s, code,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "decode_attention_partial")
+    decode_attention_partial.launches += 1
+    return out, lse
+
+
+decode_attention_partial.launches = 0
 
 
 def decode_attention_paged(q, k_pool, v_pool, page_table, cache_len, *,

@@ -31,6 +31,7 @@ tensors holding the values ``rounds.init_state`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -40,9 +41,11 @@ from repro_torch.bridge import HOST_STATE
 from repro_torch.config import ArchConfig, MeshConfig, ShapeConfig
 from repro_torch.core import lora as lora_lib, rounds
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.common import NO_SEQ_SHARD_FAMILIES
+from repro_torch.models.common import (NO_SEQ_SHARD_FAMILIES, NO_SHARDING,
+                                       ShardingPolicy)
 from repro_torch.models.model import Model, build_model
 from repro_torch.runtime import serving
+from repro_torch.runtime.sharding import leaf_block
 
 DRYRUN_CLIENTS = 16
 PARAM_DTYPE = torch.bfloat16
@@ -249,36 +252,60 @@ def served_adapters(adapters, batch: int):
 
 def build_serve_cell(arch: ArchConfig, shape: ShapeConfig,
                      mesh: Optional[MeshConfig] = None, *,
-                     seq_shard: bool = True) -> Cell:
-    """A prefill or decode cell of the served global model.  seq_shard:
-    the reference's knob (on by default, for a prefill only: a decode
-    step is one token); the serving path runs on whole weights, so it
-    changes nothing here until serving runs on a mesh
-    (``repro_torch.roadmap.PARAM_SHARDING``)."""
-    del seq_shard
+                     seq_shard: Optional[bool] = None, shard=None) -> Cell:
+    """A prefill or decode cell of the served global model.
+
+    shard: a ``runtime.sharding.MeshShard`` (of `mesh`, or of its own
+    mesh when `mesh` is None): the cell then holds this rank's blocks,
+    the base weights by ``param_specs`` (``local_params``), the adapters
+    at their blocks (``Model.serving_blocks``) and the cache by
+    ``cache_specs`` (``local_cache``), and runs under the reference's
+    serving policy: sequence parallelism for a prefill only, where
+    seq_shard says (None: the reference's rule, on unless the family is
+    SSM or hybrid).  Without a shard (the dry-run, on fake tensors) the
+    cell is the one-card cell."""
     arch = tune_arch_for_cell(arch, shape, num_clients=1)
-    model = build_model(arch, device="cpu")
     b = shape.global_batch
-    mode = _fake_mode()
-    with mode:
-        base = model.init_params(torch.Generator().manual_seed(0),
-                                 dtype=PARAM_DTYPE)
-        ad = _serve_adapters_abs(model, dtype=PARAM_DTYPE)
-        batch = _fake_inputs(model.input_specs(shape, num_clients=0,
-                                               dtype=PARAM_DTYPE))
-        cache = model.init_cache((b,), shape.seq_len, PARAM_DTYPE)
+    policy = NO_SHARDING
+    if shard is not None:
+        mesh = mesh or shard.mesh
+        if seq_shard is None:
+            seq_shard = arch.model.family not in NO_SEQ_SHARD_FAMILIES
+        policy = ShardingPolicy.for_model(
+            shard, arch, seq_shard=seq_shard and shape.kind == "prefill")
+        model = build_model(arch, device=shard.device)
+        base = model.init_params(
+            torch.Generator().manual_seed(0), dtype=PARAM_DTYPE,
+            place=functools.partial(leaf_block, mesh=mesh, rank=shard.rank))
+        ad, policy = model.serving_blocks(
+            base, _serve_adapters_abs(model, dtype=PARAM_DTYPE), policy)
+        batch = {k: torch.zeros(shp, dtype=dt, device=model.device)
+                 for k, (shp, dt) in model.input_specs(
+                     shape, num_clients=0, dtype=PARAM_DTYPE).items()}
+        cache = model.init_cache((b,), shape.seq_len, PARAM_DTYPE,
+                                 policy=policy)
+    else:
+        model = build_model(arch, device="cpu")
+        with _fake_mode():
+            base = model.init_params(torch.Generator().manual_seed(0),
+                                     dtype=PARAM_DTYPE)
+            ad = _serve_adapters_abs(model, dtype=PARAM_DTYPE)
+            batch = _fake_inputs(model.input_specs(shape, num_clients=0,
+                                                   dtype=PARAM_DTYPE))
+            cache = model.init_cache((b,), shape.seq_len, PARAM_DTYPE)
 
     if shape.kind == "prefill":
         def fn(params, adapters, batch, cache):
             with torch.no_grad():
                 return model.prefill(params, served_adapters(adapters, b),
-                                     batch, cache)
+                                     batch, cache, policy=policy)
         args = (base, ad, batch, cache)
     else:  # decode: one new token against a seq_len-deep cache
         def fn(params, adapters, tokens, cache):
             with torch.no_grad():
-                return model.decode_step(params, served_adapters(adapters, b),
-                                         tokens, cache)
+                return model.decode_step(params,
+                                         served_adapters(adapters, b),
+                                         tokens, cache, policy=policy)
         args = (base, ad, batch["tokens"], cache)
     return Cell(fn, args, model=model,
                 info={"kind": shape.kind, "batch": b,

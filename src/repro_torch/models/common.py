@@ -20,7 +20,10 @@ SSM's ``in_proj`` and conv), the moves of the MoE experts' activations
 over the FSDP axes (``data_gather_rows``, ``data_reduce_rows``: the
 experts' weights stay where ``param_specs`` put them), the split of a
 client's batch rows over "pod" (``split_rows``, the loss's sums over
-them) and the whole message at the cut (``whole_message``).
+them), the whole message at the cut (``whole_message``), and in serving
+the batch rows of a cache over the FSDP axes (``batch_block``) and the
+merge of a decode step's partial attention over a KV sequence split on
+"model" (``merge_decode``).
 ``NO_SHARDING`` (no shard) calls nothing, so the unsharded path is the
 one-card path bit for bit.
 
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import roadmap
+from repro_torch.kernels.decode_attention import ref as decode_ref
 from repro_torch.kernels.lora_matmul import ops as lora_ops
 from repro_torch.runtime.sharding import FSDP_AXES, logical_spec
 
@@ -196,13 +200,17 @@ class ShardingPolicy:
     the residual stream, norms and residual adds run on it, and each
     sub-block gathers the sequence at its input (``enter``) and
     reduce-scatters it at its output (``leave``).  ``rows``: the
-    client's batch rows are split over "pod" (``split_rows``)."""
+    client's batch rows are split over "pod" (``split_rows``).
+    ``adapters_at_blocks``: the adapters were narrowed to the blocks of
+    the base weights once (``Model.serving_blocks``), so the layers
+    apply them as they are (``transformer.adapter_blocks``)."""
 
     def __init__(self, shard=None, seq_shard: bool = False):
         self.shard = shard
         self.seq_shard = bool(seq_shard)
         self.sp = False
         self.rows = False
+        self.adapters_at_blocks = False
 
     def _size(self, attr: str) -> int:
         return 1 if self.shard is None else getattr(self.shard, attr, 1)
@@ -270,9 +278,11 @@ class ShardingPolicy:
 
     def for_stream(self, seq_len: int) -> "ShardingPolicy":
         """This policy for a residual stream of seq_len positions in the
-        training forward: ``sp`` when seq_shard is on and the sequence
-        divides the "model" axis, on every rank alike (the reference's
-        ``act``: a sequence that does not divide is not split)."""
+        training forward or a prefill: ``sp`` when seq_shard is on and the
+        sequence divides the "model" axis, on every rank alike (the
+        reference's ``act``: a sequence that does not divide is not
+        split; a serving policy has seq_shard on for a prefill only, as
+        the reference's serve cells build it)."""
         return self._with(sp=(self.seq_shard and self.tp > 1
                               and seq_len % self.tp == 0))
 
@@ -446,6 +456,32 @@ class ShardingPolicy:
         extra = {}
         y = _WholeMessage.apply(x, self, fn, carry, extra)
         return y, extra["carry"]
+
+    # -- serving on the rank's cache blocks ------------------------------
+    def batch_block(self, b: int) -> Tuple[Tuple[str, ...], int, int]:
+        """(axes, lo, n): the FSDP axes that ``cache_specs`` splits a
+        serving batch of b rows over (fit_spec's rule: ``fsdp_axes``) and
+        this rank's rows [lo, lo + n) of it; ((), 0, b) when it stays
+        whole."""
+        axes = self.fsdp_axes(b)
+        n = b // self.axis_size(axes)
+        return axes, (self.axis_rank(axes) * n if axes else 0), n
+
+    def gather_batch(self, x: torch.Tensor, axes, dim: int = 0):
+        """Every rank's rows of `dim` (``batch_block``'s axes) into the
+        whole batch on every rank, no gradient."""
+        return x if not axes else self.fill([(x, dim)], axes)[0]
+
+    def merge_decode(self, o: torch.Tensor, lse: torch.Tensor):
+        """The whole KV cache's attention output from this rank's block's
+        (o (B, H, hd), lse (B, H)) of a cache whose sequence is split over
+        "model" (``decode_attention_partial``): every rank's pair
+        gathered (exactly) and merged in rank order
+        (``decode_attention.ref.merge_partials``), so every rank holds
+        the same bits.  No gradient (serving)."""
+        os_, lses = self.fill([(o[None], 0), (lse[None], 0)], ("model",))
+        return decode_ref.merge_partials(list(os_.unbind(0)),
+                                         list(lses.unbind(0)))
 
     # -- the MoE experts' rows over the FSDP axes (their ff dim split) ----
     def fsdp_axes(self, n: int) -> Tuple[str, ...]:

@@ -12,10 +12,10 @@ reference, as nested dicts of tensors with the reference's names):
   init_params(generator, dtype)                   -> params
   loss(params, adapters, batch, remat, ce_chunk, per_client, boundary)
                                                   -> (loss, metrics)
-  prefill(params, adapters, batch, cache)         -> (logits_last, cache)
-  decode_step(params, adapters, tokens, cache)    -> (logits, cache)
+  prefill(params, adapters, batch, cache, policy) -> (logits_last, cache)
+  decode_step(params, adapters, tokens, cache, policy) -> (logits, cache)
   encode(params, adapters, frames, remat, boundary) -> encoder output
-  init_cache(lead, max_len, dtype)                -> cache
+  init_cache(lead, max_len, dtype, policy)        -> cache
 
 Training activations carry the client axis first ((N, B, S, d)); caches
 are updated in place and returned.  The port has every family of the
@@ -75,6 +75,7 @@ from repro_torch.config import ArchConfig, ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common, ssm, transformer
 from repro_torch.models.common import apply_norm
+from repro_torch.runtime.sharding import local_cache
 
 Params = Dict[str, Any]
 
@@ -255,6 +256,23 @@ def _to_device(t, device):
     if isinstance(t, dict):
         return {k: _to_device(v, device) for k, v in t.items()}
     return t.to(device)
+
+
+def _rows_of_ids(adapters, lo: int, n: int):
+    """A serving pool with each "ids" leaf ((Lg, B) or (B,)) narrowed to
+    the batch rows [lo, lo + n)."""
+    if isinstance(adapters, dict):
+        return {k: (v.narrow(-1, lo, n) if k == "ids"
+                    else _rows_of_ids(v, lo, n))
+                for k, v in adapters.items()}
+    return adapters
+
+
+def _materialise(t, device):
+    """Zeros of a meta tree's shapes and dtypes on `device`."""
+    if isinstance(t, dict):
+        return {k: _materialise(v, device) for k, v in t.items()}
+    return torch.zeros(t.shape, dtype=t.dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +523,8 @@ class Model(nn.Module):
                         c_l["len"] = cache_len
                         if pages is not None:
                             c_l["pages"] = pages
+                        if "seq_lo" in cache:   # a rank's KV block
+                            c_l["seq_lo"] = cache["seq_lo"]
                 layer = functools.partial(
                     self._layer, g, i, p_l, ad_l, mode=mode, cache=c_l,
                     memory=memory if g.cross else None, mem_cache=mem_l,
@@ -575,9 +595,10 @@ class Model(nn.Module):
         stateful boundary's last carry (the smashed error-feedback
         residual).  `policy`: the base weights are a MeshShard's blocks
         (runtime.sharding.leaf_block), the embedding's gathered over the
-        FSDP axes (``loss`` does it); see run_blocks.  In train mode
-        under sequence parallelism the stream, and so the result, is the
-        rank's sequence block (``ShardingPolicy.for_stream``); the
+        FSDP axes (``loss`` and the serving entry points do it); see
+        run_blocks.  In train mode and in a prefill under sequence
+        parallelism the stream, and so the result, is the rank's
+        sequence block (``ShardingPolicy.for_stream``); the
         decoder's cross-attention reads the whole encoder output, which
         enters through copy_to_tp once when its heads are split."""
         cfg = self.cfg
@@ -593,7 +614,7 @@ class Model(nn.Module):
                                 xwq.shape[-1]) is not None:
                     memory = policy.copy_to_tp(memory)
             lo = self.group_by_name["enc"].size
-        if mode == "train":
+        if mode in ("train", "prefill"):
             policy = policy.for_stream(tokens.shape[-1])
         positions = (cache["len"][..., None] if mode == "decode"
                      else torch.arange(tokens.shape[-1],
@@ -721,50 +742,106 @@ class Model(nn.Module):
                        eps=cfg.norm_eps)
         return policy.tp_gather(x, -2) if policy.sp else x
 
-    def prefill(self, params, adapters, batch, cache):
-        self._check_whole(params)
-        x, _, cache = self.forward(params, adapters, batch, cache=cache,
-                                   mode="prefill")
-        return self.head(params, x[..., -1:, :]), cache
+    def prefill(self, params, adapters, batch, cache, *,
+                policy: common.ShardingPolicy = common.NO_SHARDING):
+        """(logits of the last position (B, 1, V), cache).  `policy`: the
+        base weights are a MeshShard's blocks and the cache its blocks
+        (``Model.init_cache(policy=)`` or ``runtime.sharding.
+        local_cache``); see ``_serve``."""
+        return self._serve(params, adapters, batch, cache, "prefill",
+                           policy)
 
-    def decode_step(self, params, adapters, tokens, cache):
-        self._check_whole(params)
-        x, _, cache = self.forward(params, adapters, {"tokens": tokens},
-                                   cache=cache, mode="decode")
-        return self.head(params, x), cache
+    def decode_step(self, params, adapters, tokens, cache, *,
+                    policy: common.ShardingPolicy = common.NO_SHARDING):
+        return self._serve(params, adapters, {"tokens": tokens}, cache,
+                           "decode", policy)
 
-    def _check_whole(self, params):
-        """Serving takes whole base weights: a MeshShard's blocks (a
-        d_model dim split over the FSDP axes, heads, FFN width, experts,
-        vocabulary or SSM heads over "model") raise."""
-        cfg = self.cfg
-        tok = params["embed"]["tok"]
-        split = tuple(tok.shape) != (cfg.vocab_size, cfg.d_model)
-        want = {"wq": cfg.num_heads * cfg.head_dim, "w_in": cfg.d_ff,
-                "in_proj": ssm.in_proj_dim(cfg) if cfg.ssm_state else 0,
-                "router": cfg.num_experts}
-        for g in self.groups:
-            for name, n in want.items():
-                leaf = params.get(g.name, {}).get(name)
-                if leaf is not None and (leaf.shape[-1] != n
-                                         or leaf.shape[-2] != cfg.d_model):
-                    split = True
-        if split:
+    def _serve(self, params, adapters, batch, cache, mode: str,
+               policy: common.ShardingPolicy):
+        """A prefill or a decode step, on one card (every step below then
+        leaves its input as it is) or under a MeshShard's policy, as the
+        reference's serve cells place it: the batch's rows split over the
+        FSDP axes where ``cache_specs`` splits the cache's batch
+        (``ShardingPolicy.batch_block``: this rank runs its rows, its
+        share of the adapters' ids and of "len", which stays whole), the
+        embedding and head gathered over the FSDP axes, a prefill's
+        stream over "model" under sequence parallelism (its last
+        position is the whole sequence's), and the logits gathered over
+        the vocabulary and the rows, so every rank returns the whole
+        (B, S, V) logits and the whole "len"."""
+        if self.cfg.family == "audio" and policy.shard is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the serving path takes whole base weights, "
-                "not a MeshShard's blocks: serving on a mesh waits for "
+                f"{self.cfg.name}: the cross cache on a mesh waits for "
                 f"{roadmap.PARAM_SHARDING}")
+        params = dict(params, embed=policy.gather(params["embed"],
+                                                  self.cfg.d_model))
+        axes, lo, n = policy.batch_block(batch["tokens"].shape[0])
+        whole_len = cache["len"]
+        if axes:
+            batch = {k: v.narrow(0, lo, n) for k, v in batch.items()}
+            adapters = _rows_of_ids(adapters, lo, n)
+            cache = dict(cache, len=whole_len.narrow(0, lo, n))
+        x, _, cache = self.forward(params, adapters, batch, cache=cache,
+                                   mode=mode, policy=policy)
+        step = 1
+        if mode == "prefill":
+            step = batch["tokens"].shape[-1]
+            stream = policy.for_stream(step)
+            x = x[..., -1:, :]
+            if stream.sp:   # the last rank's block ends the sequence
+                x = policy.fill([(x, -2)], ("model",))[0][..., -1:, :]
+        logits = self._logits(params, x)
+        if self._vocab_lo(params, policy) is not None:
+            logits = policy.fill([(logits, -1)], ("model",))[0]
+        cache = dict(cache, len=whole_len + step)
+        return policy.gather_batch(logits, axes), cache
+
+    def serving_blocks(self, params: Params, adapters: Optional[Params],
+                       policy: common.ShardingPolicy = common.NO_SHARDING):
+        """(the adapters, the policy to serve them with): the adapters
+        (global rank-2 leaves or a stacked serving pool) narrowed once to
+        the blocks of this rank's base weights (``ssm.adapter_blocks``,
+        the layers' own map), as contiguous copies, which the indexed
+        LoRA kernel takes, and the policy marked so that the layers apply
+        them as they are (``adapters_at_blocks``).  Whole base weights
+        (no "model" split) leave both as they are."""
+        if adapters is None or policy.tp == 1:
+            return adapters, policy
+        out: Params = {}
+        for gname, targets in adapters.items():
+            blocks = ssm.adapter_blocks(self.cfg, params[gname], policy)
+            out[gname] = {}
+            for tname, ad in targets.items():
+                ad = transformer.narrow_adapter(ad, blocks.get(tname))
+                out[gname][tname] = {
+                    k: v.contiguous() if isinstance(v, torch.Tensor) else v
+                    for k, v in ad.items()}
+        return out, policy._with(adapters_at_blocks=True)
 
     # -- caches ----------------------------------------------------------------
 
     def init_cache(self, lead: Tuple[int, ...], max_len: int,
-                   dtype=torch.float32) -> Params:
+                   dtype=torch.float32, *,
+                   policy: common.ShardingPolicy = common.NO_SHARDING
+                   ) -> Params:
         """lead = (B,). One stacked entry per group, on this model's
         device: (Lg, B, max_len, KVH, hd) k and v for attention (and for
         a cross-attention group the cross cache xk/xv, (Lg, B, S_enc,
         KVH, hd); the encoder has none), and for SSM layers the conv
         window (Lg, B, W-1, C) in `dtype` and the state (Lg, B, H, P, N)
-        in fp32."""
+        in fp32.  Under a MeshShard's policy, this rank's blocks of them
+        as ``cache_specs`` places them (``runtime.sharding.local_cache``:
+        the whole shapes are laid out on the meta device, only the blocks
+        allocated), with "seq_lo" where the KV sequence is split."""
+        if policy.shard is None:
+            return self._new_cache(lead, max_len, dtype, self.device)
+        blocks = local_cache(self._new_cache(lead, max_len, dtype,
+                                             torch.device("meta")),
+                             policy.shard.mesh, policy.shard)
+        return {k: (v if isinstance(v, int) else _materialise(
+            v, self.device)) for k, v in blocks.items()}
+
+    def _new_cache(self, lead, max_len: int, dtype, device) -> Params:
         cfg = self.cfg
         if len(lead) != 1:
             raise NotImplementedError(
@@ -772,21 +849,21 @@ class Model(nn.Module):
                 f"ported yet ({_SERVING})")
         batch = lead[-1]
         cache: Params = {"len": torch.zeros((batch,), dtype=torch.int32,
-                                            device=self.device)}
+                                            device=device)}
         kv = (cfg.num_kv_heads, cfg.head_dim)
         for g in self.groups:
             if g.name == "enc":
                 continue
             if g.kind == "ssm":
                 cache[g.name] = ssm.init_ssm_cache(
-                    cfg, (g.size,) + tuple(lead), dtype, device=self.device)
+                    cfg, (g.size,) + tuple(lead), dtype, device=device)
                 continue
             lens = {"k": max_len, "v": max_len}
             if g.cross:
                 lens.update(xk=cfg.encoder_seq_len, xv=cfg.encoder_seq_len)
             cache[g.name] = {
                 name: torch.zeros((g.size,) + tuple(lead) + (n,) + kv,
-                                  dtype=dtype, device=self.device)
+                                  dtype=dtype, device=device)
                 for name, n in lens.items()}
         return cache
 

@@ -28,6 +28,17 @@ asked) the layer gathers the normed sequence first and reduce-scatters
 its output back to the rank's block: the SSD scan needs the contiguous
 sequence.
 
+Serving on a MeshShard's cache blocks (``runtime.sharding.local_cache``):
+the state's heads block is the rank's TP heads, so the state steps in
+place; the conv window is split by ``cache_specs`` into contiguous
+channel blocks, which are not the rank's columns (its heads' x channels
+plus all of B and C).  A decode step therefore gathers the small window
+and the new token's x channels over "model" in one collective, runs the
+conv over its own columns and writes back its block of the shifted
+window; a prefill gathers the x channels of the prompt's last W - 1
+positions for the same block.  A channel count that "model" does not
+divide leaves the window whole on every rank.
+
 Decode carries two cache pieces per layer, as in the reference:
   conv:  ([N,]B, W-1, d_conv_ch) rolling window of pre-conv activations
   state: ([N,]B, H, P, N_state) SSD recurrent state, fp32
@@ -59,7 +70,8 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models import common
 from repro_torch.models.common import NO_SHARDING, ShardingPolicy, apply_norm
-from repro_torch.models.transformer import _ad, lora_apply
+from repro_torch.models.transformer import (_ad, adapter_blocks as
+                                            _attn_blocks, lora_apply)
 
 Params = Dict[str, Any]
 
@@ -128,10 +140,53 @@ def _tp_columns(cfg: ModelConfig, h_lo: int, hl: int, device):
     return cols, chans
 
 
+def adapter_blocks(cfg: ModelConfig, p: Params,
+                   policy: ShardingPolicy = NO_SHARDING) -> Dict[str, Any]:
+    """``transformer.adapter_blocks`` of a layer that may hold SSM
+    leaves: where A_log holds a "model" block of the heads, ssm_in's B
+    takes in_proj's columns of those heads and of B and C
+    (``_tp_columns``) and ssm_out's A out_proj's rows of the heads."""
+    out = _attn_blocks(cfg, p, policy)
+    if "A_log" not in p or policy.adapters_at_blocks:
+        return out
+    hl = p["A_log"].shape[-1]
+    h_lo = policy.block(cfg.ssm_heads, hl)
+    if h_lo is not None:
+        ph = cfg.ssm_head_dim
+        out["ssm_in"] = (_tp_columns(cfg, h_lo, hl, p["A_log"].device)[0],
+                         None)
+        out["ssm_out"] = (None, (h_lo * ph, hl * ph))
+    return out
+
+
 def _whole(policy: ShardingPolicy, w, full: int):
     """A leaf whose last dim "model" split (param_specs' contiguous
     blocks), whole on every rank; as it is when whole already."""
     return w if w.shape[-1] == full else policy.tp_gather(w, -1)
+
+
+def _whole_window(policy: ShardingPolicy, cfg: ModelConfig, conv, x, bmat,
+                  cmat):
+    """(the whole conv window, the whole pre-conv rows [x | B | C]) on
+    every "model" rank from this rank's: its block of the window's
+    channels (``cache_specs``; None or whole: nothing to gather) and its
+    heads' x channels of the rows (B and C are every rank's), gathered
+    in one collective, exactly."""
+    parts = [(x, -1)]
+    split = conv is not None and conv.shape[-1] != conv_channels(cfg)
+    if split:
+        parts.append((conv, -1))
+    got = policy.fill(parts, ("model",))
+    return (got[1] if split else conv,
+            torch.cat([got[0], bmat, cmat], dim=-1))
+
+
+def _window_block(policy: ShardingPolicy, cfg: ModelConfig, window, like):
+    """This rank's block of a whole conv window, shaped as its cache leaf
+    `like` (the whole window where ``cache_specs`` leaves it whole)."""
+    n = like.shape[-1]
+    return (window if n == conv_channels(cfg)
+            else policy.keep(window, -1, n, ("model",)))
 
 
 def _causal_conv(xbc, w, b):
@@ -158,8 +213,8 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
     activations and the final state.  The new cache is returned, not
     written: the caller stores it.
 
-    policy: when A_log holds a "model" block of the heads (a MeshShard's,
-    train mode only), the layer runs those heads (the module docstring):
+    policy: when A_log holds a "model" block of the heads (a MeshShard's),
+    the layer runs those heads (the module docstring):
     the input enters through ``policy.enter`` (copy_to_tp; under a
     forced sequence parallelism u is the rank's sequence block, normed
     there and gathered, since the SSD scan needs the contiguous
@@ -167,7 +222,9 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
     the heads' columns (the adapter's B to the same columns), the gated
     norm's sum of squares is summed over the ranks and out_proj's
     partial sums leave through ``policy.leave`` (reduce_from_tp, or the
-    reduce-scatter back to the block)."""
+    reduce-scatter back to the block).  The cache then holds the rank's
+    blocks (``cache_specs``): the state of its heads and a contiguous
+    channel block of the conv window (``_whole_window``)."""
     h, ph = cfg.ssm_heads, cfg.ssm_head_dim
     g, ns, di = cfg.ssm_groups, cfg.ssm_state, cfg.d_inner
     gn = g * ns
@@ -178,10 +235,6 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
 
     y = apply_norm(p["norm1"], u, kind=cfg.norm, eps=cfg.norm_eps)
     if h_lo is not None:
-        if mode != "train" or cache is not None:
-            raise NotImplementedError(
-                "tensor-parallel SSM layers run the training forward only: "
-                f"see {roadmap.PARAM_SHARDING}")
         y = policy.enter(y, True)
         cols, chans = _tp_columns(cfg, h_lo, hl, y.device)
         w_in = _whole(policy, w_in, in_proj_dim(cfg)).index_select(-1, cols)
@@ -189,10 +242,9 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
             -1, chans)
         conv_b = _whole(policy, conv_b, conv_channels(cfg)).index_select(
             -1, chans)
-        if ad_in is not None:
-            ad_in = dict(ad_in, B=ad_in["B"].index_select(-1, cols))
         h, di = hl, hl * ph
-    proj = lora_apply(y, w_in, ad_in)
+    blocks = adapter_blocks(cfg, p, policy)
+    proj = lora_apply(y, w_in, ad_in, block=blocks.get("ssm_in"))
     x, z, bmat, cmat, dt = _split_proj(proj, di, gn)
     xbc = torch.cat([x, bmat, cmat], dim=-1)
     width = conv_w.shape[0]
@@ -201,20 +253,33 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
         if cache is None or u.shape[-2] != 1:
             raise ValueError("ssm_apply decode takes one token and a cache")
         # rolling conv window: shift in the new pre-conv activation
-        wdt = torch.promote_types(cache["conv"].dtype, xbc.dtype)
-        win = torch.cat([cache["conv"].to(wdt), xbc.to(wdt)], dim=-2)
+        conv, new_xbc = cache["conv"], xbc
+        if h_lo is not None:
+            conv, new_xbc = _whole_window(policy, cfg, conv, x, bmat, cmat)
+        wdt = torch.promote_types(conv.dtype, xbc.dtype)
+        win = torch.cat([conv.to(wdt), new_xbc.to(wdt)], dim=-2)
+        new_conv = win[..., 1:, :]
+        if h_lo is not None:
+            new_conv = _window_block(policy, cfg, new_conv, cache["conv"])
+            win = win.index_select(-1, chans)
         conv_out = torch.einsum("...wc,wc->...c", win,
                                 conv_w.to(win.dtype))
         conv_out = conv_out + conv_b.to(conv_out.dtype)
         conv_out = F.silu(conv_out)[..., None, :]              # (...,1,C)
-        new_conv = win[..., 1:, :]
     else:
         conv_out = F.silu(_causal_conv(xbc, conv_w, conv_b))
         if cache is not None:
             # the last W-1 pre-conv activations, zeros before the prompt
             keep = xbc[..., -(width - 1):, :]
+            if h_lo is not None:
+                _, keep = _whole_window(policy, cfg, None,
+                                        *(t[..., -(width - 1):, :]
+                                          for t in (x, bmat, cmat)))
             short = width - 1 - keep.shape[-2]
             new_conv = F.pad(keep, (0, 0, short, 0)) if short else keep
+            if h_lo is not None:
+                new_conv = _window_block(policy, cfg, new_conv,
+                                         cache["conv"])
 
     lead, s = y.shape[:-2], y.shape[-2]
     xh = conv_out[..., :di].reshape(lead + (s, h, ph))
@@ -271,7 +336,7 @@ def ssm_apply(p: Params, adapters: Optional[Params], u, *, cfg: ModelConfig,
     if w_out.shape[-2] != di:
         w_out = w_out.narrow(-2, lo, di)
     out = lora_apply(gated, w_out, _ad(adapters, "ssm_out"),
-                     rows=None if h_lo is None else (lo, di))
+                     block=blocks.get("ssm_out"))
     return policy.leave(out, h_lo is not None), new_cache
 
 

@@ -55,8 +55,7 @@ Params = Dict[str, Any]
 
 
 def lora_apply(x, w, adapter: Optional[Params], bias=None, *,
-               cols: Optional[Tuple[int, int]] = None,
-               rows: Optional[Tuple[int, int]] = None):
+               block=None):
     """y = x @ W (+ s (x A) B) (+ bias).
 
     x: (N, ..., k) or (..., k).  Rank-3 adapter leaves carry a leading
@@ -64,16 +63,10 @@ def lora_apply(x, w, adapter: Optional[Params], bias=None, *,
     serving pool layout instead (stacked (P, ...) adapters, each row of x
     picks its own).
 
-    W may be a tensor-parallel block of the adapted projection: cols =
-    (offset, count) of a column block (the adapter's B narrowed to those
-    columns), rows = (offset, count) of a row block (A narrowed to those
-    rows; x holds the same rows of the input features)."""
-    if adapter is not None and (cols is not None or rows is not None):
-        adapter = dict(adapter)
-        if cols is not None:
-            adapter["B"] = adapter["B"].narrow(-1, *cols)
-        if rows is not None:
-            adapter["A"] = adapter["A"].narrow(-2, *rows)
+    W may be a tensor-parallel block of the adapted projection: `block`
+    is the target's (cols, rows) from ``adapter_blocks``, and the
+    adapter is narrowed to it (``narrow_adapter``)."""
+    adapter = narrow_adapter(adapter, block)
     if adapter is None:
         y = x @ w
     elif "ids" in adapter:
@@ -94,6 +87,54 @@ def lora_apply(x, w, adapter: Optional[Params], bias=None, *,
     if bias is not None:
         y = y + bias
     return y
+
+
+def narrow_adapter(adapter: Optional[Params], block) -> Optional[Params]:
+    """The adapter of a projection whose W is a "model" block: block =
+    (cols, rows); cols narrows B's columns ((offset, count), or an index
+    tensor), rows narrows A's rows ((offset, count)); None leaves it as
+    it is."""
+    if adapter is None or block is None:
+        return adapter
+    cols, rows = block
+    adapter = dict(adapter)
+    if isinstance(cols, torch.Tensor):
+        adapter["B"] = adapter["B"].index_select(-1, cols)
+    elif cols is not None:
+        adapter["B"] = adapter["B"].narrow(-1, *cols)
+    if rows is not None:
+        adapter["A"] = adapter["A"].narrow(-2, *rows)
+    return adapter
+
+
+def adapter_blocks(cfg: ModelConfig, p: Params,
+                   policy: ShardingPolicy = NO_SHARDING) -> Dict[str, Any]:
+    """{LoRA target: (cols, rows)}: the block of its adapter that a
+    layer whose base leaves `p` (one layer's, or a group's stacked)
+    hold "model" blocks applies.  A column-parallel projection's B takes
+    its W's columns (q, xq: wq's, xwq's; mlp_in and mlp_gate: w_in's, or
+    the shared expert's ws_in's), a row-parallel one's A the same rows
+    (o, xo, mlp_out); ``ssm.adapter_blocks`` adds the SSM layer's.
+    Targets of whole projections are absent, and so is every target
+    when the adapters hold their blocks already
+    (``policy.adapters_at_blocks``: ``Model.serving_blocks``)."""
+    if policy.tp == 1 or policy.adapters_at_blocks:
+        return {}
+    heads = cfg.num_heads * cfg.head_dim
+    out: Dict[str, Any] = {}
+    for leaf, full, cols, rows in (
+            ("wq", heads, ("q",), "o"), ("xwq", heads, ("xq",), "xo"),
+            ("w_in", cfg.d_ff, ("mlp_in", "mlp_gate"), "mlp_out"),
+            ("ws_in", cfg.moe_d_ff * cfg.num_shared_experts,
+             ("mlp_in", "mlp_gate"), "mlp_out")):
+        if leaf not in p:
+            continue
+        n = p[leaf].shape[-1]
+        lo = policy.block(full, n)
+        if lo is not None:
+            out.update({t: ((lo, n), None) for t in cols})
+            out[rows] = (None, (lo, n))
+    return out
 
 
 def _ad(adapters: Optional[Params], name: str) -> Optional[Params]:
@@ -169,47 +210,63 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     to the output: a prefill (memory and mem_cache) writes the cross cache
     in place, a decode step (mem_cache alone) reads it.
 
-    policy: when wq holds a "model" block of the heads (a MeshShard's,
-    train mode only), the sub-block runs on that block (Megatron's
-    layout): wq (and bq) hold the block's columns and wo its rows; wk and
-    wv stay whole by param_specs, so the rank computes the full K and V
-    and keeps the KV heads its query heads read (``_kv_heads``).  The
+    policy: when wq holds a "model" block of the heads (a MeshShard's),
+    the sub-block runs on that block (Megatron's layout): wq (and bq)
+    hold the block's columns and wo its rows; wk and wv stay whole by
+    param_specs, so the rank computes the full K and V and keeps the KV
+    heads its query heads read (``_kv_heads``).  The
     input enters through ``policy.enter`` (copy_to_tp: its gradient
     summed over "model"; under sequence parallelism x is the rank's
     sequence block, normed there and gathered), the output projection's
     partial sums leave through ``policy.leave`` (reduce_from_tp, or the
     reduce-scatter back to the block), and bo is added once, after the
     sum.  The cross-attention sub-block runs on the same heads
-    (``_cross_attention``)."""
+    (``_cross_attention``; in training only, its cross cache under TP
+    waits for the ROADMAP item).
+
+    Serving on a MeshShard's cache blocks (``runtime.sharding.
+    local_cache``): the cache holds the rank's rows of the batch and,
+    where "model" divides the capacity, its block of the sequence, whose
+    first global position is cache["seq_lo"].  A prefill writes the
+    positions of the whole prompt that fall in the block (by global
+    position: under SP the stream's block is another split, and K and V
+    are computed over the gathered sequence); a decode step's K and V,
+    computed on every rank, are written by the rank whose block holds
+    position len.  The step then gathers q's heads over "model" (B x H x
+    hd), runs ``decode_attention_partial`` over the block for all H
+    heads, merges every rank's (o, lse) (``policy.merge_decode``) and
+    keeps its own heads for wo's row block.  A capacity that "model"
+    does not divide leaves the cache whole on every rank: the
+    whole-cache kernel then runs over all heads, as the reference's
+    fit_spec rule gives.  A paged cache stays whole (the engine takes no
+    mesh)."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lo = policy.block(h * hd, p["wq"].shape[-1])
     hl = p["wq"].shape[-1] // hd
-    blk = None if lo is None else (lo, hl * hd)
-    if lo is not None and (mode != "train" or cache is not None
-                           or mem_cache is not None):
+    if lo is not None and mem_cache is not None:
         raise NotImplementedError(
-            "tensor-parallel attention runs the training forward only: "
-            f"see {roadmap.PARAM_SHARDING}")
+            "tensor-parallel cross-attention runs the training forward "
+            f"only: the cross cache on a mesh waits for "
+            f"{roadmap.PARAM_SHARDING}")
+    if lo is not None and cache is not None and "pages" in cache:
+        raise ValueError("a paged cache stays whole: the serving engine "
+                         "takes no mesh")
 
     y = policy.enter(apply_norm(p["norm1"], x, kind=cfg.norm,
                                 eps=cfg.norm_eps), lo is not None)
     s = y.shape[-2]
+    blocks = adapter_blocks(cfg, p, policy)
     q = _split_heads(lora_apply(y, p["wq"], _ad(adapters, "q"), p.get("bq"),
-                                cols=blk), hl, hd)
+                                block=blocks.get("q")), hl, hd)
     k = _split_heads(lora_apply(y, p["wk"], _ad(adapters, "k"), p.get("bk")),
                      kvh, hd)
     v = _split_heads(lora_apply(y, p["wv"], _ad(adapters, "v"), p.get("bv")),
                      kvh, hd)
-    if lo is not None:
-        kv = _kv_heads(h, kvh, lo // hd, hl)
-        if isinstance(kv, tuple):
-            k, v = (t.narrow(-2, *kv) for t in (k, v))
-        else:
-            k, v = (t.index_select(-2, kv.to(t.device)) for t in (k, v))
     if rope is not None:
         cos, sin = rope
         q = common.apply_rope(q, cos, sin)
         k = common.apply_rope(k, cos, sin)
+    seq_lo = cache.get("seq_lo") if cache is not None else None
 
     new_cache = cache
     if mode == "decode" and cache is not None and "pages" in cache:
@@ -238,28 +295,50 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
         if cache is None or s != 1:
             raise ValueError("decode takes one token per slot and a cache")
         idx = cache["len"]                                     # (B,)
-        _write_cache(cache["k"], k[:, 0], idx)
-        _write_cache(cache["v"], v[:, 0], idx)
-        o = decode_ops.decode_attention(q[:, 0].contiguous(), cache["k"],
-                                        cache["v"], idx + 1, window=window)
+        # the position's slot in this rank's block (off it: no write)
+        at = idx if seq_lo is None else idx - seq_lo
+        _write_cache(cache["k"], k[:, 0], at)
+        _write_cache(cache["v"], v[:, 0], at)
+        q1 = q[:, 0]
+        if lo is not None:   # every head, over this rank's block
+            q1 = policy.fill([(q1, -2)], ("model",))[0]
+        if seq_lo is None:
+            o = decode_ops.decode_attention(q1.contiguous(), cache["k"],
+                                            cache["v"], idx + 1,
+                                            window=window)
+        else:
+            o, lse = decode_ops.decode_attention_partial(
+                q1.contiguous(), cache["k"], cache["v"], idx + 1, seq_lo,
+                window=window)
+            o = policy.merge_decode(o, lse).to(q.dtype)
+        if lo is not None:   # the row block's input, as the kernel takes it
+            o = o.narrow(-2, lo // hd, hl).contiguous()
         o = o[:, None]
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + 1}
     else:
         lead = y.shape[:-2]           # ([N,] B): flatten clients into B
+        kf, vf = k, v
+        if lo is not None:
+            kv = _kv_heads(h, kvh, lo // hd, hl)
+            if isinstance(kv, tuple):
+                kf, vf = (t.narrow(-2, *kv) for t in (k, v))
+            else:
+                kf, vf = (t.index_select(-2, kv.to(t.device))
+                          for t in (k, v))
         o = flash_ops.flash_attention(
             q.reshape((-1,) + q.shape[-3:]),
-            k.reshape((-1,) + k.shape[-3:]).contiguous(),
-            v.reshape((-1,) + v.shape[-3:]).contiguous(), causal=causal,
+            kf.reshape((-1,) + kf.shape[-3:]).contiguous(),
+            vf.reshape((-1,) + vf.shape[-3:]).contiguous(), causal=causal,
             window=window)
         o = o.reshape(lead + o.shape[1:])
         if cache is not None:   # prefill: populate the cache
-            _bulk_write(cache["k"], k)
-            _bulk_write(cache["v"], v)
+            _bulk_write(cache["k"], k, seq_lo)
+            _bulk_write(cache["v"], v, seq_lo)
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "len": cache["len"] + k.shape[-3]}
 
     out = policy.leave(lora_apply(_merge_heads(o), p["wo"], _ad(adapters, "o"),
-                                  rows=blk), lo is not None)
+                                  block=blocks.get("o")), lo is not None)
     if "bo" in p:
         out = out + p["bo"]
     if memory is not None or mem_cache is not None:
@@ -307,11 +386,11 @@ def _cross_attention(p: Params, adapters: Optional[Params], x, *,
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lo = policy.block(h * hd, p["xwq"].shape[-1])
     hl = p["xwq"].shape[-1] // hd
-    blk = None if lo is None else (lo, hl * hd)
     y = policy.enter(apply_norm(p["xnorm"], x, kind=cfg.norm,
                                 eps=cfg.norm_eps), lo is not None)
-    q = _split_heads(lora_apply(y, p["xwq"], _ad(adapters, "xq"), cols=blk),
-                     hl, hd)
+    blocks = adapter_blocks(cfg, p, policy)
+    q = _split_heads(lora_apply(y, p["xwq"], _ad(adapters, "xq"),
+                                block=blocks.get("xq")), hl, hd)
     if mode == "decode":
         if mem_cache is None or memory is not None or q.shape[-3] != 1:
             raise ValueError("cross-attention decode takes one token per "
@@ -341,24 +420,33 @@ def _cross_attention(p: Params, adapters: Optional[Params], x, *,
             mv.reshape((-1,) + mv.shape[-3:]).contiguous(), causal=False)
         o = o.reshape(lead + o.shape[1:])
     return policy.leave(lora_apply(_merge_heads(o), p["xwo"],
-                                   _ad(adapters, "xo"), rows=blk),
+                                   _ad(adapters, "xo"),
+                                   block=blocks.get("xo")),
                         lo is not None)
 
 
 def _write_cache(cache, kv_new, idx):
     """In place: cache (B, Smax, KVH, hd) [b, idx[b]] = kv_new[b].  A slot
-    at idx >= Smax writes nothing, as in the reference."""
+    at idx >= Smax writes nothing, as in the reference, and so does one
+    at idx < 0 (a position before a rank's block of a split cache)."""
     smax = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     pos = torch.clamp(idx, 0, smax - 1).long()
-    keep = (idx < smax)[:, None, None]
+    keep = ((idx >= 0) & (idx < smax))[:, None, None]
     cache[rows, pos] = torch.where(keep, kv_new.to(cache.dtype),
                                    cache[rows, pos])
 
 
-def _bulk_write(cache, kv):
-    """Prefill write, in place: kv (B, S, KVH, hd) into cache[:, :S]."""
-    cache[:, :kv.shape[1]] = kv.to(cache.dtype)
+def _bulk_write(cache, kv, seq_lo: Optional[int] = None):
+    """Prefill write, in place: kv (B, S, KVH, hd) into cache[:, :S]; or,
+    for a rank's block of a split cache whose first global position is
+    seq_lo, the prompt's positions that fall in the block."""
+    if seq_lo is None:
+        cache[:, :kv.shape[1]] = kv.to(cache.dtype)
+        return
+    n = min(kv.shape[1] - seq_lo, cache.shape[1])
+    if n > 0:
+        cache[:, :n] = kv[:, seq_lo:seq_lo + n].to(cache.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -395,18 +483,19 @@ def mlp_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
     ``policy.leave``, and b_out is added once, after the sum."""
     ff = p["w_in"].shape[-1]
     lo = policy.block(cfg.d_ff, ff)
-    blk = None if lo is None else (lo, ff)
     y = policy.enter(apply_norm(p["norm2"], x, kind=cfg.norm,
                                 eps=cfg.norm_eps), lo is not None)
+    blocks = adapter_blocks(cfg, p, policy)
     hin = lora_apply(y, p["w_in"], _ad(adapters, "mlp_in"), p.get("b_in"),
-                     cols=blk)
+                     block=blocks.get("mlp_in"))
     gate = None
     if "w_gate" in p:
         gate = lora_apply(y, p["w_gate"], _ad(adapters, "mlp_gate"),
-                          cols=blk)
+                          block=blocks.get("mlp_gate"))
     hmid = activate(hin, gate, cfg.activation)
     out = policy.leave(lora_apply(hmid, p["w_out"], _ad(adapters, "mlp_out"),
-                                  rows=blk), lo is not None)
+                                  block=blocks.get("mlp_out")),
+                       lo is not None)
     if "b_out" in p:
         out = out + p["b_out"]
     return out
@@ -589,15 +678,16 @@ def moe_apply(p: Params, adapters: Optional[Params], x, *, cfg: ModelConfig,
     blocked, whole = (out, None) if e_lo is not None else (None, out)
     if cfg.num_shared_experts:
         y_s = y_tp if s_lo is not None else y_all
-        blk = None if s_lo is None else (s_lo, p["ws_in"].shape[-1])
+        blocks = adapter_blocks(cfg, p, policy)
         hin_s = lora_apply(y_s, p["ws_in"], _ad(adapters, "mlp_in"),
-                           cols=blk)
+                           block=blocks.get("mlp_in"))
         gate_s = None
         if "ws_gate" in p:
             gate_s = lora_apply(y_s, p["ws_gate"], _ad(adapters, "mlp_gate"),
-                                cols=blk)
+                                block=blocks.get("mlp_gate"))
         shared = lora_apply(activate(hin_s, gate_s, cfg.activation),
-                            p["ws_out"], _ad(adapters, "mlp_out"), rows=blk)
+                            p["ws_out"], _ad(adapters, "mlp_out"),
+                            block=blocks.get("mlp_out"))
         if s_lo is None:
             whole = shared if whole is None else whole + shared
         else:

@@ -45,8 +45,10 @@ Port of src/repro/runtime/sharding.py.  Two halves:
   (``batch_specs``) and, under ``seq_shard``, the residual stream's
   sequence over "model".  Server adapters, optimizer slots and the
   round counter stay whole on every rank.  A ``ClientShard`` is the
-  client axis alone (an (n, 1) mesh, every base weight whole).  Serving
-  on a mesh waits for ``repro_torch.roadmap.PARAM_SHARDING``.
+  client axis alone (an (n, 1) mesh, every base weight whole).  A
+  serving cache is placed by ``cache_specs`` (``local_cache``): the
+  batch over the FSDP axes, the KV sequence, the SSM conv channels and
+  state heads over "model".
 
 Leaf paths come from repro_torch.tree.tree_leaves_with_path; joined
 with "/" they are the reference's.
@@ -242,30 +244,31 @@ def batch_specs(batch, mesh, *, client_dim: bool):
         batch)
 
 
+def cache_spec(name: str, shape: Sequence[int], mesh) -> Spec:
+    """The spec of one cache leaf by its name (``cache_specs``)."""
+    nd = len(shape)
+    if name == "len":
+        return ()
+    if name in ("k", "v", "xk", "xv"):
+        return fit_spec(shape, (None, FSDP_AXES, TP_AXIS, None, None), mesh)
+    if name == "conv":
+        return fit_spec(shape, (None, FSDP_AXES) + (None,) * (nd - 3)
+                        + (TP_AXIS,), mesh)
+    if name == "state":
+        return fit_spec(shape, (None, FSDP_AXES, TP_AXIS)
+                        + (None,) * (nd - 3), mesh)
+    return (None,) * nd
+
+
 def cache_specs(cache, mesh):
     """KV/SSM caches: KV leaves (Lg, B, Smax, KVH, hd) put the batch over
     the FSDP axes and the sequence over "model" (sequence-parallel
     decode: KV heads rarely divide the TP axis, the sequence does); SSM
     conv (Lg, B, W, C) C over "model"; SSM state (Lg, B, H, P, N) H over
     "model"."""
-    def spec_of(keys, leaf):
-        nd = leaf.dim()
-        name = keys[-1] if keys else ""
-        shape = tuple(leaf.shape)
-        if name == "len":
-            return ()
-        if name in ("k", "v", "xk", "xv"):
-            return fit_spec(shape, (None, FSDP_AXES, TP_AXIS, None, None),
-                            mesh)
-        if name == "conv":
-            return fit_spec(shape, (None, FSDP_AXES) + (None,) * (nd - 3)
-                            + (TP_AXIS,), mesh)
-        if name == "state":
-            return fit_spec(shape, (None, FSDP_AXES, TP_AXIS)
-                            + (None,) * (nd - 3), mesh)
-        return (None,) * nd
-
-    return tree_map_with_path(spec_of, cache)
+    return tree_map_with_path(
+        lambda keys, leaf: cache_spec(keys[-1] if keys else "",
+                                      tuple(leaf.shape), mesh), cache)
 
 
 # ---------------------------------------------------------------------------
@@ -323,8 +326,8 @@ def _check_client_mesh(mesh):
             f"mesh axes {wide}: \"model\" splits heads, the FFN and the "
             "vocabulary (param_specs) and \"pod\" each client's batch rows "
             "and the base weights' FSDP blocks, which ClientShard leaves "
-            "whole: a MeshShard executes them (the serving path on a mesh "
-            f"waits for {roadmap.PARAM_SHARDING})")
+            "whole: a MeshShard executes them, serving included "
+            f"({roadmap.PARAM_SHARDING})")
     return sizes.get(CLIENT_AXIS, 1)
 
 
@@ -521,9 +524,15 @@ def leaf_block(name: str, leaf: torch.Tensor, *, mesh,
     axis does not divide stays whole): a copy, so the full leaf can be
     freed.  ``Model.init_params(place=...)`` calls it on each leaf as it
     is drawn."""
+    spec = fit_spec(tuple(leaf.shape), logical_spec(name, leaf.dim()), mesh)
+    return _block(leaf, spec, mesh, rank).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _block(leaf: torch.Tensor, spec: Spec, mesh, rank: int) -> torch.Tensor:
+    """`rank`'s block of a leaf under `spec` (a view)."""
     sizes = axis_sizes(mesh)
     coords = mesh_coords(mesh, rank)
-    spec = fit_spec(tuple(leaf.shape), logical_spec(name, leaf.dim()), mesh)
     out = leaf
     for dim, ax in enumerate(spec):
         if ax is None:
@@ -534,7 +543,7 @@ def leaf_block(name: str, leaf: torch.Tensor, *, mesh,
             count *= sizes[a]
         n = leaf.shape[dim] // count
         out = out.narrow(dim, index * n, n)
-    return out.clone(memory_format=torch.contiguous_format)
+    return out
 
 
 def local_params(params, mesh, shard):
@@ -544,6 +553,51 @@ def local_params(params, mesh, shard):
     return tree_map_with_path(
         lambda keys, leaf: leaf_block("/".join(keys), leaf, mesh=mesh,
                                       rank=shard.rank), params)
+
+
+def cache_block(name: str, leaf: torch.Tensor, *, mesh,
+                rank: int) -> torch.Tensor:
+    """`rank`'s block of one cache leaf (its path, or the last name of
+    it), as ``cache_specs`` places it: the batch over the FSDP axes, a
+    KV leaf's sequence, the conv window's channels and the state's heads
+    over "model", each where ``fit_spec`` keeps the axis; "len" whole.
+    A copy."""
+    spec = cache_spec(name.split("/")[-1], tuple(leaf.shape), mesh)
+    return _block(leaf, spec or (None,) * leaf.dim(), mesh, rank).clone(
+        memory_format=torch.contiguous_format)
+
+
+def kv_seq_lo(cache, mesh, rank: int) -> Optional[int]:
+    """The global position of the first slot of `rank`'s block of the
+    KV caches' sequence, or None when no KV leaf's sequence is split
+    (no attention layer, a "model" axis of one rank, or a capacity that
+    "model" does not divide).  Every self-attention group of a cache has
+    the same capacity."""
+    if axis_sizes(mesh).get(TP_AXIS, 1) == 1:
+        return None
+    for keys, leaf in tree_leaves_with_path(cache):
+        if keys[-1] not in ("k", "v"):
+            continue
+        spec = cache_spec(keys[-1], tuple(leaf.shape), mesh)
+        if spec[2] is None:
+            return None
+        n = leaf.shape[2] // axis_sizes(mesh)[TP_AXIS]
+        return mesh_coords(mesh, rank)[TP_AXIS] * n
+    return None
+
+
+def local_cache(cache, mesh, shard):
+    """This rank's blocks of a whole cache (``cache_block``; copies), and
+    where the KV sequence is split, "seq_lo": the global position of the
+    first slot of its block (``kv_seq_lo``), which the attention layers
+    read.  "len" stays whole on every rank."""
+    out = tree_map_with_path(
+        lambda keys, leaf: cache_block("/".join(keys), leaf, mesh=mesh,
+                                       rank=shard.rank), cache)
+    seq_lo = kv_seq_lo(cache, mesh, shard.rank)
+    if seq_lo is not None:
+        out["seq_lo"] = seq_lo
+    return out
 
 
 class Cohort:

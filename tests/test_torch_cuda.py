@@ -254,6 +254,45 @@ def test_decode_paged_equals_contiguous_at_tick(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq_lo", [64, 100])
+@pytest.mark.parametrize("hd", [64, 112, 128])
+def test_decode_partial_matches_plain(cuda, dtype, seq_lo, hd):
+    """One block of 160 positions of a split cache from seq_lo (on a
+    chunk edge and off one), GQA 8 / 2, window 0 and 70, at cache
+    lengths before, inside and past the block: the output and lse
+    against the plain partial version, an empty block zeros and -inf
+    exactly; at seq_lo 0 over the whole cache its output in the cache's
+    dtype is decode_attention's bit for bit."""
+    gen = torch.Generator().manual_seed(31 + hd + seq_lo)
+    n, h, kvh = 160, 8, 2
+    lens = [0, seq_lo, seq_lo + 1, seq_lo + 64, seq_lo + n, seq_lo + n + 9]
+    b = len(lens)
+    q = _randn(gen, b, h, hd, dtype=dtype)
+    k = _randn(gen, b, n, kvh, hd, dtype=dtype)
+    v = _randn(gen, b, n, kvh, hd, dtype=dtype)
+    clen = torch.tensor(lens, dtype=torch.int32)
+    for window in (0, 70):
+        o, lse = dops.decode_attention_partial(
+            *(t.to(cuda) for t in (q, k, v, clen)), seq_lo, window=window)
+        ro, rl = dops.decode_attention_partial(q, k, v, clen, seq_lo,
+                                               window=window)
+        empty = torch.isinf(rl)
+        assert torch.equal(torch.isinf(lse.cpu()), empty)
+        assert torch.equal(o.cpu()[empty.any(-1)],
+                           torch.zeros_like(ro[empty.any(-1)]))
+        _close(o, ro, dtype)
+        _close(lse.cpu()[~empty], rl[~empty], dtype)
+        # the whole cache: lengths within its capacity (past it the
+        # whole-cache kernel clamps them, a block cannot)
+        inside = (q, k, v, clen.clamp(max=n))
+        whole, _ = dops.decode_attention_partial(
+            *(t.to(cuda) for t in inside), 0, window=window)
+        assert torch.equal(whole.to(dtype), dops.decode_attention(
+            *(t.to(cuda) for t in inside), window=window))
+
+
+@pytest.mark.cuda
 def test_decode_rejects_head_dims_it_does_not_take(cuda):
     q = torch.zeros(1, 2, 20, device=cuda)
     kv = torch.zeros(1, 16, 2, 20, device=cuda)

@@ -1,0 +1,371 @@
+"""Serving on a mesh, part 1: the pieces in one process.
+
+The partial decode: a cache cut into 2 and 4 blocks, each block through
+``decode_attention_partial`` (its plain version) and the blocks merged
+by ``merge_partials``, is ``decode_attention`` over the whole cache
+within 1e-6 in fp32, for GQA 1:1 and 4:1, windows 0 and 5, rows of
+length 0, blocks with no valid position, and a length on a block edge.
+
+Cache placement: on the (1, 4) and (2, 2) meshes each rank's
+``local_cache`` of every family's cache at full width (on the meta
+device) holds the block ``cache_specs`` gives it, by shape and bytes:
+the batch over "data", the KV sequence, the conv channels and the state
+heads over "model"; a capacity or a channel count that "model" does not
+divide stays whole, and "seq_lo" says where the rank's KV block starts
+(absent where the sequence is whole).  At reduced width
+``Model.init_cache(policy=)`` gives local_cache's shapes, and the blocks
+put back by their mesh coordinates are the whole cache.
+
+The serve cell: ``build_serve_cell(shard=)`` on 2 "model" ranks (as
+threads of this process) gives each rank's prefill and decode cell the
+logits of the same cell on one rank, in bf16, with the prefill under
+SP.
+
+``reference_logits`` runs the JAX reference's unsharded prefill and
+decode steps on a served case's weights, adapters and inputs, the
+port's tokens fed, for the spawned cases' tests
+(tests/test_torch_param_sharding*.py: the serving after the rounds,
+tests/torch_mesh_serving_cases.py).
+
+Time: ~5 s alone.
+"""
+
+import dataclasses
+import threading
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import torch_mesh_serving_cases as ms  # noqa: E402
+from repro_torch.config import reduced  # noqa: E402
+from repro_torch.config import MeshConfig, ShapeConfig  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
+from repro_torch.launch import cells  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models.common import ShardingPolicy  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.runtime import sharding as sh  # noqa: E402
+from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+
+MESHES = {"1x4": make_mesh(1, 4), "2x2": make_mesh(2, 2)}
+
+
+class _Rank:
+    """As much of a MeshShard as local_cache reads."""
+
+    def __init__(self, rank):
+        self.rank = rank
+
+
+# ---------------------------------------------------------------------------
+# the partial decode, merged
+
+
+def _decode_case(seed, h, kvh, lens, s, hd=16):
+    gen = torch.Generator().manual_seed(seed)
+    b = len(lens)
+    q = torch.randn((b, h, hd), generator=gen)
+    k = torch.randn((b, s, kvh, hd), generator=gen)
+    v = torch.randn((b, s, kvh, hd), generator=gen)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("gqa", [(4, 4), (8, 2)], ids=["1to1", "4to1"])
+def test_partial_blocks_merge_to_the_whole_cache(blocks, window, gqa):
+    """Lengths 0, 1 (every later block empty), one short of, on and past
+    a block edge, and the whole capacity."""
+    h, kvh = gqa
+    s = 24
+    n = s // blocks
+    lens = [0, 1, n - 1, n, n + 1, 2 * n + 3, s]
+    q, k, v, clen = _decode_case(blocks + window + h, h, kvh, lens, s)
+    parts = [dref.decode_attention_partial(q, k[:, lo:lo + n],
+                                           v[:, lo:lo + n], clen, lo,
+                                           window=window)
+             for lo in range(0, s, n)]
+    got = dref.merge_partials([o for o, _ in parts], [m for _, m in parts])
+    want = dref.decode_attention(q, k, v, clen, window=window)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    # the row of length 1: every block after the first saw no position
+    for o, m in parts[1:]:
+        assert torch.equal(o[1], torch.zeros_like(o[1]))
+        assert torch.isneginf(m[1]).all()
+
+
+def test_partial_block_on_the_whole_cache_is_the_whole_decode():
+    """One block that is the whole cache: decode_attention's output."""
+    q, k, v, clen = _decode_case(3, 8, 2, [0, 3, 17, 24], 24)
+    o, lse = dref.decode_attention_partial(q, k, v, clen, 0, window=5)
+    torch.testing.assert_close(dref.merge_partials([o], [lse]),
+                               dref.decode_attention(q, k, v, clen,
+                                                     window=5),
+                               rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# cache placement
+
+FAMILIES = ("llama3-8b", "kimi-k2-1t-a32b", "mamba2-780m", "zamba2-1.2b",
+            "internvl2-76b")
+
+
+def _meta_cache(model, b, cap):
+    """The model's whole cache at full width, as meta tensors."""
+    with FakeTensorMode():
+        cache = model.init_cache((b,), cap, torch.bfloat16)
+    return sh.tree_map_with_path(
+        lambda _, x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+        cache)
+
+
+def _want_shape(name, shape, m):
+    sizes = sh.axis_sizes(m)
+    spec = sh.cache_spec(name, shape, m) or (None,) * len(shape)
+    out = []
+    for n, entry in zip(shape, spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        out.append(n // int(np.prod([sizes[a] for a in axes])))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("cap", [4096, 4095])
+def test_local_cache_holds_the_cache_specs_blocks(name, mesh, cap):
+    """Full width, on meta tensors, batch 8: each leaf's block by shape
+    and bytes; a capacity of 4095 (no axis divides it) keeps the KV
+    sequence whole and sets no seq_lo."""
+    m = MESHES[mesh]
+    model = build_model(get_config(name), device="cpu")
+    whole = _meta_cache(model, 8, cap)
+    tp = sh.axis_sizes(m)["model"]
+    for r in range(m.num_devices):
+        local = sh.local_cache(whole, m, _Rank(r))
+        got = dict(tree_leaves_with_path(
+            {k: v for k, v in local.items() if k != "seq_lo"}))
+        for keys, leaf in tree_leaves_with_path(whole):
+            want = _want_shape(keys[-1], tuple(leaf.shape), m)
+            assert tuple(got[keys].shape) == want, keys
+            assert got[keys].numel() * got[keys].element_size() == (
+                int(np.prod(want)) * leaf.element_size()), keys
+        assert tuple(local["len"].shape) == (8,)
+        has_kv = any(k[-1] == "k" for k, _ in tree_leaves_with_path(whole))
+        if has_kv and cap % tp == 0:
+            assert local["seq_lo"] == sh.mesh_coords(m, r)["model"] * (
+                cap // tp)
+        else:
+            assert "seq_lo" not in local
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_init_cache_gives_local_cache_blocks_that_put_back_whole(mesh):
+    """zamba2 at reduced width (SSM and attention layers; conv channels
+    160 over 4 ranks): Model.init_cache(policy=) has local_cache's
+    shapes and seq_lo, and the blocks of a whole cache put back by their
+    mesh coordinates are the whole cache."""
+    m = MESHES[mesh]
+    arch = reduced(get_config("zamba2-1.2b"), layers=3, d_model=64)
+    model = build_model(arch, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    whole = model.init_cache((4,), 16)
+    whole = sh.tree_map_with_path(
+        lambda _, t: torch.randn(t.shape, generator=gen).to(t.dtype)
+        if t.is_floating_point() else t, whole)
+    sizes = sh.axis_sizes(m)
+    back = sh.tree_map_with_path(lambda _, t: torch.zeros_like(t), whole)
+    for r in range(m.num_devices):
+        policy = ShardingPolicy(types_shard(m, r))
+        made = model.init_cache((4,), 16, policy=policy)
+        local = sh.local_cache(whole, m, _Rank(r))
+        assert made.get("seq_lo") == local.get("seq_lo")
+        shapes = dict(tree_leaves_with_path(
+            {k: v for k, v in local.items() if k != "seq_lo"}))
+        for keys, t in tree_leaves_with_path(
+                {k: v for k, v in made.items() if k != "seq_lo"}):
+            assert t.shape == shapes[keys].shape, keys
+        coords = sh.mesh_coords(m, r)
+        for keys, blk in shapes.items():
+            full = dict(tree_leaves_with_path(back))[keys]
+            spec = sh.cache_spec(keys[-1], tuple(full.shape), m)
+            view = full
+            for dim, entry in enumerate(spec or ()):
+                if entry is None:
+                    continue
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                idx = 0
+                for a in axes:
+                    idx = idx * sizes[a] + coords[a]
+                n = blk.shape[dim]
+                view = view.narrow(dim, idx * n, n)
+            view.copy_(blk)
+    for keys, t in tree_leaves_with_path(whole):
+        assert torch.equal(dict(tree_leaves_with_path(back))[keys], t), keys
+
+
+def types_shard(mesh, rank):
+    """As much of a MeshShard as ShardingPolicy and init_cache read."""
+    coords = sh.mesh_coords(mesh, rank)
+    sizes = sh.axis_sizes(mesh)
+    return types.SimpleNamespace(
+        mesh=mesh, rank=rank, model_size=sizes["model"],
+        model_rank=coords["model"], data_size=sizes["data"],
+        data_rank=coords["data"])
+
+
+def test_serve_prompts_cross_a_block_edge():
+    """The spawned cases' decode steps write on both sides of a block
+    edge on 2 and 4 "model" ranks, for the vlm family's longer prompt
+    too."""
+    for name in ("llama3-8b", "internvl2-76b"):
+        cfg = get_config(name).model
+        for tp in (2, 4):
+            assert ms.crosses_a_block_edge(cfg, tp), (name, tp)
+
+
+# ---------------------------------------------------------------------------
+# the JAX reference's serving, for the spawned cases
+
+
+def reference_logits(j_model, params_np, served) -> np.ndarray:
+    """The JAX reference's unsharded prefill and STEPS decode steps on
+    `params_np` and a served case's adapters and inputs (its plain run),
+    each decode step fed the port's token: (B, 1 + STEPS, V)."""
+    _, cap = ms.prompt_of(j_model.cfg)
+    params = jax.tree.map(jnp.asarray, params_np)
+    ad = jax.tree.map(jnp.asarray, served["adapters"])
+    prefill = jax.jit(j_model.prefill)
+    decode = jax.jit(j_model.decode_step)
+    logits, cache = prefill(params, ad, jax.tree.map(jnp.asarray,
+                                                     served["inputs"]),
+                            j_model.init_cache((ms.BATCH,), cap))
+    out = [np.asarray(logits)]
+    for t in range(ms.STEPS):
+        logits, cache = decode(params, ad,
+                               jnp.asarray(served["tokens"][:, t:t + 1]),
+                               cache)
+        out.append(np.asarray(logits))
+    return np.concatenate(out, 1)
+
+
+def held_to_the_reference(j_model, params_np, served) -> float:
+    """The unsharded port's serving logits against the reference's within
+    REF_ATOL; returns the largest |diff|."""
+    want = reference_logits(j_model, params_np, served)
+    gap = float(np.abs(served["logits"] - want).max())
+    assert gap <= ms.REF_ATOL, gap
+    return gap
+
+
+def cache_blocks_held(runs_by_rank, whole_shapes, mesh, cfg):
+    """Each rank's cache leaves have cache_specs' block shapes of the
+    whole cache's, seq_lo starts its "model" block, and the decode steps
+    cross a block edge."""
+    sizes = sh.axis_sizes(mesh)
+    tp = sizes["model"]
+    _, cap = ms.prompt_of(cfg)
+    for r, got in enumerate(runs_by_rank):
+        for path, shape in whole_shapes.items():
+            want = _want_shape(path.split("/")[-1], shape, mesh)
+            assert got["cache"][path] == want, (r, path)
+        if got["seq_lo"] is not None:
+            assert got["seq_lo"] == sh.mesh_coords(mesh, r)["model"] * (
+                cap // tp)
+    if any(p.split("/")[-1] == "k" for p in whole_shapes) and tp > 1:
+        assert runs_by_rank[0]["seq_lo"] is not None
+        assert ms.crosses_a_block_edge(cfg, tp)
+
+
+# ---------------------------------------------------------------------------
+# the serve cell on "model" ranks (threads of this process)
+
+
+class _ThreadShard:
+    """A MeshShard's rank as a thread: an all-reduce waits for every
+    rank's tensors and sums (or maxes) those of the ranks on its axes in
+    rank order."""
+
+    places_params = True
+    seq_shard = None
+
+    def __init__(self, hub, mesh, rank):
+        self.hub, self.mesh, self.rank = hub, mesh, rank
+        self.device = torch.device("cpu")
+        sizes, coords = sh.axis_sizes(mesh), sh.mesh_coords(mesh, rank)
+        self.model_size, self.model_rank = sizes["model"], coords["model"]
+        self.data_size, self.data_rank = sizes["data"], coords["data"]
+
+    def all_reduce(self, tensors, op, axis="data"):
+        axes = [a for a in ((axis,) if isinstance(axis, str) else axis)
+                if a in ("data", "model")]
+        hub = self.hub
+        hub["slots"][self.rank] = [t.detach().clone() for t in tensors]
+        hub["barrier"].wait()
+        line = next(r for r in sh.axis_ranks(self.mesh, axes)
+                    if self.rank in r)
+        out = []
+        for i in range(len(tensors)):
+            acc = hub["slots"][line[0]][i]
+            for r in line[1:]:
+                t = hub["slots"][r][i]
+                acc = acc + t if op == "sum" else torch.maximum(acc, t)
+            out.append(acc)
+        hub["barrier"].wait()
+        return out
+
+
+def _on_ranks(mesh, fn):
+    n = mesh.num_devices
+    hub = {"slots": {}, "barrier": threading.Barrier(n)}
+    got, errs = [None] * n, []
+
+    def run(r):
+        try:
+            got[r] = fn(_ThreadShard(hub, mesh, r))
+        except BaseException as e:   # noqa: BLE001 - re-raised below
+            errs.append(e)
+            hub["barrier"].abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return got
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serve_cell_on_model_ranks_matches_one_rank(kind):
+    """llama at reduced width (4 heads over 2 KV heads of 16), batch 2,
+    seq 8 (a decode step over a capacity of 8: each rank's cache holds 4
+    positions); the ranks' logits within bf16's tolerance of one
+    rank's."""
+    arch = reduced(get_config("llama3-8b"), layers=2, d_model=64,
+                   vocab=512)
+    arch = arch.replace(model=dataclasses.replace(
+        arch.model, num_heads=4, num_kv_heads=2, head_dim=16))
+    shape = ShapeConfig(kind, 8, 2, kind)
+
+    def run(shard):
+        cell = cells.build_serve_cell(arch, shape, shard=shard)
+        logits, cache = cell.fn(*cell.args)
+        return logits.float(), cache.get("seq_lo")
+
+    (want, lo1), = _on_ranks(MeshConfig((1, 1), ("data", "model")), run)
+    got = _on_ranks(MeshConfig((1, 2), ("data", "model")), run)
+    assert lo1 is None and [g[1] for g in got] == [0, 4]
+    for g, _ in got:
+        torch.testing.assert_close(g, want, rtol=2e-2, atol=2e-2)

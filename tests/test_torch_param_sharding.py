@@ -45,9 +45,18 @@ when the next is drawn, so a rank's init peak is its blocks plus one
 full leaf, and the blocks are ``local_params`` of the full tree bit for
 bit.
 
+Serving: after their rounds llama_gqa and opt_bias serve on every rank
+(``serve_model``, a cache of the rank's blocks, a prefill and 5 greedy
+decode steps whose positions cross a block edge of the KV sequence;
+tests/torch_mesh_serving_cases.py): the tokens equal the unsharded
+port's, the logits within 2e-4 (measured 2.9e-6 and 2.8e-7), each
+rank's cache holds ``cache_specs``' blocks, and the unsharded port's
+logits match the JAX reference's unsharded prefill and decode steps on
+the same weights and adapters within 2e-5 (measured 4.9e-6 at most).
+
 Refusals: a head count that the "model" axis does not divide, and the
-serving path (prefill, a decode step, ``serve_model``) on the rank's
-blocks, raise in every rank and name the ROADMAP item; the MoE, SSM,
+audio family's serving (its cross cache on a mesh is the ROADMAP item's
+part 2), raise in every rank and name the ROADMAP item; the MoE, SSM,
 hybrid, audio and vlm configs build under both meshes, each rank holding
 its blocks (tests/test_torch_param_sharding_families.py and
 tests/test_torch_param_sharding_sp.py train them).
@@ -84,7 +93,11 @@ from repro_torch.launch.sharded import run_ranks  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import sharding as sh  # noqa: E402
 from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+from test_torch_mesh_serving import (cache_blocks_held,  # noqa: E402
+                                     held_to_the_reference)
 from test_torch_system import _losses_close  # noqa: E402
+import torch_mesh_serving_cases as mesh_serving  # noqa: E402
+from repro.models.model import build_model as j_build_model  # noqa: E402
 
 DENSE = ("gpt2-small", "opt-125m", "gpt-neo-125m", "llama3-8b",
          "phi4-mini-3.8b", "qwen1.5-32b", "mistral-large-123b")
@@ -252,6 +265,28 @@ def test_sharded_case_matches_unsharded_and_the_reference(runs, name,
     got = _load(out, f"sharded_{mesh}_{name}")
     cases.held(got, _load(out, f"plain_{name}"))
     _losses_close(ref_hist[name], got["history"])
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("name", cases.SERVE_CASES)
+def test_sharded_serving_matches_unsharded(runs, name, mesh):
+    out, _ = runs
+    want = _load(out, f"plain_{name}")["serve"]
+    got = [_load(out, f"serve_{mesh}_{name}_{r}")
+           for r in range(MESHES[mesh].num_devices)]
+    for g in got:
+        mesh_serving.held(g, want)
+    arch = cases.case_arch(name)
+    cache_blocks_held(got, want["cache"], MESHES[mesh], arch.model)
+
+
+@pytest.mark.parametrize("name", cases.SERVE_CASES)
+def test_unsharded_serving_matches_the_reference(runs, name):
+    out, _ = runs
+    held_to_the_reference(
+        j_build_model(cases.case_arch(name, j_reduced, j_get_config)),
+        cases.with_biases(_load(out, f"ref_{name}")[0]),
+        _load(out, f"plain_{name}")["serve"])
 
 
 @pytest.mark.parametrize("name", list(cases.OPTIONS))

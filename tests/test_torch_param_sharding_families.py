@@ -30,9 +30,16 @@ shared expert's adapter gradients (added by hand: the configs give an
 MoE group none) without their partial-target sum are a share of their
 max away from the unsharded gradients, with it ~1e-6.
 
+Serving: after their rounds kimi_moe, mamba2_ssm and zamba2_hybrid serve
+on every rank (tests/torch_mesh_serving_cases.py: the rank's cache
+blocks, a prefill and 5 greedy decode steps across a block edge of the
+KV sequence; the SSM conv window's channel blocks gathered and written
+back each step): the tokens equal the unsharded port's, the logits
+within 2e-4 (measured 3.3e-6 at most), each rank's cache holds
+``cache_specs``' blocks, and the unsharded port's logits match the JAX
+reference's within 2e-5 (measured 4.9e-6 at most).
 Refusals: SSM heads that the "model" axis does not divide, and the
-serving path (prefill, a decode step, ``serve_model``) on the rank's
-blocks, raise in every rank and name the ROADMAP item.
+audio family's serving, raise in every rank and name the ROADMAP item.
 
 Time: ~85 s alone, one torch thread: ~20 s for the two spawns, ~25 s
 for the JAX reference's 4 cases, the rest the placement tests at full
@@ -64,6 +71,10 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import sharding as sh  # noqa: E402
 from repro_torch.tree import tree_leaves_with_path  # noqa: E402
 from test_torch_param_sharding import _axes, _meta_params, _Rank  # noqa: E402
+from test_torch_mesh_serving import (cache_blocks_held,  # noqa: E402
+                                     held_to_the_reference)
+import torch_mesh_serving_cases as mesh_serving  # noqa: E402
+from repro.models.model import build_model as j_build_model  # noqa: E402
 from test_torch_system import _losses_close  # noqa: E402
 
 FAMILIES = ("kimi-k2-1t-a32b", "llama4-maverick-400b-a17b", "mamba2-780m",
@@ -363,6 +374,27 @@ def runs(tmp_path_factory):
 
 def _load(out, name):
     return torch.load(out / f"{name}.pt", weights_only=False)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("name", cases.SERVE_CASES)
+def test_sharded_serving_matches_unsharded(runs, name, mesh):
+    out, _ = runs
+    want = _load(out, f"plain_{name}")["serve"]
+    got = [_load(out, f"serve_{mesh}_{name}_{r}")
+           for r in range(MESHES[mesh].num_devices)]
+    for g in got:
+        mesh_serving.held(g, want)
+    cache_blocks_held(got, want["cache"], MESHES[mesh],
+                      cases.case_arch(name).model)
+
+
+@pytest.mark.parametrize("name", cases.SERVE_CASES)
+def test_unsharded_serving_matches_the_reference(runs, name):
+    out, _ = runs
+    held_to_the_reference(
+        j_build_model(cases.case_arch(name, j_reduced, j_get_config)),
+        _load(out, f"ref_{name}")[0], _load(out, f"plain_{name}")["serve"])
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

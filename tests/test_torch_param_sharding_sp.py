@@ -30,6 +30,15 @@ its losses too; every MoE layer's choices and drops (gathered over
 "pod" and "data") to the unsharded run's; the sequence lengths the
 attention blocks were handed show the stream split (SP) or whole.
 
+Serving: after their rounds internvl2 (its prefix fed; the prefill under
+SP where seq_shard is on) and gpt2_int8 (the batch rows over "pod")
+serve on every rank of their runs (tests/torch_mesh_serving_cases.py):
+the tokens equal the unsharded port's, the logits within 2e-4 (measured
+4.5e-6; gpt2_int8 4.2e-5 from the port's own weights, whose trained
+adapters carry the int8 codes' flips), each rank's cache holds
+``cache_specs``' blocks, and the unsharded port's logits match the JAX
+reference's within 2e-5 (measured 4.9e-6 at most).
+
 Time: ~50-65 s alone: ~30 s for the two spawns, ~20 s for the JAX
 reference's 4 cases, the rest the placement at full width on fake
 tensors.
@@ -54,6 +63,10 @@ from repro_torch.models.common import ShardingPolicy  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.runtime import sharding as sh  # noqa: E402
 from repro_torch.tree import tree_leaves_with_path  # noqa: E402
+from test_torch_mesh_serving import (cache_blocks_held,  # noqa: E402
+                                     held_to_the_reference)
+import torch_mesh_serving_cases as mesh_serving  # noqa: E402
+from repro.models.model import build_model as j_build_model  # noqa: E402
 from test_torch_param_sharding import _axes, _meta_params, _Rank  # noqa: E402
 from test_torch_system import _losses_close  # noqa: E402
 
@@ -263,6 +276,29 @@ def test_sharded_case_matches_unsharded_and_the_reference(runs, run):
     cases.held(got, _load(out, f"plain_{name}"), name)
     if name in ref_hist:
         _losses_close(ref_hist[name], got["history"])
+
+
+@pytest.mark.parametrize(
+    "run", [r for r in RUNS if r[1] in cases.SERVE_CASES], ids=_run_id)
+def test_sharded_serving_matches_unsharded(runs, run):
+    out, _ = runs
+    mesh, name, sp = run
+    want = _load(out, f"plain_{name}")["serve"]
+    tag = f"{mesh}_{name}_{cases.sp_tag(sp)}"
+    got = [_load(out, f"serve_{tag}_{r}")
+           for r in range(MESHES[mesh].num_devices)]
+    for g in got:
+        mesh_serving.held(g, want)
+    cache_blocks_held(got, want["cache"], MESHES[mesh],
+                      cases.case_arch(name).model)
+
+
+@pytest.mark.parametrize("name", cases.SERVE_CASES)
+def test_unsharded_serving_matches_the_reference(runs, name):
+    out, _ = runs
+    held_to_the_reference(
+        j_build_model(cases.case_arch(name, j_reduced, j_get_config)),
+        _load(out, f"ref_{name}")[0], _load(out, f"plain_{name}")["serve"])
 
 
 @pytest.mark.parametrize("run", RUNS, ids=_run_id)

@@ -12,7 +12,11 @@ card tests' (tests/test_torch_cuda.py TOL).  What this holds on the CPU is
 the kernels' logic: the K split and its combine, the chunk split and its
 merge, the counters left at zero for the next call, ragged and unaligned
 edges, clamped ids and pages, rows that do not depend on the rest of the
-launch, paged equal to contiguous and bit-equal repeated calls.
+launch, paged equal to contiguous and bit-equal repeated calls; and the
+partial decode over one block of a split cache (global positions from
+seq_lo, on and off a chunk edge, blocks with no valid position), whose
+blocks merge into the whole cache's output and which at seq_lo = 0 is
+the whole-cache entry point bit for bit.
 """
 
 import ctypes
@@ -55,6 +59,8 @@ def lib(tmp_path_factory):
     lib.lora_indexed_counters.argtypes = [I_, I_]
     lib.decode_attention.argtypes = [P_] * 7 + [I_] * 6 + [F_, I_, P_]
     lib.decode_attention_paged.argtypes = [P_] * 8 + [I_] * 8 + [F_, I_, P_]
+    lib.decode_attention_partial.argtypes = ([P_] * 8 + [I_] * 7
+                                             + [F_, I_, P_])
     lib.decode_attention_work.argtypes = [I_] * 4
     lib.decode_attention_work.restype = ctypes.c_longlong
     lib.decode_attention_chunk.argtypes = []
@@ -243,3 +249,84 @@ def test_emulated_serving_grids_fill_the_card(lib):
     assert lib.lora_indexed_ctas(8, 768, 768) >= 132
     ch = lib.decode_attention_chunk()
     assert 12 * sum((n - 1) // ch + 1 for n in range(128, 160, 4)) >= 132
+
+
+# ---- the partial decode over one block of a split cache --------------------
+
+def _decode_partial(lib, q, k, v, clen, seq_lo, window):
+    b, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    out = torch.full((b, h, hd), float("nan"))
+    lse = torch.full((b, h), float("nan"))
+    work = torch.full((lib.decode_attention_work(b, s, h, hd),), float("nan"))
+    ctr = torch.zeros(b * kvh, dtype=torch.int32)
+    assert lib.decode_attention_partial(
+        *map(_ptr, (q, k, v, clen, work, ctr, out, lse)), b, s, seq_lo, h,
+        kvh, hd, window, hd ** -0.5, CODE[q.dtype], None) == 0
+    assert not ctr.any(), "the counters must be left at zero"
+    return out, lse
+
+
+# (seq_lo, block size): a block off a chunk edge and one on it (seq_lo
+# = 0 is the whole-cache kernel: test_emulated_decode_partial_at_seq_lo_0_
+# is_the_whole_kernel)
+PARTIAL_BLOCKS = [(37, 96), (64, 96)]
+
+
+# (hd, H, KVH, dtype, window): every block, window and dtype at hd 64;
+# llama's GQA 4:1 at hd 128 in fp32
+PARTIAL_CASES = [(64, 2, 2, dt, w) for dt in (torch.float32, torch.bfloat16)
+                 for w in (0, 70)] + [(128, 8, 2, torch.float32, 0)]
+
+
+@pytest.mark.parametrize("block", PARTIAL_BLOCKS,
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", PARTIAL_CASES,
+                         ids=lambda c: "-".join(map(str, c[:3])) + "-"
+                         + str(c[3]).split(".")[-1] + f"-w{c[4]}")
+def test_emulated_decode_partial_matches_plain(lib, block, case):
+    """One block of a split cache against the plain partial version, at
+    cache lengths before, inside and past the block (a row with no valid
+    position gives zeros and lse = -inf exactly)."""
+    hd, h, kvh, dtype, window = case
+    seq_lo, s = block
+    lens = [0, seq_lo, seq_lo + 1, seq_lo + 63, seq_lo + 64, seq_lo + s,
+            seq_lo + s + 80]
+    q, k, v, _, _, _, clen = _decode_inputs(hd + h + seq_lo, dtype, lens, s,
+                                            h, kvh, hd)
+    got, lse = _decode_partial(lib, q, k, v, clen, seq_lo, window)
+    want, wlse = dref.decode_attention_partial(q, k, v, clen, seq_lo,
+                                               window=window)
+    _close(got, want, torch.float32 if dtype == torch.float32 else dtype)
+    empty = torch.isinf(wlse)
+    assert torch.equal(torch.isinf(lse), empty)
+    assert torch.equal(got[empty.any(-1)],
+                       torch.zeros_like(got[empty.any(-1)]))
+    torch.testing.assert_close(lse[~empty], wlse[~empty], rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 70])
+def test_emulated_decode_partial_at_seq_lo_0_is_the_whole_kernel(
+        lib, dtype, window):
+    """A block that is the whole cache (seq_lo = 0): its fp32 output in
+    the cache's dtype is decode_attention's output bit for bit."""
+    q, k, v, _, _, _, clen = _decode_inputs(11, dtype, _edge_lens(lib), 160,
+                                            4, 2, 64)
+    got, _ = _decode_partial(lib, q, k, v, clen, 0, window)
+    assert torch.equal(got.to(dtype), _decode(lib, q, k, v, clen, window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_decode_partial_blocks_merge_to_the_whole(lib, dtype):
+    """The cache cut into 4 blocks of 40 positions (one of them empty
+    for the short rows), each block through the kernel, merged by
+    ref.merge_partials: the whole cache's plain output."""
+    lens = [0, 1, 39, 40, 41, 100, 160]
+    q, k, v, _, _, _, clen = _decode_inputs(5, dtype, lens, 160, 4, 2, 64)
+    parts = [_decode_partial(lib, q, k[:, lo:lo + 40].contiguous(),
+                             v[:, lo:lo + 40].contiguous(), clen, lo, 0)
+             for lo in range(0, 160, 40)]
+    got = dref.merge_partials([o for o, _ in parts], [m for _, m in parts])
+    _close(got, dref.decode_attention(q, k, v, clen).float(), dtype)

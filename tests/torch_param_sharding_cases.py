@@ -19,6 +19,9 @@ without a shard, and writes what it found into the output directory:
   ckpt_2x2_to_plain.pt,     a checkpoint of the first round saved under
   ckpt_plain_to_2x2.pt      the (2, 2) mesh and finished unsharded, and
                             the other way round
+  serve_<mesh>_<case>_<r>.pt  rank r: a SERVE_CASES case's serving after
+                            its rounds (torch_mesh_serving_cases.serve);
+                            the plain_<case>.pt run holds its own
 
 Every case starts from the JAX reference's weights when the output
 directory holds them (``ref_<case>.pt``: the numpy trees of its base
@@ -65,6 +68,8 @@ from repro_torch.runtime.sharding import (MeshShard, gather_state,
                                           local_params, shard_state)
 from repro_torch.tree import tree_leaves_with_path, tree_map
 
+import torch_mesh_serving_cases as mesh_serving
+
 ROUNDS = 2
 N_CLIENTS = 4
 SYS = dict(num_samples=48, eval_samples=16)
@@ -104,12 +109,13 @@ OPTIONS = {
 OPTIONS_MESH = "2x2"
 
 # what a mesh of more than one rank refuses: a head count the "model"
-# axis does not divide, and the serving path on the rank's blocks
-# (``refusal``)
+# axis does not divide, and the audio family's serving (its cross cache
+# on a mesh is the ROADMAP item's part 2) (``refusal``)
 REFUSED = {"gpt2-small (3 heads)": "ValueError",
-           "gpt2-small prefill": "NotImplementedError",
-           "gpt2-small decode_step": "NotImplementedError",
-           "gpt2-small serve_model": "NotImplementedError"}
+           "whisper-medium prefill": "NotImplementedError",
+           "whisper-medium decode_step": "NotImplementedError"}
+# the cases that serve after their rounds (tests/torch_mesh_serving_cases)
+SERVE_CASES = ("llama_gqa", "opt_bias")
 # configs of the families that the (1, 4) mesh placed only from the MoE,
 # SSM and hybrid ports on (tests/test_torch_param_sharding_families.py
 # trains them) and from the audio and vlm ports on
@@ -138,7 +144,10 @@ def case_arch(name: str, reduced=reduced, get_config=get_config):
 
 def refused_arch(label: str):
     name = label.split(" ")[0]
-    arch = reduced(get_config(name), layers=2, d_model=48, vocab=256)
+    # d_model 64 where the refusal is not the head count's: 4 heads
+    arch = reduced(get_config(name), layers=2,
+                   d_model=48 if label.endswith("heads)") else 64,
+                   vocab=256)
     if label.endswith("(3 heads)"):
         arch = arch.replace(model=dataclasses.replace(
             arch.model, num_heads=3, num_kv_heads=3, head_dim=16))
@@ -150,17 +159,22 @@ def refusal(label: str, arch, shard):
     """(exception type name, message) of what `label` asks of `arch` under
     `shard`: building its SplitFTSystem, and for a label that ends in a
     serving entry point ("prefill", "decode_step", "serve_model") that
-    entry point on the rank's blocks; ("", "") when nothing raised."""
+    entry point on the rank's blocks under the model's policy; ("", "")
+    when nothing raised."""
     try:
         system = SplitFTSystem(arch, SystemConfig(**SYS), seed=0,
                                device="cpu", policy=shard)
         what = label.split(" ")[-1]
+        model, policy = system.model, system.model_policy
+        tokens = torch.zeros((2, 1), dtype=torch.int32)
         if what == "serve_model":
             system.serve_model()
         elif what == "prefill":
-            system.model.prefill(system.base_params, None, {}, None)
+            model.prefill(system.base_params, None, {"tokens": tokens},
+                          model.init_cache((2,), 4), policy=policy)
         elif what == "decode_step":
-            system.model.decode_step(system.base_params, None, None, None)
+            model.decode_step(system.base_params, None, tokens,
+                              model.init_cache((2,), 4), policy=policy)
         return ("", "")
     except (NotImplementedError, ValueError) as e:
         return (type(e).__name__, str(e))
@@ -225,14 +239,18 @@ def _numpy(tree):
 
 def run_case(name: str, shard, out: Path, device="cpu") -> dict:
     """ROUNDS rounds of a case: the gathered state after each round (a
-    collective under a shard) and the history."""
+    collective under a shard) and the history; a SERVE_CASES case then
+    serves (``torch_mesh_serving_cases.serve``)."""
     system = build(name, shard, out, device)
     states = []
     for _ in range(ROUNDS):
         system.run(1, log_every=0)
         states.append(_numpy(gather_state(system.state, system.cohort)))
-    return {"states": states, "history": [dict(h) for h in system.history],
-            "sim_clock": system.sim_clock, "base": system.base_params}
+    res = {"states": states, "history": [dict(h) for h in system.history],
+           "sim_clock": system.sim_clock, "base": system.base_params}
+    if name in SERVE_CASES:
+        res["serve"] = mesh_serving.serve(system, device)
+    return res
 
 
 def base_bytes(params) -> dict:
@@ -247,6 +265,9 @@ def rank_main(rank: int, world: int, out: str, mesh_name: str):
     for name in CASES:
         res = run_case(name, shard, out)
         base = res.pop("base")
+        if name in SERVE_CASES:
+            torch.save(res.pop("serve"),
+                       out / f"serve_{mesh_name}_{name}_{rank}.pt")
         if rank == 0:
             torch.save(res, out / f"sharded_{mesh_name}_{name}.pt")
         if name == "llama_gqa":

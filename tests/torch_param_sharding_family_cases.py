@@ -20,6 +20,9 @@ without a shard, and writes what it found into the output directory:
   plain_<case>.pt           the unsharded run of the case
   raised_<mesh>.pt          rank 0: what SplitFTSystem said of each config
                             that the mesh does not execute
+  serve_<mesh>_<case>_<r>.pt  rank r: a SERVE_CASES case's serving after
+                            its rounds (torch_mesh_serving_cases.serve);
+                            the plain_<case>.pt run holds its own
 
 Every case starts from the JAX reference's weights when the output
 directory holds them (``ref_<case>.pt``), so the reference's losses
@@ -66,6 +69,8 @@ from repro_torch.runtime.sharding import (MeshShard, gather_state,
 from repro_torch.tree import tree_leaves_with_path, tree_map
 from torch_param_sharding_cases import refusal
 
+import torch_mesh_serving_cases as mesh_serving
+
 ROUNDS = 2
 N_CLIENTS = 4
 SYS = dict(num_samples=48, eval_samples=16)
@@ -86,12 +91,12 @@ MOE_CASES = ("kimi_moe", "llama4_moe")
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 
 # what a mesh of more than one rank refuses: SSM heads the "model" axis
-# does not divide, and the serving path on the rank's blocks
+# does not divide, and the audio family's serving
 # (torch_param_sharding_cases.refusal)
 REFUSED = {"mamba2-780m (3 SSM heads)": "ValueError",
-           "kimi-k2-1t-a32b prefill": "NotImplementedError",
-           "mamba2-780m decode_step": "NotImplementedError",
-           "zamba2-1.2b serve_model": "NotImplementedError"}
+           "whisper-medium decode_step": "NotImplementedError"}
+# the cases that serve after their rounds (tests/torch_mesh_serving_cases)
+SERVE_CASES = ("kimi_moe", "mamba2_ssm", "zamba2_hybrid")
 
 
 def case_arch(name: str, reduced=reduced, get_config=get_config):
@@ -195,9 +200,14 @@ def run_case(name: str, shard, out: Path, device="cpu") -> dict:
         routes.append(gathered_routing(calls, system, shard,
                                        f"{name} routing round {r}"))
         states.append(_numpy(gather_state(system.state, system.cohort)))
-    return {"states": states, "history": [dict(h) for h in system.history],
-            "sim_clock": system.sim_clock, "routes": routes,
-            "base": system.base_params}
+    res = {"states": states, "history": [dict(h) for h in system.history],
+           "sim_clock": system.sim_clock, "routes": routes,
+           "base": system.base_params}
+    if name in SERVE_CASES:
+        with recorded_routing() as calls:
+            res["serve"] = mesh_serving.serve(system, device)
+        res["serve"]["routes"] = [c.numpy() for c in calls]
+    return res
 
 
 def base_bytes(params) -> dict:
@@ -288,6 +298,9 @@ def rank_main(rank: int, world: int, out: str, mesh_name: str):
     for name in CASES:
         res = run_case(name, shard, out)
         base = res.pop("base")
+        if name in SERVE_CASES:
+            torch.save(res.pop("serve"),
+                       out / f"serve_{mesh_name}_{name}_{rank}.pt")
         if rank == 0:
             torch.save(res, out / f"sharded_{mesh_name}_{name}.pt")
         torch.save(base_bytes(base),

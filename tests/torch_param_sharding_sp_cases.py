@@ -14,6 +14,10 @@ without a shard, and writes what it found into the output directory:
                                  or off)
   bytes_<mesh>_<case>_<r>.pt     rank r: {leaf path: bytes} of its blocks
   plain_<case>.pt                the unsharded run of the case
+  serve_<mesh>_<case>_<sp>_<r>.pt  rank r: a SERVE_CASES case's serving
+                                 after its rounds
+                                 (torch_mesh_serving_cases.serve); the
+                                 plain_<case>.pt run holds its own
 
 Every case starts from the JAX reference's weights when the output
 directory holds them (``ref_<case>.pt``), so the reference's losses
@@ -61,6 +65,7 @@ from repro_torch.runtime.sharding import (MeshShard, gather_state,
                                           local_params, shard_state)
 from repro_torch.tree import tree_leaves_with_path
 
+import torch_mesh_serving_cases as mesh_serving
 import torch_param_sharding_family_cases as fam
 
 ROUNDS = 2
@@ -108,6 +113,9 @@ GROUPS = {
                    ("kimi_pod", None)]),
     },
 }
+# the cases that serve after their rounds (tests/torch_mesh_serving_cases):
+# the vlm family, and the batch rows over "pod"
+SERVE_CASES = ("internvl2", "gpt2_int8")
 # the cases the JAX reference runs (their losses are held too)
 REF_CASES = ("whisper", "internvl2", "gpt2_int8", "gpt2_int8_b3")
 MOE_CASES = ("kimi", "kimi_pod")
@@ -222,9 +230,12 @@ def run_case(name: str, shard, out: Path, device="cpu") -> dict:
                                            f"{name} routing round {r}"))
         states.append(fam._numpy(gather_state(system.state,
                                               system.cohort)))
-    return {"states": states, "history": [dict(h) for h in system.history],
-            "sim_clock": system.sim_clock, "routes": routes,
-            "seqs": sorted(seqs), "base": system.base_params}
+    res = {"states": states, "history": [dict(h) for h in system.history],
+           "sim_clock": system.sim_clock, "routes": routes,
+           "seqs": sorted(seqs), "base": system.base_params}
+    if name in SERVE_CASES:
+        res["serve"] = mesh_serving.serve(system, device)
+    return res
 
 
 def base_bytes(params) -> dict:
@@ -242,6 +253,8 @@ def rank_main(rank: int, world: int, out: str, group: str):
             res = run_case(name, shard, out)
             base = res.pop("base")
             tag = f"{mesh_name}_{name}_{sp_tag(seq_shard)}"
+            if name in SERVE_CASES:
+                torch.save(res.pop("serve"), out / f"serve_{tag}_{rank}.pt")
             if rank == 0:
                 torch.save(res, out / f"sharded_{tag}.pt")
             torch.save(base_bytes(base),
