@@ -14,7 +14,10 @@ at full width (random weights from a seed):
 
   * serving gpt2-small: 4 LoRA adapters through ServingEngine, contiguous
     and paged, tokens checked against the one-request reference and
-    logits against the CPU plain path;
+    logits against the CPU plain path; then a cache with a client axis
+    (lead (2, 2): 2 clients x 2 rows, each client its adapter) against
+    the same rows over a lead of (4,), for gpt2-small and for
+    mamba2-780m at full width and 2 layers (client_axis_check);
   * training gpt2-small: 3 SplitFT rounds (Algorithm 1, sync) of 5
     clients with int8 smashed activations on a length-Dirichlet partition
     of the synthetic corpus, through SplitFTSystem.run (each round a train
@@ -180,8 +183,13 @@ at full width (random weights from a seed):
     round trip over each whole message gathered at the cut).  Each
     rank's shapes, launches, bytes and init peak are checked and its
     state held to the unsharded run's (P19_TOL); the kernels are held
-    and timed at the TP-local shapes.  ``python3 chip_smoke.py --only
-    19`` builds and runs phase 19 alone.
+    and timed at the TP-local shapes.  After its round whisper-medium
+    serves as phases 17 and 18 do, over seeded frames: on the gloo
+    ranks its cross cache is split over "model" (750 of the 1500
+    positions a rank) and each decode step reads it through the partial
+    decode kernel and the lse merge, as it reads the self cache; phase
+    17 holds and times that kernel at the cross read's shape.
+    ``python3 chip_smoke.py --only 19`` builds and runs phase 19 alone.
 
 The launch counters are read around each path, and every profile of a
 path holds its count of the port's own kernels to them (a profile that
@@ -223,6 +231,14 @@ TOP2_GAP = 1e-4
 # serving path: full-width gpt2-small
 N_REQUESTS, PROMPT, GEN, SLOTS, MAX_LEN, PAGE = 16, 128, 32, 8, 256, 16
 RANKS = [16, 8, 16, 4]
+# phase 4's cache with a client axis (client_axis_check): a cache of lead
+# CLIENT_LEAD (N clients x B rows, "len" shared over N, each client's
+# rows one adapter) against the same N x B rows over a lead of (N B,):
+# a prefill of PROMPT tokens and CLIENT_STEPS decode steps into MAX_LEN,
+# at gpt2-small's full width and at mamba2-780m's with CLIENT_SSM_LAYERS
+# layers (its SSD scan with the final state in the prefill); the logits
+# within CLIENT_TOL x max|logit|, the tokens and the launches equal
+CLIENT_LEAD, CLIENT_STEPS, CLIENT_SSM_LAYERS, CLIENT_TOL = (2, 2), 4, 2, 1e-6
 SEED = 0
 # training path: the paper setting of configs/gpt2_small.py (5 clients,
 # batch 4, seq 512, cut 2, r_cut 8, r_others 16) with int8 smashed
@@ -567,6 +583,12 @@ SERVE_TOL = 2e-4
 # 32768-position cache, llama3-8b's 32 heads over 8 of 128, bf16
 PARTIAL_32K = (128, 16384, 32768, 32, 8, 128)
 PARTIAL_ROW = "decode_attention_partial"
+# the same kernel at whisper-medium's cross read on one of 2 "model"
+# ranks (phase 19's serving): B 4, positions 750..1499 of the 1500 encoder
+# positions, 16 heads of 64 (MHA), fp32; its bound is the block's K and V,
+# 4 x 750 x 16 x 64 x 4 B x 2 = 24.6 MB, 7.3 us at HBM_BYTES_PER_S
+PARTIAL_CROSS = (4, 750, 1500, 16, 16, 64)
+PARTIAL_X_ROW = "decode_attention_partial (whisper cross)"
 
 
 # phase 18: parameter sharding of the MoE family (EP: the experts over
@@ -1386,7 +1408,8 @@ def main(argv=None) -> int:
              if args.only in (None, "15") else None)
     rows_of = (list(wrappers) + [hd_row(k, hd) for hd in WIDE_HDS
                                  for k in WIDE_HD] + list(P15_ROWS)
-               + list(P17_ROWS) + list(P18_ROWS) + list(P19_ROWS))
+               + list(P17_ROWS) + list(P18_ROWS) + list(P19_ROWS)
+               + [PARTIAL_X_ROW])
     worst = {k: 0.0 for k in rows_of}
     if args.only:
         mma_build_report(_build, lib_path, sass())
@@ -1693,6 +1716,20 @@ def main(argv=None) -> int:
     log(f"phase 4: prefill + 4 decode logits on the card match the CPU "
         f"plain path: max |diff| {diff:.3e} (tol {LOGITS_TOL}: fp32 sums "
         f"in another order through 12 layers and the 50257-wide head)")
+    del cpu_model, cpu_params, cpu_pool
+    client_axis_check(torch, dev, wrappers, launches, model, params, pool,
+                      "gpt2-small", name, card)
+    del model, params, pool
+    arch = get_config("mamba2-780m")
+    arch = arch.replace(model=dataclasses.replace(
+        arch.model, num_layers=CLIENT_SSM_LAYERS))
+    model = build_model(arch, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED))
+    pool = serving.build_adapter_pool(
+        model, torch.Generator().manual_seed(SEED + 1), len(RANKS))
+    client_axis_check(torch, dev, wrappers, launches, model, params, pool,
+                      f"mamba2-780m ({CLIENT_SSM_LAYERS} layers)", name, card)
+    del model, params, pool
 
     lap("phase 5")
     # -- phase 5: the training path ------------------------------------------
@@ -1850,7 +1887,8 @@ def main(argv=None) -> int:
     for hd in WIDE_HDS:
         for kname in WIDE_HD:
             sources[hd_row(kname, hd)] = sources[kname]
-    for kname in P15_ROWS + P17_ROWS + P18_ROWS + P19_ROWS:
+    for kname in (P15_ROWS + P17_ROWS + P18_ROWS + P19_ROWS
+                  + (PARTIAL_X_ROW,)):
         sources[kname] = sources[kname.split(" (")[0]]
     kernels = []
     for kname, (src, replaces) in sources.items():
@@ -1866,6 +1904,77 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def client_axis_check(torch, dev, wrappers, launches, model, params, pool,
+                      what, name, card):
+    """A cache with a client axis, Model.init_cache(CLIENT_LEAD): a
+    prefill of PROMPT seeded tokens for N x B rows and CLIENT_STEPS decode
+    steps fed seeded tokens, client n's rows served by adapter n (ids
+    (N,): the indexed LoRA's rows are x's leading axis), against the same
+    rows over a cache of lead (N B,), the ids repeated over B.  The
+    logits within CLIENT_TOL x max|logit|, the argmax equal, and every
+    wrapper's launches those of the (N B,) run, the flash and decode
+    kernels' (and an SSM model's SSD scan with its final state) among
+    them.  Adds both runs' launches to `launches`."""
+    from repro_torch.runtime import serving
+
+    n, b = CLIENT_LEAD
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 40)
+    prompt = rng.integers(3, cfg.vocab_size, (n, b, PROMPT)).astype(np.int32)
+    fed = rng.integers(3, cfg.vocab_size,
+                       (CLIENT_STEPS, n, b, 1)).astype(np.int32)
+    ids = np.arange(n, dtype=np.int32)
+    runs = {}
+    for lead in (CLIENT_LEAD, (n * b,)):
+        ad = serving.attach_ids(pool, ids if len(lead) == 2
+                                else np.repeat(ids, b))
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        before = {k: w.launches for k, w in wrappers.items()}
+        cache = model.init_cache(lead, MAX_LEN)
+        with torch.no_grad():
+            out, cache = model.prefill(params, ad, {"tokens": torch.as_tensor(
+                prompt.reshape(lead + (PROMPT,)), device=dev)}, cache)
+            out = [out]
+            for tok in fed:
+                lg, cache = model.decode_step(
+                    params, ad, torch.as_tensor(tok.reshape(lead + (1,)),
+                                                device=dev), cache)
+                out.append(lg)
+        torch.cuda.synchronize()
+        counts = {k: w.launches - before[k] for k, w in wrappers.items()
+                  if w.launches != before[k]}
+        for k, c in counts.items():
+            launches[k] += c
+        logits = torch.cat(out, -2).float().cpu().numpy()
+        runs[lead] = (logits.reshape((n * b,) + logits.shape[-2:]), counts,
+                      time.perf_counter() - t0, tuple(cache["len"].shape))
+    (got, got_c, got_s, got_len), (want, want_c, want_s, _) = (
+        runs[CLIENT_LEAD], runs[(n * b,)])
+    if not np.isfinite(got).all():
+        raise RuntimeError(f"phase 4 client axis ({what}): non-finite "
+                           "logits")
+    gap = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    need = ["flash_attention_fwd", "decode_attention"]
+    if cfg.family == "ssm":
+        need = ["ssd_scan (final state)"]
+    if gap > CLIENT_TOL or not np.array_equal(got.argmax(-1),
+                                              want.argmax(-1)) \
+            or got_c != want_c or any(not got_c.get(k) for k in need) \
+            or got_len != (b,):
+        raise RuntimeError(
+            f"phase 4 client axis ({what}): logits {gap:.3e} x max|logit| "
+            f"from the (N B,) lead's (tol {CLIENT_TOL}), tokens equal "
+            f"{np.array_equal(got.argmax(-1), want.argmax(-1))}, launches "
+            f"{got_c} vs {want_c} (each of {need} required), len {got_len}")
+    log(f"phase 4 [{name}, {card}] client axis, {what}: a cache of lead "
+        f"{CLIENT_LEAD} (len {got_len}), prefill of {PROMPT} + "
+        f"{CLIENT_STEPS} decode steps == the same rows over lead "
+        f"({n * b},): logits within {gap:.3e} x max|logit| (tol "
+        f"{CLIENT_TOL}), tokens equal, launches {got_c} equal; walls "
+        f"{got_s:.3f} s and {want_s:.3f} s")
 
 
 def profile_run(torch, serving, engine, reqs, name, card, tag="phase 4"):
@@ -6545,7 +6654,8 @@ def serve_checks(torch, plain, nccl, gloo, what, attn_layers) -> str:
                                f"{g['serve']['steps']} per serving step, "
                                f"rank 0 {gloo[0]['serve']['steps']}")
     line = (f"NCCL world 1 bit for bit; {len(gloo)} gloo ranks (seq_lo "
-            f"{[g['serve']['seq_lo'] for g in gloo]}, cache bytes "
+            f"{[g['serve']['seq_lo'] for g in gloo]}, xseq_lo "
+            f"{[g['serve']['xseq_lo'] for g in gloo]}, cache bytes "
             f"{[sum(g['serve']['cache_bytes'].values()) for g in gloo]} of "
             f"{sum(p['cache_bytes'].values())}): logits within "
             f"{[f'{x:.3e}' for x, _ in gaps]} x max|logit| (tol "
@@ -6578,17 +6688,89 @@ def sdpa_with_lse(torch, q, k, v, scale):
         return efficient_op, "efficient"
 
 
-def partial_32k_held(torch, got, want) -> float:
-    """The partial kernel's (o, lse) at PARTIAL_32K against its plain
-    version's: both compute in fp32 from the same bf16 inputs, so they
-    are held at TOL["float32"], absolute and relative, which is ~1% of
-    the outputs' size (sqrt(e / 16384) ~ 1.3e-2) and 1e-5 of the lse's
-    (~10): the bf16 tolerance's absolute part would pass an output
-    scaled by 0.7."""
+def partial_held(torch, got, want, what) -> float:
+    """The partial kernel's (o, lse) at a timed block against its plain
+    version's: both compute in fp32 (from the same bf16 inputs at
+    PARTIAL_32K), so they are held at TOL["float32"], absolute and
+    relative, which is ~1% of the outputs' size at PARTIAL_32K (sqrt(e /
+    16384) ~ 1.3e-2) and 1e-5 of the lse's (~10): the bf16 tolerance's
+    absolute part would pass an output scaled by 0.7."""
     return max(max_err(torch, got[0], want[0], "float32",
-                       "partial decode at decode_32k's half (bf16 inputs)"),
+                       f"partial decode at {what}"),
                max_err(torch, got[1], want[1], "float32",
-                       "partial decode lse at decode_32k's half"))
+                       f"partial decode lse at {what}"))
+
+
+def partial_timed(torch, rand, worst, rows, row, shape, dt, what):
+    """decode_attention_partial over one rank's block of a cache, shape =
+    (B, block positions, cache positions, H, KVH, hd): the block is the
+    last of the cache and every row's length the whole cache, so every
+    position of the block is read.  Held against its plain version (in
+    calls of P15_PLAIN_ROWS sequences) by partial_held, which must refuse
+    a planted 1% output error and a 0.01 lse error; then timed beside
+    the plain version, SDPA's op with its log-sum-exp (a GQA group's
+    query heads folded into its query rows: the same function over a
+    block whose positions are all valid) and the bound: the block's K
+    and V read once (with q, the lengths and the outputs)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+
+    b, n, total, h, kvh, hd = shape
+    lo = total - n
+    q = rand(b, h, hd, dtype=dt)
+    k, v = (rand(b, n, kvh, hd, dtype=dt) for _ in range(2))
+    clen = torch.full((b,), total, dtype=torch.int32, device=q.device)
+    with torch.no_grad():
+        got = dops.decode_attention_partial(q, k, v, clen, lo)
+        step = P15_PLAIN_ROWS
+        want = [dops.ref.decode_attention_partial(
+            q[i:i + step], k[i:i + step], v[i:i + step], clen[i:i + step],
+            lo) for i in range(0, b, step)]
+        want = tuple(torch.cat([w[j] for w in want]) for j in range(2))
+        worst[row] = max(worst[row], partial_held(torch, got, want, what))
+        for bad, plant in (((got[0] * 0.99, got[1]), "an output 1% small"),
+                           ((got[0], got[1] + 0.01), "an lse 0.01 large")):
+            try:
+                partial_held(torch, bad, want, what)
+            except AssertionError:
+                continue
+            raise RuntimeError(f"partial decode at {what}: the check "
+                               f"passes {plant}")
+        del want
+
+        def plain():
+            for i in range(0, b, step):
+                dops.ref.decode_attention_partial(
+                    q[i:i + step], k[i:i + step], v[i:i + step],
+                    clen[i:i + step], lo)
+
+        # SDPA: the h / kvh query heads of a KV head as as many query rows
+        # over its keys (every position valid), (B, KVH, rows, hd) views
+        # of the cache's (B, S, KVH, hd)
+        qs = q.reshape(b, kvh, h // kvh, hd)
+        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+        library, lib_name = sdpa_with_lse(torch, qs, ks, vs, hd ** -0.5)
+        lib_ms = cuda_ms(torch, library, iters=10, warmup=2)
+        lib_o = library()[0].reshape(b, h, hd)
+        worst_lib = float((lib_o.float() - got[0]).abs().max())
+        es = q.element_size()
+        nbytes = 2 * b * n * kvh * hd * es + b * h * hd * es + 4 * b \
+            + 4 * b * h * (hd + 1)
+        dname = "bfloat16" if dt == torch.bfloat16 else "float32"
+        rows[row] = dict(
+            ms=cuda_ms(torch, lambda: dops.decode_attention_partial(
+                q, k, v, clen, lo), iters=10, warmup=2),
+            plain_ms=cuda_ms(torch, plain, iters=1, warmup=1),
+            library_ms=lib_ms,
+            bound=bound(nbytes, 4 * b * h * n * hd, dname),
+            cuda_core_bound=None,
+            shape=f"B={b}, positions {lo}..{total - 1} of a {total}-position "
+                  f"cache (one of {total // n} ranks' blocks), H={h}/{kvh} "
+                  f"hd={hd} {dname} (the plain version in "
+                  f"{-(-b // step)} call(s) of up to {step} sequences; "
+                  f"SDPA's {lib_name} op output {worst_lib:.3e} from the "
+                  "kernel's)")
+    del q, k, v, got
+    torch.cuda.empty_cache()
 
 
 def partial_kernels(torch, dev, F, worst, rows):
@@ -6599,10 +6781,8 @@ def partial_kernels(torch, dev, F, worst, rows):
     and blocks from 37 (off a chunk edge) and 64 (on one), at cache
     lengths before, inside and past the block), each block's output
     merged with the rest's into the whole cache's plain decode; then
-    timed at PARTIAL_32K beside the plain version, SDPA's flash op with
-    its log-sum-exp (the GQA group folded into its query rows: the same
-    function over a block whose positions are all valid) and the bound:
-    the block's K and V read once."""
+    held and timed by partial_timed at PARTIAL_32K (bf16) and at
+    whisper's cross read, PARTIAL_CROSS (fp32)."""
     from repro_torch.kernels.decode_attention import ops as dops
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
@@ -6654,69 +6834,16 @@ def partial_kernels(torch, dev, F, worst, rows):
                 f"partial decode merged {h}/{kvh} hd {hd}"))
     worst[PARTIAL_ROW] = max(worst[PARTIAL_ROW], err)
 
-    b, n, total, h, kvh, hd = PARTIAL_32K
-    lo = total - n
-    q = rand(b, h, hd, dtype=torch.bfloat16)
-    k, v = (rand(b, n, kvh, hd, dtype=torch.bfloat16) for _ in range(2))
-    clen = torch.full((b,), total, dtype=torch.int32, device=dev)
-    with torch.no_grad():
-        got = dops.decode_attention_partial(q, k, v, clen, lo)
-        step = P15_PLAIN_ROWS
-        want = [dops.ref.decode_attention_partial(
-            q[i:i + step], k[i:i + step], v[i:i + step], clen[i:i + step],
-            lo) for i in range(0, b, step)]
-        want = tuple(torch.cat([w[j] for w in want]) for j in range(2))
-        worst[PARTIAL_ROW] = max(worst[PARTIAL_ROW],
-                                 partial_32k_held(torch, got, want))
-        # the check must refuse a 1% error of the normalisation or of
-        # the lse at this shape (outputs ~1e-2, lse ~10)
-        for bad, what in (((got[0] * 0.99, got[1]), "an output 1% small"),
-                          ((got[0], got[1] + 0.01), "an lse 0.01 large")):
-            try:
-                partial_32k_held(torch, bad, want)
-            except AssertionError:
-                continue
-            raise RuntimeError(f"partial decode at decode_32k's half: the "
-                               f"check passes {what}")
-        del want
-
-        def plain():
-            for i in range(0, b, step):
-                dops.ref.decode_attention_partial(
-                    q[i:i + step], k[i:i + step], v[i:i + step],
-                    clen[i:i + step], lo)
-
-        # SDPA: the 4 query heads of a KV head as 4 query rows over its
-        # keys (every position valid), (B, KVH, rows, hd) views of the
-        # cache's (B, S, KVH, hd)
-        qs = q.reshape(b, kvh, h // kvh, hd)
-        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-
-        library, lib_name = sdpa_with_lse(torch, qs, ks, vs, hd ** -0.5)
-        lib_ms = cuda_ms(torch, library, iters=10, warmup=2)
-        lib_o = library()[0].reshape(b, h, hd)
-        worst_lib = float((lib_o.float() - got[0]).abs().max())
-        nbytes = 2 * b * n * kvh * hd * 2 + b * h * hd * 2 + 4 * b \
-            + 4 * b * h * (hd + 1)
-        rows[PARTIAL_ROW] = dict(
-            ms=cuda_ms(torch, lambda: dops.decode_attention_partial(
-                q, k, v, clen, lo), iters=10, warmup=2),
-            plain_ms=cuda_ms(torch, plain, iters=1, warmup=1),
-            library_ms=lib_ms,
-            bound=bound(nbytes, 4 * b * h * n * hd, "bfloat16"),
-            cuda_core_bound=None,
-            shape=f"B={b}, positions {lo}..{total - 1} of a {total}-position "
-                  f"cache (one of 2 ranks' blocks), H={h}/{kvh} hd={hd} bf16 "
-                  f"(the plain version in {b // step} calls of {step} "
-                  f"sequences; SDPA's {lib_name} op output {worst_lib:.3e} "
-                  "from the kernel's)")
-    del q, k, v, got
-    torch.cuda.empty_cache()
+    partial_timed(torch, rand, worst, rows, PARTIAL_ROW, PARTIAL_32K,
+                  torch.bfloat16, "decode_32k's half (bf16 inputs)")
+    partial_timed(torch, rand, worst, rows, PARTIAL_X_ROW, PARTIAL_CROSS,
+                  torch.float32, "whisper's cross read, one rank's half")
     log(f"partial decode: against its plain version {worst[PARTIAL_ROW]:.3e}"
-        f" (tol {TOL['float32']} fp32, {TOL['bfloat16']} bf16, the merged "
-        f"blocks and the timed shape at fp32; a planted 1% output or 0.01 "
-        f"lse error refused there)")
-    log_tp_rows(torch, "phase 17", (PARTIAL_ROW,), rows)
+        f", at whisper's cross read {worst[PARTIAL_X_ROW]:.3e} (tol "
+        f"{TOL['float32']} fp32, {TOL['bfloat16']} bf16, the merged blocks "
+        f"and the timed shapes at fp32; a planted 1% output or 0.01 lse "
+        f"error refused at both timed shapes)")
+    log_tp_rows(torch, "phase 17", (PARTIAL_ROW, PARTIAL_X_ROW), rows)
 
 
 def p18_arch(model: str, smashed=None):
@@ -6862,14 +6989,18 @@ def mesh_serve(torch, dev, wrappers, system, shard, tag, feed) -> dict:
     (under a MeshShard the rank's base blocks, the adapters at their
     blocks and the policy), a cache from Model.init_cache under that
     policy (cache_specs' blocks: the KV sequence split over "model"), a
-    prefill of SERVE_PROMPT seeded tokens for SERVE_BATCH rows, then
-    SERVE_STEPS decode steps, each fed feed["tokens"]' next token (or the
-    argmax of the step before), an MoE model routed by feed["routes"]'
-    choices where given.  Returns per step the last position's logits,
-    the argmax and the kernels launched, the bytes of each cache leaf of
-    this process and those cache_specs gives it, its "seq_lo", and the
-    MoE layer calls' routing."""
+    prefill of SERVE_PROMPT seeded tokens for SERVE_BATCH rows (the audio
+    family's with seeded frames), then SERVE_STEPS decode steps, each fed
+    feed["tokens"]' next token (or the argmax of the step before), an MoE
+    model routed by feed["routes"]' choices where given.  Returns per
+    step the last position's logits, the argmax and the kernels launched,
+    the bytes of each cache leaf of this process and those cache_specs
+    gives it, its "seq_lo" and "xseq_lo", the decode steps' cache reads
+    by kernel and block length ("reads": {("partial" or "whole",
+    positions): calls}, from transformer._decode_read, which the self and
+    the cross read share), and the MoE layer calls' routing."""
     from repro_torch.launch.cells import served_adapters
+    from repro_torch.models import transformer
     from repro_torch.models.common import NO_SHARDING
     from repro_torch.runtime.sharding import axis_sizes, cache_specs
     from repro_torch.tree import tree_leaves, tree_leaves_with_path
@@ -6881,36 +7012,52 @@ def mesh_serve(torch, dev, wrappers, system, shard, tag, feed) -> dict:
     vocab = model.cfg.vocab_size
     prompt = np.random.default_rng(SEED + 21).integers(
         3, vocab, size=(SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+    cfg = model.cfg
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(frames_of(
+            np.random.default_rng(SEED + 22),
+            (SERVE_BATCH, cfg.encoder_seq_len, cfg.d_model)), device=dev)
     fed = feed.get("tokens")
+    reads = {}
+    read = transformer._decode_read
+
+    def read_rec(q1, k, v, lens, seq_lo, **kw):
+        key = ("whole" if seq_lo is None else "partial", int(k.shape[-3]))
+        reads[key] = reads.get(key, 0) + 1
+        return read(q1, k, v, lens, seq_lo, **kw)
+
     t0 = time.perf_counter()
     cache = model.init_cache((SERVE_BATCH,), SERVE_CAP, policy=policy)
     pool = served_adapters(eff, SERVE_BATCH)
     logits, toks, steps = [], [], []
-    with torch.no_grad(), recorded_routing(
-            on=model.cfg.family == "moe", replay=feed.get("routes")) as calls:
-        for i in range(1 + SERVE_STEPS):
-            torch.cuda.synchronize()
-            before = {k: w.launches for k, w in wrappers.items()}
-            if i == 0:
-                lg, cache = model.prefill(
-                    base, pool, {"tokens": torch.as_tensor(prompt,
-                                                           device=dev)},
-                    cache, policy=policy)
-            else:
-                nxt = fed[:, i - 1] if fed is not None else toks[-1]
-                lg, cache = model.decode_step(
-                    base, pool, torch.as_tensor(nxt[:, None], device=dev),
-                    cache, policy=policy)
-            torch.cuda.synchronize()
-            steps.append({k: w.launches - before[k]
-                          for k, w in wrappers.items()
-                          if w.launches != before[k]})
-            row = lg[:, -1].float().cpu()
-            if not torch.isfinite(row).all():
-                raise RuntimeError(f"{tag} serving step {i}: non-finite "
-                                   "logits")
-            logits.append(row.numpy())
-            toks.append(row.argmax(-1).numpy().astype(np.int32))
+    transformer._decode_read = read_rec
+    try:
+        with torch.no_grad(), recorded_routing(
+                on=model.cfg.family == "moe", replay=feed.get("routes")) as calls:
+            for i in range(1 + SERVE_STEPS):
+                torch.cuda.synchronize()
+                before = {k: w.launches for k, w in wrappers.items()}
+                if i == 0:
+                    lg, cache = model.prefill(base, pool, batch, cache,
+                                              policy=policy)
+                else:
+                    nxt = fed[:, i - 1] if fed is not None else toks[-1]
+                    lg, cache = model.decode_step(
+                        base, pool, torch.as_tensor(nxt[:, None], device=dev),
+                        cache, policy=policy)
+                torch.cuda.synchronize()
+                steps.append({k: w.launches - before[k]
+                              for k, w in wrappers.items()
+                              if w.launches != before[k]})
+                row = lg[:, -1].float().cpu()
+                if not torch.isfinite(row).all():
+                    raise RuntimeError(f"{tag} serving step {i}: non-finite "
+                                       "logits")
+                logits.append(row.numpy())
+                toks.append(row.argmax(-1).numpy().astype(np.int32))
+    finally:
+        transformer._decode_read = read
     wall = time.perf_counter() - t0
     nbytes = {"/".join(k): t.numel() * t.element_size()
               for k, t in tree_leaves_with_path(cache)
@@ -6931,12 +7078,13 @@ def mesh_serve(torch, dev, wrappers, system, shard, tag, feed) -> dict:
     del whole
     out = {"logits": np.stack(logits, 1), "tokens": np.stack(toks, 1),
            "steps": steps, "cache_bytes": nbytes, "cache_want": want,
-           "seq_lo": cache.get("seq_lo"), "routes": calls, "wall": wall}
+           "seq_lo": cache.get("seq_lo"), "xseq_lo": cache.get("xseq_lo"),
+           "reads": reads, "routes": calls, "wall": wall}
     log(f"{tag} serving: prefill of {SERVE_PROMPT} tokens x "
         f"{SERVE_BATCH} + {SERVE_STEPS} decode steps into a cache of "
         f"{SERVE_CAP} ({sum(nbytes.values()) / 2**20:.1f} MiB here, "
-        f"seq_lo {out['seq_lo']}) in {wall:.2f} s; launches per step "
-        f"{steps}")
+        f"seq_lo {out['seq_lo']}, xseq_lo {out['xseq_lo']}) in {wall:.2f} "
+        f"s; launches per step {steps}; reads {reads}")
     return out
 
 
@@ -6950,8 +7098,9 @@ def serve_feed(run) -> dict:
 def check_served(torch, got, want, what, attn_layers, sharded):
     """A run's serving against the unsharded run's (fed its tokens): the
     cache's bytes are cache_specs' blocks, every decode step launched the
-    decode kernel once an attention layer (the partial one where the KV
-    sequence is split), the logits within SERVE_TOL of max|logit| and
+    decode kernel attn_layers times, once a cache read (an attention
+    layer's, and a decoder layer's cross read: the partial kernel where
+    the sequence is split), the logits within SERVE_TOL of max|logit| and
     the argmax the unsharded token wherever its top-2 gap is TOP2_GAP or
     more.  Returns (largest |diff| / max|logit|, steps compared by
     token)."""
@@ -7385,7 +7534,8 @@ def p19_mesh(model: str):
 def p19_rank(rank: int, world: int, out_dir: str, models, device="cuda"):
     """Phase 19 on one of `world` gloo ranks that share the card: each of
     `models` on its mesh (p19_mesh), sequence parallelism at the
-    reference's default (on for these families)."""
+    reference's default (on for these families); whisper then serves,
+    fed the unsharded run's tokens (p19_serve.pt in out_dir)."""
     import torch
 
     from repro_torch.runtime.sharding import MeshShard
@@ -7393,6 +7543,7 @@ def p19_rank(rank: int, world: int, out_dir: str, models, device="cuda"):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(device)
+    feed = torch.load(Path(out_dir) / "p19_serve.pt", weights_only=False)
     got = {}
     for model in models:
         shard = MeshShard(p19_mesh(model), device=dev, backend="gloo")
@@ -7400,7 +7551,7 @@ def p19_rank(rank: int, world: int, out_dir: str, models, device="cuda"):
             torch, dev, port_wrappers(), shard, p19_arch(model),
             P19_ROUNDS[model],
             P19_CE_CHUNK[model], f"phase 19 {model} gloo rank {rank} of "
-            f"{world} {shard.coords}")
+            f"{world} {shard.coords}", serve=feed.get(model))
         got[model].pop("routes")
         del shard
     torch.save(got, Path(out_dir) / f"p19_gloo_rank{rank}_{world}.pt")
@@ -7523,8 +7674,12 @@ def phase19(torch, dev, F, wrappers, name, card, launches, worst, rows):
     mesh of ones (bit for bit the unsharded run), and in gloo ranks that
     share the card (P17_RANKS on (1, P17_RANKS) for the two models, one
     spawn; 4 on P19_POD_MESH for the pod run, another), each held by
-    p19_check.  Adds every run's launches to `launches` (the ranks' to
-    P19_ROWS), fills `worst` and `rows` at P19_ROWS."""
+    p19_check.  After its round each whisper run serves (mesh_serve: the
+    cross cache split over "model" on the gloo ranks, read through the
+    partial kernel and the lse merge), held by serve_checks.  Adds every
+    run's launches to `launches` (the ranks' to P19_ROWS, their cross
+    reads' partial launches to PARTIAL_X_ROW), fills `worst` and `rows`
+    at P19_ROWS."""
     import shutil
     import tempfile
 
@@ -7561,8 +7716,11 @@ def phase19(torch, dev, F, wrappers, name, card, launches, worst, rows):
     try:
         plain = {m: sharded_run(torch, dev, wrappers, None, p19_arch(m),
                                 P19_ROUNDS[m], P19_CE_CHUNK[m],
-                                f"phase 19 {m} unsharded", mesh=p19_mesh(m))
+                                f"phase 19 {m} unsharded", mesh=p19_mesh(m),
+                                serve={} if m == WHISPER else None)
                  for m in models}
+        feed = {WHISPER: serve_feed(plain[WHISPER])}
+        torch.save(feed, tmp / "p19_serve.pt")
         nccl = {}
         with process_group(0, 1, tmp / "nccl", backend="nccl"):
             for m in models:
@@ -7572,7 +7730,8 @@ def phase19(torch, dev, F, wrappers, name, card, launches, worst, rows):
                 nccl[m] = sharded_run(torch, dev, wrappers, shard,
                                       p19_arch(m), P19_ROUNDS[m],
                                       P19_CE_CHUNK[m], f"phase 19 {m} "
-                                      f"{shard.backend} world 1")
+                                      f"{shard.backend} world 1",
+                                      serve=feed.get(m))
                 del shard
         torch.cuda.empty_cache()
         gloo = {}
@@ -7599,6 +7758,11 @@ def phase19(torch, dev, F, wrappers, name, card, launches, worst, rows):
         got = [p19_check(g, plain[m], m, f"phase 19 {m} gloo rank {r}",
                          bad) for r, g in enumerate(gloo[m])]
         gaps[m] = got[0]
+    # whisper's serving: each decoder layer reads its self and its cross
+    # cache once a decode step
+    served = serve_checks(torch, plain[WHISPER], nccl[WHISPER],
+                          gloo[WHISPER], "phase 19 whisper-medium",
+                          2 * P19_W_DEC)
     # the unsharded runs' kernels ran at the full shapes: their launches go
     # to the kernels' rows, the ranks' at the TP-local shapes to P19_ROWS
     for m, hd in ((WHISPER, 64), (VLM, 128), ("pod", 64)):
@@ -7609,11 +7773,19 @@ def phase19(torch, dev, F, wrappers, name, card, launches, worst, rows):
                   "int8_roundtrip_smashed": P19_ROWS[6]}
         for run, tp in [(plain[m], False), (nccl[m], False)] + [
                 (g, True) for g in gloo[m]]:
-            for step in run["train"] + run["eval"]:
+            sv = run["serve"]
+            for step in run["train"] + run["eval"] + (
+                    sv["steps"] if sv else []):
                 for k, c in step.items():
                     launches[tp_row.get(k, k) if tp else hd_row(k, hd)] += c
             launches[tp_row["lora_matmul_bwd"] if tp
                      else "lora_matmul_bwd"] += run["lora_bwd"]
+            if sv and tp:   # the cross reads' launches to their own row
+                cross = sv["reads"].get(
+                    ("partial", p19_arch(m).model.encoder_seq_len
+                     // P17_RANKS), 0)
+                launches[PARTIAL_ROW] -= cross
+                launches[PARTIAL_X_ROW] += cross
     p19_kernels(torch, F, rand, worst, rows)
     gib = lambda x: round(x / 2**30, 3)  # noqa: E731
     for m in models:
@@ -7638,6 +7810,8 @@ def phase19(torch, dev, F, wrappers, name, card, launches, worst, rows):
             f", gloo rank 0 {fmt([b * 1e3 for _, b in ranks[0]['step_s']])}"
             f"; bytes all-reduced a round per gloo rank "
             f"{[round(g['round_bytes']) for g in ranks]}")
+    log(f"phase 19 [{name}, {card}] whisper-medium served after its "
+        f"round: {served}")
     log(f"phase 19 [{name}, {card}]: spawns (world: s) "
         f"{ {w: round(s, 1) for w, s in spawned.items()} }; the phase took "
         f"{time.perf_counter() - t0:.1f} s")

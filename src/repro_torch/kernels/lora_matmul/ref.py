@@ -55,6 +55,9 @@ def lora_matmul_indexed(x, w, a_pool, b_pool, scale, ids):
     scale: (P,); ids: (B,) int32, one adapter per leading row.  Rank
     heterogeneity rides masked rank slots in the pools."""
     lead = x.shape[:-1]
+    if tuple(ids.shape) != tuple(lead[:1]):
+        raise ValueError(f"lora_matmul_indexed: ids{tuple(ids.shape)} do "
+                         f"not match x's leading axis {tuple(lead[:1])}")
     k_dim = x.shape[-1]
     x2 = x.reshape(-1, k_dim).float()
     rid = row_ids(ids, lead).long().clamp(0, a_pool.shape[0] - 1)

@@ -41,6 +41,9 @@ boundary inside it acts there, as in the reference), and the decoder
 runs from flat id Le with the encoder's output as the cross-attention
 memory.  A prefill encodes and writes each decoder layer's cross cache
 (xk/xv, S_enc positions); a decode step reads it and runs no encoder.
+On a MeshShard the cross cache is split over "model" as the KV cache
+(``runtime.sharding.local_cache``: "xseq_lo"), and a decode step reads
+its block (``transformer._cross_attention``).
 
 Memory knobs of a train step, as in the reference:
 
@@ -78,8 +81,6 @@ from repro_torch.models.common import apply_norm
 from repro_torch.runtime.sharding import local_cache
 
 Params = Dict[str, Any]
-
-_SERVING = roadmap.SERVING
 
 REMATS = ("none", "dots", "full")
 _PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -519,6 +520,8 @@ class Model(nn.Module):
                     if g.cross:
                         mem_l = {"k": c_l.pop("xk"), "v": c_l.pop("xv"),
                                  "len": mem_len}
+                        if "xseq_lo" in cache:   # a rank's cross block
+                            mem_l["seq_lo"] = cache["xseq_lo"]
                     if g.kind != "ssm":
                         c_l["len"] = cache_len
                         if pages is not None:
@@ -768,11 +771,16 @@ class Model(nn.Module):
         stream over "model" under sequence parallelism (its last
         position is the whole sequence's), and the logits gathered over
         the vocabulary and the rows, so every rank returns the whole
-        (B, S, V) logits and the whole "len"."""
-        if self.cfg.family == "audio" and policy.shard is not None:
+        (B, S, V) logits and the whole "len".
+
+        On one card the tokens may carry a client axis, (N, B, S), over a
+        cache of lead (N, B) (``init_cache``): the logits are then (N, B,
+        S, V), as the reference's."""
+        if batch["tokens"].dim() == 3 and policy.shard is not None:
             raise NotImplementedError(
-                f"{self.cfg.name}: the cross cache on a mesh waits for "
-                f"{roadmap.PARAM_SHARDING}")
+                "a served batch with a client axis runs on one card: a "
+                f"MeshShard places a cache of lead (B,) "
+                f"({roadmap.PARAM_SHARDING})")
         params = dict(params, embed=policy.gather(params["embed"],
                                                   self.cfg.d_model))
         axes, lo, n = policy.batch_block(batch["tokens"].shape[0])
@@ -824,17 +832,25 @@ class Model(nn.Module):
                    dtype=torch.float32, *,
                    policy: common.ShardingPolicy = common.NO_SHARDING
                    ) -> Params:
-        """lead = (B,). One stacked entry per group, on this model's
-        device: (Lg, B, max_len, KVH, hd) k and v for attention (and for
-        a cross-attention group the cross cache xk/xv, (Lg, B, S_enc,
-        KVH, hd); the encoder has none), and for SSM layers the conv
-        window (Lg, B, W-1, C) in `dtype` and the state (Lg, B, H, P, N)
-        in fp32.  Under a MeshShard's policy, this rank's blocks of them
-        as ``cache_specs`` places them (``runtime.sharding.local_cache``:
-        the whole shapes are laid out on the meta device, only the blocks
-        allocated), with "seq_lo" where the KV sequence is split."""
+        """lead = ([N,] B), as in the reference. One stacked entry per
+        group, on this model's device: (Lg, *lead, max_len, KVH, hd) k
+        and v for attention (and for a cross-attention group the cross
+        cache xk/xv, (Lg, *lead, S_enc, KVH, hd); the encoder has none),
+        and for SSM layers the conv window (Lg, *lead, W-1, C) in `dtype`
+        and the state (Lg, *lead, H, P, N) in fp32; "len" (B,), shared
+        over the clients N.  Under a MeshShard's policy (a lead of (B,)
+        only), this rank's blocks of them as ``cache_specs`` places them
+        (``runtime.sharding.local_cache``: the whole shapes are laid out
+        on the meta device, only the blocks allocated), with "seq_lo"
+        where the KV sequence is split and "xseq_lo" where the cross
+        cache's is."""
         if policy.shard is None:
             return self._new_cache(lead, max_len, dtype, self.device)
+        if len(lead) != 1:
+            raise NotImplementedError(
+                f"cache lead {tuple(lead)}: a MeshShard places a cache of "
+                f"lead (B,); a client axis runs on one card "
+                f"({roadmap.PARAM_SHARDING})")
         blocks = local_cache(self._new_cache(lead, max_len, dtype,
                                              torch.device("meta")),
                              policy.shard.mesh, policy.shard)
@@ -843,10 +859,6 @@ class Model(nn.Module):
 
     def _new_cache(self, lead, max_len: int, dtype, device) -> Params:
         cfg = self.cfg
-        if len(lead) != 1:
-            raise NotImplementedError(
-                f"cache lead {lead}: caches with a client axis are not "
-                f"ported yet ({_SERVING})")
         batch = lead[-1]
         cache: Params = {"len": torch.zeros((batch,), dtype=torch.int32,
                                             device=device)}

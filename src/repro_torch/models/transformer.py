@@ -38,7 +38,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import roadmap
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -199,16 +198,18 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     x: ([N,] B, S, d).  Returns (attn_out, new_cache).  rope: (cos, sin)
     of the tokens' positions (``common.rope_angles``) or None; q and k are
     rotated before any cache write, so the cache holds rotated keys.
-    cache: {"k": (B, Smax, KVH, hd), "v": ..., "len": (B,)} for contiguous
-    decode, or the paged form {"k": (n_pages, ps, KVH, hd), "v": ...,
-    "pages": (B, P_max), "len": (B,)}; its k/v tensors are written in
-    place.
+    cache: {"k": ([N,] B, Smax, KVH, hd), "v": ..., "len": (B,)} for
+    contiguous decode ("len" shared over the clients N, as in the
+    reference; the kernels take the N x B rows), or the paged form {"k":
+    (n_pages, ps, KVH, hd), "v": ..., "pages": (B, P_max), "len": (B,)};
+    its k/v tensors are written in place.
 
     memory ([N,] B, S_enc, d), the encoder's output, or mem_cache {"k":
-    (B, S_enc, KVH, hd), "v": ..., "len": (B,) of S_enc in decode}, the
-    cross cache, adds the cross-attention sub-block (``_cross_attention``)
-    to the output: a prefill (memory and mem_cache) writes the cross cache
-    in place, a decode step (mem_cache alone) reads it.
+    ([N,] B, S_enc, KVH, hd), "v": ..., "len": (B,) of S_enc in decode},
+    the cross cache, adds the cross-attention sub-block
+    (``_cross_attention``) to the output: a prefill (memory and
+    mem_cache) writes the cross cache in place, a decode step (mem_cache
+    alone) reads it.
 
     policy: when wq holds a "model" block of the heads (a MeshShard's),
     the sub-block runs on that block (Megatron's layout): wq (and bq)
@@ -221,8 +222,7 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     partial sums leave through ``policy.leave`` (reduce_from_tp, or the
     reduce-scatter back to the block), and bo is added once, after the
     sum.  The cross-attention sub-block runs on the same heads
-    (``_cross_attention``; in training only, its cross cache under TP
-    waits for the ROADMAP item).
+    (``_cross_attention``), its cross cache placed as the KV cache.
 
     Serving on a MeshShard's cache blocks (``runtime.sharding.
     local_cache``): the cache holds the rank's rows of the batch and,
@@ -235,19 +235,14 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
     position len.  The step then gathers q's heads over "model" (B x H x
     hd), runs ``decode_attention_partial`` over the block for all H
     heads, merges every rank's (o, lse) (``policy.merge_decode``) and
-    keeps its own heads for wo's row block.  A capacity that "model"
-    does not divide leaves the cache whole on every rank: the
-    whole-cache kernel then runs over all heads, as the reference's
-    fit_spec rule gives.  A paged cache stays whole (the engine takes no
-    mesh)."""
+    keeps its own heads for wo's row block (``_decode_read``).  A
+    capacity that "model" does not divide leaves the cache whole on
+    every rank: the whole-cache kernel then runs over all heads, as the
+    reference's fit_spec rule gives.  A paged cache stays whole (the
+    engine takes no mesh)."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lo = policy.block(h * hd, p["wq"].shape[-1])
     hl = p["wq"].shape[-1] // hd
-    if lo is not None and mem_cache is not None:
-        raise NotImplementedError(
-            "tensor-parallel cross-attention runs the training forward "
-            f"only: the cross cache on a mesh waits for "
-            f"{roadmap.PARAM_SHARDING}")
     if lo is not None and cache is not None and "pages" in cache:
         raise ValueError("a paged cache stays whole: the serving engine "
                          "takes no mesh")
@@ -297,23 +292,10 @@ def attention_apply(p: Params, adapters: Optional[Params], x, *,
         idx = cache["len"]                                     # (B,)
         # the position's slot in this rank's block (off it: no write)
         at = idx if seq_lo is None else idx - seq_lo
-        _write_cache(cache["k"], k[:, 0], at)
-        _write_cache(cache["v"], v[:, 0], at)
-        q1 = q[:, 0]
-        if lo is not None:   # every head, over this rank's block
-            q1 = policy.fill([(q1, -2)], ("model",))[0]
-        if seq_lo is None:
-            o = decode_ops.decode_attention(q1.contiguous(), cache["k"],
-                                            cache["v"], idx + 1,
-                                            window=window)
-        else:
-            o, lse = decode_ops.decode_attention_partial(
-                q1.contiguous(), cache["k"], cache["v"], idx + 1, seq_lo,
-                window=window)
-            o = policy.merge_decode(o, lse).to(q.dtype)
-        if lo is not None:   # the row block's input, as the kernel takes it
-            o = o.narrow(-2, lo // hd, hl).contiguous()
-        o = o[:, None]
+        _write_cache(cache["k"], k[..., 0, :, :], at)
+        _write_cache(cache["v"], v[..., 0, :, :], at)
+        o = _decode_read(q[..., 0, :, :], cache["k"], cache["v"], idx + 1,
+                         seq_lo, window=window, policy=policy, lo=lo)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + 1}
     else:
         lead = y.shape[:-2]           # ([N,] B): flatten clients into B
@@ -364,6 +346,41 @@ def _kv_heads(h: int, kvh: int, first_q: int, n: int):
     return want
 
 
+def _decode_read(q1, k, v, lens, seq_lo: Optional[int], *, window: int,
+                 policy: ShardingPolicy, lo: Optional[int]):
+    """A decode step's read of a cache, self or cross: q1 ([N,] B, h, hd)
+    of one query per row over k and v ([N,] B, S, KVH, hd), the first
+    lens[b] positions valid (lens (B,), shared over N); returns ([N,] B,
+    1, h, hd).  The kernels take the N x B rows flattened.
+
+    Under a MeshShard's policy (lo: the first of this rank's h query
+    heads, None when the heads are whole) q's heads are gathered over
+    "model" first; a cache block whose first global position is seq_lo
+    runs ``decode_attention_partial`` and every rank's (o, lse) are
+    merged (``policy.merge_decode``), a whole cache (seq_lo None) the
+    whole-cache kernel; the rank then keeps its own heads, as the row
+    block of the output projection takes them."""
+    lead, hl = q1.shape[:-2], q1.shape[-2]
+    if lo is not None:   # every head, over this rank's block
+        q1 = policy.fill([(q1, -2)], ("model",))[0]
+
+    def rows(t):
+        return t.reshape((-1,) + t.shape[len(lead):])
+
+    qf, kf, vf = rows(q1).contiguous(), rows(k), rows(v)
+    lf = torch.broadcast_to(lens, lead).reshape(-1).contiguous()
+    if seq_lo is None:
+        o = decode_ops.decode_attention(qf, kf, vf, lf, window=window)
+    else:
+        o, lse = decode_ops.decode_attention_partial(qf, kf, vf, lf, seq_lo,
+                                                     window=window)
+        o = policy.merge_decode(o, lse).to(q1.dtype)
+    o = o.reshape(lead + o.shape[1:])
+    if lo is not None:   # the row block's input, as the kernel takes it
+        o = o.narrow(-2, lo // q1.shape[-1], hl).contiguous()
+    return o[..., None, :, :]
+
+
 def _cross_attention(p: Params, adapters: Optional[Params], x, *,
                      cfg: ModelConfig, mode: str, memory, mem_cache,
                      policy: ShardingPolicy = NO_SHARDING):
@@ -376,13 +393,21 @@ def _cross_attention(p: Params, adapters: Optional[Params], x, *,
     for one query).  The cross projections take an adapter only where
     "xq"/"xo" are LoRA targets, as in the reference.
 
-    policy: when xwq holds a "model" block of the heads (train mode),
-    the sub-block runs on those heads as the self-attention does: xwq
-    column-parallel, xwk and xwv whole (param_specs) with the rank's KV
-    heads kept, xwo row-parallel; the xnorm output enters and the
-    partial sums leave through the policy.  `memory` is then the whole
-    encoder output on every rank, entered through copy_to_tp once for
-    every layer (``Model.forward``)."""
+    policy: when xwq holds a "model" block of the heads, the sub-block
+    runs on those heads as the self-attention does: xwq column-parallel,
+    xwk and xwv whole (param_specs) with the rank's KV heads kept, xwo
+    row-parallel; the xnorm output enters and the partial sums leave
+    through the policy.  `memory` is then the whole encoder output on
+    every rank, entered through copy_to_tp once for every layer
+    (``Model.forward``).  Serving on a MeshShard's cache blocks: the
+    cross cache's S_enc positions split over "model" where it divides
+    them (``local_cache``; mem_cache["seq_lo"] the block's first), a
+    prefill computes K and V over every position (xwk and xwv are whole)
+    and writes the block's, and a decode step reads the block through
+    ``_decode_read`` (q's heads gathered, the partial kernel, the
+    ranks' (o, lse) merged, the rank's heads kept), as the self cache's;
+    a cross cache that "model" does not divide stays whole on every rank
+    and takes the whole-cache kernel."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     lo = policy.block(h * hd, p["xwq"].shape[-1])
     hl = p["xwq"].shape[-1] // hd
@@ -395,17 +420,17 @@ def _cross_attention(p: Params, adapters: Optional[Params], x, *,
         if mem_cache is None or memory is not None or q.shape[-3] != 1:
             raise ValueError("cross-attention decode takes one token per "
                              "slot and the cross cache")
-        o = decode_ops.decode_attention(q[:, 0].contiguous(), mem_cache["k"],
-                                        mem_cache["v"],
-                                        mem_cache["len"])[:, None]
+        o = _decode_read(q[..., 0, :, :], mem_cache["k"], mem_cache["v"],
+                         mem_cache["len"], mem_cache.get("seq_lo"), window=0,
+                         policy=policy, lo=lo)
     else:
         mk = _split_heads(lora_apply(memory, p["xwk"], _ad(adapters, "xk")),
                           kvh, hd)
         mv = _split_heads(lora_apply(memory, p["xwv"], _ad(adapters, "xv")),
                           kvh, hd)
         if mem_cache is not None:   # prefill: populate the cross cache
-            mem_cache["k"].copy_(mk)
-            mem_cache["v"].copy_(mv)
+            _bulk_write(mem_cache["k"], mk, mem_cache.get("seq_lo"))
+            _bulk_write(mem_cache["v"], mv, mem_cache.get("seq_lo"))
         if lo is not None:
             kv = _kv_heads(h, kvh, lo // hd, hl)
             if isinstance(kv, tuple):
@@ -426,27 +451,30 @@ def _cross_attention(p: Params, adapters: Optional[Params], x, *,
 
 
 def _write_cache(cache, kv_new, idx):
-    """In place: cache (B, Smax, KVH, hd) [b, idx[b]] = kv_new[b].  A slot
-    at idx >= Smax writes nothing, as in the reference, and so does one
-    at idx < 0 (a position before a rank's block of a split cache)."""
-    smax = cache.shape[1]
-    rows = torch.arange(cache.shape[0], device=cache.device)
+    """In place: cache ([N,] B, Smax, KVH, hd)[..., b, idx[b]] =
+    kv_new[..., b] (idx (B,), shared over N).  A slot at idx >= Smax
+    writes nothing, as in the reference, and so does one at idx < 0 (a
+    position before a rank's block of a split cache)."""
+    smax = cache.shape[-3]
+    rows = torch.arange(cache.shape[-4], device=cache.device)
     pos = torch.clamp(idx, 0, smax - 1).long()
     keep = ((idx >= 0) & (idx < smax))[:, None, None]
-    cache[rows, pos] = torch.where(keep, kv_new.to(cache.dtype),
-                                   cache[rows, pos])
+    cache[..., rows, pos, :, :] = torch.where(
+        keep, kv_new.to(cache.dtype), cache[..., rows, pos, :, :])
 
 
 def _bulk_write(cache, kv, seq_lo: Optional[int] = None):
-    """Prefill write, in place: kv (B, S, KVH, hd) into cache[:, :S]; or,
-    for a rank's block of a split cache whose first global position is
-    seq_lo, the prompt's positions that fall in the block."""
+    """Prefill write, in place: kv ([N,] B, S, KVH, hd) into the first S
+    slots of cache ([N,] B, Smax, KVH, hd); or, for a rank's block of a
+    split cache whose first global position is seq_lo, the positions of
+    kv that fall in the block."""
     if seq_lo is None:
-        cache[:, :kv.shape[1]] = kv.to(cache.dtype)
+        cache[..., :kv.shape[-3], :, :] = kv.to(cache.dtype)
         return
-    n = min(kv.shape[1] - seq_lo, cache.shape[1])
+    n = min(kv.shape[-3] - seq_lo, cache.shape[-3])
     if n > 0:
-        cache[:, :n] = kv[:, seq_lo:seq_lo + n].to(cache.dtype)
+        cache[..., :n, :, :] = kv[..., seq_lo:seq_lo + n, :, :].to(
+            cache.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -11,5 +11,4 @@ def _item(title: str) -> str:
     return f'ROADMAP.md Queue A, "{title}"'
 
 
-SERVING = _item("Serving follow-ups")
 PARAM_SHARDING = _item("Parameter sharding over several cards")

@@ -64,6 +64,7 @@ import torch
 
 from repro_torch import roadmap
 from repro_torch.config import MeshConfig
+from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
 FSDP_AXES = ("pod", "data")
@@ -360,10 +361,12 @@ class MeshShard:
     rank in the same order, one per distinct set of ranks); an axis that
     spans every rank uses the default group.
 
-    The default group must exist (``repro_torch.launch.sharded`` starts
-    one per rank) with the mesh's size as its world size, on the backend
-    that `device` takes: NCCL for a CUDA device, gloo for the CPU or when
-    the caller names it (two ranks that share one card).  Nothing falls
+    `device` defaults to the card (``device.resolve_device``: the CPU
+    only when named).  The default group must exist
+    (``repro_torch.launch.sharded`` starts one per rank) with the mesh's
+    size as its world size, on the backend that `device` takes: NCCL
+    for a CUDA device, gloo for the CPU or when the caller names it (two
+    ranks that share one card).  Nothing falls
     back: another backend or world size raises, and so does a mesh axis
     other than "pod", "data" and "model" larger than 1.  ``collectives``
     and ``bytes_reduced`` count this rank's collectives and the bytes it
@@ -371,14 +374,14 @@ class MeshShard:
 
     places_params = True
 
-    def __init__(self, mesh: MeshConfig, *, device="cpu",
+    def __init__(self, mesh: MeshConfig, *, device=None,
                  backend: Optional[str] = None,
                  seq_shard: Optional[bool] = None):
         import torch.distributed as dist
         sizes = self._check(mesh)
         self.mesh = mesh
         self.seq_shard = seq_shard
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.backend = backend or ("nccl" if self.device.type == "cuda"
                                    else "gloo")
         if not dist.is_available() or not dist.is_initialized():
@@ -567,16 +570,19 @@ def cache_block(name: str, leaf: torch.Tensor, *, mesh,
         memory_format=torch.contiguous_format)
 
 
-def kv_seq_lo(cache, mesh, rank: int) -> Optional[int]:
+def kv_seq_lo(cache, mesh, rank: int,
+              names: Tuple[str, ...] = ("k", "v")) -> Optional[int]:
     """The global position of the first slot of `rank`'s block of the
-    KV caches' sequence, or None when no KV leaf's sequence is split
-    (no attention layer, a "model" axis of one rank, or a capacity that
-    "model" does not divide).  Every self-attention group of a cache has
-    the same capacity."""
+    sequence of the cache leaves called `names` (the self-attention KV
+    cache, or ("xk", "xv"): the cross cache, whose capacity is the
+    encoder's length), or None when no such leaf's sequence is split
+    (no such leaf, a "model" axis of one rank, or a capacity that
+    "model" does not divide).  Every group's leaves of one name have the
+    same capacity."""
     if axis_sizes(mesh).get(TP_AXIS, 1) == 1:
         return None
     for keys, leaf in tree_leaves_with_path(cache):
-        if keys[-1] not in ("k", "v"):
+        if keys[-1] not in names:
             continue
         spec = cache_spec(keys[-1], tuple(leaf.shape), mesh)
         if spec[2] is None:
@@ -586,17 +592,25 @@ def kv_seq_lo(cache, mesh, rank: int) -> Optional[int]:
     return None
 
 
+# the origin keys of a split cache: the self-attention KV block's and the
+# cross cache's (``local_cache``)
+SEQ_ORIGINS = {"seq_lo": ("k", "v"), "xseq_lo": ("xk", "xv")}
+
+
 def local_cache(cache, mesh, shard):
     """This rank's blocks of a whole cache (``cache_block``; copies), and
-    where the KV sequence is split, "seq_lo": the global position of the
-    first slot of its block (``kv_seq_lo``), which the attention layers
-    read.  "len" stays whole on every rank."""
+    the global position of the first slot of its block where a sequence
+    is split (``kv_seq_lo``), which the attention layers read: "seq_lo"
+    for the KV cache, "xseq_lo" for the cross cache (each set only where
+    ``fit_spec`` splits its own capacity).  "len" stays whole on every
+    rank."""
     out = tree_map_with_path(
         lambda keys, leaf: cache_block("/".join(keys), leaf, mesh=mesh,
                                        rank=shard.rank), cache)
-    seq_lo = kv_seq_lo(cache, mesh, shard.rank)
-    if seq_lo is not None:
-        out["seq_lo"] = seq_lo
+    for key, names in SEQ_ORIGINS.items():
+        lo = kv_seq_lo(cache, mesh, shard.rank, names)
+        if lo is not None:
+            out[key] = lo
     return out
 
 

@@ -1742,3 +1742,59 @@ def test_param_sharding_families_on_the_card(cuda, tmp_path):
         except AssertionError as e:
             failed[name] = str(e)
     assert not failed, failed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gpt2-small", "mamba2-780m", "zamba2-1.2b",
+                                  "whisper-medium"])
+def test_client_axis_cache_on_card_equals_the_flat_rows(cuda, name):
+    """A cache of lead (N, B) = (2, 3) on the card, at reduced width: a
+    prefill of 20 seeded tokens (whisper: over 16 seeded frames) and 4
+    decode steps, client n's rows served by adapter n, against the same
+    6 rows over a lead of (6,), the ids repeated: the logits within 1e-6
+    x max|logit|, the argmax equal, and the kernels launched (flash,
+    decode, indexed LoRA, the SSD scan with its final state) the same."""
+    n, b, s, steps = 2, 3, 20, 4
+    arch = reduced(get_config(name), layers=2, d_model=64, vocab=256)
+    model = build_model(arch, device=cuda)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    pool = serving.build_adapter_pool(model,
+                                      torch.Generator().manual_seed(1), n)
+    cfg = model.cfg
+    rng = np.random.default_rng(5)
+    feed = {"tokens": rng.integers(3, cfg.vocab_size, (n, b, s)).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        feed["frames"] = rng.standard_normal(
+            (n, b, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    fed = rng.integers(3, cfg.vocab_size, (steps, n, b, 1)).astype(np.int32)
+    counters = (fops.flash_attention_fwd, dops.decode_attention,
+                lops.lora_matmul_indexed, ssd_ops.ssd_scan_fwd_state)
+    runs = []
+    for lead in ((n, b), (n * b,)):
+        ids = np.arange(n, dtype=np.int32)
+        ad = serving.attach_ids(pool, ids if len(lead) == 2
+                                else np.repeat(ids, b))
+        before = [c.launches for c in counters]
+        cache = model.init_cache(lead, 32)
+        with torch.no_grad():
+            lg, cache = model.prefill(params, ad, {
+                k: torch.as_tensor(v.reshape(lead + v.shape[2:]),
+                                   device=cuda) for k, v in feed.items()},
+                cache)
+            out = [lg]
+            for tok in fed:
+                lg, cache = model.decode_step(
+                    params, ad, torch.as_tensor(tok.reshape(lead + (1,)),
+                                                device=cuda), cache)
+                out.append(lg)
+        torch.cuda.synchronize()
+        logits = torch.cat(out, -2).float().cpu()
+        runs.append((logits.reshape((n * b,) + logits.shape[-2:]),
+                     [c.launches - x for c, x in zip(counters, before)]))
+    (got, got_c), (want, want_c) = runs
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    assert got_c == want_c and got_c[2] > 0
+    assert got_c[3 if cfg.family in ("ssm", "hybrid") else 1] > 0

@@ -19,7 +19,15 @@ put back by their mesh coordinates are the whole cache.
 The serve cell: ``build_serve_cell(shard=)`` on 2 "model" ranks (as
 threads of this process) gives each rank's prefill and decode cell the
 logits of the same cell on one rank, in bf16, with the prefill under
-SP.
+SP, for llama and whisper.
+
+The audio family on "model" ranks (threads): reduced whisper served on
+the (1, 4) and (2, 2) meshes matches the unsharded port within ATOL,
+each rank's cross cache its cache_specs block with "xseq_lo" its first
+position, a decode step reading through the partial kernel twice a
+decoder layer; 18 frames over 4 ranks keep the cross cache whole (the
+whole-cache kernel reads it) while the self cache is split; and the
+cross read without its lse merge moves the logits past ATOL.
 
 ``reference_logits`` runs the JAX reference's unsharded prefill and
 decode steps on a served case's weights, adapters and inputs, the
@@ -27,7 +35,7 @@ port's tokens fed, for the spawned cases' tests
 (tests/test_torch_param_sharding*.py: the serving after the rounds,
 tests/torch_mesh_serving_cases.py).
 
-Time: ~5 s alone.
+Time: ~10 s alone.
 """
 
 import dataclasses
@@ -49,8 +57,11 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as dref  # noqa: E402
 from repro_torch.launch import cells  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
-from repro_torch.models.common import ShardingPolicy  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.common import (NO_SHARDING,  # noqa: E402
+                                       ShardingPolicy)
 from repro_torch.models.model import build_model  # noqa: E402
+from repro_torch.runtime import serving as t_serving  # noqa: E402
 from repro_torch.runtime import sharding as sh  # noqa: E402
 from repro_torch.tree import tree_leaves_with_path  # noqa: E402
 from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
@@ -117,7 +128,8 @@ def test_partial_block_on_the_whole_cache_is_the_whole_decode():
 # cache placement
 
 FAMILIES = ("llama3-8b", "kimi-k2-1t-a32b", "mamba2-780m", "zamba2-1.2b",
-            "internvl2-76b")
+            "internvl2-76b", "whisper-medium")
+ORIGINS = tuple(sh.SEQ_ORIGINS)
 
 
 def _meta_cache(model, b, cap):
@@ -146,7 +158,9 @@ def _want_shape(name, shape, m):
 def test_local_cache_holds_the_cache_specs_blocks(name, mesh, cap):
     """Full width, on meta tensors, batch 8: each leaf's block by shape
     and bytes; a capacity of 4095 (no axis divides it) keeps the KV
-    sequence whole and sets no seq_lo."""
+    sequence whole and sets no seq_lo, while whisper's cross cache (1500
+    positions, which 2 and 4 divide) is split all the same, its block's
+    first position in xseq_lo."""
     m = MESHES[mesh]
     model = build_model(get_config(name), device="cpu")
     whole = _meta_cache(model, 8, cap)
@@ -154,19 +168,21 @@ def test_local_cache_holds_the_cache_specs_blocks(name, mesh, cap):
     for r in range(m.num_devices):
         local = sh.local_cache(whole, m, _Rank(r))
         got = dict(tree_leaves_with_path(
-            {k: v for k, v in local.items() if k != "seq_lo"}))
+            {k: v for k, v in local.items() if k not in ORIGINS}))
         for keys, leaf in tree_leaves_with_path(whole):
             want = _want_shape(keys[-1], tuple(leaf.shape), m)
             assert tuple(got[keys].shape) == want, keys
             assert got[keys].numel() * got[keys].element_size() == (
                 int(np.prod(want)) * leaf.element_size()), keys
         assert tuple(local["len"].shape) == (8,)
-        has_kv = any(k[-1] == "k" for k, _ in tree_leaves_with_path(whole))
-        if has_kv and cap % tp == 0:
-            assert local["seq_lo"] == sh.mesh_coords(m, r)["model"] * (
-                cap // tp)
-        else:
-            assert "seq_lo" not in local
+        names = {k[-1] for k, _ in tree_leaves_with_path(whole)}
+        m_rank = sh.mesh_coords(m, r)["model"]
+        for key, name, n in (("seq_lo", "k", cap),
+                             ("xseq_lo", "xk", model.cfg.encoder_seq_len)):
+            if name in names and n % tp == 0:
+                assert local[key] == m_rank * (n // tp), key
+            else:
+                assert key not in local, key
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -191,9 +207,9 @@ def test_init_cache_gives_local_cache_blocks_that_put_back_whole(mesh):
         local = sh.local_cache(whole, m, _Rank(r))
         assert made.get("seq_lo") == local.get("seq_lo")
         shapes = dict(tree_leaves_with_path(
-            {k: v for k, v in local.items() if k != "seq_lo"}))
+            {k: v for k, v in local.items() if k not in ORIGINS}))
         for keys, t in tree_leaves_with_path(
-                {k: v for k, v in made.items() if k != "seq_lo"}):
+                {k: v for k, v in made.items() if k not in ORIGINS}):
             assert t.shape == shapes[keys].shape, keys
         coords = sh.mesh_coords(m, r)
         for keys, blk in shapes.items():
@@ -268,22 +284,27 @@ def held_to_the_reference(j_model, params_np, served) -> float:
     return gap
 
 
-def cache_blocks_held(runs_by_rank, whole_shapes, mesh, cfg):
+def cache_blocks_held(runs_by_rank, whole_shapes, mesh, cfg, cap=None):
     """Each rank's cache leaves have cache_specs' block shapes of the
-    whole cache's, seq_lo starts its "model" block, and the decode steps
-    cross a block edge."""
+    whole cache's, seq_lo starts its "model" block of the KV cache and
+    xseq_lo its block of the cross cache (each where "model" divides the
+    capacity, absent where it does not), and the decode steps cross a
+    block edge."""
     sizes = sh.axis_sizes(mesh)
     tp = sizes["model"]
-    _, cap = ms.prompt_of(cfg)
+    cap = cap or ms.prompt_of(cfg)[1]
+    names = {p.split("/")[-1] for p in whole_shapes}
     for r, got in enumerate(runs_by_rank):
         for path, shape in whole_shapes.items():
             want = _want_shape(path.split("/")[-1], shape, mesh)
             assert got["cache"][path] == want, (r, path)
-        if got["seq_lo"] is not None:
-            assert got["seq_lo"] == sh.mesh_coords(mesh, r)["model"] * (
-                cap // tp)
-    if any(p.split("/")[-1] == "k" for p in whole_shapes) and tp > 1:
-        assert runs_by_rank[0]["seq_lo"] is not None
+        m = sh.mesh_coords(mesh, r)["model"]
+        for key, name, n in (("seq_lo", "k", cap),
+                             ("xseq_lo", "xk", cfg.encoder_seq_len)):
+            split = name in names and tp > 1 and n % tp == 0
+            assert got.get(key) == (m * (n // tp) if split else None), (
+                r, key)
+    if "k" in names and tp > 1 and cap % tp == 0:
         assert ms.crosses_a_block_edge(cfg, tp)
 
 
@@ -348,24 +369,173 @@ def _on_ranks(mesh, fn):
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-def test_serve_cell_on_model_ranks_matches_one_rank(kind):
-    """llama at reduced width (4 heads over 2 KV heads of 16), batch 2,
-    seq 8 (a decode step over a capacity of 8: each rank's cache holds 4
-    positions); the ranks' logits within bf16's tolerance of one
+@pytest.mark.parametrize("name", ["llama3-8b", "whisper-medium"])
+def test_serve_cell_on_model_ranks_matches_one_rank(name, kind):
+    """llama at reduced width (4 heads over 2 KV heads of 16) and whisper
+    (4 heads of 16, 16 frames: each rank's cross cache holds 8), batch
+    2, seq 8 (a decode step over a capacity of 8: each rank's cache
+    holds 4 positions); the ranks' logits within bf16's tolerance of one
     rank's."""
-    arch = reduced(get_config("llama3-8b"), layers=2, d_model=64,
-                   vocab=512)
-    arch = arch.replace(model=dataclasses.replace(
-        arch.model, num_heads=4, num_kv_heads=2, head_dim=16))
+    arch = reduced(get_config(name), layers=2, d_model=64, vocab=512)
+    if name == "llama3-8b":
+        arch = arch.replace(model=dataclasses.replace(
+            arch.model, num_heads=4, num_kv_heads=2, head_dim=16))
     shape = ShapeConfig(kind, 8, 2, kind)
 
     def run(shard):
         cell = cells.build_serve_cell(arch, shape, shard=shard)
         logits, cache = cell.fn(*cell.args)
-        return logits.float(), cache.get("seq_lo")
+        return logits.float(), cache.get("seq_lo"), cache.get("xseq_lo")
 
-    (want, lo1), = _on_ranks(MeshConfig((1, 1), ("data", "model")), run)
+    (want, lo1, xlo1), = _on_ranks(MeshConfig((1, 1), ("data", "model")),
+                                   run)
     got = _on_ranks(MeshConfig((1, 2), ("data", "model")), run)
     assert lo1 is None and [g[1] for g in got] == [0, 4]
-    for g, _ in got:
-        torch.testing.assert_close(g, want, rtol=2e-2, atol=2e-2)
+    assert xlo1 is None and [g[2] for g in got] == (
+        [0, 8] if name == "whisper-medium" else [None, None])
+    # whisper rounds to bf16 more often (an encoder, then the decoder and
+    # its cross read): its ranks' prefill logits sit 1.6 bf16 steps from
+    # one rank's at max|logit| 3.3 (1.1e-6 apart when the cell is fp32),
+    # so its atol is bf16's scaled by max|logit|
+    atol = 2e-2 * (1.0 if name == "llama3-8b" else float(want.abs().max()))
+    for g, _, _ in got:
+        torch.testing.assert_close(g, want, rtol=2e-2, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the audio family on "model" ranks (threads of this process): the cross
+# cache split over "model"
+
+W_BATCH, W_CAP = 4, 16
+
+
+def _whisper(enc_len: int, targets=None):
+    """whisper-medium at reduced width: 2 + 2 layers, 4 heads of 16
+    (MHA), vocabulary 512, `enc_len` frames; LoRA `targets` (None: the
+    config's q, k, v, o)."""
+    arch = reduced(get_config("whisper-medium"), layers=2, d_model=64,
+                   vocab=512)
+    arch = arch.replace(model=dataclasses.replace(arch.model,
+                                                  encoder_seq_len=enc_len))
+    if targets is None:
+        return arch
+    return arch.replace(lora=dataclasses.replace(arch.lora,
+                                                 targets=targets))
+
+
+def _serve_whisper(arch, shard):
+    """The weights and a pool of one adapter drawn from seeds, placed on
+    `shard`'s blocks (None: unsharded), a prefill of ms.DEFAULT_PROMPT's
+    prompt with seeded frames for W_BATCH rows into a W_CAP cache, and
+    ms.STEPS decode steps fed seeded tokens: (logits (B, 1 + STEPS, V),
+    {cache leaf: shape}, seq_lo, xseq_lo)."""
+    model = build_model(arch, device="cpu")
+    cfg = model.cfg
+    full = model.init_params(torch.Generator().manual_seed(0))
+    pool = t_serving.build_adapter_pool(
+        model, torch.Generator().manual_seed(1), 1)
+    policy, params = NO_SHARDING, full
+    if shard is not None:
+        policy = ShardingPolicy.for_model(shard, arch)
+        params = sh.local_params(full, shard.mesh, shard)
+        pool, policy = model.serving_blocks(params, pool, policy)
+    rng = np.random.default_rng(3)
+    s, _ = ms.DEFAULT_PROMPT
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (W_BATCH, s)).astype(np.int32)),
+        "frames": torch.from_numpy(rng.standard_normal(
+            (W_BATCH, cfg.encoder_seq_len, cfg.d_model)).astype(
+                np.float32))}
+    fed = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (ms.STEPS, W_BATCH, 1)).astype(np.int32))
+    ad = t_serving.attach_ids(pool, np.zeros(W_BATCH, np.int32))
+    cache = model.init_cache((W_BATCH,), W_CAP, policy=policy)
+    with torch.no_grad():
+        out = [model.prefill(params, ad, batch, cache, policy=policy)[0]]
+        for tok in fed:
+            out.append(model.decode_step(params, ad, tok, cache,
+                                         policy=policy)[0])
+    return (torch.cat(out, 1).numpy(),
+            {"/".join(k): tuple(v.shape)
+             for k, v in tree_leaves_with_path(cache)
+             if isinstance(v, torch.Tensor)},
+            cache.get("seq_lo"), cache.get("xseq_lo"))
+
+
+def _reads(monkeypatch):
+    """Counts of the decode kernels' calls (every rank's together)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    calls = {"decode_attention": 0, "decode_attention_partial": 0}
+    for name in calls:
+        fn = getattr(dops, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(dops, name, counted)
+    return calls
+
+
+def _whisper_held(arch, mesh, monkeypatch):
+    """Every rank's served logits against the unsharded run's (ATOL, the
+    tokens equal) and its cache blocks against cache_specs'; returns the
+    decode kernels' calls per decode step and rank."""
+    want, whole, _, _ = _serve_whisper(arch, None)
+    calls = _reads(monkeypatch)
+    got = _on_ranks(mesh, lambda shard: _serve_whisper(arch, shard))
+    runs = [{"logits": g[0], "tokens": g[0].argmax(-1), "len": 0,
+             "cache": g[1], "seq_lo": g[2], "xseq_lo": g[3]} for g in got]
+    for run in runs:
+        ms.held(run, {"logits": want, "tokens": want.argmax(-1), "len": 0})
+    cache_blocks_held(runs, whole, mesh, arch.model, cap=W_CAP)
+    n = mesh.num_devices * ms.STEPS
+    return {k: c / n for k, c in calls.items()}
+
+
+@pytest.mark.parametrize("targets", [None, ("q", "k", "v", "o", "xq")],
+                         ids=["qkvo", "cross_targets"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_whisper_served_on_a_mesh_holds_the_cross_blocks(mesh, targets,
+                                                         monkeypatch):
+    """16 frames: each rank's cross cache is its block of 16 / tp
+    positions (xseq_lo its first), its self cache 16 / tp slots; the
+    logits within ATOL of the unsharded run's; a decode step calls the
+    partial kernel twice a decoder layer (the self and the cross read)
+    and the whole-cache kernel never.  With the cross projections as
+    LoRA targets too ("xq": xq and xo), serving_blocks narrows their
+    adapters to the rank's heads of xwq and rows of xwo."""
+    arch = _whisper(16, targets)
+    calls = _whisper_held(arch, MESHES[mesh], monkeypatch)
+    assert calls == {"decode_attention": 0,
+                     "decode_attention_partial": 2 * arch.model.num_layers}
+
+
+def test_frames_model_does_not_divide_keep_the_cross_cache_whole(
+        monkeypatch):
+    """18 frames over 4 "model" ranks: the cross cache stays whole on
+    every rank (no xseq_lo: fit_spec's rule) and its read is the
+    whole-cache kernel, while the self cache is split and read by the
+    partial kernel; the logits within ATOL of the unsharded run's."""
+    arch = _whisper(18)
+    calls = _whisper_held(arch, MESHES["1x4"], monkeypatch)
+    assert calls == {"decode_attention": arch.model.num_layers,
+                     "decode_attention_partial": arch.model.num_layers}
+
+
+def test_dropping_the_cross_lse_merge_moves_the_logits(monkeypatch):
+    """The cross read keeping this rank's partial output (no merge of the
+    ranks' (o, lse)) moves the logits past ATOL: the check above sees
+    the merge."""
+    arch = _whisper(16)
+    want, _, _, _ = _serve_whisper(arch, None)
+    cross = transformer._cross_attention
+
+    def unmerged(*a, policy, **kw):
+        return cross(*a, policy=policy._with(
+            merge_decode=lambda o, lse: o), **kw)
+
+    monkeypatch.setattr(transformer, "_cross_attention", unmerged)
+    got = _on_ranks(MESHES["1x4"], lambda shard: _serve_whisper(arch, shard))
+    for g in got:
+        assert np.abs(g[0] - want).max() > ms.ATOL

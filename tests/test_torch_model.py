@@ -234,9 +234,11 @@ def test_model_without_device_raises_when_no_cuda(monkeypatch):
 
 def test_unported_model_paths_raise(pair):
     """What the port leaves out raises: the serving engine with an audio
-    model (its requests carry no encoder frames, as the reference's) and
-    a decode cache with a client axis.  Every family runs (the audio
-    family: tests/test_torch_audio.py).  A stateful (error feedback) cut
+    model (its requests carry no encoder frames, as the reference's).  A
+    decode cache with a client axis runs, as the reference's: its lead
+    is (N, B) and "len" (B,) (tests/test_torch_client_cache.py serves
+    over it).  Every family runs (the audio family:
+    tests/test_torch_audio.py).  A stateful (error feedback) cut
     boundary runs: its carry comes back from run_blocks, and remat,
     chunked cross entropy and the rest run too
     (tests/test_torch_memory_knobs.py, tests/test_torch_engine_options.py)."""
@@ -260,5 +262,8 @@ def test_unported_model_paths_raise(pair):
             t_serving.build_adapter_pool(
                 audio, torch.Generator().manual_seed(1), 2),
             t_serving.ServeConfig(num_slots=2, max_len=32), device="cpu")
-    with pytest.raises(NotImplementedError, match="client axis"):
-        model_t.init_cache((2, 1), 16)
+    cfg = model_t.cfg
+    cache = model_t.init_cache((2, 1), 16)
+    assert tuple(cache["dec"]["k"].shape) == (
+        cfg.num_layers, 2, 1, 16, cfg.num_kv_heads, cfg.head_dim)
+    assert tuple(cache["len"].shape) == (1,)

@@ -54,9 +54,10 @@ rank's cache holds ``cache_specs``' blocks, and the unsharded port's
 logits match the JAX reference's unsharded prefill and decode steps on
 the same weights and adapters within 2e-5 (measured 4.9e-6 at most).
 
-Refusals: a head count that the "model" axis does not divide, and the
-audio family's serving (its cross cache on a mesh is the ROADMAP item's
-part 2), raise in every rank and name the ROADMAP item; the MoE, SSM,
+Refusals: a head count that the "model" axis does not divide, and a
+prefill or decode step with a client axis (a cache of lead (N, B) runs
+on one card, as the reference's), raise in every rank and name the
+ROADMAP item; the MoE, SSM,
 hybrid, audio and vlm configs build under both meshes, each rank holding
 its blocks (tests/test_torch_param_sharding_families.py and
 tests/test_torch_param_sharding_sp.py train them).

@@ -38,8 +38,9 @@ back each step): the tokens equal the unsharded port's, the logits
 within 2e-4 (measured 3.3e-6 at most), each rank's cache holds
 ``cache_specs``' blocks, and the unsharded port's logits match the JAX
 reference's within 2e-5 (measured 4.9e-6 at most).
-Refusals: SSM heads that the "model" axis does not divide, and the
-audio family's serving, raise in every rank and name the ROADMAP item.
+Refusals: SSM heads that the "model" axis does not divide, and a decode
+step with a client axis, raise in every rank and name the ROADMAP
+item.
 
 Time: ~85 s alone, one torch thread: ~20 s for the two spawns, ~25 s
 for the JAX reference's 4 cases, the rest the placement tests at full

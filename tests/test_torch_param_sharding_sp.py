@@ -30,14 +30,17 @@ its losses too; every MoE layer's choices and drops (gathered over
 "pod" and "data") to the unsharded run's; the sequence lengths the
 attention blocks were handed show the stream split (SP) or whole.
 
-Serving: after their rounds internvl2 (its prefix fed; the prefill under
-SP where seq_shard is on) and gpt2_int8 (the batch rows over "pod")
-serve on every rank of their runs (tests/torch_mesh_serving_cases.py):
-the tokens equal the unsharded port's, the logits within 2e-4 (measured
-4.5e-6; gpt2_int8 4.2e-5 from the port's own weights, whose trained
-adapters carry the int8 codes' flips), each rank's cache holds
-``cache_specs``' blocks, and the unsharded port's logits match the JAX
-reference's within 2e-5 (measured 4.9e-6 at most).
+Serving: after their rounds whisper (its frames fed; the cross cache
+split over "model", 16 frames into blocks of 4 and 8), internvl2 (its
+prefix fed; the prefill under SP where seq_shard is on) and gpt2_int8
+(the batch rows over "pod") serve on every rank of their runs
+(tests/torch_mesh_serving_cases.py): the tokens equal the unsharded
+port's, the logits within 2e-4 (measured 4.5e-6; whisper 2.0e-6 and
+2.1e-6 on (1, 4) and (2, 2); gpt2_int8 4.2e-5 from the port's own
+weights, whose trained adapters carry the int8 codes' flips), each
+rank's cache holds ``cache_specs``' blocks (with "xseq_lo", the cross
+block's first position), and the unsharded port's logits match the JAX
+reference's within 2e-5 (measured 4.9e-6 at most; whisper 2.6e-6).
 
 Time: ~50-65 s alone: ~30 s for the two spawns, ~20 s for the JAX
 reference's 4 cases, the rest the placement at full width on fake

@@ -241,6 +241,18 @@ def test_param_sharding_meshes_raise(shape, axes):
     assert roadmap.PARAM_SHARDING in str(e.value)
 
 
+def test_mesh_shard_defaults_to_the_card(monkeypatch):
+    """Without a device a MeshShard (and a ClientShard) takes the card, as
+    every entry point of the port does: where there is none it raises,
+    and the CPU runs only when named.  The mesh is checked first."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for shard in (sh.MeshShard, sh.ClientShard):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            shard(MeshConfig((1, 1), ("data", "model")))
+    with pytest.raises(NotImplementedError):
+        sh.ClientShard(MeshConfig((2, 2), ("data", "model")))
+
+
 class _Rank:
     """Rank 2 of 4, as much of a ClientShard as slicing reads."""
     mesh = make_client_mesh(4)

@@ -7,15 +7,16 @@ JAX.  ``serve`` takes a case's trained system: ``serve_model`` (under a
 MeshShard: the rank's base blocks, the adapters at their blocks and the
 policy), a cache from ``Model.init_cache`` (the rank's blocks, as
 ``cache_specs`` places them), a prefill of PROMPT tokens (and the vlm
-family's prefix) for BATCH rows, then STEPS greedy decode steps, each
-fed the argmax of the step before.  The capacity puts the prompt and
+family's prefix, or the audio family's frames) for BATCH rows, then
+STEPS greedy decode steps, each fed the argmax of the step before.  The capacity puts the prompt and
 the decoded positions on both sides of a block edge of the KV sequence
 on every "model" axis of 2 and 4 ranks (``crosses_a_block_edge``), and
 BATCH rows divide over every "data" and "pod" axis the spawns use.
 
 What it returns (numpy, picklable): the logits of every step (B, 1 +
 STEPS, V) and the tokens (B, 1 + STEPS), the same on every rank; the
-shape of each leaf of the rank's cache and its "seq_lo"; and, for the
+shape of each leaf of the rank's cache and its "seq_lo" and "xseq_lo"
+(the cross cache's block); and, for the
 JAX reference's run of the same steps, the served adapters (unsharded
 runs only) and the inputs.
 """
@@ -55,7 +56,8 @@ def prompt_of(cfg):
 
 
 def inputs(cfg) -> dict:
-    """The prompt (and prefix) as numpy arrays, drawn from a seed."""
+    """The prompt (and the prefix or the frames) as numpy arrays, drawn
+    from a seed."""
     s, _ = prompt_of(cfg)
     rng = np.random.default_rng(11)
     out = {"tokens": rng.integers(0, cfg.vocab_size, (BATCH, s)).astype(
@@ -63,6 +65,9 @@ def inputs(cfg) -> dict:
     if cfg.family == "vlm":
         out["prefix"] = rng.standard_normal(
             (BATCH, cfg.frontend_prefix_len, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (BATCH, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -105,6 +110,7 @@ def serve(system, device="cpu") -> dict:
            "tokens": logits.argmax(-1).to(torch.int32).cpu().numpy(),
            "len": cache["len"].cpu().numpy(),
            "seq_lo": cache.get("seq_lo"),
+           "xseq_lo": cache.get("xseq_lo"),
            "cache": {"/".join(k): tuple(v.shape) for k, v in
                      tree_leaves_with_path(cache)
                      if isinstance(v, torch.Tensor)},

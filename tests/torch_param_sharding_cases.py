@@ -109,11 +109,11 @@ OPTIONS = {
 OPTIONS_MESH = "2x2"
 
 # what a mesh of more than one rank refuses: a head count the "model"
-# axis does not divide, and the audio family's serving (its cross cache
-# on a mesh is the ROADMAP item's part 2) (``refusal``)
+# axis does not divide, and serving a batch with a client axis (its cache
+# of lead (N, B) runs on one card, as the reference's) (``refusal``)
 REFUSED = {"gpt2-small (3 heads)": "ValueError",
-           "whisper-medium prefill": "NotImplementedError",
-           "whisper-medium decode_step": "NotImplementedError"}
+           "gpt2-small (client axis) prefill": "NotImplementedError",
+           "gpt2-small (client axis) decode_step": "NotImplementedError"}
 # the cases that serve after their rounds (tests/torch_mesh_serving_cases)
 SERVE_CASES = ("llama_gqa", "opt_bias")
 # configs of the families that the (1, 4) mesh placed only from the MoE,
@@ -166,15 +166,16 @@ def refusal(label: str, arch, shard):
                                device="cpu", policy=shard)
         what = label.split(" ")[-1]
         model, policy = system.model, system.model_policy
-        tokens = torch.zeros((2, 1), dtype=torch.int32)
+        lead = (2, 2) if "(client axis)" in label else (2,)
+        tokens = torch.zeros(lead + (1,), dtype=torch.int32)
         if what == "serve_model":
             system.serve_model()
         elif what == "prefill":
             model.prefill(system.base_params, None, {"tokens": tokens},
-                          model.init_cache((2,), 4), policy=policy)
+                          model.init_cache(lead, 4), policy=policy)
         elif what == "decode_step":
             model.decode_step(system.base_params, None, tokens,
-                              model.init_cache((2,), 4), policy=policy)
+                              model.init_cache(lead, 4), policy=policy)
         return ("", "")
     except (NotImplementedError, ValueError) as e:
         return (type(e).__name__, str(e))

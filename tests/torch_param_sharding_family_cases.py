@@ -91,10 +91,11 @@ MOE_CASES = ("kimi_moe", "llama4_moe")
 MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
 
 # what a mesh of more than one rank refuses: SSM heads the "model" axis
-# does not divide, and the audio family's serving
+# does not divide, and a decode step with a client axis (its cache of
+# lead (N, B) runs on one card, as the reference's)
 # (torch_param_sharding_cases.refusal)
 REFUSED = {"mamba2-780m (3 SSM heads)": "ValueError",
-           "whisper-medium decode_step": "NotImplementedError"}
+           "mamba2-780m (client axis) decode_step": "NotImplementedError"}
 # the cases that serve after their rounds (tests/torch_mesh_serving_cases)
 SERVE_CASES = ("kimi_moe", "mamba2_ssm", "zamba2_hybrid")
 

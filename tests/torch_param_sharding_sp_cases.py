@@ -114,8 +114,9 @@ GROUPS = {
     },
 }
 # the cases that serve after their rounds (tests/torch_mesh_serving_cases):
-# the vlm family, and the batch rows over "pod"
-SERVE_CASES = ("internvl2", "gpt2_int8")
+# the audio family (its cross cache split over "model"), the vlm family,
+# and the batch rows over "pod"
+SERVE_CASES = ("whisper", "internvl2", "gpt2_int8")
 # the cases the JAX reference runs (their losses are held too)
 REF_CASES = ("whisper", "internvl2", "gpt2_int8", "gpt2_int8_b3")
 MOE_CASES = ("kimi", "kimi_pod")
